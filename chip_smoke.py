@@ -1,0 +1,484 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each of which raises (nonzero exit) on failure:
+
+1. environment: card name and power limit (nvidia-smi), torch and nvcc
+   versions; TF32 switched off for float32 matmuls and convolutions;
+2. build: both CUDA kernels from ``src/repro_torch/csrc`` with nvcc;
+3. K1, the fused causal SLAY forward, against its plain PyTorch version
+   on the card: slayformer shapes in fp32 and bf16, GQA, ragged L and the
+   serving path's own shape; error, kernel and plain times, bound; kernel
+   times at two more shapes (one long sequence, a batch of 16);
+4. K2, the decode step, against its plain version: masked and unmasked,
+   drained rows bit-identical, state updated in place;
+5. serve: full-width slayformer-124m (random weights from a seed) through
+   ``ServingEngine.generate`` on 4 ragged prompts, 32 greedy new tokens,
+   launch counters read around that call; prefill and decode tokens/s;
+   a ``torch.profiler`` window over one prefill and four decode steps
+   (device busy time, idle share, the largest kernels); last-token
+   prefill logits of one request held against the port's own CPU plain
+   path in fp32.
+
+The last two lines are a JSON object with every kernel's numbers and
+``{"ok": true, "device": {...}}``. Nothing of JAX is imported.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(REPO, "src"))
+
+from repro_torch import configs  # noqa: E402
+from repro_torch.core.features import init_feature_params  # noqa: E402
+from repro_torch.kernels import _build, decode_step, ops, slay_fused  # noqa: E402
+from repro_torch.models import api  # noqa: E402
+from repro_torch.serving import engine  # noqa: E402
+
+SEED = 0
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
+FP32_FLOP_PER_S = 67e12          # H100 SXM, fp32 outside the tensor cores
+K1_TILE = 16                     # the fused kernel's token tile (csrc)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Median of ``iters`` CUDA-event timings of ``fn()``, after warm-up."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def close(got, want, atol: float, rtol: float, what: str) -> float:
+    """Raise unless |got - want| <= atol + rtol·|want| everywhere; return
+    the max abs error."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: non-finite kernel output")
+    bad = err > atol + rtol * want.abs()
+    max_abs = float(err.max())
+    max_rel = float((err / want.abs().clamp_min(1e-6)).max())
+    log(f"  {what}: max_abs_err={max_abs:.3e} max_rel_err={max_rel:.3e} "
+        f"(tol atol={atol:g} rtol={rtol:g})")
+    if bad.any():
+        raise AssertionError(f"{what}: {int(bad.sum())} elements out of "
+                             f"tolerance, max_abs_err={max_abs:.3e}")
+    return max_abs
+
+
+# -- bounds: least time the card could take for the same work ------------
+
+
+def k1_bound(bh, bk, L, d, dv, P, D, R, es):
+    """(bound_ms, bound_by, n_ops, bytes) of the fused forward. Operations
+    count the Ψ map once per q row and once per kv row, the state read-out and
+    update (4·m·dv per token) and the causal intra-tile work at the
+    kernel's tile T=16: (T+1)/2 scores of 2m and (T+1)/2 products of 2dv
+    per token, all on the fp32 pipes."""
+    m = R * P * D
+    psi = 3 * d + 2 * d * (P + D) + 2 * P + 4 * R * D + 2 * m
+    per_q = psi + 2 * m * dv + 2 * m + (K1_TILE + 1) * (m + dv + 1) + dv
+    per_kv = psi + 2 * m * dv + m
+    n_ops = bh * L * per_q + bk * L * per_kv
+    nbytes = (bh * L * (d + dv) * es + bk * L * (d + dv) * es + bh * L * 4
+              + (P + D) * d * 4)
+    return _bound(n_ops, nbytes)
+
+
+def k2_bound(bh, bk_active, m, dv, qes, ves):
+    """(bound_ms, bound_by, n_ops, bytes) of one decode step over the active
+    kv rows: state read and write-back, features, v, y."""
+    g = bh // max(bk_active, 1) if bk_active else 0
+    rows_q = bk_active * g
+    nbytes = (2 * bk_active * (m * dv + m) * 4 + (rows_q + bk_active) * m * qes
+              + bk_active * dv * ves + bh * dv * ves)
+    n_ops = bk_active * (2 * m * dv + m) + rows_q * (2 * m * dv + 2 * m + dv)
+    return _bound(n_ops, nbytes)
+
+
+def _bound(n_ops, nbytes):
+    t_ops = n_ops / FP32_FLOP_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    if t_ops >= t_bytes:
+        return t_ops, "operations", n_ops, nbytes
+    return t_bytes, "bytes", n_ops, nbytes
+
+
+def profile(what: str, fn, untraced_ms: float) -> None:
+    """Where the time goes in ``fn()``: the summed time of the device
+    kernels (torch.profiler / CUPTI), the kernels that take most of it,
+    and the device's idle share of ``untraced_ms``, the wall time of the
+    same work timed with tracing off. The traced wall time is printed
+    beside it: their difference is the tracing overhead."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        log(f"  profile {what}: the profiler recorded no device kernels; "
+            f"device busy time not measured")
+        return
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    log(f"  profile {what}: device kernels {busy_ms:.3f} ms of "
+        f"{untraced_ms:.3f} ms wall untraced: device idle "
+        f"{1 - busy_ms / untraced_ms:.1%} (traced wall {wall_us / 1e3:.3f} "
+        f"ms)")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} "
+            f"{e.key[:90]}")
+
+
+# -- phases ---------------------------------------------------------------
+
+
+def phase_env() -> str:
+    line = smi()
+    log(line)
+    nvcc_v = subprocess.run([_build.nvcc(), "--version"], capture_output=True,
+                            text=True, timeout=60, check=True).stdout
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"nvcc: {nvcc_v.strip().splitlines()[-1]}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn={torch.backends.cudnn.allow_tf32}")
+    return line
+
+
+def phase_build() -> None:
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    log(f"build: {sorted(_build.SIGNATURES)} in {time.perf_counter() - t0:.1f}"
+        f" s (newly built: {sorted(logs)})")
+    for name, text in logs.items():
+        seen = {ln.split(":", 1)[-1].strip() for ln in text.splitlines()
+                if "registers" in ln or "spill" in ln}
+        for ln in sorted(seen):
+            log(f"  {name}: {ln}")
+    for name in _build.SIGNATURES:
+        _build.load(name)
+
+
+def _k1_inputs(gen, bh, bk, L, d, dv, dtype):
+    dev = "cuda"
+    q = torch.randn(bh, L, d, generator=gen, device=dev).to(dtype)
+    k = torch.randn(bk, L, d, generator=gen, device=dev).to(dtype)
+    v = torch.randn(bk, L, dv, generator=gen, device=dev).to(dtype)
+    return q, k, v
+
+
+def phase_k1(feat, sp, main_shape) -> dict:
+    """K1 vs plain on the card; returns the main-path case's numbers."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cfg = feat
+    a, w = sp["anchors"], sp["omegas"]
+    d = cfg.head_dim
+    # (atol, rtol) of y. fp32: the kernel and the plain version differ
+    # only in summation order (16-token tiles vs 256-token chunks).
+    # bf16: y is a nonnegative-weighted mean of v (|y| < 8 here), rounded
+    # once to bf16 on each side, so one bf16 step (2^-8 relative) apart.
+    tol = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1.6e-2)}
+    cases = [("slayformer B=4 L=1024 fp32", 48, 48, 1024, torch.float32),
+             ("slayformer B=4 L=1024 bf16", 48, 48, 1024, torch.bfloat16),
+             ("GQA BH=2*BK L=512 fp32", 48, 24, 512, torch.float32)]
+    bh_m, L_m = main_shape
+    cases.append((f"serving path BH={bh_m} L={L_m} bf16", bh_m, bh_m, L_m,
+                  torch.bfloat16))
+    result = {}
+    for name, bh, bk, L, dt in cases:
+        log(f"K1 {name}")
+        q, k, v = _k1_inputs(gen, bh, bk, L, d, 64, dt)
+        y, den = slay_fused.fused_causal_attention(q, k, v, a, w, cfg)
+        yp, denp = slay_fused.fused_causal_attention_plain(q, k, v, a, w, cfg)
+        torch.cuda.synchronize()
+        err = close(y, yp, *tol[dt], "y")
+        close(den, denp, 0.0, 1e-4, "den")     # fp32 sum of <= L terms
+        if name.startswith("serving path"):
+            ms = time_ms(lambda: slay_fused.fused_causal_attention(
+                q, k, v, a, w, cfg))
+            plain_ms = time_ms(lambda: slay_fused.fused_causal_attention_plain(
+                q, k, v, a, w, cfg), iters=10)
+            bound, by, n_ops, nb = k1_bound(bh, bk, L, d, 64, cfg.num_anchors,
+                                          cfg.num_prf, cfg.num_quad_nodes,
+                                          q.element_size())
+            log(f"  kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                f"{bound:.4f} ms by {by} ({n_ops:.3e} fp32 FLOP, {nb:.3e} B); "
+                f"library: none, no single PyTorch call computes SLAY "
+                f"attention")
+            result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound, bound_by=by)
+    # Ragged L through the model-layout wrapper (zero padding in ops).
+    log("K1 ragged L=1000 bf16 via ops.slay_fused_attention (B=4, H=12)")
+    qm = torch.randn(4, 1000, 12, d, generator=gen, device="cuda").bfloat16()
+    km = torch.randn(4, 1000, 12, d, generator=gen, device="cuda").bfloat16()
+    vm = torch.randn(4, 1000, 12, 64, generator=gen, device="cuda").bfloat16()
+    ym = ops.slay_fused_attention(qm, km, vm, sp, cfg)
+    want = ops._headmajor_call(
+        lambda qh, kh, vh: slay_fused.fused_causal_attention_plain(
+            qh, kh, vh, a, w, cfg)[0], qm, km, vm, chunk_size=256)
+    torch.cuda.synchronize()
+    if ym.shape != (4, 1000, 12, 64):
+        raise AssertionError(f"ragged output shape {tuple(ym.shape)}")
+    close(ym, want, *tol[torch.bfloat16], "y")
+    # Other shapes: one long sequence (12 blocks) and a batch of 16 (192
+    # blocks, more than the 132 SMs).
+    for bh, L in ((12, 8192), (192, 512)):
+        q, k, v = _k1_inputs(gen, bh, bh, L, d, 64, torch.bfloat16)
+        ms = time_ms(lambda: slay_fused.fused_causal_attention(
+            q, k, v, a, w, cfg), iters=5)
+        bound = k1_bound(bh, bh, L, d, 64, cfg.num_anchors, cfg.num_prf,
+                         cfg.num_quad_nodes, 2)[0]
+        log(f"K1 sweep BH={bh} L={L} bf16: kernel {ms:.4f} ms = "
+            f"{ms * 1e6 / (bh * L):.1f} ns per q-row token; bound "
+            f"{bound:.4f} ms ({bound / ms:.2%} of the kernel's time)")
+    return result
+
+
+def _k2_inputs(gen, bh, bk, m, dv, qdt, vdt):
+    dev = "cuda"
+    qf = torch.rand(bh, m, generator=gen, device=dev).to(qdt)
+    kf = torch.rand(bk, m, generator=gen, device=dev).to(qdt)
+    v = torch.randn(bk, dv, generator=gen, device=dev).to(vdt)
+    s = torch.randn(bk, m, dv, generator=gen, device=dev)
+    z = 10.0 * torch.rand(bk, m, generator=gen, device=dev)
+    return qf, kf, v, s, z
+
+
+def phase_k2(m) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    dv, result = 64, {}
+    cases = [("serving path BK=48 qf fp32 v bf16", 48, 48, torch.float32,
+              torch.bfloat16, False),
+             ("BK=48 all fp32", 48, 48, torch.float32, torch.float32, False),
+             ("GQA G=2 bf16 masked", 96, 48, torch.bfloat16, torch.bfloat16,
+              True),
+             ("BK=48 fp32 masked", 48, 48, torch.float32, torch.float32,
+              True)]
+    for name, bh, bk, qdt, vdt, masked in cases:
+        log(f"K2 {name}")
+        qf, kf, v, s, z = _k2_inputs(gen, bh, bk, m, dv, qdt, vdt)
+        active = None
+        if masked:
+            active = (torch.arange(bk, device="cuda") % 3 != 1).to(torch.int32)
+        s0, z0 = s.clone(), z.clone()
+        sp_, zp_ = s.clone(), z.clone()
+        yp, _, _ = decode_step.decode_linear_attention_plain(
+            qf, kf, v, sp_, zp_, active)
+        y, s2, z2 = decode_step.decode_linear_attention(qf, kf, v, s, z,
+                                                       active)
+        torch.cuda.synchronize()
+        if s2 is not s or z2 is not z:
+            raise AssertionError("decode state not updated in place")
+        # y: fp32 summation order over m = 384 terms, or one bf16 step.
+        # s', z': one product and one add per element on both sides.
+        ytol = (1e-5, 1e-5) if vdt == torch.float32 else (2e-2, 1.6e-2)
+        err = close(y, yp, *ytol, "y")
+        close(s, sp_, 1e-5, 1e-6, "s' (in place)")
+        close(z, zp_, 1e-5, 1e-6, "z' (in place)")
+        if masked:
+            off = active == 0
+            g = bh // bk
+            if not (torch.equal(s[off], s0[off]) and torch.equal(z[off], z0[off])):
+                raise AssertionError("drained rows' state changed")
+            if not bool((y.reshape(bk, g, dv)[off] == 0).all()):
+                raise AssertionError("drained rows' y is not zero")
+            log(f"  drained rows: {int(off.sum())} of {bk} bit-identical, y=0")
+        if name.startswith("serving path"):
+            ms = time_ms(lambda: decode_step.decode_linear_attention(
+                qf, kf, v, s, z), iters=50)
+            plain_ms = time_ms(lambda: decode_step.decode_linear_attention_plain(
+                qf, kf, v, s, z), iters=20)
+            bound, by, n_ops, nb = k2_bound(bh, bk, m, dv, qf.element_size(),
+                                          v.element_size())
+            log(f"  kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                f"{bound:.4f} ms by {by} ({n_ops:.3e} FLOP, {nb:.3e} B); "
+                f"library: none, no single PyTorch call computes this step")
+            result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound, bound_by=by)
+    return result
+
+
+PROMPT_LENS = (512, 397, 451, 300)
+MAX_NEW = 32
+
+
+def phase_serve(card: str) -> dict:
+    cfg = configs.get_config("slayformer-124m")
+    log(f"serve {cfg.name}: {cfg.num_layers}L x {cfg.d_model}d, vocab "
+        f"{cfg.vocab_size}, {cfg.dtype}, random weights from seed {SEED}")
+    params = api.init_params(cfg, SEED, device="cuda")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in PROMPT_LENS]
+    reqs = [engine.Request(p, max_new_tokens=MAX_NEW) for p in prompts]
+    eng = engine.ServingEngine(cfg, params, device="cuda", max_len=2048)
+    eng.generate([engine.Request(prompts[0][:64], max_new_tokens=2)])  # warm
+    torch.cuda.synchronize()
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    outs = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    steps = MAX_NEW - 1
+    log(f"  generate: {len(reqs)} requests in {wall:.3f} s; launches {launches}")
+    if launches["slay_fused_fwd"] != cfg.num_layers:
+        raise AssertionError(f"K1 launched {launches['slay_fused_fwd']} "
+                             f"times, want {cfg.num_layers} (one per layer)")
+    if launches["slay_decode_step"] != cfg.num_layers * steps:
+        raise AssertionError(f"K2 launched {launches['slay_decode_step']} "
+                             f"times, want {cfg.num_layers} x {steps}")
+    for o in outs:
+        if len(o) != MAX_NEW or o.min() < 0 or o.max() >= cfg.vocab_size:
+            raise AssertionError(f"bad output stream {o}")
+
+    # Throughput, timed outside the counted run: prefill, then decode steps.
+    lp = max(PROMPT_LENS)
+    toks = np.zeros((len(reqs), lp), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, lp - len(p):] = p
+    toks = torch.from_numpy(toks).cuda()
+
+    def prefill():
+        return api.prefill(eng.params, cfg, toks)
+
+    def decode(cache, tok, n):
+        for _ in range(n):
+            logits, cache = api.decode_step(eng.params, cfg, cache, tok)
+            tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        return logits
+
+    with torch.inference_mode():
+        t_pre = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = prefill()
+            torch.cuda.synchronize()
+            t_pre.append(time.perf_counter() - t0)
+        t_pre = statistics.median(t_pre)
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("non-finite prefill logits")
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        t0 = time.perf_counter()
+        logits = decode(cache, tok, steps)
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("non-finite decode logits")
+        log(f"  prefill: {sum(PROMPT_LENS)} prompt tokens ({len(reqs)}x{lp} "
+            f"padded) in {t_pre * 1e3:.2f} ms (median of 3) = "
+            f"{sum(PROMPT_LENS) / t_pre:.1f} tok/s; decode: {steps} steps x "
+            f"{len(reqs)} in {t_dec * 1e3:.2f} ms = "
+            f"{len(reqs) * steps / t_dec:.1f} tok/s, "
+            f"{t_dec / steps * 1e3:.3f} ms/step  [{card}]")
+        profile("prefill", prefill, t_pre * 1e3)
+        logits, cache = prefill()
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        profile("decode x4", lambda: decode(cache, tok, 4),
+                4 * t_dec / steps * 1e3)
+
+    # One request against the port's CPU plain path, both in fp32.
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    one = torch.from_numpy(prompts[0][None])
+    with torch.inference_mode():
+        p_gpu = api.init_params(cfg32, SEED, device="cuda")
+        lg_gpu, _ = api.prefill(p_gpu, cfg32, one)
+        del p_gpu
+        p_cpu = api.init_params(cfg32, SEED, device="cpu")
+        t0 = time.perf_counter()
+        lg_cpu, _ = api.prefill(p_cpu, cfg32, one)
+        t_cpu = time.perf_counter() - t0
+    lg_gpu, lg_cpu = lg_gpu[0, -1].cpu(), lg_cpu[0, -1]
+    scale = float(lg_cpu.abs().max())
+    log(f"  card fp32 vs CPU plain fp32, request 0 ({len(prompts[0])} "
+        f"tokens, CPU {t_cpu:.1f} s):")
+    # fp32 on both sides: summation order differs (cuBLAS vs CPU, the
+    # kernel's tiles vs chunks of 256) across 12 layers; 1e-5 of the
+    # largest logit is far above that rounding and far below a fault.
+    close(lg_gpu, lg_cpu, 1e-5 * scale, 0.0, "last-token prefill logits")
+    first_cpu = int(lg_cpu.argmax())
+    log(f"  greedy first token: CPU fp32 {first_cpu}, card fp32 "
+        f"{int(lg_gpu.argmax())}, card bf16 serve {int(outs[0][0])}; "
+        f"fp32 agree={first_cpu == int(lg_gpu.argmax())}, "
+        f"bf16 agree={first_cpu == int(outs[0][0])}")
+    return launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; it needs an "
+              "NVIDIA card", file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    card_line = phase_env()
+    phase_build()
+    cfg = configs.get_config("slayformer-124m")
+    feat = cfg.slay_config()
+    sp = init_feature_params(feat, torch.Generator().manual_seed(SEED),
+                             device="cuda")
+    k1 = phase_k1(feat, sp, (len(PROMPT_LENS) * cfg.num_heads,
+                             max(PROMPT_LENS)))
+    k2 = phase_k2(feat.feature_dim)
+    launches = phase_serve(card_line)
+    kernels = [
+        dict(name="slay_fused_fwd", route="cuda",
+             source="src/repro_torch/csrc/slay_fused.cu",
+             replaces="src/repro/kernels/slay_fused.py:89",
+             launches=launches["slay_fused_fwd"], **k1, library_ms=None),
+        dict(name="slay_decode_step", route="cuda",
+             source="src/repro_torch/csrc/decode_step.cu",
+             replaces="src/repro/kernels/decode_step.py:49",
+             launches=launches["slay_decode_step"], **k2, library_ms=None),
+    ]
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(smi())
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

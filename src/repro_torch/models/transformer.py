@@ -1,0 +1,211 @@
+"""The decoder LM (dense, no MoE/SSM/vision) with SLAY attention.
+
+Parameters are a plain dict laid out like the JAX package's pytree, so
+``repro_torch.convert`` moves weights across unchanged::
+
+    embed (V, d), final_norm (d,), [unembed (V, d) if untied],
+    layers: pre_attn (nl, d), pre_mlp (nl, d),
+            attn: wq (nl, d, H, dh), wk/wv (nl, d, Hkv, dh), wo (nl, H, dh, d),
+            mlp: up (nl, d, ff), down (nl, ff, d) [, gate (nl, d, ff)],
+    slay: anchors (P, dh), omegas (D, dh)   (fp32, shared by every layer)
+
+Layers are stacked along a leading axis and run by a Python loop. Serving
+is ``prefill`` (prompt -> last-token logits + (S, z) cache) then
+``decode_step`` (one token, the cache updated in place).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.features import init_feature_params
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import embed, mlp, rmsnorm, rope, unembed
+
+
+def _param_shapes(cfg: ArchConfig) -> dict:
+    """name -> (shape, init, scale); scale None = 1/sqrt(fan-in), where the
+    fan-in is shape[-2] of the per-layer shape, as the JAX ParamSpec."""
+    d, nl, dh = cfg.d_model, cfg.num_layers, cfg.resolved_head_dim
+    H, Hkv, ff = cfg.num_heads, cfg.num_kv_heads, cfg.d_ff
+    shapes = {
+        "embed": ((cfg.vocab_size, d), "normal", 1.0),
+        "final_norm": ((d,), "zeros", None),
+        "layers.pre_attn": ((nl, d), "zeros", None),
+        "layers.pre_mlp": ((nl, d), "zeros", None),
+        "layers.attn.wq": ((nl, d, H, dh), "normal", None),
+        "layers.attn.wk": ((nl, d, Hkv, dh), "normal", None),
+        "layers.attn.wv": ((nl, d, Hkv, dh), "normal", None),
+        "layers.attn.wo": ((nl, H, dh, d), "normal", None),
+        "layers.mlp.up": ((nl, d, ff), "normal", None),
+        "layers.mlp.down": ((nl, ff, d), "normal", None),
+    }
+    if cfg.gated_mlp:
+        shapes["layers.mlp.gate"] = ((nl, d, ff), "normal", None)
+    if not cfg.tie_embeddings:
+        shapes["unembed"] = ((cfg.vocab_size, d), "normal", 1.0)
+    return shapes
+
+
+def init_params(cfg: ArchConfig, seed: int = 0, *,
+                device: str | torch.device = "cuda") -> dict:
+    """Random weights from ``seed`` (a CPU ``torch.Generator``, so the same
+    seed gives the same weights on any device), in the activation dtype;
+    the SLAY projections stay fp32."""
+    cfg.check_supported()
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    params: dict = {}
+    for name, (shape, init, scale) in _param_shapes(cfg).items():
+        if init == "zeros":
+            x = torch.zeros(shape)
+        else:
+            if scale is None:
+                scale = 1.0 / np.sqrt(max(shape[-2] if len(shape) >= 2
+                                          else shape[-1], 1))
+            x = torch.randn(shape, generator=gen) * float(scale)
+        node = params
+        *path, leaf = name.split(".")
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = x.to(device=dev, dtype=cfg.activation_dtype)
+    # Random projections, fp32, shared by every layer and head.
+    params["slay"] = init_feature_params(cfg.slay_config(), gen, device=dev)
+    return params
+
+
+def _layer(params: dict, i: int) -> dict:
+    """Layer i's slice of the stacked ``layers`` subtree (views)."""
+    def take(node):
+        return {k: take(v) if isinstance(v, dict) else v[i]
+                for k, v in node.items()}
+    return take(params["layers"])
+
+
+def _qkv(cfg: ArchConfig, lp: dict, x, positions):
+    xa = rmsnorm(lp["pre_attn"], x)
+    q = torch.einsum("...d,dhk->...hk", xa, lp["attn"]["wq"])
+    k = torch.einsum("...d,dhk->...hk", xa, lp["attn"]["wk"])
+    v = torch.einsum("...d,dhk->...hk", xa, lp["attn"]["wv"])
+    return (rope(q, positions, cfg.rope_theta),
+            rope(k, positions, cfg.rope_theta), v)
+
+
+def _finish_layer(cfg: ArchConfig, lp: dict, x, y):
+    """Output projection, residual, MLP block."""
+    x = x + torch.einsum("...hk,hkd->...d", y, lp["attn"]["wo"])
+    return x + mlp(lp["mlp"], rmsnorm(lp["pre_mlp"], x), cfg.gated_mlp)
+
+
+def _logits(params: dict, cfg: ArchConfig, x):
+    x = rmsnorm(params["final_norm"], x)
+    table = params.get("unembed", params["embed"])
+    return unembed(table, x, cfg.final_logit_softcap)
+
+
+def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor):
+    """tokens (B, L) -> (logits (B, L, V), aux loss 0)."""
+    cfg.check_supported()
+    dev = params["embed"].device
+    tokens = tokens.to(dev)
+    x = embed(params["embed"], tokens).to(cfg.activation_dtype)
+    L = x.shape[1]
+    positions = torch.arange(L, dtype=torch.int32, device=dev)[None, :]
+    spec = cfg.attention_spec()
+    for i in range(cfg.num_layers):
+        lp = _layer(params, i)
+        q, k, v = _qkv(cfg, lp, x, positions)
+        y = attn.full_attention(spec, params["slay"], q, k, v)
+        x = _finish_layer(cfg, lp, x, y)
+    return _logits(params, cfg, x), torch.zeros((), device=dev)
+
+
+class DecodeCache(NamedTuple):
+    """Stacked (num_layers leading) per-layer decode state; ``pos`` (B,)
+    int32 counts the tokens each slot has seen."""
+
+    attn: attn.AttnCache
+    pos: torch.Tensor
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int = 0, *,
+               device: str | torch.device = "cuda") -> DecodeCache:
+    """A zero cache for ``batch`` slots. The SLAY state is constant-size,
+    so ``max_len`` is accepted for API parity and unused."""
+    cfg.check_supported()
+    dev = resolve_device(device)
+    a = attn.init_cache(cfg.attention_spec(), (cfg.num_layers, batch),
+                        cfg.num_kv_heads, cfg.resolved_head_dim, device=dev)
+    return DecodeCache(a, torch.zeros(batch, dtype=torch.int32, device=dev))
+
+
+def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
+            max_len: int | None = None, true_len: torch.Tensor | None = None
+            ) -> tuple[torch.Tensor, DecodeCache]:
+    """Process a prompt batch; return last-token logits (B, 1, V) and a
+    primed cache. ``true_len`` (B,) marks the real lengths of right-padded
+    prompts: logits are read at ``true_len - 1`` and pad positions add
+    nothing to the cache. ``max_len`` is accepted for API parity."""
+    cfg.check_supported()
+    dev = params["embed"].device
+    tokens = tokens.to(dev)
+    B, L = tokens.shape
+    x = embed(params["embed"], tokens).to(cfg.activation_dtype)
+    positions = torch.arange(L, dtype=torch.int32, device=dev)[None, :]
+    valid = None
+    if true_len is not None:
+        true_len = true_len.to(dev)
+        valid = positions < true_len[:, None]
+    spec = cfg.attention_spec()
+    caches = []
+    for i in range(cfg.num_layers):
+        lp = _layer(params, i)
+        q, k, v = _qkv(cfg, lp, x, positions)
+        y = attn.full_attention(spec, params["slay"], q, k, v)
+        caches.append(attn.prefill_cache(spec, params["slay"], k, v, valid))
+        x = _finish_layer(cfg, lp, x, y)
+    if true_len is None:
+        x_last = x[:, -1]
+        pos = torch.full((B,), L, dtype=torch.int32, device=dev)
+    else:
+        idx = torch.clamp(true_len - 1, min=0).long()
+        x_last = x[torch.arange(B, device=dev), idx]
+        pos = true_len.to(torch.int32)
+    a = attn.AttnCache(torch.stack([c.pos for c in caches]),
+                       torch.stack([c.s for c in caches]),
+                       torch.stack([c.z for c in caches]))
+    return _logits(params, cfg, x_last)[:, None, :], DecodeCache(a, pos)
+
+
+def decode_step(params: dict, cfg: ArchConfig, cache: DecodeCache,
+                tokens: torch.Tensor, active: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, DecodeCache]:
+    """One autoregressive step. tokens (B, 1) -> logits (B, 1, V).
+
+    The cache's (S, z) tensors are updated in place (the JAX package
+    donates them); the returned cache holds the same tensors and advanced
+    positions. ``active`` (B,) freezes drained slots: their state stays
+    bit-identical, their logits rows are meaningless.
+    """
+    cfg.check_supported()
+    dev = params["embed"].device
+    x = embed(params["embed"], tokens.to(dev)[:, 0]).to(cfg.activation_dtype)
+    pos = cache.pos
+    spec = cfg.attention_spec()
+    ac = cache.attn
+    new_pos = []
+    for i in range(cfg.num_layers):
+        lp = _layer(params, i)
+        q, k, v = _qkv(cfg, lp, x[:, None], pos[:, None])
+        layer_cache = attn.AttnCache(ac.pos[i], ac.s[i], ac.z[i])
+        y, nc = attn.decode_step(spec, params["slay"], q[:, 0], k[:, 0],
+                                 v[:, 0], layer_cache, active=active)
+        new_pos.append(nc.pos)
+        x = _finish_layer(cfg, lp, x, y)
+    step = 1 if active is None else active.to(torch.int32)
+    a = attn.AttnCache(torch.stack(new_pos), ac.s, ac.z)
+    return _logits(params, cfg, x)[:, None, :], DecodeCache(a, pos + step)

@@ -1,0 +1,267 @@
+"""The port's two kernel functions against the JAX package's Pallas kernels.
+
+On the CPU the port's wrappers run their plain PyTorch versions; the JAX
+side runs the Pallas kernels in interpret mode, as the JAX tests do. Both
+compute Ψ in fp32 and accumulate in fp32, so they differ only in summation
+order: y is held to 1e-5, den (a sum of up to L nonnegative terms of order
+one) to 1e-5 relative. The decode state update is one add per element on
+both sides and must match to 1e-6. The kernel-vs-plain cases need the card
+and skip without one.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import features as jfeat
+from repro.kernels import decode_step as jdecode
+from repro.kernels import ops as jops
+from repro.kernels import slay_fused as jfused
+from repro_torch.core import features as tfeat
+from repro_torch.kernels import _build
+from repro_torch.kernels import decode_step as tdecode
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import slay_fused as tfused
+
+D_HEAD, CHUNK = 16, 16
+needs_card = pytest.mark.skipif(
+    "not torch.cuda.is_available()",
+    reason="CUDA kernel: needs an NVIDIA card (run python3 chip_smoke.py)")
+
+
+def _cfgs():
+    return (jfeat.SlayFeatureConfig(head_dim=D_HEAD),
+            tfeat.SlayFeatureConfig(head_dim=D_HEAD))
+
+
+def _proj(jcfg):
+    jp = jfeat.init_feature_params(jax.random.PRNGKey(0), jcfg)
+    tp = {k: torch.from_numpy(np.array(jp[k])) for k in ("anchors", "omegas")}
+    return jp, tp
+
+
+def _close(got, want, rtol=1e-5, atol=1e-5):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("B,L,H,Hkv", [(2, 37, 4, 4), (1, 29, 4, 2)])
+def test_fused_forward_model_layout_matches_pallas(B, L, H, Hkv):
+    # ops.slay_fused_attention: ragged L (zero padding), GQA head grouping.
+    jcfg, tcfg = _cfgs()
+    jp, tp = _proj(jcfg)
+    rng = np.random.default_rng(L)
+    q = rng.normal(size=(B, L, H, D_HEAD)).astype(np.float32)
+    k = rng.normal(size=(B, L, Hkv, D_HEAD)).astype(np.float32)
+    v = rng.normal(size=(B, L, Hkv, 8)).astype(np.float32)
+    want = jops.slay_fused_attention(*(jnp.asarray(x) for x in (q, k, v)), jp,
+                                     jcfg, chunk_size=CHUNK, interpret=True)
+    got = tops.slay_fused_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                                    tp, tcfg, chunk_size=CHUNK)
+    assert got.shape == (B, L, H, 8)
+    _close(got, want)
+
+
+def test_fused_forward_head_major_y_and_den_match_pallas():
+    # The kernel entry itself, GQA BH = 2·BK: y and the den residual.
+    jcfg, tcfg = _cfgs()
+    jp, tp = _proj(jcfg)
+    rng = np.random.default_rng(4)
+    q = rng.normal(size=(4, 48, D_HEAD)).astype(np.float32)
+    k = rng.normal(size=(2, 48, D_HEAD)).astype(np.float32)
+    v = rng.normal(size=(2, 48, 8)).astype(np.float32)
+    st = jfused.statics_for(jcfg, chunk_size=CHUNK, delta=1e-6, interpret=True)
+    wy, wden = jfused._fwd_impl(st, *(jnp.asarray(x) for x in (q, k, v)),
+                                jp["anchors"], jp["omegas"])
+    gy, gden = tfused.fused_causal_attention(
+        *(torch.from_numpy(x) for x in (q, k, v)), tp["anchors"],
+        tp["omegas"], tcfg, chunk_size=CHUNK)
+    assert gden.dtype == torch.float32 and gden.shape == (4, 48)
+    _close(gy, wy)
+    _close(gden, wden, rtol=1e-5, atol=0.0)
+    # Chunking only orders the evaluation (the CUDA kernel tiles by 16).
+    oy, oden = tfused.fused_causal_attention(
+        *(torch.from_numpy(x) for x in (q, k, v)), tp["anchors"],
+        tp["omegas"], tcfg, chunk_size=48)
+    _close(oy, gy)
+    _close(oden, gden, rtol=1e-5, atol=0.0)
+
+
+def test_fused_plain_twin_matches_core_oracle():
+    # The kernel's plain twin (kernels.common Ψ, per-chunk scan) against
+    # the oracle built from core.features and core.linear_attention.
+    jcfg, tcfg = _cfgs()
+    _, tp = _proj(jcfg)
+    gen = torch.Generator().manual_seed(5)
+    q = torch.randn(6, 32, D_HEAD, generator=gen)
+    k = torch.randn(3, 32, D_HEAD, generator=gen)
+    v = torch.randn(3, 32, 8, generator=gen)
+    got, _ = tfused.fused_causal_attention(q, k, v, tp["anchors"],
+                                           tp["omegas"], tcfg, chunk_size=8)
+    want = tref.fused_causal_attention_ref(q, k, v, tp, tcfg, chunk_size=16)
+    _close(got, want)
+
+
+def _decode_inputs(seed, bh, bk, m=24, dv=8):
+    rng = np.random.default_rng(seed)
+    qf = rng.uniform(0.0, 1.0, (bh, m)).astype(np.float32)
+    kf = rng.uniform(0.0, 1.0, (bk, m)).astype(np.float32)
+    v = rng.normal(size=(bk, dv)).astype(np.float32)
+    s = rng.normal(size=(bk, m, dv)).astype(np.float32)
+    z = rng.uniform(0.0, 4.0, (bk, m)).astype(np.float32)
+    return qf, kf, v, s, z
+
+
+@pytest.mark.parametrize("bh,bk,masked", [(6, 6, False), (8, 4, False),
+                                          (6, 6, True), (8, 4, True)])
+def test_decode_matches_pallas(bh, bk, masked):
+    qf, kf, v, s, z = _decode_inputs(bh + bk, bh, bk)
+    active = (np.arange(bk) % 3 != 1).astype(np.int32) if masked else None
+    jy, js, jz = jdecode.decode_linear_attention(
+        *(jnp.asarray(x) for x in (qf, kf, v, s, z)),
+        None if active is None else jnp.asarray(active), interpret=True)
+    ts, tz = torch.from_numpy(s.copy()), torch.from_numpy(z.copy())
+    ty, ts2, tz2 = tdecode.decode_linear_attention(
+        *(torch.from_numpy(x) for x in (qf, kf, v)), ts, tz,
+        None if active is None else torch.from_numpy(active))
+    assert ts2 is ts and tz2 is tz                  # updated in place
+    _close(ty, jy)
+    _close(ts, js, rtol=1e-6, atol=1e-6)
+    _close(tz, jz, rtol=1e-6, atol=1e-6)
+    if masked:
+        off = torch.from_numpy(active == 0)
+        g = bh // bk
+        # Drained rows: state bit-identical, y exactly zero.
+        assert torch.equal(ts[off], torch.from_numpy(s)[off])
+        assert torch.equal(tz[off], torch.from_numpy(z)[off])
+        assert bool((ty.reshape(bk, g, -1)[off] == 0).all())
+
+
+def test_decode_model_layout_matches_pallas():
+    # ops.decode_linear_step: (B, H, m) layout, B·Hkv kv rows, slot mask.
+    rng = np.random.default_rng(7)
+    B, H, Hkv, m, dv = 3, 4, 2, 24, 8
+    qf = rng.uniform(0.0, 1.0, (B, H, m)).astype(np.float32)
+    kf = rng.uniform(0.0, 1.0, (B, Hkv, m)).astype(np.float32)
+    v = rng.normal(size=(B, Hkv, dv)).astype(np.float32)
+    s = rng.normal(size=(B, Hkv, m, dv)).astype(np.float32)
+    z = rng.uniform(0.0, 4.0, (B, Hkv, m)).astype(np.float32)
+    active = np.array([1, 0, 1], np.int32)
+    jy, js, jz = jops.decode_linear_step(
+        *(jnp.asarray(x) for x in (qf, kf, v, s, z)), jnp.asarray(active),
+        interpret=True)
+    ts, tz = torch.from_numpy(s.copy()), torch.from_numpy(z.copy())
+    ty, ts2, tz2 = tops.decode_linear_step(
+        *(torch.from_numpy(x) for x in (qf, kf, v)), ts, tz,
+        torch.from_numpy(active))
+    assert ts2 is ts and tz2 is tz
+    _close(ty, jy)
+    _close(ts, js, rtol=1e-6, atol=1e-6)
+    _close(tz, jz, rtol=1e-6, atol=1e-6)
+
+
+def _fused_args():
+    _, tcfg = _cfgs()
+    p = tfeat.init_feature_params(tcfg, torch.Generator().manual_seed(0),
+                                  device="cpu")
+    q = torch.zeros(4, 32, D_HEAD)
+    k = torch.zeros(2, 32, D_HEAD)
+    v = torch.zeros(2, 32, 8)
+    return [q, k, v, p["anchors"], p["omegas"]], tcfg
+
+
+@pytest.mark.parametrize("bad,exc", [
+    (lambda a: a.__setitem__(0, a[0].half()), TypeError),          # dtype
+    (lambda a: a.__setitem__(1, a[1].bfloat16()), TypeError),      # mixed
+    (lambda a: a.__setitem__(3, a[3].double()), TypeError),        # anchors
+    (lambda a: a.__setitem__(0, a[0][:3]), ValueError),            # BH % BK
+    (lambda a: a.__setitem__(1, a[1][:, :16]), ValueError),        # k length
+    (lambda a: a.__setitem__(0, a[0][..., :8]), ValueError),       # head dim
+    (lambda a: a.__setitem__(
+        0, torch.zeros(4, D_HEAD, 32).transpose(1, 2)), ValueError),  # strides
+])
+def test_fused_wrapper_rejects(bad, exc):
+    args, cfg = _fused_args()
+    bad(args)
+    with pytest.raises(exc):
+        tfused.fused_causal_attention(*args, cfg, chunk_size=CHUNK)
+
+
+def test_fused_wrapper_rejects_ragged_and_grad():
+    args, cfg = _fused_args()
+    with pytest.raises(ValueError, match="not divisible by chunk"):
+        tfused.fused_causal_attention(*args, cfg, chunk_size=24)
+    args[0].requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        tfused.fused_causal_attention(*args, cfg, chunk_size=CHUNK)
+
+
+@pytest.mark.parametrize("which,bad,exc", [
+    (0, lambda t: t.half(), TypeError),                  # qf dtype
+    (3, lambda t: t.bfloat16(), TypeError),              # state must be fp32
+    (3, lambda t: t[:, :12], ValueError),                # state shape
+    (4, lambda t: t.t().contiguous().t(), ValueError),   # strided z
+    (5, lambda t: t.long(), TypeError),                  # active dtype
+    (5, lambda t: t[:2], ValueError),                    # active shape
+])
+def test_decode_wrapper_rejects(which, bad, exc):
+    args = [torch.from_numpy(x) for x in _decode_inputs(0, 6, 3)]
+    args.append(torch.ones(3, dtype=torch.int32))
+    args[which] = bad(args[which])
+    with pytest.raises(exc):
+        tdecode.decode_linear_attention(*args)
+
+
+def test_decode_wrapper_rejects_grad():
+    args = [torch.from_numpy(x) for x in _decode_inputs(0, 6, 3)]
+    args[0].requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        tdecode.decode_linear_attention(*args)
+
+
+def test_cpu_tensors_launch_nothing():
+    # The plain versions run for CPU tensors, and only they: no launch is
+    # counted and no kernel library is built or loaded.
+    _build.reset_launches()
+    args, cfg = _fused_args()
+    tfused.fused_causal_attention(*args, cfg, chunk_size=CHUNK)
+    dargs = [torch.from_numpy(x) for x in _decode_inputs(0, 6, 3)]
+    tdecode.decode_linear_attention(*dargs)
+    assert _build.LAUNCHES == {"slay_fused_fwd": 0, "slay_decode_step": 0}
+    assert not _build._LIBS
+
+
+@needs_card
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_kernel_matches_plain_on_card(dtype):
+    # fp32: summation order only (1e-4); bf16: one rounding of y (2e-2).
+    _, tcfg = _cfgs()
+    p = tfeat.init_feature_params(tcfg, torch.Generator().manual_seed(0))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn(8, 96, D_HEAD, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(4, 96, D_HEAD, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(4, 96, 32, generator=gen, device="cuda").to(dtype)
+    y, den = tfused.fused_causal_attention(q, k, v, p["anchors"], p["omegas"],
+                                           tcfg, chunk_size=32)
+    yp, denp = tfused.fused_causal_attention_plain(
+        q, k, v, p["anchors"], p["omegas"], tcfg, chunk_size=32)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(y.float(), yp.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(den, denp, rtol=1e-4, atol=0.0)
+
+
+@needs_card
+@pytest.mark.parametrize("masked", [False, True])
+def test_decode_kernel_matches_plain_on_card(masked):
+    args = [torch.from_numpy(x).cuda() for x in _decode_inputs(1, 8, 4, m=384,
+                                                               dv=64)]
+    active = (torch.tensor([1, 0, 1, 1], dtype=torch.int32, device="cuda")
+              if masked else None)
+    plain = [a.clone() for a in args]
+    yp, sp, zp = tdecode.decode_linear_attention_plain(*plain, active)
+    y, s, z = tdecode.decode_linear_attention(*args, active)
+    torch.testing.assert_close(y, yp, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(s, sp, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(z, zp, rtol=1e-6, atol=1e-6)
