@@ -14,13 +14,26 @@ Phases, each of which raises (nonzero exit) on failure:
    times at two more shapes (one long sequence, a batch of 16);
 4. K2, the decode step, against its plain version: masked and unmasked,
    drained rows bit-identical, state updated in place;
-5. serve: full-width slayformer-124m (random weights from a seed) through
+5. K3 and K4, the fused backward's two scans, against their plain
+   versions on the card: slayformer's training shape (BH = 96, L = 1024)
+   in fp32 and bf16, GQA (BH = 2·BK), and ragged L = 1000 through
+   ``ops.slay_fused_attention`` under autograd; in fp32 also against
+   autograd through the plain forward; kernel and plain times, bounds;
+6. serve: full-width slayformer-124m (random weights from a seed) through
    ``ServingEngine.generate`` on 4 ragged prompts, 32 greedy new tokens,
    launch counters read around that call; prefill and decode tokens/s;
    a ``torch.profiler`` window over one prefill and four decode steps
    (device busy time, idle share, the largest kernels); last-token
    prefill logits of one request held against the port's own CPU plain
-   path in fp32.
+   path in fp32;
+7. train: full-width slayformer-124m, 8 AdamW steps of 8 x 1024 tokens
+   through ``Trainer.run`` with launch counters read around that call
+   (12 K1, 12 K3 and 12 K4 per step), a falling finite loss, a
+   bit-identical resume from the checkpoint, one step with ``remat``
+   (24 K1), ms per step and tokens/s, a ``torch.profiler`` window over one
+   step, the losses of the same 8 steps at two higher learning rates (a
+   reading, not a check), and one step's loss and gradients held against
+   the port's CPU plain path in fp32 at full width and 2 layers.
 
 The last two lines are a JSON object with every kernel's numbers and
 ``{"ok": true, "device": {...}}``. Nothing of JAX is imported.
@@ -30,6 +43,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -44,13 +58,16 @@ sys.path.insert(0, os.path.join(REPO, "src"))
 from repro_torch import configs  # noqa: E402
 from repro_torch.core.features import init_feature_params  # noqa: E402
 from repro_torch.kernels import _build, decode_step, ops, slay_fused  # noqa: E402
+from repro_torch.data import pipeline  # noqa: E402
 from repro_torch.models import api  # noqa: E402
+from repro_torch.optim.adamw import AdamWConfig, adamw_init  # noqa: E402
 from repro_torch.serving import engine  # noqa: E402
+from repro_torch.train import loop  # noqa: E402
+from repro_torch.tree import tree_items, tree_leaves, tree_map  # noqa: E402
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12          # H100 SXM, fp32 outside the tensor cores
-K1_TILE = 16                     # the fused kernel's token tile (csrc)
 
 
 def log(msg: str) -> None:
@@ -102,15 +119,22 @@ def close(got, want, atol: float, rtol: float, what: str) -> float:
 # -- bounds: least time the card could take for the same work ------------
 
 
+# The bounds count the fewest operations the function needs. The causal sum
+# is folded into the carried state one token at a time, each token added
+# before its own row reads the state, so no intra-tile (tril) term remains:
+# what is left per token is the Ψ map, its VJP where it is differentiated,
+# and the state terms at 2·m·dv each. The kernels walk 16-token tiles and do
+# more work than this.
+
+
 def k1_bound(bh, bk, L, d, dv, P, D, R, es):
     """(bound_ms, bound_by, n_ops, bytes) of the fused forward. Operations
-    count the Ψ map once per q row and once per kv row, the state read-out and
-    update (4·m·dv per token) and the causal intra-tile work at the
-    kernel's tile T=16: (T+1)/2 scores of 2m and (T+1)/2 products of 2dv
-    per token, all on the fp32 pipes."""
+    count the Ψ map once per q row and once per kv row, the state read-out
+    (2·m·dv + 2m per q row, then y/den) and update (2·m·dv + m per kv row),
+    all on the fp32 pipes."""
     m = R * P * D
-    psi = 3 * d + 2 * d * (P + D) + 2 * P + 4 * R * D + 2 * m
-    per_q = psi + 2 * m * dv + 2 * m + (K1_TILE + 1) * (m + dv + 1) + dv
+    psi, _ = _psi_ops(d, P, D, R)
+    per_q = psi + 2 * m * dv + 2 * m + dv
     per_kv = psi + 2 * m * dv + m
     n_ops = bh * L * per_q + bk * L * per_kv
     nbytes = (bh * L * (d + dv) * es + bk * L * (d + dv) * es + bh * L * 4
@@ -127,6 +151,40 @@ def k2_bound(bh, bk_active, m, dv, qes, ves):
               + bk_active * dv * ves + bh * dv * ves)
     n_ops = bk_active * (2 * m * dv + m) + rows_q * (2 * m * dv + 2 * m + dv)
     return _bound(n_ops, nbytes)
+
+
+def _psi_ops(d, P, D, R):
+    """fp32 operations of Ψ for one row (normalize, projections, φ_p, φ_e,
+    Kronecker), and of its VJP (dpa, dpw, dû, dA/dΩ sums, du)."""
+    m = R * P * D
+    fwd = 3 * d + 2 * d * (P + D) + 2 * P + 4 * R * D + 2 * m
+    bwd = 6 * m + 3 * R * D + 3 * P + 4 * (P + D) * d + 4 * d
+    return fwd, bwd
+
+
+def bwd_bounds(bh, bk, L, d, dv, P, D, R, es):
+    """{kernel: (bound_ms, bound_by, n_ops, bytes)} of K3 and K4. Each
+    counts Ψ once per q row and once per kv row and its VJP once per row
+    it differentiates; the cotangents G, h (3·dv); the state terms (K3:
+    dΨq = G Sᵀ + h zᵀ and the (S, z) update; K4, per q-head row:
+    dΨk = V dSᵀ + dz, dV = Ψk dS and the (dS, dz) update), each token in
+    the state before its own row reads it. Bytes: q, k, v, dy, y, den read
+    once, the kernel's outputs written once."""
+    m = R * P * D
+    psi, psi_b = _psi_ops(d, P, D, R)
+    k3_q = psi + psi_b + 3 * dv + 2 * m * dv + 2 * m
+    k3_kv = psi + 2 * m * dv + m
+    k4_q = psi + psi_b + 3 * dv + 3 * (2 * m * dv) + 3 * m
+    k4_kv = psi
+    read = (bh * L * (d + 2 * dv) * es + bk * L * (d + dv) * es + bh * L * 4
+            + (P + D) * d * 4)
+    partials = bh * (P + D) * d * 4
+    return {
+        "slay_fused_bwd_q": _bound(bh * L * k3_q + bk * L * k3_kv,
+                                   read + bh * L * d * es + partials),
+        "slay_fused_bwd_kv": _bound(bh * L * k4_q + bk * L * k4_kv,
+                                    read + bh * L * (d + dv) * es + partials),
+    }
 
 
 def _bound(n_ops, nbytes):
@@ -337,6 +395,124 @@ def phase_k2(m) -> dict:
     return result
 
 
+def _norm_rel(got, want, rtol: float, what: str) -> float:
+    """Raise unless ‖got − want‖ <= rtol·‖want‖ (sums over many terms,
+    where one element's error says little); return the max abs error."""
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: non-finite kernel output")
+    rel = float(torch.linalg.vector_norm(got - want)
+                / torch.linalg.vector_norm(want))
+    max_abs = float((got - want).abs().max())
+    log(f"  {what}: norm_rel_err={rel:.3e} max_abs_err={max_abs:.3e} "
+        f"(tol {rtol:g} relative in norm)")
+    if not rel <= rtol:
+        raise AssertionError(f"{what}: relative error {rel:.3e} in norm")
+    return max_abs
+
+
+# dq/dk/dv and their per-head partials: fp32 to 1e-4 of their largest
+# magnitude (the kernel's 16-token tiles against the plain version's
+# 256-token chunks, and Ψ's VJP in another order); bf16 to 8e-3, one bf16
+# rounding of the partials (2^-8 relative) on each side. dA and dΩ sum
+# over L·BH terms: 1e-4 relative in norm in both dtypes, since they stay
+# fp32 from the same inputs.
+BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 8e-3}
+DAW_REL = 1e-4
+
+
+K3_OUT = ("dq", "dA", "dOmega")              # per-head partials
+K4_OUT = ("dk", "dv", "dA", "dOmega")
+ALL_OUT = ("dq", "dk", "dv", "dA", "dOmega")  # summed, as autograd returns
+
+
+def _check_grads(got, want, names, dtype, what) -> float:
+    """Outputs against the same from another route; returns the max abs
+    error over the token gradients."""
+    err = 0.0
+    for name, g, w in zip(names, got, want, strict=True):
+        if g.shape != w.shape:
+            raise AssertionError(f"{what} {name}: shape {tuple(g.shape)} != "
+                                 f"{tuple(w.shape)}")
+        if name in ("dA", "dOmega"):
+            _norm_rel(g, w, DAW_REL, f"{what} {name}")
+        else:
+            scale = float(w.float().abs().max())
+            err = max(err, close(g, w, BWD_REL[dtype] * scale, 0.0,
+                                 f"{what} {name}"))
+    return err
+
+
+def phase_k34(feat, sp) -> dict:
+    """K3/K4 against their plain versions (and, in fp32, autograd through
+    the plain forward); returns each kernel's numbers at the training
+    shape in bf16, the main path's."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    cfg, a, w = feat, sp["anchors"], sp["omegas"]
+    d, dv = cfg.head_dim, 64
+    cases = [("train shape BH=96 L=1024 fp32", 96, 96, 1024, torch.float32),
+             ("train shape BH=96 L=1024 bf16", 96, 96, 1024, torch.bfloat16),
+             ("GQA BH=2*BK=48 L=512 fp32", 48, 24, 512, torch.float32)]
+    result = {}
+    for name, bh, bk, L, dt in cases:
+        log(f"K3/K4 {name}")
+        q, k, v = _k1_inputs(gen, bh, bk, L, d, dv, dt)
+        dy = torch.randn(bh, L, dv, generator=gen, device="cuda").to(dt)
+        y, den = slay_fused.fused_causal_attention(q, k, v, a, w, cfg)
+        args = (q, k, v, a, w, y, den, dy, cfg)
+        k3 = slay_fused.launch_bwd_q(*args)
+        k4 = slay_fused.launch_bwd_kv(*args)
+        p3 = slay_fused.fused_bwd_q_plain(*args)
+        p4 = slay_fused.fused_bwd_kv_plain(*args)
+        torch.cuda.synchronize()
+        e3 = _check_grads(k3, p3, K3_OUT, dt, "K3 vs plain")
+        e4 = _check_grads(k4, p4, K4_OUT, dt, "K4 vs plain")
+        got = slay_fused.fused_causal_attention_bwd(*args)
+        _check_grads(got, slay_fused.fused_causal_attention_bwd_plain(*args),
+                     ALL_OUT, dt, "summed vs plain")
+        if dt == torch.float32:
+            xs = [t.clone().requires_grad_(True) for t in (q, k, v, a, w)]
+            yp, _ = slay_fused.fused_causal_attention_plain(*xs, cfg)
+            _check_grads(got, torch.autograd.grad(yp, xs, dy), ALL_OUT, dt,
+                         "summed vs autograd of the plain forward")
+            del xs, yp
+        if dt == torch.bfloat16:
+            bounds = bwd_bounds(bh, bk, L, d, dv, cfg.num_anchors, cfg.num_prf,
+                                cfg.num_quad_nodes, q.element_size())
+            for kname, kern, plain, err in (
+                    ("slay_fused_bwd_q", slay_fused.launch_bwd_q,
+                     slay_fused.fused_bwd_q_plain, e3),
+                    ("slay_fused_bwd_kv", slay_fused.launch_bwd_kv,
+                     slay_fused.fused_bwd_kv_plain, e4)):
+                ms = time_ms(lambda: kern(*args), iters=10)
+                plain_ms = time_ms(lambda: plain(*args), iters=10, warmup=1)
+                bound, by, n_ops, nb = bounds[kname]
+                log(f"  {kname}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                    f"bound {bound:.4f} ms by {by} ({n_ops:.3e} fp32 FLOP, "
+                    f"{nb:.3e} B); library: none, no single PyTorch call "
+                    f"computes this scan")
+                result[kname] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                     bound_ms=bound, bound_by=by)
+        del q, k, v, dy, y, den, k3, k4, p3, p4, got
+    # Ragged L through the model-layout wrapper under autograd: the pad,
+    # reshape and permute carry the gradients back.
+    log("K3/K4 ragged L=1000 fp32 via ops.slay_fused_attention, autograd "
+        "(B=2, H=12, Hkv=6)")
+    xs = [torch.randn(2, 1000, h, d, generator=gen, device="cuda")
+          .requires_grad_(True) for h in (12, 6, 6)]
+    ym = ops.slay_fused_attention(*xs, sp, cfg)
+    dym = torch.randn(ym.shape, generator=gen, device="cuda")
+    got = torch.autograd.grad(ym, xs, dym)
+    yp = ops._headmajor_call(
+        lambda qh, kh, vh: slay_fused.fused_causal_attention_plain(
+            qh, kh, vh, a, w, cfg)[0], *xs, chunk_size=256)
+    want = torch.autograd.grad(yp, xs, dym)
+    for nm, g, wnt in zip(("dq", "dk", "dv"), got, want):
+        close(g, wnt, BWD_REL[torch.float32] * float(wnt.abs().max()), 0.0,
+              f"ragged {nm} vs autograd of the plain forward")
+    return result
+
+
 PROMPT_LENS = (512, 397, 451, 300)
 MAX_NEW = 32
 
@@ -445,6 +621,150 @@ def phase_serve(card: str) -> dict:
     return launches
 
 
+TRAIN_STEPS = 8
+TRAIN_BATCH, TRAIN_LEN = 8, 1024
+TRAIN_LR, LR_SWEEP = 3e-4, (3e-3, 1e-3)
+CKPT_DIR = os.path.join(REPO, "build", "chip_smoke_ckpt")
+TRAIN_KERNELS = ("slay_fused_fwd", "slay_fused_bwd_q", "slay_fused_bwd_kv")
+
+
+def _launch_delta(before: dict) -> dict:
+    return {k: _build.LAUNCHES[k] - before[k] for k in TRAIN_KERNELS}
+
+
+def _expect_launches(got: dict, want: dict, what: str) -> None:
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, want {want}")
+
+
+def lr_sweep(cfg, dcfg) -> None:
+    """Loss per step at each rate of LR_SWEEP, from the main run's params
+    and batches: a reading that shows why the main run uses TRAIN_LR, not
+    a check."""
+    for lr in LR_SWEEP:
+        ocfg = AdamWConfig(lr=lr, warmup_steps=1, total_steps=TRAIN_STEPS)
+        step = loop.make_train_step(cfg, ocfg, loop.TrainConfig(remat=False))
+        params = api.init_params(cfg, SEED, device="cuda")
+        opt, ef, losses = adamw_init(params, ocfg), torch.zeros(()), []
+        for i in range(TRAIN_STEPS):
+            params, opt, ef, m = step(params, opt, ef,
+                                      pipeline.make_batch(dcfg, i))
+            losses.append(float(m["loss"]))
+        log(f"  lr sweep, lr {lr:g}: loss per step "
+            f"{', '.join(f'{x:.4f}' for x in losses)}")
+        del params, opt
+
+
+def phase_train(card: str) -> dict:
+    cfg = configs.get_config("slayformer-124m")
+    nl = cfg.num_layers
+    log(f"train {cfg.name}: {nl}L x {cfg.d_model}d, vocab {cfg.vocab_size}, "
+        f"{cfg.dtype}, random weights from seed {SEED}, {TRAIN_STEPS} AdamW "
+        f"steps of {TRAIN_BATCH} x {TRAIN_LEN} tokens")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    dcfg = pipeline.DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_LEN,
+                               global_batch=TRAIN_BATCH, seed=SEED)
+    # lr 3e-4: from these random weights (std-1 tied embedding, loss ≈ 113)
+    # the loss does not fall over 8 steps at lr 3e-3. ``lr_sweep`` prints
+    # the losses at LR_SWEEP beside this run's.
+    ocfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=TRAIN_STEPS)
+    tcfg = loop.TrainConfig(remat=False, ckpt_dir=CKPT_DIR, ckpt_every=1000)
+    tr = loop.Trainer(cfg, ocfg, tcfg, seed=SEED, device="cuda")
+    per_step, inner = [], tr.step_fn
+
+    def counted_step(*args):
+        before = dict(_build.LAUNCHES)
+        out = inner(*args)
+        per_step.append(_launch_delta(before))
+        return out
+
+    tr.step_fn = counted_step
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    hist = tr.run(pipeline.batch_iterator(dcfg), TRAIN_STEPS, log_every=1000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    tr.step_fn = inner
+    losses = [h["loss"] for h in hist]
+    log(f"  Trainer.run: {len(hist)} steps in {wall:.3f} s (checkpoint "
+        f"included); launches {launches}")
+    log(f"  loss per step: {', '.join(f'{x:.4f}' for x in losses)}")
+    if len(hist) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"bad loss history {losses}")
+    one = {k: nl for k in TRAIN_KERNELS}
+    for i, got in enumerate(per_step):
+        _expect_launches(got, one, f"train step {i}")
+    _expect_launches({k: launches[k] for k in TRAIN_KERNELS},
+                     {k: nl * TRAIN_STEPS for k in TRAIN_KERNELS}, "train run")
+    times = [h["step_time_s"] for h in hist]
+    step_s = statistics.median(times[1:])
+    log(f"  step time: first {times[0] * 1e3:.1f} ms, median of steps 2-"
+        f"{TRAIN_STEPS} {step_s * 1e3:.2f} ms = "
+        f"{TRAIN_BATCH * TRAIN_LEN / step_s:.1f} tokens/s  [{card}]")
+
+    # Resume: a new Trainer finds the checkpoint and has the same state.
+    tr2 = loop.Trainer(cfg, ocfg, tcfg, seed=SEED, device="cuda")
+    if tr2.step != TRAIN_STEPS:
+        raise AssertionError(f"resumed at step {tr2.step}, want {TRAIN_STEPS}")
+    state = {"params": tr.params, "opt": tr.opt_state}
+    for (key, x), (_, x2) in zip(tree_items(state),
+                                 tree_items({"params": tr2.params,
+                                             "opt": tr2.opt_state})):
+        if x.dtype != x2.dtype or not torch.equal(x, x2):
+            raise AssertionError(f"resumed {key} differs")
+    log(f"  resume: new Trainer at step {tr2.step}, "
+        f"{len(tree_leaves(state))} tensors bit-identical")
+    del tr2
+
+    # One more step with remat, on a copy: each layer's forward runs again.
+    batch = pipeline.make_batch(dcfg, TRAIN_STEPS)
+    step_remat = loop.make_train_step(cfg, ocfg, loop.TrainConfig(remat=True))
+    copy = (tree_map(torch.clone, tr.params), tree_map(torch.clone, tr.opt_state))
+    before = dict(_build.LAUNCHES)
+    _, _, _, m = step_remat(*copy, torch.zeros(()), batch)
+    torch.cuda.synchronize()
+    got = _launch_delta(before)
+    _expect_launches(got, {"slay_fused_fwd": 2 * nl, "slay_fused_bwd_q": nl,
+                           "slay_fused_bwd_kv": nl}, "remat step")
+    log(f"  remat step: loss {float(m['loss']):.4f}, launches {got}")
+    del copy
+
+    # Where the time goes in one step (no remat), traced.
+    step = loop.make_train_step(cfg, ocfg, tcfg)
+    profile("train step", lambda: step(tr.params, tr.opt_state,
+                                       torch.zeros(()), batch), step_s * 1e3)
+    del tr, step, step_remat
+    torch.cuda.empty_cache()
+    lr_sweep(cfg, dcfg)
+
+    # One step's loss and gradients, card against the port's CPU plain path,
+    # fp32, full width, 2 layers, batch 1 x 256.
+    cfg2 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    d2 = pipeline.DataConfig(vocab_size=cfg.vocab_size, seq_len=256,
+                             global_batch=1, seed=SEED)
+    b2 = pipeline.make_batch(d2, 0)
+    loss_g, _, g_gpu = loop.value_and_grad(
+        api.init_params(cfg2, SEED, device="cuda"), cfg2, b2)
+    t0 = time.perf_counter()
+    loss_c, _, g_cpu = loop.value_and_grad(
+        api.init_params(cfg2, SEED, device="cpu"), cfg2, b2)
+    log(f"  card fp32 vs CPU plain fp32, 2 layers, 1 x 256 tokens (CPU "
+        f"{time.perf_counter() - t0:.1f} s):")
+    # fp32 on both sides, summation order differs (cuBLAS and the kernels'
+    # tiles vs the CPU and 256-token chunks): the loss to 1e-5 relative,
+    # each gradient to 1e-4 of its largest magnitude.
+    close(loss_g.cpu(), loss_c, 0.0, 1e-5, "loss")
+    for (key, g), (_, c) in zip(tree_items(g_gpu), tree_items(g_cpu)):
+        scale = float(c.abs().max()) or 1.0
+        close(g.cpu(), c, 1e-4 * scale, 0.0, f"grad {key}")
+    # Checked last, so that the phase's other checks run in any case.
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses[0]} -> {losses[-1]}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; it needs an "
@@ -460,7 +780,9 @@ def main() -> int:
     k1 = phase_k1(feat, sp, (len(PROMPT_LENS) * cfg.num_heads,
                              max(PROMPT_LENS)))
     k2 = phase_k2(feat.feature_dim)
+    k34 = phase_k34(feat, sp)
     launches = phase_serve(card_line)
+    train = phase_train(card_line)
     kernels = [
         dict(name="slay_fused_fwd", route="cuda",
              source="src/repro_torch/csrc/slay_fused.cu",
@@ -470,6 +792,16 @@ def main() -> int:
              source="src/repro_torch/csrc/decode_step.cu",
              replaces="src/repro/kernels/decode_step.py:49",
              launches=launches["slay_decode_step"], **k2, library_ms=None),
+        dict(name="slay_fused_bwd_q", route="cuda",
+             source="src/repro_torch/csrc/slay_fused_bwd.cu",
+             replaces="src/repro/kernels/slay_fused.py:161",
+             launches=train["slay_fused_bwd_q"], **k34["slay_fused_bwd_q"],
+             library_ms=None),
+        dict(name="slay_fused_bwd_kv", route="cuda",
+             source="src/repro_torch/csrc/slay_fused_bwd.cu",
+             replaces="src/repro/kernels/slay_fused.py:208",
+             launches=train["slay_fused_bwd_kv"], **k34["slay_fused_bwd_kv"],
+             library_ms=None),
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi())

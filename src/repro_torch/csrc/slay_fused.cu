@@ -250,18 +250,7 @@ int slay_fused_fwd(const void* q, const void* k, const void* v,
                    int dtype, void* stream) {
   if (bk <= 0 || bh % bk || R < 1 || R > slay::kMaxNodes || L < 0)
     return (int)cudaErrorInvalidValue;
-  slay::PsiConsts c;
-  for (int r = 0; r < slay::kMaxNodes; ++r) {
-    const double s = r < R ? s_nodes[r] : 0.0;
-    c.sqrt2s[r] = (float)sqrt(2.0 * s);
-    c.s[r] = (float)s;
-    c.sqrt_w[r] = r < R ? (float)sqrt_w[r] : 0.f;
-  }
-  c.inv_sqrt_p = (float)(1.0 / sqrt((double)P));
-  c.inv_sqrt_d = (float)(1.0 / sqrt((double)D));
-  c.R = R;
-  c.P = P;
-  c.D = D;
+  const slay::PsiConsts c = slay::make_psi_consts(P, D, R, s_nodes, sqrt_w);
   slay::FusedDims dims{L, d, bh / bk, R * P * D, delta};
   const size_t smem = (size_t)slay_fused_smem_bytes(d, dv, P, D, R);
   auto st = static_cast<cudaStream_t>(stream);

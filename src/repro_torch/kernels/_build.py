@@ -40,6 +40,11 @@ SIGNATURES = {
         "slay_fused_smem_bytes": (ctypes.c_longlong, [_I] * 5),
         "slay_fused_fwd": (_I, [_P] * 7 + [_I] * 8 + [_D, _D, _F, _I, _P]),
     },
+    "slay_fused_bwd": {
+        "slay_fused_bwd_smem_bytes": (ctypes.c_longlong, [_I] * 5),
+        "slay_fused_bwd_q": (_I, [_P] * 11 + [_I] * 8 + [_D, _D, _F, _I, _P]),
+        "slay_fused_bwd_kv": (_I, [_P] * 12 + [_I] * 8 + [_D, _D, _F, _I, _P]),
+    },
     "decode_step": {
         "slay_decode_step": (_I, [_P] * 7 + [_I] * 6 + [_F, _P]),
     },
@@ -48,7 +53,8 @@ SIGNATURES = {
 # dtype codes of the C interface: 0 float32, 1 bfloat16.
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-LAUNCHES: dict[str, int] = {"slay_fused_fwd": 0, "slay_decode_step": 0}
+LAUNCHES: dict[str, int] = {"slay_fused_fwd": 0, "slay_fused_bwd_q": 0,
+                            "slay_fused_bwd_kv": 0, "slay_decode_step": 0}
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 

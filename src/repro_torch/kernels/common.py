@@ -1,9 +1,10 @@
 """The kernels' shared arithmetic in plain PyTorch.
 
 ``features_fwd`` is the fp32 Ψ exactly as the CUDA kernels compute it
-(``csrc/slay_common.cuh::psi_tile``): normalize → anchor poly
+(``csrc/slay_common.cuh::psi_rows``): normalize → anchor poly
 φ_p = (ûᵀa)²/√P → PRF φ_e = exp(√(2s_r) ωᵀû − s_r)/√D → √w_r (φ_p ⊗ φ_e),
-concatenated over r. The plain versions of the kernels use it, so a
+concatenated over r. ``features_bwd`` is its closed-form VJP
+(``psi_bwd_rows``). The plain versions of the kernels use both, so a
 kernel and its plain version differ only in summation order.
 """
 from __future__ import annotations
@@ -43,8 +44,12 @@ def causal_mask(scores: torch.Tensor) -> torch.Tensor:
 
 
 def features_fwd(u: torch.Tensor, a: torch.Tensor, w: torch.Tensor,
-                 st: FeatureStatics) -> torch.Tensor:
-    """u (..., d) -> Ψ(u) (..., m), all in fp32."""
+                 st: FeatureStatics):
+    """u (..., d) -> (Ψ(u) (..., m), intermediates for the VJP), all fp32.
+
+    The intermediates are (û, inv, pa, φ_p, [φ_e per node]): the
+    backward needs pa itself, not only φ_p = pa²/√P, for its sign.
+    """
     u = u.float()
     inv = torch.rsqrt(torch.sum(u * u, dim=-1, keepdim=True) + NORM_EPS)
     uh = u * inv
@@ -52,9 +57,40 @@ def features_fwd(u: torch.Tensor, a: torch.Tensor, w: torch.Tensor,
     phi_p = (pa * pa) * float(1.0 / np.sqrt(st.num_anchors))
     pw = uh @ w.float().T                                    # (..., D)
     inv_sqrt_d = float(1.0 / np.sqrt(st.num_prf))
-    chunks = []
+    chunks, phi_es = [], []
     for s, swr in zip(st.s_nodes, st.sqrt_w):
         phi_e = torch.exp(float(np.sqrt(2.0 * s)) * pw - s) * inv_sqrt_d
+        phi_es.append(phi_e)
         kron = (phi_p[..., :, None] * phi_e[..., None, :]) * swr
         chunks.append(kron.flatten(-2))
-    return torch.cat(chunks, dim=-1)
+    return torch.cat(chunks, dim=-1), (uh, inv, pa, phi_p, phi_es)
+
+
+def features_bwd(dpsi: torch.Tensor, res, a: torch.Tensor, w: torch.Tensor,
+                 st: FeatureStatics):
+    """dΨ (..., T, m) -> (du (..., T, d), dA (..., P, d), dΩ (..., D, d)).
+
+    fp32, in the order of ``repro/kernels/common.py::features_bwd``; dA
+    and dΩ sum over the token axis T only, so a (BH, L, m) cotangent
+    gives one partial per head, as the kernels write them.
+    """
+    uh, inv, pa, phi_p, phi_es = res
+    P, D = st.num_anchors, st.num_prf
+    lead = dpsi.shape[:-1]
+    dphi_p = torch.zeros_like(phi_p)                          # (..., P)
+    dpw = torch.zeros(*lead, D, device=dpsi.device)
+    for r, (s, swr) in enumerate(zip(st.s_nodes, st.sqrt_w)):
+        m_r = dpsi[..., r * P * D:(r + 1) * P * D].reshape(*lead, P, D) * swr
+        phi_e = phi_es[r]
+        # kron = φ_p ⊗ φ_e: split the cotangent.
+        dphi_p = dphi_p + torch.einsum("...pd,...d->...p", m_r, phi_e)
+        dphi_e = torch.einsum("...pd,...p->...d", m_r, phi_p)
+        # φ_e = exp(√(2s) pw − s)/√D → d pw = √(2s)·φ_e∘dφ_e.
+        dpw = dpw + float(np.sqrt(2.0 * s)) * phi_e * dphi_e
+    dpa = 2.0 * pa * dphi_p * float(1.0 / np.sqrt(P))       # (..., P)
+    duh = dpa @ a.float() + dpw @ w.float()
+    da = dpa.transpose(-1, -2) @ uh                           # (..., P, d)
+    dw = dpw.transpose(-1, -2) @ uh                           # (..., D, d)
+    # û = u·rsqrt(‖u‖²+ε):  du = inv·(dû − û (ûᵀdû)).
+    du = inv * (duh - uh * torch.sum(uh * duh, dim=-1, keepdim=True))
+    return du, da, dw

@@ -14,8 +14,8 @@ their state bit-identical.
 :func:`decode_linear_attention` chooses by the tensors' device: CUDA
 tensors launch the kernel (or raise), CPU tensors run
 :func:`decode_linear_attention_plain`. Forward only: the closed-form
-backward (``_decode_bwd`` in the JAX package) comes with the training
-slice as an autograd function.
+backward (``_decode_bwd`` in the JAX package) is on no training path and
+waits in ROADMAP Queue B under B4.
 """
 from __future__ import annotations
 
@@ -67,8 +67,9 @@ def _check(qf, kf, v, s, z, active):
             raise ValueError(f"{name} must be contiguous")
         if t.requires_grad:
             raise NotImplementedError(
-                "decode_linear_attention is forward-only here; its autograd "
-                "backward comes with the training slice")
+                "decode_linear_attention is forward-only: its autograd "
+                "backward (_decode_bwd in the JAX package) is on no training "
+                "path and is queued in ROADMAP Queue B under B4")
 
 
 def _launch(qf, kf, v, s, z, active, delta):

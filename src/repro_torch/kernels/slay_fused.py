@@ -1,16 +1,20 @@
-"""Fused causal SLAY attention forward: CUDA kernel and plain version.
+"""Fused causal SLAY attention, forward and backward: CUDA kernels and
+plain versions.
 
-Replaces the TPU megakernel ``repro/kernels/slay_fused.py::_fwd_kernel``
-(B1). Ψ(q), Ψ(k) are computed on-chip from raw q/k inside the chunked
-causal scan and never written to device memory; see
-``csrc/slay_fused.cu`` for the design and what bounds it.
+Replaces the TPU megakernel ``repro/kernels/slay_fused.py``: the forward
+``_fwd_kernel`` (B1) with K1 (``csrc/slay_fused.cu``), and the two
+backward scans ``_bwd_q_kernel`` (B2) and ``_bwd_kv_kernel`` (B3) with K3
+and K4 (``csrc/slay_fused_bwd.cu``). Ψ(q), Ψ(k) are computed on-chip from
+raw q/k inside the chunked causal scans and never written to device
+memory; see the CUDA sources for the designs and what bounds them.
 
-:func:`fused_causal_attention` chooses by the tensors' device: CUDA
-tensors launch the kernel (or raise), CPU tensors run
-:func:`fused_causal_attention_plain`, which repeats the kernel's fp32
-arithmetic in PyTorch. There is no fallback from one to the other.
-
-Forward only: the backward kernels (B2, B3) come with the training slice.
+:func:`fused_causal_attention` is differentiable through
+:class:`FusedAttention`, the counterpart of the ``_fused`` custom VJP: its
+forward saves (q, k, v, anchors, omegas, y, den) and its backward runs
+K3 then K4. Every wrapper chooses by the tensors' device: CUDA tensors
+launch the kernels (or raise), CPU tensors run the plain versions, which
+repeat the kernels' fp32 arithmetic in PyTorch. There is no fallback from
+one to the other.
 """
 from __future__ import annotations
 
@@ -20,7 +24,8 @@ import torch
 
 from repro_torch.core.features import SlayFeatureConfig
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import causal_mask, feature_statics, features_fwd
+from repro_torch.kernels.common import (causal_mask, feature_statics,
+                                        features_bwd, features_fwd)
 
 SMEM_LIMIT = 232448         # dynamic shared memory one Hopper block may use
 
@@ -34,8 +39,8 @@ def fused_causal_attention_plain(q, k, v, anchors, omegas,
     bk, _, dv = v.shape
     g = bh // bk
     st = feature_statics(cfg)
-    qf = features_fwd(q, anchors, omegas, st).reshape(bk, g, L, -1)
-    kf = features_fwd(k, anchors, omegas, st)            # (bk, L, m)
+    qf = features_fwd(q, anchors, omegas, st)[0].reshape(bk, g, L, -1)
+    kf = features_fwd(k, anchors, omegas, st)[0]         # (bk, L, m)
     vf = v.float()
     m = qf.shape[-1]
     s = torch.zeros(bk, 1, m, dv, device=q.device)
@@ -85,28 +90,48 @@ def _check(q, k, v, anchors, omegas, cfg: SlayFeatureConfig, chunk_size):
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if t.requires_grad:
-            raise NotImplementedError(
-                "fused_causal_attention is forward-only: its backward "
-                "kernels (B2, B3) come with the training slice")
 
 
-def _launch(q, k, v, anchors, omegas, cfg: SlayFeatureConfig, delta):
-    bh, L, d = q.shape
-    bk, _, dv = v.shape
+def _check_residuals(q, v, y, den, dy):
+    bh, L, _ = q.shape
+    want = (bh, L, v.shape[-1])
+    if y.shape != want or dy.shape != want or den.shape != (bh, L):
+        raise ValueError(f"y {tuple(y.shape)}, dy {tuple(dy.shape)}, den "
+                         f"{tuple(den.shape)} do not match q {tuple(q.shape)}")
+    if y.dtype != v.dtype or dy.dtype != v.dtype or den.dtype != torch.float32:
+        raise TypeError(f"y and dy must be {v.dtype} and den float32, got "
+                        f"{y.dtype}, {dy.dtype}, {den.dtype}")
+    for name, t in (("y", y), ("den", den), ("dy", dy)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _kernel_args(lib, smem_fn, q, v, cfg: SlayFeatureConfig):
+    """Shape checks shared by K1, K3 and K4; returns the quadrature
+    constants as C double arrays."""
+    d, dv = q.shape[-1], v.shape[-1]
     if dv not in (16, 32, 64, 128):
         raise ValueError(f"kernel takes dv in (16, 32, 64, 128), got {dv}")
     P, D, R = cfg.num_anchors, cfg.num_prf, cfg.num_quad_nodes
     if R > 8:
         raise ValueError(f"kernel takes at most 8 quadrature nodes, got {R}")
-    lib = _build.load("slay_fused")
-    smem = lib.slay_fused_smem_bytes(d, dv, P, D, R)
+    smem = getattr(lib, smem_fn)(d, dv, P, D, R)
     if smem > SMEM_LIMIT:
         raise ValueError(f"shapes need {smem} B of shared memory per block, "
                          f"more than {SMEM_LIMIT}")
     st = feature_statics(cfg)
-    s_nodes = (ctypes.c_double * R)(*st.s_nodes)
-    sqrt_w = (ctypes.c_double * R)(*st.sqrt_w)
+    return ((ctypes.c_double * R)(*st.s_nodes),
+            (ctypes.c_double * R)(*st.sqrt_w))
+
+
+def _launch(q, k, v, anchors, omegas, cfg: SlayFeatureConfig, delta):
+    bh, L, d = q.shape
+    bk, _, dv = v.shape
+    P, D, R = cfg.num_anchors, cfg.num_prf, cfg.num_quad_nodes
+    lib = _build.load("slay_fused")
+    s_nodes, sqrt_w = _kernel_args(lib, "slay_fused_smem_bytes", q, v, cfg)
     y = torch.empty(bh, L, dv, dtype=v.dtype, device=q.device)
     den = torch.empty(bh, L, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -121,6 +146,211 @@ def _launch(q, k, v, anchors, omegas, cfg: SlayFeatureConfig, delta):
     return y, den
 
 
+# -- backward ------------------------------------------------------------
+
+
+def _cotangents(y, den, dy, delta):
+    """G = dy/(den+δ) (BH, L, dv) and h = −Σ(dy∘y)/(den+δ) (BH, L, 1)."""
+    e = den.float()[..., None] + delta
+    dyf = dy.float()
+    return dyf / e, -torch.sum(dyf * y.float(), dim=-1, keepdim=True) / e
+
+
+def _per_q_head(q, k, v, anchors, omegas, st):
+    """Ψ of every q row and, repeated for each q head of its GQA group, of
+    every kv row, as the kernels recompute them (one block per q head)."""
+    g = q.shape[0] // k.shape[0]
+    qf, qres = features_fwd(q, anchors, omegas, st)
+    kf, kres = features_fwd(k.repeat_interleave(g, 0), anchors, omegas, st)
+    return qf, qres, kf, kres, v.float().repeat_interleave(g, 0)
+
+
+def fused_bwd_q_plain(q, k, v, anchors, omegas, y, den, dy,
+                      cfg: SlayFeatureConfig, *, chunk_size: int = 256,
+                      delta: float = 1e-6):
+    """Plain twin of K3 (B2), the forward re-scan: -> (dq (BH, L, d) in
+    q's dtype, dA (BH, P, d), dΩ (BH, D, d) fp32 per-head partials)."""
+    st = feature_statics(cfg)
+    _, qres, kf, _, vf = _per_q_head(q, k, v, anchors, omegas, st)
+    gg, hh = _cotangents(y, den, dy, delta)
+    bh, L, _ = q.shape
+    m, dv = kf.shape[-1], vf.shape[-1]
+    s = torch.zeros(bh, m, dv, device=q.device)
+    z = torch.zeros(bh, m, device=q.device)
+    dqf = []
+    for c0 in range(0, L, chunk_size):
+        sl = slice(c0, c0 + chunk_size)
+        k_c, v_c, g_c, h_c = kf[:, sl], vf[:, sl], gg[:, sl], hh[:, sl]
+        # dP = tril(G Vᵀ + h 1ᵀ);  dΨq = G Sᵀ + h zᵀ + dP Ψk.
+        dp = causal_mask(g_c @ v_c.transpose(-1, -2) + h_c)
+        dqf.append(g_c @ s.transpose(-1, -2) + h_c * z[:, None, :]
+                   + dp @ k_c)
+        s = s + k_c.transpose(-1, -2) @ v_c
+        z = z + k_c.sum(-2)
+    dq, da, dw = features_bwd(torch.cat(dqf, dim=1), qres, anchors, omegas,
+                              st)
+    return dq.to(q.dtype), da, dw
+
+
+def fused_bwd_kv_plain(q, k, v, anchors, omegas, y, den, dy,
+                       cfg: SlayFeatureConfig, *, chunk_size: int = 256,
+                       delta: float = 1e-6):
+    """Plain twin of K4 (B3), the reverse scan: -> per-q-head partials dk
+    (BH, L, d) in k's dtype, dv (BH, L, dv) in v's dtype, dA (BH, P, d)
+    and dΩ (BH, D, d) fp32."""
+    st = feature_statics(cfg)
+    qf, _, kf, kres, vf = _per_q_head(q, k, v, anchors, omegas, st)
+    gg, hh = _cotangents(y, den, dy, delta)
+    bh, L, _ = q.shape
+    m, dv = kf.shape[-1], vf.shape[-1]
+    ds = torch.zeros(bh, m, dv, device=q.device)
+    dz = torch.zeros(bh, m, device=q.device)
+    dkf, dvs = [], []
+    for c0 in reversed(range(0, L, chunk_size)):
+        sl = slice(c0, c0 + chunk_size)
+        q_c, k_c, v_c = qf[:, sl], kf[:, sl], vf[:, sl]
+        g_c, h_c = gg[:, sl], hh[:, sl]
+        scores = causal_mask(q_c @ k_c.transpose(-1, -2))
+        dp = causal_mask(g_c @ v_c.transpose(-1, -2) + h_c)
+        # dΨk = dPᵀ Ψq + V dSᵀ + 1 dzᵀ;  dV = Pᵀ G + Ψk dS.
+        dkf.append(dp.transpose(-1, -2) @ q_c + v_c @ ds.transpose(-1, -2)
+                   + dz[:, None, :])
+        dvs.append(scores.transpose(-1, -2) @ g_c + k_c @ ds)
+        # Carry the state cotangents to the previous chunk.
+        ds = ds + q_c.transpose(-1, -2) @ g_c
+        dz = dz + torch.sum(q_c * h_c, dim=-2)
+    dk, da, dw = features_bwd(torch.cat(dkf[::-1], dim=1), kres, anchors,
+                              omegas, st)
+    return dk.to(k.dtype), torch.cat(dvs[::-1], dim=1).to(v.dtype), da, dw
+
+
+def _reduce(k, v, anchors, omegas, dq, da_q, dw_q, dk_p, dv_p, da_k, dw_k):
+    """Sum the per-q-head partials as ``_bwd_impl`` does: dk and dv over
+    each GQA group, dA and dΩ over heads and over both scans."""
+    bh, L, _ = dk_p.shape
+    bk = k.shape[0]
+    dk = dk_p.reshape(bk, bh // bk, L, -1).sum(1).to(k.dtype)
+    dv = dv_p.reshape(bk, bh // bk, L, -1).sum(1).to(v.dtype)
+    da = torch.sum(da_q + da_k, dim=0).to(anchors.dtype)
+    dw = torch.sum(dw_q + dw_k, dim=0).to(omegas.dtype)
+    return dq, dk, dv, da, dw
+
+
+def fused_causal_attention_bwd_plain(q, k, v, anchors, omegas, y, den, dy,
+                                     cfg: SlayFeatureConfig, *,
+                                     chunk_size: int = 256,
+                                     delta: float = 1e-6):
+    """Plain backward: -> (dq, dk, dv, dA, dΩ), the two scans' fp32
+    arithmetic chunk by chunk. The CPU path and the tests use it."""
+    kw = dict(chunk_size=chunk_size, delta=delta)
+    args = (q, k, v, anchors, omegas, y, den, dy, cfg)
+    return _reduce(k, v, anchors, omegas, *fused_bwd_q_plain(*args, **kw),
+                   *fused_bwd_kv_plain(*args, **kw))
+
+
+def _launch_bwd(fn, outs, q, k, v, anchors, omegas, y, den, dy,
+                cfg: SlayFeatureConfig, delta):
+    bh, L, d = q.shape
+    bk, _, dv = v.shape
+    if d > 128:
+        raise ValueError(f"backward kernels take head dim <= 128, got {d}")
+    lib = _build.load("slay_fused_bwd")
+    s_nodes, sqrt_w = _kernel_args(lib, "slay_fused_bwd_smem_bytes", q, v,
+                                   cfg)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, fn)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), anchors.data_ptr(),
+            omegas.data_ptr(), dy.data_ptr(), y.data_ptr(), den.data_ptr(),
+            *(o.data_ptr() for o in outs), bh, bk, L, d, dv,
+            cfg.num_anchors, cfg.num_prf, cfg.num_quad_nodes, s_nodes, sqrt_w,
+            delta, _build.DTYPE_CODES[q.dtype], stream)
+    _build.check(err, fn)
+    _build.LAUNCHES[fn] += 1
+    return outs
+
+
+def _fp32(*shape, like):
+    return torch.empty(*shape, dtype=torch.float32, device=like.device)
+
+
+def launch_bwd_q(q, k, v, anchors, omegas, y, den, dy,
+                 cfg: SlayFeatureConfig, delta: float = 1e-6):
+    """K3 on CUDA tensors: -> (dq, dA, dΩ partials), as
+    :func:`fused_bwd_q_plain`."""
+    bh, L, d = q.shape
+    P, D = cfg.num_anchors, cfg.num_prf
+    outs = (torch.empty_like(q), _fp32(bh, P, d, like=q), _fp32(bh, D, d, like=q))
+    return _launch_bwd("slay_fused_bwd_q", outs, q, k, v, anchors, omegas, y,
+                       den, dy, cfg, delta)
+
+
+def launch_bwd_kv(q, k, v, anchors, omegas, y, den, dy,
+                  cfg: SlayFeatureConfig, delta: float = 1e-6):
+    """K4 on CUDA tensors: -> (dk, dv, dA, dΩ per-q-head partials), as
+    :func:`fused_bwd_kv_plain`."""
+    bh, L, d = q.shape
+    dv, P, D = v.shape[-1], cfg.num_anchors, cfg.num_prf
+    outs = (torch.empty(bh, L, d, dtype=k.dtype, device=q.device),
+            torch.empty(bh, L, dv, dtype=v.dtype, device=q.device),
+            _fp32(bh, P, d, like=q), _fp32(bh, D, d, like=q))
+    return _launch_bwd("slay_fused_bwd_kv", outs, q, k, v, anchors, omegas, y,
+                       den, dy, cfg, delta)
+
+
+def fused_causal_attention_bwd(q, k, v, anchors, omegas, y, den, dy,
+                               cfg: SlayFeatureConfig, *,
+                               chunk_size: int = 256, delta: float = 1e-6):
+    """Backward of :func:`fused_causal_attention` from its residuals:
+    -> (dq, dk, dv, dA, dΩ). CUDA tensors run K3 then K4, CPU tensors the
+    plain version."""
+    _check(q, k, v, anchors, omegas, cfg, chunk_size)
+    _check_residuals(q, v, y, den, dy)
+    if q.device.type == "cuda":
+        args = (q, k, v, anchors, omegas, y, den, dy, cfg, delta)
+        return _reduce(k, v, anchors, omegas, *launch_bwd_q(*args),
+                       *launch_bwd_kv(*args))
+    if q.device.type != "cpu":
+        raise ValueError(f"unsupported device {q.device}")
+    return fused_causal_attention_bwd_plain(q, k, v, anchors, omegas, y, den,
+                                            dy, cfg, chunk_size=chunk_size,
+                                            delta=delta)
+
+
+# -- entry point ---------------------------------------------------------
+
+
+def _forward(q, k, v, anchors, omegas, cfg, chunk_size, delta):
+    if q.device.type == "cuda":
+        return _launch(q, k, v, anchors, omegas, cfg, delta)
+    if q.device.type != "cpu":
+        raise ValueError(f"unsupported device {q.device}")
+    return fused_causal_attention_plain(q, k, v, anchors, omegas, cfg,
+                                        chunk_size=chunk_size, delta=delta)
+
+
+class FusedAttention(torch.autograd.Function):
+    """The ``_fused`` custom VJP of the JAX package: the forward runs K1
+    (the plain forward on the CPU) and saves (q, k, v, anchors, omegas, y,
+    den); the backward runs K3 and K4 (the plain backward on the CPU).
+    ``den`` is a residual output and carries no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, anchors, omegas, cfg, chunk_size, delta):
+        y, den = _forward(q, k, v, anchors, omegas, cfg, chunk_size, delta)
+        ctx.save_for_backward(q, k, v, anchors, omegas, y, den)
+        ctx.cfg, ctx.chunk_size, ctx.delta = cfg, chunk_size, delta
+        ctx.mark_non_differentiable(den)
+        return y, den
+
+    @staticmethod
+    def backward(ctx, dy, _dden):
+        grads = fused_causal_attention_bwd(
+            *ctx.saved_tensors, dy.contiguous(), ctx.cfg,
+            chunk_size=ctx.chunk_size, delta=ctx.delta)
+        return (*grads, None, None, None)
+
+
 def fused_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            anchors: torch.Tensor, omegas: torch.Tensor,
                            cfg: SlayFeatureConfig, *, chunk_size: int = 256,
@@ -128,17 +358,15 @@ def fused_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (BH, L, d), k (BK, L, d), v (BK, L, dv) -> (y (BH, L, dv), den
     (BH, L) fp32, δ not added).
 
-    Raw (pre-feature) q/k; Ψ is computed inside the kernel. BH must be a
-    multiple of BK (GQA: q row h reads kv row h // G); L must be a multiple
-    of ``chunk_size`` — the ``ops`` wrapper zero-pads ragged L. The CUDA
-    kernel walks the sequence in 16-token tiles whatever ``chunk_size``
-    is; chunking only orders the evaluation, and ``chunk_size`` is kept for
-    parity with the JAX API and the plain version.
+    Raw (pre-feature) q/k; Ψ is computed inside the kernel. Differentiable
+    with respect to q, k, v, anchors and omegas (:class:`FusedAttention`).
+    BH must be a multiple of BK (GQA: q row h reads kv row h // G); L must
+    be a multiple of ``chunk_size`` — the ``ops`` wrapper zero-pads ragged
+    L. The CUDA kernels walk the sequence in 16-token tiles whatever
+    ``chunk_size`` is; chunking only orders the evaluation, and
+    ``chunk_size`` is kept for parity with the JAX API and the plain
+    versions.
     """
     _check(q, k, v, anchors, omegas, cfg, chunk_size)
-    if q.device.type == "cuda":
-        return _launch(q, k, v, anchors, omegas, cfg, delta)
-    if q.device.type != "cpu":
-        raise ValueError(f"unsupported device {q.device}")
-    return fused_causal_attention_plain(q, k, v, anchors, omegas, cfg,
-                                        chunk_size=chunk_size, delta=delta)
+    return FusedAttention.apply(q, k, v, anchors, omegas, cfg, chunk_size,
+                                delta)

@@ -2,6 +2,7 @@
 
     params    = api.init_params(cfg, seed, device="cuda")
     logits, _ = api.forward(params, cfg, tokens)
+    loss, mx  = api.loss_fn(params, cfg, batch)     # batch: tokens, labels
     logits, c = api.prefill(params, cfg, tokens)
     logits, c = api.decode_step(params, cfg, c, tokens)
 """
@@ -22,6 +23,10 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device="cuda") -> dict:
 
 def forward(params, cfg: ArchConfig, tokens):
     return _mod(cfg).forward(params, cfg, tokens)
+
+
+def loss_fn(params, cfg: ArchConfig, batch: dict, *, remat=False):
+    return _mod(cfg).loss_fn(params, cfg, batch, remat=remat)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int = 0, *,

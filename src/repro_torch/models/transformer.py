@@ -9,16 +9,20 @@ Parameters are a plain dict laid out like the JAX package's pytree, so
             mlp: up (nl, d, ff), down (nl, ff, d) [, gate (nl, d, ff)],
     slay: anchors (P, dh), omegas (D, dh)   (fp32, shared by every layer)
 
-Layers are stacked along a leading axis and run by a Python loop. Serving
-is ``prefill`` (prompt -> last-token logits + (S, z) cache) then
-``decode_step`` (one token, the cache updated in place).
+Layers are stacked along a leading axis and run by a Python loop.
+Training is ``loss_fn`` (next-token cross-entropy) under autograd, with
+optional per-layer recomputation (``remat``). Serving is ``prefill``
+(prompt -> last-token logits + (S, z) cache) then ``decode_step`` (one
+token, the cache updated in place).
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.features import init_feature_params
@@ -107,21 +111,55 @@ def _logits(params: dict, cfg: ArchConfig, x):
     return unembed(table, x, cfg.final_logit_softcap)
 
 
-def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor):
-    """tokens (B, L) -> (logits (B, L, V), aux loss 0)."""
+def _layer_fwd(cfg: ArchConfig, slay_params: dict, positions, lp: dict, x):
+    q, k, v = _qkv(cfg, lp, x, positions)
+    y = attn.full_attention(cfg.attention_spec(), slay_params, q, k, v)
+    return _finish_layer(cfg, lp, x, y)
+
+
+def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
+            remat: bool | str = False):
+    """tokens (B, L) -> (logits (B, L, V), aux loss 0).
+
+    The SLAY projections are constants of the model (``detach``, as
+    ``stop_gradient`` in the JAX package). ``remat=True`` recomputes each
+    layer in the backward pass (``torch.utils.checkpoint``) instead of
+    keeping its activations, so the fused forward runs twice per layer.
+    """
     cfg.check_supported()
+    if remat == "save_collectives":
+        raise NotImplementedError(
+            "remat='save_collectives' differs from remat=True only across "
+            "tensor-parallel collectives, which come with sharding (ROADMAP "
+            "Queue A item 13)")
     dev = params["embed"].device
     tokens = tokens.to(dev)
     x = embed(params["embed"], tokens).to(cfg.activation_dtype)
     L = x.shape[1]
     positions = torch.arange(L, dtype=torch.int32, device=dev)[None, :]
-    spec = cfg.attention_spec()
+    slay_params = {k: v.detach() for k, v in params["slay"].items()}
+    layer = functools.partial(_layer_fwd, cfg, slay_params, positions)
     for i in range(cfg.num_layers):
         lp = _layer(params, i)
-        q, k, v = _qkv(cfg, lp, x, positions)
-        y = attn.full_attention(spec, params["slay"], q, k, v)
-        x = _finish_layer(cfg, lp, x, y)
+        if remat:
+            x = checkpoint(layer, lp, x, use_reentrant=False)
+        else:
+            x = layer(lp, x)
     return _logits(params, cfg, x), torch.zeros((), device=dev)
+
+
+def loss_fn(params: dict, cfg: ArchConfig, batch: dict, *,
+            remat: bool | str = False) -> tuple[torch.Tensor, dict]:
+    """Next-token cross-entropy: fp32 logits, logsumexp minus the gold
+    logit, mean over tokens (+ 0.01 x the MoE aux loss, 0 here)."""
+    logits, aux = forward(params, cfg, batch["tokens"], remat=remat)
+    labels = batch["labels"].to(logits.device).long()
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = torch.mean(logz - gold)
+    total = nll + 0.01 * aux
+    return total, {"nll": nll, "moe_aux": aux}
 
 
 class DecodeCache(NamedTuple):

@@ -76,8 +76,8 @@ def test_kernel_features_fwd_matches_jax_kernel_arithmetic():
                              interpret=True).feat
     want, _ = jcommon.features_fwd(jnp.asarray(u), jp["anchors"], jp["omegas"],
                                    jst)
-    got = tcommon.features_fwd(torch.from_numpy(u), tp["anchors"],
-                               tp["omegas"], tcommon.feature_statics(tcfg))
+    got, _ = tcommon.features_fwd(torch.from_numpy(u), tp["anchors"],
+                                  tp["omegas"], tcommon.feature_statics(tcfg))
     _close(got, want)
 
 

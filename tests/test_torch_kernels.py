@@ -1,12 +1,15 @@
-"""The port's two kernel functions against the JAX package's Pallas kernels.
+"""The port's kernel functions against the JAX package's Pallas kernels.
 
 On the CPU the port's wrappers run their plain PyTorch versions; the JAX
 side runs the Pallas kernels in interpret mode, as the JAX tests do. Both
 compute Ψ in fp32 and accumulate in fp32, so they differ only in summation
 order: y is held to 1e-5, den (a sum of up to L nonnegative terms of order
 one) to 1e-5 relative. The decode state update is one add per element on
-both sides and must match to 1e-6. The kernel-vs-plain cases need the card
-and skip without one.
+both sides and must match to 1e-6. Gradients of the fused attention (the
+custom VJP on the JAX side, the autograd Function on the port's) are held
+to 1e-4 of each gradient's largest magnitude: dA and dΩ sum over every
+token of every head. The kernel-vs-plain cases need the card and skip
+without one.
 """
 import jax
 import jax.numpy as jnp
@@ -15,11 +18,13 @@ import pytest
 import torch
 
 from repro.core import features as jfeat
+from repro.kernels import common as jcommon
 from repro.kernels import decode_step as jdecode
 from repro.kernels import ops as jops
 from repro.kernels import slay_fused as jfused
 from repro_torch.core import features as tfeat
 from repro_torch.kernels import _build
+from repro_torch.kernels import common as tcommon
 from repro_torch.kernels import decode_step as tdecode
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
@@ -190,12 +195,16 @@ def test_fused_wrapper_rejects(bad, exc):
 
 
 def test_fused_wrapper_rejects_ragged_and_grad():
+    # Ragged L is the ops wrapper's job; gradients now flow to every input.
     args, cfg = _fused_args()
     with pytest.raises(ValueError, match="not divisible by chunk"):
         tfused.fused_causal_attention(*args, cfg, chunk_size=24)
-    args[0].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tfused.fused_causal_attention(*args, cfg, chunk_size=CHUNK)
+    for a in args:
+        a.requires_grad_(True)
+    y, den = tfused.fused_causal_attention(*args, cfg, chunk_size=CHUNK)
+    assert y.requires_grad and not den.requires_grad
+    y.sum().backward()
+    assert all(a.grad is not None and a.grad.shape == a.shape for a in args)
 
 
 @pytest.mark.parametrize("which,bad,exc", [
@@ -217,7 +226,7 @@ def test_decode_wrapper_rejects(which, bad, exc):
 def test_decode_wrapper_rejects_grad():
     args = [torch.from_numpy(x) for x in _decode_inputs(0, 6, 3)]
     args[0].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(NotImplementedError, match="Queue B under B4"):
         tdecode.decode_linear_attention(*args)
 
 
@@ -226,10 +235,13 @@ def test_cpu_tensors_launch_nothing():
     # counted and no kernel library is built or loaded.
     _build.reset_launches()
     args, cfg = _fused_args()
-    tfused.fused_causal_attention(*args, cfg, chunk_size=CHUNK)
+    args[0].requires_grad_(True)
+    y, _ = tfused.fused_causal_attention(*args, cfg, chunk_size=CHUNK)
+    y.sum().backward()                       # the plain backward
     dargs = [torch.from_numpy(x) for x in _decode_inputs(0, 6, 3)]
     tdecode.decode_linear_attention(*dargs)
-    assert _build.LAUNCHES == {"slay_fused_fwd": 0, "slay_decode_step": 0}
+    assert _build.LAUNCHES == {"slay_fused_fwd": 0, "slay_fused_bwd_q": 0,
+                               "slay_fused_bwd_kv": 0, "slay_decode_step": 0}
     assert not _build._LIBS
 
 
@@ -250,6 +262,138 @@ def test_fused_kernel_matches_plain_on_card(dtype):
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(y.float(), yp.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(den, denp, rtol=1e-4, atol=0.0)
+
+
+# -- the backward (B2 + B3) ---------------------------------------------
+
+
+def _grad_tol(got, want):
+    scale = float(np.abs(np.asarray(want)).max())
+    _close(got, want, rtol=0.0, atol=1e-4 * scale)
+
+
+def _bwd_inputs(seed, bh, bk, L, dv=8):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=s).astype(np.float32)
+            for s in ((bh, L, D_HEAD), (bk, L, D_HEAD), (bk, L, dv), (bh, L, dv))]
+
+
+def test_features_bwd_matches_jax():
+    # The Ψ VJP, called directly on both sides: du, dA, dΩ within 1e-5.
+    jcfg, tcfg = _cfgs()
+    jp, tp = _proj(jcfg)
+    rng = np.random.default_rng(11)
+    u = rng.normal(size=(13, D_HEAD)).astype(np.float32)
+    u[3] = 0.0                                      # the eps-guarded zero row
+    dpsi = rng.normal(size=(13, tcfg.feature_dim)).astype(np.float32)
+    jst = jfused.statics_for(jcfg, chunk_size=CHUNK, delta=1e-6,
+                             interpret=True).feat
+    tst = tcommon.feature_statics(tcfg)
+    _, jres = jcommon.features_fwd(jnp.asarray(u), jp["anchors"], jp["omegas"],
+                                   jst)
+    want = jcommon.features_bwd(jnp.asarray(dpsi), jres, jp["anchors"],
+                                jp["omegas"], jst)
+    _, tres = tcommon.features_fwd(torch.from_numpy(u), tp["anchors"],
+                                   tp["omegas"], tst)
+    got = tcommon.features_bwd(torch.from_numpy(dpsi), tres, tp["anchors"],
+                               tp["omegas"], tst)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        _close(g, w)
+
+
+@pytest.mark.parametrize("bh,bk,chunk", [(4, 4, 16), (4, 2, 16), (4, 2, 32)])
+def test_fused_grads_match_pallas_vjp(bh, bk, chunk):
+    # Autograd through the port (the plain backward on the CPU) against
+    # jax.vjp of the interpret-mode Pallas kernels: dq, dk, dv, dA, dΩ.
+    jcfg, tcfg = _cfgs()
+    jp, tp = _proj(jcfg)
+    q, k, v, dy = _bwd_inputs(bh + 10 * bk + chunk, bh, bk, 64)
+    a, w = np.array(jp["anchors"]), np.array(jp["omegas"])
+
+    def jfn(*xs):
+        return jfused.fused_causal_attention(*xs, jcfg, chunk_size=chunk,
+                                             interpret=True)
+
+    _, vjp = jax.vjp(jfn, *(jnp.asarray(x) for x in (q, k, v, a, w)))
+    want = vjp(jnp.asarray(dy))
+    xs = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v, a, w)]
+    y, _ = tfused.fused_causal_attention(*xs, tcfg, chunk_size=chunk)
+    got = torch.autograd.grad(y, xs, torch.from_numpy(dy))
+    for g, wnt in zip(got, want):
+        assert g.shape == wnt.shape
+        _grad_tol(g, wnt)
+
+
+def test_fused_grads_model_layout_ragged_matches_pallas_vjp():
+    # ops.slay_fused_attention: ragged L = 37 (zero padding) and GQA, the
+    # gradients carried back through pad, reshape and permute.
+    jcfg, tcfg = _cfgs()
+    jp, tp = _proj(jcfg)
+    rng = np.random.default_rng(37)
+    B, L, H, Hkv = 1, 37, 4, 2
+    q = rng.normal(size=(B, L, H, D_HEAD)).astype(np.float32)
+    k = rng.normal(size=(B, L, Hkv, D_HEAD)).astype(np.float32)
+    v = rng.normal(size=(B, L, Hkv, 8)).astype(np.float32)
+    dy = rng.normal(size=(B, L, H, 8)).astype(np.float32)
+
+    def jfn(q, k, v):
+        return jops.slay_fused_attention(q, k, v, jp, jcfg, chunk_size=CHUNK,
+                                         interpret=True)
+
+    _, vjp = jax.vjp(jfn, *(jnp.asarray(x) for x in (q, k, v)))
+    want = vjp(jnp.asarray(dy))
+    xs = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    y = tops.slay_fused_attention(*xs, tp, tcfg, chunk_size=CHUNK)
+    got = torch.autograd.grad(y, xs, torch.from_numpy(dy))
+    for g, wnt in zip(got, want):
+        assert g.shape == wnt.shape
+        _grad_tol(g, wnt)
+
+
+@pytest.mark.parametrize("bh,bk", [(3, 3), (4, 2)])
+def test_plain_bwd_matches_autograd_of_plain_forward(bh, bk):
+    # The hand-written backward against torch autograd through the plain
+    # forward, an oracle that shares none of its code.
+    _, tcfg = _cfgs()
+    p = tfeat.init_feature_params(tcfg, torch.Generator().manual_seed(2),
+                                  device="cpu")
+    q, k, v, dy = (torch.from_numpy(x) for x in _bwd_inputs(bh, bh, bk, 48))
+    xs = [t.clone().requires_grad_(True)
+          for t in (q, k, v, p["anchors"], p["omegas"])]
+    y, den = tfused.fused_causal_attention_plain(*xs, tcfg, chunk_size=CHUNK)
+    want = torch.autograd.grad(y, xs, dy)
+    got = tfused.fused_causal_attention_bwd_plain(
+        q, k, v, p["anchors"], p["omegas"], y.detach(), den.detach(), dy,
+        tcfg, chunk_size=CHUNK)
+    for g, wnt in zip(got, want):
+        _grad_tol(g, wnt)
+
+
+@needs_card
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_bwd_kernels_match_plain_on_card(dtype):
+    # K3 and K4 against their plain twins, partials included; ragged L.
+    # fp32: summation order (1e-4 of each output's scale); bf16: one
+    # rounding of dq/dk/dv partials to bf16 (1e-2 of scale).
+    _, tcfg = _cfgs()
+    p = tfeat.init_feature_params(tcfg, torch.Generator().manual_seed(0))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn(8, 90, D_HEAD, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(4, 90, D_HEAD, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(4, 90, 32, generator=gen, device="cuda").to(dtype)
+    dy = torch.randn(8, 90, 32, generator=gen, device="cuda").to(dtype)
+    a, w = p["anchors"], p["omegas"]
+    y, den = tfused.fused_causal_attention(q, k, v, a, w, tcfg, chunk_size=90)
+    args = (q, k, v, a, w, y, den, dy, tcfg)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for kern, plain in ((tfused.launch_bwd_q, tfused.fused_bwd_q_plain),
+                        (tfused.launch_bwd_kv, tfused.fused_bwd_kv_plain)):
+        got, want = kern(*args), plain(*args, chunk_size=90)
+        for g, wnt in zip(got, want):
+            scale = float(wnt.float().abs().max())
+            torch.testing.assert_close(g.float(), wnt.float(), rtol=0.0,
+                                       atol=tol * scale)
 
 
 @needs_card
