@@ -7,6 +7,7 @@
 #pragma once
 
 #include <cmath>
+#include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,6 +64,19 @@ __device__ __forceinline__ float warp_sum(float x) {
   for (int off = 16; off > 0; off >>= 1)
     x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
+}
+
+// Anchors (P, d) then omegas (D, d) to aw (P + D, ldw) in fp32 shared
+// memory, by the whole block. No sync.
+__device__ inline void load_projections(const float* anchors,
+                                        const float* omegas, int d,
+                                        const PsiConsts& c, float* aw,
+                                        int ldw) {
+  for (int i = threadIdx.x; i < (c.P + c.D) * d; i += blockDim.x) {
+    const int row = i / d, col = i % d;
+    aw[row * ldw + col] =
+        row < c.P ? anchors[row * d + col] : omegas[(row - c.P) * d + col];
+  }
 }
 
 // Ψ of n token rows, computed cooperatively by the whole block.
@@ -207,6 +221,18 @@ __device__ inline void psi_bwd_rows(float* u, int ldu, int n, int d,
     }
   }
   __syncthreads();
+}
+
+// A block's dA and dΩ sums (daw, as psi_bwd_rows left them) to row `row`
+// of da (rows, P, d) and dw (rows, D, d). No sync.
+__device__ inline void store_daw(const float* daw, float* da, float* dw,
+                                 int row, int d, const PsiConsts& c) {
+  for (int i = threadIdx.x; i < (c.P + c.D) * d; i += blockDim.x) {
+    if (i < c.P * d)
+      da[(int64_t)row * c.P * d + i] = daw[i];
+    else
+      dw[(int64_t)row * c.D * d + i - c.P * d] = daw[i];
+  }
 }
 
 // causal_mask: score (t, u) survives when u <= t.

@@ -23,15 +23,14 @@
 // of shared memory (each thread register-blocks kTile·DV/256 output rows
 // against one S column), one block per q row: at batch 4 that is 48 blocks
 // on 132 SMs. Tensor cores (wgmma), a dv split for occupancy and TMA loads
-// are left for later work.
+// are left for later work. The per-tile scan phases are in scan_tile.cuh,
+// shared with K3, K4 and the two-dispatch scan (slay_scan.cu).
 #include <cmath>
 #include <cstdint>
 
-#include "slay_common.cuh"
+#include "scan_tile.cuh"
 
 namespace slay {
-
-constexpr int kTile = 16;
 
 struct FusedDims {
   int L, d, G, m;
@@ -90,24 +89,14 @@ fused_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ldp = lay.ldp, ldsc = kTile + 1;
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = kThreads >> 5;
   const int h = blockIdx.x, hk = h / dims.G;
 
   for (int i = tid; i < m * DV; i += kThreads) S[i] = 0.f;
   for (int i = tid; i < m; i += kThreads) z[i] = 0.f;
-  for (int i = tid; i < (c.P + c.D) * d; i += kThreads) {
-    const int row = i / d, col = i % d;
-    aw[row * lay.ldw + col] =
-        row < c.P ? anchors[row * d + col] : omegas[(row - c.P) * d + col];
-  }
-
-  // Thread (j, tg) owns output column j for rows tg, tg + RG, ...
-  constexpr int RG = kThreads / DV;         // row groups
-  constexpr int RPT = kTile / RG > 0 ? kTile / RG : 1;
-  const int j = tid % DV, tg = tid / DV;
+  load_projections(anchors, omegas, d, c, aw, lay.ldw);
 
   for (int t0 = 0; t0 < L; t0 += kTile) {
-    // P1: raw tiles to fp32 shared memory, zero rows past L.
+    // Raw tiles to fp32 shared memory, zero rows past L.
     for (int i = tid; i < kTile * d; i += kThreads) {
       const int t = i / d, col = i % d;
       const bool in = t0 + t < L;
@@ -122,76 +111,12 @@ fused_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          : 0.f;
     }
     __syncthreads();
-    // P2-P4: Ψ of the 2T rows (syncs inside).
+    // Ψ of the 2T rows, then the scan phases (scan_tile.cuh).
     psi_rows(u, lay.ldu, 2 * kTile, d, aw, lay.ldw, phi, psi, ldp, c);
-    // P5: causal intra-tile scores.
-    for (int i = tid; i < kTile * kTile; i += kThreads) {
-      const int t = i / kTile, s2 = i % kTile;
-      float acc = 0.f;
-      if (causal_keep(t, s2))
-        for (int f = 0; f < m; ++f) acc += psiq[t * ldp + f] * psik[s2 * ldp + f];
-      sc[t * ldsc + s2] = acc;
-    }
-    __syncthreads();
-    // P6: den = Ψq·z + rowsum(scores), one warp per row.
-    for (int t = warp; t < kTile; t += nwarps) {
-      float acc = 0.f;
-      for (int f = lane; f < m; f += 32) acc += psiq[t * ldp + f] * z[f];
-      acc = warp_sum(acc);
-      if (lane == 0) {
-        float rs = 0.f;
-        for (int s2 = 0; s2 < kTile; ++s2) rs += sc[t * ldsc + s2];
-        den_s[t] = acc + rs;
-      }
-    }
-    __syncthreads();
-    // P7: num = Ψq·S + scores·V, then y and den out.
-    {
-      float acc[RPT];
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) acc[r] = 0.f;
-      if (tg < kTile) {
-        for (int f = 0; f < m; ++f) {
-          const float sv = S[f * DV + j];
-#pragma unroll
-          for (int r = 0; r < RPT; ++r)
-            acc[r] += psiq[(tg + r * RG) * ldp + f] * sv;
-        }
-#pragma unroll
-        for (int r = 0; r < RPT; ++r) {
-          const int t = tg + r * RG;
-          float intra = 0.f;
-          for (int s2 = 0; s2 <= t; ++s2) intra += sc[t * ldsc + s2] * vs[s2 * DV + j];
-          const float num = acc[r] + intra;
-          if (t0 + t < L) {
-            const int64_t o = (int64_t)h * L + t0 + t;
-            y[o * DV + j] = from_f32<T>(num / (den_s[t] + dims.delta));
-            if (j == 0) den_out[o] = den_s[t];
-          }
-        }
-      }
-    }
-    __syncthreads();
-    // P8: S += Ψkᵀ V, z += Σ Ψk.
-    {
-      float vr[kTile];
-#pragma unroll
-      for (int s2 = 0; s2 < kTile; ++s2) vr[s2] = vs[s2 * DV + j];
-      for (int f = tg; f < m; f += RG) {
-        float acc = S[f * DV + j];
-        float upd = 0.f;
-#pragma unroll
-        for (int s2 = 0; s2 < kTile; ++s2) upd += psik[s2 * ldp + f] * vr[s2];
-        S[f * DV + j] = acc + upd;
-      }
-      for (int f = tid; f < m; f += kThreads) {
-        float acc = 0.f;
-#pragma unroll
-        for (int s2 = 0; s2 < kTile; ++s2) acc += psik[s2 * ldp + f];
-        z[f] += acc;
-      }
-    }
-    __syncthreads();
+    tile_scores(psiq, psik, ldp, m, sc, ldsc);
+    tile_forward<T, DV>(psiq, ldp, vs, S, DV, z, m, sc, ldsc, den_s, y, den_out,
+                        h, L, t0, dims.delta);
+    scan_update<DV>(S, DV, z, psik, ldp, vs, nullptr, m);
   }
 }
 

@@ -33,15 +33,14 @@
 // that threads owning neighbouring features read different banks), Ψ of
 // the tile's 2T rows, their residuals, G, dP and the dA/dΩ sums. dΨ
 // overwrites Ψq (K3, which never reads Ψq) or Ψk (K4, after dV has read
-// it), and du overwrites û in place.
+// it), and du overwrites û in place. The per-tile scan phases are in
+// scan_tile.cuh, shared with K1 and with the two-dispatch scan
+// (slay_scan.cu).
 #include <cstdint>
 
-#include "slay_common.cuh"
+#include "scan_tile.cuh"
 
 namespace slay {
-
-constexpr int kBwdTile = 16;   // tokens per tile
-constexpr int kRowBlock = 8;   // tile rows one thread carries in registers
 
 struct BwdDims {
   int L, d, G, m;
@@ -58,7 +57,7 @@ struct BwdLayout {
 
 __host__ __device__ inline BwdLayout bwd_layout(int d, int dv, int m, int P,
                                                 int D, int R) {
-  constexpr int T = kBwdTile;
+  constexpr int T = kTile;
   BwdLayout l;
   l.ldu = d + 1;
   l.ldw = d + 1;
@@ -94,11 +93,7 @@ __device__ inline void bwd_init(float* carry, int n_carry, float* daw,
                                 int d, const PsiConsts& c) {
   for (int i = threadIdx.x; i < n_carry; i += blockDim.x) carry[i] = 0.f;
   for (int i = threadIdx.x; i < n_daw; i += blockDim.x) daw[i] = 0.f;
-  for (int i = threadIdx.x; i < (c.P + c.D) * d; i += blockDim.x) {
-    const int row = i / d, col = i % d;
-    aw[row * ldw + col] =
-        row < c.P ? anchors[row * d + col] : omegas[(row - c.P) * d + col];
-  }
+  load_projections(anchors, omegas, d, c, aw, ldw);
 }
 
 // One tile's inputs: raw q rows (0..T-1) and k rows (T..2T-1) of u, v,
@@ -110,9 +105,8 @@ __device__ inline void bwd_load_tile(const T* q, const T* k, const T* v,
                                      int h, int hk, int t0, const BwdDims& dims,
                                      const BwdLayout& lay, float* u, float* vs,
                                      float* gs, float* hs) {
-  constexpr int TT = kBwdTile;
+  constexpr int TT = kTile;
   const int tid = threadIdx.x, L = dims.L, d = dims.d;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
   for (int i = tid; i < TT * d; i += blockDim.x) {
     const int t = i / d, col = i % d;
     const bool in = t0 + t < L;
@@ -125,64 +119,17 @@ __device__ inline void bwd_load_tile(const T* q, const T* k, const T* v,
     const int t = i / DV, col = i % DV;
     vs[i] = t0 + t < L ? to_f32(v[((int64_t)hk * L + t0 + t) * DV + col]) : 0.f;
   }
-  for (int t = warp; t < TT; t += nwarps) {
-    const bool in = t0 + t < L;
-    const int64_t o = (int64_t)h * L + t0 + t;
-    const float e = (in ? den[o] : 0.f) + dims.delta;
-    float acc = 0.f;
-    for (int j = lane; j < DV; j += 32) {
-      const float dyv = in ? to_f32(dy[o * DV + j]) : 0.f;
-      const float yv = in ? to_f32(y[o * DV + j]) : 0.f;
-      gs[t * DV + j] = dyv / e;
-      acc += dyv * yv;
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) hs[t] = -acc / e;
-  }
-}
-
-// dP = tril(G Vᵀ + h 1ᵀ) (T x T), and with scores != nullptr also
-// scores = tril(Ψq Ψkᵀ). Ends past a __syncthreads().
-template <int DV>
-__device__ inline void bwd_tile_scores(const float* gs, const float* hs,
-                                       const float* vs, const float* psiq,
-                                       const float* psik, int ldp, int m,
-                                       int ldsc, float* dp, float* scores) {
-  constexpr int TT = kBwdTile;
-  for (int i = threadIdx.x; i < TT * TT; i += blockDim.x) {
-    const int t = i / TT, s2 = i % TT;
-    float acc = 0.f, sc = 0.f;
-    if (causal_keep(t, s2)) {
-      for (int j = 0; j < DV; ++j) acc += gs[t * DV + j] * vs[s2 * DV + j];
-      acc += hs[t];
-      if (scores != nullptr)
-        for (int f = 0; f < m; ++f) sc += psiq[t * ldp + f] * psik[s2 * ldp + f];
-    }
-    dp[t * ldsc + s2] = acc;
-    if (scores != nullptr) scores[t * ldsc + s2] = sc;
-  }
-  __syncthreads();
+  load_cotangents<T, DV>(dy, y, den, h, t0, L, dims.delta, gs, hs);
 }
 
 // Rows t0..t0+T-1 of a (rows, L, d) output from fp32 shared rows.
 template <typename T>
 __device__ inline void bwd_store_rows(T* out, int row, int t0, int L, int d,
                                       const float* u, int ldu) {
-  for (int i = threadIdx.x; i < kBwdTile * d; i += blockDim.x) {
+  for (int i = threadIdx.x; i < kTile * d; i += blockDim.x) {
     const int t = i / d, col = i % d;
     if (t0 + t < L)
       out[((int64_t)row * L + t0 + t) * d + col] = from_f32<T>(u[t * ldu + col]);
-  }
-}
-
-// This block's dA and dΩ sums to rows h of da (BH, P, d) and dw (BH, D, d).
-__device__ inline void bwd_store_daw(const float* daw, float* da, float* dw,
-                                     int h, int d, const PsiConsts& c) {
-  for (int i = threadIdx.x; i < (c.P + c.D) * d; i += blockDim.x) {
-    if (i < c.P * d)
-      da[(int64_t)h * c.P * d + i] = daw[i];
-    else
-      dw[(int64_t)h * c.D * d + i - c.P * d] = daw[i];
   }
 }
 
@@ -195,7 +142,7 @@ fused_bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ y, const float* __restrict__ den,
                    T* __restrict__ dq, float* __restrict__ da_out,
                    float* __restrict__ dw_out, BwdDims dims, PsiConsts c) {
-  constexpr int TT = kBwdTile;
+  constexpr int TT = kTile;
   extern __shared__ float smem[];
   const int L = dims.L, d = dims.d, m = dims.m;
   const BwdLayout lay = bwd_layout(d, DV, m, c.P, c.D, c.R);
@@ -215,13 +162,10 @@ fused_bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* dpsiq = psi;
   const float* psik = psi + TT * lay.ldp;
   const int ldp = lay.ldp, lds = lay.lds, ldsc = lay.ldsc;
-  const int tid = threadIdx.x;
   const int h = blockIdx.x, hk = h / dims.G;
 
   bwd_init(S, m * lds + m, daw, (c.P + c.D) * d, aw, lay.ldw, anchors,
            omegas, d, c);
-  constexpr int RG = kThreads / DV;
-  const int j = tid % DV, tg = tid / DV;
 
   for (int t0 = 0; t0 < L; t0 += TT) {
     bwd_load_tile<T, DV>(q, k, v, dy, y, den, h, hk, t0, dims, lay, u, vs, gs,
@@ -229,54 +173,18 @@ fused_bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     psi_rows<true>(u, lay.ldu, 2 * TT, d, aw, lay.ldw, phi, psi, ldp, c, pa,
                    inv);
-    bwd_tile_scores<DV>(gs, hs, vs, nullptr, nullptr, ldp, m, ldsc, dp,
-                        nullptr);
-    // dΨq = G Sᵀ + h zᵀ + dP Ψk with the state of the tiles before this
-    // one. Thread item (f, row block); Ψq is not read, so dΨq replaces it.
-    for (int idx = tid; idx < m * (TT / kRowBlock); idx += kThreads) {
-      const int f = idx % m, r0 = (idx / m) * kRowBlock;
-      float acc[kRowBlock];
-#pragma unroll
-      for (int r = 0; r < kRowBlock; ++r) acc[r] = 0.f;
-      for (int jj = 0; jj < DV; ++jj) {
-        const float sv = S[f * lds + jj];
-#pragma unroll
-        for (int r = 0; r < kRowBlock; ++r) acc[r] += gs[(r0 + r) * DV + jj] * sv;
-      }
-      const float zf = z[f];
-#pragma unroll
-      for (int r = 0; r < kRowBlock; ++r) {
-        const int t = r0 + r;
-        float intra = 0.f;
-        for (int s2 = 0; s2 <= t; ++s2) intra += dp[t * ldsc + s2] * psik[s2 * ldp + f];
-        dpsiq[t * ldp + f] = (acc[r] + hs[t] * zf) + intra;
-      }
-    }
+    tile_dp<DV>(gs, hs, vs, nullptr, nullptr, ldp, m, ldsc, dp, nullptr);
+    // Ψq is not read again, so dΨq replaces it.
+    tile_dpsi_q<DV>(S, lds, z, gs, hs, dp, ldsc, psik, ldp, m,
+                    [&](int t, int f, float x) { dpsiq[t * ldp + f] = x; });
     __syncthreads();
     psi_bwd_rows(u, lay.ldu, TT, d, aw, lay.ldw, phi, pa, inv, dpsiq, ldp,
                  smem + lay.off_dproj, daw, c);
     bwd_store_rows(dq, h, t0, L, d, u, lay.ldu);
     // Only now: S += Ψkᵀ V, z += Σ Ψk.
-    {
-      float vr[TT];
-#pragma unroll
-      for (int s2 = 0; s2 < TT; ++s2) vr[s2] = vs[s2 * DV + j];
-      for (int f = tg; f < m; f += RG) {
-        float upd = 0.f;
-#pragma unroll
-        for (int s2 = 0; s2 < TT; ++s2) upd += psik[s2 * ldp + f] * vr[s2];
-        S[f * lds + j] += upd;
-      }
-      for (int f = tid; f < m; f += kThreads) {
-        float acc = 0.f;
-#pragma unroll
-        for (int s2 = 0; s2 < TT; ++s2) acc += psik[s2 * ldp + f];
-        z[f] += acc;
-      }
-    }
-    __syncthreads();
+    scan_update<DV>(S, lds, z, psik, ldp, vs, nullptr, m);
   }
-  bwd_store_daw(daw, da_out, dw_out, h, d, c);
+  store_daw(daw, da_out, dw_out, h, d, c);
 }
 
 // K4: reverse scan -> per-q-head dk, dv and the k-path dA/dΩ partials.
@@ -289,7 +197,7 @@ fused_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     T* __restrict__ dk, T* __restrict__ dv_out,
                     float* __restrict__ da_out, float* __restrict__ dw_out,
                     BwdDims dims, PsiConsts c) {
-  constexpr int TT = kBwdTile;
+  constexpr int TT = kTile;
   extern __shared__ float smem[];
   const int L = dims.L, d = dims.d, m = dims.m;
   const BwdLayout lay = bwd_layout(d, DV, m, c.P, c.D, c.R);
@@ -310,14 +218,10 @@ fused_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float* psiq = psi;
   float* psik = psi + TT * lay.ldp;
   const int ldp = lay.ldp, lds = lay.lds, ldsc = lay.ldsc;
-  const int tid = threadIdx.x;
   const int h = blockIdx.x, hk = h / dims.G;
 
   bwd_init(dS, m * lds + m, daw, (c.P + c.D) * d, aw, lay.ldw, anchors,
            omegas, d, c);
-  constexpr int RG = kThreads / DV;
-  constexpr int RPT = TT / RG > 0 ? TT / RG : 1;
-  const int j = tid % DV, tg = tid / DV;
   const int ntiles = (L + TT - 1) / TT;
 
   for (int tile = ntiles - 1; tile >= 0; --tile) {
@@ -327,74 +231,21 @@ fused_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     psi_rows<true>(u, lay.ldu, 2 * TT, d, aw, lay.ldw, phi, psi, ldp, c, pa,
                    inv);
-    bwd_tile_scores<DV>(gs, hs, vs, psiq, psik, ldp, m, ldsc, dp, sc);
-    // dV = scoresᵀ G + Ψk dS, dS of the tiles after this one. Thread
-    // (column j, rows tg, tg + RG, ...), as K1's read-out.
-    if (tg < TT) {
-      float acc[RPT];
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) acc[r] = 0.f;
-      for (int f = 0; f < m; ++f) {
-        const float dsv = dS[f * lds + j];
-#pragma unroll
-        for (int r = 0; r < RPT; ++r) acc[r] += psik[(tg + r * RG) * ldp + f] * dsv;
-      }
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        const int s2 = tg + r * RG;
-        float intra = 0.f;
-        for (int t = s2; t < TT; ++t) intra += sc[t * ldsc + s2] * gs[t * DV + j];
-        if (t0 + s2 < L)
-          dv_out[((int64_t)h * L + t0 + s2) * DV + j] = from_f32<T>(intra + acc[r]);
-      }
-    }
+    tile_dp<DV>(gs, hs, vs, psiq, psik, ldp, m, ldsc, dp, sc);
+    tile_dv<T, DV>(psik, ldp, dS, lds, sc, ldsc, gs, m, dv_out, h, L, t0);
     __syncthreads();
-    // dΨk = dPᵀ Ψq + V dSᵀ + dz; Ψk has been read, so dΨk replaces it.
-    for (int idx = tid; idx < m * (TT / kRowBlock); idx += kThreads) {
-      const int f = idx % m, r0 = (idx / m) * kRowBlock;
-      float acc[kRowBlock];
-#pragma unroll
-      for (int r = 0; r < kRowBlock; ++r) acc[r] = 0.f;
-      for (int jj = 0; jj < DV; ++jj) {
-        const float dsv = dS[f * lds + jj];
-#pragma unroll
-        for (int r = 0; r < kRowBlock; ++r) acc[r] += vs[(r0 + r) * DV + jj] * dsv;
-      }
-      const float dzf = dz[f];
-#pragma unroll
-      for (int r = 0; r < kRowBlock; ++r) {
-        const int s2 = r0 + r;
-        float intra = 0.f;
-        for (int t = s2; t < TT; ++t) intra += dp[t * ldsc + s2] * psiq[t * ldp + f];
-        psik[s2 * ldp + f] = (intra + acc[r]) + dzf;
-      }
-    }
+    // Ψk has been read, so dΨk replaces it.
+    tile_dpsi_k<DV>(dS, lds, dz, vs, dp, ldsc, psiq, ldp, m,
+                    [&](int s2, int f, float x) { psik[s2 * ldp + f] = x; });
     __syncthreads();
     psi_bwd_rows(u + TT * lay.ldu, lay.ldu, TT, d, aw, lay.ldw,
                  phi + TT * lay.ldphi, pa + TT * c.P, inv + TT, psik, ldp,
                  smem + lay.off_dproj, daw, c);
     bwd_store_rows(dk, h, t0, L, d, u + TT * lay.ldu, lay.ldu);
     // Only now: dS += Ψqᵀ G, dz += Ψqᵀ h.
-    {
-      float gr[TT];
-#pragma unroll
-      for (int t = 0; t < TT; ++t) gr[t] = gs[t * DV + j];
-      for (int f = tg; f < m; f += RG) {
-        float upd = 0.f;
-#pragma unroll
-        for (int t = 0; t < TT; ++t) upd += psiq[t * ldp + f] * gr[t];
-        dS[f * lds + j] += upd;
-      }
-      for (int f = tid; f < m; f += kThreads) {
-        float acc = 0.f;
-#pragma unroll
-        for (int t = 0; t < TT; ++t) acc += psiq[t * ldp + f] * hs[t];
-        dz[f] += acc;
-      }
-    }
-    __syncthreads();
+    scan_update<DV>(dS, lds, dz, psiq, ldp, gs, hs, m);
   }
-  bwd_store_daw(daw, da_out, dw_out, h, d, c);
+  store_daw(daw, da_out, dw_out, h, d, c);
 }
 
 struct BwdArgs {

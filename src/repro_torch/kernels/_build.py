@@ -48,13 +48,29 @@ SIGNATURES = {
     "decode_step": {
         "slay_decode_step": (_I, [_P] * 7 + [_I] * 6 + [_F, _P]),
     },
+    "feature_map": {
+        "slay_feature_map_smem_bytes": (ctypes.c_longlong, [_I] * 5),
+        "slay_feature_map_bwd_blocks": (_I, [_I] * 6),
+        "slay_feature_map_fwd": (_I, [_P] * 4 + [_I] * 5 + [_D, _D, _I, _P]),
+        "slay_feature_map_bwd": (_I, [_P] * 7 + [_I] * 6 + [_D, _D, _I, _P]),
+    },
+    "slay_scan": {
+        "slay_scan_smem_bytes": (ctypes.c_longlong, [_I] * 3),
+        "slay_scan_fwd": (_I, [_P] * 5 + [_I] * 5 + [_F, _I, _P]),
+        "slay_scan_bwd_q": (_I, [_P] * 7 + [_I] * 5 + [_F, _I, _P]),
+        "slay_scan_bwd_kv": (_I, [_P] * 8 + [_I] * 5 + [_F, _I, _P]),
+    },
 }
+
+SMEM_LIMIT = 232448   # dynamic shared memory one Hopper block may use
 
 # dtype codes of the C interface: 0 float32, 1 bfloat16.
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-LAUNCHES: dict[str, int] = {"slay_fused_fwd": 0, "slay_fused_bwd_q": 0,
-                            "slay_fused_bwd_kv": 0, "slay_decode_step": 0}
+LAUNCHES: dict[str, int] = {
+    "slay_fused_fwd": 0, "slay_fused_bwd_q": 0, "slay_fused_bwd_kv": 0,
+    "slay_decode_step": 0, "feature_map_fwd": 0, "feature_map_bwd": 0,
+    "slay_scan_fwd": 0, "slay_scan_bwd_q": 0, "slay_scan_bwd_kv": 0}
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 

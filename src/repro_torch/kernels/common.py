@@ -43,6 +43,33 @@ def causal_mask(scores: torch.Tensor) -> torch.Tensor:
     return torch.tril(scores)
 
 
+def cotangents(y, den, dy, delta):
+    """G = dy/(den+δ) (BH, L, dv) and h = −Σ(dy∘y)/(den+δ) (BH, L, 1), the
+    scans' per-token cotangents, fp32."""
+    e = den.float()[..., None] + delta
+    dyf = dy.float()
+    return dyf / e, -torch.sum(dyf * y.float(), dim=-1, keepdim=True) / e
+
+
+def check_residuals(rows, v, y, den, dy):
+    """Check a scan's saved (y, den) and its cotangent dy against its q
+    rows (BH, L, ·) and v (BK, L, dv)."""
+    bh, L, _ = rows.shape
+    want = (bh, L, v.shape[-1])
+    if y.shape != want or dy.shape != want or den.shape != (bh, L):
+        raise ValueError(f"y {tuple(y.shape)}, dy {tuple(dy.shape)}, den "
+                         f"{tuple(den.shape)} do not match q rows "
+                         f"{tuple(rows.shape)}")
+    if y.dtype != v.dtype or dy.dtype != v.dtype or den.dtype != torch.float32:
+        raise TypeError(f"y and dy must be {v.dtype} and den float32, got "
+                        f"{y.dtype}, {dy.dtype}, {den.dtype}")
+    for name, t in (("y", y), ("den", den), ("dy", dy)):
+        if t.device != rows.device:
+            raise ValueError(f"{name} is on {t.device}, q on {rows.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
 def features_fwd(u: torch.Tensor, a: torch.Tensor, w: torch.Tensor,
                  st: FeatureStatics):
     """u (..., d) -> (Ψ(u) (..., m), intermediates for the VJP), all fp32.

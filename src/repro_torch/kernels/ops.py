@@ -13,7 +13,9 @@ import torch.nn.functional as F
 
 from repro_torch.core.features import SlayFeatureConfig
 from repro_torch.kernels import decode_step as _dk
+from repro_torch.kernels import feature_map as _fm
 from repro_torch.kernels import slay_fused as _fused
+from repro_torch.kernels import slay_scan as _scan
 
 
 def _headmajor_call(kernel_fn, q, k, v, *, chunk_size: int):
@@ -41,6 +43,36 @@ def _headmajor_call(kernel_fn, q, k, v, *, chunk_size: int):
     y = (yh.reshape(b, hkv, g, Lp, dv).permute(0, 3, 1, 2, 4)
          .reshape(*lead, Lp, H, dv))
     return y[..., :L, :, :] if pad else y
+
+
+def slay_causal_attention(qf: torch.Tensor, kf: torch.Tensor,
+                          v: torch.Tensor, *, chunk_size: int = 256,
+                          delta: float = 1e-6) -> torch.Tensor:
+    """Causal linear attention on precomputed features (the scan of the
+    two-dispatch path).
+
+    qf (..., L, H, m), kf (..., L, Hkv, m), v (..., L, Hkv, dv)
+    -> (..., L, H, dv). Ragged L is zero-padded (zero features add
+    nothing to the running state).
+    """
+    return _headmajor_call(
+        lambda qh, kh, vh: _scan.causal_linear_attention(
+            qh, kh, vh, chunk_size=chunk_size, delta=delta),
+        qf, kf, v, chunk_size=chunk_size)
+
+
+def slay_features(u: torch.Tensor, params: dict,
+                  cfg: SlayFeatureConfig) -> torch.Tensor:
+    """Ψ(u) over the trailing dim through the feature-map kernel (its plain
+    twin on the CPU): u (..., d) -> (..., m) in u's dtype.
+
+    The CUDA kernel takes any token count, so nothing is padded; the
+    result equals the JAX entry's pad-and-slice.
+    """
+    *lead, d = u.shape
+    psi = _fm.feature_map(u.reshape(-1, d).contiguous(), params["anchors"],
+                          params["omegas"], cfg)
+    return psi.reshape(*lead, cfg.feature_dim)
 
 
 def slay_fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,8 +1,9 @@
 """Plain oracles for the kernels, routed through ``repro_torch.core``.
 
 Head-major layouts, as the kernels use them:
-    q:  (BH, L, d) raw queries, one row per q head
-    k:  (BK, L, d) raw keys, one row per kv head
+    q:  (BH, L, d) raw queries (or qf (BH, L, m) features), one row
+        per q head
+    k:  (BK, L, d) raw keys (or kf (BK, L, m)), one row per kv head
     v:  (BK, L, dv)
 with BH = batch·H, BK = batch·Hkv and G = BH // BK: q row i reads kv row
 i // G.
@@ -13,6 +14,24 @@ import torch
 
 from repro_torch.core import linear_attention as la
 from repro_torch.core.features import SlayFeatureConfig, slay_features
+
+
+def causal_linear_attention_ref(qf, kf, v, *, chunk_size: int = 256,
+                                delta: float = 1e-6) -> torch.Tensor:
+    """Oracle for the scan on features: qf (BH, L, m), kf (BK, L, m),
+    v (BK, L, dv) -> y (BH, L, dv)."""
+    bh, L, m = qf.shape
+    bk, _, dv = v.shape
+    g = bh // bk
+    q = qf.reshape(bk, g, L, m).transpose(1, 2)             # (bk, L, g, m)
+    y = la.causal_chunked(q, kf[:, :, None, :], v[:, :, None, :],
+                          chunk_size=chunk_size, delta=delta)
+    return y.transpose(1, 2).reshape(bh, L, dv)
+
+
+def slay_features_ref(u, params: dict, cfg: SlayFeatureConfig) -> torch.Tensor:
+    """Oracle for the feature map: Ψ(u) over the trailing dim, fp32."""
+    return slay_features(u, params, cfg)
 
 
 def fused_causal_attention_ref(q, k, v, params: dict, cfg: SlayFeatureConfig,

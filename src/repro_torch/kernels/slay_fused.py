@@ -24,10 +24,9 @@ import torch
 
 from repro_torch.core.features import SlayFeatureConfig
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import (causal_mask, feature_statics,
+from repro_torch.kernels.common import (causal_mask, check_residuals,
+                                        cotangents, feature_statics,
                                         features_bwd, features_fwd)
-
-SMEM_LIMIT = 232448         # dynamic shared memory one Hopper block may use
 
 
 def fused_causal_attention_plain(q, k, v, anchors, omegas,
@@ -92,22 +91,6 @@ def _check(q, k, v, anchors, omegas, cfg: SlayFeatureConfig, chunk_size):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _check_residuals(q, v, y, den, dy):
-    bh, L, _ = q.shape
-    want = (bh, L, v.shape[-1])
-    if y.shape != want or dy.shape != want or den.shape != (bh, L):
-        raise ValueError(f"y {tuple(y.shape)}, dy {tuple(dy.shape)}, den "
-                         f"{tuple(den.shape)} do not match q {tuple(q.shape)}")
-    if y.dtype != v.dtype or dy.dtype != v.dtype or den.dtype != torch.float32:
-        raise TypeError(f"y and dy must be {v.dtype} and den float32, got "
-                        f"{y.dtype}, {dy.dtype}, {den.dtype}")
-    for name, t in (("y", y), ("den", den), ("dy", dy)):
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
-
 def _kernel_args(lib, smem_fn, q, v, cfg: SlayFeatureConfig):
     """Shape checks shared by K1, K3 and K4; returns the quadrature
     constants as C double arrays."""
@@ -118,9 +101,9 @@ def _kernel_args(lib, smem_fn, q, v, cfg: SlayFeatureConfig):
     if R > 8:
         raise ValueError(f"kernel takes at most 8 quadrature nodes, got {R}")
     smem = getattr(lib, smem_fn)(d, dv, P, D, R)
-    if smem > SMEM_LIMIT:
+    if smem > _build.SMEM_LIMIT:
         raise ValueError(f"shapes need {smem} B of shared memory per block, "
-                         f"more than {SMEM_LIMIT}")
+                         f"more than {_build.SMEM_LIMIT}")
     st = feature_statics(cfg)
     return ((ctypes.c_double * R)(*st.s_nodes),
             (ctypes.c_double * R)(*st.sqrt_w))
@@ -149,13 +132,6 @@ def _launch(q, k, v, anchors, omegas, cfg: SlayFeatureConfig, delta):
 # -- backward ------------------------------------------------------------
 
 
-def _cotangents(y, den, dy, delta):
-    """G = dy/(den+δ) (BH, L, dv) and h = −Σ(dy∘y)/(den+δ) (BH, L, 1)."""
-    e = den.float()[..., None] + delta
-    dyf = dy.float()
-    return dyf / e, -torch.sum(dyf * y.float(), dim=-1, keepdim=True) / e
-
-
 def _per_q_head(q, k, v, anchors, omegas, st):
     """Ψ of every q row and, repeated for each q head of its GQA group, of
     every kv row, as the kernels recompute them (one block per q head)."""
@@ -172,7 +148,7 @@ def fused_bwd_q_plain(q, k, v, anchors, omegas, y, den, dy,
     q's dtype, dA (BH, P, d), dΩ (BH, D, d) fp32 per-head partials)."""
     st = feature_statics(cfg)
     _, qres, kf, _, vf = _per_q_head(q, k, v, anchors, omegas, st)
-    gg, hh = _cotangents(y, den, dy, delta)
+    gg, hh = cotangents(y, den, dy, delta)
     bh, L, _ = q.shape
     m, dv = kf.shape[-1], vf.shape[-1]
     s = torch.zeros(bh, m, dv, device=q.device)
@@ -200,7 +176,7 @@ def fused_bwd_kv_plain(q, k, v, anchors, omegas, y, den, dy,
     and dΩ (BH, D, d) fp32."""
     st = feature_statics(cfg)
     qf, _, kf, kres, vf = _per_q_head(q, k, v, anchors, omegas, st)
-    gg, hh = _cotangents(y, den, dy, delta)
+    gg, hh = cotangents(y, den, dy, delta)
     bh, L, _ = q.shape
     m, dv = kf.shape[-1], vf.shape[-1]
     ds = torch.zeros(bh, m, dv, device=q.device)
@@ -305,7 +281,7 @@ def fused_causal_attention_bwd(q, k, v, anchors, omegas, y, den, dy,
     -> (dq, dk, dv, dA, dΩ). CUDA tensors run K3 then K4, CPU tensors the
     plain version."""
     _check(q, k, v, anchors, omegas, cfg, chunk_size)
-    _check_residuals(q, v, y, den, dy)
+    check_residuals(q, v, y, den, dy)
     if q.device.type == "cuda":
         args = (q, k, v, anchors, omegas, y, den, dy, cfg, delta)
         return _reduce(k, v, anchors, omegas, *launch_bwd_q(*args),

@@ -49,7 +49,9 @@ def init_cache(spec: AttentionSpec, lead_shape, num_kv: int, dv: int, *,
 
 def full_attention(spec: AttentionSpec, params: dict | None, q, k, v, *,
                    causal: bool = True) -> torch.Tensor:
-    """Full-sequence attention (prefill): the fused SLAY kernel."""
+    """Full-sequence attention (training / prefill): the fused SLAY kernel,
+    or with ``spec.fuse_features`` False the feature-map kernel then the
+    scan kernel."""
     _require_slay(spec)
     return slay_mod.slay_attention(
         params, q, k, v, spec.slay, causal=causal,

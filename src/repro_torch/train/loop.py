@@ -3,9 +3,10 @@
 The step: microbatched gradient accumulation in fp32, optional per-layer
 recomputation (``remat``), optional error-feedback int8 gradient
 compression, global-norm clipping, AdamW. Attention runs the fused SLAY
-kernels and their backward (K1, K3, K4) on the card and their plain
-versions on the CPU: the tensors' device chooses, so there is no
-``use_pallas`` knob.
+kernels and their backward (K1, K3, K4) on the card, or with
+``fuse_attention_features=False`` the two-dispatch path (feature map,
+then scan, and their backward), and the plain versions on the CPU: the
+tensors' device chooses, so there is no ``use_pallas`` knob.
 
 The loop: resume from the latest checkpoint on start, an atomic
 checkpoint every ``ckpt_every`` steps and at the end, and a step-time
@@ -34,6 +35,15 @@ from repro_torch.tree import tree_items, tree_map, tree_map_with_path
 log = logging.getLogger("repro_torch.train")
 
 
+def resolve_attention_path(cfg: ArchConfig,
+                           train_cfg: "TrainConfig") -> ArchConfig:
+    """Apply the TrainConfig attention override to the arch config."""
+    if train_cfg.fuse_attention_features is None:
+        return cfg
+    return dataclasses.replace(
+        cfg, fuse_attention_features=train_cfg.fuse_attention_features)
+
+
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     microbatches: int = 1            # grad-accumulation steps
@@ -41,8 +51,9 @@ class TrainConfig:
     # remat_policy="save_collectives" needs tensor parallelism: passed here
     # as remat="save_collectives", ``forward`` refuses it.
     remat: bool | str = True
-    # False (the two-dispatch feature-map -> scan path) is not ported yet.
-    fuse_attention_features: bool = True
+    # None = respect cfg.fuse_attention_features; True/False force the
+    # fused kernels or the two-dispatch feature-map -> scan path.
+    fuse_attention_features: bool | None = None
     compress_grads: bool = False     # error-feedback int8
     ckpt_dir: str = os.path.join(tempfile.gettempdir(), "repro_torch_ckpt")
     ckpt_every: int = 200
@@ -70,11 +81,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
     """Returns train_step(params, opt_state, ef_state, batch)
     -> (params, opt_state, ef_state, metrics), with new tensors for the
     parameters and optimizer state."""
-    if not train_cfg.fuse_attention_features:
-        raise NotImplementedError(
-            "fuse_attention_features=False needs the feature-map and scan "
-            "kernels and their backward (B5-B8), the next slice of ROADMAP "
-            "Queue B")
+    cfg = resolve_attention_path(cfg, train_cfg)
     remat = train_cfg.remat
 
     def compute_grads(params, batch):

@@ -195,5 +195,9 @@ def test_slay_attention_matches_jax_and_rejects_unported_paths():
     t = [torch.from_numpy(x) for x in (q, k, v)]
     with pytest.raises(NotImplementedError, match="noncausal"):
         tslay.slay_attention(tp, *t, tcfg, causal=False)
-    with pytest.raises(NotImplementedError, match="B7, B5"):
-        tslay.slay_attention(tp, *t, tcfg, fuse_features=False)
+    # The two-dispatch path (feature map, then scan) against the JAX one.
+    got = tslay.slay_attention(tp, *t, tcfg, chunk_size=8, fuse_features=False)
+    want = jslay.slay_attention(jp, *(jnp.asarray(x) for x in (q, k, v)),
+                                jcfg, chunk_size=8, use_kernel=True,
+                                fuse_features=False, interpret=True)
+    _close(got, want)

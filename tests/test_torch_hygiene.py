@@ -121,7 +121,10 @@ def test_build_is_keyed_by_sources_and_ignored_by_git():
     assert path.parent.parent == ROOT / "build" / "repro_torch"
     assert path != _build.lib_path("decode_step")
     assert path != _build.lib_path("slay_fused_bwd")
+    assert path != _build.lib_path("feature_map")
+    assert path != _build.lib_path("slay_scan")
     assert set(_build.SIGNATURES) == {"slay_fused", "slay_fused_bwd",
-                                      "decode_step"}
+                                      "decode_step", "feature_map",
+                                      "slay_scan"}
     ignored = (ROOT / ".gitignore").read_text().split()
     assert "build/" in ignored

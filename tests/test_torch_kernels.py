@@ -240,8 +240,16 @@ def test_cpu_tensors_launch_nothing():
     y.sum().backward()                       # the plain backward
     dargs = [torch.from_numpy(x) for x in _decode_inputs(0, 6, 3)]
     tdecode.decode_linear_attention(*dargs)
-    assert _build.LAUNCHES == {"slay_fused_fwd": 0, "slay_fused_bwd_q": 0,
-                               "slay_fused_bwd_kv": 0, "slay_decode_step": 0}
+    # The two-dispatch path, feature map then scan, and their backward.
+    params = {"anchors": args[3], "omegas": args[4]}
+    x = torch.ones(1, 32, 2, D_HEAD, requires_grad=True)
+    xf = tops.slay_features(x, params, cfg)
+    tops.slay_causal_attention(xf, xf, x[..., :8],
+                               chunk_size=CHUNK).sum().backward()
+    assert _build.LAUNCHES == {
+        "slay_fused_fwd": 0, "slay_fused_bwd_q": 0, "slay_fused_bwd_kv": 0,
+        "slay_decode_step": 0, "feature_map_fwd": 0, "feature_map_bwd": 0,
+        "slay_scan_fwd": 0, "slay_scan_bwd_q": 0, "slay_scan_bwd_kv": 0}
     assert not _build._LIBS
 
 

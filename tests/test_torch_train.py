@@ -114,10 +114,12 @@ def test_loss_fn_api_and_remat_options(models):
     assert loss.shape == () and set(mx) == {"nll", "moe_aux"}
     with pytest.raises(NotImplementedError, match="Queue A item 13"):
         api.loss_fn(tp, tcfg, b, remat="save_collectives")
-    with pytest.raises(NotImplementedError, match="B5-B8"):
-        tloop.make_train_step(tcfg, tadamw.AdamWConfig(),
-                              tloop.TrainConfig(fuse_attention_features=False))
     ocfg = tadamw.AdamWConfig()
+    # The two-dispatch path's step sees the same loss as the fused forward.
+    two = tloop.make_train_step(
+        tcfg, ocfg, tloop.TrainConfig(fuse_attention_features=False))
+    *_, m2 = two(tp, tadamw.adamw_init(tp, ocfg), torch.zeros(()), b)
+    np.testing.assert_allclose(float(m2["loss"]), float(loss), rtol=1e-5)
     step = tloop.make_train_step(tcfg, ocfg,
                                  tloop.TrainConfig(remat="save_collectives"))
     with pytest.raises(NotImplementedError, match="Queue A item 13"):
