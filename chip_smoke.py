@@ -12,15 +12,22 @@ Phases, each of which raises (nonzero exit) on failure:
 3. K1, the fused causal SLAY forward, against its plain PyTorch version
    on the card: slayformer shapes in fp32 and bf16, GQA, ragged L and the
    serving path's own shape; error, kernel and plain times, bound; kernel
-   times at two more shapes (one long sequence, a batch of 16);
+   times at three more shapes (one long sequence, a batch of 16, and the
+   training shape BH = 96, L = 1024 in bf16 beside its bound);
 4. K2, the decode step, against its plain version: masked and unmasked,
    drained rows bit-identical, state updated in place; times and bounds
    of the unmasked and the masked step;
 5. K3 and K4, the fused backward's two scans, against their plain
    versions on the card: slayformer's training shape (BH = 96, L = 1024)
-   in fp32 and bf16, GQA (BH = 2·BK), and ragged L = 1000 through
-   ``ops.slay_fused_attention`` under autograd; in fp32 also against
-   autograd through the plain forward; kernel and plain times, bounds;
+   in fp32 and bf16, GQA (BH = 2·BK), R = 2 quadrature nodes, head dim
+   128 and P = 16, D = 24, R = 1 at a small shape in fp32 (the grid is
+   BH x R; the last takes the Ψ map's default thread mapping), and ragged
+   L = 1000 through ``ops.slay_fused_attention`` under autograd; in fp32
+   also against autograd through the plain forward; kernel and plain
+   times, bounds (the state products on 3xTF32 tensor cores, as the
+   kernels run them, and beside it every operation on the fp32 pipes);
+   the grid, tile, blocks resident per SM and on the card (CUDA's
+   occupancy calculator), registers and spills (``-Xptxas -v``);
 6. B7/B8, the feature map and its VJP (the two-dispatch path's first
    dispatch), against their plain versions at the training shape (N =
    8·1024·12 tokens) in fp32 and bf16 and at a ragged N; times, bounds;
@@ -65,6 +72,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -91,6 +99,7 @@ from repro_torch.tree import tree_items, tree_leaves, tree_map  # noqa: E402
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12          # H100 SXM, fp32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12         # H100 SXM, dense TF32 tensor cores
 
 
 def log(msg: str) -> None:
@@ -208,6 +217,50 @@ def bwd_bounds(bh, bk, L, d, dv, P, D, R, es):
         "slay_fused_bwd_kv": _bound(bh * L * k4_q + bk * L * k4_kv,
                                     read + bh * L * (d + dv) * es + partials),
     }
+
+
+def bwd_tc_bounds(bh, bk, L, d, dv, P, D, R, es):
+    """{kernel: (bound_ms, bound_by, n_ops, bytes)} of K3 and K4 with the
+    work of ``bwd_bounds`` at the rates of the units that the kernels run
+    it on: the state products (2·m·dv operations per term and token, the
+    whole of the G Sᵀ, Ψk dS, V dSᵀ and carry-update work, which the
+    kernels split into tile products and state products) on the tensor
+    cores in 3xTF32, three TF32 products each (495/3 TFLOP/s), the rest
+    on the fp32 pipes. These are the kernels' rows' bounds; ``bwd_bounds``
+    (everything on the fp32 pipes) stays the figure that compares with
+    earlier designs."""
+    st = 2 * R * P * D * dv
+    state = {"slay_fused_bwd_q": (bh + bk) * L * st,
+             "slay_fused_bwd_kv": bh * L * 3 * st}
+    out = {}
+    for name, (_, _, n_ops, nbytes) in bwd_bounds(bh, bk, L, d, dv, P, D, R,
+                                                  es).items():
+        t_ops = (state[name] / (TF32_FLOP_PER_S / 3)
+                 + (n_ops - state[name]) / FP32_FLOP_PER_S) * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        out[name] = ((t_ops, "operations", n_ops, nbytes) if t_ops >= t_bytes
+                     else (t_bytes, "bytes", n_ops, nbytes))
+    return out
+
+
+def ptxas_report(name: str) -> dict:
+    """{entry function: (registers, spill store bytes, spill load bytes)}
+    from the ``-Xptxas -v`` log that the build of kernel library ``name``
+    left beside it."""
+    text = (_build.lib_path(name).parent / f"{name}.log").read_text()
+    out, entry, spills = {}, None, (0, 0)
+    for ln in text.splitlines():
+        if "Compiling entry function" in ln:
+            entry, spills = ln.split("'")[1], (0, 0)
+        elif entry and "spill stores" in ln:
+            st = re.search(r"(\d+) bytes spill stores", ln)
+            ld = re.search(r"(\d+) bytes spill loads", ln)
+            spills = (int(st.group(1)) if st else 0,
+                      int(ld.group(1)) if ld else 0)
+        elif entry and (m := re.search(r"Used (\d+) registers", ln)):
+            out[entry] = (int(m.group(1)), *spills)
+            entry = None
+    return out
 
 
 def feature_map_bounds(n, d, P, D, R, es):
@@ -391,6 +444,15 @@ def phase_k1(feat, sp, main_shape) -> dict:
         log(f"K1 sweep BH={bh} L={L} bf16: kernel {ms:.4f} ms = "
             f"{ms * 1e6 / (bh * L):.1f} ns per q-row token; bound "
             f"{bound:.4f} ms ({bound / ms:.2%} of the kernel's time)")
+    # The training step's shape (8 sequences x 12 heads of 1024 tokens).
+    q, k, v = _k1_inputs(gen, 96, 96, 1024, d, 64, torch.bfloat16)
+    ms = time_ms(lambda: slay_fused.fused_causal_attention(q, k, v, a, w, cfg),
+                 iters=10)
+    bound, by, n_ops, _ = k1_bound(96, 96, 1024, d, 64, cfg.num_anchors,
+                                   cfg.num_prf, cfg.num_quad_nodes, 2)
+    log(f"K1 at the training shape BH=96 L=1024 bf16: kernel {ms:.4f} ms, "
+        f"bound {bound:.4f} ms by {by} ({n_ops:.3e} fp32 FLOP), "
+        f"{ms / bound:.1f}x the bound")
     return result
 
 
@@ -470,10 +532,11 @@ def phase_k2(m) -> dict:
     return result
 
 
-def _kernel_row(name, ms, plain_ms, bound, err, what) -> dict:
+def _kernel_row(name, ms, plain_ms, bound, err, what,
+                rates="on the fp32 pipes") -> dict:
     b_ms, by, n_ops, nb = bound
     log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{b_ms:.4f} ms by {by} ({n_ops:.3e} fp32 FLOP, {nb:.3e} B); "
+        f"{b_ms:.4f} ms by {by} ({n_ops:.3e} FLOP {rates}, {nb:.3e} B); "
         f"library: none, no single PyTorch call computes {what}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=by)
@@ -532,15 +595,34 @@ def phase_k34(feat, sp) -> dict:
     the plain forward); returns each kernel's numbers at the training
     shape in bf16, the main path's."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    cfg, a, w = feat, sp["anchors"], sp["omegas"]
-    d, dv = cfg.head_dim, 64
+    d, dv = feat.head_dim, 64
+    # The grid is BH x R blocks, so one case runs another node count; one
+    # runs the widest head dim the kernels take; P + D = 40 > 32 and P = 16
+    # take the default thread mapping where the one-node mappings of
+    # psi_rows and psi_bwd_rows do not fit (projections, Kronecker, dproj).
+    other = {}
+    for key, cfg in (("R=2", dataclasses.replace(feat, num_quad_nodes=2)),
+                     ("d=128", dataclasses.replace(feat, head_dim=128)),
+                     ("P=16 D=24", dataclasses.replace(
+                         feat, num_anchors=16, num_prf=24,
+                         num_quad_nodes=1))):
+        p = init_feature_params(cfg, torch.Generator().manual_seed(SEED + 5),
+                                device="cuda")
+        other[key] = (cfg, p["anchors"], p["omegas"])
     cases = [("train shape BH=96 L=1024 fp32", 96, 96, 1024, torch.float32),
              ("train shape BH=96 L=1024 bf16", 96, 96, 1024, torch.bfloat16),
-             ("GQA BH=2*BK=48 L=512 fp32", 48, 24, 512, torch.float32)]
+             ("GQA BH=2*BK=48 L=512 fp32", 48, 24, 512, torch.float32),
+             ("R=2 nodes GQA BH=2*BK=8 L=256 fp32", 8, 4, 256, torch.float32),
+             ("head dim d=128 GQA BH=2*BK=8 L=256 fp32", 8, 4, 256,
+              torch.float32),
+             ("P=16 D=24 R=1 GQA BH=2*BK=8 L=256 fp32", 8, 4, 256,
+              torch.float32)]
     result = {}
     for name, bh, bk, L, dt in cases:
         log(f"K3/K4 {name}")
-        q, k, v = _k1_inputs(gen, bh, bk, L, d, dv, dt)
+        cfg, a, w = next((o for key, o in other.items() if key in name),
+                         (feat, sp["anchors"], sp["omegas"]))
+        q, k, v = _k1_inputs(gen, bh, bk, L, cfg.head_dim, dv, dt)
         dy = torch.randn(bh, L, dv, generator=gen, device="cuda").to(dt)
         y, den = slay_fused.fused_causal_attention(q, k, v, a, w, cfg)
         args = (q, k, v, a, w, y, den, dy, cfg)
@@ -561,8 +643,9 @@ def phase_k34(feat, sp) -> dict:
                          "summed vs autograd of the plain forward")
             del xs, yp
         if dt == torch.bfloat16:
-            bounds = bwd_bounds(bh, bk, L, d, dv, cfg.num_anchors, cfg.num_prf,
-                                cfg.num_quad_nodes, q.element_size())
+            shape = (bh, bk, L, d, dv, cfg.num_anchors, cfg.num_prf,
+                     cfg.num_quad_nodes, q.element_size())
+            bounds, fp32 = bwd_tc_bounds(*shape), bwd_bounds(*shape)
             for kname, kern, plain, err in (
                     ("slay_fused_bwd_q", slay_fused.launch_bwd_q,
                      slay_fused.fused_bwd_q_plain, e3),
@@ -571,8 +654,16 @@ def phase_k34(feat, sp) -> dict:
                 result[kname] = _kernel_row(
                     kname, time_ms(lambda: kern(*args), iters=10),
                     time_ms(lambda: plain(*args), iters=10, warmup=1),
-                    bounds[kname], err, "this scan")
+                    bounds[kname], err, "this scan",
+                    "with the state products on 3xTF32 tensor cores")
+                b32 = fp32[kname][0]
+                result[kname]["bound_fp32_ms"] = b32
+                log(f"  {kname}: {result[kname]['ms'] / bounds[kname][0]:.1f}"
+                    f"x its bound; bound with every operation on the fp32 "
+                    f"pipes, as earlier designs were ranked, {b32:.4f} ms "
+                    f"({result[kname]['ms'] / b32:.1f}x)")
         del q, k, v, dy, y, den, k3, k4, p3, p4, got
+    cfg, a, w = feat, sp["anchors"], sp["omegas"]
     # Ragged L through the model-layout wrapper under autograd: the pad,
     # reshape and permute carry the gradients back.
     log("K3/K4 ragged L=1000 fp32 via ops.slay_fused_attention, autograd "
@@ -589,7 +680,32 @@ def phase_k34(feat, sp) -> dict:
     for nm, g, wnt in zip(("dq", "dk", "dv"), got, want):
         close(g, wnt, BWD_REL[torch.float32] * float(wnt.abs().max()), 0.0,
               f"ragged {nm} vs autograd of the plain forward")
+    k34_residency(feat, d, dv)
     return result
+
+
+def k34_residency(cfg, d, dv) -> None:
+    """How K3 and K4 sit on the card at the training shape in bf16: grid,
+    tile, blocks per SM and resident at once (CUDA's occupancy
+    calculator), registers, local memory and shared memory per block, and
+    ptxas's registers and spills for that instantiation."""
+    ptx = ptxas_report("slay_fused_bwd")
+    for kv, kname, entry in ((False, "slay_fused_bwd_q", "fused_bwd_q_kernel"),
+                             (True, "slay_fused_bwd_kv",
+                              "fused_bwd_kv_kernel")):
+        res = slay_fused.bwd_residency(kv, 96, d, dv, cfg, torch.bfloat16)
+        gx, gy = res["grid"]
+        inst = [v for name, v in ptx.items()
+                if entry in name and f"bfloat16Li{dv}E" in name]
+        regs, st, ld = inst[0] if inst else ("not in the log",) * 3
+        log(f"  {kname} (bf16, BH=96, dv={dv}): grid {gx} x {gy} = "
+            f"{gx * gy} blocks, tile {res['tile']} tokens, "
+            f"{res['blocks_per_sm']} blocks per SM, {res['blocks_resident']} "
+            f"resident at once ({-(-gx * gy // res['blocks_resident'])} "
+            f"waves), {res['registers']} registers and {res['local_bytes']} B "
+            f"local memory per thread, {res['smem_bytes']} B shared memory "
+            f"per block; ptxas: {regs} registers, {st} B spill stores, {ld} B "
+            f"spill loads")
 
 
 # Ψ from the kernel against its plain twin: fp32 differs in summation

@@ -1,10 +1,14 @@
-// The per-tile phases of the chunked causal scan, shared by every scan
-// kernel: K1, K3, K4 (slay_fused.cu, slay_fused_bwd.cu), which compute Ψ
-// of the tile on chip, and B5, B6a, B6b (slay_scan.cu), which read it from
-// device memory. One block walks the sequence in tiles of kTile tokens and
-// keeps the fp32 carry ((S, z) or (dS, dz)) in shared memory; each
-// function below is one phase of one tile, run by the whole block on
-// fp32 tiles in shared memory:
+// The per-tile phases of the chunked causal scan on the fp32 pipes, used
+// by K1 (slay_fused.cu), which computes Ψ of the tile on chip, and by B5,
+// B6a, B6b (slay_scan.cu), which read it from device memory. K3 and K4
+// (slay_fused_bwd.cu) left these phases for the tensor-core ones of
+// scan_tile_mma.cuh; K1, then B6b, B5 and B6a are to follow, and this
+// header goes when the last of them leaves it. These phases are bound by
+// operations run as scalar fp32 FMAs out of shared memory, about one load
+// per FMA, in one block of 256 threads per q row. One block walks the
+// sequence in tiles of kTile tokens and keeps the fp32 carry ((S, z) or
+// (dS, dz)) in shared memory; each function below is one phase of one
+// tile, run by the whole block on fp32 tiles in shared memory:
 //
 //   psiq, psik (kTile, ldp)  Ψq, Ψk rows of the tile
 //   vs, gs     (kTile, DV)   v rows; G = dy/(den+δ) rows

@@ -44,6 +44,7 @@ SIGNATURES = {
         "slay_fused_bwd_smem_bytes": (ctypes.c_longlong, [_I] * 5),
         "slay_fused_bwd_q": (_I, [_P] * 11 + [_I] * 8 + [_D, _D, _F, _I, _P]),
         "slay_fused_bwd_kv": (_I, [_P] * 12 + [_I] * 8 + [_D, _D, _F, _I, _P]),
+        "slay_fused_bwd_occupancy": (_I, [_I] * 6 + [ctypes.POINTER(_I)]),
     },
     "decode_step": {
         "slay_decode_step": (_I, [_P] * 7 + [_I] * 6 + [_F, _P]),

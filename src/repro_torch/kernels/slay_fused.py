@@ -224,12 +224,32 @@ def fused_causal_attention_bwd_plain(q, k, v, anchors, omegas, y, den, dy,
                    *fused_bwd_kv_plain(*args, **kw))
 
 
+def _check_bwd_shapes(d, cfg: SlayFeatureConfig):
+    if d > 128 or d % 8:
+        raise ValueError(f"backward kernels take a head dim <= 128 and a "
+                         f"multiple of 8, got {d}")
+    if (cfg.num_anchors * cfg.num_prf) % 16:
+        raise ValueError(f"backward kernels take P·D a multiple of 16, got "
+                         f"{cfg.num_anchors * cfg.num_prf}")
+
+
+def _check_bwd_inputs(cfg: SlayFeatureConfig, **tensors):
+    """The CUDA backward's limits beyond the forward's: the shapes above,
+    and every row tensor starting on 16 bytes (K3 and K4 copy rows with
+    16-byte cp.async)."""
+    _check_bwd_shapes(tensors["q"].shape[-1], cfg)
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
 def _launch_bwd(fn, outs, q, k, v, anchors, omegas, y, den, dy,
                 cfg: SlayFeatureConfig, delta):
+    """Launch K3 or K4 into ``outs``, fp32 buffers with a leading axis of
+    one share per quadrature node; returns them."""
     bh, L, d = q.shape
     bk, _, dv = v.shape
-    if d > 128:
-        raise ValueError(f"backward kernels take head dim <= 128, got {d}")
+    _check_bwd_inputs(cfg, q=q, k=k, v=v, y=y, dy=dy)
     lib = _build.load("slay_fused_bwd")
     s_nodes, sqrt_w = _kernel_args(lib, "slay_fused_bwd_smem_bytes", q, v,
                                    cfg)
@@ -253,25 +273,52 @@ def _fp32(*shape, like):
 def launch_bwd_q(q, k, v, anchors, omegas, y, den, dy,
                  cfg: SlayFeatureConfig, delta: float = 1e-6):
     """K3 on CUDA tensors: -> (dq, dA, dΩ partials), as
-    :func:`fused_bwd_q_plain`."""
+    :func:`fused_bwd_q_plain`. The kernel writes one fp32 share per
+    quadrature node; their sum over that axis (``torch.sum``, no atomics)
+    is rounded once to q's dtype."""
     bh, L, d = q.shape
-    P, D = cfg.num_anchors, cfg.num_prf
-    outs = (torch.empty_like(q), _fp32(bh, P, d, like=q), _fp32(bh, D, d, like=q))
-    return _launch_bwd("slay_fused_bwd_q", outs, q, k, v, anchors, omegas, y,
-                       den, dy, cfg, delta)
+    R, P, D = cfg.num_quad_nodes, cfg.num_anchors, cfg.num_prf
+    dq, da, dw = _launch_bwd(
+        "slay_fused_bwd_q", (_fp32(R, bh, L, d, like=q),
+                             _fp32(R, bh, P, d, like=q),
+                             _fp32(R, bh, D, d, like=q)),
+        q, k, v, anchors, omegas, y, den, dy, cfg, delta)
+    return dq.sum(0).to(q.dtype), da.sum(0), dw.sum(0)
 
 
 def launch_bwd_kv(q, k, v, anchors, omegas, y, den, dy,
                   cfg: SlayFeatureConfig, delta: float = 1e-6):
     """K4 on CUDA tensors: -> (dk, dv, dA, dΩ per-q-head partials), as
-    :func:`fused_bwd_kv_plain`."""
+    :func:`fused_bwd_kv_plain`, from the kernel's per-node fp32 shares as
+    in :func:`launch_bwd_q`."""
     bh, L, d = q.shape
-    dv, P, D = v.shape[-1], cfg.num_anchors, cfg.num_prf
-    outs = (torch.empty(bh, L, d, dtype=k.dtype, device=q.device),
-            torch.empty(bh, L, dv, dtype=v.dtype, device=q.device),
-            _fp32(bh, P, d, like=q), _fp32(bh, D, d, like=q))
-    return _launch_bwd("slay_fused_bwd_kv", outs, q, k, v, anchors, omegas, y,
-                       den, dy, cfg, delta)
+    dv, R = v.shape[-1], cfg.num_quad_nodes
+    P, D = cfg.num_anchors, cfg.num_prf
+    dk, dvp, da, dw = _launch_bwd(
+        "slay_fused_bwd_kv", (_fp32(R, bh, L, d, like=q),
+                              _fp32(R, bh, L, dv, like=q),
+                              _fp32(R, bh, P, d, like=q),
+                              _fp32(R, bh, D, d, like=q)),
+        q, k, v, anchors, omegas, y, den, dy, cfg, delta)
+    return (dk.sum(0).to(k.dtype), dvp.sum(0).to(v.dtype), da.sum(0),
+            dw.sum(0))
+
+
+def bwd_residency(kv: bool, bh: int, d: int, dv: int, cfg: SlayFeatureConfig,
+                  dtype: torch.dtype) -> dict:
+    """How K3 (``kv=False``) or K4 (``kv=True``) sits on the current card
+    at these shapes: its grid (BH x R blocks), blocks per SM and resident
+    at once, registers and local-memory bytes per thread, shared memory per
+    block, tokens per tile. Launches nothing."""
+    _check_bwd_shapes(d, cfg)
+    out = (ctypes.c_int * 6)()
+    err = _build.load("slay_fused_bwd").slay_fused_bwd_occupancy(
+        int(kv), d, dv, cfg.num_anchors, cfg.num_prf,
+        _build.DTYPE_CODES[dtype], out)
+    _build.check(err, "slay_fused_bwd_occupancy")
+    return {"grid": (bh, cfg.num_quad_nodes), "tile": out[5],
+            "blocks_per_sm": out[0], "blocks_resident": out[1],
+            "registers": out[2], "local_bytes": out[3], "smem_bytes": out[4]}
 
 
 def fused_causal_attention_bwd(q, k, v, anchors, omegas, y, den, dy,
@@ -344,5 +391,9 @@ def fused_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     versions.
     """
     _check(q, k, v, anchors, omegas, cfg, chunk_size)
+    if q.device.type == "cuda" and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v, anchors, omegas)):
+        # Refuse before the forward runs what the backward would refuse.
+        _check_bwd_inputs(cfg, q=q, k=k, v=v)
     return FusedAttention.apply(q, k, v, anchors, omegas, cfg, chunk_size,
                                 delta)

@@ -1,0 +1,199 @@
+"""The fused backward split by quadrature node, as K3 and K4 compute it.
+
+K3 and K4 run one block per (q head, quadrature node r): block (h, r)
+carries only node r's P·D rows of the scan state, forms node r's share of
+dΨ (and, in K4, of dV through the node's part of the scores), runs the Ψ
+VJP on that share and adds the R shares of du, dv, dA and dΩ. Their tile
+products run on the tensor cores in 3xTF32. This file replays that
+arithmetic on the CPU, tile by tile (16 tokens) and node by node, with
+seeded numpy inputs at the smoke size:
+
+(a) with exact fp32 products the node shares add up to the plain backward
+    (``fused_bwd_q_plain``, ``fused_bwd_kv_plain``) to 1e-6 of each
+    output's largest magnitude, and the summed gradients match the JAX
+    package's Pallas VJP in interpret mode to 1e-4 of scale, the tolerance
+    of ``test_torch_kernels.py::test_fused_grads_match_pallas_vjp``;
+(b) with every tile product rounded as the kernels form it in 3xTF32
+    (operands split into TF32 big + small parts, cvt.rna rounding: the fp32
+    mantissa rounded to 10 bits, ties away from zero), the result stays
+    within 1e-5 of scale of the fp32 plain backward, 10x inside the card's
+    fp32 check (``BWD_REL`` 1e-4 in ``chip_smoke.py``), while single-pass
+    TF32 does not.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import features as jfeat
+from repro.kernels import slay_fused as jfused
+from repro_torch.core import features as tfeat
+from repro_torch.kernels import common as tcommon
+from repro_torch.kernels import slay_fused as tfused
+
+D_HEAD, TILE, DELTA = 16, 16, 1e-6
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32: round the fp32 mantissa to 10 bits, ties away
+    from zero (the low 13 bits of the pattern cleared after adding half
+    of their range to the magnitude)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as mma.sync in 3xTF32: small·big + big·small + big·big, each
+    in fp32, the small terms first."""
+    ab, bb = tf32(a), tf32(b)
+    asm, bsm = tf32(a - ab), tf32(b - bb)
+    return (asm @ bb + ab @ bsm) + ab @ bb
+
+
+def mm_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with single-pass TF32 operands (what this PR rules out)."""
+    return tf32(a) @ tf32(b)
+
+
+def split_bwd(q, k, v, anchors, omegas, y, den, dy, cfg, mm=torch.matmul):
+    """K3 and K4 node by node and tile by tile, with every tile product
+    through ``mm``: -> ((dq, dA, dΩ), (dk, dv, dA, dΩ)), the per-q-head
+    outputs of ``launch_bwd_q`` and ``launch_bwd_kv`` in fp32."""
+    st = tcommon.feature_statics(cfg)
+    qf, qres, kf, kres, vf = tfused._per_q_head(q, k, v, anchors, omegas, st)
+    gg, hh = tcommon.cotangents(y, den, dy, DELTA)
+    bh, L, m = qf.shape
+    dv, pd = vf.shape[-1], cfg.num_anchors * cfg.num_prf
+    tiles = [slice(t0, t0 + TILE) for t0 in range(0, L, TILE)]
+    out_q = [0.0, 0.0, 0.0]
+    out_kv = [0.0, 0.0, 0.0, 0.0]
+    for r in range(cfg.num_quad_nodes):
+        cols = slice(r * pd, (r + 1) * pd)
+        pq, pk = qf[..., cols], kf[..., cols]
+        # K3, node r: forward over the tiles, (S_r, z_r) of the earlier ones.
+        s = torch.zeros(bh, pd, dv)
+        z = torch.zeros(bh, pd)
+        dpsi = torch.zeros(bh, L, m)
+        for sl in tiles:
+            g, h, vt, kt = gg[:, sl], hh[:, sl], vf[:, sl], pk[:, sl]
+            dp = torch.tril(mm(g, vt.transpose(-1, -2)) + h)
+            dpsi[:, sl, cols] = (mm(g, s.transpose(-1, -2)) + mm(dp, kt)
+                                 + h * z[:, None, :])
+            s = s + mm(kt.transpose(-1, -2), vt)
+            z = z + kt.sum(-2)
+        for i, x in enumerate(tcommon.features_bwd(dpsi, qres, anchors,
+                                                   omegas, st)):
+            out_q[i] = out_q[i] + x
+        # K4, node r: reverse, (dS_r, dz_r) of the later tiles.
+        ds = torch.zeros(bh, pd, dv)
+        dz = torch.zeros(bh, pd)
+        dpsi = torch.zeros(bh, L, m)
+        dvs = torch.zeros(bh, L, dv)
+        for sl in reversed(tiles):
+            g, h, vt = gg[:, sl], hh[:, sl], vf[:, sl]
+            qt, kt = pq[:, sl], pk[:, sl]
+            dp = torch.tril(mm(g, vt.transpose(-1, -2)) + h)
+            sc = torch.tril(mm(qt, kt.transpose(-1, -2)))
+            dvs[:, sl] = mm(sc.transpose(-1, -2), g) + mm(kt, ds)
+            dpsi[:, sl, cols] = (mm(dp.transpose(-1, -2), qt)
+                                 + mm(vt, ds.transpose(-1, -2))
+                                 + dz[:, None, :])
+            ds = ds + mm(qt.transpose(-1, -2), g)
+            dz = dz + torch.sum(qt * h, dim=-2)
+        du, da, dw = tcommon.features_bwd(dpsi, kres, anchors, omegas, st)
+        for i, x in enumerate((du, dvs, da, dw)):
+            out_kv[i] = out_kv[i] + x
+    return tuple(out_q), tuple(out_kv)
+
+
+def _inputs(seed, bh, bk, L, nodes, dv=16):
+    cfg = tfeat.SlayFeatureConfig(head_dim=D_HEAD, num_quad_nodes=nodes)
+    jcfg = jfeat.SlayFeatureConfig(head_dim=D_HEAD, num_quad_nodes=nodes)
+    jp = jfeat.init_feature_params(jax.random.PRNGKey(seed), jcfg)
+    a, w = (np.array(jp[n]) for n in ("anchors", "omegas"))
+    rng = np.random.default_rng(seed)
+    q, k, v, dy = (rng.normal(size=s).astype(np.float32)
+                   for s in ((bh, L, D_HEAD), (bk, L, D_HEAD), (bk, L, dv),
+                             (bh, L, dv)))
+    return cfg, jcfg, (q, k, v, a, w, dy)
+
+
+def _forward(cfg, arrays):
+    q, k, v, a, w, dy = (torch.from_numpy(x) for x in arrays)
+    y, den = tfused.fused_causal_attention_plain(q, k, v, a, w, cfg,
+                                                 chunk_size=TILE)
+    return (q, k, v, a, w, y, den, dy, cfg)
+
+
+def _within(got, want, frac):
+    """max |got − want| <= frac · max |want|; returns that ratio."""
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    assert err <= frac * scale, f"{err:.3e} > {frac:g} x {scale:.3e}"
+    return err / scale
+
+
+CASES = [(4, 4, 37, 3), (4, 2, 48, 2)]   # bh, bk, L (ragged first), nodes
+
+
+@pytest.mark.parametrize("bh,bk,L,nodes", CASES)
+def test_node_shares_add_up_to_the_plain_backward(bh, bk, L, nodes):
+    cfg, _, arrays = _inputs(L, bh, bk, L, nodes)
+    args = _forward(cfg, arrays)
+    got_q, got_kv = split_bwd(*args)
+    want_q = tfused.fused_bwd_q_plain(*args, chunk_size=TILE)
+    want_kv = tfused.fused_bwd_kv_plain(*args, chunk_size=TILE)
+    for got, want in zip(got_q + got_kv, want_q + want_kv, strict=True):
+        assert got.shape == want.shape
+        _within(got, want, 1e-6)
+
+
+@pytest.mark.parametrize("bh,bk,nodes", [(4, 4, 3), (4, 2, 2)])
+def test_node_shares_match_the_pallas_vjp(bh, bk, nodes):
+    # The summed shares (GQA and dA/dΩ reduced as the wrapper does)
+    # against jax.vjp of the interpret-mode Pallas kernels.
+    L = 64
+    cfg, jcfg, arrays = _inputs(7 + nodes, bh, bk, L, nodes)
+    args = _forward(cfg, arrays)
+    got_q, got_kv = split_bwd(*args)
+    got = tfused._reduce(args[1], args[2], args[3], args[4], *got_q, *got_kv)
+    q, k, v, a, w, dy = arrays
+
+    def jfn(*xs):
+        return jfused.fused_causal_attention(*xs, jcfg, chunk_size=TILE,
+                                             interpret=True)
+
+    _, vjp = jax.vjp(jfn, *(jnp.asarray(x) for x in (q, k, v, a, w)))
+    for g, wnt in zip(got, vjp(jnp.asarray(dy)), strict=True):
+        wnt = torch.from_numpy(np.array(wnt))
+        assert g.shape == wnt.shape
+        _within(g, wnt, 1e-4)
+
+
+@pytest.mark.parametrize("bh,bk,L,nodes", CASES)
+def test_3xtf32_tile_products_keep_fp32_accuracy(bh, bk, L, nodes):
+    cfg, _, arrays = _inputs(100 + L, bh, bk, L, nodes)
+    args = _forward(cfg, arrays)
+    want_q = tfused.fused_bwd_q_plain(*args, chunk_size=TILE)
+    want_kv = tfused.fused_bwd_kv_plain(*args, chunk_size=TILE)
+    got_q, got_kv = split_bwd(*args, mm=mm_3xtf32)
+    for got, want in zip(got_q + got_kv, want_q + want_kv, strict=True):
+        _within(got, want, 1e-5)
+    # The check can fail: single-pass TF32 keeps about 3 decimal digits.
+    one_q, one_kv = split_bwd(*args, mm=mm_tf32)
+    worst = max(float((g - w).abs().max() / w.abs().max())
+                for g, w in zip(one_q + one_kv, want_q + want_kv))
+    assert worst > 1e-5
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    one = 1.0 + 2.0 ** -10                       # exactly representable
+    x = torch.tensor([1.0, one, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -12,
+                      -(1.0 + 2.0 ** -11), 3.0e-3], dtype=torch.float32)
+    got = tf32(x)
+    assert got[:5].tolist() == [1.0, one, one, 1.0, -one]
+    # 10 mantissa bits: the low 13 bits of the pattern are zero and the
+    # result is within half a TF32 step (2^-11 relative).
+    assert int((got.view(torch.int32) & 0x1FFF).abs().sum()) == 0
+    assert abs(float(got[5]) - 3.0e-3) <= 3.0e-3 * 2.0 ** -11

@@ -381,27 +381,85 @@ def test_plain_bwd_matches_autograd_of_plain_forward(bh, bk):
 @needs_card
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_bwd_kernels_match_plain_on_card(dtype):
-    # K3 and K4 against their plain twins, partials included; ragged L.
-    # fp32: summation order (1e-4 of each output's scale); bf16: one
-    # rounding of dq/dk/dv partials to bf16 (1e-2 of scale).
+    # K3 and K4 against their plain twins, partials included; ragged L;
+    # the default R = 3 quadrature nodes, R = 2 (the kernels' grid is one
+    # block per q head and node), head dim 128 (the widest the kernels
+    # take) and P = 16, D = 24 (past the shape limits of the one-node
+    # thread mappings of psi_rows and psi_bwd_rows, so their default
+    # mapping runs). fp32: summation order (1e-4 of each output's scale);
+    # bf16: one rounding of dq/dk/dv partials to bf16 (1e-2 of scale).
     _, tcfg = _cfgs()
-    p = tfeat.init_feature_params(tcfg, torch.Generator().manual_seed(0))
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    q = torch.randn(8, 90, D_HEAD, generator=gen, device="cuda").to(dtype)
-    k = torch.randn(4, 90, D_HEAD, generator=gen, device="cuda").to(dtype)
-    v = torch.randn(4, 90, 32, generator=gen, device="cuda").to(dtype)
-    dy = torch.randn(8, 90, 32, generator=gen, device="cuda").to(dtype)
+    for cfg in (tcfg, tfeat.SlayFeatureConfig(head_dim=D_HEAD,
+                                              num_quad_nodes=2),
+                tfeat.SlayFeatureConfig(head_dim=128),
+                tfeat.SlayFeatureConfig(head_dim=D_HEAD, num_anchors=16,
+                                        num_prf=24, num_quad_nodes=1)):
+        d = cfg.head_dim
+        p = tfeat.init_feature_params(cfg, torch.Generator().manual_seed(0))
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        q = torch.randn(8, 90, d, generator=gen, device="cuda").to(dtype)
+        k = torch.randn(4, 90, d, generator=gen, device="cuda").to(dtype)
+        v = torch.randn(4, 90, 32, generator=gen, device="cuda").to(dtype)
+        dy = torch.randn(8, 90, 32, generator=gen, device="cuda").to(dtype)
+        a, w = p["anchors"], p["omegas"]
+        y, den = tfused.fused_causal_attention(q, k, v, a, w, cfg,
+                                               chunk_size=90)
+        args = (q, k, v, a, w, y, den, dy, cfg)
+        tol = 1e-4 if dtype == torch.float32 else 1e-2
+        for kern, plain in ((tfused.launch_bwd_q, tfused.fused_bwd_q_plain),
+                            (tfused.launch_bwd_kv, tfused.fused_bwd_kv_plain)):
+            got, want = kern(*args), plain(*args, chunk_size=90)
+            for g, wnt in zip(got, want):
+                scale = float(wnt.float().abs().max())
+                torch.testing.assert_close(g.float(), wnt.float(), rtol=0.0,
+                                           atol=tol * scale)
+
+
+def test_backward_limits_are_checked_from_shapes_and_addresses():
+    # What K3/K4 take beyond K1's limits, checked from the tensors alone
+    # (on the card this runs before K1 when the inputs need gradients).
+    q = torch.zeros(2, 16, 16)
+    tfused._check_bwd_inputs(tfeat.SlayFeatureConfig(head_dim=16), q=q)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tfused._check_bwd_inputs(tfeat.SlayFeatureConfig(head_dim=12),
+                                 q=torch.zeros(2, 16, 12))
+    with pytest.raises(ValueError, match="P·D a multiple of 16"):
+        tfused._check_bwd_inputs(
+            tfeat.SlayFeatureConfig(head_dim=16, num_anchors=3, num_prf=4),
+            q=q)
+    off = torch.zeros(2 * 16 * 16 + 1)[1:].view(2, 16, 16)   # 4 bytes off
+    with pytest.raises(ValueError, match="k must start on a 16-byte"):
+        tfused._check_bwd_inputs(tfeat.SlayFeatureConfig(head_dim=16), q=q,
+                                 k=off)
+
+
+@needs_card
+def test_fused_attention_refuses_backward_limits_before_forward():
+    # What K3/K4 refuse (head dim not a multiple of 8, rows not on 16
+    # bytes) is refused before K1 runs when the inputs need gradients, and
+    # still runs forward-only without them.
+    cfg = tfeat.SlayFeatureConfig(head_dim=12)
+    p = tfeat.init_feature_params(cfg, torch.Generator().manual_seed(0))
     a, w = p["anchors"], p["omegas"]
-    y, den = tfused.fused_causal_attention(q, k, v, a, w, tcfg, chunk_size=90)
-    args = (q, k, v, a, w, y, den, dy, tcfg)
-    tol = 1e-4 if dtype == torch.float32 else 1e-2
-    for kern, plain in ((tfused.launch_bwd_q, tfused.fused_bwd_q_plain),
-                        (tfused.launch_bwd_kv, tfused.fused_bwd_kv_plain)):
-        got, want = kern(*args), plain(*args, chunk_size=90)
-        for g, wnt in zip(got, want):
-            scale = float(wnt.float().abs().max())
-            torch.testing.assert_close(g.float(), wnt.float(), rtol=0.0,
-                                       atol=tol * scale)
+    x = torch.randn(2, 16, 12, device="cuda")
+    v = torch.randn(2, 16, 16, device="cuda")
+    _build.reset_launches()
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tfused.fused_causal_attention(x.requires_grad_(True), x, v, a, w, cfg,
+                                      chunk_size=16)
+    assert _build.LAUNCHES["slay_fused_fwd"] == 0
+    tfused.fused_causal_attention(x.detach(), x.detach(), v, a, w, cfg,
+                                  chunk_size=16)
+    assert _build.LAUNCHES["slay_fused_fwd"] == 1
+    cfg, d = tfeat.SlayFeatureConfig(head_dim=16), 16
+    p = tfeat.init_feature_params(cfg, torch.Generator().manual_seed(0))
+    buf = torch.randn(2 * 16 * d + 1, device="cuda")
+    q = buf[1:].view(2, 16, d).requires_grad_(True)   # 4 bytes off
+    k = torch.randn(2, 16, d, device="cuda")
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        tfused.fused_causal_attention(q, k, v, p["anchors"], p["omegas"], cfg,
+                                      chunk_size=16)
+    assert _build.LAUNCHES["slay_fused_fwd"] == 1
 
 
 @needs_card
