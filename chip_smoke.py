@@ -10,10 +10,17 @@ Phases, each of which raises (nonzero exit) on failure:
 2. build: every CUDA kernel library from ``src/repro_torch/csrc`` with
    nvcc, one process per source, all started together;
 3. K1, the fused causal SLAY forward, against its plain PyTorch version
-   on the card: slayformer shapes in fp32 and bf16, GQA, ragged L and the
-   serving path's own shape; error, kernel and plain times, bound; kernel
-   times at three more shapes (one long sequence, a batch of 16, and the
-   training shape BH = 96, L = 1024 in bf16 beside its bound);
+   on the card: slayformer shapes in fp32 and bf16, GQA, a ragged L =
+   1000 (a partial last tile), head dim 128 and P = 16, D = 24, R = 1 in
+   fp32 (the grid is BH x R; the last takes the Ψ map's default thread
+   mapping), head dim 15 with P = 3, D = 4 in fp32 and bf16 (rows copied
+   in narrower pieces, Ψ padded), the serving path's own shape, and ragged L through
+   ``ops.slay_fused_attention``; error, kernel and plain times, bounds
+   (the state products on 3xTF32 tensor cores, as K1 runs them, and
+   beside it every operation on the fp32 pipes); kernel times at three
+   more shapes (one long sequence, a batch of 16, and the training shape
+   BH = 96, L = 1024 in bf16 beside its bounds); grid, blocks resident,
+   registers and spills at the serving and training shapes;
 4. K2, the decode step, against its plain version: masked and unmasked,
    drained rows bit-identical, state updated in place; times and bounds
    of the unmasked and the masked step;
@@ -33,9 +40,13 @@ Phases, each of which raises (nonzero exit) on failure:
    8·1024·12 tokens) in fp32 and bf16 and at a ragged N; times, bounds;
 7. B5/B6a/B6b, the scan on precomputed features and its two backward
    scans, against their plain versions at the training shape (fp32 and
-   bf16), the serving shape, GQA, and ragged L = 1000 through
-   ``ops.slay_causal_attention`` under autograd; in fp32 also against
-   autograd through the plain forward; times, bounds;
+   bf16), the serving shape, GQA, m = 390 random features in fp32 and
+   bf16 (B6b's slices: three full and a partial one; rows not on 16
+   bytes) and m = 45 in bf16 (rows not on 4 bytes), and ragged L = 1000
+   through ``ops.slay_causal_attention`` under autograd; in fp32 also
+   against autograd through the plain forward; times, bounds (B6b's state
+   products on 3xTF32 tensor cores, and beside it on the fp32 pipes);
+   B6b's grid, residency, registers;
 8. serve: full-width slayformer-124m (random weights from a seed) through
    ``ServingEngine.generate`` on 4 ragged prompts, 32 greedy new tokens,
    launch counters read around that call; prefill and decode tokens/s;
@@ -219,28 +230,52 @@ def bwd_bounds(bh, bk, L, d, dv, P, D, R, es):
     }
 
 
+def _tc_bound(bound, state):
+    """``bound`` (from ``_bound``: every operation on the fp32 pipes) with
+    ``state`` of its operations, the state products, on the tensor cores
+    in 3xTF32, three TF32 products each (495/3 TFLOP/s), as the kernels
+    run them; the rest stays on the fp32 pipes."""
+    _, _, n_ops, nbytes = bound
+    t_ops = (state / (TF32_FLOP_PER_S / 3)
+             + (n_ops - state) / FP32_FLOP_PER_S) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    if t_ops >= t_bytes:
+        return t_ops, "operations", n_ops, nbytes
+    return t_bytes, "bytes", n_ops, nbytes
+
+
 def bwd_tc_bounds(bh, bk, L, d, dv, P, D, R, es):
     """{kernel: (bound_ms, bound_by, n_ops, bytes)} of K3 and K4 with the
     work of ``bwd_bounds`` at the rates of the units that the kernels run
-    it on: the state products (2·m·dv operations per term and token, the
-    whole of the G Sᵀ, Ψk dS, V dSᵀ and carry-update work, which the
-    kernels split into tile products and state products) on the tensor
-    cores in 3xTF32, three TF32 products each (495/3 TFLOP/s), the rest
-    on the fp32 pipes. These are the kernels' rows' bounds; ``bwd_bounds``
+    it on (``_tc_bound``): the state products (2·m·dv operations per term
+    and token, the whole of the G Sᵀ, Ψk dS, V dSᵀ and carry-update work,
+    which the kernels split into tile products and state products) on the
+    tensor cores. These are the kernels' rows' bounds; ``bwd_bounds``
     (everything on the fp32 pipes) stays the figure that compares with
     earlier designs."""
     st = 2 * R * P * D * dv
     state = {"slay_fused_bwd_q": (bh + bk) * L * st,
              "slay_fused_bwd_kv": bh * L * 3 * st}
-    out = {}
-    for name, (_, _, n_ops, nbytes) in bwd_bounds(bh, bk, L, d, dv, P, D, R,
-                                                  es).items():
-        t_ops = (state[name] / (TF32_FLOP_PER_S / 3)
-                 + (n_ops - state[name]) / FP32_FLOP_PER_S) * 1e3
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        out[name] = ((t_ops, "operations", n_ops, nbytes) if t_ops >= t_bytes
-                     else (t_bytes, "bytes", n_ops, nbytes))
-    return out
+    return {name: _tc_bound(b, state[name]) for name, b in
+            bwd_bounds(bh, bk, L, d, dv, P, D, R, es).items()}
+
+
+def k1_tc_bound(bh, bk, L, d, dv, P, D, R, es):
+    """K1's bound with the read-out Ψq S (per q row) and the update Ψkᵀ V
+    (per kv row), 2·m·dv operations each, on the tensor cores
+    (``_tc_bound``), as K1 runs them; ``k1_bound`` stays the all-fp32
+    figure."""
+    return _tc_bound(k1_bound(bh, bk, L, d, dv, P, D, R, es),
+                     (bh + bk) * L * 2 * R * P * D * dv)
+
+
+def scan_kv_tc_bound(bh, bk, L, m, dv, es):
+    """B6b's bound with its three state terms per q-head row (Ψk dS, V dSᵀ
+    and the (dS, dz) update, 2·m·dv operations each) on the tensor cores
+    (``_tc_bound``), as B6b runs them; ``scan_bounds`` stays the all-fp32
+    figure."""
+    return _tc_bound(scan_bounds(bh, bk, L, m, dv, es)["slay_scan_bwd_kv"],
+                     bh * L * 3 * 2 * m * dv)
 
 
 def ptxas_report(name: str) -> dict:
@@ -380,46 +415,106 @@ def _k1_inputs(gen, bh, bk, L, d, dv, dtype):
     return q, k, v
 
 
+def _other_configs(feat) -> dict:
+    """{name: (cfg, anchors, omegas)} of the feature shapes that the kernel
+    phases run beside slayformer's: R = 2 nodes (the fused kernels' grid is
+    BH x R blocks); head dim 128, the widest the backward takes; P = 16,
+    D = 24, R = 1, where P + D = 40 > 32 and P = 16 take the default
+    thread mapping of psi_rows and psi_bwd_rows, past the shape limits of
+    the one-node mappings (projections, Kronecker, dproj); head dim 15
+    with P = 3, D = 4, which only K1 takes: its raw rows are not whole
+    16-byte (fp32) or 4-byte (bf16) chunks, and P·D = 12 is padded to 16
+    columns."""
+    other = {}
+    for key, cfg in (("R=2", dataclasses.replace(feat, num_quad_nodes=2)),
+                     ("d=128", dataclasses.replace(feat, head_dim=128)),
+                     ("P=16 D=24", dataclasses.replace(
+                         feat, num_anchors=16, num_prf=24,
+                         num_quad_nodes=1)),
+                     ("d=15 P=3 D=4", dataclasses.replace(
+                         feat, head_dim=15, num_anchors=3, num_prf=4))):
+        p = init_feature_params(cfg, torch.Generator().manual_seed(SEED + 5),
+                                device="cuda")
+        other[key] = (cfg, p["anchors"], p["omegas"])
+    return other
+
+
+# (atol, rtol) of K1's y. fp32: the kernel and the plain version differ
+# only in summation order (16-token tiles vs 256-token chunks, the node
+# shares added at the end) and the 3xTF32 tile products (about 1e-7
+# relative). bf16: y is a nonnegative-weighted mean of v (|y| < 8 here),
+# rounded once to bf16 on each side, so one bf16 step (2^-8 relative)
+# apart. den, an fp32 sum of at most L terms, to 1e-4 relative.
+K1_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1.6e-2)}
+DEN_RTOL = 1e-4
+
+
+def _k1_check(q, k, v, a, w, cfg, what):
+    """K1 against its plain version at a bf16 shape: y at K1_TOL, den at
+    DEN_RTOL."""
+    log(f"K1 {what}")
+    y, den = slay_fused.fused_causal_attention(q, k, v, a, w, cfg)
+    yp, denp = slay_fused.fused_causal_attention_plain(q, k, v, a, w, cfg)
+    torch.cuda.synchronize()
+    close(y, yp, *K1_TOL[q.dtype], "y")
+    close(den, denp, 0.0, DEN_RTOL, "den")
+
+
 def phase_k1(feat, sp, main_shape) -> dict:
     """K1 vs plain on the card; returns the main-path case's numbers."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cfg = feat
     a, w = sp["anchors"], sp["omegas"]
     d = cfg.head_dim
-    # (atol, rtol) of y. fp32: the kernel and the plain version differ
-    # only in summation order (16-token tiles vs 256-token chunks).
-    # bf16: y is a nonnegative-weighted mean of v (|y| < 8 here), rounded
-    # once to bf16 on each side, so one bf16 step (2^-8 relative) apart.
-    tol = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1.6e-2)}
+    other = _other_configs(feat)
+    tol = K1_TOL
     cases = [("slayformer B=4 L=1024 fp32", 48, 48, 1024, torch.float32),
              ("slayformer B=4 L=1024 bf16", 48, 48, 1024, torch.bfloat16),
-             ("GQA BH=2*BK L=512 fp32", 48, 24, 512, torch.float32)]
+             ("GQA BH=2*BK L=512 fp32", 48, 24, 512, torch.float32),
+             ("ragged L=1000 GQA BH=2*BK=8 fp32", 8, 4, 1000, torch.float32),
+             ("head dim d=128 GQA BH=2*BK=8 L=256 fp32", 8, 4, 256,
+              torch.float32),
+             ("P=16 D=24 R=1 GQA BH=2*BK=8 L=256 fp32", 8, 4, 256,
+              torch.float32),
+             ("d=15 P=3 D=4 GQA BH=2*BK=8 L=90 fp32", 8, 4, 90,
+              torch.float32),
+             ("d=15 P=3 D=4 GQA BH=2*BK=8 L=90 bf16", 8, 4, 90,
+              torch.bfloat16)]
     bh_m, L_m = main_shape
     cases.append((f"serving path BH={bh_m} L={L_m} bf16", bh_m, bh_m, L_m,
                   torch.bfloat16))
     result = {}
     for name, bh, bk, L, dt in cases:
         log(f"K1 {name}")
-        q, k, v = _k1_inputs(gen, bh, bk, L, d, 64, dt)
-        y, den = slay_fused.fused_causal_attention(q, k, v, a, w, cfg)
-        yp, denp = slay_fused.fused_causal_attention_plain(q, k, v, a, w, cfg)
+        ccfg, ca, cw = next((o for key, o in other.items() if key in name),
+                            (cfg, a, w))
+        # The kernel walks 16-token tiles whatever the chunk; a ragged L
+        # (a partial last tile) is one chunk of the plain version.
+        chunk = 256 if L % 256 == 0 else L
+        q, k, v = _k1_inputs(gen, bh, bk, L, ccfg.head_dim, 64, dt)
+        y, den = slay_fused.fused_causal_attention(q, k, v, ca, cw, ccfg,
+                                                   chunk_size=chunk)
+        yp, denp = slay_fused.fused_causal_attention_plain(
+            q, k, v, ca, cw, ccfg, chunk_size=chunk)
         torch.cuda.synchronize()
         err = close(y, yp, *tol[dt], "y")
-        close(den, denp, 0.0, 1e-4, "den")     # fp32 sum of <= L terms
+        close(den, denp, 0.0, DEN_RTOL, "den")
         if name.startswith("serving path"):
             ms = time_ms(lambda: slay_fused.fused_causal_attention(
                 q, k, v, a, w, cfg))
             plain_ms = time_ms(lambda: slay_fused.fused_causal_attention_plain(
                 q, k, v, a, w, cfg), iters=10)
-            bound, by, n_ops, nb = k1_bound(bh, bk, L, d, 64, cfg.num_anchors,
-                                          cfg.num_prf, cfg.num_quad_nodes,
-                                          q.element_size())
-            log(f"  kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                f"{bound:.4f} ms by {by} ({n_ops:.3e} fp32 FLOP, {nb:.3e} B); "
-                f"library: none, no single PyTorch call computes SLAY "
-                f"attention")
-            result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=bound, bound_by=by)
+            shape = (bh, bk, L, d, 64, cfg.num_anchors, cfg.num_prf,
+                     cfg.num_quad_nodes, q.element_size())
+            result = _kernel_row(
+                "slay_fused_fwd", ms, plain_ms, k1_tc_bound(*shape), err,
+                "SLAY attention", "with the state products on 3xTF32 tensor "
+                "cores")
+            result["bound_fp32_ms"] = k1_bound(*shape)[0]
+            log(f"  {ms / result['bound_ms']:.1f}x its bound; "
+                f"{ms / result['bound_fp32_ms']:.1f}x the bound with every "
+                f"operation on the fp32 pipes, "
+                f"{result['bound_fp32_ms']:.4f} ms")
     # Ragged L through the model-layout wrapper (zero padding in ops).
     log("K1 ragged L=1000 bf16 via ops.slay_fused_attention (B=4, H=12)")
     qm = torch.randn(4, 1000, 12, d, generator=gen, device="cuda").bfloat16()
@@ -433,26 +528,39 @@ def phase_k1(feat, sp, main_shape) -> dict:
     if ym.shape != (4, 1000, 12, 64):
         raise AssertionError(f"ragged output shape {tuple(ym.shape)}")
     close(ym, want, *tol[torch.bfloat16], "y")
-    # Other shapes: one long sequence (12 blocks) and a batch of 16 (192
-    # blocks, more than the 132 SMs).
+    # Other shapes: one long sequence (36 blocks) and a batch of 16 (576
+    # blocks, more than the 264 resident at once, so a second and third
+    # wave: held against the plain version too).
     for bh, L in ((12, 8192), (192, 512)):
         q, k, v = _k1_inputs(gen, bh, bh, L, d, 64, torch.bfloat16)
+        if bh == 192:
+            _k1_check(q, k, v, a, w, cfg, f"sweep BH={bh} L={L} bf16")
         ms = time_ms(lambda: slay_fused.fused_causal_attention(
             q, k, v, a, w, cfg), iters=5)
-        bound = k1_bound(bh, bh, L, d, 64, cfg.num_anchors, cfg.num_prf,
-                         cfg.num_quad_nodes, 2)[0]
+        bound = k1_tc_bound(bh, bh, L, d, 64, cfg.num_anchors, cfg.num_prf,
+                            cfg.num_quad_nodes, 2)[0]
         log(f"K1 sweep BH={bh} L={L} bf16: kernel {ms:.4f} ms = "
             f"{ms * 1e6 / (bh * L):.1f} ns per q-row token; bound "
             f"{bound:.4f} ms ({bound / ms:.2%} of the kernel's time)")
-    # The training step's shape (8 sequences x 12 heads of 1024 tokens).
+    # The training step's shape (8 sequences x 12 heads of 1024 tokens):
+    # 288 blocks, more than the 264 resident at once, so the only main-path
+    # shape that runs a second wave.
     q, k, v = _k1_inputs(gen, 96, 96, 1024, d, 64, torch.bfloat16)
+    _k1_check(q, k, v, a, w, cfg, "training shape BH=96 L=1024 bf16")
     ms = time_ms(lambda: slay_fused.fused_causal_attention(q, k, v, a, w, cfg),
                  iters=10)
-    bound, by, n_ops, _ = k1_bound(96, 96, 1024, d, 64, cfg.num_anchors,
-                                   cfg.num_prf, cfg.num_quad_nodes, 2)
+    shape = (96, 96, 1024, d, 64, cfg.num_anchors, cfg.num_prf,
+             cfg.num_quad_nodes, 2)
+    bound, by, n_ops, _ = k1_tc_bound(*shape)
+    b32 = k1_bound(*shape)[0]
     log(f"K1 at the training shape BH=96 L=1024 bf16: kernel {ms:.4f} ms, "
-        f"bound {bound:.4f} ms by {by} ({n_ops:.3e} fp32 FLOP), "
-        f"{ms / bound:.1f}x the bound")
+        f"bound {bound:.4f} ms by {by} ({n_ops:.3e} FLOP, the state products "
+        f"on 3xTF32 tensor cores), {ms / bound:.1f}x the bound; "
+        f"{ms / b32:.1f}x the all-fp32 bound of {b32:.4f} ms")
+    for bh in (bh_m, 96):
+        log_residency("slay_fused_fwd", "slay_fused", "fused_fwd_kernel",
+                      slay_fused.fwd_residency(bh, d, 64, cfg, torch.bfloat16),
+                      64, f"bf16, BH={bh}, dv=64")
     return result
 
 
@@ -596,19 +704,7 @@ def phase_k34(feat, sp) -> dict:
     shape in bf16, the main path's."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     d, dv = feat.head_dim, 64
-    # The grid is BH x R blocks, so one case runs another node count; one
-    # runs the widest head dim the kernels take; P + D = 40 > 32 and P = 16
-    # take the default thread mapping where the one-node mappings of
-    # psi_rows and psi_bwd_rows do not fit (projections, Kronecker, dproj).
-    other = {}
-    for key, cfg in (("R=2", dataclasses.replace(feat, num_quad_nodes=2)),
-                     ("d=128", dataclasses.replace(feat, head_dim=128)),
-                     ("P=16 D=24", dataclasses.replace(
-                         feat, num_anchors=16, num_prf=24,
-                         num_quad_nodes=1))):
-        p = init_feature_params(cfg, torch.Generator().manual_seed(SEED + 5),
-                                device="cuda")
-        other[key] = (cfg, p["anchors"], p["omegas"])
+    other = _other_configs(feat)
     cases = [("train shape BH=96 L=1024 fp32", 96, 96, 1024, torch.float32),
              ("train shape BH=96 L=1024 bf16", 96, 96, 1024, torch.bfloat16),
              ("GQA BH=2*BK=48 L=512 fp32", 48, 24, 512, torch.float32),
@@ -684,28 +780,34 @@ def phase_k34(feat, sp) -> dict:
     return result
 
 
+def log_residency(kname: str, lib: str, entry: str, res: dict, dv: int,
+                  what: str) -> None:
+    """One kernel's residency line: grid, tile, blocks per SM and resident
+    at once (CUDA's occupancy calculator), registers, local memory and
+    shared memory per block (``res``), and ptxas's registers and spills
+    for the bf16 instantiation at this dv of kernel ``entry`` of library
+    ``lib``."""
+    gx, gy = res["grid"]
+    inst = [v for name, v in ptxas_report(lib).items()
+            if entry in name and f"bfloat16Li{dv}E" in name]
+    regs, st, ld = inst[0] if inst else ("not in the log",) * 3
+    log(f"  {kname} ({what}): grid {gx} x {gy} = {gx * gy} blocks, tile "
+        f"{res['tile']} tokens, {res['blocks_per_sm']} blocks per SM, "
+        f"{res['blocks_resident']} resident at once "
+        f"({-(-gx * gy // res['blocks_resident'])} waves), "
+        f"{res['registers']} registers and {res['local_bytes']} B local "
+        f"memory per thread, {res['smem_bytes']} B shared memory per block; "
+        f"ptxas: {regs} registers, {st} B spill stores, {ld} B spill loads")
+
+
 def k34_residency(cfg, d, dv) -> None:
-    """How K3 and K4 sit on the card at the training shape in bf16: grid,
-    tile, blocks per SM and resident at once (CUDA's occupancy
-    calculator), registers, local memory and shared memory per block, and
-    ptxas's registers and spills for that instantiation."""
-    ptx = ptxas_report("slay_fused_bwd")
+    """How K3 and K4 sit on the card at the training shape in bf16."""
     for kv, kname, entry in ((False, "slay_fused_bwd_q", "fused_bwd_q_kernel"),
                              (True, "slay_fused_bwd_kv",
                               "fused_bwd_kv_kernel")):
         res = slay_fused.bwd_residency(kv, 96, d, dv, cfg, torch.bfloat16)
-        gx, gy = res["grid"]
-        inst = [v for name, v in ptx.items()
-                if entry in name and f"bfloat16Li{dv}E" in name]
-        regs, st, ld = inst[0] if inst else ("not in the log",) * 3
-        log(f"  {kname} (bf16, BH=96, dv={dv}): grid {gx} x {gy} = "
-            f"{gx * gy} blocks, tile {res['tile']} tokens, "
-            f"{res['blocks_per_sm']} blocks per SM, {res['blocks_resident']} "
-            f"resident at once ({-(-gx * gy // res['blocks_resident'])} "
-            f"waves), {res['registers']} registers and {res['local_bytes']} B "
-            f"local memory per thread, {res['smem_bytes']} B shared memory "
-            f"per block; ptxas: {regs} registers, {st} B spill stores, {ld} B "
-            f"spill loads")
+        log_residency(kname, "slay_fused_bwd", entry, res, dv,
+                      f"bf16, BH=96, dv={dv}")
 
 
 # Ψ from the kernel against its plain twin: fp32 differs in summation
@@ -776,15 +878,29 @@ def phase_scan(feat, sp, serve_shape) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     tol = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1.6e-2)}
     bh_s, L_s = serve_shape
+    # B6b runs one block per (q row, slice of 128 feature columns): m = 390
+    # (random nonnegative features) is three full slices and one of 6
+    # columns, and its rows do not start on 16 bytes; in bf16 the rows of
+    # m = 45 do not start on 4 bytes.
     cases = [("train shape BH=96 L=1024 fp32", 96, 96, 1024, torch.float32),
              ("train shape BH=96 L=1024 bf16", 96, 96, 1024, torch.bfloat16),
              (f"serving path BH={bh_s} L={L_s} bf16", bh_s, bh_s, L_s,
               torch.bfloat16),
-             ("GQA BH=2*BK=48 L=512 fp32", 48, 24, 512, torch.float32)]
+             ("GQA BH=2*BK=48 L=512 fp32", 48, 24, 512, torch.float32),
+             ("m=390 GQA BH=2*BK=8 L=256 fp32", 8, 4, 256, torch.float32),
+             ("m=390 GQA BH=2*BK=8 L=256 bf16", 8, 4, 256, torch.bfloat16),
+             ("m=45 GQA BH=2*BK=8 L=256 bf16", 8, 4, 256, torch.bfloat16)]
     result = {}
     for name, bh, bk, L, dt in cases:
         log(f"B5/B6 {name}")
-        qf, kf, v, dy = _scan_inputs(gen, feat, sp, bh, bk, L, 64, dt)
+        if name.startswith("m="):
+            m = int(name[2:name.index(" ")])
+            qf, kf = (torch.rand(n, L, m, generator=gen, device="cuda")
+                      .to(dt) for n in (bh, bk))
+            v = torch.randn(bk, L, 64, generator=gen, device="cuda").to(dt)
+            dy = torch.randn(bh, L, 64, generator=gen, device="cuda").to(dt)
+        else:
+            qf, kf, v, dy = _scan_inputs(gen, feat, sp, bh, bk, L, 64, dt)
         y, den = slay_scan.launch_fwd(qf, kf, v)
         yp, denp = slay_scan.causal_linear_attention_plain(qf, kf, v)
         torch.cuda.synchronize()
@@ -812,8 +928,11 @@ def phase_scan(feat, sp, serve_shape) -> dict:
             b = scan_bounds(bh, bk, L, qf.shape[-1], 64, es)["slay_scan_fwd"]
             log(f"  slay_scan_fwd at the serving shape: kernel {ms:.4f} ms, "
                 f"bound {b[0]:.4f} ms by {b[1]}")
-        elif dt == torch.bfloat16:
+        elif name.startswith("train shape") and dt == torch.bfloat16:
             bounds = scan_bounds(bh, bk, L, qf.shape[-1], 64, es)
+            b32 = bounds["slay_scan_bwd_kv"][0]
+            bounds["slay_scan_bwd_kv"] = scan_kv_tc_bound(
+                bh, bk, L, qf.shape[-1], 64, es)
             for kname, kern, plain, err in (
                     ("slay_scan_fwd", lambda: slay_scan.launch_fwd(qf, kf, v),
                      lambda: slay_scan.causal_linear_attention_plain(
@@ -826,7 +945,19 @@ def phase_scan(feat, sp, serve_shape) -> dict:
                 result[kname] = _kernel_row(
                     kname, time_ms(kern, iters=10),
                     time_ms(plain, iters=10, warmup=1), bounds[kname], err,
-                    "this scan")
+                    "this scan", "on the fp32 pipes" if kname !=
+                    "slay_scan_bwd_kv" else "with the state products on "
+                    "3xTF32 tensor cores")
+            kv = result["slay_scan_bwd_kv"]
+            kv["bound_fp32_ms"] = b32
+            log(f"  slay_scan_bwd_kv: {kv['ms'] / kv['bound_ms']:.1f}x its "
+                f"bound; {kv['ms'] / b32:.1f}x the bound with every "
+                f"operation on the fp32 pipes, {b32:.4f} ms")
+            log_residency("slay_scan_bwd_kv", "slay_scan",
+                          "scan_bwd_kv_kernel",
+                          slay_scan.bwd_kv_residency(bh, qf.shape[-1], 64,
+                                                     torch.bfloat16),
+                          64, f"bf16, BH={bh}, m={qf.shape[-1]}, dv=64")
         del qf, kf, v, dy, y, den, args, b6a, b6b, got
     # Ragged L through the model-layout wrapper under autograd: the pad,
     # reshape and permute carry the gradients back.

@@ -35,7 +35,8 @@ namespace slay {
 
 constexpr int kFmTile = 32;   // tokens per block
 
-// Shared-memory carve-up (floats), as fused_layout in slay_fused.cu.
+// Shared-memory carve-up (floats); each offset is a row count times a
+// padded stride.
 struct FmLayout {
   int ldu, ldw, ldp, ldphi;
   int off_u, off_aw, off_phi, off_psi, off_pa, off_inv, off_dproj, off_daw;

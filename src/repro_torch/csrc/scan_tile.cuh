@@ -1,20 +1,19 @@
 // The per-tile phases of the chunked causal scan on the fp32 pipes, used
-// by K1 (slay_fused.cu), which computes Ψ of the tile on chip, and by B5,
-// B6a, B6b (slay_scan.cu), which read it from device memory. K3 and K4
-// (slay_fused_bwd.cu) left these phases for the tensor-core ones of
-// scan_tile_mma.cuh; K1, then B6b, B5 and B6a are to follow, and this
-// header goes when the last of them leaves it. These phases are bound by
-// operations run as scalar fp32 FMAs out of shared memory, about one load
-// per FMA, in one block of 256 threads per q row. One block walks the
-// sequence in tiles of kTile tokens and keeps the fp32 carry ((S, z) or
-// (dS, dz)) in shared memory; each function below is one phase of one
-// tile, run by the whole block on fp32 tiles in shared memory:
+// by B5 and B6a (slay_scan.cu), which read Ψ from device memory. K1, K3,
+// K4 and B6b left these phases for the tensor-core ones of
+// scan_tile_mma.cuh; B5 and B6a are to follow, and this header goes when
+// they leave it. These phases are bound by operations run as scalar fp32
+// FMAs out of shared memory, about one load per FMA, in one block of 256
+// threads per q row. One block walks the sequence in tiles of kTile
+// tokens and keeps the fp32 carry (S, z) in shared memory; each function
+// below is one phase of one tile, run by the whole block on fp32 tiles in
+// shared memory:
 //
 //   psiq, psik (kTile, ldp)  Ψq, Ψk rows of the tile
 //   vs, gs     (kTile, DV)   v rows; G = dy/(den+δ) rows
 //   hs         (kTile)       h = −Σ(dy∘y)/(den+δ)
 //   sc, dp     (kTile, ldsc) tril(Ψq Ψkᵀ); dP = tril(G Vᵀ + h 1ᵀ)
-//   carry      (m, lds)      S or dS; carry_z (m): z or dz
+//   carry      (m, lds)      S; carry_z (m): z
 //
 // tril keeps the diagonal (causal_keep). Every reader of the carry runs
 // before the tile is added to it (scan_update), so a row never sees its
@@ -95,15 +94,12 @@ __device__ inline void tile_forward(const float* psiq, int ldp,
 }
 
 // carry += Aᵀ B over the tile (A (kTile, m) in rows of stride ldp, B
-// (kTile, DV)) and carry_z += Aᵀ w, with w = nullptr for the ones vector:
-// S += Ψkᵀ V, z += Σ Ψk, or dS += Ψqᵀ G, dz += Ψqᵀ h. Thread (column j,
-// row group tg). Ends past a __syncthreads(). The weight is selected, not
-// the product, so that a·w + acc contracts to one FMA whether or not the
-// compiler can see that w is non-null (a·1 + acc rounds as a + acc).
+// (kTile, DV)) and carry_z += Σ A's rows: S += Ψkᵀ V, z += Σ Ψk. Thread
+// (column j, row group tg). Ends past a __syncthreads().
 template <int DV>
 __device__ inline void scan_update(float* carry, int lds, float* carry_z,
                                    const float* a, int ldp, const float* b,
-                                   const float* w, int m) {
+                                   int m) {
   constexpr int RG = kThreads / DV;
   const int j = threadIdx.x % DV, tg = threadIdx.x / DV;
   float br[kTile];
@@ -118,8 +114,7 @@ __device__ inline void scan_update(float* carry, int lds, float* carry_z,
   for (int f = threadIdx.x; f < m; f += blockDim.x) {
     float acc = 0.f;
 #pragma unroll
-    for (int s2 = 0; s2 < kTile; ++s2)
-      acc += a[s2 * ldp + f] * (w == nullptr ? 1.f : w[s2]);
+    for (int s2 = 0; s2 < kTile; ++s2) acc += a[s2 * ldp + f];
     carry_z[f] += acc;
   }
   __syncthreads();
@@ -149,24 +144,18 @@ __device__ inline void load_cotangents(const T* dy, const T* y,
   }
 }
 
-// dp = tril(G Vᵀ + h 1ᵀ), and with sc != nullptr also sc = tril(Ψq Ψkᵀ).
-// Ends past a __syncthreads().
+// dp = tril(G Vᵀ + h 1ᵀ). Ends past a __syncthreads().
 template <int DV>
 __device__ inline void tile_dp(const float* gs, const float* hs,
-                               const float* vs, const float* psiq,
-                               const float* psik, int ldp, int m, int ldsc,
-                               float* dp, float* sc) {
+                               const float* vs, int ldsc, float* dp) {
   for (int i = threadIdx.x; i < kTile * kTile; i += blockDim.x) {
     const int t = i / kTile, s2 = i % kTile;
-    float acc = 0.f, s = 0.f;
+    float acc = 0.f;
     if (causal_keep(t, s2)) {
       for (int j = 0; j < DV; ++j) acc += gs[t * DV + j] * vs[s2 * DV + j];
       acc += hs[t];
-      if (sc != nullptr)
-        for (int f = 0; f < m; ++f) s += psiq[t * ldp + f] * psik[s2 * ldp + f];
     }
     dp[t * ldsc + s2] = acc;
-    if (sc != nullptr) sc[t * ldsc + s2] = s;
   }
   __syncthreads();
 }
@@ -198,66 +187,6 @@ __device__ inline void tile_dpsi_q(const float* S, int lds, const float* z,
       float intra = 0.f;
       for (int s2 = 0; s2 <= t; ++s2) intra += dp[t * ldsc + s2] * psik[s2 * ldp + f];
       store(t, f, (acc[r] + hs[t] * zf) + intra);
-    }
-  }
-}
-
-// dV = scᵀ G + Ψk dS with dS of the tiles after this one, written to rows
-// t0.. of dv_out (rows, L, DV) for q row `row`. Thread (column j, rows tg,
-// tg + RG, ...). No sync.
-template <typename T, int DV>
-__device__ inline void tile_dv(const float* psik, int ldp, const float* dS,
-                               int lds, const float* sc, int ldsc,
-                               const float* gs, int m, T* dv_out, int row,
-                               int L, int t0) {
-  constexpr int RG = kThreads / DV;
-  constexpr int RPT = kTile / RG > 0 ? kTile / RG : 1;
-  const int j = threadIdx.x % DV, tg = threadIdx.x / DV;
-  if (tg >= kTile) return;
-  float acc[RPT];
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) acc[r] = 0.f;
-  for (int f = 0; f < m; ++f) {
-    const float dsv = dS[f * lds + j];
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) acc[r] += psik[(tg + r * RG) * ldp + f] * dsv;
-  }
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int s2 = tg + r * RG;
-    float intra = 0.f;
-    for (int t = s2; t < kTile; ++t) intra += sc[t * ldsc + s2] * gs[t * DV + j];
-    if (t0 + s2 < L)
-      dv_out[((int64_t)row * L + t0 + s2) * DV + j] = from_f32<T>(intra + acc[r]);
-  }
-}
-
-// dΨk = dPᵀ Ψq + V dSᵀ + 1 dzᵀ with (dS, dz) of the tiles after this one;
-// store(s2, f, value) puts each element. Thread item (feature f, block of
-// kRowBlock rows). No sync.
-template <int DV, typename Store>
-__device__ inline void tile_dpsi_k(const float* dS, int lds, const float* dz,
-                                   const float* vs, const float* dp, int ldsc,
-                                   const float* psiq, int ldp, int m,
-                                   Store store) {
-  constexpr int RB = kRowBlock;
-  for (int idx = threadIdx.x; idx < m * (kTile / RB); idx += blockDim.x) {
-    const int f = idx % m, r0 = (idx / m) * RB;
-    float acc[RB];
-#pragma unroll
-    for (int r = 0; r < RB; ++r) acc[r] = 0.f;
-    for (int jj = 0; jj < DV; ++jj) {
-      const float dsv = dS[f * lds + jj];
-#pragma unroll
-      for (int r = 0; r < RB; ++r) acc[r] += vs[(r0 + r) * DV + jj] * dsv;
-    }
-    const float dzf = dz[f];
-#pragma unroll
-    for (int r = 0; r < RB; ++r) {
-      const int s2 = r0 + r;
-      float intra = 0.f;
-      for (int t = s2; t < kTile; ++t) intra += dp[t * ldsc + s2] * psiq[t * ldp + f];
-      store(s2, f, (intra + acc[r]) + dzf);
     }
   }
 }

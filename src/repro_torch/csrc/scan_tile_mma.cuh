@@ -1,5 +1,7 @@
 // Per-tile phases of the chunked causal scan on the tensor cores, for one
-// quadrature node's slice of the state: K3 and K4 (slay_fused_bwd.cu).
+// block's slice of the state: one quadrature node's P·D columns in K1
+// (slay_fused.cu), K3 and K4 (slay_fused_bwd.cu), one slice of the
+// feature columns in B6b (slay_scan.cu).
 //
 // Every product of a tile runs as mma.sync.m16n8k8 in TF32 with fp32
 // accumulation, in 3xTF32: each fp32 operand is split as a = big + small
@@ -11,14 +13,15 @@
 // A tile is kMmaTile = 16 tokens, one MMA row block. The fp32 operands
 // sit in shared memory:
 //
-//   psiq, psik (16, ldp)   Ψq, Ψk of the tile restricted to one node (pd
-//                          = P·D columns)
+//   psiq, psik (16, ldp)   Ψq, Ψk of the tile restricted to the block's
+//                          pd columns (a multiple of 16; columns past the
+//                          slice are zero)
 //   vs, gs     (16, ldv)   v rows; G = dy/(den+δ) rows
 //   hs         (16)        h = −Σ(dy∘y)/(den+δ)
-//   sc, dp     (16, ldsc)  tril(Ψq Ψkᵀ) of the node (in two halves, sc and
-//                          sc_hi); dP = tril(G Vᵀ + h 1ᵀ) (K4; K3 keeps dP
-//                          in registers)
-//   carry      (pd, ldc)   the node's S or dS; carry_z (pd): z or dz
+//   sc, dp     (16, ldsc)  tril(Ψq Ψkᵀ) of the slice (in two halves, sc
+//                          and sc_hi); dP = tril(G Vᵀ + h 1ᵀ) (K4, B6b;
+//                          K3 keeps dP in registers)
+//   carry      (pd, ldc)   the slice's S or dS; carry_z (pd): z or dz
 //
 // Each phase is run by the whole block of 8 warps; a warp owns whole
 // 16 x 8 output tiles (the two halves of the scores are added in one
@@ -26,7 +29,8 @@
 // scheduling. tril keeps the diagonal (causal_keep). As in scan_tile.cuh,
 // every reader of the carry runs before the tile is added to it
 // (mma_update), so a row never sees its own tile through the state. The
-// cp.async helpers at the end stage the next tile's raw rows.
+// helpers at the end stage the next tile's raw rows with cp.async, widen
+// them to fp32, and write a block's outputs.
 #pragma once
 
 #include <cstdint>
@@ -38,6 +42,18 @@ namespace slay {
 constexpr int kMmaTile = 16;   // tokens per tile: the MMA's row count
 constexpr int kWarps = kThreads / 32;
 static_assert(kWarps == 8, "the phases below split work over 8 warps");
+
+// n rounded up to a multiple of 16 (a slice's columns as the MMA phases
+// take them).
+__host__ __device__ inline int pad16(int n) { return (n + 15) / 16 * 16; }
+
+// The offset of the next n floats of a shared-memory carve-up that ends at
+// o, which then moves past them, rounded up to 16 bytes.
+__host__ __device__ inline int carve(int& o, int n) {
+  const int at = o;
+  o += (n + 3) / 4 * 4;
+  return at;
+}
 
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
   uint32_t r;
@@ -116,11 +132,12 @@ __device__ __forceinline__ void warp_gemm3(float (&acc)[NT][4], int K, FA A,
     for (int e = 0; e < 4; ++e) acc[n][e] += sml[n][e];
 }
 
-// K4: dp = tril(G Vᵀ + h 1ᵀ) (warps 0-1, one 8-column half each) and the
-// node's scores tril(Ψq Ψkᵀ) in two halves over its pd columns: sc (warps
-// 2-3) the first, sc_hi (warps 4-5) the second; their sum is the scores.
-// No sync.
-template <int DV>
+// K4, B6b: dp = tril(G Vᵀ + h 1ᵀ) (warps 0-1, one 8-column half each)
+// and the slice's scores tril(Ψq Ψkᵀ) in two halves over its pd columns:
+// sc (warps 2-3) the first, sc_hi (warps 4-5) the second; their sum is
+// the scores. K1 (kDp = false) forms the scores alone and passes no G, V,
+// h or dp. No sync.
+template <int DV, bool kDp = true>
 __device__ inline void mma_dp_scores(const float* gs, const float* vs,
                                      int ldv, const float* hs,
                                      const float* psiq, const float* psik,
@@ -129,7 +146,7 @@ __device__ inline void mma_dp_scores(const float* gs, const float* vs,
   const int warp = threadIdx.x >> 5;
   float acc[1][4];
   frag_zero(acc);
-  if (warp < 2) {
+  if (kDp && warp < 2) {
     const int s0 = 8 * warp;
     warp_gemm3<1>(acc, DV, [&](int t, int j) { return gs[t * ldv + j]; },
                   [&](int j, int s) { return vs[(s0 + s) * ldv + j]; });
@@ -138,7 +155,7 @@ __device__ inline void mma_dp_scores(const float* gs, const float* vs,
       const int t = frag_row(e), s = s0 + frag_col(e);
       dp[t * ldsc + s] = causal_keep(t, s) ? acc[0][e] + hs[t] : 0.f;
     }
-  } else if (warp < 6) {
+  } else if (warp >= 2 && warp < 6) {
     const int s0 = 8 * (warp & 1), f0 = warp < 4 ? 0 : pd / 2;
     float* out = warp < 4 ? sc : sc_hi;
     warp_gemm3<1>(acc, pd / 2,
@@ -213,9 +230,9 @@ __device__ inline void mma_dpsi_q(const float* carry, int ldc,
   }
 }
 
-// K4: the node's part of dV = tril(Ψq Ψkᵀ)ᵀ G + Ψk dS, with the scores as
-// the two halves sc + sc_hi and dS of the tiles after this one, to out
-// (16, DV) fp32. Warp w: columns 8w, 8w + 64, ... No sync.
+// K4, B6b: the slice's part of dV = tril(Ψq Ψkᵀ)ᵀ G + Ψk dS, with the
+// scores as the two halves sc + sc_hi and dS of the tiles after this one,
+// to out (16, DV) fp32. Warp w: columns 8w, 8w + 64, ... No sync.
 template <int DV>
 __device__ inline void mma_dv(const float* sc, const float* sc_hi, int ldsc,
                               const float* gs, int ldv, const float* psik,
@@ -238,9 +255,9 @@ __device__ inline void mma_dv(const float* sc, const float* sc_hi, int ldsc,
   }
 }
 
-// K4: dΨk = dPᵀ Ψq + V dSᵀ + 1 dzᵀ for the node's columns, with (dS, dz)
-// of the tiles after this one, to out (16, ldp), which may be Ψk's own
-// buffer once mma_dv has read it. Warp w: columns 16w.. No sync.
+// K4, B6b: dΨk = dPᵀ Ψq + V dSᵀ + 1 dzᵀ for the slice's columns, with
+// (dS, dz) of the tiles after this one, to out (16, ldp), which may be
+// Ψk's own buffer once mma_dv has read it. Warp w: columns 16w.. No sync.
 template <int DV>
 __device__ inline void mma_dpsi_k(const float* carry, int ldc,
                                   const float* carry_z, const float* vs,
@@ -266,12 +283,61 @@ __device__ inline void mma_dpsi_k(const float* carry, int ldc,
   }
 }
 
+// K1: the slice's share of num = Ψq S + tril(Ψq Ψkᵀ) V, with S of the
+// tiles before this one and the scores as the two halves sc + sc_hi, and
+// of den = Ψq·z + rowsum(scores), for rows t0.. of q row `row`: num to
+// (rows, L, DV) and den to (rows, L), fp32, rows past L skipped. num's
+// warp w: columns 8w, 8w + 64, ..., stored from the fragments (two
+// neighbouring columns a thread); den's warp w: rows w and w + 8, Ψq·z
+// on the fp32 pipes. No sync.
+template <int DV>
+__device__ inline void mma_readout(const float* psiq, int ldp,
+                                   const float* carry, int ldc,
+                                   const float* carry_z, const float* sc,
+                                   const float* sc_hi, int ldsc,
+                                   const float* vs, int ldv, int pd,
+                                   float* num, float* den, int64_t row,
+                                   int t0, int L) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int j0 = 8 * warp; j0 < DV; j0 += 8 * kWarps) {
+    float acc[1][4];
+    frag_zero(acc);
+    warp_gemm3<1>(acc, pd, [&](int t, int f) { return psiq[t * ldp + f]; },
+                  [&](int f, int j) { return carry[f * ldc + j0 + j]; });
+    warp_gemm3<1>(acc, kMmaTile,
+                  [&](int t, int s) {
+                    return sc[t * ldsc + s] + sc_hi[t * ldsc + s];
+                  },
+                  [&](int s, int j) { return vs[s * ldv + j0 + j]; });
+#pragma unroll
+    for (int e = 0; e < 4; e += 2) {
+      const int t = frag_row(e);
+      if (t0 + t < L)
+        *reinterpret_cast<float2*>(num + (row * L + t0 + t) * DV + j0 +
+                                   frag_col(e)) =
+            make_float2(acc[0][e], acc[0][e + 1]);
+    }
+  }
+  for (int t = warp; t < kMmaTile; t += kWarps) {
+    float acc = 0.f;
+    for (int f = lane; f < pd; f += 32) acc += psiq[t * ldp + f] * carry_z[f];
+    acc = warp_sum(acc);
+    if (lane == 0 && t0 + t < L) {
+      float rs = 0.f;
+      for (int s = 0; s < kMmaTile; ++s)
+        rs += sc[t * ldsc + s] + sc_hi[t * ldsc + s];
+      den[row * L + t0 + t] = acc + rs;
+    }
+  }
+}
+
 // carry (pd, ldc) += Aᵀ B over the tile (A (16, pd) rows of stride ldp, B
 // (16, DV) of stride ldv) on the tensor cores, accumulating into the
 // carry itself; carry_z += Aᵀ w in fp32, w = nullptr for the ones vector
-// (the weight is selected, not the product, as in scan_tile.cuh). S +=
-// Ψkᵀ V, z += Σ Ψk, or dS += Ψqᵀ G, dz += Ψqᵀ h. Warp w: feature rows
-// 16w.. Ends past a __syncthreads().
+// (the weight is selected, not the product, so that a·w + acc contracts
+// to one FMA whether or not the compiler can see that w is non-null: a·1
+// + acc rounds as a + acc). S += Ψkᵀ V, z += Σ Ψk, or dS += Ψqᵀ G, dz +=
+// Ψqᵀ h. Warp w: feature rows 16w.. Ends past a __syncthreads().
 template <int DV>
 __device__ inline void mma_update(float* carry, int ldc, float* carry_z,
                                   const float* a, int ldp, const float* b,
@@ -332,17 +398,141 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// Start copying kMmaTile rows of `rowbytes` bytes (a multiple of 16) from
-// src (the tile's first row, 16-byte aligned) to dst; rows at or past
-// nvalid are zero-filled. No wait, no sync.
-__device__ inline void stage_rows(char* dst, const char* src, int rowbytes,
+// Start copying kMmaTile rows of `nbytes` bytes, row t from src + t·stride
+// bytes, to dst rows of dst_ld bytes (dst and dst_ld 16-byte aligned);
+// rows at or past nvalid are zero-filled. 16-byte copies where every
+// source row starts on 16 bytes and nbytes is a multiple of 16, 4-byte
+// copies where the same holds for 4, else plain 2-byte loads (complete at
+// once). kAligned: the caller guarantees the 16-byte case, which is then
+// the only code compiled. No commit, no wait, no sync.
+template <bool kAligned = false>
+__device__ inline void stage_rows(char* dst, int dst_ld, const char* src,
+                                  int64_t stride, int nbytes,
                                   int nvalid) {
-  const int per = rowbytes / 16;
-  for (int i = threadIdx.x; i < kMmaTile * per; i += blockDim.x) {
-    const int t = i / per;
-    const bool ok = t < nvalid;
-    cp_async16(dst + i * 16, ok ? src + (int64_t)i * 16 : src, ok);
+  const uint64_t align = reinterpret_cast<uint64_t>(src) |
+                         static_cast<uint64_t>(stride) |
+                         static_cast<uint64_t>(nbytes);
+  if (kAligned || align % 16 == 0) {
+    const int per = nbytes / 16;
+    for (int i = threadIdx.x; i < kMmaTile * per; i += blockDim.x) {
+      const int t = i / per, o = (i % per) * 16;
+      const bool ok = t < nvalid;
+      cp_async16(dst + t * dst_ld + o, ok ? src + t * stride + o : src, ok);
+    }
+  } else if (align % 4 == 0) {
+    const int per = nbytes / 4;
+    for (int i = threadIdx.x; i < kMmaTile * per; i += blockDim.x) {
+      const int t = i / per, o = (i % per) * 4;
+      const bool ok = t < nvalid;
+      cp_async4(dst + t * dst_ld + o, ok ? src + t * stride + o : src, ok);
+    }
+  } else {
+    const int per = nbytes / 2;
+    for (int i = threadIdx.x; i < kMmaTile * per; i += blockDim.x) {
+      const int t = i / per, o = (i % per) * 2;
+      *reinterpret_cast<uint16_t*>(dst + t * dst_ld + o) =
+          t < nvalid ? *reinterpret_cast<const uint16_t*>(src + t * stride + o)
+                     : uint16_t{0};
+    }
   }
+}
+
+// `rows` staged rows of `ncol` values of type T (row stride src_ld
+// values, rows 16-byte aligned) to fp32 rows of stride ld (dst 16-byte
+// aligned), with columns ncol..npad-1 set to zero; 16 bytes a thread item
+// where the rows allow (no padding, whole chunks), a value a thread item
+// otherwise. kAligned: the caller guarantees the first case, which is
+// then the only code compiled. No sync.
+template <bool kAligned = false, typename T>
+__device__ inline void unstage_rows(const T* src, int src_ld, int rows,
+                                    int ncol, int npad, float* dst, int ld) {
+  constexpr int E = 16 / sizeof(T);   // values per 16-byte chunk
+  if (kAligned ||
+      (ncol == npad && ncol % E == 0 && src_ld % E == 0 && ld % 4 == 0)) {
+    // 16 bytes in, four float4 (bf16) or one (fp32) out per thread item.
+    const int per = ncol / E;
+    for (int i = threadIdx.x; i < rows * per; i += blockDim.x) {
+      const int t = i / per, col = (i % per) * E;
+      const uint4 raw =
+          *reinterpret_cast<const uint4*>(src + t * src_ld + col);
+      const T* x = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int e = 0; e < E; e += 4)
+        *reinterpret_cast<float4*>(dst + t * ld + col + e) =
+            make_float4(to_f32(x[e]), to_f32(x[e + 1]), to_f32(x[e + 2]),
+                        to_f32(x[e + 3]));
+    }
+    return;
+  }
+  for (int i = threadIdx.x; i < rows * npad; i += blockDim.x) {
+    const int t = i / npad, col = i % npad;
+    dst[t * ld + col] = col < ncol ? to_f32(src[t * src_ld + col]) : 0.f;
+  }
+}
+
+// The cotangents of a staged tile: G = dy/e to gs (16, ldv) and h =
+// −Σ(dy∘y)/e to hs with e = den + δ, from dy and y rows (DV values each,
+// contiguous) and den; one warp per row. Zero rows give zero G and h. No
+// sync.
+template <typename T, int DV>
+__device__ inline void unstage_cotangents(const T* sdy, const T* sy,
+                                          const float* sden, float delta,
+                                          float* gs, int ldv, float* hs) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  for (int t = warp; t < kMmaTile; t += nwarps) {
+    const float e = sden[t] + delta;
+    float acc = 0.f;
+    for (int j = lane; j < DV; j += 32) {
+      const float dyv = to_f32(sdy[t * DV + j]);
+      gs[t * ldv + j] = dyv / e;
+      acc += dyv * to_f32(sy[t * DV + j]);
+    }
+    acc = warp_sum(acc);
+    if (lane == 0) hs[t] = -acc / e;
+  }
+}
+
+// This block's share of tile t0's output rows, (16, ld) fp32 rows in
+// shared memory (16-byte aligned), to rows t0.. of part (rows, L, ncol)
+// fp32 at row `row`; rows past L are skipped. No sync.
+__device__ inline void store_share(const float* share, int ld, int ncol,
+                                   float* part, int64_t row, int t0, int L) {
+  const int per = ncol / 4;
+  for (int i = threadIdx.x; i < kMmaTile * per; i += blockDim.x) {
+    const int t = i / per, col = 4 * (i % per);
+    if (t0 + t < L)
+      *reinterpret_cast<float4*>(part + (row * L + t0 + t) * ncol + col) =
+          *reinterpret_cast<const float4*>(share + t * ld + col);
+  }
+}
+
+// Residency of kernel fn with `smem` bytes of dynamic shared memory (its
+// attribute set first): out[0] blocks per SM, out[1] blocks resident at
+// once on the card, out[2] registers per thread, out[3] local (spill)
+// bytes per thread, out[4] dynamic shared memory per block, out[5] the
+// tile length. Returns a cudaError_t code.
+inline int kernel_residency(const void* fn, size_t smem, int* out) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], fn, kThreads,
+                                                      smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  out[1] = out[0] * sms;
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, fn);
+  if (err != cudaSuccess) return (int)err;
+  out[2] = fa.numRegs;
+  out[3] = (int)fa.localSizeBytes;
+  out[4] = (int)smem;
+  out[5] = kMmaTile;
+  return 0;
 }
 
 }  // namespace slay

@@ -146,10 +146,10 @@ __device__ __forceinline__ float psi_dproj(const float* dp, const float* ph,
 // A node range r0, nr (default: all R nodes) restricts φ_e and Ψ to
 // nodes r0..r0+nr-1: phi is then (n, P + nr·D) and psi holds the range's
 // nr·P·D columns, each computed exactly as in the full map. kSlice maps
-// threads for a block that holds one node's slice (K3, K4): a lane keeps
-// one row against a few projection columns (rows of u and aw 16-byte
-// aligned, P + D <= 32), and a thread keeps four Ψ columns, where the
-// shapes allow; each value is the same as in the default mapping. With
+// threads for a block that holds one node's slice (K1, K3, K4): a lane
+// keeps one row against a few projection columns (rows of u and aw
+// 16-byte aligned, P + D <= 32), and a thread keeps four Ψ columns, where
+// the shapes allow; each value is the same as in the default mapping. With
 // kSlice, rows before psi_from get everything but their Ψ columns (for a
 // block that never reads them).
 template <bool kKeepRes = false, bool kSlice = false>
@@ -216,8 +216,8 @@ __device__ inline void psi_rows(float* u, int ldu, int n, int d, const float* aw
   }
   __syncthreads();
   // Kronecker fusion per node, scaled by √w_r.
-  if (kSlice && (int)blockDim.x % (m / 4) == 0 && c.D % 4 == 0 &&
-      ldp % 4 == 0 && ldphi % 4 == 0 && c.P % 4 == 0) {
+  if (kSlice && m % 4 == 0 && (int)blockDim.x % (m / 4) == 0 &&
+      c.D % 4 == 0 && ldp % 4 == 0 && ldphi % 4 == 0 && c.P % 4 == 0) {
     // A thread keeps four neighbouring Ψ columns (one p, four j): φ_e and
     // Ψ move as float4 (16-byte aligned rows).
     const int col = 4 * (tid % (m / 4)), r = col / pd, p = (col % pd) / c.D;

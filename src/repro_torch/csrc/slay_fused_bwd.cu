@@ -126,44 +126,29 @@ __device__ inline void bwd_stage(const T* q, const T* k, const T* v,
   const int rq = d * (int)sizeof(T), rv = DV * (int)sizeof(T);
   const int64_t oq = (int64_t)h * L + t0, ok = (int64_t)hk * L + t0;
   char* o = stage;
-  stage_rows(o, reinterpret_cast<const char*>(q + oq * d), rq, nvalid);
+  stage_rows<true>(o, rq, reinterpret_cast<const char*>(q + oq * d), rq, rq,
+                   nvalid);
   o += TT * rq;
-  stage_rows(o, reinterpret_cast<const char*>(k + ok * d), rq, nvalid);
+  stage_rows<true>(o, rq, reinterpret_cast<const char*>(k + ok * d), rq, rq,
+                   nvalid);
   o += TT * rq;
-  stage_rows(o, reinterpret_cast<const char*>(v + ok * DV), rv, nvalid);
+  stage_rows<true>(o, rv, reinterpret_cast<const char*>(v + ok * DV), rv, rv,
+                   nvalid);
   o += TT * rv;
-  stage_rows(o, reinterpret_cast<const char*>(dy + oq * DV), rv, nvalid);
+  stage_rows<true>(o, rv, reinterpret_cast<const char*>(dy + oq * DV), rv, rv,
+                   nvalid);
   o += TT * rv;
-  stage_rows(o, reinterpret_cast<const char*>(y + oq * DV), rv, nvalid);
+  stage_rows<true>(o, rv, reinterpret_cast<const char*>(y + oq * DV), rv, rv,
+                   nvalid);
   o += TT * rv;
-  for (int t = threadIdx.x; t < TT; t += blockDim.x)
-    cp_async4(o + 4 * t, den + oq + (t < nvalid ? t : 0), t < nvalid);
+  stage_rows(o, 4, reinterpret_cast<const char*>(den + oq), 4, 4, nvalid);
   cp_async_commit();
 }
 
-// `rows` rows of `ncol` values of type T (16-byte chunks, rows contiguous)
-// to fp32 rows of stride ld (16-byte aligned). No sync.
-template <typename T>
-__device__ inline void unstage_rows(const T* src, int rows, int ncol,
-                                    float* dst, int ld) {
-  constexpr int E = 16 / sizeof(T);   // values per 16-byte chunk
-  const int per = ncol / E;
-  for (int i = threadIdx.x; i < rows * per; i += blockDim.x) {
-    const int t = i / per, col = (i % per) * E;
-    const uint4 raw = *reinterpret_cast<const uint4*>(src + t * ncol + col);
-    const T* x = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int e = 0; e < E; e += 4)
-      *reinterpret_cast<float4*>(dst + t * ld + col + e) =
-          make_float4(to_f32(x[e]), to_f32(x[e + 1]), to_f32(x[e + 2]),
-                      to_f32(x[e + 3]));
-  }
-}
-
 // The staged tile to fp32: raw q rows (0..T-1) and k rows (T..2T-1) of u,
-// v, and the cotangents G = dy/e, h = −Σ(dy∘y)/e with e = den + δ (one
-// warp per row, as scan_tile.cuh::load_cotangents). Zero rows past L give
-// zero Ψ, G and h, so they add nothing. No sync.
+// v, and the cotangents G = dy/e, h = −Σ(dy∘y)/e with e = den + δ
+// (unstage_cotangents). Zero rows past L give zero Ψ, G and h, so they
+// add nothing. No sync.
 template <typename T, int DV>
 __device__ inline void bwd_unstage(const char* stage, const BwdDims& dims,
                                    const BwdLayout& lay, float* u, float* vs,
@@ -175,21 +160,9 @@ __device__ inline void bwd_unstage(const char* stage, const BwdDims& dims,
   const T* sdy = sv + TT * DV;
   const T* sy = sdy + TT * DV;
   const float* sden = reinterpret_cast<const float*>(sy + TT * DV);
-  unstage_rows(sq, 2 * TT, d, u, lay.ldu);
-  unstage_rows(sv, TT, DV, vs, lay.ldv);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  for (int t = warp; t < TT; t += nwarps) {
-    const float e = sden[t] + dims.delta;
-    float acc = 0.f;
-    for (int j = lane; j < DV; j += 32) {
-      const float dyv = to_f32(sdy[t * DV + j]);
-      gs[t * lay.ldv + j] = dyv / e;
-      acc += dyv * to_f32(sy[t * DV + j]);
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) hs[t] = -acc / e;
-  }
+  unstage_rows<true>(sq, d, 2 * TT, d, d, u, lay.ldu);
+  unstage_rows<true>(sv, DV, TT, DV, DV, vs, lay.ldv);
+  unstage_cotangents<T, DV>(sdy, sy, sden, dims.delta, gs, lay.ldv, hs);
 }
 
 // Block-wide set-up: zero the carry and the dA/dΩ sums, stage anchors and
@@ -202,20 +175,6 @@ __device__ inline void bwd_init(float* smem, const BwdLayout& lay, int pd,
   for (int i = threadIdx.x; i < (c.P + c.D) * d; i += blockDim.x)
     smem[lay.off_daw + i] = 0.f;
   load_projections(anchors, omegas, d, c, smem + lay.off_aw, lay.ldw);
-}
-
-// This block's share of tile t0's output rows, (16, ld) fp32 rows in
-// shared memory (16-byte aligned), to rows t0.. of part (rows, L, ncol)
-// fp32 at row `row`; rows past L are skipped. No sync.
-__device__ inline void store_share(const float* share, int ld, int ncol,
-                                   float* part, int64_t row, int t0, int L) {
-  const int per = ncol / 4;
-  for (int i = threadIdx.x; i < kMmaTile * per; i += blockDim.x) {
-    const int t = i / per, col = 4 * (i % per);
-    if (t0 + t < L)
-      *reinterpret_cast<float4*>(part + (row * L + t0 + t) * ncol + col) =
-          *reinterpret_cast<const float4*>(share + t * ld + col);
-  }
 }
 
 // K3: forward re-scan of node blockIdx.y -> dq and the q-path dA/dΩ.
@@ -390,44 +349,13 @@ int launch_bwd(bool kv, const BwdArgs& a, int bh, const BwdDims& dims,
   return (int)cudaGetLastError();
 }
 
-// Residency of the (kv, T, DV) kernel: out[0] blocks per SM, out[1]
-// blocks resident at once on the card, out[2] registers per thread,
-// out[3] local (spill) bytes per thread, out[4] dynamic shared memory per
-// block, out[5] the tile length.
-template <typename T, int DV>
-int occupancy_bwd(bool kv, int d, const PsiConsts& c, int* out) {
-  const size_t smem = bwd_layout(d, DV, c.P, c.D, kv, sizeof(T)).total_bytes;
-  const void* fn = bwd_kernel<T, DV>(kv);
-  cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], fn, kThreads,
-                                                      smem);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0;
-  err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  out[1] = out[0] * sms;
-  cudaFuncAttributes fa;
-  err = cudaFuncGetAttributes(&fa, fn);
-  if (err != cudaSuccess) return (int)err;
-  out[2] = fa.numRegs;
-  out[3] = (int)fa.localSizeBytes;
-  out[4] = (int)smem;
-  out[5] = kMmaTile;
-  return 0;
-}
-
 template <typename T>
-int dispatch_bwd_dv(int dv, bool kv, const BwdArgs* a, int* occ, int bh,
+int dispatch_bwd_dv(int dv, bool kv, const BwdArgs& a, int bh,
                     const BwdDims& dims, const PsiConsts& c,
                     cudaStream_t stream) {
-#define SLAY_BWD_DV(N)                                                   \
-  case N:                                                                \
-    return occ ? occupancy_bwd<T, N>(kv, dims.d, c, occ)                 \
-               : launch_bwd<T, N>(kv, *a, bh, dims, c, stream);
+#define SLAY_BWD_DV(N) \
+  case N:              \
+    return launch_bwd<T, N>(kv, a, bh, dims, c, stream);
   switch (dv) {
     SLAY_BWD_DV(16)
     SLAY_BWD_DV(32)
@@ -438,28 +366,46 @@ int dispatch_bwd_dv(int dv, bool kv, const BwdArgs* a, int* occ, int bh,
 #undef SLAY_BWD_DV
 }
 
-inline long long bwd_smem_bytes(int d, int dv, int P, int D) {
-  return bwd_layout(d, dv, P, D, true, 4).total_bytes;   // the largest
+// The shapes K3 and K4 take (d a multiple of 8 up to the lanes' reach,
+// P·D a multiple of 16).
+inline bool bwd_shapes_ok(int d, int P, int D) {
+  return d >= 8 && d % 8 == 0 && d <= 32 * kMaxDPerLane && (P * D) % 16 == 0;
 }
 
-// Checks, constants and dispatch shared by the C entry points; with occ
-// != nullptr it reports residency instead of launching.
-inline int run_bwd(bool kv, const BwdArgs* a, int* occ, int bh, int bk, int L,
-                   int d, int dv, int P, int D, int R, const double* s_nodes,
+// Checks, constants and dispatch shared by the C entry points.
+inline int run_bwd(bool kv, const BwdArgs& a, int bh, int bk, int L, int d,
+                   int dv, int P, int D, int R, const double* s_nodes,
                    const double* sqrt_w, float delta, int dtype,
                    void* stream) {
-  if (bk <= 0 || bh % bk || R < 1 || R > kMaxNodes || L < 0 || d < 8 ||
-      d % 8 || d > 32 * kMaxDPerLane || (P * D) % 16)
+  if (bk <= 0 || bh % bk || R < 1 || R > kMaxNodes || L < 0 ||
+      !bwd_shapes_ok(d, P, D))
     return (int)cudaErrorInvalidValue;
   const PsiConsts c = make_psi_consts(P, D, R, s_nodes, sqrt_w);
   const BwdDims dims{L, d, bh / bk, P * D, delta};
   auto st = static_cast<cudaStream_t>(stream);
-  if (bh == 0 && occ == nullptr) return 0;
-  if (dtype == 0)
-    return dispatch_bwd_dv<float>(dv, kv, a, occ, bh, dims, c, st);
+  if (bh == 0) return 0;
+  if (dtype == 0) return dispatch_bwd_dv<float>(dv, kv, a, bh, dims, c, st);
   if (dtype == 1)
-    return dispatch_bwd_dv<__nv_bfloat16>(dv, kv, a, occ, bh, dims, c, st);
+    return dispatch_bwd_dv<__nv_bfloat16>(dv, kv, a, bh, dims, c, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// Residency of the (kv, T, DV) kernel at these shapes (kernel_residency).
+template <typename T>
+int occupancy_bwd(bool kv, int d, int dv, int P, int D, int* out) {
+#define SLAY_BWD_DV(N)                                                   \
+  case N:                                                                \
+    return kernel_residency(                                             \
+        bwd_kernel<T, N>(kv),                                            \
+        bwd_layout(d, N, P, D, kv, sizeof(T)).total_bytes, out);
+  switch (dv) {
+    SLAY_BWD_DV(16)
+    SLAY_BWD_DV(32)
+    SLAY_BWD_DV(64)
+    SLAY_BWD_DV(128)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef SLAY_BWD_DV
 }
 
 }  // namespace slay
@@ -467,10 +413,9 @@ inline int run_bwd(bool kv, const BwdArgs* a, int* occ, int bh, int bk, int L,
 extern "C" {
 
 // Bytes of dynamic shared memory one block of K3 or K4 needs at most
-// (K4 in fp32; R does not enter: a block holds one node).
-long long slay_fused_bwd_smem_bytes(int d, int dv, int P, int D, int R) {
-  (void)R;
-  return slay::bwd_smem_bytes(d, dv, P, D);
+// (K4 in fp32; a block holds one node, whatever R).
+long long slay_fused_bwd_smem_bytes(int d, int dv, int P, int D) {
+  return slay::bwd_layout(d, dv, P, D, true, 4).total_bytes;
 }
 
 // K3. q (bh, L, d), k (bk, L, d), v (bk, L, dv), dy and y (bh, L, dv) in
@@ -492,7 +437,7 @@ int slay_fused_bwd_q(const void* q, const void* k, const void* v,
                         static_cast<const float*>(den),
                         static_cast<float*>(dq), nullptr,
                         static_cast<float*>(da), static_cast<float*>(dw)};
-  return slay::run_bwd(false, &a, nullptr, bh, bk, L, d, dv, P, D, R, s_nodes,
+  return slay::run_bwd(false, a, bh, bk, L, d, dv, P, D, R, s_nodes,
                        sqrt_w, delta, dtype, stream);
 }
 
@@ -511,7 +456,7 @@ int slay_fused_bwd_kv(const void* q, const void* k, const void* v,
                         static_cast<const float*>(den),
                         static_cast<float*>(dk), static_cast<float*>(dv_out),
                         static_cast<float*>(da), static_cast<float*>(dw)};
-  return slay::run_bwd(true, &a, nullptr, bh, bk, L, d, dv, P, D, R, s_nodes,
+  return slay::run_bwd(true, a, bh, bk, L, d, dv, P, D, R, s_nodes,
                        sqrt_w, delta, dtype, stream);
 }
 
@@ -522,9 +467,12 @@ int slay_fused_bwd_kv(const void* q, const void* k, const void* v,
 // memory per block, out[5] tokens per tile. Returns a cudaError_t code.
 int slay_fused_bwd_occupancy(int kv, int d, int dv, int P, int D, int dtype,
                              int* out) {
-  double zeros[slay::kMaxNodes] = {};
-  return slay::run_bwd(kv != 0, nullptr, out, 1, 1, 0, d, dv, P, D, 1, zeros,
-                       zeros, 0.f, dtype, nullptr);
+  if (!slay::bwd_shapes_ok(d, P, D)) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return slay::occupancy_bwd<float>(kv != 0, d, dv, P, D, out);
+  if (dtype == 1)
+    return slay::occupancy_bwd<__nv_bfloat16>(kv != 0, d, dv, P, D, out);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -37,11 +37,12 @@ _D = ctypes.POINTER(ctypes.c_double)
 # C signature of every exported function: (restype, argtypes).
 SIGNATURES = {
     "slay_fused": {
-        "slay_fused_smem_bytes": (ctypes.c_longlong, [_I] * 5),
-        "slay_fused_fwd": (_I, [_P] * 7 + [_I] * 8 + [_D, _D, _F, _I, _P]),
+        "slay_fused_smem_bytes": (ctypes.c_longlong, [_I] * 4),
+        "slay_fused_fwd": (_I, [_P] * 9 + [_I] * 8 + [_D, _D, _F, _I, _P]),
+        "slay_fused_fwd_occupancy": (_I, [_I] * 5 + [ctypes.POINTER(_I)]),
     },
     "slay_fused_bwd": {
-        "slay_fused_bwd_smem_bytes": (ctypes.c_longlong, [_I] * 5),
+        "slay_fused_bwd_smem_bytes": (ctypes.c_longlong, [_I] * 4),
         "slay_fused_bwd_q": (_I, [_P] * 11 + [_I] * 8 + [_D, _D, _F, _I, _P]),
         "slay_fused_bwd_kv": (_I, [_P] * 12 + [_I] * 8 + [_D, _D, _F, _I, _P]),
         "slay_fused_bwd_occupancy": (_I, [_I] * 6 + [ctypes.POINTER(_I)]),
@@ -60,6 +61,8 @@ SIGNATURES = {
         "slay_scan_fwd": (_I, [_P] * 5 + [_I] * 5 + [_F, _I, _P]),
         "slay_scan_bwd_q": (_I, [_P] * 7 + [_I] * 5 + [_F, _I, _P]),
         "slay_scan_bwd_kv": (_I, [_P] * 8 + [_I] * 5 + [_F, _I, _P]),
+        "slay_scan_bwd_kv_slices": (_I, [_I]),
+        "slay_scan_bwd_kv_occupancy": (_I, [_I] * 3 + [ctypes.POINTER(_I)]),
     },
 }
 
@@ -163,3 +166,16 @@ def check(err: int, fn: str) -> None:
     """Raise if a launcher returned a nonzero ``cudaError_t``."""
     if err != 0:
         raise RuntimeError(f"{fn}: CUDA error {err} at launch")
+
+
+def residency(name: str, fn: str, *args, grid: tuple) -> dict:
+    """How a kernel sits on the current card, from its library's
+    occupancy entry ``fn`` (its shape arguments, then six ints out): its
+    grid, tokens per tile, blocks per SM and resident at once (CUDA's
+    occupancy calculator), registers and local-memory bytes per thread,
+    shared memory per block. Launches nothing."""
+    out = (ctypes.c_int * 6)()
+    check(getattr(load(name), fn)(*args, out), fn)
+    return {"grid": grid, "tile": out[5], "blocks_per_sm": out[0],
+            "blocks_resident": out[1], "registers": out[2],
+            "local_bytes": out[3], "smem_bytes": out[4]}

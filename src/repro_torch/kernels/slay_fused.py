@@ -100,7 +100,7 @@ def _kernel_args(lib, smem_fn, q, v, cfg: SlayFeatureConfig):
     P, D, R = cfg.num_anchors, cfg.num_prf, cfg.num_quad_nodes
     if R > 8:
         raise ValueError(f"kernel takes at most 8 quadrature nodes, got {R}")
-    smem = getattr(lib, smem_fn)(d, dv, P, D, R)
+    smem = getattr(lib, smem_fn)(d, dv, P, D)
     if smem > _build.SMEM_LIMIT:
         raise ValueError(f"shapes need {smem} B of shared memory per block, "
                          f"more than {_build.SMEM_LIMIT}")
@@ -109,24 +109,45 @@ def _kernel_args(lib, smem_fn, q, v, cfg: SlayFeatureConfig):
             (ctypes.c_double * R)(*st.sqrt_w))
 
 
+def _fp32(*shape, like):
+    return torch.empty(*shape, dtype=torch.float32, device=like.device)
+
+
 def _launch(q, k, v, anchors, omegas, cfg: SlayFeatureConfig, delta):
+    """K1 on CUDA tensors: -> (y, den), as
+    :func:`fused_causal_attention_plain`. The C entry launches K1 on a
+    BH x R grid, which writes each quadrature node's fp32 share of num and
+    den into scratch allocated here, then the epilogue kernel, which sums
+    the shares and divides: one launch counted."""
     bh, L, d = q.shape
     bk, _, dv = v.shape
     P, D, R = cfg.num_anchors, cfg.num_prf, cfg.num_quad_nodes
     lib = _build.load("slay_fused")
     s_nodes, sqrt_w = _kernel_args(lib, "slay_fused_smem_bytes", q, v, cfg)
     y = torch.empty(bh, L, dv, dtype=v.dtype, device=q.device)
-    den = torch.empty(bh, L, dtype=torch.float32, device=q.device)
+    den = _fp32(bh, L, like=q)
+    num_part, den_part = _fp32(R, bh, L, dv, like=q), _fp32(R, bh, L, like=q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.slay_fused_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), anchors.data_ptr(),
-            omegas.data_ptr(), y.data_ptr(), den.data_ptr(), bh, bk, L, d, dv,
-            P, D, R, s_nodes, sqrt_w, delta, _build.DTYPE_CODES[q.dtype],
-            stream)
+            omegas.data_ptr(), y.data_ptr(), den.data_ptr(),
+            num_part.data_ptr(), den_part.data_ptr(), bh, bk, L, d, dv, P, D,
+            R, s_nodes, sqrt_w, delta, _build.DTYPE_CODES[q.dtype], stream)
     _build.check(err, "slay_fused_fwd")
     _build.LAUNCHES["slay_fused_fwd"] += 1
     return y, den
+
+
+def fwd_residency(bh: int, d: int, dv: int, cfg: SlayFeatureConfig,
+                  dtype: torch.dtype) -> dict:
+    """How K1 sits on the current card at these shapes (its grid is BH x
+    R blocks), as :func:`repro_torch.kernels._build.residency` reports.
+    Launches nothing."""
+    return _build.residency(
+        "slay_fused", "slay_fused_fwd_occupancy", d, dv, cfg.num_anchors,
+        cfg.num_prf, _build.DTYPE_CODES[dtype],
+        grid=(bh, cfg.num_quad_nodes))
 
 
 # -- backward ------------------------------------------------------------
@@ -266,10 +287,6 @@ def _launch_bwd(fn, outs, q, k, v, anchors, omegas, y, den, dy,
     return outs
 
 
-def _fp32(*shape, like):
-    return torch.empty(*shape, dtype=torch.float32, device=like.device)
-
-
 def launch_bwd_q(q, k, v, anchors, omegas, y, den, dy,
                  cfg: SlayFeatureConfig, delta: float = 1e-6):
     """K3 on CUDA tensors: -> (dq, dA, dΩ partials), as
@@ -307,18 +324,14 @@ def launch_bwd_kv(q, k, v, anchors, omegas, y, den, dy,
 def bwd_residency(kv: bool, bh: int, d: int, dv: int, cfg: SlayFeatureConfig,
                   dtype: torch.dtype) -> dict:
     """How K3 (``kv=False``) or K4 (``kv=True``) sits on the current card
-    at these shapes: its grid (BH x R blocks), blocks per SM and resident
-    at once, registers and local-memory bytes per thread, shared memory per
-    block, tokens per tile. Launches nothing."""
+    at these shapes (its grid is BH x R blocks), as
+    :func:`repro_torch.kernels._build.residency` reports. Launches
+    nothing."""
     _check_bwd_shapes(d, cfg)
-    out = (ctypes.c_int * 6)()
-    err = _build.load("slay_fused_bwd").slay_fused_bwd_occupancy(
-        int(kv), d, dv, cfg.num_anchors, cfg.num_prf,
-        _build.DTYPE_CODES[dtype], out)
-    _build.check(err, "slay_fused_bwd_occupancy")
-    return {"grid": (bh, cfg.num_quad_nodes), "tile": out[5],
-            "blocks_per_sm": out[0], "blocks_resident": out[1],
-            "registers": out[2], "local_bytes": out[3], "smem_bytes": out[4]}
+    return _build.residency(
+        "slay_fused_bwd", "slay_fused_bwd_occupancy", int(kv), d, dv,
+        cfg.num_anchors, cfg.num_prf, _build.DTYPE_CODES[dtype],
+        grid=(bh, cfg.num_quad_nodes))
 
 
 def fused_causal_attention_bwd(q, k, v, anchors, omegas, y, den, dy,

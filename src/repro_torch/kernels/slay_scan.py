@@ -9,11 +9,12 @@ causal scan of the fused kernels without the chain through Ψ.
 
 :func:`causal_linear_attention` is differentiable through
 :class:`ScanAttention`, the counterpart of the ``_scan`` custom VJP: its
-forward saves (qf, kf, v, y, den) and its backward runs B6a, then B6b,
-then sums B6b's per-q-head partials over each GQA group. CUDA tensors
-launch the kernels (or raise), CPU tensors run the plain versions, which
-repeat the kernels' fp32 arithmetic chunk by chunk; there is no fallback
-from one to the other.
+forward saves (qf, kf, v, y, den) and its backward runs B6a, then B6b
+(whose dv shares, one per feature slice, the wrapper sums), then sums
+B6b's per-q-head partials over each GQA group. CUDA tensors launch the
+kernels (or raise), CPU tensors run the plain versions, which repeat the
+kernels' fp32 arithmetic chunk by chunk; there is no fallback from one to
+the other.
 """
 from __future__ import annotations
 
@@ -201,14 +202,30 @@ def launch_bwd_q(qf, kf, v, y, den, dy, delta: float = 1e-6):
 
 def launch_bwd_kv(qf, kf, v, y, den, dy, delta: float = 1e-6):
     """B6b on CUDA tensors: -> per-q-head (dk, dv) partials, as
-    :func:`scan_bwd_kv_plain`."""
+    :func:`scan_bwd_kv_plain`. The kernel writes dk's columns slice by
+    slice in qf's dtype and one fp32 share of dv per feature slice; their
+    sum over that axis (``torch.sum``, no atomics) is rounded once to v's
+    dtype."""
     bh, L, m = qf.shape
+    slices = _build.load("slay_scan").slay_scan_bwd_kv_slices(m)
     dk = torch.empty(bh, L, m, dtype=kf.dtype, device=qf.device)
-    dv = torch.empty(bh, L, v.shape[-1], dtype=v.dtype, device=qf.device)
+    dv = torch.empty(slices, bh, L, v.shape[-1], dtype=torch.float32,
+                     device=qf.device)
     _launch("slay_scan_bwd_kv",
             (*_res_ptrs(qf, kf, v, y, den, dy), dk.data_ptr(), dv.data_ptr()),
             qf, v, delta)
-    return dk, dv
+    return dk, dv.sum(0).to(v.dtype)
+
+
+def bwd_kv_residency(bh: int, m: int, dv: int, dtype: torch.dtype) -> dict:
+    """How B6b sits on the current card at these shapes (its grid is BH x
+    C blocks, C feature slices), as
+    :func:`repro_torch.kernels._build.residency` reports. Launches
+    nothing."""
+    lib = _build.load("slay_scan")
+    return _build.residency(
+        "slay_scan", "slay_scan_bwd_kv_occupancy", m, dv,
+        _build.DTYPE_CODES[dtype], grid=(bh, lib.slay_scan_bwd_kv_slices(m)))
 
 
 def causal_linear_attention_bwd(qf, kf, v, y, den, dy, *,

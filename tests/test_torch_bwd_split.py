@@ -1,24 +1,32 @@
-"""The fused backward split by quadrature node, as K3 and K4 compute it.
+"""The split kernels' arithmetic, as K1, K3, K4 and B6b compute it.
 
-K3 and K4 run one block per (q head, quadrature node r): block (h, r)
-carries only node r's P·D rows of the scan state, forms node r's share of
-dΨ (and, in K4, of dV through the node's part of the scores), runs the Ψ
-VJP on that share and adds the R shares of du, dv, dA and dΩ. Their tile
-products run on the tensor cores in 3xTF32. This file replays that
-arithmetic on the CPU, tile by tile (16 tokens) and node by node, with
+K1, K3 and K4 run one block per (q head, quadrature node r): block (h, r)
+carries only node r's P·D rows of the scan state. K1 forms node r's
+shares of num and den, which its epilogue sums over the nodes and
+divides; K3 and K4 form node r's share of dΨ (and, in K4, of dV through
+the node's part of the scores), run the Ψ VJP on that share and add the R
+shares of du, dv, dA and dΩ. B6b runs one block per (q head, slice of 128
+feature columns, the last padded with zero columns): block (h, c) writes
+slice c's columns of dΨk and its share of dV. Their tile products run on
+the tensor cores in 3xTF32. This file replays that arithmetic on the
+CPU, tile by tile (16 tokens) and node by node or slice by slice, with
 seeded numpy inputs at the smoke size:
 
-(a) with exact fp32 products the node shares add up to the plain backward
-    (``fused_bwd_q_plain``, ``fused_bwd_kv_plain``) to 1e-6 of each
-    output's largest magnitude, and the summed gradients match the JAX
-    package's Pallas VJP in interpret mode to 1e-4 of scale, the tolerance
-    of ``test_torch_kernels.py::test_fused_grads_match_pallas_vjp``;
+(a) with exact fp32 products the shares add up to the plain versions
+    (``fused_causal_attention_plain``, ``fused_bwd_q_plain``,
+    ``fused_bwd_kv_plain``, ``scan_bwd_kv_plain``) to 1e-6 of each
+    output's largest magnitude, and match the JAX package's Pallas
+    kernels in interpret mode: K1's y and den to the tolerance of
+    ``test_torch_kernels.py::test_fused_forward_head_major_y_and_den_match_pallas``,
+    the gradients to 1e-4 of scale, the tolerance of
+    ``test_torch_kernels.py::test_fused_grads_match_pallas_vjp`` and
+    ``test_torch_scan.py::test_scan_grads_match_pallas_vjp``;
 (b) with every tile product rounded as the kernels form it in 3xTF32
     (operands split into TF32 big + small parts, cvt.rna rounding: the fp32
     mantissa rounded to 10 bits, ties away from zero), the result stays
-    within 1e-5 of scale of the fp32 plain backward, 10x inside the card's
-    fp32 check (``BWD_REL`` 1e-4 in ``chip_smoke.py``), while single-pass
-    TF32 does not.
+    within 1e-5 of scale of the fp32 plain version, 10x inside the card's
+    fp32 checks (``BWD_REL`` 1e-4 in ``chip_smoke.py``, K1's y to 1e-4),
+    while single-pass TF32 does not: it misses K1's check.
 """
 import jax
 import jax.numpy as jnp
@@ -28,9 +36,11 @@ import torch
 
 from repro.core import features as jfeat
 from repro.kernels import slay_fused as jfused
+from repro.kernels import slay_scan as jscan
 from repro_torch.core import features as tfeat
 from repro_torch.kernels import common as tcommon
 from repro_torch.kernels import slay_fused as tfused
+from repro_torch.kernels import slay_scan as tscan
 
 D_HEAD, TILE, DELTA = 16, 16, 1e-6
 
@@ -52,8 +62,73 @@ def mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def mm_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b with single-pass TF32 operands (what this PR rules out)."""
+    """a @ b with single-pass TF32 operands (what the kernels rule out)."""
     return tf32(a) @ tf32(b)
+
+
+def scores(q, k, mm):
+    """tril(q kᵀ) as the MMA phases form it: the two halves of the
+    columns through ``mm``, then added."""
+    half = q.shape[-1] // 2
+    return (torch.tril(mm(q[..., :half], k[..., :half].transpose(-1, -2)))
+            + torch.tril(mm(q[..., half:], k[..., half:].transpose(-1, -2))))
+
+
+def split_fwd(q, k, v, anchors, omegas, cfg, mm=torch.matmul):
+    """K1 node by node and tile by tile, with every tile product through
+    ``mm``: -> (y, den) in fp32, the node shares summed in node order and
+    divided as the epilogue does."""
+    st = tcommon.feature_statics(cfg)
+    qf, _, kf, _, vf = tfused._per_q_head(q, k, v, anchors, omegas, st)
+    bh, L, _ = qf.shape
+    dv, pd = vf.shape[-1], cfg.num_anchors * cfg.num_prf
+    num, den = 0.0, 0.0
+    for r in range(cfg.num_quad_nodes):
+        cols = slice(r * pd, (r + 1) * pd)
+        s = torch.zeros(bh, pd, dv)
+        z = torch.zeros(bh, pd)
+        num_r, den_r = torch.zeros(bh, L, dv), torch.zeros(bh, L)
+        for t0 in range(0, L, TILE):
+            sl = slice(t0, t0 + TILE)
+            qt, kt, vt = qf[:, sl, cols], kf[:, sl, cols], vf[:, sl]
+            sc = scores(qt, kt, mm)
+            num_r[:, sl] = mm(qt, s) + mm(sc, vt)
+            den_r[:, sl] = torch.sum(qt * z[:, None, :], -1) + sc.sum(-1)
+            s = s + mm(kt.transpose(-1, -2), vt)
+            z = z + kt.sum(-2)
+        num, den = num + num_r, den + den_r
+    return num / (den[..., None] + DELTA), den
+
+
+def split_scan_kv(qf, kf, v, y, den, dy, mm=torch.matmul, width=128):
+    """B6b slice by slice (``width`` feature columns, the last padded to a
+    multiple of 16 with zero columns) and tile by tile, with every tile
+    product through ``mm``: -> per-q-head (dk, dv) in fp32, dk's columns
+    written by their slice, dv's slice shares summed."""
+    bh, L, m = qf.shape
+    q = qf.float()
+    k, vf = tscan._per_q_head(kf, v, bh)
+    gg, hh = tcommon.cotangents(y, den, dy, DELTA)
+    dk, dv = torch.zeros(bh, L, m), torch.zeros(bh, L, vf.shape[-1])
+    for f0 in range(0, m, width):
+        mc = min(width, m - f0)
+        pad = (0, -mc % 16)
+        pq = torch.nn.functional.pad(q[..., f0:f0 + mc], pad)
+        pk = torch.nn.functional.pad(k[..., f0:f0 + mc], pad)
+        ds = torch.zeros(bh, pq.shape[-1], vf.shape[-1])
+        dz = torch.zeros(bh, pq.shape[-1])
+        for t0 in reversed(range(0, L, TILE)):
+            sl = slice(t0, t0 + TILE)
+            g, h, vt, qt, kt = gg[:, sl], hh[:, sl], vf[:, sl], pq[:, sl], pk[:, sl]
+            dp = torch.tril(mm(g, vt.transpose(-1, -2)) + h)
+            sc = scores(qt, kt, mm)
+            dv[:, sl] += mm(sc.transpose(-1, -2), g) + mm(kt, ds)
+            dk[:, sl, f0:f0 + mc] = (mm(dp.transpose(-1, -2), qt)
+                                     + mm(vt, ds.transpose(-1, -2))
+                                     + dz[:, None, :])[..., :mc]
+            ds = ds + mm(qt.transpose(-1, -2), g)
+            dz = dz + torch.sum(qt * h, dim=-2)
+    return dk, dv
 
 
 def split_bwd(q, k, v, anchors, omegas, y, den, dy, cfg, mm=torch.matmul):
@@ -117,6 +192,12 @@ def _inputs(seed, bh, bk, L, nodes, dv=16):
                    for s in ((bh, L, D_HEAD), (bk, L, D_HEAD), (bk, L, dv),
                              (bh, L, dv)))
     return cfg, jcfg, (q, k, v, a, w, dy)
+
+
+def _plain_forward(cfg, arrays):
+    q, k, v, a, w, _ = (torch.from_numpy(x) for x in arrays)
+    return tfused.fused_causal_attention_plain(q, k, v, a, w, cfg,
+                                               chunk_size=TILE)
 
 
 def _forward(cfg, arrays):
@@ -197,3 +278,97 @@ def test_tf32_rounding_is_round_to_nearest_ties_away():
     # result is within half a TF32 step (2^-11 relative).
     assert int((got.view(torch.int32) & 0x1FFF).abs().sum()) == 0
     assert abs(float(got[5]) - 3.0e-3) <= 3.0e-3 * 2.0 ** -11
+
+
+# -- K1: the forward by quadrature node ------------------------------------
+
+
+def _close_fwd(got, want, frac):
+    for g, w in zip(got, want, strict=True):
+        assert g.shape == w.shape
+        _within(g, w.float(), frac)
+
+
+@pytest.mark.parametrize("bh,bk,L,nodes", CASES)
+def test_forward_node_shares_add_up_to_the_plain_forward(bh, bk, L, nodes):
+    cfg, _, arrays = _inputs(200 + L, bh, bk, L, nodes)
+    q, k, v, a, w, _ = (torch.from_numpy(x) for x in arrays)
+    _close_fwd(split_fwd(q, k, v, a, w, cfg), _plain_forward(cfg, arrays),
+               1e-6)
+
+
+@pytest.mark.parametrize("bh,bk,nodes", [(4, 4, 3), (4, 2, 2)])
+def test_forward_node_shares_match_pallas(bh, bk, nodes):
+    # y and den of the summed shares against _fwd_impl of the
+    # interpret-mode Pallas kernel, at that test's tolerances.
+    L = 48
+    cfg, jcfg, arrays = _inputs(300 + nodes, bh, bk, L, nodes)
+    q, k, v, a, w, _ = arrays
+    st = jfused.statics_for(jcfg, chunk_size=TILE, delta=DELTA,
+                            interpret=True)
+    wy, wden = jfused._fwd_impl(st, *(jnp.asarray(x) for x in (q, k, v, a, w)))
+    gy, gden = split_fwd(*(torch.from_numpy(x) for x in (q, k, v, a, w)), cfg)
+    np.testing.assert_allclose(gy.numpy(), np.array(wy), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(gden.numpy(), np.array(wden), rtol=1e-5,
+                               atol=0.0)
+
+
+@pytest.mark.parametrize("bh,bk,L,nodes", CASES)
+def test_forward_3xtf32_keeps_fp32_accuracy(bh, bk, L, nodes):
+    cfg, _, arrays = _inputs(400 + L, bh, bk, L, nodes)
+    xs = [torch.from_numpy(x) for x in arrays[:5]]
+    want = _plain_forward(cfg, arrays)
+    _close_fwd(split_fwd(*xs, cfg, mm=mm_3xtf32), want, 1e-5)
+    # Single-pass TF32 misses K1's card check of y (1e-4 + 1e-4·|y|).
+    y1, _ = split_fwd(*xs, cfg, mm=mm_tf32)
+    assert bool(((y1 - want[0]).abs() > 1e-4 + 1e-4 * want[0].abs()).any())
+
+
+# -- B6b: the scan's reverse pass by feature slice ----------------------------
+
+
+def _scan_case(seed, bh, bk, L, m, dv=16):
+    """Features nonnegative, as Ψ is; v and the cotangent normal; y and
+    den from the plain forward."""
+    rng = np.random.default_rng(seed)
+    arrays = (rng.uniform(0.0, 1.0, (bh, L, m)).astype(np.float32),
+              rng.uniform(0.0, 1.0, (bk, L, m)).astype(np.float32),
+              rng.normal(size=(bk, L, dv)).astype(np.float32),
+              rng.normal(size=(bh, L, dv)).astype(np.float32))
+    qf, kf, v, dy = (torch.from_numpy(x) for x in arrays)
+    y, den = tscan.causal_linear_attention_plain(qf, kf, v, chunk_size=TILE)
+    return arrays, (qf, kf, v, y, den, dy)
+
+
+@pytest.mark.parametrize("mm,frac", [(torch.matmul, 1e-6), (mm_3xtf32, 1e-5)],
+                         ids=["fp32", "3xtf32"])
+@pytest.mark.parametrize("m", [96, 390])
+def test_scan_slices_add_up_to_the_plain_reverse_scan(m, mm, frac):
+    # m = 96: one slice padded to 96 columns; m = 390: three full slices
+    # and one of 6 columns padded to 16.
+    _, args = _scan_case(m, 4, 2, 37, m)
+    got = split_scan_kv(*args, mm=mm)
+    want = tscan.scan_bwd_kv_plain(*args, chunk_size=TILE)
+    for g, w in zip(got, want, strict=True):
+        assert g.shape == w.shape
+        _within(g, w, frac)
+
+
+@pytest.mark.parametrize("m", [96, 390])
+def test_scan_slices_match_the_pallas_vjp(m):
+    # The slices' dk and dv (summed per GQA group as the wrapper does, dq
+    # from the plain re-scan) against jax.vjp of the interpret-mode
+    # Pallas scan.
+    arrays, args = _scan_case(500 + m, 4, 2, 32, m)
+    dq = tscan.scan_bwd_q_plain(*args, chunk_size=TILE)
+    got = tscan._reduce(args[1], args[2], dq, *split_scan_kv(*args))
+
+    def jfn(*xs):
+        return jscan.causal_linear_attention(*xs, chunk_size=TILE,
+                                             interpret=True)
+
+    _, vjp = jax.vjp(jfn, *(jnp.asarray(x) for x in arrays[:3]))
+    for g, wnt in zip(got, vjp(jnp.asarray(arrays[3])), strict=True):
+        wnt = torch.from_numpy(np.array(wnt))
+        assert g.shape == wnt.shape
+        _within(g, wnt, 1e-4)

@@ -256,20 +256,38 @@ def test_cpu_tensors_launch_nothing():
 @needs_card
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_kernel_matches_plain_on_card(dtype):
-    # fp32: summation order only (1e-4); bf16: one rounding of y (2e-2).
+    # K1 runs one block per (q head, quadrature node) and sums the node
+    # shares in its epilogue. Cases: GQA at L = 96; ragged L = 90 (a
+    # partial last tile of zero rows); head dim 128; P = 16, D = 24, R = 1
+    # (past the shape limits of the one-node thread mappings of psi_rows,
+    # so their default mapping runs); R = 2; head dim 12 with P·D = 12
+    # (rows that are not a multiple of 16 bytes in bf16, Ψ padded to 16
+    # columns). fp32: summation order only (1e-4); bf16: one rounding of
+    # y (2e-2).
     _, tcfg = _cfgs()
-    p = tfeat.init_feature_params(tcfg, torch.Generator().manual_seed(0))
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    q = torch.randn(8, 96, D_HEAD, generator=gen, device="cuda").to(dtype)
-    k = torch.randn(4, 96, D_HEAD, generator=gen, device="cuda").to(dtype)
-    v = torch.randn(4, 96, 32, generator=gen, device="cuda").to(dtype)
-    y, den = tfused.fused_causal_attention(q, k, v, p["anchors"], p["omegas"],
-                                           tcfg, chunk_size=32)
-    yp, denp = tfused.fused_causal_attention_plain(
-        q, k, v, p["anchors"], p["omegas"], tcfg, chunk_size=32)
-    tol = 1e-4 if dtype == torch.float32 else 2e-2
-    torch.testing.assert_close(y.float(), yp.float(), rtol=tol, atol=tol)
-    torch.testing.assert_close(den, denp, rtol=1e-4, atol=0.0)
+    cases = [(tcfg, 96, 32), (tcfg, 90, 90),
+             (tfeat.SlayFeatureConfig(head_dim=128), 96, 32),
+             (tfeat.SlayFeatureConfig(head_dim=D_HEAD, num_anchors=16,
+                                      num_prf=24, num_quad_nodes=1), 96, 32),
+             (tfeat.SlayFeatureConfig(head_dim=D_HEAD, num_quad_nodes=2), 90,
+              90),
+             (tfeat.SlayFeatureConfig(head_dim=12, num_anchors=3, num_prf=4),
+              90, 90)]
+    for cfg, L, chunk in cases:
+        d = cfg.head_dim
+        p = tfeat.init_feature_params(cfg, torch.Generator().manual_seed(0))
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        q = torch.randn(8, L, d, generator=gen, device="cuda").to(dtype)
+        k = torch.randn(4, L, d, generator=gen, device="cuda").to(dtype)
+        v = torch.randn(4, L, 32, generator=gen, device="cuda").to(dtype)
+        y, den = tfused.fused_causal_attention(q, k, v, p["anchors"],
+                                               p["omegas"], cfg,
+                                               chunk_size=chunk)
+        yp, denp = tfused.fused_causal_attention_plain(
+            q, k, v, p["anchors"], p["omegas"], cfg, chunk_size=chunk)
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        torch.testing.assert_close(y.float(), yp.float(), rtol=tol, atol=tol)
+        torch.testing.assert_close(den, denp, rtol=1e-4, atol=0.0)
 
 
 # -- the backward (B2 + B3) ---------------------------------------------

@@ -466,25 +466,31 @@ def test_feature_map_kernels_match_plain_on_card(dtype, n):
 @needs_card
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_scan_kernels_match_plain_on_card(dtype):
-    # GQA, ragged L = 90. y: fp32 summation order (1e-4), bf16 one
-    # rounding (2e-2); den fp32 (1e-4 relative); dq, dk, dv partials 1e-4
-    # (fp32) or 1e-2 (bf16) of scale.
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    qf = torch.rand(8, 90, 96, generator=gen, device="cuda").to(dtype)
-    kf = torch.rand(4, 90, 96, generator=gen, device="cuda").to(dtype)
-    v = torch.randn(4, 90, 32, generator=gen, device="cuda").to(dtype)
-    dy = torch.randn(8, 90, 32, generator=gen, device="cuda").to(dtype)
-    y, den = tscan.launch_fwd(qf, kf, v)
-    yp, denp = tscan.causal_linear_attention_plain(qf, kf, v, chunk_size=90)
-    tol = 1e-4 if dtype == torch.float32 else 2e-2
-    torch.testing.assert_close(y.float(), yp.float(), rtol=tol, atol=tol)
-    torch.testing.assert_close(den, denp, rtol=1e-4, atol=0.0)
-    args = (qf, kf, v, y, den, dy)
-    tol = 1e-4 if dtype == torch.float32 else 1e-2
-    got = (tscan.launch_bwd_q(*args), *tscan.launch_bwd_kv(*args))
-    want = (tscan.scan_bwd_q_plain(*args, chunk_size=90),
-            *tscan.scan_bwd_kv_plain(*args, chunk_size=90))
-    for g, wnt in zip(got, want, strict=True):
-        scale = float(wnt.float().abs().max())
-        torch.testing.assert_close(g.float(), wnt.float(), rtol=0.0,
-                                   atol=tol * scale)
+    # GQA, ragged L = 90. B6b runs one block per (q head, slice of 128
+    # feature columns): m = 96 is one slice padded with zero columns;
+    # m = 390 is three full slices and a partial one, and its rows do not
+    # start on 16 bytes (narrower copies); in bf16 the rows of m = 45 do
+    # not start on 4 bytes (plain loads). y: fp32 summation order
+    # (1e-4), bf16 one rounding (2e-2); den fp32 (1e-4 relative); dq, dk,
+    # dv partials 1e-4 (fp32) or 1e-2 (bf16) of scale.
+    for m in (96, 390, 45):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        qf = torch.rand(8, 90, m, generator=gen, device="cuda").to(dtype)
+        kf = torch.rand(4, 90, m, generator=gen, device="cuda").to(dtype)
+        v = torch.randn(4, 90, 32, generator=gen, device="cuda").to(dtype)
+        dy = torch.randn(8, 90, 32, generator=gen, device="cuda").to(dtype)
+        y, den = tscan.launch_fwd(qf, kf, v)
+        yp, denp = tscan.causal_linear_attention_plain(qf, kf, v,
+                                                       chunk_size=90)
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        torch.testing.assert_close(y.float(), yp.float(), rtol=tol, atol=tol)
+        torch.testing.assert_close(den, denp, rtol=1e-4, atol=0.0)
+        args = (qf, kf, v, y, den, dy)
+        tol = 1e-4 if dtype == torch.float32 else 1e-2
+        got = (tscan.launch_bwd_q(*args), *tscan.launch_bwd_kv(*args))
+        want = (tscan.scan_bwd_q_plain(*args, chunk_size=90),
+                *tscan.scan_bwd_kv_plain(*args, chunk_size=90))
+        for g, wnt in zip(got, want, strict=True):
+            scale = float(wnt.float().abs().max())
+            torch.testing.assert_close(g.float(), wnt.float(), rtol=0.0,
+                                       atol=tol * scale)
