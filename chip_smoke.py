@@ -41,12 +41,13 @@ Phases, each of which raises (nonzero exit) on failure:
 7. B5/B6a/B6b, the scan on precomputed features and its two backward
    scans, against their plain versions at the training shape (fp32 and
    bf16), the serving shape, GQA, m = 390 random features in fp32 and
-   bf16 (B6b's slices: three full and a partial one; rows not on 16
-   bytes) and m = 45 in bf16 (rows not on 4 bytes), and ragged L = 1000
-   through ``ops.slay_causal_attention`` under autograd; in fp32 also
-   against autograd through the plain forward; times, bounds (B6b's state
-   products on 3xTF32 tensor cores, and beside it on the fp32 pipes);
-   B6b's grid, residency, registers;
+   bf16 (the kernels' slices: three full and a partial one; rows not on
+   16 bytes) and m = 45 in bf16 (rows not on 4 bytes), BH = 192, L = 512
+   in bf16 (576 blocks, more than one wave), and ragged L = 1000 through
+   ``ops.slay_causal_attention`` under autograd; in fp32 also against
+   autograd through the plain forward; times, bounds (the state products
+   on 3xTF32 tensor cores, and beside it on the fp32 pipes); each
+   kernel's grid, residency, registers and spills;
 8. serve: full-width slayformer-124m (random weights from a seed) through
    ``ServingEngine.generate`` on 4 ragged prompts, 32 greedy new tokens,
    launch counters read around that call; prefill and decode tokens/s;
@@ -269,13 +270,20 @@ def k1_tc_bound(bh, bk, L, d, dv, P, D, R, es):
                      (bh + bk) * L * 2 * R * P * D * dv)
 
 
-def scan_kv_tc_bound(bh, bk, L, m, dv, es):
-    """B6b's bound with its three state terms per q-head row (Ψk dS, V dSᵀ
-    and the (dS, dz) update, 2·m·dv operations each) on the tensor cores
-    (``_tc_bound``), as B6b runs them; ``scan_bounds`` stays the all-fp32
-    figure."""
-    return _tc_bound(scan_bounds(bh, bk, L, m, dv, es)["slay_scan_bwd_kv"],
-                     bh * L * 3 * 2 * m * dv)
+def scan_tc_bounds(bh, bk, L, m, dv, es):
+    """{kernel: (bound_ms, bound_by, n_ops, bytes)} of B5, B6a and B6b with
+    their state products on the tensor cores (``_tc_bound``), as the
+    kernels run them: B5's read-out Ψq S and B6a's G Sᵀ (per q row) and
+    their update Ψkᵀ V (per kv row), 2·m·dv operations each, as
+    ``k1_tc_bound`` counts K1's; B6b's three state terms per q-head row
+    (Ψk dS, V dSᵀ and the (dS, dz) update). ``scan_bounds`` stays the
+    all-fp32 figure."""
+    st = 2 * m * dv
+    state = {"slay_scan_fwd": (bh + bk) * L * st,
+             "slay_scan_bwd_q": (bh + bk) * L * st,
+             "slay_scan_bwd_kv": bh * L * 3 * st}
+    return {name: _tc_bound(b, state[name]) for name, b in
+            scan_bounds(bh, bk, L, m, dv, es).items()}
 
 
 def ptxas_report(name: str) -> dict:
@@ -876,12 +884,13 @@ def phase_scan(feat, sp, serve_shape) -> dict:
     autograd of the plain forward); returns each kernel's numbers at the
     training shape in bf16."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
-    tol = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1.6e-2)}
+    tol = K1_TOL       # y: as K1's, the same sums and one rounding
     bh_s, L_s = serve_shape
-    # B6b runs one block per (q row, slice of 128 feature columns): m = 390
-    # (random nonnegative features) is three full slices and one of 6
-    # columns, and its rows do not start on 16 bytes; in bf16 the rows of
-    # m = 45 do not start on 4 bytes.
+    # B5, B6a and B6b run one block per (q row, slice of 128 feature
+    # columns): m = 390 (random nonnegative features) is three full slices
+    # and one of 6 columns, and its rows do not start on 16 bytes; in bf16
+    # the rows of m = 45 do not start on 4 bytes. BH = 192 is 576 blocks,
+    # more than are resident at once.
     cases = [("train shape BH=96 L=1024 fp32", 96, 96, 1024, torch.float32),
              ("train shape BH=96 L=1024 bf16", 96, 96, 1024, torch.bfloat16),
              (f"serving path BH={bh_s} L={L_s} bf16", bh_s, bh_s, L_s,
@@ -889,7 +898,8 @@ def phase_scan(feat, sp, serve_shape) -> dict:
              ("GQA BH=2*BK=48 L=512 fp32", 48, 24, 512, torch.float32),
              ("m=390 GQA BH=2*BK=8 L=256 fp32", 8, 4, 256, torch.float32),
              ("m=390 GQA BH=2*BK=8 L=256 bf16", 8, 4, 256, torch.bfloat16),
-             ("m=45 GQA BH=2*BK=8 L=256 bf16", 8, 4, 256, torch.bfloat16)]
+             ("m=45 GQA BH=2*BK=8 L=256 bf16", 8, 4, 256, torch.bfloat16),
+             ("BH=192 L=512 bf16", 192, 192, 512, torch.bfloat16)]
     result = {}
     for name, bh, bk, L, dt in cases:
         log(f"B5/B6 {name}")
@@ -905,7 +915,7 @@ def phase_scan(feat, sp, serve_shape) -> dict:
         yp, denp = slay_scan.causal_linear_attention_plain(qf, kf, v)
         torch.cuda.synchronize()
         e5 = close(y, yp, *tol[dt], "y")
-        close(den, denp, 0.0, 1e-4, "den")     # fp32 sum of <= L terms
+        close(den, denp, 0.0, DEN_RTOL, "den")     # fp32 sum of <= L terms
         args = (qf, kf, v, y, den, dy)
         b6a = slay_scan.launch_bwd_q(*args)
         b6b = slay_scan.launch_bwd_kv(*args)
@@ -922,17 +932,21 @@ def phase_scan(feat, sp, serve_shape) -> dict:
             _check_grads(got, torch.autograd.grad(yp2, xs, dy), SCAN_B6_OUT,
                          dt, "summed vs autograd of the plain forward")
             del xs, yp2
-        es = qf.element_size()
+        es, m = qf.element_size(), qf.shape[-1]
         if name.startswith("serving path"):
             ms = time_ms(lambda: slay_scan.launch_fwd(qf, kf, v), iters=10)
-            b = scan_bounds(bh, bk, L, qf.shape[-1], 64, es)["slay_scan_fwd"]
+            b = scan_tc_bounds(bh, bk, L, m, 64, es)["slay_scan_fwd"]
+            b32 = scan_bounds(bh, bk, L, m, 64, es)["slay_scan_fwd"][0]
             log(f"  slay_scan_fwd at the serving shape: kernel {ms:.4f} ms, "
-                f"bound {b[0]:.4f} ms by {b[1]}")
+                f"bound {b[0]:.4f} ms by {b[1]} (the state products on "
+                f"3xTF32 tensor cores), {ms / b[0]:.1f}x; {b32:.4f} ms on "
+                f"the fp32 pipes")
+            log_residency("slay_scan_fwd", "slay_scan", "scan_fwd_kernel",
+                          slay_scan.residency("slay_scan_fwd", bh, m, 64, dt),
+                          64, f"bf16, BH={bh}, m={m}, dv=64")
         elif name.startswith("train shape") and dt == torch.bfloat16:
-            bounds = scan_bounds(bh, bk, L, qf.shape[-1], 64, es)
-            b32 = bounds["slay_scan_bwd_kv"][0]
-            bounds["slay_scan_bwd_kv"] = scan_kv_tc_bound(
-                bh, bk, L, qf.shape[-1], 64, es)
+            bounds = scan_tc_bounds(bh, bk, L, m, 64, es)
+            fp32 = scan_bounds(bh, bk, L, m, 64, es)
             for kname, kern, plain, err in (
                     ("slay_scan_fwd", lambda: slay_scan.launch_fwd(qf, kf, v),
                      lambda: slay_scan.causal_linear_attention_plain(
@@ -942,22 +956,20 @@ def phase_scan(feat, sp, serve_shape) -> dict:
                     ("slay_scan_bwd_kv",
                      lambda: slay_scan.launch_bwd_kv(*args),
                      lambda: slay_scan.scan_bwd_kv_plain(*args), e6b)):
-                result[kname] = _kernel_row(
+                row = result[kname] = _kernel_row(
                     kname, time_ms(kern, iters=10),
                     time_ms(plain, iters=10, warmup=1), bounds[kname], err,
-                    "this scan", "on the fp32 pipes" if kname !=
-                    "slay_scan_bwd_kv" else "with the state products on "
-                    "3xTF32 tensor cores")
-            kv = result["slay_scan_bwd_kv"]
-            kv["bound_fp32_ms"] = b32
-            log(f"  slay_scan_bwd_kv: {kv['ms'] / kv['bound_ms']:.1f}x its "
-                f"bound; {kv['ms'] / b32:.1f}x the bound with every "
-                f"operation on the fp32 pipes, {b32:.4f} ms")
-            log_residency("slay_scan_bwd_kv", "slay_scan",
-                          "scan_bwd_kv_kernel",
-                          slay_scan.bwd_kv_residency(bh, qf.shape[-1], 64,
-                                                     torch.bfloat16),
-                          64, f"bf16, BH={bh}, m={qf.shape[-1]}, dv=64")
+                    "this scan", "with the state products on 3xTF32 tensor "
+                    "cores")
+                row["bound_fp32_ms"] = b32 = fp32[kname][0]
+                log(f"  {kname}: {row['ms'] / row['bound_ms']:.1f}x its "
+                    f"bound; {row['ms'] / b32:.1f}x the bound with every "
+                    f"operation on the fp32 pipes, {b32:.4f} ms")
+            for kname in bounds:     # B5, B6a, B6b
+                log_residency(kname, "slay_scan",
+                              kname.replace("slay_", "") + "_kernel",
+                              slay_scan.residency(kname, bh, m, 64, dt), 64,
+                              f"bf16, BH={bh}, m={m}, dv=64")
         del qf, kf, v, dy, y, den, args, b6a, b6b, got
     # Ragged L through the model-layout wrapper under autograd: the pad,
     # reshape and permute carry the gradients back.

@@ -1,7 +1,7 @@
 // Per-tile phases of the chunked causal scan on the tensor cores, for one
 // block's slice of the state: one quadrature node's P·D columns in K1
 // (slay_fused.cu), K3 and K4 (slay_fused_bwd.cu), one slice of the
-// feature columns in B6b (slay_scan.cu).
+// feature columns in B5, B6a and B6b (slay_scan.cu).
 //
 // Every product of a tile runs as mma.sync.m16n8k8 in TF32 with fp32
 // accumulation, in 3xTF32: each fp32 operand is split as a = big + small
@@ -26,11 +26,11 @@
 // Each phase is run by the whole block of 8 warps; a warp owns whole
 // 16 x 8 output tiles (the two halves of the scores are added in one
 // order where they are read), so the result does not depend on
-// scheduling. tril keeps the diagonal (causal_keep). As in scan_tile.cuh,
-// every reader of the carry runs before the tile is added to it
-// (mma_update), so a row never sees its own tile through the state. The
-// helpers at the end stage the next tile's raw rows with cp.async, widen
-// them to fp32, and write a block's outputs.
+// scheduling. tril keeps the diagonal (causal_keep). Every reader of the
+// carry runs before the tile is added to it (mma_update), so a row never
+// sees its own tile through the state. The helpers at the end stage the
+// next tile's raw rows with cp.async, widen them to fp32, write a block's
+// outputs, and sum the forward's shares (fwd_epilogue).
 #pragma once
 
 #include <cstdint>
@@ -505,6 +505,52 @@ __device__ inline void store_share(const float* share, int ld, int ncol,
       *reinterpret_cast<float4*>(part + (row * L + t0 + t) * ncol + col) =
           *reinterpret_cast<const float4*>(share + t * ld + col);
   }
+}
+
+// The forward's epilogue, K1's and B5's: y = Σ_c num_c / (Σ_c den_c + δ)
+// in T and den = Σ_c den_c, the C shares (quadrature nodes in K1, feature
+// slices in B5) summed in the order c = 0, 1, ...; a thread per four
+// neighbouring values of y. num (C, n) with n = rows·dv, den_part (C,
+// rows).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+fwd_epilogue(const float* __restrict__ num,
+             const float* __restrict__ den_part, T* __restrict__ y,
+             float* __restrict__ den, int64_t rows, int dv, int C,
+             float delta) {
+  const int64_t n = rows * dv;
+  const int64_t i = 4 * ((int64_t)blockIdx.x * blockDim.x + threadIdx.x);
+  if (i >= n) return;
+  const int64_t row = i / dv;
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  float e = 0.f;
+  for (int c = 0; c < C; ++c) {
+    const float4 x = *reinterpret_cast<const float4*>(num + c * n + i);
+    s.x += x.x;
+    s.y += x.y;
+    s.z += x.z;
+    s.w += x.w;
+    e += den_part[c * rows + row];
+  }
+  const float inv = e + delta;
+  y[i] = from_f32<T>(s.x / inv);
+  y[i + 1] = from_f32<T>(s.y / inv);
+  y[i + 2] = from_f32<T>(s.z / inv);
+  y[i + 3] = from_f32<T>(s.w / inv);
+  if (i % dv == 0) den[row] = e;
+}
+
+// Launch fwd_epilogue over the rows x dv values of y (dv a multiple of 4).
+// Returns a cudaError_t code.
+template <typename T>
+inline int launch_fwd_epilogue(const float* num, const float* den_part, T* y,
+                               float* den, int64_t rows, int dv, int C,
+                               float delta, cudaStream_t stream) {
+  const int64_t threads = rows * dv / 4;
+  fwd_epilogue<T><<<(unsigned)((threads + kThreads - 1) / kThreads),
+                    kThreads, 0, stream>>>(num, den_part, y, den, rows, dv, C,
+                                           delta);
+  return (int)cudaGetLastError();
 }
 
 // Residency of kernel fn with `smem` bytes of dynamic shared memory (its

@@ -21,11 +21,11 @@
 // one-node thread mappings of K3 and K4), carries node r's (S_r, z_r) and
 // forms node r's shares num_r = Ψq_r S_r + tril(Ψq_r Ψk_rᵀ) V and den_r =
 // Ψq_r z_r + rowsum(tril(Ψq_r Ψk_rᵀ)). It writes them in fp32 to a node
-// axis, num (R, BH, L, dv) and den (R, BH, L), and a second kernel of this
-// file, the epilogue, sums the R shares in the order r = 0, 1, ... and
-// writes y = Σ num_r / (Σ den_r + δ) in the input dtype and den = Σ den_r
-// in fp32 (no atomics: the result does not depend on block order). The C
-// entry launches both.
+// axis, num (R, BH, L, dv) and den (R, BH, L), and a second kernel, the
+// epilogue (scan_tile_mma.cuh::fwd_epilogue, which B5 launches too), sums
+// the R shares in the order r = 0, 1, ... and writes y = Σ num_r / (Σ
+// den_r + δ) in the input dtype and den = Σ den_r in fp32 (no atomics:
+// the result does not depend on block order). The C entry launches both.
 //
 // What bounds it: operations. Per token and q head it does the Ψ map of
 // its q row and, per kv head, of its k row, ≈ 2·m·dv for the read-out Ψq S
@@ -174,38 +174,6 @@ fused_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// The epilogue: y = Σ_r num_r / (Σ_r den_r + δ) in T and den = Σ_r den_r,
-// the R node shares summed in the order r = 0, 1, ...; a thread per four
-// neighbouring values of y. num (R, n) with n = rows·dv, den_part (R,
-// rows).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-fused_fwd_epilogue(const float* __restrict__ num,
-                   const float* __restrict__ den_part, T* __restrict__ y,
-                   float* __restrict__ den, int64_t rows, int dv, int R,
-                   float delta) {
-  const int64_t n = rows * dv;
-  const int64_t i = 4 * ((int64_t)blockIdx.x * blockDim.x + threadIdx.x);
-  if (i >= n) return;
-  const int64_t row = i / dv;
-  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
-  float e = 0.f;
-  for (int r = 0; r < R; ++r) {
-    const float4 x = *reinterpret_cast<const float4*>(num + r * n + i);
-    s.x += x.x;
-    s.y += x.y;
-    s.z += x.z;
-    s.w += x.w;
-    e += den_part[r * rows + row];
-  }
-  const float inv = e + delta;
-  y[i] = from_f32<T>(s.x / inv);
-  y[i + 1] = from_f32<T>(s.y / inv);
-  y[i + 2] = from_f32<T>(s.z / inv);
-  y[i + 3] = from_f32<T>(s.w / inv);
-  if (i % dv == 0) den[row] = e;
-}
-
 struct FwdArgs {
   const void *q, *k, *v;
   const float *anchors, *omegas;
@@ -228,13 +196,9 @@ int launch_fused(const FwdArgs& a, int bh, const FusedDims& dims,
       dims, c);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int64_t rows = (int64_t)bh * dims.L;
-  const int64_t threads = rows * DV / 4;
-  fused_fwd_epilogue<T><<<(unsigned)((threads + kThreads - 1) / kThreads),
-                          kThreads, 0, stream>>>(
-      a.num_part, a.den_part, static_cast<T*>(a.y), a.den, rows, DV, c.R,
-      dims.delta);
-  return (int)cudaGetLastError();
+  return launch_fwd_epilogue(a.num_part, a.den_part, static_cast<T*>(a.y),
+                             a.den, (int64_t)bh * dims.L, DV, c.R, dims.delta,
+                             stream);
 }
 
 template <typename T>

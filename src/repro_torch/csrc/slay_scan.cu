@@ -26,174 +26,73 @@
 // for every state term (B5 two, B6a two, B6b four) against ≈ 2 bytes per
 // feature column in bf16, so ≈ 100 operations per byte.
 //
-// B5 and B6a are the first design: one block per q row h (kv row h / G),
-// the phases of scan_tile.cuh on the fp32 pipes out of shared memory;
-// shared memory at slayformer shapes (m = 384, dv = 64): B5 154 KB, B6a
-// 135 KB of the 227 KB a block may have, checked on the host before
-// launch.
+// All three run one block per (q row h, slice c of kScanSlice = 128
+// feature columns): a grid of BH x C blocks, C = ceil(m / 128) (288 at the
+// training shape, BH = 96 and m = 384; 144 at the serving shape, BH = 48).
+// Every sum over Ψ's columns splits exactly by slice, so block (h, c)
+// carries only its slice's (S_c, z_c) or (dS_c, dz_c), from kv row h / G:
+//   B5 writes the slice's shares num_c = Ψq_c S_c + tril(Ψq_c Ψk_cᵀ) V
+//     and den_c = Ψq_c z_c + rowsum(tril(Ψq_c Ψk_cᵀ)) in fp32 to a slice
+//     axis, num (C, BH, L, dv) and den (C, BH, L); K1's epilogue
+//     (scan_tile_mma.cuh::fwd_epilogue) sums them in the order c = 0, 1,
+//     ... and writes y and den (no atomics). The C entry launches both.
+//   B6a writes dΨq_c = G S_cᵀ + dP Ψk_c + h z_cᵀ, the slice's own columns
+//     of dq, in the input dtype; dP does not depend on the slice, and
+//     every block recomputes it in registers.
+//   B6b writes dΨk_c = dPᵀ Ψq_c + V dS_cᵀ + dz_c, the slice's columns of
+//     dk, in the input dtype, and its share dV_c = tril(Ψq_c Ψk_cᵀ)ᵀ G +
+//     Ψk_c dS_c in fp32 to a slice axis (C, BH, L, dv) that the wrapper
+//     sums, then over each GQA group (no atomics).
+// Their tile and state products run on the tensor cores as mma.sync in
+// 3xTF32 with the phases of K1 (B5), K3 (B6a) and K4 (B6b) in
+// scan_tile_mma.cuh. The next tile's Ψq and Ψk slices (B6a reads no Ψq),
+// v and, in the backward, dy, y and den are copied with cp.async while the
+// current one computes (16-byte copies where the rows allow, narrower ones
+// otherwise). The last slice of an m that 128 does not divide is padded
+// with zero columns in shared memory, which add nothing.
 //
-// B6b runs one block per (q row h, slice c of kScanSlice = 128 feature
-// columns): a grid of BH x C blocks, C = ceil(m / 128) (288 at the
-// training shape, m = 384). dP does not depend on the slice and every
-// block recomputes it; the scores enter dV through the slice's part
-// tril(Ψq_c Ψk_cᵀ); dΨk's columns are the slice's own. So block (h, c)
-// carries (dS_c, dz_c), writes dΨk_c = dPᵀ Ψq_c + V dS_cᵀ + dz_c exactly,
-// in the input dtype, straight to dk's columns of the slice, and writes
-// its share dV_c = tril(Ψq_c Ψk_cᵀ)ᵀ G + Ψk_c dS_c in fp32 to a slice axis
-// (C, BH, L, dv) that the wrapper sums, then over each GQA group (no
-// atomics). Its tile and state products run on the tensor cores as
-// mma.sync in 3xTF32 with K4's phases (scan_tile_mma.cuh); the next tile's
-// Ψq and Ψk slices, v, dy, y and den are copied with cp.async while the
-// current one computes (16-byte copies where the rows allow, narrower
-// ones otherwise). The last slice of an m that 128 does not divide is
-// padded with zero columns in shared memory, which add nothing. Shared
-// memory at slayformer shapes, bf16: the slice's fp32 carry (34.8 KB), Ψq
-// and Ψk slices (16.9 KB), V, G, the scores, dP, the dV share and the
-// staging buffer (14.4 KB; 28.7 KB in fp32): 83.3 KB, so 2 blocks per SM
-// and 264 of the 288 blocks resident at once.
+// Shared memory at slayformer shapes (m = 384, dv = 64), bf16 inputs: the
+// slice's fp32 carry (34.8 KB), the Ψ tiles (16.9 KB; B6a's Ψq buffer
+// takes its dΨq), V and what the kernel needs of G, h, the scores, dP and
+// the dV share, and the staging buffer: B5 69376 B, B6a 71296 B, B6b
+// 83328 B (fp32 inputs: 79616, 81536, 97664 B), checked on the host
+// against the 227 KB a block may have. B5 and B6b keep 2 blocks per SM
+// (115 and 110 registers; built for 3, B5 spills); B6a fits 3.
 #include <cstdint>
 
-#include "scan_tile.cuh"
 #include "scan_tile_mma.cuh"
 
 namespace slay {
 
 enum ScanKind { kScanFwd = 0, kScanBwdQ = 1, kScanBwdKV = 2 };
+constexpr int kScanSlice = 128;   // feature columns per block
 
 struct ScanDims {
   int L, G, m;
   float delta;
 };
 
-// Shared-memory carve-up of B5 and B6a (floats); each takes only what it
-// uses. B6a pads the carry's rows (lds = dv + 1) so that threads owning
-// neighbouring features read different banks in the dΨ phase.
+// One kernel's shared-memory carve-up (floats, each offset 16-byte
+// aligned), then the staging bytes, for slices of pw = min(m, 128)
+// columns rounded up to a multiple of 16; strides padded by 4 floats as in
+// slay_fused_bwd.cu. Each kernel takes only what it uses: B6a's dΨq goes
+// to the Ψq buffer and it has no scores; only B6b keeps dP and a dV share.
+// Staged rows (byte offsets st_*): Ψq (not in B6a) at 0, then Ψk, v and,
+// in the backward, dy, y and den.
 struct ScanLayout {
-  int lds, ldp, ldsc;
-  int off_s, off_z, off_q, off_k, off_v, off_g, off_h, off_sc, off_dp,
-      off_den;
-  int total;
-};
-
-__host__ __device__ inline ScanLayout scan_layout(int m, int dv, int kind) {
-  constexpr int T = kTile;
-  const bool fwd = kind == kScanFwd, bwd = !fwd;
-  ScanLayout l;
-  l.lds = bwd ? dv + 1 : dv;
-  l.ldp = m + 1;
-  l.ldsc = T + 1;
-  int o = 0;
-  l.off_s = o;   o += m * l.lds;
-  l.off_z = o;   o += m;
-  l.off_q = o;   o += fwd ? T * l.ldp : 0;
-  l.off_k = o;   o += T * l.ldp;
-  l.off_v = o;   o += T * dv;
-  l.off_g = o;   o += bwd ? T * dv : 0;
-  l.off_h = o;   o += bwd ? T : 0;
-  l.off_sc = o;  o += fwd ? T * l.ldsc : 0;
-  l.off_dp = o;  o += bwd ? T * l.ldsc : 0;
-  l.off_den = o; o += fwd ? T : 0;
-  l.total = o;
-  return l;
-}
-
-// Rows t0..t0+T-1 of one (rows, L, width) tensor to fp32 shared memory
-// with row stride ld; rows past L are zero (their Ψ is zero, so they add
-// nothing to the state). No sync.
-template <typename T>
-__device__ inline void load_rows(const T* src, int row, int t0, int L,
-                                 int width, float* dst, int ld) {
-  for (int i = threadIdx.x; i < kTile * width; i += blockDim.x) {
-    const int t = i / width, col = i % width;
-    dst[t * ld + col] =
-        t0 + t < L ? to_f32(src[((int64_t)row * L + t0 + t) * width + col])
-                   : 0.f;
-  }
-}
-
-// B5: y and den of q row h.
-template <typename T, int DV>
-__global__ void __launch_bounds__(kThreads, 1)
-scan_fwd_kernel(const T* __restrict__ qf, const T* __restrict__ kf,
-                const T* __restrict__ v, T* __restrict__ y,
-                float* __restrict__ den_out, ScanDims dims) {
-  extern __shared__ float smem[];
-  const int L = dims.L, m = dims.m;
-  const ScanLayout lay = scan_layout(m, DV, kScanFwd);
-  float* S = smem + lay.off_s;      // (m, DV), z right after it
-  float* z = smem + lay.off_z;
-  float* psiq = smem + lay.off_q;
-  float* psik = smem + lay.off_k;
-  float* vs = smem + lay.off_v;
-  const int h = blockIdx.x, hk = h / dims.G;
-  for (int i = threadIdx.x; i < m * DV + m; i += kThreads) S[i] = 0.f;
-
-  for (int t0 = 0; t0 < L; t0 += kTile) {
-    load_rows(qf, h, t0, L, m, psiq, lay.ldp);
-    load_rows(kf, hk, t0, L, m, psik, lay.ldp);
-    load_rows(v, hk, t0, L, DV, vs, DV);
-    __syncthreads();
-    tile_scores(psiq, psik, lay.ldp, m, smem + lay.off_sc, lay.ldsc);
-    tile_forward<T, DV>(psiq, lay.ldp, vs, S, DV, z, m, smem + lay.off_sc,
-                        lay.ldsc, smem + lay.off_den, y, den_out, h, L, t0,
-                        dims.delta);
-    scan_update<DV>(S, DV, z, psik, lay.ldp, vs, m);
-  }
-}
-
-// B6a: dΨq of q row h, the forward re-scan.
-template <typename T, int DV>
-__global__ void __launch_bounds__(kThreads, 1)
-scan_bwd_q_kernel(const T* __restrict__ kf, const T* __restrict__ v,
-                  const T* __restrict__ dy, const T* __restrict__ y,
-                  const float* __restrict__ den, T* __restrict__ dq,
-                  ScanDims dims) {
-  extern __shared__ float smem[];
-  const int L = dims.L, m = dims.m;
-  const ScanLayout lay = scan_layout(m, DV, kScanBwdQ);
-  float* S = smem + lay.off_s;      // (m, lds), z right after it
-  float* z = smem + lay.off_z;
-  float* psik = smem + lay.off_k;
-  float* vs = smem + lay.off_v;
-  float* gs = smem + lay.off_g;
-  float* hs = smem + lay.off_h;
-  float* dp = smem + lay.off_dp;
-  const int ldp = lay.ldp, lds = lay.lds;
-  const int h = blockIdx.x, hk = h / dims.G;
-  for (int i = threadIdx.x; i < m * lds + m; i += kThreads) S[i] = 0.f;
-
-  for (int t0 = 0; t0 < L; t0 += kTile) {
-    load_rows(kf, hk, t0, L, m, psik, ldp);
-    load_rows(v, hk, t0, L, DV, vs, DV);
-    load_cotangents<T, DV>(dy, y, den, h, t0, L, dims.delta, gs, hs);
-    __syncthreads();
-    tile_dp<DV>(gs, hs, vs, lay.ldsc, dp);
-    tile_dpsi_q<DV>(S, lds, z, gs, hs, dp, lay.ldsc, psik, ldp, m,
-                    [&](int t, int f, float x) {
-                      if (t0 + t < L)
-                        dq[((int64_t)h * L + t0 + t) * m + f] = from_f32<T>(x);
-                    });
-    __syncthreads();
-    // Only now: S += Ψkᵀ V, z += Σ Ψk.
-    scan_update<DV>(S, lds, z, psik, ldp, vs, m);
-  }
-}
-
-constexpr int kScanSlice = 128;   // B6b: feature columns per block
-
-// B6b's shared-memory carve-up (floats, each offset 16-byte aligned), then
-// the staging bytes, for slices of pw = min(m, 128) columns rounded up to
-// a multiple of 16; strides padded by 4 floats as in slay_fused_bwd.cu.
-struct KvLayout {
   int pw, ldp, ldc, ldv, ldsc, ldsp, ldsv;
   int off_c, off_z, off_q, off_k, off_v, off_g, off_h, off_sc, off_schi,
       off_dp, off_dv, off_stage;
+  int st_k, st_v, st_dy, st_y, st_den;
   int total_bytes;
 };
 
-__host__ __device__ inline KvLayout kv_layout(int m, int dv, int es) {
+__host__ __device__ inline ScanLayout scan_layout(int m, int dv, int es,
+                                                  int kind) {
   constexpr int T = kMmaTile;
-  KvLayout l;
+  const bool fwd = kind == kScanFwd, bwd_q = kind == kScanBwdQ;
+  const bool kv = kind == kScanBwdKV;
+  ScanLayout l;
   l.pw = pad16(m < kScanSlice ? m : kScanSlice);
   l.ldp = l.pw + 4;
   l.ldc = dv + 4;
@@ -207,49 +106,198 @@ __host__ __device__ inline KvLayout kv_layout(int m, int dv, int es) {
   l.off_q = carve(o, T * l.ldp);
   l.off_k = carve(o, T * l.ldp);
   l.off_v = carve(o, T * l.ldv);
-  l.off_g = carve(o, T * l.ldv);
-  l.off_h = carve(o, T);
-  l.off_sc = carve(o, T * l.ldsc);
-  l.off_schi = carve(o, T * l.ldsc);
-  l.off_dp = carve(o, T * l.ldsc);
-  l.off_dv = carve(o, T * dv);
+  l.off_g = carve(o, fwd ? 0 : T * l.ldv);
+  l.off_h = carve(o, fwd ? 0 : T);
+  l.off_sc = carve(o, bwd_q ? 0 : T * l.ldsc);
+  l.off_schi = carve(o, bwd_q ? 0 : T * l.ldsc);
+  l.off_dp = carve(o, kv ? T * l.ldsc : 0);
+  l.off_dv = carve(o, kv ? T * dv : 0);
   l.off_stage = o;
-  l.total_bytes = o * 4 + T * (2 * l.ldsp + 3 * l.ldsv) + T * 4;
+  int s = bwd_q ? 0 : T * l.ldsp;
+  l.st_k = s;
+  s += T * l.ldsp;
+  l.st_v = s;
+  s += T * l.ldsv;
+  l.st_dy = s;
+  l.st_y = s + (fwd ? 0 : T * l.ldsv);
+  l.st_den = l.st_y + (fwd ? 0 : T * l.ldsv);
+  l.total_bytes = o * 4 + l.st_den + (fwd ? 0 : T * 4);
   return l;
 }
 
-// Start copying tile t0's Ψq and Ψk rows of slice columns f0..f0+mc-1,
-// v, dy and y rows and den into the staging buffer, in that order; rows
-// past L are zero-filled. One commit group. No wait, no sync.
-template <typename T, int DV>
-__device__ inline void kv_stage(const T* qf, const T* kf, const T* v,
-                                const T* dy, const T* y, const float* den,
-                                int h, int hk, int t0, int f0, int mc,
-                                const ScanDims& dims, const KvLayout& lay,
-                                char* stage) {
+// Feature slices C for m feature columns: the grid's second axis.
+__host__ __device__ inline int scan_slices(int m) {
+  return (m + kScanSlice - 1) / kScanSlice;
+}
+
+// Start copying tile t0's rows into the staging buffer at the layout's
+// offsets: slice columns f0..f0+mc-1 of Ψq (not in B6a) and Ψk, v and, in
+// the backward, dy, y and den; rows past L are zero-filled. One commit
+// group. No wait, no sync.
+template <int Kind, typename T, int DV>
+__device__ inline void scan_stage(const T* qf, const T* kf, const T* v,
+                                  const T* dy, const T* y, const float* den,
+                                  int h, int hk, int t0, int f0, int mc,
+                                  const ScanDims& dims, const ScanLayout& lay,
+                                  char* stage) {
   constexpr int TT = kMmaTile;
   const int L = dims.L, m = dims.m, es = (int)sizeof(T);
   const int nvalid = L - t0 < TT ? L - t0 : TT;
   const int64_t oq = (int64_t)h * L + t0, ok = (int64_t)hk * L + t0;
   const int64_t sp = (int64_t)m * es, sv = (int64_t)DV * es;
-  char* o = stage;
-  stage_rows(o, lay.ldsp, reinterpret_cast<const char*>(qf + oq * m + f0),
-             sp, mc * es, nvalid);
-  o += TT * lay.ldsp;
-  stage_rows(o, lay.ldsp, reinterpret_cast<const char*>(kf + ok * m + f0),
-             sp, mc * es, nvalid);
-  o += TT * lay.ldsp;
-  stage_rows(o, lay.ldsv, reinterpret_cast<const char*>(v + ok * DV), sv,
-             DV * es, nvalid);
-  o += TT * lay.ldsv;
-  stage_rows(o, lay.ldsv, reinterpret_cast<const char*>(dy + oq * DV), sv,
-             DV * es, nvalid);
-  o += TT * lay.ldsv;
-  stage_rows(o, lay.ldsv, reinterpret_cast<const char*>(y + oq * DV), sv,
-             DV * es, nvalid);
-  o += TT * lay.ldsv;
-  stage_rows(o, 4, reinterpret_cast<const char*>(den + oq), 4, 4, nvalid);
+  if (Kind != kScanBwdQ)
+    stage_rows(stage, lay.ldsp,
+               reinterpret_cast<const char*>(qf + oq * m + f0), sp, mc * es,
+               nvalid);
+  stage_rows(stage + lay.st_k, lay.ldsp,
+             reinterpret_cast<const char*>(kf + ok * m + f0), sp, mc * es,
+             nvalid);
+  stage_rows(stage + lay.st_v, lay.ldsv,
+             reinterpret_cast<const char*>(v + ok * DV), sv, DV * es, nvalid);
+  if (Kind != kScanFwd) {
+    stage_rows(stage + lay.st_dy, lay.ldsv,
+               reinterpret_cast<const char*>(dy + oq * DV), sv, DV * es,
+               nvalid);
+    stage_rows(stage + lay.st_y, lay.ldsv,
+               reinterpret_cast<const char*>(y + oq * DV), sv, DV * es,
+               nvalid);
+    stage_rows(stage + lay.st_den, 4,
+               reinterpret_cast<const char*>(den + oq), 4, 4, nvalid);
+  }
   cp_async_commit();
+}
+
+// Widen the staged tile to fp32: the Ψq slice (not in B6a) to psiq and
+// the Ψk slice to psik (16, ldp), both zero past the slice's mc columns up
+// to pd; v to vs (16, ldv); in the backward, G to gs (16, ldv) and h to
+// hs. No sync.
+template <int Kind, typename T, int DV>
+__device__ inline void scan_unstage(const char* stage, const ScanLayout& lay,
+                                    int mc, int pd, float delta, float* psiq,
+                                    float* psik, float* vs, float* gs,
+                                    float* hs) {
+  constexpr int TT = kMmaTile;
+  if (Kind != kScanBwdQ)
+    unstage_rows(reinterpret_cast<const T*>(stage), lay.pw, TT, mc, pd, psiq,
+                 lay.ldp);
+  unstage_rows(reinterpret_cast<const T*>(stage + lay.st_k), lay.pw, TT, mc,
+               pd, psik, lay.ldp);
+  unstage_rows(reinterpret_cast<const T*>(stage + lay.st_v),
+               lay.ldsv / (int)sizeof(T), TT, DV, DV, vs, lay.ldv);
+  if (Kind != kScanFwd)
+    unstage_cotangents<T, DV>(
+        reinterpret_cast<const T*>(stage + lay.st_dy),
+        reinterpret_cast<const T*>(stage + lay.st_y),
+        reinterpret_cast<const float*>(stage + lay.st_den), delta, gs,
+        lay.ldv, hs);
+}
+
+// B5: the forward scan of slice blockIdx.y of q row blockIdx.x -> the
+// slice's shares of num and den.
+template <typename T, int DV>
+__global__ void __launch_bounds__(kThreads, 2)
+scan_fwd_kernel(const T* __restrict__ qf, const T* __restrict__ kf,
+                const T* __restrict__ v, float* __restrict__ num,
+                float* __restrict__ den, ScanDims dims) {
+  constexpr int TT = kMmaTile;
+  extern __shared__ __align__(16) float smem[];
+  const int L = dims.L, m = dims.m;
+  const ScanLayout lay = scan_layout(m, DV, sizeof(T), kScanFwd);
+  float* S = smem + lay.off_c;
+  float* z = smem + lay.off_z;
+  float* psiq = smem + lay.off_q;
+  float* psik = smem + lay.off_k;
+  float* vs = smem + lay.off_v;
+  float* sc = smem + lay.off_sc;
+  float* sc_hi = smem + lay.off_schi;
+  char* stage = reinterpret_cast<char*>(smem + lay.off_stage);
+  const int h = blockIdx.x, hk = h / dims.G;
+  const int f0 = blockIdx.y * kScanSlice;
+  const int mc = m - f0 < kScanSlice ? m - f0 : kScanSlice;
+  const int pd = pad16(mc);
+  const int64_t prow = (int64_t)blockIdx.y * gridDim.x + h;   // (slice, row)
+
+  for (int i = threadIdx.x; i < lay.off_q; i += kThreads) smem[i] = 0.f;
+  const int ntiles = (L + TT - 1) / TT;
+  if (ntiles > 0)
+    scan_stage<kScanFwd, T, DV>(qf, kf, v, nullptr, nullptr, nullptr, h, hk,
+                                0, f0, mc, dims, lay, stage);
+
+  for (int tile = 0; tile < ntiles; ++tile) {
+    const int t0 = tile * TT;
+    cp_async_wait_all();
+    __syncthreads();
+    scan_unstage<kScanFwd, T, DV>(stage, lay, mc, pd, dims.delta, psiq, psik,
+                                  vs, nullptr, nullptr);
+    __syncthreads();
+    if (tile + 1 < ntiles)
+      scan_stage<kScanFwd, T, DV>(qf, kf, v, nullptr, nullptr, nullptr, h,
+                                  hk, t0 + TT, f0, mc, dims, lay, stage);
+    mma_dp_scores<DV, false>(nullptr, nullptr, lay.ldv, nullptr, psiq, psik,
+                             lay.ldp, pd, nullptr, sc, sc_hi, lay.ldsc);
+    __syncthreads();
+    mma_readout<DV>(psiq, lay.ldp, S, lay.ldc, z, sc, sc_hi, lay.ldsc, vs,
+                    lay.ldv, pd, num, den, prow, t0, L);
+    __syncthreads();
+    // Only now: S += Ψkᵀ V, z += Σ Ψk.
+    mma_update<DV>(S, lay.ldc, z, psik, lay.ldp, vs, lay.ldv, nullptr, pd);
+  }
+}
+
+// B6a: the forward re-scan of slice blockIdx.y of q row blockIdx.x -> the
+// slice's columns of dq. Three blocks per SM: 79 registers and no spills,
+// so the training shape's 288 blocks run in one wave.
+template <typename T, int DV>
+__global__ void __launch_bounds__(kThreads, 3)
+scan_bwd_q_kernel(const T* __restrict__ kf, const T* __restrict__ v,
+                  const T* __restrict__ dy, const T* __restrict__ y,
+                  const float* __restrict__ den, T* __restrict__ dq,
+                  ScanDims dims) {
+  constexpr int TT = kMmaTile;
+  extern __shared__ __align__(16) float smem[];
+  const int L = dims.L, m = dims.m;
+  const ScanLayout lay = scan_layout(m, DV, sizeof(T), kScanBwdQ);
+  float* S = smem + lay.off_c;
+  float* z = smem + lay.off_z;
+  float* dpsi = smem + lay.off_q;       // dΨq of the tile
+  float* psik = smem + lay.off_k;
+  float* vs = smem + lay.off_v;
+  float* gs = smem + lay.off_g;
+  float* hs = smem + lay.off_h;
+  char* stage = reinterpret_cast<char*>(smem + lay.off_stage);
+  const int h = blockIdx.x, hk = h / dims.G;
+  const int f0 = blockIdx.y * kScanSlice;
+  const int mc = m - f0 < kScanSlice ? m - f0 : kScanSlice;
+  const int pd = pad16(mc);
+
+  for (int i = threadIdx.x; i < lay.off_q; i += kThreads) smem[i] = 0.f;
+  const int ntiles = (L + TT - 1) / TT;
+  if (ntiles > 0)
+    scan_stage<kScanBwdQ, T, DV>(nullptr, kf, v, dy, y, den, h, hk, 0, f0, mc,
+                                 dims, lay, stage);
+
+  for (int tile = 0; tile < ntiles; ++tile) {
+    const int t0 = tile * TT;
+    cp_async_wait_all();
+    __syncthreads();
+    scan_unstage<kScanBwdQ, T, DV>(stage, lay, mc, pd, dims.delta, nullptr,
+                                   psik, vs, gs, hs);
+    __syncthreads();
+    if (tile + 1 < ntiles)
+      scan_stage<kScanBwdQ, T, DV>(nullptr, kf, v, dy, y, den, h, hk,
+                                   t0 + TT, f0, mc, dims, lay, stage);
+    mma_dpsi_q<DV>(S, lay.ldc, z, gs, vs, lay.ldv, hs, psik, lay.ldp, pd,
+                   dpsi);
+    __syncthreads();
+    for (int i = threadIdx.x; i < TT * mc; i += kThreads) {
+      const int t = i / mc, f = i % mc;
+      if (t0 + t < L)
+        dq[((int64_t)h * L + t0 + t) * m + f0 + f] =
+            from_f32<T>(dpsi[t * lay.ldp + f]);
+    }
+    // Only now: S += Ψkᵀ V, z += Σ Ψk.
+    mma_update<DV>(S, lay.ldc, z, psik, lay.ldp, vs, lay.ldv, nullptr, pd);
+  }
 }
 
 // B6b: the reverse scan of slice blockIdx.y of q row blockIdx.x -> its
@@ -264,7 +312,7 @@ scan_bwd_kv_kernel(const T* __restrict__ qf, const T* __restrict__ kf,
   constexpr int TT = kMmaTile;
   extern __shared__ __align__(16) float smem[];
   const int L = dims.L, m = dims.m;
-  const KvLayout lay = kv_layout(m, DV, sizeof(T));
+  const ScanLayout lay = scan_layout(m, DV, sizeof(T), kScanBwdKV);
   float* dS = smem + lay.off_c;
   float* dz = smem + lay.off_z;
   float* psiq = smem + lay.off_q;
@@ -286,27 +334,20 @@ scan_bwd_kv_kernel(const T* __restrict__ qf, const T* __restrict__ kf,
   for (int i = threadIdx.x; i < lay.off_q; i += kThreads) smem[i] = 0.f;
   const int ntiles = (L + TT - 1) / TT;
   if (ntiles > 0)
-    kv_stage<T, DV>(qf, kf, v, dy, y, den, h, hk, (ntiles - 1) * TT, f0, mc,
-                    dims, lay, stage);
+    scan_stage<kScanBwdKV, T, DV>(qf, kf, v, dy, y, den, h, hk,
+                                  (ntiles - 1) * TT, f0, mc, dims, lay,
+                                  stage);
 
   for (int tile = ntiles - 1; tile >= 0; --tile) {
     const int t0 = tile * TT;
     cp_async_wait_all();
     __syncthreads();
-    const T* sq = reinterpret_cast<const T*>(stage);
-    const T* sv = reinterpret_cast<const T*>(stage + 2 * TT * lay.ldsp);
-    const int nv = lay.ldsv / (int)sizeof(T);
-    unstage_rows(sq, lay.pw, TT, mc, pd, psiq, lay.ldp);
-    unstage_rows(sq + TT * lay.pw, lay.pw, TT, mc, pd, psik, lay.ldp);
-    unstage_rows(sv, nv, TT, DV, DV, vs, lay.ldv);
-    unstage_cotangents<T, DV>(
-        sv + TT * nv, sv + 2 * TT * nv,
-        reinterpret_cast<const float*>(sv + 3 * TT * nv), dims.delta, gs,
-        lay.ldv, hs);
+    scan_unstage<kScanBwdKV, T, DV>(stage, lay, mc, pd, dims.delta, psiq,
+                                    psik, vs, gs, hs);
     __syncthreads();
     if (tile > 0)
-      kv_stage<T, DV>(qf, kf, v, dy, y, den, h, hk, t0 - TT, f0, mc, dims,
-                      lay, stage);
+      scan_stage<kScanBwdKV, T, DV>(qf, kf, v, dy, y, den, h, hk, t0 - TT, f0,
+                                    mc, dims, lay, stage);
     mma_dp_scores<DV>(gs, vs, lay.ldv, hs, psiq, psik, lay.ldp, pd, dp, sc,
                       sc_hi, lay.ldsc);
     __syncthreads();
@@ -332,18 +373,19 @@ scan_bwd_kv_kernel(const T* __restrict__ qf, const T* __restrict__ kf,
 struct ScanArgs {
   const void *qf, *kf, *v, *dy, *y;
   const float* den;
-  void *out0, *out1;   // y, dq or dk; B6b's dv shares (fp32)
-  float* den_out;
+  void* out;         // y, dq or dk
+  float* part;       // B5's num shares, B6b's dv shares (fp32)
+  float *den_part, *den_out;   // B5's den shares and den
 };
 
-// Feature slices of B6b: its grid's second axis.
-__host__ __device__ inline int kv_slices(int m) {
-  return (m + kScanSlice - 1) / kScanSlice;
-}
-
-inline long long scan_smem_bytes(int m, int dv, int kind) {
-  if (kind == kScanBwdKV) return kv_layout(m, dv, 4).total_bytes;
-  return (long long)scan_layout(m, dv, kind).total * 4;
+// The kernel of `kind` for (T, DV), as a pointer for the runtime API.
+template <typename T, int DV>
+const void* scan_kernel(int kind) {
+  if (kind == kScanFwd)
+    return reinterpret_cast<const void*>(scan_fwd_kernel<T, DV>);
+  if (kind == kScanBwdQ)
+    return reinterpret_cast<const void*>(scan_bwd_q_kernel<T, DV>);
+  return reinterpret_cast<const void*>(scan_bwd_kv_kernel<T, DV>);
 }
 
 template <typename T, int DV>
@@ -354,32 +396,28 @@ int launch_scan(int kind, const ScanArgs& a, int bh, const ScanDims& dims,
   const T* v = static_cast<const T*>(a.v);
   const T* dy = static_cast<const T*>(a.dy);
   const T* y = static_cast<const T*>(a.y);
-  T* out0 = static_cast<T*>(a.out0);
-  const size_t smem = kind == kScanBwdKV
-                          ? kv_layout(dims.m, DV, sizeof(T)).total_bytes
-                          : scan_smem_bytes(dims.m, DV, kind);
-  cudaError_t err;
+  T* out = static_cast<T*>(a.out);
+  const size_t smem = scan_layout(dims.m, DV, sizeof(T), kind).total_bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      scan_kernel<T, DV>(kind), cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(bh, scan_slices(dims.m));   // one block per (row, slice)
   if (kind == kScanFwd) {
-    auto kern = scan_fwd_kernel<T, DV>;
-    err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    scan_fwd_kernel<T, DV><<<grid, kThreads, smem, stream>>>(
+        qf, kf, v, a.part, a.den_part, dims);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    kern<<<bh, kThreads, smem, stream>>>(qf, kf, v, out0, a.den_out, dims);
-  } else if (kind == kScanBwdQ) {
-    auto kern = scan_bwd_q_kernel<T, DV>;
-    err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    kern<<<bh, kThreads, smem, stream>>>(kf, v, dy, y, a.den, out0, dims);
-  } else {
-    auto kern = scan_bwd_kv_kernel<T, DV>;
-    err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid(bh, kv_slices(dims.m));   // one block per (row, slice)
-    kern<<<grid, kThreads, smem, stream>>>(qf, kf, v, dy, y, a.den, out0,
-                                           static_cast<float*>(a.out1), dims);
+    return launch_fwd_epilogue(a.part, a.den_part, out, a.den_out,
+                               (int64_t)bh * dims.L, DV, (int)grid.y,
+                               dims.delta, stream);
   }
+  if (kind == kScanBwdQ)
+    scan_bwd_q_kernel<T, DV><<<grid, kThreads, smem, stream>>>(
+        kf, v, dy, y, a.den, out, dims);
+  else
+    scan_bwd_kv_kernel<T, DV><<<grid, kThreads, smem, stream>>>(
+        qf, kf, v, dy, y, a.den, out, a.part, dims);
   return (int)cudaGetLastError();
 }
 
@@ -412,15 +450,15 @@ inline int run_scan(int kind, const ScanArgs& a, int bh, int bk, int L, int m,
   return (int)cudaErrorInvalidValue;
 }
 
-// Residency of B6b's (T, DV) kernel for m feature columns
+// Residency of the (T, DV) kernel of `kind` for m feature columns
 // (kernel_residency).
 template <typename T>
-int occupancy_kv(int m, int dv, int* out) {
-#define SLAY_SCAN_DV(N)                                                 \
-  case N:                                                               \
-    return kernel_residency(                                            \
-        reinterpret_cast<const void*>(scan_bwd_kv_kernel<T, N>),        \
-        kv_layout(m, N, sizeof(T)).total_bytes, out);
+int occupancy(int kind, int m, int dv, int* out) {
+#define SLAY_SCAN_DV(N)                                                  \
+  case N:                                                                \
+    return kernel_residency(scan_kernel<T, N>(kind),                     \
+                            scan_layout(m, N, sizeof(T), kind).total_bytes, \
+                            out);
   switch (dv) {
     SLAY_SCAN_DV(16)
     SLAY_SCAN_DV(32)
@@ -436,59 +474,64 @@ int occupancy_kv(int m, int dv, int* out) {
 extern "C" {
 
 // Bytes of dynamic shared memory one block of B5 (kind 0), B6a (1) or
-// B6b (2) needs.
+// B6b (2) needs (fp32 inputs, the larger staging buffer).
 long long slay_scan_smem_bytes(int m, int dv, int kind) {
-  return slay::scan_smem_bytes(m, dv, kind);
+  return slay::scan_layout(m, dv, 4, kind).total_bytes;
 }
 
+// Feature slices C for m feature columns: every scan kernel's grid is
+// bh x C.
+int slay_scan_slices(int m) { return slay::scan_slices(m); }
+
 // B5. qf (bh, L, m), kf (bk, L, m), v (bk, L, dv) in fp32 (dtype 0) or
-// bf16 (dtype 1). Writes y (bh, L, dv) in the input dtype and den (bh, L)
-// fp32. Returns a cudaError_t code (0 = launched).
+// bf16 (dtype 1); num_part (C, bh, L, dv) and den_part (C, bh, L) fp32
+// scratch for the slice shares, C = slay_scan_slices(m). Launches B5 on a
+// bh x C grid, then the epilogue, which writes y (bh, L, dv) in the input
+// dtype and den (bh, L) fp32. Returns a cudaError_t code (0 = launched).
 int slay_scan_fwd(const void* qf, const void* kf, const void* v, void* y,
-                  void* den, int bh, int bk, int L, int m, int dv, float delta,
-                  int dtype, void* stream) {
-  const slay::ScanArgs a{qf, kf, v, nullptr, nullptr, nullptr, y, nullptr,
+                  void* den, void* num_part, void* den_part, int bh, int bk,
+                  int L, int m, int dv, float delta, int dtype,
+                  void* stream) {
+  const slay::ScanArgs a{qf, kf, v, nullptr, nullptr, nullptr, y,
+                         static_cast<float*>(num_part),
+                         static_cast<float*>(den_part),
                          static_cast<float*>(den)};
   return slay::run_scan(slay::kScanFwd, a, bh, bk, L, m, dv, delta,
                         dtype, stream);
 }
 
 // B6a. Inputs as B5 plus dy and y (bh, L, dv) in the input dtype and den
-// (bh, L) fp32. Writes dq (bh, L, m) in the input dtype.
+// (bh, L) fp32. Writes dq (bh, L, m) in the input dtype. Grid bh x C.
 int slay_scan_bwd_q(const void* qf, const void* kf, const void* v,
                     const void* dy, const void* y, const void* den, void* dq,
                     int bh, int bk, int L, int m, int dv, float delta,
                     int dtype, void* stream) {
   const slay::ScanArgs a{qf, kf, v, dy, y, static_cast<const float*>(den), dq,
-                         nullptr, nullptr};
+                         nullptr, nullptr, nullptr};
   return slay::run_scan(slay::kScanBwdQ, a, bh, bk, L, m, dv, delta,
                         dtype, stream);
 }
 
 // B6b. Inputs as B6a. Writes the per-q-head dk (bh, L, m) in the input
 // dtype and each feature slice's share of the per-q-head dv, (C, bh, L,
-// dv) fp32 with C = slay_scan_bwd_kv_slices(m); their sum over the slice
-// axis is dv. Grid bh x C.
+// dv) fp32; their sum over the slice axis is dv. Grid bh x C.
 int slay_scan_bwd_kv(const void* qf, const void* kf, const void* v,
                      const void* dy, const void* y, const void* den, void* dk,
                      void* dv_out, int bh, int bk, int L, int m, int dv,
                      float delta, int dtype, void* stream) {
   const slay::ScanArgs a{qf, kf, v, dy, y, static_cast<const float*>(den), dk,
-                         dv_out, nullptr};
+                         static_cast<float*>(dv_out), nullptr, nullptr};
   return slay::run_scan(slay::kScanBwdKV, a, bh, bk, L, m, dv,
                         delta, dtype, stream);
 }
 
-// B6b's feature slices C for m feature columns.
-int slay_scan_bwd_kv_slices(int m) { return slay::kv_slices(m); }
-
-// Residency of B6b on the current card for these shapes, as
-// slay_fused_bwd_occupancy reports K3's and K4's. Returns a cudaError_t
-// code.
-int slay_scan_bwd_kv_occupancy(int m, int dv, int dtype, int* out) {
-  if (m < 1) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return slay::occupancy_kv<float>(m, dv, out);
-  if (dtype == 1) return slay::occupancy_kv<__nv_bfloat16>(m, dv, out);
+// Residency of B5 (kind 0), B6a (1) or B6b (2) on the current card for
+// these shapes, as slay_fused_bwd_occupancy reports K3's and K4's.
+// Returns a cudaError_t code.
+int slay_scan_occupancy(int kind, int m, int dv, int dtype, int* out) {
+  if (m < 1 || kind < 0 || kind > 2) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return slay::occupancy<float>(kind, m, dv, out);
+  if (dtype == 1) return slay::occupancy<__nv_bfloat16>(kind, m, dv, out);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -58,11 +58,11 @@ SIGNATURES = {
     },
     "slay_scan": {
         "slay_scan_smem_bytes": (ctypes.c_longlong, [_I] * 3),
-        "slay_scan_fwd": (_I, [_P] * 5 + [_I] * 5 + [_F, _I, _P]),
+        "slay_scan_slices": (_I, [_I]),
+        "slay_scan_fwd": (_I, [_P] * 7 + [_I] * 5 + [_F, _I, _P]),
         "slay_scan_bwd_q": (_I, [_P] * 7 + [_I] * 5 + [_F, _I, _P]),
         "slay_scan_bwd_kv": (_I, [_P] * 8 + [_I] * 5 + [_F, _I, _P]),
-        "slay_scan_bwd_kv_slices": (_I, [_I]),
-        "slay_scan_bwd_kv_occupancy": (_I, [_I] * 3 + [ctypes.POINTER(_I)]),
+        "slay_scan_occupancy": (_I, [_I] * 4 + [ctypes.POINTER(_I)]),
     },
 }
 

@@ -51,6 +51,12 @@ def cotangents(y, den, dy, delta):
     return dyf / e, -torch.sum(dyf * y.float(), dim=-1, keepdim=True) / e
 
 
+def empty_fp32(*shape, like: torch.Tensor) -> torch.Tensor:
+    """An uninitialised fp32 tensor on ``like``'s device: a kernel's fp32
+    output or the scratch for its shares."""
+    return torch.empty(*shape, dtype=torch.float32, device=like.device)
+
+
 def check_residuals(rows, v, y, den, dy):
     """Check a scan's saved (y, den) and its cotangent dy against its q
     rows (BH, L, ·) and v (BK, L, dv)."""

@@ -25,8 +25,9 @@ import torch
 from repro_torch.core.features import SlayFeatureConfig
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (causal_mask, check_residuals,
-                                        cotangents, feature_statics,
-                                        features_bwd, features_fwd)
+                                        cotangents, empty_fp32,
+                                        feature_statics, features_bwd,
+                                        features_fwd)
 
 
 def fused_causal_attention_plain(q, k, v, anchors, omegas,
@@ -109,10 +110,6 @@ def _kernel_args(lib, smem_fn, q, v, cfg: SlayFeatureConfig):
             (ctypes.c_double * R)(*st.sqrt_w))
 
 
-def _fp32(*shape, like):
-    return torch.empty(*shape, dtype=torch.float32, device=like.device)
-
-
 def _launch(q, k, v, anchors, omegas, cfg: SlayFeatureConfig, delta):
     """K1 on CUDA tensors: -> (y, den), as
     :func:`fused_causal_attention_plain`. The C entry launches K1 on a
@@ -125,8 +122,9 @@ def _launch(q, k, v, anchors, omegas, cfg: SlayFeatureConfig, delta):
     lib = _build.load("slay_fused")
     s_nodes, sqrt_w = _kernel_args(lib, "slay_fused_smem_bytes", q, v, cfg)
     y = torch.empty(bh, L, dv, dtype=v.dtype, device=q.device)
-    den = _fp32(bh, L, like=q)
-    num_part, den_part = _fp32(R, bh, L, dv, like=q), _fp32(R, bh, L, like=q)
+    den = empty_fp32(bh, L, like=q)
+    num_part = empty_fp32(R, bh, L, dv, like=q)
+    den_part = empty_fp32(R, bh, L, like=q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.slay_fused_fwd(
@@ -296,9 +294,9 @@ def launch_bwd_q(q, k, v, anchors, omegas, y, den, dy,
     bh, L, d = q.shape
     R, P, D = cfg.num_quad_nodes, cfg.num_anchors, cfg.num_prf
     dq, da, dw = _launch_bwd(
-        "slay_fused_bwd_q", (_fp32(R, bh, L, d, like=q),
-                             _fp32(R, bh, P, d, like=q),
-                             _fp32(R, bh, D, d, like=q)),
+        "slay_fused_bwd_q", (empty_fp32(R, bh, L, d, like=q),
+                             empty_fp32(R, bh, P, d, like=q),
+                             empty_fp32(R, bh, D, d, like=q)),
         q, k, v, anchors, omegas, y, den, dy, cfg, delta)
     return dq.sum(0).to(q.dtype), da.sum(0), dw.sum(0)
 
@@ -312,10 +310,10 @@ def launch_bwd_kv(q, k, v, anchors, omegas, y, den, dy,
     dv, R = v.shape[-1], cfg.num_quad_nodes
     P, D = cfg.num_anchors, cfg.num_prf
     dk, dvp, da, dw = _launch_bwd(
-        "slay_fused_bwd_kv", (_fp32(R, bh, L, d, like=q),
-                              _fp32(R, bh, L, dv, like=q),
-                              _fp32(R, bh, P, d, like=q),
-                              _fp32(R, bh, D, d, like=q)),
+        "slay_fused_bwd_kv", (empty_fp32(R, bh, L, d, like=q),
+                              empty_fp32(R, bh, L, dv, like=q),
+                              empty_fp32(R, bh, P, d, like=q),
+                              empty_fp32(R, bh, D, d, like=q)),
         q, k, v, anchors, omegas, y, den, dy, cfg, delta)
     return (dk.sum(0).to(k.dtype), dvp.sum(0).to(v.dtype), da.sum(0),
             dw.sum(0))

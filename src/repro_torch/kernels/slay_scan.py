@@ -5,13 +5,15 @@ Replaces the TPU kernels ``repro/kernels/slay_scan.py::_kernel`` (B5),
 ``::_bwd_q_kernel`` (B6a) and ``::_bwd_kv_kernel`` (B6b) with
 ``csrc/slay_scan.cu``, the second dispatch of the two-dispatch path: it
 reads the Ψq, Ψk that ``feature_map.py`` wrote and runs the chunked
-causal scan of the fused kernels without the chain through Ψ.
+causal scan of the fused kernels without the chain through Ψ. Each kernel
+runs one block per (q row, slice of 128 feature columns).
 
 :func:`causal_linear_attention` is differentiable through
 :class:`ScanAttention`, the counterpart of the ``_scan`` custom VJP: its
-forward saves (qf, kf, v, y, den) and its backward runs B6a, then B6b
-(whose dv shares, one per feature slice, the wrapper sums), then sums
-B6b's per-q-head partials over each GQA group. CUDA tensors launch the
+forward runs B5 (whose num and den shares, one per feature slice, its
+epilogue kernel sums) and saves (qf, kf, v, y, den); its backward runs
+B6a, then B6b (whose dv shares the wrapper sums), then sums B6b's
+per-q-head partials over each GQA group. CUDA tensors launch the
 kernels (or raise), CPU tensors run the plain versions, which repeat the
 kernels' fp32 arithmetic chunk by chunk; there is no fallback from one to
 the other.
@@ -22,7 +24,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (causal_mask, check_residuals,
-                                        cotangents)
+                                        cotangents, empty_fp32)
 
 _KINDS = {"slay_scan_fwd": 0, "slay_scan_bwd_q": 1, "slay_scan_bwd_kv": 2}
 
@@ -177,12 +179,19 @@ def _launch(fn, ptrs, qf, v, delta):
 
 def launch_fwd(qf, kf, v, delta: float = 1e-6):
     """B5 on CUDA tensors: -> (y, den), as
-    :func:`causal_linear_attention_plain`."""
-    bh, L, _ = qf.shape
-    y = torch.empty(bh, L, v.shape[-1], dtype=v.dtype, device=qf.device)
-    den = torch.empty(bh, L, dtype=torch.float32, device=qf.device)
+    :func:`causal_linear_attention_plain`. The C entry launches B5 on a
+    BH x C grid, which writes each feature slice's fp32 share of num and
+    den into scratch allocated here, then the epilogue kernel, which sums
+    the shares and divides: one launch counted."""
+    bh, L, m = qf.shape
+    dv = v.shape[-1]
+    slices = _build.load("slay_scan").slay_scan_slices(m)
+    y = torch.empty(bh, L, dv, dtype=v.dtype, device=qf.device)
+    den = empty_fp32(bh, L, like=qf)
+    num_part = empty_fp32(slices, bh, L, dv, like=qf)
+    den_part = empty_fp32(slices, bh, L, like=qf)
     ptrs = (qf.data_ptr(), kf.data_ptr(), v.data_ptr(), y.data_ptr(),
-            den.data_ptr())
+            den.data_ptr(), num_part.data_ptr(), den_part.data_ptr())
     _launch("slay_scan_fwd", ptrs, qf, v, delta)
     return y, den
 
@@ -207,25 +216,26 @@ def launch_bwd_kv(qf, kf, v, y, den, dy, delta: float = 1e-6):
     sum over that axis (``torch.sum``, no atomics) is rounded once to v's
     dtype."""
     bh, L, m = qf.shape
-    slices = _build.load("slay_scan").slay_scan_bwd_kv_slices(m)
+    slices = _build.load("slay_scan").slay_scan_slices(m)
     dk = torch.empty(bh, L, m, dtype=kf.dtype, device=qf.device)
-    dv = torch.empty(slices, bh, L, v.shape[-1], dtype=torch.float32,
-                     device=qf.device)
+    dv = empty_fp32(slices, bh, L, v.shape[-1], like=qf)
     _launch("slay_scan_bwd_kv",
             (*_res_ptrs(qf, kf, v, y, den, dy), dk.data_ptr(), dv.data_ptr()),
             qf, v, delta)
     return dk, dv.sum(0).to(v.dtype)
 
 
-def bwd_kv_residency(bh: int, m: int, dv: int, dtype: torch.dtype) -> dict:
-    """How B6b sits on the current card at these shapes (its grid is BH x
-    C blocks, C feature slices), as
+def residency(fn: str, bh: int, m: int, dv: int,
+              dtype: torch.dtype) -> dict:
+    """How kernel ``fn`` (``"slay_scan_fwd"``, ``"slay_scan_bwd_q"`` or
+    ``"slay_scan_bwd_kv"``: B5, B6a, B6b) sits on the current card at
+    these shapes (its grid is BH x C blocks, C feature slices), as
     :func:`repro_torch.kernels._build.residency` reports. Launches
     nothing."""
     lib = _build.load("slay_scan")
     return _build.residency(
-        "slay_scan", "slay_scan_bwd_kv_occupancy", m, dv,
-        _build.DTYPE_CODES[dtype], grid=(bh, lib.slay_scan_bwd_kv_slices(m)))
+        "slay_scan", "slay_scan_occupancy", _KINDS[fn], m, dv,
+        _build.DTYPE_CODES[dtype], grid=(bh, lib.slay_scan_slices(m)))
 
 
 def causal_linear_attention_bwd(qf, kf, v, y, den, dy, *,

@@ -1,23 +1,27 @@
-"""The split kernels' arithmetic, as K1, K3, K4 and B6b compute it.
+"""The split kernels' arithmetic, as K1, K3, K4, B5, B6a and B6b compute it.
 
 K1, K3 and K4 run one block per (q head, quadrature node r): block (h, r)
 carries only node r's P·D rows of the scan state. K1 forms node r's
 shares of num and den, which its epilogue sums over the nodes and
 divides; K3 and K4 form node r's share of dΨ (and, in K4, of dV through
 the node's part of the scores), run the Ψ VJP on that share and add the R
-shares of du, dv, dA and dΩ. B6b runs one block per (q head, slice of 128
-feature columns, the last padded with zero columns): block (h, c) writes
-slice c's columns of dΨk and its share of dV. Their tile products run on
-the tensor cores in 3xTF32. This file replays that arithmetic on the
+shares of du, dv, dA and dΩ. B5, B6a and B6b run one block per (q head,
+slice of 128 feature columns, the last padded with zero columns): block
+(h, c) of B5 forms slice c's shares of num and den, which K1's epilogue
+sums over the slices and divides; B6a writes slice c's columns of dΨq;
+B6b slice c's columns of dΨk and its share of dV. Their tile products run
+on the tensor cores in 3xTF32. This file replays that arithmetic on the
 CPU, tile by tile (16 tokens) and node by node or slice by slice, with
 seeded numpy inputs at the smoke size:
 
 (a) with exact fp32 products the shares add up to the plain versions
     (``fused_causal_attention_plain``, ``fused_bwd_q_plain``,
-    ``fused_bwd_kv_plain``, ``scan_bwd_kv_plain``) to 1e-6 of each
+    ``fused_bwd_kv_plain``, ``causal_linear_attention_plain``,
+    ``scan_bwd_q_plain``, ``scan_bwd_kv_plain``) to 1e-6 of each
     output's largest magnitude, and match the JAX package's Pallas
-    kernels in interpret mode: K1's y and den to the tolerance of
-    ``test_torch_kernels.py::test_fused_forward_head_major_y_and_den_match_pallas``,
+    kernels in interpret mode: K1's and B5's y and den to the tolerances of
+    ``test_torch_kernels.py::test_fused_forward_head_major_y_and_den_match_pallas``
+    and ``test_torch_scan.py::test_scan_forward_matches_pallas``,
     the gradients to 1e-4 of scale, the tolerance of
     ``test_torch_kernels.py::test_fused_grads_match_pallas_vjp`` and
     ``test_torch_scan.py::test_scan_grads_match_pallas_vjp``;
@@ -100,21 +104,77 @@ def split_fwd(q, k, v, anchors, omegas, cfg, mm=torch.matmul):
     return num / (den[..., None] + DELTA), den
 
 
+def feature_slices(m, width=128):
+    """(f0, mc) of each feature slice the scan kernels' blocks take:
+    ``width`` columns from f0, the last mc <= width."""
+    return [(f0, min(width, m - f0)) for f0 in range(0, m, width)]
+
+
+def padded(x, f0, mc):
+    """Columns f0..f0+mc-1 of x, padded to a multiple of 16 with zero
+    columns, as the kernels widen a slice in shared memory."""
+    return torch.nn.functional.pad(x[..., f0:f0 + mc], (0, -mc % 16))
+
+
+def split_scan_fwd(qf, kf, v, mm=torch.matmul, width=128):
+    """B5 slice by slice and tile by tile, with every tile product through
+    ``mm``: -> (y, den) in fp32, the slice shares summed in slice order and
+    divided as the epilogue does."""
+    bh, L, m = qf.shape
+    q = qf.float()
+    k, vf = tscan._per_q_head(kf, v, bh)
+    num, den = 0.0, 0.0
+    for f0, mc in feature_slices(m, width):
+        pq, pk = padded(q, f0, mc), padded(k, f0, mc)
+        s = torch.zeros(bh, pq.shape[-1], vf.shape[-1])
+        z = torch.zeros(bh, pq.shape[-1])
+        num_c, den_c = torch.zeros(bh, L, vf.shape[-1]), torch.zeros(bh, L)
+        for t0 in range(0, L, TILE):
+            sl = slice(t0, t0 + TILE)
+            qt, kt, vt = pq[:, sl], pk[:, sl], vf[:, sl]
+            sc = scores(qt, kt, mm)
+            num_c[:, sl] = mm(qt, s) + mm(sc, vt)
+            den_c[:, sl] = torch.sum(qt * z[:, None, :], -1) + sc.sum(-1)
+            s = s + mm(kt.transpose(-1, -2), vt)
+            z = z + kt.sum(-2)
+        num, den = num + num_c, den + den_c
+    return num / (den[..., None] + DELTA), den
+
+
+def split_scan_q(qf, kf, v, y, den, dy, mm=torch.matmul, width=128):
+    """B6a slice by slice and tile by tile, with every tile product through
+    ``mm``: -> dq (BH, L, m) in fp32, each slice's columns written by its
+    block."""
+    bh, L, m = qf.shape
+    k, vf = tscan._per_q_head(kf, v, bh)
+    gg, hh = tcommon.cotangents(y, den, dy, DELTA)
+    dq = torch.zeros(bh, L, m)
+    for f0, mc in feature_slices(m, width):
+        pk = padded(k, f0, mc)
+        s = torch.zeros(bh, pk.shape[-1], vf.shape[-1])
+        z = torch.zeros(bh, pk.shape[-1])
+        for t0 in range(0, L, TILE):
+            sl = slice(t0, t0 + TILE)
+            g, h, vt, kt = gg[:, sl], hh[:, sl], vf[:, sl], pk[:, sl]
+            dp = torch.tril(mm(g, vt.transpose(-1, -2)) + h)
+            dq[:, sl, f0:f0 + mc] = (mm(g, s.transpose(-1, -2)) + mm(dp, kt)
+                                     + h * z[:, None, :])[..., :mc]
+            s = s + mm(kt.transpose(-1, -2), vt)
+            z = z + kt.sum(-2)
+    return dq
+
+
 def split_scan_kv(qf, kf, v, y, den, dy, mm=torch.matmul, width=128):
-    """B6b slice by slice (``width`` feature columns, the last padded to a
-    multiple of 16 with zero columns) and tile by tile, with every tile
-    product through ``mm``: -> per-q-head (dk, dv) in fp32, dk's columns
-    written by their slice, dv's slice shares summed."""
+    """B6b slice by slice and tile by tile, with every tile product through
+    ``mm``: -> per-q-head (dk, dv) in fp32, dk's columns written by their
+    slice, dv's slice shares summed."""
     bh, L, m = qf.shape
     q = qf.float()
     k, vf = tscan._per_q_head(kf, v, bh)
     gg, hh = tcommon.cotangents(y, den, dy, DELTA)
     dk, dv = torch.zeros(bh, L, m), torch.zeros(bh, L, vf.shape[-1])
-    for f0 in range(0, m, width):
-        mc = min(width, m - f0)
-        pad = (0, -mc % 16)
-        pq = torch.nn.functional.pad(q[..., f0:f0 + mc], pad)
-        pk = torch.nn.functional.pad(k[..., f0:f0 + mc], pad)
+    for f0, mc in feature_slices(m, width):
+        pq, pk = padded(q, f0, mc), padded(k, f0, mc)
         ds = torch.zeros(bh, pq.shape[-1], vf.shape[-1])
         dz = torch.zeros(bh, pq.shape[-1])
         for t0 in reversed(range(0, L, TILE)):
@@ -324,7 +384,7 @@ def test_forward_3xtf32_keeps_fp32_accuracy(bh, bk, L, nodes):
     assert bool(((y1 - want[0]).abs() > 1e-4 + 1e-4 * want[0].abs()).any())
 
 
-# -- B6b: the scan's reverse pass by feature slice ----------------------------
+# -- B5, B6a, B6b: the scan on precomputed features, by feature slice ---------
 
 
 def _scan_case(seed, bh, bk, L, m, dv=16):
@@ -362,6 +422,64 @@ def test_scan_slices_match_the_pallas_vjp(m):
     arrays, args = _scan_case(500 + m, 4, 2, 32, m)
     dq = tscan.scan_bwd_q_plain(*args, chunk_size=TILE)
     got = tscan._reduce(args[1], args[2], dq, *split_scan_kv(*args))
+
+    def jfn(*xs):
+        return jscan.causal_linear_attention(*xs, chunk_size=TILE,
+                                             interpret=True)
+
+    _, vjp = jax.vjp(jfn, *(jnp.asarray(x) for x in arrays[:3]))
+    for g, wnt in zip(got, vjp(jnp.asarray(arrays[3])), strict=True):
+        wnt = torch.from_numpy(np.array(wnt))
+        assert g.shape == wnt.shape
+        _within(g, wnt, 1e-4)
+
+
+@pytest.mark.parametrize("mm,frac", [(torch.matmul, 1e-6), (mm_3xtf32, 1e-5)],
+                         ids=["fp32", "3xtf32"])
+@pytest.mark.parametrize("m", [96, 390])
+def test_scan_forward_slices_add_up_to_the_plain_forward(m, mm, frac):
+    # B5's slice shares, summed and divided as the epilogue does, against
+    # the plain forward: y and den, each to frac of its largest magnitude.
+    _, args = _scan_case(600 + m, 4, 2, 37, m)
+    got = split_scan_fwd(*args[:3], mm=mm)
+    want = tscan.causal_linear_attention_plain(*args[:3], chunk_size=TILE)
+    _close_fwd(got, want, frac)
+
+
+@pytest.mark.parametrize("m", [96, 390])
+def test_scan_forward_slices_match_pallas(m):
+    # y and den of the summed slice shares against _fwd_impl of the
+    # interpret-mode Pallas scan, at the tolerances of
+    # test_torch_scan.py::test_scan_forward_matches_pallas.
+    arrays, args = _scan_case(700 + m, 4, 2, 32, m)
+    st = jscan.ScanStatics(chunk_size=TILE, delta=DELTA, interpret=True)
+    wy, wden = jscan._fwd_impl(st, *(jnp.asarray(x) for x in arrays[:3]))
+    gy, gden = split_scan_fwd(*args[:3])
+    np.testing.assert_allclose(gy.numpy(), np.array(wy), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(gden.numpy(), np.array(wden), rtol=1e-5,
+                               atol=0.0)
+
+
+@pytest.mark.parametrize("mm,frac", [(torch.matmul, 1e-6), (mm_3xtf32, 1e-5)],
+                         ids=["fp32", "3xtf32"])
+@pytest.mark.parametrize("m", [96, 390])
+def test_scan_q_slices_add_up_to_the_plain_re_scan(m, mm, frac):
+    # B6a's slice columns of dq against the plain forward re-scan.
+    _, args = _scan_case(800 + m, 4, 2, 37, m)
+    got = split_scan_q(*args, mm=mm)
+    want = tscan.scan_bwd_q_plain(*args, chunk_size=TILE)
+    assert got.shape == want.shape
+    _within(got, want, frac)
+
+
+@pytest.mark.parametrize("m", [96, 390])
+def test_scan_q_slices_match_the_pallas_vjp(m):
+    # dq from B6a's slices, with dk and dv from B6b's (summed per GQA
+    # group as the wrapper does), against jax.vjp of the interpret-mode
+    # Pallas scan.
+    arrays, args = _scan_case(900 + m, 4, 2, 32, m)
+    got = tscan._reduce(args[1], args[2], split_scan_q(*args),
+                        *split_scan_kv(*args))
 
     def jfn(*xs):
         return jscan.causal_linear_attention(*xs, chunk_size=TILE,

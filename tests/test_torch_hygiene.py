@@ -50,21 +50,34 @@ def test_importing_every_module_loads_no_jax():
     assert int(out.stdout.split()[-1]) >= 30      # every module was imported
 
 
+def _forbidden_imports(path: pathlib.Path) -> list[str]:
+    """Every import of JAX or the JAX package in the file at ``path``."""
+    found = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        found += [f"{path.relative_to(ROOT)}: {n}" for n in names
+                  if _forbidden(n)]
+    return found
+
+
 def test_no_source_imports_jax_or_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
-    offenders = []
-    for path in files:
-        for node in ast.walk(ast.parse(path.read_text(), str(path))):
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom) and node.level == 0:
-                names = [node.module or ""]
-            else:
-                continue
-            offenders += [f"{path.relative_to(ROOT)}: {n}" for n in names
-                          if _forbidden(n)]
+    offenders = [bad for path in files for bad in _forbidden_imports(path)]
     assert not offenders, offenders
+
+
+def test_card_tests_import_no_jax():
+    # The card has no JAX: the tests that run there hold the kernels
+    # against the port's own plain versions.
+    path = ROOT / "tests" / "test_torch_card.py"
+    assert "def test_scan_kernels_match_plain_on_card" in path.read_text()
+    assert _forbidden_imports(path) == []
 
 
 @no_card

@@ -8,8 +8,8 @@ one) to 1e-5 relative. The decode state update is one add per element on
 both sides and must match to 1e-6. Gradients of the fused attention (the
 custom VJP on the JAX side, the autograd Function on the port's) are held
 to 1e-4 of each gradient's largest magnitude: dA and dΩ sum over every
-token of every head. The kernel-vs-plain cases need the card and skip
-without one.
+token of every head. The kernel-vs-plain cases, which need the card, are
+in ``tests/test_torch_card.py``.
 """
 import jax
 import jax.numpy as jnp
@@ -31,9 +31,6 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels import slay_fused as tfused
 
 D_HEAD, CHUNK = 16, 16
-needs_card = pytest.mark.skipif(
-    "not torch.cuda.is_available()",
-    reason="CUDA kernel: needs an NVIDIA card (run python3 chip_smoke.py)")
 
 
 def _cfgs():
@@ -253,43 +250,6 @@ def test_cpu_tensors_launch_nothing():
     assert not _build._LIBS
 
 
-@needs_card
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_fused_kernel_matches_plain_on_card(dtype):
-    # K1 runs one block per (q head, quadrature node) and sums the node
-    # shares in its epilogue. Cases: GQA at L = 96; ragged L = 90 (a
-    # partial last tile of zero rows); head dim 128; P = 16, D = 24, R = 1
-    # (past the shape limits of the one-node thread mappings of psi_rows,
-    # so their default mapping runs); R = 2; head dim 12 with P·D = 12
-    # (rows that are not a multiple of 16 bytes in bf16, Ψ padded to 16
-    # columns). fp32: summation order only (1e-4); bf16: one rounding of
-    # y (2e-2).
-    _, tcfg = _cfgs()
-    cases = [(tcfg, 96, 32), (tcfg, 90, 90),
-             (tfeat.SlayFeatureConfig(head_dim=128), 96, 32),
-             (tfeat.SlayFeatureConfig(head_dim=D_HEAD, num_anchors=16,
-                                      num_prf=24, num_quad_nodes=1), 96, 32),
-             (tfeat.SlayFeatureConfig(head_dim=D_HEAD, num_quad_nodes=2), 90,
-              90),
-             (tfeat.SlayFeatureConfig(head_dim=12, num_anchors=3, num_prf=4),
-              90, 90)]
-    for cfg, L, chunk in cases:
-        d = cfg.head_dim
-        p = tfeat.init_feature_params(cfg, torch.Generator().manual_seed(0))
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        q = torch.randn(8, L, d, generator=gen, device="cuda").to(dtype)
-        k = torch.randn(4, L, d, generator=gen, device="cuda").to(dtype)
-        v = torch.randn(4, L, 32, generator=gen, device="cuda").to(dtype)
-        y, den = tfused.fused_causal_attention(q, k, v, p["anchors"],
-                                               p["omegas"], cfg,
-                                               chunk_size=chunk)
-        yp, denp = tfused.fused_causal_attention_plain(
-            q, k, v, p["anchors"], p["omegas"], cfg, chunk_size=chunk)
-        tol = 1e-4 if dtype == torch.float32 else 2e-2
-        torch.testing.assert_close(y.float(), yp.float(), rtol=tol, atol=tol)
-        torch.testing.assert_close(den, denp, rtol=1e-4, atol=0.0)
-
-
 # -- the backward (B2 + B3) ---------------------------------------------
 
 
@@ -396,43 +356,6 @@ def test_plain_bwd_matches_autograd_of_plain_forward(bh, bk):
         _grad_tol(g, wnt)
 
 
-@needs_card
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_fused_bwd_kernels_match_plain_on_card(dtype):
-    # K3 and K4 against their plain twins, partials included; ragged L;
-    # the default R = 3 quadrature nodes, R = 2 (the kernels' grid is one
-    # block per q head and node), head dim 128 (the widest the kernels
-    # take) and P = 16, D = 24 (past the shape limits of the one-node
-    # thread mappings of psi_rows and psi_bwd_rows, so their default
-    # mapping runs). fp32: summation order (1e-4 of each output's scale);
-    # bf16: one rounding of dq/dk/dv partials to bf16 (1e-2 of scale).
-    _, tcfg = _cfgs()
-    for cfg in (tcfg, tfeat.SlayFeatureConfig(head_dim=D_HEAD,
-                                              num_quad_nodes=2),
-                tfeat.SlayFeatureConfig(head_dim=128),
-                tfeat.SlayFeatureConfig(head_dim=D_HEAD, num_anchors=16,
-                                        num_prf=24, num_quad_nodes=1)):
-        d = cfg.head_dim
-        p = tfeat.init_feature_params(cfg, torch.Generator().manual_seed(0))
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        q = torch.randn(8, 90, d, generator=gen, device="cuda").to(dtype)
-        k = torch.randn(4, 90, d, generator=gen, device="cuda").to(dtype)
-        v = torch.randn(4, 90, 32, generator=gen, device="cuda").to(dtype)
-        dy = torch.randn(8, 90, 32, generator=gen, device="cuda").to(dtype)
-        a, w = p["anchors"], p["omegas"]
-        y, den = tfused.fused_causal_attention(q, k, v, a, w, cfg,
-                                               chunk_size=90)
-        args = (q, k, v, a, w, y, den, dy, cfg)
-        tol = 1e-4 if dtype == torch.float32 else 1e-2
-        for kern, plain in ((tfused.launch_bwd_q, tfused.fused_bwd_q_plain),
-                            (tfused.launch_bwd_kv, tfused.fused_bwd_kv_plain)):
-            got, want = kern(*args), plain(*args, chunk_size=90)
-            for g, wnt in zip(got, want):
-                scale = float(wnt.float().abs().max())
-                torch.testing.assert_close(g.float(), wnt.float(), rtol=0.0,
-                                           atol=tol * scale)
-
-
 def test_backward_limits_are_checked_from_shapes_and_addresses():
     # What K3/K4 take beyond K1's limits, checked from the tensors alone
     # (on the card this runs before K1 when the inputs need gradients).
@@ -449,47 +372,3 @@ def test_backward_limits_are_checked_from_shapes_and_addresses():
     with pytest.raises(ValueError, match="k must start on a 16-byte"):
         tfused._check_bwd_inputs(tfeat.SlayFeatureConfig(head_dim=16), q=q,
                                  k=off)
-
-
-@needs_card
-def test_fused_attention_refuses_backward_limits_before_forward():
-    # What K3/K4 refuse (head dim not a multiple of 8, rows not on 16
-    # bytes) is refused before K1 runs when the inputs need gradients, and
-    # still runs forward-only without them.
-    cfg = tfeat.SlayFeatureConfig(head_dim=12)
-    p = tfeat.init_feature_params(cfg, torch.Generator().manual_seed(0))
-    a, w = p["anchors"], p["omegas"]
-    x = torch.randn(2, 16, 12, device="cuda")
-    v = torch.randn(2, 16, 16, device="cuda")
-    _build.reset_launches()
-    with pytest.raises(ValueError, match="multiple of 8"):
-        tfused.fused_causal_attention(x.requires_grad_(True), x, v, a, w, cfg,
-                                      chunk_size=16)
-    assert _build.LAUNCHES["slay_fused_fwd"] == 0
-    tfused.fused_causal_attention(x.detach(), x.detach(), v, a, w, cfg,
-                                  chunk_size=16)
-    assert _build.LAUNCHES["slay_fused_fwd"] == 1
-    cfg, d = tfeat.SlayFeatureConfig(head_dim=16), 16
-    p = tfeat.init_feature_params(cfg, torch.Generator().manual_seed(0))
-    buf = torch.randn(2 * 16 * d + 1, device="cuda")
-    q = buf[1:].view(2, 16, d).requires_grad_(True)   # 4 bytes off
-    k = torch.randn(2, 16, d, device="cuda")
-    with pytest.raises(ValueError, match="16-byte boundary"):
-        tfused.fused_causal_attention(q, k, v, p["anchors"], p["omegas"], cfg,
-                                      chunk_size=16)
-    assert _build.LAUNCHES["slay_fused_fwd"] == 1
-
-
-@needs_card
-@pytest.mark.parametrize("masked", [False, True])
-def test_decode_kernel_matches_plain_on_card(masked):
-    args = [torch.from_numpy(x).cuda() for x in _decode_inputs(1, 8, 4, m=384,
-                                                               dv=64)]
-    active = (torch.tensor([1, 0, 1, 1], dtype=torch.int32, device="cuda")
-              if masked else None)
-    plain = [a.clone() for a in args]
-    yp, sp, zp = tdecode.decode_linear_attention_plain(*plain, active)
-    y, s, z = tdecode.decode_linear_attention(*args, active)
-    torch.testing.assert_close(y, yp, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(s, sp, rtol=1e-6, atol=1e-6)
-    torch.testing.assert_close(z, zp, rtol=1e-6, atol=1e-6)

@@ -11,7 +11,7 @@ is held to one bf16 step (at most 2^-7 relative) of the JAX kernel's bf16
 output: the two fp32 values may round to neighbouring bf16 numbers.
 One train step on the two-dispatch path is held to the JAX step as
 ``tests/test_torch_train.py`` holds the fused one. The kernel-vs-plain
-cases need the card and skip without one.
+cases, which need the card, are in ``tests/test_torch_card.py``.
 """
 import dataclasses
 
@@ -44,9 +44,6 @@ from repro_torch.train import loop as tloop
 from repro_torch.tree import tree_items
 
 D_HEAD, CHUNK = 16, 16
-needs_card = pytest.mark.skipif(
-    "not torch.cuda.is_available()",
-    reason="CUDA kernel: needs an NVIDIA card (run python3 chip_smoke.py)")
 
 
 def _cfgs(**kw):
@@ -430,67 +427,3 @@ def test_feature_map_wrapper_rejects():
         tfm.feature_map(torch.zeros(D_HEAD, 64).t(), a, w, tcfg)
     with pytest.raises(ValueError, match="does not match"):
         tfm.feature_map_bwd(u, a, w, torch.zeros(64, 8), tcfg)
-
-
-# -- on the card: each kernel against its plain twin ------------------------
-
-
-@needs_card
-@pytest.mark.parametrize("n", [1000, 40001])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_feature_map_kernels_match_plain_on_card(dtype, n):
-    # Ragged N (a guarded last tile); at N = 40001 each block of B8's
-    # persistent grid walks several tiles. Ψ and du: fp32 summation order
-    # (1e-5), bf16 one step (2^-7 relative); dA, dΩ stay fp32 sums over N
-    # tokens (1e-4 of scale).
-    _, tcfg = _cfgs()
-    p = tfeat.init_feature_params(tcfg, torch.Generator().manual_seed(0),
-                                  device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    u = torch.randn(n, D_HEAD, generator=gen, device="cuda").to(dtype)
-    dpsi = torch.randn(n, tcfg.feature_dim, generator=gen,
-                       device="cuda").to(dtype)
-    a, w = p["anchors"], p["omegas"]
-    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
-    torch.testing.assert_close(tfm.launch_fwd(u, a, w, tcfg).float(),
-                               tfm.feature_map_plain(u, a, w, tcfg).float(),
-                               rtol=tol, atol=1e-6)
-    got = tfm.feature_map_bwd(u, a, w, dpsi, tcfg)
-    want = tfm.feature_map_bwd_plain(u, a, w, dpsi, tcfg)
-    for g, wnt in zip(got, want, strict=True):
-        scale = float(wnt.float().abs().max())
-        torch.testing.assert_close(g.float(), wnt.float(), rtol=0.0,
-                                   atol=max(tol, 1e-4) * scale)
-
-
-@needs_card
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_scan_kernels_match_plain_on_card(dtype):
-    # GQA, ragged L = 90. B6b runs one block per (q head, slice of 128
-    # feature columns): m = 96 is one slice padded with zero columns;
-    # m = 390 is three full slices and a partial one, and its rows do not
-    # start on 16 bytes (narrower copies); in bf16 the rows of m = 45 do
-    # not start on 4 bytes (plain loads). y: fp32 summation order
-    # (1e-4), bf16 one rounding (2e-2); den fp32 (1e-4 relative); dq, dk,
-    # dv partials 1e-4 (fp32) or 1e-2 (bf16) of scale.
-    for m in (96, 390, 45):
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        qf = torch.rand(8, 90, m, generator=gen, device="cuda").to(dtype)
-        kf = torch.rand(4, 90, m, generator=gen, device="cuda").to(dtype)
-        v = torch.randn(4, 90, 32, generator=gen, device="cuda").to(dtype)
-        dy = torch.randn(8, 90, 32, generator=gen, device="cuda").to(dtype)
-        y, den = tscan.launch_fwd(qf, kf, v)
-        yp, denp = tscan.causal_linear_attention_plain(qf, kf, v,
-                                                       chunk_size=90)
-        tol = 1e-4 if dtype == torch.float32 else 2e-2
-        torch.testing.assert_close(y.float(), yp.float(), rtol=tol, atol=tol)
-        torch.testing.assert_close(den, denp, rtol=1e-4, atol=0.0)
-        args = (qf, kf, v, y, den, dy)
-        tol = 1e-4 if dtype == torch.float32 else 1e-2
-        got = (tscan.launch_bwd_q(*args), *tscan.launch_bwd_kv(*args))
-        want = (tscan.scan_bwd_q_plain(*args, chunk_size=90),
-                *tscan.scan_bwd_kv_plain(*args, chunk_size=90))
-        for g, wnt in zip(got, want, strict=True):
-            scale = float(wnt.float().abs().max())
-            torch.testing.assert_close(g.float(), wnt.float(), rtol=0.0,
-                                       atol=tol * scale)

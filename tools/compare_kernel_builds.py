@@ -13,34 +13,34 @@ tree, in fp32 and bf16: K1, K3, K4 at slayformer-124m's training shape
 build's y and den), B7 and B8 on its N = 96·1024 q rows, B5, B6a and B6b
 on the features of those rows (B6a and B6b of every build read this
 build's B5 output), K2 at the serving shape (BK = 48, m = 384), with and
-without a mask. Every kernel but K1 and B6b must be bit for bit the same
+without a mask. Every kernel but B5 and B6a must be bit for bit the same
 (B8: du and its per-block dA/dΩ partials; K2: y and the state updated in
 place): the line gives how many elements differ and the largest
-absolute difference. K1 and B6b, redesigned by this tree, may round
+absolute difference. B5 and B6a, redesigned by this tree, may round
 differently: their lines give the same counts and whether the
-difference is within the card checks of ``chip_smoke.py`` (K1's y to
-``K1_TOL``, den to ``DEN_RTOL``; B6b's dk and dv to ``BWD_REL`` of each
-output's largest magnitude). Extra ``nvcc`` flags apply to every build,
-so that ``-fmad=false`` tells whether a difference comes from the
-compiler's contraction of multiplies and adds into FMAs.
+difference is within the card checks of ``chip_smoke.py`` (B5's y to
+``K1_TOL``, den to ``DEN_RTOL``; B6a's dq to ``BWD_REL`` of its largest
+magnitude). Extra ``nvcc`` flags apply to every build, so that
+``-fmad=false`` tells whether a difference comes from the compiler's
+contraction of multiplies and adds into FMAs.
 
-``--time`` then times K1 at the training and the serving shape (BH = 48,
-L = 512), K3, K4 and B6b of every build in bf16, in turns (this, the
-others, the others in reverse, this; repeated ``--rounds`` times;
-CUDA-event medians of 20 calls each) and prints each kernel's medians
-per build and each other build's ratio to this one. This tree's kernels
-run through the port's wrappers, so K1's time includes its epilogue and
-K3's, K4's and B6b's the sum of their shares; a build from before K1's
-and B6b's split (one block per q row, outputs in the input dtype) is
-called through its own C signature.
+``--time`` then times K1 and B5 at the training and the serving shape
+(BH = 48, L = 512), K3, K4, B6a and B6b of every build in bf16, in turns
+(this, the others, the others in reverse, this; repeated ``--rounds``
+times; CUDA-event medians of 20 calls each) and prints each kernel's
+medians per build and each other build's ratio to this one. The kernels
+run through the port's wrappers, so K1's and B5's times include their
+epilogue and K3's, K4's and B6b's the sum of their shares; a build from
+before B5's split (one block per q row, y and den written by the kernel)
+is called through its own C signature.
 
     mkdir -p build/parent && git archive <commit> | tar -x -C build/parent
     python3 tools/compare_kernel_builds.py \\
         --other build/parent/src/repro_torch/csrc [--other <csrc> ...] \\
         [--time [--rounds N]] [--nvcc-flag=-fmad=false]
 
-Exits 1 if a kernel other than K1 and B6b differs in any element or K1 or
-B6b falls outside the checks, 0 otherwise.
+Exits 1 if a kernel other than B5 and B6a differs in any element or B5 or
+B6a falls outside the checks, 0 otherwise.
 """
 from __future__ import annotations
 
@@ -65,7 +65,6 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.core.features import init_feature_params  # noqa: E402
 from repro_torch.kernels import (_build, decode_step, feature_map,  # noqa: E402
                                  slay_fused, slay_scan)
-from repro_torch.kernels.common import feature_statics  # noqa: E402
 
 LIBS = ("slay_fused", "slay_fused_bwd", "decode_step", "feature_map",
         "slay_scan")
@@ -74,22 +73,20 @@ OUTPUTS = {"K1": ("y", "den"), "K2": ("y", "s", "z"),
            "K4": ("dk", "dv", "dA", "dOmega"), "B5": ("y", "den"),
            "B6a": ("dq",), "B6b": ("dk", "dv"), "B7": ("psi",),
            "B8": ("du", "dA partials", "dOmega partials")}
-REDESIGNED = ("K1", "B6b")   # held to the card checks; the rest bit for bit
-TIMED = ("K1", "K1 serving", "K3", "K4", "B6b")
+REDESIGNED = ("B5", "B6a")   # held to the card checks; the rest bit for bit
+TIMED = ("K1", "K1 serving", "K3", "K4", "B5", "B5 serving", "B6a", "B6b")
 DELTA = 1e-6
-# K1's C signature before its split by quadrature node (y and den written
-# by the one kernel, no scratch for the node shares), and the shared-memory
-# queries of that time, which still took R (K1's used it, K3/K4's not).
-_P, _I, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                  ctypes.POINTER(ctypes.c_double))
-LEGACY = {"slay_fused_fwd": (_I, [_P] * 7 + [_I] * 8 + [_D, _D, _F, _I, _P]),
-          "slay_fused_smem_bytes": (ctypes.c_longlong, [_I] * 5),
-          "slay_fused_bwd_smem_bytes": (ctypes.c_longlong, [_I] * 5)}
+# slay_scan.cu's C signatures before B5's split by feature slice: B5 wrote
+# y and den itself (no scratch for the slice shares), and the slice count
+# had B6b's name.
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+LEGACY_SCAN = {"slay_scan_fwd": (_I, [_P] * 5 + [_I] * 5 + [_F, _I, _P]),
+               "slay_scan_bwd_kv_slices": (_I, [_I])}
 
 
 def _older(csrc: Path) -> bool:
-    """Whether ``csrc`` predates K1's split by quadrature node."""
-    return "slay_fused_fwd_occupancy" not in (csrc / "slay_fused.cu").read_text()
+    """Whether ``csrc`` predates B5's split by feature slice."""
+    return "slay_scan_occupancy" not in (csrc / "slay_scan.cu").read_text()
 
 
 def build(trees: list[Path], flags: list[str]) -> list[dict[str, ctypes.CDLL]]:
@@ -116,82 +113,57 @@ def build(trees: list[Path], flags: list[str]) -> list[dict[str, ctypes.CDLL]]:
             raise RuntimeError(f"nvcc failed for {csrc / name}.cu:\n{log}")
         lib = ctypes.CDLL(str(so))
         sigs = dict(_build.SIGNATURES[name])
-        if _older(csrc):
-            sigs.update({f: sig for f, sig in LEGACY.items() if f in sigs})
+        older = name == "slay_scan" and _older(csrc)
+        if older:
+            sigs.update(LEGACY_SCAN)
         for fn, (restype, argtypes) in sigs.items():
             if not hasattr(lib, fn):
                 continue
             getattr(lib, fn).restype = restype
             getattr(lib, fn).argtypes = argtypes
-        if _older(csrc) and name == "slay_fused_bwd":
-            # The port's wrappers ask with four arguments; that build
-            # ignored R.
-            raw = lib.slay_fused_bwd_smem_bytes
-            lib.slay_fused_bwd_smem_bytes = lambda d, dv, P, D: raw(d, dv, P,
-                                                                    D, 1)
+        if older:
+            # B6b's wrapper asks for the slice count by its new name.
+            lib.slay_scan_slices = lib.slay_scan_bwd_kv_slices
         builds[i // len(LIBS)][name] = lib
     return builds
 
 
-def _legacy_k1(lib, q, k, v, a, w, cfg):
-    """K1 of a build from before the split by quadrature node: one kernel
+def _legacy_b5(lib, qf, kf, v):
+    """B5 of a build from before the split by feature slice: one kernel
     that writes y and den itself."""
-    bh, L, d = q.shape
-    bk, _, dv = v.shape
-    R = cfg.num_quad_nodes
-    if lib.slay_fused_smem_bytes(d, dv, cfg.num_anchors, cfg.num_prf,
-                                 R) > _build.SMEM_LIMIT:
-        raise ValueError("shapes too large for the older K1")
-    st = feature_statics(cfg)
-    s_nodes = (ctypes.c_double * R)(*st.s_nodes)
-    sqrt_w = (ctypes.c_double * R)(*st.sqrt_w)
-    y = torch.empty(bh, L, dv, dtype=v.dtype, device=q.device)
-    den = torch.empty(bh, L, dtype=torch.float32, device=q.device)
-    err = lib.slay_fused_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), a.data_ptr(), w.data_ptr(),
-        y.data_ptr(), den.data_ptr(), bh, bk, L, d, dv, cfg.num_anchors,
-        cfg.num_prf, cfg.num_quad_nodes, s_nodes, sqrt_w, DELTA,
-        _build.DTYPE_CODES[q.dtype], torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "slay_fused_fwd")
+    bh, L, m = qf.shape
+    y = torch.empty(bh, L, v.shape[-1], dtype=v.dtype, device=qf.device)
+    den = torch.empty(bh, L, dtype=torch.float32, device=qf.device)
+    err = lib.slay_scan_fwd(
+        qf.data_ptr(), kf.data_ptr(), v.data_ptr(), y.data_ptr(),
+        den.data_ptr(), bh, kf.shape[0], L, m, v.shape[-1], DELTA,
+        _build.DTYPE_CODES[qf.dtype], torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "slay_scan_fwd")
     return y, den
 
 
-def _legacy_b6b(lib, qf, kf, v, y, den, dy):
-    """B6b of a build from before the split by feature slice: per-q-head
-    dk and dv in the input dtype, through the same C signature."""
-    bh, L, m = qf.shape
-    dk = torch.empty(bh, L, m, dtype=kf.dtype, device=qf.device)
-    dv = torch.empty(bh, L, v.shape[-1], dtype=v.dtype, device=qf.device)
-    err = lib.slay_scan_bwd_kv(
-        qf.data_ptr(), kf.data_ptr(), v.data_ptr(), dy.data_ptr(),
-        y.data_ptr(), den.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh,
-        kf.shape[0], L, m, v.shape[-1], DELTA, _build.DTYPE_CODES[qf.dtype],
-        torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "slay_scan_bwd_kv")
-    return dk, dv
-
-
-def use(libs) -> dict:
-    """Route the port's wrappers to the build ``libs``; returns its K1 and
-    B6b callers: the wrappers, or for an older build the calls above."""
+def use(libs):
+    """Route the port's wrappers to the build ``libs``; returns its B5
+    caller: the wrapper, or for an older build the call above."""
     _build._LIBS.update(libs)
-    fns = {"K1": lambda *x: slay_fused._launch(*x, DELTA),
-           "B6b": slay_scan.launch_bwd_kv}
-    if not hasattr(libs["slay_fused"], "slay_fused_fwd_occupancy"):
-        fns["K1"] = lambda *x: _legacy_k1(libs["slay_fused"], *x)
-    if not hasattr(libs["slay_scan"], "slay_scan_bwd_kv_slices"):
-        fns["B6b"] = lambda *x: _legacy_b6b(libs["slay_scan"], *x)
-    return fns
+    if hasattr(libs["slay_scan"], "slay_scan_occupancy"):
+        return lambda qf, kf, v: slay_scan.launch_fwd(qf, kf, v, DELTA)
+    return lambda qf, kf, v: _legacy_b5(libs["slay_scan"], qf, kf, v)
+
+
+def k1(q, k, v, a, w, cfg):
+    """K1 through its wrapper (the kernel and its epilogue)."""
+    return slay_fused._launch(q, k, v, a, w, cfg, DELTA)
 
 
 def run(libs, inp, ref=None) -> dict[str, tuple]:
     """Every kernel of the build ``libs``; K3/K4 and B6a/B6b read the
     (y, den) of K1 and of B5 in ``ref`` (another build's outputs), else
     this build's own."""
-    fns = use(libs)
+    b5 = use(libs)
     q, k, v, a, w, dy, cfg, dpsi = inp["fused"]
     ref = ref or {}
-    outs = {"K1": fns["K1"](q, k, v, a, w, cfg)}
+    outs = {"K1": k1(q, k, v, a, w, cfg)}
     bwd = (q, k, v, a, w, *ref.get("K1", outs["K1"]), dy, cfg)
     outs["K3"] = slay_fused.launch_bwd_q(*bwd)
     outs["K4"] = slay_fused.launch_bwd_kv(*bwd)
@@ -199,10 +171,10 @@ def run(libs, inp, ref=None) -> dict[str, tuple]:
     outs["B7"] = (feature_map.launch_fwd(u, a, w, cfg),)
     outs["B8"] = feature_map.launch_bwd(u, a, w, dpsi, cfg)
     qf, kf, sv, sdy = inp["scan"]
-    outs["B5"] = slay_scan.launch_fwd(qf, kf, sv, DELTA)
+    outs["B5"] = b5(qf, kf, sv)
     sargs = (qf, kf, sv, *ref.get("B5", outs["B5"]), sdy)
     outs["B6a"] = (slay_scan.launch_bwd_q(*sargs, DELTA),)
-    outs["B6b"] = fns["B6b"](*sargs)
+    outs["B6b"] = slay_scan.launch_bwd_kv(*sargs, DELTA)
     dqf, dkf, dvv, s, z, active = inp["decode"]
     for kern, act in (("K2", None), ("K2 masked", active)):
         outs[kern] = decode_step.decode_linear_attention(
@@ -213,7 +185,7 @@ def run(libs, inp, ref=None) -> dict[str, tuple]:
 
 def compare(kern, name, x, y, dtype) -> tuple[dict, bool]:
     """One output of two builds: the JSON record and whether it passes
-    (K1, B6b: within the card checks; every other kernel: bit for bit)."""
+    (B5, B6a: within the card checks; every other kernel: bit for bit)."""
     rec = {"dtype": str(dtype).split(".")[-1], "kernel": kern,
            "output": name, "elements": x.numel()}
     if x.shape != y.shape:
@@ -225,7 +197,7 @@ def compare(kern, name, x, y, dtype) -> tuple[dict, bool]:
     rec.update(differ=ne, max_abs_diff=float(diff.max()))
     if kern not in REDESIGNED:
         return rec, ne == 0
-    if kern == "K1":
+    if kern == "B5":
         atol, rtol = K1_TOL[dtype] if name == "y" else (0.0, DEN_RTOL)
         rec.update(check="K1_TOL / DEN_RTOL", atol=atol, rtol=rtol)
         ok = bool((diff <= atol + rtol * yf.abs()).all())
@@ -265,31 +237,36 @@ def inputs(cfg, sp, dtype, bh=96, L=1024) -> dict:
 
 
 def time_all(builds, names, cfg, sp, rounds) -> None:
-    """K1 (training and serving shape), K3, K4 and B6b of every build in
-    bf16, in turns: this, the others, the others in reverse, this,
-    ``rounds`` times."""
+    """K1 and B5 (training and serving shape), K3, K4, B6a and B6b of
+    every build in bf16, in turns: this, the others, the others in
+    reverse, this, ``rounds`` times."""
     inp = inputs(cfg, sp, torch.bfloat16)
-    serve = inputs(cfg, sp, torch.bfloat16, bh=48, L=512)["fused"]
+    serve = inputs(cfg, sp, torch.bfloat16, bh=48, L=512)
     q, k, v, a, w, dy, _, _ = inp["fused"]
-    fns = use(builds[0])
-    bwd = (q, k, v, a, w, *fns["K1"](q, k, v, a, w, cfg), dy, cfg)
+    b5 = use(builds[0])
+    bwd = (q, k, v, a, w, *k1(q, k, v, a, w, cfg), dy, cfg)
     qf, kf, sv, sdy = inp["scan"]
-    sargs = (qf, kf, sv, *slay_scan.launch_fwd(qf, kf, sv, DELTA), sdy)
+    sargs = (qf, kf, sv, *b5(qf, kf, sv), sdy)
     got = {(kn, i): [] for kn in TIMED for i in range(len(builds))}
     order = list(range(len(builds)))
     for _ in range(rounds):
         for i in order + order[:0:-1] + [0]:
-            fns = use(builds[i])
-            calls = {"K1": lambda: fns["K1"](q, k, v, a, w, cfg),
-                     "K1 serving": lambda: fns["K1"](*serve[:5], cfg),
+            b5 = use(builds[i])
+            calls = {"K1": lambda: k1(q, k, v, a, w, cfg),
+                     "K1 serving": lambda: k1(*serve["fused"][:5], cfg),
                      "K3": lambda: slay_fused.launch_bwd_q(*bwd),
                      "K4": lambda: slay_fused.launch_bwd_kv(*bwd),
-                     "B6b": lambda: fns["B6b"](*sargs)}
+                     "B5": lambda: b5(qf, kf, sv),
+                     "B5 serving": lambda: b5(*serve["scan"][:3]),
+                     "B6a": lambda: slay_scan.launch_bwd_q(*sargs, DELTA),
+                     "B6b": lambda: slay_scan.launch_bwd_kv(*sargs, DELTA)}
             for kn, fn in calls.items():
                 got[kn, i].append(time_ms(fn, iters=20))
     card = smi()
+    scan = "BH=96 L=1024 m=384 dv=64"
     shapes = {"K1 serving": "BH=48 L=512 d=dv=64",
-              "B6b": "BH=96 L=1024 m=384 dv=64"}
+              "B5 serving": "BH=48 L=512 m=384 dv=64", "B5": scan,
+              "B6a": scan, "B6b": scan}
     for kn in TIMED:
         this = statistics.median(got[kn, 0])
         for i in range(1, len(builds)):
@@ -309,7 +286,8 @@ def main() -> int:
                     help="csrc directory of a tree to compare against "
                     "(repeatable)")
     ap.add_argument("--time", action="store_true",
-                    help="also time K1, K3, K4 and B6b of every build (bf16)")
+                    help="also time K1, K3, K4, B5, B6a and B6b of every "
+                    "build (bf16)")
     ap.add_argument("--rounds", type=int, default=1,
                     help="rounds of timing turns (with --time)")
     ap.add_argument("--nvcc-flag", action="append", default=[],
