@@ -22,8 +22,10 @@ Phases, each of which raises (nonzero exit) on failure:
    BH = 96, L = 1024 in bf16 beside its bounds); grid, blocks resident,
    registers and spills at the serving and training shapes;
 4. K2, the decode step, against its plain version: masked and unmasked,
-   drained rows bit-identical, state updated in place; times and bounds
-   of the unmasked and the masked step;
+   drained rows bit-identical, state updated in place, at the serving
+   shape and at m = 390 with G = 8 (a ragged last feature slice; masked,
+   whole clusters idle); times and bounds of the unmasked and the masked
+   step; grid, cluster size, residency, registers and spills;
 5. K3 and K4, the fused backward's two scans, against their plain
    versions on the card: slayformer's training shape (BH = 96, L = 1024)
    in fp32 and bf16, GQA (BH = 2·BK), R = 2 quadrature nodes, head dim
@@ -38,6 +40,7 @@ Phases, each of which raises (nonzero exit) on failure:
 6. B7/B8, the feature map and its VJP (the two-dispatch path's first
    dispatch), against their plain versions at the training shape (N =
    8·1024·12 tokens) in fp32 and bf16 and at a ragged N; times, bounds;
+   B8's grid, residency, registers and spills;
 7. B5/B6a/B6b, the scan on precomputed features and its two backward
    scans, against their plain versions at the training shape (fp32 and
    bf16), the serving shape, GQA, m = 390 random features in fp32 and
@@ -77,11 +80,15 @@ Phases, each of which raises (nonzero exit) on failure:
     path.
 
 The last two lines are a JSON object with every kernel's numbers and
-``{"ok": true, "device": {...}}``. Nothing of JAX is imported.
+``{"ok": true, "device": {...}}``. Every ``ms`` is CUDA events around the
+kernel's wrapper; K2's and B8's rows also carry ``device_ms``, the
+kernel's own time on the card by the profiler, without the wrapper's host
+time. Nothing of JAX is imported.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -140,6 +147,27 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(fn, iters: int = 50, warmup: int = 3) -> float:
+    """Device time per call of the CUDA kernels that ``fn()`` launches,
+    summed over ``iters`` calls by ``torch.profiler`` (CUPTI), after
+    warm-up. For a kernel shorter than its wrapper's host time, where CUDA
+    events around the call measure the host's enqueue gap as well."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise AssertionError("the profiler recorded no device kernels")
+    return sum(e.self_device_time_total for e in kernels) / iters / 1e3
 
 
 def close(got, want, atol: float, rtol: float, what: str) -> float:
@@ -572,6 +600,11 @@ def phase_k1(feat, sp, main_shape) -> dict:
     return result
 
 
+# (atol, rtol) of K2's y by v's dtype: fp32 summation order over m = 384
+# terms, or one bf16 step.
+K2_YTOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 1.6e-2)}
+
+
 def _k2_inputs(gen, bh, bk, m, dv, qdt, vdt):
     dev = "cuda"
     qf = torch.rand(bh, m, generator=gen, device=dev).to(qdt)
@@ -582,17 +615,26 @@ def _k2_inputs(gen, bh, bk, m, dv, qdt, vdt):
     return qf, kf, v, s, z
 
 
-def phase_k2(m) -> dict:
+def phase_k2(m_main) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     dv, result = 64, {}
-    cases = [("serving path BK=48 qf fp32 v bf16", 48, 48, torch.float32,
-              torch.bfloat16, False),
-             ("BK=48 all fp32", 48, 48, torch.float32, torch.float32, False),
-             ("GQA G=2 bf16 masked", 96, 48, torch.bfloat16, torch.bfloat16,
-              True),
-             ("BK=48 fp32 masked", 48, 48, torch.float32, torch.float32,
-              True)]
-    for name, bh, bk, qdt, vdt, masked in cases:
+    # K2 runs one thread-block cluster per kv row, its blocks splitting the
+    # m feature rows (48 each at m = 384). m = 390 with G = 8: seven slices
+    # of 49 rows and a ragged one of 47; masked, rows 1, 4, 7 (whole
+    # clusters) idle.
+    cases = [("serving path BK=48 qf fp32 v bf16", 48, 48, m_main,
+              torch.float32, torch.bfloat16, False),
+             ("BK=48 all fp32", 48, 48, m_main, torch.float32, torch.float32,
+              False),
+             ("GQA G=2 bf16 masked", 96, 48, m_main, torch.bfloat16,
+              torch.bfloat16, True),
+             ("BK=48 fp32 masked", 48, 48, m_main, torch.float32,
+              torch.float32, True),
+             ("m=390 G=8 fp32", 64, 8, 390, torch.float32, torch.float32,
+              False),
+             ("m=390 G=8 bf16 masked, whole clusters idle", 64, 8, 390,
+              torch.bfloat16, torch.bfloat16, True)]
+    for name, bh, bk, m, qdt, vdt, masked in cases:
         log(f"K2 {name}")
         qf, kf, v, s, z = _k2_inputs(gen, bh, bk, m, dv, qdt, vdt)
         active = None
@@ -607,10 +649,8 @@ def phase_k2(m) -> dict:
         torch.cuda.synchronize()
         if s2 is not s or z2 is not z:
             raise AssertionError("decode state not updated in place")
-        # y: fp32 summation order over m = 384 terms, or one bf16 step.
         # s', z': one product and one add per element on both sides.
-        ytol = (1e-5, 1e-5) if vdt == torch.float32 else (2e-2, 1.6e-2)
-        err = close(y, yp, *ytol, "y")
+        err = close(y, yp, *K2_YTOL[vdt], "y")
         close(s, sp_, 1e-5, 1e-6, "s' (in place)")
         close(z, zp_, 1e-5, 1e-6, "z' (in place)")
         if masked:
@@ -621,29 +661,42 @@ def phase_k2(m) -> dict:
             if not bool((y.reshape(bk, g, dv)[off] == 0).all()):
                 raise AssertionError("drained rows' y is not zero")
             log(f"  drained rows: {int(off.sum())} of {bk} bit-identical, y=0")
+        # ms: CUDA events around the wrapper, as for every kernel; beside
+        # it the kernel's device time from the profiler (device_ms), which
+        # leaves out the wrapper's host time (checks, allocation, the
+        # ctypes call), longer than the kernel here.
         if name.startswith("serving path"):
-            ms = time_ms(lambda: decode_step.decode_linear_attention(
-                qf, kf, v, s, z), iters=50)
+            step = functools.partial(decode_step.decode_linear_attention, qf,
+                                     kf, v, s, z)
+            ms, dev_ms = time_ms(step, iters=50), device_ms(step)
             plain_ms = time_ms(lambda: decode_step.decode_linear_attention_plain(
                 qf, kf, v, s, z), iters=20)
             bound, by, n_ops, nb = k2_bound(bh, bk, m, dv, qf.element_size(),
                                           v.element_size())
-            log(f"  kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            log(f"  kernel {ms:.4f} ms ({dev_ms:.4f} ms on the card without "
+                f"the wrapper's host time), plain {plain_ms:.4f} ms, bound "
                 f"{bound:.4f} ms by {by} ({n_ops:.3e} FLOP, {nb:.3e} B); "
                 f"library: none, no single PyTorch call computes this step")
             result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=bound, bound_by=by)
+                          bound_ms=bound, bound_by=by, device_ms=dev_ms)
+            log_residency("slay_decode_step", "decode_step",
+                          "decode_step_kernel",
+                          decode_step.residency(bk, bh // bk, m, dv, qdt, vdt),
+                          dv, f"qf fp32, v bf16, BK={bk}, m={m}, dv={dv}",
+                          inst="If13__nv_bfloat16Li64E", unit="feature rows")
         if name == "BK=48 fp32 masked":
             # B4b: the masked step, its bound over the active rows only.
-            ms = time_ms(lambda: decode_step.decode_linear_attention(
-                qf, kf, v, s, z, active), iters=50)
+            step = functools.partial(decode_step.decode_linear_attention, qf,
+                                     kf, v, s, z, active)
+            ms, dev_ms = time_ms(step, iters=50), device_ms(step)
             plain_ms = time_ms(lambda: decode_step.decode_linear_attention_plain(
                 qf, kf, v, s, z, active), iters=20)
             n_act = int(active.sum())
             bound, by, n_ops, nb = k2_bound(bh, n_act, m, dv, qf.element_size(),
                                           v.element_size())
-            log(f"  masked ({n_act} of {bk} rows active): kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms by {by} "
+            log(f"  masked ({n_act} of {bk} rows active): kernel {ms:.4f} ms "
+                f"({dev_ms:.4f} ms on the card), plain "
+                f"{plain_ms:.4f} ms, bound {bound:.4f} ms by {by} "
                 f"({n_ops:.3e} FLOP, {nb:.3e} B)")
     return result
 
@@ -789,18 +842,23 @@ def phase_k34(feat, sp) -> dict:
 
 
 def log_residency(kname: str, lib: str, entry: str, res: dict, dv: int,
-                  what: str) -> None:
-    """One kernel's residency line: grid, tile, blocks per SM and resident
-    at once (CUDA's occupancy calculator), registers, local memory and
-    shared memory per block (``res``), and ptxas's registers and spills
-    for the bf16 instantiation at this dv of kernel ``entry`` of library
-    ``lib``."""
+                  what: str, inst: str | None = None,
+                  unit: str = "tokens") -> None:
+    """One kernel's residency line: grid (and cluster size), tile, blocks
+    per SM and resident at once (CUDA's occupancy calculator), registers,
+    local memory and shared memory per block (``res``), and ptxas's
+    registers and spills for the instantiation of kernel ``entry`` of
+    library ``lib`` whose mangled name holds ``inst`` (default: bf16 at
+    this dv). ``unit`` names what the tile counts."""
     gx, gy = res["grid"]
-    inst = [v for name, v in ptxas_report(lib).items()
-            if entry in name and f"bfloat16Li{dv}E" in name]
-    regs, st, ld = inst[0] if inst else ("not in the log",) * 3
-    log(f"  {kname} ({what}): grid {gx} x {gy} = {gx * gy} blocks, tile "
-        f"{res['tile']} tokens, {res['blocks_per_sm']} blocks per SM, "
+    inst = inst or f"bfloat16Li{dv}E"
+    found = [v for name, v in ptxas_report(lib).items()
+             if entry in name and inst in name]
+    regs, st, ld = found[0] if found else ("not in the log",) * 3
+    cluster = (f", clusters of {res['cluster']} blocks" if "cluster" in res
+               else "")
+    log(f"  {kname} ({what}): grid {gx} x {gy} = {gx * gy} blocks{cluster}, "
+        f"tile {res['tile']} {unit}, {res['blocks_per_sm']} blocks per SM, "
         f"{res['blocks_resident']} resident at once "
         f"({-(-gx * gy // res['blocks_resident'])} waves), "
         f"{res['registers']} registers and {res['local_bytes']} B local "
@@ -850,6 +908,11 @@ def phase_fmap(feat, sp, n_main) -> dict:
         if n == n_main and dt == torch.bfloat16:
             log(f"  B8 grid: {feature_map.launch_bwd(*bwd)[1].shape[0]} "
                 f"persistent blocks, one dA/dOmega partial each")
+            log_residency("feature_map_bwd", "feature_map",
+                          "feature_map_bwd_kernel",
+                          feature_map.bwd_residency(n, cfg, dt), d,
+                          f"bf16, N={n}, d={d}, two tokens per warp at a time",
+                          inst="bfloat16Li2ELb1E", unit="warps per block")
             bounds = feature_map_bounds(n, d, cfg.num_anchors, cfg.num_prf,
                                         cfg.num_quad_nodes, u.element_size())
             for name, kern, plain, err in (
@@ -858,9 +921,15 @@ def phase_fmap(feat, sp, n_main) -> dict:
                         u, a, w, cfg), e7),
                     ("feature_map_bwd", lambda: feature_map.launch_bwd(*bwd),
                      lambda: feature_map.feature_map_bwd_plain(*bwd), e8)):
-                result[name] = _kernel_row(
+                row = result[name] = _kernel_row(
                     name, time_ms(kern), time_ms(plain, iters=10),
                     bounds[name], err, "the feature map")
+                if name == "feature_map_bwd":
+                    # Beside ms (CUDA events around the wrapper), the
+                    # kernel's device time without the wrapper's host time.
+                    row["device_ms"] = device_ms(kern)
+                    log(f"  feature_map_bwd: {row['device_ms']:.4f} ms on "
+                        f"the card without the wrapper's host time")
         del u, dpsi, bwd
     return result
 

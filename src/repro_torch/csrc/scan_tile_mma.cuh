@@ -376,28 +376,6 @@ __device__ inline void mma_update(float* carry, int ldc, float* carry_z,
 
 // -- asynchronous tile loads -----------------------------------------------
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 // Start copying kMmaTile rows of `nbytes` bytes, row t from src + t·stride
 // bytes, to dst rows of dst_ld bytes (dst and dst_ld 16-byte aligned);
 // rows at or past nvalid are zero-filled. 16-byte copies where every
@@ -553,32 +531,10 @@ inline int launch_fwd_epilogue(const float* num, const float* den_part, T* y,
   return (int)cudaGetLastError();
 }
 
-// Residency of kernel fn with `smem` bytes of dynamic shared memory (its
-// attribute set first): out[0] blocks per SM, out[1] blocks resident at
-// once on the card, out[2] registers per thread, out[3] local (spill)
-// bytes per thread, out[4] dynamic shared memory per block, out[5] the
-// tile length. Returns a cudaError_t code.
+// Residency of kernel fn (kernel_residency's, at kThreads threads and a
+// tile of kMmaTile tokens).
 inline int kernel_residency(const void* fn, size_t smem, int* out) {
-  cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], fn, kThreads,
-                                                      smem);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0;
-  err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  out[1] = out[0] * sms;
-  cudaFuncAttributes fa;
-  err = cudaFuncGetAttributes(&fa, fn);
-  if (err != cudaSuccess) return (int)err;
-  out[2] = fa.numRegs;
-  out[3] = (int)fa.localSizeBytes;
-  out[4] = (int)smem;
-  out[5] = kMmaTile;
-  return 0;
+  return block_residency(fn, kThreads, smem, kMmaTile, out);
 }
 
 }  // namespace slay

@@ -49,10 +49,12 @@ SIGNATURES = {
     },
     "decode_step": {
         "slay_decode_step": (_I, [_P] * 7 + [_I] * 6 + [_F, _P]),
+        "slay_decode_step_occupancy": (_I, [_I] * 5 + [ctypes.POINTER(_I)]),
     },
     "feature_map": {
-        "slay_feature_map_smem_bytes": (ctypes.c_longlong, [_I] * 5),
+        "slay_feature_map_smem_bytes": (ctypes.c_longlong, [_I] * 6),
         "slay_feature_map_bwd_blocks": (_I, [_I] * 6),
+        "slay_feature_map_bwd_occupancy": (_I, [_I] * 5 + [ctypes.POINTER(_I)]),
         "slay_feature_map_fwd": (_I, [_P] * 4 + [_I] * 5 + [_D, _D, _I, _P]),
         "slay_feature_map_bwd": (_I, [_P] * 7 + [_I] * 6 + [_D, _D, _I, _P]),
     },
@@ -168,14 +170,20 @@ def check(err: int, fn: str) -> None:
         raise RuntimeError(f"{fn}: CUDA error {err} at launch")
 
 
-def residency(name: str, fn: str, *args, grid: tuple) -> dict:
+def residency(name: str, fn: str, *args, grid: tuple,
+              clustered: bool = False) -> dict:
     """How a kernel sits on the current card, from its library's
     occupancy entry ``fn`` (its shape arguments, then six ints out): its
     grid, tokens per tile, blocks per SM and resident at once (CUDA's
     occupancy calculator), registers and local-memory bytes per thread,
-    shared memory per block. Launches nothing."""
-    out = (ctypes.c_int * 6)()
+    shared memory per block. A ``clustered`` entry writes a seventh int,
+    the blocks per thread-block cluster (``cluster``), which is also the
+    grid's last extent after those of ``grid``. Launches nothing."""
+    out = (ctypes.c_int * (7 if clustered else 6))()
     check(getattr(load(name), fn)(*args, out), fn)
-    return {"grid": grid, "tile": out[5], "blocks_per_sm": out[0],
-            "blocks_resident": out[1], "registers": out[2],
-            "local_bytes": out[3], "smem_bytes": out[4]}
+    res = {"grid": grid, "tile": out[5], "blocks_per_sm": out[0],
+           "blocks_resident": out[1], "registers": out[2],
+           "local_bytes": out[3], "smem_bytes": out[4]}
+    if clustered:
+        res.update(grid=(*grid, out[6]), cluster=out[6])
+    return res

@@ -9,6 +9,7 @@ kernel and its plain version differ only in summation order.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -29,7 +30,10 @@ class FeatureStatics(NamedTuple):
     num_prf: int        # D
 
 
+@functools.lru_cache(maxsize=64)
 def feature_statics(cfg: SlayFeatureConfig) -> FeatureStatics:
+    """The statics of ``cfg``, computed once per config: the quadrature
+    behind them is host time that every kernel launch would pay again."""
     cfg.check_supported()
     s_np, w_np = quadrature.yat_quadrature(cfg.num_quad_nodes, cfg.eps)
     return FeatureStatics(

@@ -2,7 +2,9 @@
 
 Replaces the TPU kernels ``repro/kernels/decode_step.py::_kernel`` (B4a)
 and ``::_kernel_masked`` (B4b) with one CUDA kernel whose ``active`` mask
-is optional (``csrc/decode_step.cu``). Per kv row, for its G query heads:
+is optional (``csrc/decode_step.cu``: one thread-block cluster per kv row,
+its blocks splitting the row's feature rows). Per kv row, for its G query
+heads:
 
     S' = S + Ψ(k)ᵀ v,   z' = z + Ψ(k),   y_g = (q_g S') / (q_g z' + δ)
 
@@ -93,6 +95,20 @@ def _launch(qf, kf, v, s, z, active, delta):
     _build.check(err, "slay_decode_step")
     _build.LAUNCHES["slay_decode_step"] += 1
     return y, s, z
+
+
+def residency(bk: int, g: int, m: int, dv: int, q_dtype: torch.dtype,
+              v_dtype: torch.dtype) -> dict:
+    """How K2 sits on the current card at these shapes: its grid (BK kv
+    rows x C blocks, one thread-block cluster of C per row), the feature
+    rows per block (``tile``), blocks per SM and resident at once (the
+    blocks of the clusters that fit, CUDA's occupancy calculator),
+    registers and local-memory bytes per thread, shared memory per block.
+    Launches nothing."""
+    codes = _build.DTYPE_CODES
+    return _build.residency("decode_step", "slay_decode_step_occupancy", g,
+                            m, dv, codes[q_dtype], codes[v_dtype], grid=(bk,),
+                            clustered=True)
 
 
 def decode_linear_attention(qf: torch.Tensor, kf: torch.Tensor,

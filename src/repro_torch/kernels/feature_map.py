@@ -19,6 +19,7 @@ the TPU's, they need no padding.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -71,7 +72,8 @@ def _kernel_args(lib, u, cfg: SlayFeatureConfig, bwd: bool):
         raise ValueError(f"kernel takes at most 8 quadrature nodes, got {R}")
     if bwd and d > 128:
         raise ValueError(f"backward kernel takes head dim <= 128, got {d}")
-    smem = lib.slay_feature_map_smem_bytes(d, P, D, R, int(bwd))
+    smem = lib.slay_feature_map_smem_bytes(d, P, D, R, int(bwd),
+                                           _build.DTYPE_CODES[u.dtype])
     if smem > _build.SMEM_LIMIT:
         raise ValueError(f"shapes need {smem} B of shared memory per block, "
                          f"more than {_build.SMEM_LIMIT}")
@@ -97,18 +99,30 @@ def launch_fwd(u, anchors, omegas, cfg: SlayFeatureConfig):
     return psi
 
 
+@functools.lru_cache(maxsize=256)
+def _bwd_blocks(lib, n: int, d: int, P: int, D: int, R: int, dtype: int,
+                device: int) -> int:
+    """B8's persistent grid for n tokens on CUDA device ``device``
+    (``slay_feature_map_bwd_blocks`` of ``lib``), asked once per library,
+    shapes and device: the query (the device's SMs, the kernel's
+    occupancy) is host time that every launch would pay again."""
+    with torch.cuda.device(device):
+        nb = lib.slay_feature_map_bwd_blocks(n, d, P, D, R, dtype)
+    _build.check(min(nb, 0), "slay_feature_map_bwd_blocks")
+    return nb
+
+
 def launch_bwd(u, anchors, omegas, dpsi, cfg: SlayFeatureConfig):
     """B8 on CUDA tensors: -> (du (N, d) in u's dtype, dA (nb, P, d) and
     dΩ (nb, D, d) fp32 partials, one per block of its persistent grid)."""
     lib = _build.load("feature_map")
     d, P, D, R, s_nodes, sqrt_w = _kernel_args(lib, u, cfg, True)
     n, dtype = u.shape[0], _build.DTYPE_CODES[u.dtype]
+    nb = _bwd_blocks(lib, n, d, P, D, R, dtype, u.device.index)
     du = torch.empty_like(u)
+    da = torch.empty(nb, P, d, dtype=torch.float32, device=u.device)
+    dw = torch.empty(nb, D, d, dtype=torch.float32, device=u.device)
     with torch.cuda.device(u.device):
-        nb = lib.slay_feature_map_bwd_blocks(n, d, P, D, R, dtype)
-        _build.check(min(nb, 0), "slay_feature_map_bwd_blocks")
-        da = torch.empty(nb, P, d, dtype=torch.float32, device=u.device)
-        dw = torch.empty(nb, D, d, dtype=torch.float32, device=u.device)
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.slay_feature_map_bwd(
             u.data_ptr(), anchors.data_ptr(), omegas.data_ptr(),
@@ -117,6 +131,20 @@ def launch_bwd(u, anchors, omegas, dpsi, cfg: SlayFeatureConfig):
     _build.check(err, "slay_feature_map_bwd")
     _build.LAUNCHES["feature_map_bwd"] += 1
     return du, da, dw
+
+
+def bwd_residency(n: int, cfg: SlayFeatureConfig, dtype: torch.dtype) -> dict:
+    """How B8 sits on the current card for n tokens (its grid is the
+    persistent one of :func:`launch_bwd`, each warp carrying two tokens at
+    a time; ``tile`` is the warps per block), as
+    :func:`repro_torch.kernels._build.residency` reports. Launches
+    nothing."""
+    lib = _build.load("feature_map")
+    d, P, D, R = cfg.head_dim, cfg.num_anchors, cfg.num_prf, cfg.num_quad_nodes
+    code = _build.DTYPE_CODES[dtype]
+    nb = _bwd_blocks(lib, n, d, P, D, R, code, torch.cuda.current_device())
+    return _build.residency("feature_map", "slay_feature_map_bwd_occupancy",
+                            d, P, D, R, code, grid=(nb, 1))
 
 
 def feature_map_bwd(u, anchors, omegas, dpsi, cfg: SlayFeatureConfig, *,

@@ -31,6 +31,15 @@ seeded numpy inputs at the smoke size:
     within 1e-5 of scale of the fp32 plain version, 10x inside the card's
     fp32 checks (``BWD_REL`` 1e-4 in ``chip_smoke.py``, K1's y to 1e-4),
     while single-pass TF32 does not: it misses K1's check.
+
+B8, the feature map's VJP, runs on the fp32 pipes one warp per token:
+its dpa sums split into S parts (``bwd_split``) and added after the
+node loop, and each warp keeps its dA/dΩ sums over the tokens it walks
+(global warp w takes tokens w, w + W, ...), which its block adds in
+warp order and the wrapper sums over blocks. ``split_fmap_bwd`` replays
+that order; it matches the interpret-mode Pallas VJP and the plain twin
+to 1e-5 of scale (du) and 1e-5 relative in norm (dA, dΩ), 10x inside the
+card's ``BWD_REL`` and ``DAW_REL``.
 """
 import jax
 import jax.numpy as jnp
@@ -39,10 +48,12 @@ import pytest
 import torch
 
 from repro.core import features as jfeat
+from repro.kernels import feature_map as jfm
 from repro.kernels import slay_fused as jfused
 from repro.kernels import slay_scan as jscan
 from repro_torch.core import features as tfeat
 from repro_torch.kernels import common as tcommon
+from repro_torch.kernels import feature_map as tfm
 from repro_torch.kernels import slay_fused as tfused
 from repro_torch.kernels import slay_scan as tscan
 
@@ -490,3 +501,102 @@ def test_scan_q_slices_match_the_pallas_vjp(m):
         wnt = torch.from_numpy(np.array(wnt))
         assert g.shape == wnt.shape
         _within(g, wnt, 1e-4)
+
+
+# -- B8: the feature map's VJP, one warp per token -----------------------
+
+
+def bwd_split(P, D):
+    """S of ``csrc/feature_map.cu::bwd_split``: the parts of each dpa sum,
+    the largest S dividing D with P·S + D <= 32, at least 1."""
+    return max([1] + [s for s in range(2, D + 1)
+                      if D % s == 0 and P * s + D <= 32])
+
+
+def split_fmap_bwd(u, a, w, dpsi, cfg, blocks, warps=8):
+    """B8 token by token in fp32: -> (du, dA, dΩ). The dpa sums in S parts
+    per node loop, added in part order; dA/dΩ summed per warp over its
+    tokens in order, per block in warp order, then over the blocks."""
+    st = tcommon.feature_statics(cfg)
+    P, D, R = cfg.num_anchors, cfg.num_prf, cfg.num_quad_nodes
+    n = u.shape[0]
+    uf, a, w = u.float(), a.float(), w.float()
+    inv = torch.rsqrt(torch.sum(uf * uf, -1, keepdim=True) + 1e-6)
+    uh = uf * inv
+    pa, pw = uh @ a.T, uh @ w.T
+    phi_p = (pa * pa) * float(1.0 / np.sqrt(P))
+    dps = dpsi.float().reshape(n, R, P, D)
+    S = bwd_split(P, D)
+    K = D // S
+    parts = torch.zeros(n, P, S)
+    dpw = torch.zeros(n, D)
+    for r, (s_r, sw) in enumerate(zip(st.s_nodes, st.sqrt_w)):
+        phi_e = torch.exp(float(np.sqrt(2.0 * s_r)) * pw - s_r) * float(
+            1.0 / np.sqrt(D))
+        x = dps[:, r] * sw                                   # (n, P, D)
+        sr = (x * phi_e[:, None, :]).reshape(n, P, S, K).sum(-1)
+        parts = parts + sr
+        de = torch.sum(x * phi_p[:, :, None], dim=1)        # (n, D)
+        dpw = dpw + (float(np.sqrt(2.0 * s_r)) * phi_e) * de
+    acc = torch.zeros(n, P)
+    for h in range(S):
+        acc = acc + parts[..., h]
+    dpa = (2.0 * pa) * acc * float(1.0 / np.sqrt(P))
+    dproj = torch.cat([dpa, dpw], dim=-1)                   # (n, P + D)
+    duh = dpa @ a + dpw @ w
+    du = inv * (duh - uh * torch.sum(uh * duh, -1, keepdim=True))
+    nw = blocks * warps
+    acc_w = torch.zeros(nw, P + D, uf.shape[1])
+    for t0 in range(0, n, nw):
+        t = torch.arange(t0, min(n, t0 + nw))
+        acc_w[t - t0] += dproj[t, :, None] * uh[t, None, :]
+    per_block = acc_w.reshape(blocks, warps, P + D, -1)
+    daw = per_block[:, 0]
+    for k in range(1, warps):
+        daw = daw + per_block[:, k]
+    daw = torch.sum(daw, dim=0)
+    return du.to(u.dtype), daw[:P], daw[P:]
+
+
+@pytest.mark.parametrize("n,block,blocks,nodes", [
+    (1000, 200, 3, 3),      # each warp walks about 42 tokens
+    (1000, 200, 125, 3),    # one token a warp
+    (999, 37, 5, 2),        # ragged: warps walk unequal counts
+])
+def test_fmap_bwd_warp_order_matches_the_pallas_vjp(n, block, blocks, nodes):
+    # B8's order against jax.vjp of the interpret-mode Pallas feature map
+    # and against the plain twin (both fp32): du to 1e-5 of its scale, dA
+    # and dΩ to 1e-5 relative in norm.
+    cfg = tfeat.SlayFeatureConfig(head_dim=D_HEAD, num_quad_nodes=nodes)
+    jcfg = jfeat.SlayFeatureConfig(head_dim=D_HEAD, num_quad_nodes=nodes)
+    jp = jfeat.init_feature_params(jax.random.PRNGKey(3), jcfg)
+    a, w = (np.array(jp[k]) for k in ("anchors", "omegas"))
+    rng = np.random.default_rng(n + blocks)
+    u = rng.normal(size=(n, D_HEAD)).astype(np.float32)
+    dpsi = rng.normal(size=(n, cfg.feature_dim)).astype(np.float32)
+    t = [torch.from_numpy(x) for x in (u, a, w, dpsi)]
+    got = split_fmap_bwd(*t, cfg, blocks)
+
+    def jfn(u, a, w):
+        return jfm.slay_feature_map(u, a, w, jcfg, block_tokens=block,
+                                    interpret=True)
+
+    _, vjp = jax.vjp(jfn, *(jnp.asarray(x) for x in (u, a, w)))
+    jax_out = [torch.from_numpy(np.array(x)) for x in vjp(jnp.asarray(dpsi))]
+    plain = tfm.feature_map_bwd_plain(*t, cfg)
+    for want in (jax_out, plain):
+        _within(got[0], want[0], 1e-5)
+        for g, wnt in zip(got[1:], want[1:], strict=True):
+            assert g.shape == wnt.shape
+            rel = float(torch.linalg.vector_norm(g - wnt)
+                        / torch.linalg.vector_norm(wnt))
+            assert rel <= 1e-5, rel
+
+
+def test_fmap_bwd_split_fills_one_warp():
+    # slayformer's P = 8, D = 16: each dpa sum in two parts, 16 dpa and 16
+    # dpw items, one warp; P = 16, D = 24 leaves no room (S = 1, 40
+    # items over two passes of the lanes).
+    assert bwd_split(8, 16) == 2
+    assert bwd_split(16, 24) == 1
+    assert bwd_split(3, 4) == 4

@@ -170,6 +170,39 @@ def test_decode_kernel_matches_plain_on_card(masked):
     torch.testing.assert_close(z, zp, rtol=1e-6, atol=1e-6)
 
 
+@needs_card
+@pytest.mark.parametrize("bh,bk,m,dv,masked", [
+    (1024, 1024, 384, 64, False),   # 1024 clusters of 8, more than fit
+    (64, 8, 390, 32, False),        # G = 8, slices of 49 and a last of 47
+    (64, 8, 390, 16, True),         # G = 8, masked, whole clusters idle
+    (96, 48, 384, 128, True),       # GQA G = 2, dv 128, masked
+    (6, 3, 7, 64, False),           # m below one slice: one block a row
+])
+def test_decode_kernel_clusters_on_card(bh, bk, m, dv, masked):
+    # K2 runs one thread-block cluster per kv row, its C <= 8 blocks
+    # splitting the m feature rows. S' and z' keep the one-block
+    # arithmetic (one rounded product, one add), so they equal the plain
+    # version's; y sums the slices' partials in rank order: fp32
+    # summation order only (1e-5). Inactive rows' S and z bit-identical,
+    # their y zero.
+    args = [torch.from_numpy(x).cuda() for x in _decode_inputs(2, bh, bk,
+                                                               m=m, dv=dv)]
+    active = None
+    if masked:
+        active = (torch.arange(bk, device="cuda") % 3 != 1).to(torch.int32)
+    s0, z0 = args[3].clone(), args[4].clone()
+    plain = [a.clone() for a in args]
+    yp, sp, zp = tdecode.decode_linear_attention_plain(*plain, active)
+    y, s, z = tdecode.decode_linear_attention(*args, active)
+    assert s.data_ptr() == args[3].data_ptr() and z.data_ptr() == args[4].data_ptr()
+    torch.testing.assert_close(y, yp, rtol=1e-5, atol=1e-5)
+    assert torch.equal(s, sp) and torch.equal(z, zp)
+    if masked:
+        off = active == 0
+        assert torch.equal(s[off], s0[off]) and torch.equal(z[off], z0[off])
+        assert bool((y.reshape(bk, bh // bk, dv)[off] == 0).all())
+
+
 # -- B7, B8, B5, B6a, B6b: the two-dispatch path -----------------------------
 
 
@@ -177,10 +210,10 @@ def test_decode_kernel_matches_plain_on_card(masked):
 @pytest.mark.parametrize("n", [1000, 40001])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_feature_map_kernels_match_plain_on_card(dtype, n):
-    # Ragged N (a guarded last tile); at N = 40001 each block of B8's
-    # persistent grid walks several tiles. Ψ and du: fp32 summation order
-    # (1e-5), bf16 one step (2^-7 relative); dA, dΩ stay fp32 sums over N
-    # tokens (1e-4 of scale).
+    # Ragged N; at N = 40001 each warp of B8's persistent grid walks
+    # several tokens. Ψ and du: fp32 summation order (1e-5), bf16 one step
+    # (2^-7 relative); dA, dΩ stay fp32 sums over N tokens (1e-4 of
+    # scale).
     tcfg = _cfg()
     p = tfeat.init_feature_params(tcfg, torch.Generator().manual_seed(0),
                                   device="cuda")
@@ -199,6 +232,40 @@ def test_feature_map_kernels_match_plain_on_card(dtype, n):
         scale = float(wnt.float().abs().max())
         torch.testing.assert_close(g.float(), wnt.float(), rtol=0.0,
                                    atol=max(tol, 1e-4) * scale)
+
+
+@needs_card
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_feature_map_bwd_shapes_on_card(dtype):
+    # B8 at the shapes its instantiations split on: head dim 64 (two
+    # columns a lane, the dA/dΩ sums in registers) with more tokens than
+    # its persistent grid has warps, head dim 128 (four columns a lane,
+    # the sums in shared memory), P + D = 40 (two rounds of projections,
+    # items looping over the lanes), and head dim 15 with P = 3, D = 4,
+    # whose rows do not start on 16 bytes (plain copies in place of
+    # cp.async). Tolerances as the test above.
+    cases = [(tfeat.SlayFeatureConfig(head_dim=64), 50001),
+             (tfeat.SlayFeatureConfig(head_dim=128), 3001),
+             (tfeat.SlayFeatureConfig(head_dim=D_HEAD, num_anchors=16,
+                                      num_prf=24, num_quad_nodes=1), 3001),
+             (tfeat.SlayFeatureConfig(head_dim=15, num_anchors=3, num_prf=4),
+              777)]
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    for cfg, n in cases:
+        p = tfeat.init_feature_params(cfg, torch.Generator().manual_seed(0),
+                                      device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        u = torch.randn(n, cfg.head_dim, generator=gen,
+                        device="cuda").to(dtype)
+        dpsi = torch.randn(n, cfg.feature_dim, generator=gen,
+                           device="cuda").to(dtype)
+        a, w = p["anchors"], p["omegas"]
+        got = tfm.feature_map_bwd(u, a, w, dpsi, cfg)
+        want = tfm.feature_map_bwd_plain(u, a, w, dpsi, cfg)
+        for g, wnt in zip(got, want, strict=True):
+            scale = float(wnt.float().abs().max())
+            torch.testing.assert_close(g.float(), wnt.float(), rtol=0.0,
+                                       atol=max(tol, 1e-4) * scale)
 
 
 @needs_card

@@ -1,6 +1,5 @@
 """Compare every CUDA kernel of the port built from this tree and from
-other source trees on one CUDA card, and optionally time the redesigned
-ones of all.
+other source trees on one CUDA card, and optionally time them.
 
 Builds the five kernel libraries (``slay_fused``, ``slay_fused_bwd``,
 ``decode_step``, ``feature_map``, ``slay_scan``) from this checkout's
@@ -13,34 +12,38 @@ tree, in fp32 and bf16: K1, K3, K4 at slayformer-124m's training shape
 build's y and den), B7 and B8 on its N = 96·1024 q rows, B5, B6a and B6b
 on the features of those rows (B6a and B6b of every build read this
 build's B5 output), K2 at the serving shape (BK = 48, m = 384), with and
-without a mask. Every kernel but B5 and B6a must be bit for bit the same
-(B8: du and its per-block dA/dΩ partials; K2: y and the state updated in
-place): the line gives how many elements differ and the largest
-absolute difference. B5 and B6a, redesigned by this tree, may round
-differently: their lines give the same counts and whether the
-difference is within the card checks of ``chip_smoke.py`` (B5's y to
-``K1_TOL``, den to ``DEN_RTOL``; B6a's dq to ``BWD_REL`` of its largest
-magnitude). Extra ``nvcc`` flags apply to every build, so that
-``-fmad=false`` tells whether a difference comes from the compiler's
-contraction of multiplies and adds into FMAs.
+without a mask. Every output but K2's y and B8's must be bit for bit the
+same (K2: the state updated in place too): the line gives how many
+elements differ and the largest absolute difference. K2's y and B8's du,
+dA and dΩ (the per-block partials summed), redesigned by this tree, may
+round differently: their lines give the same counts and whether the
+difference is within the card checks of ``chip_smoke.py`` (K2's y to
+``K2_YTOL``; du to ``BWD_REL`` of its largest magnitude, dA and dΩ to
+``DAW_REL`` relative in norm). Extra ``nvcc`` flags apply to every
+build, so that ``-fmad=false`` tells whether a difference comes from the
+compiler's contraction of multiplies and adds into FMAs.
 
-``--time`` then times K1 and B5 at the training and the serving shape
-(BH = 48, L = 512), K3, K4, B6a and B6b of every build in bf16, in turns
+``--time`` then times, in bf16, K1 and B5 at the training and the
+serving shape (BH = 48, L = 512), K3, K4, B6a, B6b and B8 (N = 98,304)
+at the training shape, and K2 at the serving shape (qf fp32, v bf16;
+and masked, all fp32, 32 of 48 rows active) of every build, in turns
 (this, the others, the others in reverse, this; repeated ``--rounds``
-times; CUDA-event medians of 20 calls each) and prints each kernel's
-medians per build and each other build's ratio to this one. The kernels
+times; CUDA-event medians of 20 calls of the wrapper each, and for B8
+and K2 also their device time from the profiler over 20 calls, without
+the wrappers' host time, which is not small beside these kernels) and
+prints each kernel's medians per build and each other build's ratio to
+this one. The kernels
 run through the port's wrappers, so K1's and B5's times include their
-epilogue and K3's, K4's and B6b's the sum of their shares; a build from
-before B5's split (one block per q row, y and den written by the kernel)
-is called through its own C signature.
+epilogue, K3's, K4's and B6b's the sum of their shares, and B8's the
+launch alone (its partials are not summed).
 
     mkdir -p build/parent && git archive <commit> | tar -x -C build/parent
     python3 tools/compare_kernel_builds.py \\
         --other build/parent/src/repro_torch/csrc [--other <csrc> ...] \\
         [--time [--rounds N]] [--nvcc-flag=-fmad=false]
 
-Exits 1 if a kernel other than B5 and B6a differs in any element or B5 or
-B6a falls outside the checks, 0 otherwise.
+Exits 1 if an output held bit for bit differs in any element or K2's y
+or B8's outputs fall outside the checks, 0 otherwise.
 """
 from __future__ import annotations
 
@@ -59,8 +62,8 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import (BWD_REL, DEN_RTOL, K1_TOL, smi,  # noqa: E402
-                        time_ms)
+from chip_smoke import (BWD_REL, DAW_REL, K2_YTOL,  # noqa: E402
+                        device_ms, smi, time_ms)
 from repro_torch import configs  # noqa: E402
 from repro_torch.core.features import init_feature_params  # noqa: E402
 from repro_torch.kernels import (_build, decode_step, feature_map,  # noqa: E402
@@ -72,28 +75,25 @@ OUTPUTS = {"K1": ("y", "den"), "K2": ("y", "s", "z"),
            "K2 masked": ("y", "s", "z"), "K3": ("dq", "dA", "dOmega"),
            "K4": ("dk", "dv", "dA", "dOmega"), "B5": ("y", "den"),
            "B6a": ("dq",), "B6b": ("dk", "dv"), "B7": ("psi",),
-           "B8": ("du", "dA partials", "dOmega partials")}
-REDESIGNED = ("B5", "B6a")   # held to the card checks; the rest bit for bit
-TIMED = ("K1", "K1 serving", "K3", "K4", "B5", "B5 serving", "B6a", "B6b")
+           "B8": ("du", "dA", "dOmega")}
+# Outputs of the kernels this tree redesigned, held to the card checks;
+# every other output bit for bit.
+REDESIGNED = {("K2", "y"), ("K2 masked", "y"), ("B8", "du"), ("B8", "dA"),
+              ("B8", "dOmega")}
+TIMED = ("K1", "K1 serving", "K3", "K4", "B5", "B5 serving", "B6a", "B6b",
+         "B8", "K2", "K2 masked")
+# Also timed on the card by the profiler (chip_smoke.device_ms), beside the
+# CUDA events around the wrapper: their wrappers' host time (allocations,
+# checks, the ctypes call) is not small beside the kernel.
+DEVICE_TIMED = ("B8", "K2", "K2 masked")
 DELTA = 1e-6
-# slay_scan.cu's C signatures before B5's split by feature slice: B5 wrote
-# y and den itself (no scratch for the slice shares), and the slice count
-# had B6b's name.
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-LEGACY_SCAN = {"slay_scan_fwd": (_I, [_P] * 5 + [_I] * 5 + [_F, _I, _P]),
-               "slay_scan_bwd_kv_slices": (_I, [_I])}
-
-
-def _older(csrc: Path) -> bool:
-    """Whether ``csrc`` predates B5's split by feature slice."""
-    return "slay_scan_occupancy" not in (csrc / "slay_scan.cu").read_text()
 
 
 def build(trees: list[Path], flags: list[str]) -> list[dict[str, ctypes.CDLL]]:
     """The libraries compiled from each ``csrc`` in ``trees`` with the
     repo's flags plus ``flags`` (one ``nvcc`` per source and tree, all
     started together), loaded with the repo's C signatures (a helper that
-    a tree lacks is left unbound; an older tree gets its own signatures)."""
+    a tree lacks is left unbound)."""
     procs = []
     for csrc in trees:
         key = hashlib.sha256(f"{csrc.resolve()} {flags}".encode()).hexdigest()
@@ -112,43 +112,23 @@ def build(trees: list[Path], flags: list[str]) -> list[dict[str, ctypes.CDLL]]:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {csrc / name}.cu:\n{log}")
         lib = ctypes.CDLL(str(so))
-        sigs = dict(_build.SIGNATURES[name])
-        older = name == "slay_scan" and _older(csrc)
-        if older:
-            sigs.update(LEGACY_SCAN)
-        for fn, (restype, argtypes) in sigs.items():
+        for fn, (restype, argtypes) in _build.SIGNATURES[name].items():
             if not hasattr(lib, fn):
                 continue
             getattr(lib, fn).restype = restype
             getattr(lib, fn).argtypes = argtypes
-        if older:
-            # B6b's wrapper asks for the slice count by its new name.
-            lib.slay_scan_slices = lib.slay_scan_bwd_kv_slices
         builds[i // len(LIBS)][name] = lib
     return builds
 
 
-def _legacy_b5(lib, qf, kf, v):
-    """B5 of a build from before the split by feature slice: one kernel
-    that writes y and den itself."""
-    bh, L, m = qf.shape
-    y = torch.empty(bh, L, v.shape[-1], dtype=v.dtype, device=qf.device)
-    den = torch.empty(bh, L, dtype=torch.float32, device=qf.device)
-    err = lib.slay_scan_fwd(
-        qf.data_ptr(), kf.data_ptr(), v.data_ptr(), y.data_ptr(),
-        den.data_ptr(), bh, kf.shape[0], L, m, v.shape[-1], DELTA,
-        _build.DTYPE_CODES[qf.dtype], torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "slay_scan_fwd")
-    return y, den
-
-
-def use(libs):
-    """Route the port's wrappers to the build ``libs``; returns its B5
-    caller: the wrapper, or for an older build the call above."""
+def use(libs) -> None:
+    """Route the port's wrappers to the build ``libs``."""
     _build._LIBS.update(libs)
-    if hasattr(libs["slay_scan"], "slay_scan_occupancy"):
-        return lambda qf, kf, v: slay_scan.launch_fwd(qf, kf, v, DELTA)
-    return lambda qf, kf, v: _legacy_b5(libs["slay_scan"], qf, kf, v)
+
+
+def b5(qf, kf, v):
+    """B5 through its wrapper (the kernel and K1's epilogue)."""
+    return slay_scan.launch_fwd(qf, kf, v, DELTA)
 
 
 def k1(q, k, v, a, w, cfg):
@@ -160,7 +140,7 @@ def run(libs, inp, ref=None) -> dict[str, tuple]:
     """Every kernel of the build ``libs``; K3/K4 and B6a/B6b read the
     (y, den) of K1 and of B5 in ``ref`` (another build's outputs), else
     this build's own."""
-    b5 = use(libs)
+    use(libs)
     q, k, v, a, w, dy, cfg, dpsi = inp["fused"]
     ref = ref or {}
     outs = {"K1": k1(q, k, v, a, w, cfg)}
@@ -169,7 +149,7 @@ def run(libs, inp, ref=None) -> dict[str, tuple]:
     outs["K4"] = slay_fused.launch_bwd_kv(*bwd)
     u = q.reshape(-1, q.shape[-1])
     outs["B7"] = (feature_map.launch_fwd(u, a, w, cfg),)
-    outs["B8"] = feature_map.launch_bwd(u, a, w, dpsi, cfg)
+    outs["B8"] = feature_map.feature_map_bwd(u, a, w, dpsi, cfg)
     qf, kf, sv, sdy = inp["scan"]
     outs["B5"] = b5(qf, kf, sv)
     sargs = (qf, kf, sv, *ref.get("B5", outs["B5"]), sdy)
@@ -183,9 +163,17 @@ def run(libs, inp, ref=None) -> dict[str, tuple]:
     return outs
 
 
+def _ratio(err: float, scale: float) -> float:
+    """err / scale, infinite where a zero reference meets an error."""
+    if scale > 0:
+        return err / scale
+    return 0.0 if err == 0 else float("inf")
+
+
 def compare(kern, name, x, y, dtype) -> tuple[dict, bool]:
     """One output of two builds: the JSON record and whether it passes
-    (B5, B6a: within the card checks; every other kernel: bit for bit)."""
+    (an output in REDESIGNED: within the card checks; every other one:
+    bit for bit). ``y`` is the other build's, the reference."""
     rec = {"dtype": str(dtype).split(".")[-1], "kernel": kern,
            "output": name, "elements": x.numel()}
     if x.shape != y.shape:
@@ -195,17 +183,22 @@ def compare(kern, name, x, y, dtype) -> tuple[dict, bool]:
     xf, yf = x.float(), y.float()
     diff = (xf - yf).abs()
     rec.update(differ=ne, max_abs_diff=float(diff.max()))
-    if kern not in REDESIGNED:
+    if (kern, name) not in REDESIGNED:
         return rec, ne == 0
-    if kern == "B5":
-        atol, rtol = K1_TOL[dtype] if name == "y" else (0.0, DEN_RTOL)
-        rec.update(check="K1_TOL / DEN_RTOL", atol=atol, rtol=rtol)
+    if kern.startswith("K2"):
+        atol, rtol = K2_YTOL[x.dtype]
+        rec.update(check="K2_YTOL", atol=atol, rtol=rtol)
         ok = bool((diff <= atol + rtol * yf.abs()).all())
-    else:
-        rel = rec["max_abs_diff"] / float(yf.abs().max())
+    elif name == "du":
+        rel = _ratio(rec["max_abs_diff"], float(yf.abs().max()))
         rec.update(check="BWD_REL, of the largest magnitude",
                    tol=BWD_REL[dtype], rel=rel)
         ok = rel <= BWD_REL[dtype]
+    else:
+        rel = _ratio(float(torch.linalg.vector_norm(xf - yf)),
+                     float(torch.linalg.vector_norm(yf)))
+        rec.update(check="DAW_REL, relative in norm", tol=DAW_REL, rel=rel)
+        ok = rel <= DAW_REL
     rec["within"] = ok
     return rec, ok
 
@@ -236,48 +229,84 @@ def inputs(cfg, sp, dtype, bh=96, L=1024) -> dict:
             "scan": (*feats, v, dy), "decode": dec}
 
 
+def _k2_timed(dqt, dvt, n_active=None):
+    """K2's inputs at the serving shape (BK = 48, m = 384, dv = 64): qf and
+    kf in ``dqt``, v in ``dvt``, and with ``n_active`` a mask of that many
+    active rows spread over the 48."""
+    bk, m, dv = 48, 384, 64
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    out = (torch.rand(bk, m, generator=gen, device="cuda").to(dqt),
+           torch.rand(bk, m, generator=gen, device="cuda").to(dqt),
+           torch.randn(bk, dv, generator=gen, device="cuda").to(dvt),
+           torch.randn(bk, m, dv, generator=gen, device="cuda"),
+           10.0 * torch.rand(bk, m, generator=gen, device="cuda"))
+    if n_active is None:
+        return (*out, None)
+    act = (torch.arange(bk, device="cuda") % 3 != 1).to(torch.int32)
+    assert int(act.sum()) == n_active
+    return (*out, act)
+
+
 def time_all(builds, names, cfg, sp, rounds) -> None:
-    """K1 and B5 (training and serving shape), K3, K4, B6a and B6b of
-    every build in bf16, in turns: this, the others, the others in
-    reverse, this, ``rounds`` times."""
+    """Every kernel of TIMED of every build, in turns: this, the others,
+    the others in reverse, this, ``rounds`` times."""
     inp = inputs(cfg, sp, torch.bfloat16)
     serve = inputs(cfg, sp, torch.bfloat16, bh=48, L=512)
-    q, k, v, a, w, dy, _, _ = inp["fused"]
-    b5 = use(builds[0])
+    q, k, v, a, w, dy, _, dpsi = inp["fused"]
+    u = q.reshape(-1, q.shape[-1])
+    use(builds[0])
     bwd = (q, k, v, a, w, *k1(q, k, v, a, w, cfg), dy, cfg)
     qf, kf, sv, sdy = inp["scan"]
     sargs = (qf, kf, sv, *b5(qf, kf, sv), sdy)
+    dec = _k2_timed(torch.float32, torch.bfloat16)
+    dec_masked = _k2_timed(torch.float32, torch.float32, n_active=32)
+    calls = {"K1": lambda: k1(q, k, v, a, w, cfg),
+             "K1 serving": lambda: k1(*serve["fused"][:5], cfg),
+             "K3": lambda: slay_fused.launch_bwd_q(*bwd),
+             "K4": lambda: slay_fused.launch_bwd_kv(*bwd),
+             "B5": lambda: b5(qf, kf, sv),
+             "B5 serving": lambda: b5(*serve["scan"][:3]),
+             "B6a": lambda: slay_scan.launch_bwd_q(*sargs, DELTA),
+             "B6b": lambda: slay_scan.launch_bwd_kv(*sargs, DELTA),
+             "B8": lambda: feature_map.launch_bwd(u, a, w, dpsi, cfg),
+             "K2": lambda: decode_step.decode_linear_attention(*dec),
+             "K2 masked": lambda: decode_step.decode_linear_attention(
+                 *dec_masked)}
     got = {(kn, i): [] for kn in TIMED for i in range(len(builds))}
+    dev = {(kn, i): [] for kn in DEVICE_TIMED for i in range(len(builds))}
     order = list(range(len(builds)))
     for _ in range(rounds):
         for i in order + order[:0:-1] + [0]:
-            b5 = use(builds[i])
-            calls = {"K1": lambda: k1(q, k, v, a, w, cfg),
-                     "K1 serving": lambda: k1(*serve["fused"][:5], cfg),
-                     "K3": lambda: slay_fused.launch_bwd_q(*bwd),
-                     "K4": lambda: slay_fused.launch_bwd_kv(*bwd),
-                     "B5": lambda: b5(qf, kf, sv),
-                     "B5 serving": lambda: b5(*serve["scan"][:3]),
-                     "B6a": lambda: slay_scan.launch_bwd_q(*sargs, DELTA),
-                     "B6b": lambda: slay_scan.launch_bwd_kv(*sargs, DELTA)}
-            for kn, fn in calls.items():
-                got[kn, i].append(time_ms(fn, iters=20))
+            use(builds[i])
+            for kn in TIMED:
+                got[kn, i].append(time_ms(calls[kn], iters=20))
+                if kn in DEVICE_TIMED:
+                    dev[kn, i].append(device_ms(calls[kn], iters=20))
     card = smi()
     scan = "BH=96 L=1024 m=384 dv=64"
     shapes = {"K1 serving": "BH=48 L=512 d=dv=64",
               "B5 serving": "BH=48 L=512 m=384 dv=64", "B5": scan,
-              "B6a": scan, "B6b": scan}
+              "B6a": scan, "B6b": scan, "B8": "N=98304 d=64 m=384",
+              "K2": "BK=48 G=1 m=384 dv=64, qf fp32, v bf16",
+              "K2 masked": "BK=48 (32 active) G=1 m=384 dv=64, fp32"}
     for kn in TIMED:
         this = statistics.median(got[kn, 0])
         for i in range(1, len(builds)):
             other = statistics.median(got[kn, i])
-            print(json.dumps({
-                "time": kn, "dtype": "bfloat16",
-                "shape": shapes.get(kn, "BH=96 L=1024 d=dv=64"),
-                "other": names[i], "this_ms": got[kn, 0],
-                "other_ms": got[kn, i], "this_median": this,
-                "other_median": other, "other_over_this": other / this,
-                "card": card}), flush=True)
+            rec = {"time": kn, "dtype": "bfloat16",
+                   "shape": shapes.get(kn, "BH=96 L=1024 d=dv=64"),
+                   "other": names[i], "this_ms": got[kn, 0],
+                   "other_ms": got[kn, i], "this_median": this,
+                   "other_median": other, "other_over_this": other / this}
+            if kn in DEVICE_TIMED:
+                this_dev = statistics.median(dev[kn, 0])
+                other_dev = statistics.median(dev[kn, i])
+                rec.update(this_device_ms=dev[kn, 0],
+                           other_device_ms=dev[kn, i],
+                           this_device_median=this_dev,
+                           other_device_median=other_dev,
+                           other_over_this_device=other_dev / this_dev)
+            print(json.dumps({**rec, "card": card}), flush=True)
 
 
 def main() -> int:
@@ -286,8 +315,8 @@ def main() -> int:
                     help="csrc directory of a tree to compare against "
                     "(repeatable)")
     ap.add_argument("--time", action="store_true",
-                    help="also time K1, K3, K4, B5, B6a and B6b of every "
-                    "build (bf16)")
+                    help="also time K1, K2, K3, K4, B5, B6a, B6b and B8 of "
+                    "every build")
     ap.add_argument("--rounds", type=int, default=1,
                     help="rounds of timing turns (with --time)")
     ap.add_argument("--nvcc-flag", action="append", default=[],
