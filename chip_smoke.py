@@ -39,8 +39,9 @@ Phases, each of which raises (nonzero exit) on failure:
    occupancy calculator), registers and spills (``-Xptxas -v``);
 6. B7/B8, the feature map and its VJP (the two-dispatch path's first
    dispatch), against their plain versions at the training shape (N =
-   8·1024·12 tokens) in fp32 and bf16 and at a ragged N; times, bounds;
-   B8's grid, residency, registers and spills;
+   8·1024·12 tokens) in fp32 and bf16 and at a ragged N; times (B7 and
+   B8 also on the card by the profiler), bounds; B7's and B8's grid,
+   residency, registers and spills;
 7. B5/B6a/B6b, the scan on precomputed features and its two backward
    scans, against their plain versions at the training shape (fp32 and
    bf16), the serving shape, GQA, m = 390 random features in fp32 and
@@ -81,7 +82,7 @@ Phases, each of which raises (nonzero exit) on failure:
 
 The last two lines are a JSON object with every kernel's numbers and
 ``{"ok": true, "device": {...}}``. Every ``ms`` is CUDA events around the
-kernel's wrapper; K2's and B8's rows also carry ``device_ms``, the
+kernel's wrapper; K2's, B7's and B8's rows also carry ``device_ms``, the
 kernel's own time on the card by the profiler, without the wrapper's host
 time. Nothing of JAX is imported.
 """
@@ -153,21 +154,24 @@ def device_ms(fn, iters: int = 50, warmup: int = 3) -> float:
     """Device time per call of the CUDA kernels that ``fn()`` launches,
     summed over ``iters`` calls by ``torch.profiler`` (CUPTI), after
     warm-up. For a kernel shorter than its wrapper's host time, where CUDA
-    events around the call measure the host's enqueue gap as well."""
+    events around the call measure the host's enqueue gap as well. A
+    window in which the profiler recorded no device kernel at all (seen
+    once in a long run of windows) is taken again, at most twice."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        raise AssertionError("the profiler recorded no device kernels")
-    return sum(e.self_device_time_total for e in kernels) / iters / 1e3
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            return sum(e.self_device_time_total for e in kernels) / iters / 1e3
+    raise AssertionError("the profiler recorded no device kernels")
 
 
 def close(got, want, atol: float, rtol: float, what: str) -> float:
@@ -913,6 +917,10 @@ def phase_fmap(feat, sp, n_main) -> dict:
                           feature_map.bwd_residency(n, cfg, dt), d,
                           f"bf16, N={n}, d={d}, two tokens per warp at a time",
                           inst="bfloat16Li2ELb1E", unit="warps per block")
+            log_residency("feature_map_fwd", "feature_map",
+                          "feature_map_fwd_kernel",
+                          feature_map.fwd_residency(n, cfg, dt), d,
+                          f"bf16, N={n}, d={d}", inst="bfloat16")
             bounds = feature_map_bounds(n, d, cfg.num_anchors, cfg.num_prf,
                                         cfg.num_quad_nodes, u.element_size())
             for name, kern, plain, err in (
@@ -924,12 +932,11 @@ def phase_fmap(feat, sp, n_main) -> dict:
                 row = result[name] = _kernel_row(
                     name, time_ms(kern), time_ms(plain, iters=10),
                     bounds[name], err, "the feature map")
-                if name == "feature_map_bwd":
-                    # Beside ms (CUDA events around the wrapper), the
-                    # kernel's device time without the wrapper's host time.
-                    row["device_ms"] = device_ms(kern)
-                    log(f"  feature_map_bwd: {row['device_ms']:.4f} ms on "
-                        f"the card without the wrapper's host time")
+                # Beside ms (CUDA events around the wrapper), the kernel's
+                # device time without the wrapper's host time.
+                row["device_ms"] = device_ms(kern)
+                log(f"  {name}: {row['device_ms']:.4f} ms on the card "
+                    f"without the wrapper's host time")
         del u, dpsi, bwd
     return result
 

@@ -6,9 +6,30 @@
 // N, the number of tokens of the flat (N, d) input, need not be a multiple
 // of anything, and nothing is padded.
 //
-// B7: one block per tile of kFmTile tokens; psi_rows of slay_common.cuh,
-// the Ψ that K1, K3 and K4 compute inside their scans, written (N, m) in
-// u's dtype. Bound by bytes (per token d values read, m = R·P·D written).
+// B7: Ψ (N, m) in u's dtype, m = R·P·D. What bounds it: the writes. Per
+// token it reads d values and writes m while doing under one fp32
+// operation per byte written, so it stays on the fp32 pipes and its
+// design serves the write stream:
+//
+//   - a persistent grid (as many blocks as are resident at once); block b
+//     walks tiles b, b + nb, ... of kFwdTile tokens, so the blocks in
+//     flight write neighbouring ranges of Ψ; the projections [A; Ω] and a
+//     table of Ψ's 16-byte chunks are loaded once per block;
+//   - the next tile's rows of u arrive by 16-byte cp.async into a ring of
+//     two while the current tile computes;
+//   - each value is computed as psi_rows of slay_common.cuh computes it
+//     (the Ψ that K1, K3 and K4 build inside their scans), every fp32
+//     operation in the same order, so Ψ is the same bit for bit: û by one
+//     warp per row, each projection a sequential sum with a lane per token,
+//     φ as psi_projection_out, Ψ = (φ_p·φ_e)·√w_r;
+//   - a tile's Ψ rows are one contiguous range of the output: thread i
+//     writes its 16-byte chunks i, i + kThreads, ... of that range straight
+//     from registers as streaming stores (st.global.cs), neighbouring lanes
+//     on neighbouring addresses, with no integer division (the chunk's
+//     node, anchor and columns come from the table). No Ψ tile is staged
+//     in shared memory: staging it and storing it by cp.async.bulk was
+//     1.25x slower on an H100 (PERF.md §6). Shapes whose chunks straddle two
+//     anchors, or a Ψ not on 16 bytes, take a plain path of scalar stores.
 //
 // B8: the VJP, du (N, d) and dA (P, d), dΩ (D, d). What bounds it: bytes.
 // Per token it reads d + m values and writes d while doing about 13
@@ -44,68 +65,259 @@
 
 namespace slay {
 
-constexpr int kFmTile = 32;   // tokens per block
+constexpr int kFwdTile = 32;   // tokens per tile: one a lane
+constexpr int kFwdCols = 3;    // projection columns a lane carries at once
+constexpr int kFwdWarps = kThreads / 32;
 
-// B7's shared-memory carve-up (floats); each offset is a row count times a
-// padded stride.
-struct FmLayout {
-  int ldu, ldw, ldp, ldphi;
-  int off_u, off_aw, off_phi, off_psi;
+__host__ __device__ inline int round16(int bytes) {
+  return (bytes + 15) & ~15;
+}
+
+// One 16-byte chunk of a Ψ row (16 / sizeof(T) neighbouring columns of one
+// node and anchor): φ_p's index, the first φ_e index, √w_r.
+struct FwdChunk {
+  int p, e;
+  float sw;
+  int pad;   // an entry is 16 bytes
+};
+
+// B7's shared-memory carve-up in bytes: the ring of two tiles of raw u rows
+// (in u's dtype), û (kFwdTile rows of ldu floats), the projections A then
+// Ω (P + D rows of ldu floats), φ (kFwdTile rows of ldphi floats: φ_p, then
+// from pe on φ_e of every node), the chunk table. ldu is 4 times an odd
+// number (float4 rows, a lane per row without bank conflicts); pe and
+// ldphi are multiples of 4 (float4 loads of φ_e).
+struct FwdLayout {
+  int ldu, pe, ldphi, chunks;
+  int tile_bytes, uh, aw, phi, table;
   int total;
 };
 
-__host__ __device__ inline FmLayout fm_layout(int d, int m, int P, int D,
-                                              int R) {
-  constexpr int T = kFmTile;
-  FmLayout l;
-  l.ldu = d + 1;
-  l.ldw = d + 1;
-  l.ldp = m + 1;
-  l.ldphi = P + R * D;
-  int o = 0;
-  l.off_u = o;     o += T * l.ldu;
-  l.off_aw = o;    o += (P + D) * l.ldw;
-  l.off_phi = o;   o += T * l.ldphi;
-  l.off_psi = o;   o += T * l.ldp;
+__host__ __device__ inline FwdLayout fwd_layout(int d, int P, int D, int R,
+                                                int es) {
+  FwdLayout l;
+  l.ldu = (d + 3) & ~3;
+  if ((l.ldu / 4) % 2 == 0) l.ldu += 4;
+  l.pe = (P + 3) & ~3;
+  l.ldphi = (l.pe + R * D + 3) & ~3;
+  l.chunks = R * P * D * es / 16;
+  l.tile_bytes = round16(kFwdTile * d * es);
+  int o = 2 * l.tile_bytes;
+  l.uh = o;     o += kFwdTile * l.ldu * 4;
+  l.aw = o;     o += (P + D) * l.ldu * 4;
+  l.phi = o;    o += kFwdTile * l.ldphi * 4;
+  l.table = o;  o += l.chunks * (int)sizeof(FwdChunk);
   l.total = o;
   return l;
 }
 
-// The tile's raw rows to fp32 shared memory, zero past n. No sync.
-template <typename T>
-__device__ inline void fm_load(const T* u, int n, int t0, int d,
-                               const FmLayout& lay, float* us) {
-  for (int i = threadIdx.x; i < kFmTile * d; i += blockDim.x) {
-    const int t = i / d, col = i % d;
-    us[t * lay.ldu + col] =
-        t0 + t < n ? to_f32(u[((int64_t)t0 + t) * d + col]) : 0.f;
-  }
+// v[r] for a node index known only at run time, without indexing the
+// kernel's parameter space (which would copy PsiConsts to local memory).
+__device__ __forceinline__ float node_const(const float (&v)[kMaxNodes],
+                                            int r) {
+  float x = 0.f;
+#pragma unroll
+  for (int k = 0; k < kMaxNodes; ++k)
+    if (k == r) x = v[k];
+  return x;
 }
 
-// B7: Ψ(u) of one tile.
+// One 16-byte chunk of Ψ in T (16 / sizeof(T) columns) from φ_p, the
+// chunk's φ_e and √w_r.
+template <typename T>
+__device__ __forceinline__ uint4 psi_chunk(float php, const float* phe,
+                                           float sw);
+
+template <>
+__device__ __forceinline__ uint4 psi_chunk<float>(float php, const float* phe,
+                                                  float sw) {
+  const float4 e = *reinterpret_cast<const float4*>(phe);
+  return make_uint4(__float_as_uint((php * e.x) * sw),
+                    __float_as_uint((php * e.y) * sw),
+                    __float_as_uint((php * e.z) * sw),
+                    __float_as_uint((php * e.w) * sw));
+}
+
+// Two values rounded to bf16 as from_f32 rounds them, a in the low half.
+__device__ __forceinline__ unsigned bf16_pair(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+template <>
+__device__ __forceinline__ uint4 psi_chunk<__nv_bfloat16>(float php,
+                                                          const float* phe,
+                                                          float sw) {
+  const float4 e0 = *reinterpret_cast<const float4*>(phe);
+  const float4 e1 = *reinterpret_cast<const float4*>(phe + 4);
+  return make_uint4(bf16_pair((php * e0.x) * sw, (php * e0.y) * sw),
+                    bf16_pair((php * e0.z) * sw, (php * e0.w) * sw),
+                    bf16_pair((php * e1.x) * sw, (php * e1.y) * sw),
+                    bf16_pair((php * e1.z) * sw, (php * e1.w) * sw));
+}
+
+// B7: Ψ of the tiles b, b + nb, ... (nb blocks in all) of this block.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 feature_map_fwd_kernel(const T* __restrict__ u,
                        const float* __restrict__ anchors,
                        const float* __restrict__ omegas, T* __restrict__ psi,
                        int n, int d, PsiConsts c) {
-  extern __shared__ float smem[];
-  const int m = c.R * c.P * c.D;
-  const FmLayout lay = fm_layout(d, m, c.P, c.D, c.R);
-  float* us = smem + lay.off_u;
-  float* aw = smem + lay.off_aw;
-  float* ps = smem + lay.off_psi;
-  const int t0 = blockIdx.x * kFmTile;
-  fm_load(u, n, t0, d, lay, us);
-  load_projections(anchors, omegas, d, c, aw, lay.ldw);
-  __syncthreads();
-  psi_rows(us, lay.ldu, kFmTile, d, aw, lay.ldw, smem + lay.off_phi, ps,
-           lay.ldp, c);
-  for (int i = threadIdx.x; i < kFmTile * m; i += blockDim.x) {
-    const int t = i / m, col = i % m;
-    if (t0 + t < n)
-      psi[((int64_t)t0 + t) * m + col] = from_f32<T>(ps[t * lay.ldp + col]);
+  extern __shared__ __align__(16) char smem_f[];
+  constexpr int es = (int)sizeof(T);
+  const int P = c.P, D = c.D, R = c.R, npd = P + D, pd = P * D, m = R * pd;
+  const FwdLayout lay = fwd_layout(d, P, D, R, es);
+  const int ldu = lay.ldu, ldphi = lay.ldphi, chunks = lay.chunks;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* uh = reinterpret_cast<float*>(smem_f + lay.uh);
+  float* aw = reinterpret_cast<float*>(smem_f + lay.aw);
+  float* phi = reinterpret_cast<float*>(smem_f + lay.phi);
+  FwdChunk* table = reinterpret_cast<FwdChunk*>(smem_f + lay.table);
+
+  const bool vec_u =
+      (reinterpret_cast<uintptr_t>(u) | (uintptr_t)(d * es)) % 16 == 0;
+  const bool vec_psi =
+      (reinterpret_cast<uintptr_t>(psi) | (uintptr_t)(D * es)) % 16 == 0;
+  for (int i = tid; i < npd * d; i += kThreads) {
+    const int row = i / d, col = i % d;
+    aw[row * ldu + col] =
+        row < P ? anchors[row * d + col] : omegas[(row - P) * d + col];
   }
+  if (vec_psi) {
+    for (int q = tid; q < chunks; q += kThreads) {
+      const int col = q * (16 / es), r = col / pd;
+      table[q] = {(col % pd) / D, lay.pe + r * D + col % D,
+                  node_const(c.sqrt_w, r), 0};
+    }
+  }
+
+  // The rows of tile `tile` into ring slot `slot` (16-byte cp.async; the
+  // tile's rows are one contiguous range of u).
+  const int tiles = (n + kFwdTile - 1) / kFwdTile;
+  auto stage = [&](int tile, int slot) {
+    const int t0 = tile * kFwdTile;
+    const int bytes = min(kFwdTile, n - t0) * d * es;
+    const char* src = reinterpret_cast<const char*>(u + (int64_t)t0 * d);
+    char* dst = smem_f + slot * lay.tile_bytes;
+    for (int o = tid * 16; o < bytes; o += kThreads * 16)
+      cp_async16(dst + o, src + o, true);
+  };
+  if (vec_u && blockIdx.x < tiles) stage(blockIdx.x, 0);
+  cp_async_commit();
+  // This thread's first chunk of a tile and the step to its next, as
+  // (token, chunk of the row) pairs.
+  const int t_first = tid / max(chunks, 1), q_first = tid % max(chunks, 1);
+  const int t_step = kThreads / max(chunks, 1);
+  const int q_step = kThreads % max(chunks, 1);
+  int slot = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int next = tile + gridDim.x;
+    if (vec_u && next < tiles) stage(next, slot ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();   // the tile's rows, and on the first pass aw, table
+    const int t0 = tile * kFwdTile, rows = min(kFwdTile, n - t0);
+    const T* ut = vec_u ? reinterpret_cast<const T*>(smem_f +
+                                                     slot * lay.tile_bytes)
+                        : u + (int64_t)t0 * d;
+
+    // normalize: one warp per row, rsqrt of the fp32 square sum (lane l
+    // adds columns l, l + 32, ..., then warp_sum), as psi_rows.
+    for (int t = warp; t < rows; t += kFwdWarps) {
+      const T* ur = ut + t * d;
+      float acc = 0.f;
+      for (int i = lane; i < d; i += 32) {
+        const float x = to_f32(ur[i]);
+        acc += x * x;
+      }
+      const float inv = rsqrtf(warp_sum(acc) + 1e-6f);
+      for (int i = lane; i < d; i += 32) uh[t * ldu + i] = to_f32(ur[i]) * inv;
+    }
+    __syncthreads();
+
+    // Projections: lane t keeps token t against columns warp, warp + 8,
+    // ...; each a sequential sum over i, then φ_p, or φ_e of every node.
+    {
+      const float* ur = uh + lane * ldu;
+      for (int col0 = warp; col0 < npd; col0 += kFwdWarps * kFwdCols) {
+        float dot[kFwdCols];
+#pragma unroll
+        for (int k = 0; k < kFwdCols; ++k) dot[k] = 0.f;
+        int i = 0;
+        // Unrolled 4 times and the chunk loop below not at all: the
+        // unrolling that keeps ptxas (CUDA 12.8) from spilling.
+#pragma unroll 4
+        for (; i + 4 <= d; i += 4) {
+          const float4 x = *reinterpret_cast<const float4*>(ur + i);
+#pragma unroll
+          for (int k = 0; k < kFwdCols; ++k) {
+            const int col = col0 + k * kFwdWarps;
+            if (col < npd) {
+              const float4 a =
+                  *reinterpret_cast<const float4*>(aw + col * ldu + i);
+              dot[k] += x.x * a.x;
+              dot[k] += x.y * a.y;
+              dot[k] += x.z * a.z;
+              dot[k] += x.w * a.w;
+            }
+          }
+        }
+        for (; i < d; ++i) {
+#pragma unroll
+          for (int k = 0; k < kFwdCols; ++k) {
+            const int col = col0 + k * kFwdWarps;
+            if (col < npd) dot[k] += ur[i] * aw[col * ldu + i];
+          }
+        }
+        if (lane < rows) {
+          float* ph = phi + lane * ldphi;
+#pragma unroll
+          for (int k = 0; k < kFwdCols; ++k) {
+            const int col = col0 + k * kFwdWarps;
+            if (col < P) {
+              ph[col] = (dot[k] * dot[k]) * c.inv_sqrt_p;
+            } else if (col < npd) {
+#pragma unroll
+              for (int r = 0; r < kMaxNodes; ++r)
+                if (r < R)
+                  ph[lay.pe + r * D + col - P] =
+                      expf(__fmul_rn(c.sqrt2s[r], dot[k]) - c.s[r]) *
+                      c.inv_sqrt_d;
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // Ψ = (φ_p ⊗ φ_e)·√w_r: the tile's rows, one contiguous range.
+    if (vec_psi) {
+      uint4* dst = reinterpret_cast<uint4*>(psi + (int64_t)t0 * m);
+      int t = t_first, q = q_first;
+#pragma unroll 1
+      for (int it = tid; it < rows * chunks; it += kThreads) {
+        const FwdChunk ch = table[q];
+        const float* ph = phi + t * ldphi;
+        __stcs(dst + it, psi_chunk<T>(ph[ch.p], ph + ch.e, ch.sw));
+        t += t_step;
+        q += q_step;
+        if (q >= chunks) {
+          q -= chunks;
+          ++t;
+        }
+      }
+    } else {
+      for (int i = tid; i < rows * m; i += kThreads) {
+        const int t = i / m, col = i % m;
+        const int r = col / pd, p = (col % pd) / D, j = col % D;
+        psi[((int64_t)t0 + t) * m + col] = from_f32<T>(
+            (phi[t * ldphi + p] * phi[t * ldphi + lay.pe + r * D + j]) *
+            node_const(c.sqrt_w, r));
+      }
+    }
+    slot ^= 1;
+  }
+  cp_async_wait_all();
 }
 
 
@@ -117,10 +329,6 @@ constexpr int kBwdStages = 2;   // token pairs per warp in shared memory:
                                 // the current one and the next in flight
 constexpr int kRegRows = 24;    // dA/dΩ rows (P + D) a lane keeps in
                                 // registers; more go to shared memory
-
-__host__ __device__ inline int round16(int bytes) {
-  return (bytes + 15) & ~15;
-}
 
 // S, the parts each dpa sum (D terms per node) is split into so that the
 // P·S dpa items and the D dpw items (P terms per node) fill one warp: the
@@ -552,8 +760,8 @@ const void* fm_bwd_kernel(int d, int P, int D, int R) {
 }
 
 inline size_t fm_smem(int d, int P, int D, int R, bool bwd, int es) {
-  if (bwd) return (size_t)bwd_layout(d, P, D, R, es).total;
-  return (size_t)fm_layout(d, R * P * D, P, D, R).total * sizeof(float);
+  return (size_t)(bwd ? bwd_layout(d, P, D, R, es).total
+                      : fwd_layout(d, P, D, R, es).total);
 }
 
 // B7's kernel, or B8's for these shapes, with its dynamic shared memory
@@ -569,13 +777,14 @@ const void* fm_kernel(bool bwd, int d, int P, int D, int R, size_t smem) {
   return kern;
 }
 
-// B8's persistent grid on the current device: the blocks that fit on all
-// SMs at once, at most one per kBwdWarps tokens. Negative cudaError_t on
-// failure.
+// The persistent grid of B7 (bwd false) or B8 for n tokens on the current
+// device: the blocks that fit on all SMs at once, at most one per tile of
+// kFwdTile tokens (B7) or per kBwdWarps tokens (B8). Negative cudaError_t
+// on failure.
 template <typename T>
-int fm_bwd_blocks(int n, int d, int P, int D, int R) {
-  const size_t smem = fm_smem(d, P, D, R, true, (int)sizeof(T));
-  const void* kern = fm_kernel<T>(true, d, P, D, R, smem);
+int fm_blocks(bool bwd, int n, int d, int P, int D, int R) {
+  const size_t smem = fm_smem(d, P, D, R, bwd, (int)sizeof(T));
+  const void* kern = fm_kernel<T>(bwd, d, P, D, R, smem);
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = kern == nullptr ? cudaErrorInvalidValue : cudaSuccess;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
@@ -585,7 +794,8 @@ int fm_bwd_blocks(int n, int d, int P, int D, int R) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
                                                         kThreads, smem);
   if (err != cudaSuccess) return -(int)err;
-  const int need = (n + kBwdWarps - 1) / kBwdWarps;
+  const int unit = bwd ? kBwdWarps : kFwdTile;
+  const int need = (n + unit - 1) / unit;
   const int full = sms * (per_sm > 0 ? per_sm : 1);
   return need < full ? need : full;
 }
@@ -603,9 +813,9 @@ int launch_fm(bool bwd, const void* u, const float* anchors,
     return (int)cudaLaunchKernel(kern, dim3(blocks), dim3(kThreads), args,
                                  smem, stream);
   }
-  feature_map_fwd_kernel<T><<<(n + kFmTile - 1) / kFmTile, kThreads, smem,
-                              stream>>>(static_cast<const T*>(u), anchors,
-                                        omegas, static_cast<T*>(out), n, d, c);
+  feature_map_fwd_kernel<T><<<blocks, kThreads, smem, stream>>>(
+      static_cast<const T*>(u), anchors, omegas, static_cast<T*>(out), n, d,
+      c);
   return (int)cudaGetLastError();
 }
 
@@ -624,12 +834,18 @@ inline int run_fm(bool bwd, const void* u, const void* anchors,
   auto pdw = static_cast<float*>(dw);
   auto st = static_cast<cudaStream_t>(stream);
   if (n == 0) return 0;
-  if (dtype == 0)
+  if (dtype == 0) {
+    if (!bwd) blocks = fm_blocks<float>(false, n, d, P, D, R);
+    if (blocks < 0) return -blocks;
     return launch_fm<float>(bwd, u, a, w, dpsi, out, pda, pdw, n, d, blocks, c,
                             st);
-  if (dtype == 1)
+  }
+  if (dtype == 1) {
+    if (!bwd) blocks = fm_blocks<__nv_bfloat16>(false, n, d, P, D, R);
+    if (blocks < 0) return -blocks;
     return launch_fm<__nv_bfloat16>(bwd, u, a, w, dpsi, out, pda, pdw, n, d,
                                     blocks, c, st);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -648,8 +864,8 @@ long long slay_feature_map_smem_bytes(int d, int P, int D, int R, int bwd,
 // so the rows of its dA/dΩ partials; a negative cudaError_t on failure.
 int slay_feature_map_bwd_blocks(int n, int d, int P, int D, int R,
                                 int dtype) {
-  if (dtype == 0) return slay::fm_bwd_blocks<float>(n, d, P, D, R);
-  if (dtype == 1) return slay::fm_bwd_blocks<__nv_bfloat16>(n, d, P, D, R);
+  if (dtype == 0) return slay::fm_blocks<float>(true, n, d, P, D, R);
+  if (dtype == 1) return slay::fm_blocks<__nv_bfloat16>(true, n, d, P, D, R);
   return -(int)cudaErrorInvalidValue;
 }
 
@@ -665,6 +881,23 @@ int slay_feature_map_bwd_occupancy(int d, int P, int D, int R, int dtype,
                    : nullptr;
   if (kern == nullptr) return (int)cudaErrorInvalidValue;
   return slay::block_residency(kern, slay::kThreads, smem, slay::kBwdWarps,
+                               out);
+}
+
+// How B7 sits on the current device at these shapes (block_residency;
+// out[5] the tokens per tile; its grid is the blocks resident at once, at
+// most one per tile).
+int slay_feature_map_fwd_occupancy(int d, int P, int D, int R, int dtype,
+                                   int* out) {
+  const size_t smem = slay::fm_smem(d, P, D, R, false, dtype == 1 ? 2 : 4);
+  const void* kern =
+      dtype == 0   ? reinterpret_cast<const void*>(
+                         slay::feature_map_fwd_kernel<float>)
+      : dtype == 1 ? reinterpret_cast<const void*>(
+                         slay::feature_map_fwd_kernel<__nv_bfloat16>)
+                   : nullptr;
+  if (kern == nullptr) return (int)cudaErrorInvalidValue;
+  return slay::block_residency(kern, slay::kThreads, smem, slay::kFwdTile,
                                out);
 }
 

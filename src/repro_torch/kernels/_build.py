@@ -55,6 +55,7 @@ SIGNATURES = {
         "slay_feature_map_smem_bytes": (ctypes.c_longlong, [_I] * 6),
         "slay_feature_map_bwd_blocks": (_I, [_I] * 6),
         "slay_feature_map_bwd_occupancy": (_I, [_I] * 5 + [ctypes.POINTER(_I)]),
+        "slay_feature_map_fwd_occupancy": (_I, [_I] * 5 + [ctypes.POINTER(_I)]),
         "slay_feature_map_fwd": (_I, [_P] * 4 + [_I] * 5 + [_D, _D, _I, _P]),
         "slay_feature_map_bwd": (_I, [_P] * 7 + [_I] * 6 + [_D, _D, _I, _P]),
     },

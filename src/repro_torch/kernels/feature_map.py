@@ -4,9 +4,11 @@ Replaces the TPU kernels ``repro/kernels/feature_map.py::_kernel`` (B7)
 and ``::_bwd_kernel`` (B8) with ``csrc/feature_map.cu``, the first
 dispatch of the two-dispatch path: Ψ is written to device memory in u's
 dtype and the scan (``slay_scan.py``) reads it back. Both kernels run the
-Ψ of ``csrc/slay_common.cuh`` that the fused kernels run, and the plain
-versions run ``common.features_fwd`` / ``features_bwd``, so the two
-paths share one feature map.
+per-element arithmetic of ``csrc/slay_common.cuh`` that the fused
+kernels run (B7's Ψ bit for bit theirs, every fp32 operation in
+``psi_rows``'s order), and the plain versions run
+``common.features_fwd`` / ``features_bwd``, so the two paths share one
+feature map.
 
 :class:`FeatureMap` is the counterpart of the ``_fmap`` custom VJP: it
 saves (u, anchors, omegas) and its backward runs B8, which emits du and
@@ -131,6 +133,19 @@ def launch_bwd(u, anchors, omegas, dpsi, cfg: SlayFeatureConfig):
     _build.check(err, "slay_feature_map_bwd")
     _build.LAUNCHES["feature_map_bwd"] += 1
     return du, da, dw
+
+
+def fwd_residency(n: int, cfg: SlayFeatureConfig, dtype: torch.dtype) -> dict:
+    """How B7 sits on the current card for n tokens, as
+    :func:`repro_torch.kernels._build.residency` reports: ``tile`` is its
+    tokens per tile, its grid the persistent one of :func:`launch_fwd`
+    (the blocks resident at once, at most one per tile). Launches
+    nothing."""
+    d, P, D, R = cfg.head_dim, cfg.num_anchors, cfg.num_prf, cfg.num_quad_nodes
+    res = _build.residency("feature_map", "slay_feature_map_fwd_occupancy",
+                           d, P, D, R, _build.DTYPE_CODES[dtype], grid=(0, 1))
+    res["grid"] = (min(-(-n // res["tile"]), res["blocks_resident"]), 1)
+    return res
 
 
 def bwd_residency(n: int, cfg: SlayFeatureConfig, dtype: torch.dtype) -> dict:

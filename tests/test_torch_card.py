@@ -234,6 +234,51 @@ def test_feature_map_kernels_match_plain_on_card(dtype, n):
                                    atol=max(tol, 1e-4) * scale)
 
 
+# B7's cases, (name, features config, N, u's offset in elements): N = 1,
+# under one tile (32 tokens), ragged, and more tiles than its persistent
+# grid has blocks, so that each block walks several; head dim 128; P + D =
+# 40 (two rounds of projections a lane); one and eight quadrature nodes;
+# head dim 15 with P = 3, D = 4 (rows of u not on 16 bytes: plain loads;
+# in bf16 Ψ's 4-column anchor blocks are 8 bytes: plain stores); and a
+# contiguous u at an offset of one element (not on 16 bytes).
+FWD_CASES = [
+    ("N=1", None, 1, 0),
+    ("N=20", None, 20, 0),
+    ("N=1000", None, 1000, 0),
+    ("N=200001", None, 200001, 0),
+    ("d=128", tfeat.SlayFeatureConfig(head_dim=128), 3001, 0),
+    ("P+D=40", tfeat.SlayFeatureConfig(head_dim=D_HEAD, num_anchors=16,
+                                       num_prf=24, num_quad_nodes=1), 3001, 0),
+    ("R=8", tfeat.SlayFeatureConfig(head_dim=D_HEAD, num_quad_nodes=8), 777,
+     0),
+    ("d=15", tfeat.SlayFeatureConfig(head_dim=15, num_anchors=3, num_prf=4),
+     777, 0),
+    ("offset u", None, 777, 1),
+]
+
+
+@needs_card
+@pytest.mark.parametrize("name,cfg,n,offset", FWD_CASES,
+                         ids=[c[0] for c in FWD_CASES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_feature_map_fwd_shapes_on_card(dtype, name, cfg, n, offset):
+    # Ψ of B7 against its plain version at the shapes its design splits
+    # on; tolerances as the test above.
+    cfg = cfg or _cfg()
+    p = tfeat.init_feature_params(cfg, torch.Generator().manual_seed(0),
+                                  device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    buf = torch.randn(offset + n * cfg.head_dim, generator=gen,
+                      device="cuda").to(dtype)
+    u = buf[offset:].view(n, cfg.head_dim)
+    assert u.is_contiguous() and (u.data_ptr() % 16 != 0) == (offset > 0)
+    a, w = p["anchors"], p["omegas"]
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(tfm.launch_fwd(u, a, w, cfg).float(),
+                               tfm.feature_map_plain(u, a, w, cfg).float(),
+                               rtol=tol, atol=1e-6)
+
+
 @needs_card
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_feature_map_bwd_shapes_on_card(dtype):

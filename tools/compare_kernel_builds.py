@@ -25,12 +25,13 @@ compiler's contraction of multiplies and adds into FMAs.
 
 ``--time`` then times, in bf16, K1 and B5 at the training and the
 serving shape (BH = 48, L = 512), K3, K4, B6a, B6b and B8 (N = 98,304)
-at the training shape, and K2 at the serving shape (qf fp32, v bf16;
-and masked, all fp32, 32 of 48 rows active) of every build, in turns
-(this, the others, the others in reverse, this; repeated ``--rounds``
-times; CUDA-event medians of 20 calls of the wrapper each, and for B8
-and K2 also their device time from the profiler over 20 calls, without
-the wrappers' host time, which is not small beside these kernels) and
+at the training shape, B7 at both (N = 98,304 and 24,576), and K2 at the
+serving shape (qf fp32, v bf16; and masked, all fp32, 32 of 48 rows
+active) of every build, in turns (this, the others, the others in
+reverse, this; repeated ``--rounds`` times; CUDA-event medians of 20
+calls of the wrapper each, and for B7, B8 and K2 also their device time
+from the profiler over 20 calls, without the wrappers' host time, which
+is not small beside these kernels) and
 prints each kernel's medians per build and each other build's ratio to
 this one. The kernels
 run through the port's wrappers, so K1's and B5's times include their
@@ -81,11 +82,11 @@ OUTPUTS = {"K1": ("y", "den"), "K2": ("y", "s", "z"),
 REDESIGNED = {("K2", "y"), ("K2 masked", "y"), ("B8", "du"), ("B8", "dA"),
               ("B8", "dOmega")}
 TIMED = ("K1", "K1 serving", "K3", "K4", "B5", "B5 serving", "B6a", "B6b",
-         "B8", "K2", "K2 masked")
+         "B7", "B7 serving", "B8", "K2", "K2 masked")
 # Also timed on the card by the profiler (chip_smoke.device_ms), beside the
 # CUDA events around the wrapper: their wrappers' host time (allocations,
 # checks, the ctypes call) is not small beside the kernel.
-DEVICE_TIMED = ("B8", "K2", "K2 masked")
+DEVICE_TIMED = ("B7", "B7 serving", "B8", "K2", "K2 masked")
 DELTA = 1e-6
 
 
@@ -254,6 +255,7 @@ def time_all(builds, names, cfg, sp, rounds) -> None:
     serve = inputs(cfg, sp, torch.bfloat16, bh=48, L=512)
     q, k, v, a, w, dy, _, dpsi = inp["fused"]
     u = q.reshape(-1, q.shape[-1])
+    u_serve = serve["fused"][0].reshape(-1, q.shape[-1])
     use(builds[0])
     bwd = (q, k, v, a, w, *k1(q, k, v, a, w, cfg), dy, cfg)
     qf, kf, sv, sdy = inp["scan"]
@@ -268,6 +270,8 @@ def time_all(builds, names, cfg, sp, rounds) -> None:
              "B5 serving": lambda: b5(*serve["scan"][:3]),
              "B6a": lambda: slay_scan.launch_bwd_q(*sargs, DELTA),
              "B6b": lambda: slay_scan.launch_bwd_kv(*sargs, DELTA),
+             "B7": lambda: feature_map.launch_fwd(u, a, w, cfg),
+             "B7 serving": lambda: feature_map.launch_fwd(u_serve, a, w, cfg),
              "B8": lambda: feature_map.launch_bwd(u, a, w, dpsi, cfg),
              "K2": lambda: decode_step.decode_linear_attention(*dec),
              "K2 masked": lambda: decode_step.decode_linear_attention(
@@ -286,7 +290,8 @@ def time_all(builds, names, cfg, sp, rounds) -> None:
     scan = "BH=96 L=1024 m=384 dv=64"
     shapes = {"K1 serving": "BH=48 L=512 d=dv=64",
               "B5 serving": "BH=48 L=512 m=384 dv=64", "B5": scan,
-              "B6a": scan, "B6b": scan, "B8": "N=98304 d=64 m=384",
+              "B6a": scan, "B6b": scan, "B7": "N=98304 d=64 m=384",
+              "B7 serving": "N=24576 d=64 m=384", "B8": "N=98304 d=64 m=384",
               "K2": "BK=48 G=1 m=384 dv=64, qf fp32, v bf16",
               "K2 masked": "BK=48 (32 active) G=1 m=384 dv=64, fp32"}
     for kn in TIMED:
@@ -315,7 +320,7 @@ def main() -> int:
                     help="csrc directory of a tree to compare against "
                     "(repeatable)")
     ap.add_argument("--time", action="store_true",
-                    help="also time K1, K2, K3, K4, B5, B6a, B6b and B8 of "
+                    help="also time K1, K2, K3, K4, B5, B6a, B6b, B7 and B8 of "
                     "every build")
     ap.add_argument("--rounds", type=int, default=1,
                     help="rounds of timing turns (with --time)")
