@@ -78,7 +78,24 @@ Phases, each of which raises (nonzero exit) on failure:
     backward, no K1, K3, K4), finite losses, the first loss against the
     fused path's, ms per step beside the fused path's, a profiler window,
     and card fp32 loss and gradients at 2 layers against the CPU plain
-    path.
+    path;
+12. serve, continuous: ``ContinuousServingEngine`` with
+    ``ServingConfig(num_slots=8, max_len=2048, prefill_chunk=128,
+    macro_ticks=8)`` on 16 requests (prompts of 64-512 tokens, 16-48 new
+    tokens, one arrival every 2 ticks), launch counters read around that
+    run (12 x 8 masked decode launches, B4b, per dispatch; no K1, the
+    chunked prefill being torch code); the greedy streams for K = 8 and
+    K = 1 (the first 8 requests) identical, and the sampled ones (T =
+    0.8); the Gumbel rows on
+    the card against numpy; one slot NaN-corrupted at tick 40,
+    quarantined at its next dispatch and retried, every stream equal to
+    the fault-free run's; pool decode tokens/s, ms per dispatch and per
+    prefill tick, TTFT in ticks and ms, host syncs per token; one
+    full-pool dispatch's idle share (profiler) and its tick's pieces
+    timed alone; in fp32, 4 requests' chunked-prefill first-token logits
+    against the whole-prompt prefill (K1) and their streams against the
+    lockstep engine's, up to a near-tie; B4b at the pool's shape against
+    its plain version.
 
 The last two lines are a JSON object with every kernel's numbers and
 ``{"ok": true, "device": {...}}``. Every ``ms`` is CUDA events around the
@@ -88,6 +105,7 @@ time. Nothing of JAX is imported.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import json
@@ -105,14 +123,15 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(REPO, "src"))
 
-from repro_torch import configs  # noqa: E402
+from repro_torch import configs, prng  # noqa: E402
+from repro_torch.configs.base import ServingConfig  # noqa: E402
 from repro_torch.core.features import init_feature_params  # noqa: E402
 from repro_torch.kernels import (_build, decode_step, feature_map, ops,  # noqa: E402
                                  slay_fused, slay_scan)
 from repro_torch.data import pipeline  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig, adamw_init  # noqa: E402
-from repro_torch.serving import engine  # noqa: E402
+from repro_torch.serving import engine, faults, sampling  # noqa: E402
 from repro_torch.train import loop  # noqa: E402
 from repro_torch.tree import tree_items, tree_leaves, tree_map  # noqa: E402
 
@@ -218,11 +237,12 @@ def k1_bound(bh, bk, L, d, dv, P, D, R, es):
     return _bound(n_ops, nbytes)
 
 
-def k2_bound(bh, bk_active, m, dv, qes, ves):
-    """(bound_ms, bound_by, n_ops, bytes) of one decode step over the active
-    kv rows: state read and write-back, features, v, y."""
-    g = bh // max(bk_active, 1) if bk_active else 0
-    rows_q = bk_active * g
+def k2_bound(bh, bk, bk_active, m, dv, qes, ves):
+    """(bound_ms, bound_by, n_ops, bytes) of one decode step over the
+    bk_active of bk kv rows that are active: their state read and
+    write-back, features and v, the G = bh / bk q rows of each, and y
+    written for all bh q rows (zero on drained ones)."""
+    rows_q = bk_active * (bh // bk)
     nbytes = (2 * bk_active * (m * dv + m) * 4 + (rows_q + bk_active) * m * qes
               + bk_active * dv * ves + bh * dv * ves)
     n_ops = bk_active * (2 * m * dv + m) + rows_q * (2 * m * dv + 2 * m + dv)
@@ -675,8 +695,9 @@ def phase_k2(m_main) -> dict:
             ms, dev_ms = time_ms(step, iters=50), device_ms(step)
             plain_ms = time_ms(lambda: decode_step.decode_linear_attention_plain(
                 qf, kf, v, s, z), iters=20)
-            bound, by, n_ops, nb = k2_bound(bh, bk, m, dv, qf.element_size(),
-                                          v.element_size())
+            bound, by, n_ops, nb = k2_bound(bh, bk, bk, m, dv,
+                                            qf.element_size(),
+                                            v.element_size())
             log(f"  kernel {ms:.4f} ms ({dev_ms:.4f} ms on the card without "
                 f"the wrapper's host time), plain {plain_ms:.4f} ms, bound "
                 f"{bound:.4f} ms by {by} ({n_ops:.3e} FLOP, {nb:.3e} B); "
@@ -696,8 +717,9 @@ def phase_k2(m_main) -> dict:
             plain_ms = time_ms(lambda: decode_step.decode_linear_attention_plain(
                 qf, kf, v, s, z, active), iters=20)
             n_act = int(active.sum())
-            bound, by, n_ops, nb = k2_bound(bh, n_act, m, dv, qf.element_size(),
-                                          v.element_size())
+            bound, by, n_ops, nb = k2_bound(bh, bk, n_act, m, dv,
+                                            qf.element_size(),
+                                            v.element_size())
             log(f"  masked ({n_act} of {bk} rows active): kernel {ms:.4f} ms "
                 f"({dev_ms:.4f} ms on the card), plain "
                 f"{plain_ms:.4f} ms, bound {bound:.4f} ms by {by} "
@@ -1140,6 +1162,7 @@ def phase_serve(card: str) -> tuple:
         t_dec = time.perf_counter() - t0
         if not bool(torch.isfinite(logits).all()):
             raise AssertionError("non-finite decode logits")
+        lock_ms = t_dec / steps * 1e3
         log(f"  prefill: {sum(PROMPT_LENS)} prompt tokens ({len(reqs)}x{lp} "
             f"padded) in {t_pre * 1e3:.2f} ms (median of 3) = "
             f"{sum(PROMPT_LENS) / t_pre:.1f} tok/s; decode: {steps} steps x "
@@ -1176,7 +1199,7 @@ def phase_serve(card: str) -> tuple:
         f"{int(lg_gpu.argmax())}, card bf16 serve {int(outs[0][0])}; "
         f"fp32 agree={first_cpu == int(lg_gpu.argmax())}, "
         f"bf16 agree={first_cpu == int(outs[0][0])}")
-    return launches, outs
+    return launches, outs, lock_ms
 
 
 TRAIN_STEPS = 8
@@ -1473,6 +1496,414 @@ def phase_serve_two(card: str, fused_outs) -> dict:
     return launches
 
 
+CONT_SERVING = dict(num_slots=8, max_len=2048, prefill_chunk=128,
+                    macro_ticks=8)
+CONT_REQUESTS = 16
+CONT_K1_REQUESTS = 8           # the greedy K = 1 run takes the first 8
+CONT_HOT_REQUESTS = 4          # the sampled runs take the first 4
+CONT_FP32 = 4                  # requests held against the lockstep engine
+CONT_FAULT_TICK = 40           # the injected fault lands at this tick
+GAP_FRAC = 1e-4                # a near-tie: top-2 gap under this x max logit
+G_ULP = 4                      # Gumbel noise: ulp of max(|g|, 1)
+
+
+@dataclasses.dataclass
+class _OneFault(faults.FaultInjector):
+    """NaN-corrupts the lowest live slot once, at the first engine step at
+    or after tick ``at``; no other fault."""
+
+    at: int = 0
+
+    def corrupt_slots(self, tick, live_slots):
+        if self.log or tick < self.at or not live_slots:
+            return []
+        slot = min(live_slots)
+        self.log.append({"kind": "nan", "tick": tick, "slot": slot})
+        return [slot]
+
+
+def _cont_requests(cfg, n=CONT_REQUESTS):
+    """The phase's trace: prompt lengths 64-512, 16-48 new tokens, one
+    arrival every 2 ticks, from the script's seed."""
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(64, 513, n)
+    news = rng.integers(16, 49, n)
+    return [engine.Request(rng.integers(0, cfg.vocab_size, int(L))
+                           .astype(np.int32), max_new_tokens=int(m),
+                           arrival_time=2.0 * i)
+            for i, (L, m) in enumerate(zip(lens, news))]
+
+
+def _cont_run(cfg, params, reqs, timed=None, **serving):
+    """One ContinuousServingEngine run on the card: (outputs, summary,
+    engine, wall seconds). ``timed`` collects the seconds of every decode
+    dispatch and prefill tick, from CUDA events recorded around each (the
+    engine syncs only where it would unwrapped: once per dispatch, once
+    per finished prompt), and the wall time at which each step ends."""
+    kw = {**CONT_SERVING, **serving}
+    inj = kw.pop("fault_injector", None)
+    eng = engine.ContinuousServingEngine(
+        cfg, params, serving=ServingConfig(**kw), device="cuda",
+        fault_injector=inj)
+    events: list = []
+    if timed is not None:
+        marks = timed.setdefault("ticks", [(0, time.perf_counter())])
+        step = eng.step
+
+        def stepped():
+            out = step()
+            marks.append((eng.tick, time.perf_counter()))
+            return out
+
+        eng.step = stepped
+        for name in ("_decode_macro", "_prefill_tick"):
+            inner = getattr(eng, name)
+
+            def run(inner=inner, name=name):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                out = inner()
+                ev[1].record()
+                events.append((name, *ev))
+                return out
+
+            setattr(eng, name, run)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if timed is not None:
+        timed["ticks"][0] = (0, t0)
+    outs, s = eng.run([dataclasses.replace(r) for r in reqs])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for name, a, b in events:
+        timed.setdefault(name, []).append(a.elapsed_time(b) * 1e-3)
+    return outs, s, eng, wall
+
+
+def _same_streams(ref, got, what):
+    """Every stream of ``got`` equals the same request's in ``ref``."""
+    bad = [r for r in got if r not in ref or not np.array_equal(ref[r],
+                                                                got[r])]
+    if bad or not got:
+        raise AssertionError(f"{what}: streams differ for rids {bad}")
+
+
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(int(q * len(xs)), len(xs) - 1)]
+
+
+def _greedy_gaps(params, cfg, prompt, stream):
+    """Top-2 logit gaps and scales along a greedy stream, teacher-forced
+    through the lockstep engine's ops (prefill, unmasked decode steps)."""
+    gaps = []
+    with torch.inference_mode():
+        logits, cache = api.prefill(params, cfg,
+                                    torch.from_numpy(prompt[None]).cuda())
+        for t in range(len(stream)):
+            row = logits[0, -1].float()
+            top2 = torch.topk(row, 2).values
+            gaps.append((float(top2[0] - top2[1]), float(row.abs().max())))
+            tok = torch.tensor([[int(stream[t])]], dtype=torch.int32,
+                               device="cuda")
+            logits, cache = api.decode_step(params, cfg, cache, tok)
+    return gaps
+
+
+def _cont_fp32(cfg, reqs) -> None:
+    """4 requests in fp32: chunked-prefill first-token logits against the
+    whole-prompt prefill (K1), and the continuous engine's greedy streams
+    against the lockstep engine's, each request alone, up to the first
+    near-tie of the lockstep side."""
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = api.init_params(cfg32, SEED, device="cuda")
+    reqs = reqs[:CONT_FP32]
+    C = CONT_SERVING["prefill_chunk"]
+    log(f"  fp32, {len(reqs)} requests: chunked prefill (chunks of {C}) vs "
+        f"whole-prompt prefill (K1), continuous vs lockstep streams")
+    with torch.inference_mode():
+        for r in reqs:
+            p = torch.from_numpy(r.prompt[None]).cuda()
+            cache = api.init_cache(cfg32, 1, device="cuda")
+            for off in range(0, p.shape[1], C):
+                lg, cache = api.prefill_chunk(cfg32, params, cache,
+                                              p[:, off:off + C])
+            whole, _ = api.prefill(params, cfg32, p)
+            scale = float(whole.abs().max())
+            close(lg[0, -1].cpu(), whole[0, -1].cpu(), 1e-5 * scale, 0.0,
+                  f"first-token logits, {p.shape[1]}-token prompt")
+    outs, _, _, _ = _cont_run(cfg32, params, reqs)
+    lock = engine.ServingEngine(cfg32, params, device="cuda", max_len=2048)
+    compared = total = 0
+    for rid, r in enumerate(reqs):
+        want = lock.generate([dataclasses.replace(r)])[0]
+        gaps = _greedy_gaps(lock.params, cfg32, r.prompt, want)
+        n = next((i for i, (g, sc) in enumerate(gaps) if g < GAP_FRAC * sc),
+                 len(want))
+        # Token n is decided by a near-tie: compare the tokens before it.
+        if not np.array_equal(outs[rid][:n], want[:n]):
+            raise AssertionError(f"fp32 rid {rid}: continuous {outs[rid]} "
+                                 f"vs lockstep {want} before position {n}")
+        compared += n
+        total += len(want)
+        log(f"    rid {rid}: {n} of {len(want)} tokens compared, equal "
+            f"(min top-2 gap {min(g / sc for g, sc in gaps):.2e} of the "
+            f"largest logit)")
+    log(f"  fp32 streams: {compared} of {total} tokens compared, all equal")
+    del params, lock
+    torch.cuda.empty_cache()
+
+
+def _cont_gumbel_check() -> None:
+    """Gumbel rows on the card (seed 0, rid 0-3, idx 0-3) against the
+    numpy version: words equal, values within G_ULP of max(|g|, 1)."""
+    V = configs.get_config("slayformer-124m").vocab_size
+    eps = float(np.finfo(np.float32).eps)
+    rids = torch.arange(4, dtype=torch.int32, device="cuda")
+    worst = 0.0
+    for idx in range(4):
+        keys = prng.fold_in(prng.fold_in(prng.PRNGKey(SEED), rids), idx)
+        bits = prng.random_bits(keys, (V,)).cpu().numpy().astype(np.uint32)
+        g = sampling._gumbel_row(SEED, rids, idx, V).cpu().numpy()
+        for r in range(4):
+            key = prng.fold_in(prng.fold_in(prng.PRNGKey(SEED), r), idx)
+            if not np.array_equal(bits[r], prng.random_bits(key, (V,))):
+                raise AssertionError(f"threefry words differ, rid {r} idx "
+                                     f"{idx}")
+            want = sampling._gumbel_row(SEED, r, idx, V)
+            err = np.abs(g[r] - want) / (eps * np.maximum(np.abs(want), 1.0))
+            worst = max(worst, float(err.max()))
+    log(f"  Gumbel rows (seed {SEED}, rid 0-3, idx 0-3, {V} words each): "
+        f"words equal, values within {worst:.2f} ulp of max(|g|, 1) (tol "
+        f"{G_ULP})")
+    if worst > G_ULP:
+        raise AssertionError(f"Gumbel noise off by {worst:.2f} ulp")
+
+
+def _b4b_pool_row(occupancy: float) -> dict:
+    """B4b, the masked decode kernel, at the pool's shape (8 slots x 12
+    heads kv rows, m = 384, qf fp32, v bf16, the pool's mean occupancy
+    active): against its plain version, times and the bound over the
+    active rows."""
+    cfg = configs.get_config("slayformer-124m")
+    S, H = CONT_SERVING["num_slots"], cfg.num_heads
+    bk, m, dv = S * H, cfg.slay_config().feature_dim, cfg.resolved_head_dim
+    n_slots = max(1, min(S, round(occupancy * S)))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    qf, kf, v, s, z = _k2_inputs(gen, bk, bk, m, dv, torch.float32,
+                                 torch.bfloat16)
+    active = (torch.arange(bk, device="cuda") // H < n_slots).to(torch.int32)
+    s0, z0 = s.clone(), z.clone()
+    sp_, zp_ = s.clone(), z.clone()
+    yp, _, _ = decode_step.decode_linear_attention_plain(qf, kf, v, sp_, zp_,
+                                                         active)
+    y, _, _ = decode_step.decode_linear_attention(qf, kf, v, s, z, active)
+    torch.cuda.synchronize()
+    log(f"B4b at the pool shape: BK = {S} x {H} kv rows, m = {m}, {n_slots} "
+        f"of {S} slots active (the run's mean occupancy {occupancy:.3f})")
+    err = close(y, yp, *K2_YTOL[torch.bfloat16], "y")
+    close(s, sp_, 1e-5, 1e-6, "s' (in place)")
+    off = active == 0
+    if not (torch.equal(s[off], s0[off]) and torch.equal(z[off], z0[off])):
+        raise AssertionError("drained rows' state changed")
+    step = functools.partial(decode_step.decode_linear_attention, qf, kf, v,
+                             s, z, active)
+    ms, dev_ms = time_ms(step, iters=50), device_ms(step)
+    plain_ms = time_ms(lambda: decode_step.decode_linear_attention_plain(
+        qf, kf, v, s, z, active), iters=20)
+    bound, by, n_ops, nb = k2_bound(bk, bk, int(active.sum()), m, dv, 4, 2)
+    log(f"  kernel {ms:.4f} ms ({dev_ms:.4f} ms on the card), plain "
+        f"{plain_ms:.4f} ms, bound {bound:.4f} ms by {by} ({n_ops:.3e} FLOP, "
+        f"{nb:.3e} B, active rows only); library: none")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, device_ms=dev_ms)
+
+
+def _cont_profile(cfg, params, card: str) -> None:
+    """One macro dispatch of a full pool (8 slots live): its wall time,
+    the profiler's device time and idle share, and beside it the pieces
+    of one tick timed alone (CUDA events): the model's masked decode
+    step, sampling at T = 0.8 and greedy, the fault lane."""
+    S, K = CONT_SERVING["num_slots"], CONT_SERVING["macro_ticks"]
+    eng = engine.ContinuousServingEngine(
+        cfg, params, serving=ServingConfig(**CONT_SERVING), device="cuda")
+    rng = np.random.default_rng(SEED + 3)
+    for _ in range(S):
+        eng.submit(engine.Request(rng.integers(0, cfg.vocab_size, 128)
+                                  .astype(np.int32), max_new_tokens=512))
+    while eng._prefill is not None or eng.sched.ready or eng.sched.waiting:
+        eng.step()
+    if len(eng.sched.active) != S:
+        raise AssertionError(f"pool not full: {sorted(eng.sched.active)}")
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.median(walls)
+    log(f"  one dispatch of a full pool ({S} slots, K = {K}): "
+        f"{wall:.2f} ms wall (median of 3), {wall / K:.2f} ms a tick  "
+        f"[{card}]")
+    profile(f"continuous dispatch (K={K}, {S} slots)", eng.step, wall)
+    with torch.inference_mode():
+        pool = eng.pool
+        tok = torch.ones(S, 1, dtype=torch.int32, device="cuda")
+        act = torch.ones(S, dtype=torch.bool, device="cuda")
+        rows = torch.randn(S, cfg.vocab_size, device="cuda")
+        rids = torch.arange(S, dtype=torch.int32, device="cuda")
+        dec = time_ms(lambda: api.decode_step(eng.params, cfg, pool, tok,
+                                              act), iters=10)
+        samp = time_ms(lambda: sampling.sample_tokens(
+            rows, rids, rids, temperature=0.8, seed=SEED), iters=20)
+        greedy = time_ms(lambda: sampling.sample_tokens(
+            rows, rids, rids, temperature=0.0, seed=SEED), iters=20)
+        lane = time_ms(lambda: api.slot_state_finite(cfg, pool)
+                       & torch.isfinite(rows).all(-1), iters=20)
+    log(f"  one tick's pieces alone (CUDA events): masked decode step "
+        f"{dec:.3f} ms, sampling T=0.8 {samp:.3f} ms, greedy {greedy:.3f} "
+        f"ms, fault lane {lane:.3f} ms  [{card}]")
+
+
+def phase_serve_continuous(card: str, lockstep_ms: float) -> tuple:
+    """``ContinuousServingEngine`` on the card at full width: 16 requests
+    over an 8-slot pool, chunked prefill between K = 8 tick dispatches,
+    every decode tick the masked decode kernel (B4b) once per layer.
+    Checks launches, K invariance (greedy and sampled), fp32 parity with
+    whole-prompt prefill and the lockstep engine, the Gumbel noise against
+    numpy, and a quarantined, retried fault; prints throughput, dispatch
+    time, TTFT, the sync cadence and one dispatch's idle share."""
+    t_phase = time.perf_counter()
+    cfg = configs.get_config("slayformer-124m")
+    nl, K = cfg.num_layers, CONT_SERVING["macro_ticks"]
+    log(f"serve (continuous) {cfg.name}: {nl}L x {cfg.d_model}d, {cfg.dtype}"
+        f", ServingConfig({', '.join(f'{k}={v}' for k, v in CONT_SERVING.items())}"
+        f"), {CONT_REQUESTS} requests, prompts 64-512, 16-48 new tokens, "
+        f"one arrival every 2 ticks")
+    params = api.init_params(cfg, SEED, device="cuda")
+    reqs = _cont_requests(cfg)
+    _cont_run(cfg, params, reqs[:2], max_len=1024)          # warm-up
+    timed: dict = {}
+    _build.reset_launches()
+    outs, s, eng, wall = _cont_run(cfg, params, reqs, timed=timed)
+    launches = dict(_build.LAUNCHES)
+    want = nl * K * s["decode_dispatches"]
+    log(f"  run: {wall:.3f} s, {s['ticks']} ticks ({s['prefill_ticks']} "
+        f"prefill, {s['decode_ticks']} decode in {s['decode_dispatches']} "
+        f"dispatches); launches {launches}")
+    if launches["slay_decode_step_masked"] != want or want == 0:
+        raise AssertionError(f"B4b launched {launches['slay_decode_step_masked']}"
+                             f" times, want {nl} x {K} x "
+                             f"{s['decode_dispatches']} = {want}")
+    if launches["slay_fused_fwd"] or launches["slay_decode_step"]:
+        raise AssertionError("K1 or the unmasked K2 ran on the continuous "
+                             f"path: {launches}")
+    per = eng.metrics.per_request
+    served = collections.Counter(st.slot for st in per.values())
+    first_decode = min(st.first_token for st in per.values())
+    if not (s["requests_completed"] == CONT_REQUESTS
+            and s["max_queue_depth"] >= 1 and max(served.values()) > 1
+            and any(st.admitted > first_decode for st in per.values())
+            and s["final_occupancy"] == 0):
+        raise AssertionError(f"the trace did not fill the queue, reuse "
+                             f"slots and interleave prefill: {s}")
+    for rid, r in enumerate(reqs):
+        o = outs[rid]
+        if (len(o) != r.max_new_tokens or o.min() < 0
+                or o.max() >= cfg.vocab_size):
+            raise AssertionError(f"bad stream rid {rid}: {o}")
+    if not (s["host_syncs"] == s["decode_dispatches"]
+            and s["host_syncs_per_token"] <= 1.0 / K):
+        raise AssertionError(f"host syncs {s['host_syncs']} for "
+                             f"{s['decode_dispatches']} dispatches")
+    disp, pre = timed["_decode_macro"], timed["_prefill_tick"]
+    dec_tokens = s["tokens_generated"] - CONT_REQUESTS   # minus prefill's
+    ttft_t = [st.ttft_ticks for st in per.values()]
+    # TTFT in ms from the wall time at which the engine's tick clock
+    # passed the request's arrival (all were submitted at the start).
+    marks = timed["ticks"]
+    ttft_ms = [(st.first_token_wall - next(w for t, w in marks
+                                           if t >= st.arrival)) * 1e3
+               for st in per.values()]
+    log(f"  pool decode {dec_tokens / sum(disp):.1f} tokens/s ({dec_tokens} "
+        f"tokens in {sum(disp):.3f} s of {len(disp)} dispatches); "
+        f"{(dec_tokens + s['prompt_tokens']) / wall:.1f} tokens/s end to end "
+        f"({s['prompt_tokens']} prompt + {dec_tokens} decode in {wall:.3f} s)"
+        f"  [{card}]")
+    log(f"  ms per macro dispatch (CUDA events): median {statistics.median(disp) * 1e3:.2f}"
+        f" (min {min(disp) * 1e3:.2f}, max {max(disp) * 1e3:.2f}); prefill "
+        f"tick (a chunk of <= {CONT_SERVING['prefill_chunk']}) median "
+        f"{statistics.median(pre) * 1e3:.2f} ms, {sum(pre):.3f} s in all; "
+        f"lockstep decode {lockstep_ms:.3f} ms a step  [{card}]")
+    log(f"  TTFT: ticks median {statistics.median(ttft_t):.1f}, p90 "
+        f"{_pct(ttft_t, 0.9):.1f}; ms median {statistics.median(ttft_ms):.1f},"
+        f" p90 {_pct(ttft_ms, 0.9):.1f}  [{card}]")
+    log(f"  host syncs per token {s['host_syncs_per_token']:.4f} (<= 1/K = "
+        f"{1 / K:.4f}); mean slot occupancy {s['mean_slot_occupancy']:.3f}, "
+        f"max queue depth {s['max_queue_depth']}")
+
+    # K invariance, greedy: the same streams with one tick per dispatch
+    # (the first 8 requests, a smaller batch too: streams depend on
+    # neither).
+    k1 = reqs[:CONT_K1_REQUESTS]
+    one, s1, _, wall1 = _cont_run(cfg, params, k1, macro_ticks=1)
+    _same_streams(outs, one, "greedy, macro_ticks 8 vs 1")
+    log(f"  greedy streams of rids 0-{len(k1) - 1} for macro_ticks 8 and 1: "
+        f"identical (K = 1 run of {len(k1)} requests: {wall1:.3f} s, "
+        f"{s1['ticks']} ticks, {s1['decode_dispatches']} dispatches)")
+
+    # Sampling: the noise against numpy, and K invariance at T = 0.8. The
+    # random model's logits are peaked (with the tied embedding a token's
+    # own logit stands far above the rest), so at T = 0.8 few draws leave
+    # the argmax; with the embedding divided by 8, as in the CPU and card
+    # tests, the draws decide tokens, and at least one compared stream
+    # must differ from its greedy stream.
+    _cont_gumbel_check()
+    soft = dict(params, embed=params["embed"] / 8)
+    hot = reqs[:CONT_HOT_REQUESTS]
+    cold, _, _, _ = _cont_run(cfg, soft, hot)
+    hot8, _, _, _ = _cont_run(cfg, soft, hot, temperature=0.8)
+    hot1, _, _, _ = _cont_run(cfg, soft, hot, temperature=0.8,
+                              macro_ticks=1)
+    _same_streams(hot8, hot1, "temperature 0.8, macro_ticks 8 vs 1")
+    differ = [r for r in hot8 if not np.array_equal(hot8[r], cold[r])]
+    moved = sum(int((hot8[r] != cold[r]).sum()) for r in hot8)
+    log(f"  sampled streams (T = 0.8, embedding / 8) of rids 0-{len(hot) - 1}"
+        f" for macro_ticks 8 and 1: identical; {len(differ)} of {len(hot8)}"
+        f" differ from the greedy ones ({moved} of "
+        f"{sum(len(o) for o in hot8.values())} tokens)")
+    if not differ:
+        raise AssertionError("no sampled stream differs from its greedy "
+                             "stream: the draws decided no token")
+
+    # The fault lane: one corrupted slot, quarantined, retried, the same
+    # stream as the fault-free run.
+    inj = _OneFault(at=CONT_FAULT_TICK)
+    flt, sf, feng, _ = _cont_run(cfg, params, reqs, fault_injector=inj)
+    ev, hit = sf["faults_detected"], inj.log
+    lat = faults.detection_latencies(inj.log, feng.metrics.fault_events)
+    if not (ev == 1 and sf["fault_retries"] == 1 and len(hit) == 1
+            and len(lat) == 1 and lat[0] <= 1
+            and sf["fault_retries_succeeded"] == 1):
+        raise AssertionError(f"fault lane: injected {hit}, events "
+                             f"{feng.metrics.fault_events}, summary {sf}")
+    _same_streams(flt, outs, "faulted run vs fault-free run")
+    rid = feng.metrics.fault_events[0]["rid"]
+    log(f"  fault lane: slot {hit[0]['slot']} corrupted at tick "
+        f"{hit[0]['tick']} (rid {rid}), quarantined at tick "
+        f"{feng.metrics.fault_events[0]['tick']} (latency {lat[0]}), retried "
+        f"once; every stream equal to the fault-free run's; summary "
+        f"faults_detected={ev}")
+    _cont_profile(cfg, params, card)
+    del params, eng, feng
+    torch.cuda.empty_cache()
+    _cont_fp32(cfg, reqs)
+    b4b = _b4b_pool_row(s["mean_slot_occupancy"])
+    log(f"serve (continuous): the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches, b4b
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; it needs an "
@@ -1492,10 +1923,11 @@ def main() -> int:
     serve_shape = (len(PROMPT_LENS) * cfg.num_heads, max(PROMPT_LENS))
     fmap = phase_fmap(feat, sp, TRAIN_BATCH * TRAIN_LEN * cfg.num_heads)
     scan = phase_scan(feat, sp, serve_shape)
-    launches, fused_outs = phase_serve(card_line)
+    launches, fused_outs, lock_ms = phase_serve(card_line)
     train, fused_loss0, fused_step_s = phase_train(card_line)
     phase_serve_two(card_line, fused_outs)
     two = phase_train_two(card_line, fused_loss0, fused_step_s)
+    cont, b4b = phase_serve_continuous(card_line, lock_ms)
     kernels = [
         dict(name="slay_fused_fwd", route="cuda",
              source="src/repro_torch/csrc/slay_fused.cu",
@@ -1505,6 +1937,11 @@ def main() -> int:
              source="src/repro_torch/csrc/decode_step.cu",
              replaces="src/repro/kernels/decode_step.py:49",
              launches=launches["slay_decode_step"], **k2, library_ms=None),
+        dict(name="slay_decode_step_masked", route="cuda",
+             source="src/repro_torch/csrc/decode_step.cu",
+             replaces="src/repro/kernels/decode_step.py:57",
+             launches=cont["slay_decode_step_masked"], **b4b,
+             library_ms=None),
         dict(name="slay_fused_bwd_q", route="cuda",
              source="src/repro_torch/csrc/slay_fused_bwd.cu",
              replaces="src/repro/kernels/slay_fused.py:161",

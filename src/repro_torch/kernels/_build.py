@@ -76,7 +76,8 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES: dict[str, int] = {
     "slay_fused_fwd": 0, "slay_fused_bwd_q": 0, "slay_fused_bwd_kv": 0,
-    "slay_decode_step": 0, "feature_map_fwd": 0, "feature_map_bwd": 0,
+    "slay_decode_step": 0, "slay_decode_step_masked": 0,
+    "feature_map_fwd": 0, "feature_map_bwd": 0,
     "slay_scan_fwd": 0, "slay_scan_bwd_q": 0, "slay_scan_bwd_kv": 0}
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -93,7 +93,9 @@ def _launch(qf, kf, v, s, z, active, delta):
             bk, bh // bk, m, dv, _build.DTYPE_CODES[qf.dtype],
             _build.DTYPE_CODES[v.dtype], delta, stream)
     _build.check(err, "slay_decode_step")
-    _build.LAUNCHES["slay_decode_step"] += 1
+    # B4a and B4b count apart: the masked variant is the pool's.
+    _build.LAUNCHES["slay_decode_step" if active is None
+                    else "slay_decode_step_masked"] += 1
     return y, s, z
 
 

@@ -78,6 +78,27 @@ def prefill_cache(spec: AttentionSpec, params: dict | None, k, v,
     return AttnCache(pos, st.s, st.z)
 
 
+def prefill_chunk(spec: AttentionSpec, params: dict | None, q, k, v,
+                  cache: AttnCache) -> tuple[torch.Tensor, AttnCache]:
+    """Absorb one prompt chunk into an existing (S, z) state.
+
+    q (B, Lc, H, Dh), k/v (B, Lc, Hkv, *); ``cache.pos`` (B,) counts the
+    tokens absorbed so far. The chunked causal scan in torch seeded with
+    the cache's fp32 state, as the JAX package runs it in jnp outside any
+    kernel: a prompt fed chunk by chunk ends in the state of a whole-prompt
+    prefill, up to the order of the fp32 sums. Returns new tensors; the
+    cache's are not written.
+    """
+    _require_slay(spec)
+    Lc = q.shape[1]
+    qf = slay_features(q, params, spec.slay)
+    kf = slay_features(k, params, spec.slay)
+    y, st = la.causal_chunked(
+        qf, kf, v, chunk_size=max(min(spec.chunk_size, Lc), 1),
+        init_state=la.LinearState(cache.s, cache.z), return_state=True)
+    return y, AttnCache(cache.pos + Lc, st.s, st.z)
+
+
 def decode_step(spec: AttentionSpec, params: dict | None, q, k, v,
                 cache: AttnCache, *,
                 active=None) -> tuple[torch.Tensor, AttnCache]:

@@ -247,3 +247,103 @@ def decode_step(params: dict, cfg: ArchConfig, cache: DecodeCache,
     step = 1 if active is None else active.to(torch.int32)
     a = attn.AttnCache(torch.stack(new_pos), ac.s, ac.z)
     return _logits(params, cfg, x)[:, None, :], DecodeCache(a, pos + step)
+
+
+# -- the slot surface of a pooled cache (continuous batching) -------------
+#
+# A pool is an ordinary init_cache(cfg, num_slots); slots are batch rows.
+# The decode kernel updates the pool's (S, z) in place, so every slot op
+# below writes into the pool's own storage (copy_, zero_, fill_) on slot
+# ``slot`` of every layer and returns the same cache: a new tensor would
+# leave the next decode writing into a stale buffer. Other slots' bytes
+# are untouched (the reference's slot-stable contract).
+
+
+def prefill_chunk(params: dict, cfg: ArchConfig, cache: DecodeCache,
+                  tokens: torch.Tensor) -> tuple[torch.Tensor, DecodeCache]:
+    """Absorb one prompt chunk into an existing decode cache.
+
+    tokens (B, Lc); ``cache`` holds the state of the prefix absorbed so
+    far (per-slot ``pos``). Returns last-token logits (B, 1, V) and the
+    advanced cache (new tensors), so a prompt fed chunk by chunk ends in
+    the state of a whole-prompt :func:`prefill` (the fp32 recurrence in
+    another order of sums) and the engine can interleave prefill chunks
+    with decode ticks.
+    """
+    cfg.check_supported()
+    dev = params["embed"].device
+    tokens = tokens.to(dev)
+    Lc = tokens.shape[1]
+    x = embed(params["embed"], tokens).to(cfg.activation_dtype)
+    positions = (cache.pos[:, None]
+                 + torch.arange(Lc, dtype=torch.int32, device=dev)[None, :])
+    spec = cfg.attention_spec()
+    ac = cache.attn
+    caches = []
+    for i in range(cfg.num_layers):
+        lp = _layer(params, i)
+        q, k, v = _qkv(cfg, lp, x, positions)
+        y, nc = attn.prefill_chunk(spec, params["slay"], q, k, v,
+                                   attn.AttnCache(ac.pos[i], ac.s[i], ac.z[i]))
+        caches.append(nc)
+        x = _finish_layer(cfg, lp, x, y)
+    a = attn.AttnCache(torch.stack([c.pos for c in caches]),
+                       torch.stack([c.s for c in caches]),
+                       torch.stack([c.z for c in caches]))
+    return (_logits(params, cfg, x[:, -1])[:, None, :],
+            DecodeCache(a, cache.pos + Lc))
+
+
+def reset_slot(cfg: ArchConfig, cache: DecodeCache, slot: int) -> DecodeCache:
+    """Zero one slot of a pooled cache (eviction), in place: its (S, z) and
+    positions. Constant-state SLAY: a single overwrite of the slot."""
+    a = cache.attn
+    for t in (a.s, a.z, a.pos):
+        t[:, slot].zero_()
+    cache.pos[slot] = 0
+    return cache
+
+
+def write_slot(cfg: ArchConfig, cache: DecodeCache, src: DecodeCache,
+               slot: int) -> DecodeCache:
+    """Install a single-sequence cache (batch 1, e.g. a freshly prefilled
+    request) into slot ``slot`` of a pooled cache (admission), in place."""
+    a, b = cache.attn, src.attn
+    for dst, s in ((a.s, b.s), (a.z, b.z), (a.pos, b.pos)):
+        dst[:, slot].copy_(s[:, 0])
+    cache.pos[slot] = src.pos[0]
+    return cache
+
+
+def slot_state_finite(cfg: ArchConfig, cache: DecodeCache) -> torch.Tensor:
+    """(B,) bool: every float decode-state element of each slot, over all
+    layers, is finite (the NaN/Inf quarantine probe). Per-slot reductions
+    only; positions are integers and are skipped."""
+    ok = None
+    for leaf in (cache.attn.s, cache.attn.z):
+        f = torch.isfinite(leaf).flatten(2).all(-1).all(0)
+        ok = f if ok is None else ok & f
+    return ok
+
+
+def corrupt_slot(cfg: ArchConfig, cache: DecodeCache, slot: int) -> DecodeCache:
+    """Overwrite one slot's float state with NaN, in place (the chaos
+    harness's fault; never on a production path). Positions stay, so the
+    fault is numeric, not bookkeeping."""
+    for t in (cache.attn.s, cache.attn.z):
+        t[:, slot].fill_(float("nan"))
+    return cache
+
+
+def context_capacity(cfg: ArchConfig, max_len: int) -> int | None:
+    """Context rows one slot admits: None (unbounded) for SLAY, whose
+    constant-size (S, z) holds any context."""
+    cfg.check_supported()
+    return None
+
+
+def supports_chunked_prefill(cfg: ArchConfig) -> bool:
+    """Chunked prefill continues the fp32 (S, z) recurrence: always True
+    for the ported SLAY decoder."""
+    cfg.check_supported()
+    return True

@@ -17,13 +17,18 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import prng
 from repro_torch.configs import get_smoke_config
+from repro_torch.configs.base import ServingConfig
 from repro_torch.core import features as tfeat
 from repro_torch.kernels import _build
 from repro_torch.kernels import decode_step as tdecode
 from repro_torch.kernels import feature_map as tfm
 from repro_torch.kernels import slay_fused as tfused
 from repro_torch.kernels import slay_scan as tscan
+from repro_torch.models import api as tapi
+from repro_torch.serving import engine as tengine
+from repro_torch.serving import sampling as tsampling
 
 D_HEAD = 16
 needs_card = pytest.mark.skipif(
@@ -344,3 +349,64 @@ def test_scan_kernels_match_plain_on_card(dtype):
             scale = float(wnt.float().abs().max())
             torch.testing.assert_close(g.float(), wnt.float(), rtol=0.0,
                                        atol=tol * scale)
+
+
+# -- sampling and the continuous engine ----------------------------------------
+
+
+@needs_card
+def test_threefry_on_card_matches_numpy():
+    # Keys and words bit for bit; Gumbel noise within 4 ulp of
+    # max(|g|, 1) (each side's own logarithms; see test_torch_sampling).
+    eps = float(np.finfo(np.float32).eps)
+    rids = torch.arange(4, dtype=torch.int32, device="cuda")
+    for seed in (0, 1, 2 ** 31 + 5):
+        for idx in (0, 1, 13):
+            keys = prng.fold_in(prng.fold_in(prng.PRNGKey(seed), rids), idx)
+            bits = prng.random_bits(keys, (1000,))
+            g = tsampling._gumbel_row(seed, rids, idx, 50257)
+            for r in range(4):
+                want = prng.fold_in(prng.fold_in(prng.PRNGKey(seed), r), idx)
+                np.testing.assert_array_equal(
+                    keys[r].cpu().numpy().astype(np.uint32), want)
+                np.testing.assert_array_equal(
+                    bits[r].cpu().numpy().astype(np.uint32),
+                    prng.random_bits(want, (1000,)))
+                gw = tsampling._gumbel_row(seed, r, idx, 50257)
+                err = (np.abs(g[r].cpu().numpy() - gw)
+                       / (eps * np.maximum(np.abs(gw), 1.0)))
+                assert err.max() <= 4, (seed, r, idx, err.max())
+
+
+@needs_card
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_continuous_engine_on_card_matches_cpu(temperature):
+    # The smoke model in fp32 (embedding scaled down so the streams vary)
+    # through ContinuousServingEngine on the card and on the CPU: the same
+    # streams and schedule; on the card one masked decode launch per layer
+    # and tick of every dispatch, and no fused-forward launch (the chunked
+    # prefill is torch code).
+    cfg = get_smoke_config("slayformer-124m", dtype="float32")
+    params = tapi.init_params(cfg, 0, device="cpu")
+    params["embed"] = params["embed"] / 8.0
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(3, 256, n).astype(np.int32)
+               for n in (20, 7, 33, 12, 26)]
+    serving = ServingConfig(num_slots=2, max_len=64, prefill_chunk=8,
+                            macro_ticks=4, temperature=temperature)
+    runs = []
+    for device in ("cpu", "cuda"):
+        eng = tengine.ContinuousServingEngine(cfg, params, serving=serving,
+                                              device=device)
+        _build.reset_launches()
+        outs, s = eng.run([tengine.Request(p, max_new_tokens=10,
+                                           arrival_time=2.0 * i)
+                           for i, p in enumerate(prompts)])
+        runs.append((outs, s, dict(_build.LAUNCHES)))
+    (cpu, s_cpu, _), (card, s_card, launches) = runs
+    for rid in cpu:
+        np.testing.assert_array_equal(card[rid], cpu[rid], f"rid {rid}")
+    assert s_card["ticks"] == s_cpu["ticks"]
+    assert launches["slay_decode_step_masked"] == (
+        cfg.num_layers * serving.macro_ticks * s_card["decode_dispatches"])
+    assert launches["slay_fused_fwd"] == launches["slay_decode_step"] == 0

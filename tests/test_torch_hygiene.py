@@ -92,6 +92,8 @@ def test_entry_points_without_device_raise_instead_of_using_the_cpu():
     params = api.init_params(cfg, 0, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         engine.ServingEngine(cfg, params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        engine.ContinuousServingEngine(cfg, params)
 
 
 @no_card

@@ -237,6 +237,8 @@ def test_cpu_tensors_launch_nothing():
     y.sum().backward()                       # the plain backward
     dargs = [torch.from_numpy(x) for x in _decode_inputs(0, 6, 3)]
     tdecode.decode_linear_attention(*dargs)
+    tdecode.decode_linear_attention(*dargs, torch.tensor([1, 0, 1],
+                                                         dtype=torch.int32))
     # The two-dispatch path, feature map then scan, and their backward.
     params = {"anchors": args[3], "omegas": args[4]}
     x = torch.ones(1, 32, 2, D_HEAD, requires_grad=True)
@@ -245,7 +247,8 @@ def test_cpu_tensors_launch_nothing():
                                chunk_size=CHUNK).sum().backward()
     assert _build.LAUNCHES == {
         "slay_fused_fwd": 0, "slay_fused_bwd_q": 0, "slay_fused_bwd_kv": 0,
-        "slay_decode_step": 0, "feature_map_fwd": 0, "feature_map_bwd": 0,
+        "slay_decode_step": 0, "slay_decode_step_masked": 0,
+        "feature_map_fwd": 0, "feature_map_bwd": 0,
         "slay_scan_fwd": 0, "slay_scan_bwd_q": 0, "slay_scan_bwd_kv": 0}
     assert not _build._LIBS
 
