@@ -95,7 +95,22 @@ Phases, each of which raises (nonzero exit) on failure:
     timed alone; in fp32, 4 requests' chunked-prefill first-token logits
     against the whole-prompt prefill (K1) and their streams against the
     lockstep engine's, up to a near-tie; B4b at the pool's shape against
-    its plain version.
+    its plain version;
+13. serve, prefix cache and crash-safe (``phase_serve_durable``): the
+    same pool with ``prefix_cache_bytes=160 << 20`` and
+    ``checkpoint_every_ticks=64`` on 16 requests that share a 384-token
+    system prompt (unique suffixes of 16-200 tokens, 16-48 new tokens,
+    one arrival every 2 ticks; requests 12-15 repeat the prompts of 8-11):
+    streams byte-identical to a cold run (no prefix cache), greedy and,
+    for the first 8 requests, at T = 0.8; at least 15 prefix hits, 4 of
+    whole prompts that run no prefill chunk, evictions, no pin left,
+    fewer prefill ticks; then a journaled run crashed at tick 70 (after
+    its first checkpoint, requests resident) and ``restore`` from its
+    directory, every stream equal to the uncrashed run's, the checkpoint
+    used, tokens replayed, each token delivered once; B4b's launches =
+    12 x 8 per dispatch in every run; prefix hits, evictions and bytes,
+    prefill ticks, TTFT cached against cold, checkpoint size and time,
+    journal bytes per token, restore time.
 
 The last two lines are a JSON object with every kernel's numbers and
 ``{"ok": true, "device": {...}}``. Every ``ms`` is CUDA events around the
@@ -115,6 +130,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -131,7 +147,8 @@ from repro_torch.kernels import (_build, decode_step, feature_map, ops,  # noqa:
 from repro_torch.data import pipeline  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig, adamw_init  # noqa: E402
-from repro_torch.serving import engine, faults, sampling  # noqa: E402
+from repro_torch.serving import (checkpoint, engine, faults,  # noqa: E402
+                                 journal, sampling)
 from repro_torch.train import loop  # noqa: E402
 from repro_torch.tree import tree_items, tree_leaves, tree_map  # noqa: E402
 
@@ -1545,6 +1562,12 @@ def _cont_run(cfg, params, reqs, timed=None, **serving):
     eng = engine.ContinuousServingEngine(
         cfg, params, serving=ServingConfig(**kw), device="cuda",
         fault_injector=inj)
+    return _timed_run(eng, reqs, timed)
+
+
+def _timed_run(eng, reqs, timed=None):
+    """``eng.run`` over copies of ``reqs`` on the card, timed as
+    :func:`_cont_run` says; (outputs, summary, engine, wall seconds)."""
     events: list = []
     if timed is not None:
         marks = timed.setdefault("ticks", [(0, time.perf_counter())])
@@ -1591,6 +1614,16 @@ def _same_streams(ref, got, what):
 def _pct(xs, q):
     xs = sorted(xs)
     return xs[min(int(q * len(xs)), len(xs) - 1)]
+
+
+def _ttft_ms(per, timed) -> list:
+    """TTFT in ms of every request in ``per`` (RequestStats by rid), from
+    the wall time at which the engine's tick clock passed the request's
+    arrival (all were submitted at the start of a ``_cont_run``)."""
+    marks = timed["ticks"]
+    return [(st.first_token_wall - next(w for t, w in marks
+                                        if t >= st.arrival)) * 1e3
+            for st in per.values()]
 
 
 def _greedy_gaps(params, cfg, prompt, stream):
@@ -1819,12 +1852,7 @@ def phase_serve_continuous(card: str, lockstep_ms: float) -> tuple:
     disp, pre = timed["_decode_macro"], timed["_prefill_tick"]
     dec_tokens = s["tokens_generated"] - CONT_REQUESTS   # minus prefill's
     ttft_t = [st.ttft_ticks for st in per.values()]
-    # TTFT in ms from the wall time at which the engine's tick clock
-    # passed the request's arrival (all were submitted at the start).
-    marks = timed["ticks"]
-    ttft_ms = [(st.first_token_wall - next(w for t, w in marks
-                                           if t >= st.arrival)) * 1e3
-               for st in per.values()]
+    ttft_ms = _ttft_ms(per, timed)
     log(f"  pool decode {dec_tokens / sum(disp):.1f} tokens/s ({dec_tokens} "
         f"tokens in {sum(disp):.3f} s of {len(disp)} dispatches); "
         f"{(dec_tokens + s['prompt_tokens']) / wall:.1f} tokens/s end to end "
@@ -1904,6 +1932,237 @@ def phase_serve_continuous(card: str, lockstep_ms: float) -> tuple:
     return launches, b4b
 
 
+DUR_SERVING = dict(CONT_SERVING, prefix_cache_bytes=160 << 20,
+                   checkpoint_every_ticks=64)
+DUR_SYSTEM = 384               # the shared system prompt: 3 chunks of 128
+DUR_REPEATS = (8, 9, 10, 11)   # requests 12-15 repeat these prompts
+DUR_HOT = 8                    # the sampled runs take the first 8
+DUR_CRASH = (70, 70)           # the crashed run dies at its first step from it
+
+
+def _dur_requests(cfg):
+    """The phase's trace: 16 requests, each a shared 384-token system
+    prompt and a unique suffix of 16-200 tokens, 16-48 new tokens, one
+    arrival every 2 ticks, from the script's seed. Requests 12-15 repeat
+    the prompts of requests 8-11: admitted in arrival order, each finds
+    the whole-prompt entry that its original stored a few admissions
+    before (the prompts of requests 0-3 would have been evicted by then,
+    the LRU holding 11 snapshots of the 20 that 12 prompts store)."""
+    rng = np.random.default_rng(SEED)
+    V = cfg.vocab_size
+    system = rng.integers(0, V, DUR_SYSTEM)
+    prompts = [np.concatenate([system, rng.integers(0, V, int(n))])
+               .astype(np.int32) for n in rng.integers(16, 201, 12)]
+    prompts += [prompts[i] for i in DUR_REPEATS]
+    news = rng.integers(16, 49, len(prompts))
+    return [engine.Request(p, max_new_tokens=int(m), arrival_time=2.0 * i)
+            for i, (p, m) in enumerate(zip(prompts, news))]
+
+
+def _b4b_launches(what: str, dispatches: int, nl: int, K: int) -> int:
+    """B4b's launches since the last reset: nl x K per dispatch, and no
+    fused-forward or unmasked decode launch."""
+    got = _build.LAUNCHES["slay_decode_step_masked"]
+    if got != nl * K * dispatches or not dispatches:
+        raise AssertionError(f"{what}: B4b launched {got} times, want {nl} x "
+                             f"{K} x {dispatches} dispatches")
+    if _build.LAUNCHES["slay_fused_fwd"] or _build.LAUNCHES[
+            "slay_decode_step"]:
+        raise AssertionError(f"{what}: K1 or the unmasked K2 ran: "
+                             f"{_build.LAUNCHES}")
+    return got
+
+
+def _timed_checkpoints(eng, ms: list) -> None:
+    """Record the ms of every ``eng.checkpoint()`` (the journal flush,
+    the pool's copy to the host, pickling, writing and fsync)."""
+    inner = eng.checkpoint
+
+    def timed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    eng.checkpoint = timed
+
+
+def _dur_crash_restore(cfg, params, reqs, want, card: str) -> None:
+    """The cached trace on a journaled engine that crashes mid-run, then
+    ``restore`` from its directory and the run to the end: every stream
+    equal to the uncrashed cached run's, each token delivered once across
+    the two engines, the checkpoint used and tokens replayed."""
+    nl, K = cfg.num_layers, DUR_SERVING["macro_ticks"]
+    serving = ServingConfig(**DUR_SERVING)
+    d = tempfile.mkdtemp(prefix="chip_smoke_durable_")
+    try:
+        delivered = collections.defaultdict(list)
+
+        def on_token(rid, tok):
+            delivered[rid].append(int(tok))
+
+        ckpt_ms: list = []
+        eng = engine.ContinuousServingEngine(
+            cfg, params, serving=serving, device="cuda",
+            journal=journal.Journal(os.path.join(d, journal.JOURNAL_NAME)),
+            fault_injector=faults.FaultInjector(seed=SEED,
+                                                crash_window=DUR_CRASH))
+        _timed_checkpoints(eng, ckpt_ms)
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            eng.run([dataclasses.replace(r, on_token=on_token)
+                     for r in reqs])
+        except faults.EngineCrash as crash:
+            tick = crash.tick
+        else:
+            raise AssertionError("the injected crash did not fire")
+        crashed_s = time.perf_counter() - t0
+        m = eng.metrics
+        n1 = _b4b_launches("crashed run", m.decode_dispatches, nl, K)
+        resident = sorted(rec.rid for rec in eng.sched.active.values())
+        if not (m.checkpoints_written >= 1 and resident):
+            raise AssertionError(f"crash at tick {tick}: {m.checkpoints_written}"
+                                 f" checkpoints, residents {resident}")
+        log(f"  crashed run: died at tick {tick} after {crashed_s:.3f} s, "
+            f"{m.checkpoints_written} checkpoints, rids {resident} resident, "
+            f"{m.decode_dispatches} dispatches, B4b launched {n1} times")
+        del eng
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng2 = engine.ContinuousServingEngine.restore(
+            d, cfg, params, serving=serving, device="cuda",
+            on_token=on_token)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        rec = eng2.recovery
+        _timed_checkpoints(eng2, ckpt_ms)
+        _build.reset_launches()
+        outs, s, _, wall = _timed_run(eng2, [])
+        n2 = _b4b_launches("restored run", s["decode_dispatches"], nl, K)
+        _same_streams(want, outs, "restored vs uncrashed cached run")
+        if set(outs) != set(want):
+            raise AssertionError(f"restored rids {sorted(outs)}")
+        if not (rec["checkpoint_used"] and rec["resident_resumed"] >= 1
+                and s["tokens_replayed"] > 0):
+            raise AssertionError(f"restore: {rec}, {s['tokens_replayed']} "
+                                 f"tokens replayed")
+        twice = [r for r in want if delivered[r] != want[r].tolist()]
+        if twice:
+            raise AssertionError(f"on_token did not see each token of rids "
+                                 f"{twice} exactly once")
+        sizes = [os.path.getsize(p) for _, p in
+                 checkpoint.list_checkpoints(d)]
+        tokens = sum(len(o) for o in outs.values())
+        log(f"  restore: {restore_ms:.1f} ms (checkpoint of tick "
+            f"{rec['checkpoint_tick']} used, {rec['resident_resumed']} "
+            f"resident, {rec['requeued']} queued again, "
+            f"{rec['terminal_from_journal']} ended in the journal); the run "
+            f"after it {wall * 1e3:.1f} ms, {s['decode_dispatches']} "
+            f"dispatches, B4b launched {n2} times, {s['tokens_replayed']} "
+            f"tokens replayed; every stream equal to the uncrashed run's, "
+            f"each token delivered once  [{card}]")
+        log(f"  checkpoints: {len(ckpt_ms)} written, {np.mean(sizes) / 1e6:.1f}"
+            f" MB each (min {min(sizes) / 1e6:.1f}, max {max(sizes) / 1e6:.1f}"
+            f"), ms per checkpoint() median {statistics.median(ckpt_ms):.1f} "
+            f"(min {min(ckpt_ms):.1f}, max {max(ckpt_ms):.1f}), fsync "
+            f"included; journal {s['journal_bytes']} bytes, "
+            f"{s['journal_bytes'] / tokens:.1f} bytes per token  [{card}]")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def phase_serve_durable(card: str) -> None:
+    """The prefix cache and crash-safe serving on the card at full width:
+    16 requests on a shared 384-token system prompt through
+    ``ContinuousServingEngine`` with a 160 MiB prefix cache, held to a
+    cold run (greedy, and sampled at T = 0.8), then crashed mid-run with a
+    journal and checkpoints every 64 ticks and restored. Checks streams,
+    hits, evictions, pins and B4b's launches; prints the cache's numbers,
+    prefill ticks, TTFT, checkpoint and restore costs."""
+    t_phase = time.perf_counter()
+    cfg = configs.get_config("slayformer-124m")
+    nl, K = cfg.num_layers, DUR_SERVING["macro_ticks"]
+    budget = DUR_SERVING["prefix_cache_bytes"]
+    log(f"serve (prefix cache, crash-safe) {cfg.name}: {nl}L x "
+        f"{cfg.d_model}d, {cfg.dtype}, ServingConfig("
+        f"{', '.join(f'{k}={v}' for k, v in DUR_SERVING.items())}), 16 "
+        f"requests on a {DUR_SYSTEM}-token system prompt, suffixes of "
+        f"16-200, 16-48 new tokens, requests 12-15 repeating 8-11")
+    params = api.init_params(cfg, SEED, device="cuda")
+    reqs = _dur_requests(cfg)
+    runs = {}
+    for name, nbytes in (("cold", 0), ("cached", budget)):
+        timed: dict = {}
+        _build.reset_launches()
+        outs, s, eng, wall = _cont_run(cfg, params, reqs, timed=timed,
+                                       prefix_cache_bytes=nbytes)
+        n = _b4b_launches(f"{name} run", s["decode_dispatches"], nl, K)
+        runs[name] = (outs, s, eng, _ttft_ms(eng.metrics.per_request, timed))
+        log(f"  {name} run: {wall:.3f} s, {s['ticks']} ticks "
+            f"({s['prefill_ticks']} prefill, {s['decode_dispatches']} "
+            f"dispatches), {s['prompt_tokens']} prompt tokens absorbed, B4b "
+            f"launched {n} times  [{card}]")
+    (cold, sc, _, cold_ms), (warm, sw, eng, warm_ms) = (runs["cold"],
+                                                        runs["cached"])
+    _same_streams(cold, warm, "greedy, cached vs cold")
+    if set(warm) != set(cold):
+        raise AssertionError(f"rids {sorted(warm)} vs {sorted(cold)}")
+    pc, per = eng.prefix_cache, eng.metrics.per_request
+    st = pc.stats()
+    full = [r for r, x in per.items() if x.prefix_tokens == x.prompt_len]
+    if not (st["hits"] >= 15 and sw["prefix_hits"] == st["hits"]
+            and full == [12, 13, 14, 15]
+            and all(per[r].first_token == per[r].admitted for r in full)
+            and st["evictions"] > 0 and pc.live_refs() == 0
+            and sw["prefill_ticks"] < sc["prefill_ticks"]):
+        raise AssertionError(f"prefix cache: {st}, full hits {full}, "
+                             f"prefill ticks {sw['prefill_ticks']} vs "
+                             f"{sc['prefill_ticks']}")
+    log(f"  prefix cache: {st['hits']} hits ({len(full)} of whole prompts, "
+        f"rids {full}, each admitted and first token in one tick with no "
+        f"chunk), {st['misses']} misses, {st['evictions']} evictions, "
+        f"{st['entries']} entries, {st['bytes'] / 2 ** 20:.1f} of "
+        f"{budget / 2 ** 20:.0f} MiB, {st['tokens_reused']} prompt tokens "
+        f"reused; no pin left; streams equal to the cold run's")
+    log(f"  prefill ticks: cold {sc['prefill_ticks']}, cached "
+        f"{sw['prefill_ticks']}; prompt tokens absorbed {sc['prompt_tokens']}"
+        f" vs {sw['prompt_tokens']}")
+    log(f"  TTFT ticks p50/p95: cold {sc['ttft_ticks_p50']}/"
+        f"{sc['ttft_ticks_p95']}, cached {sw['ttft_ticks_p50']}/"
+        f"{sw['ttft_ticks_p95']} (its hits {sw['ttft_cached_ticks_p50']}/"
+        f"{sw['ttft_cached_ticks_p95']}); ms p50/p95: cold "
+        f"{_pct(cold_ms, 0.5):.1f}/{_pct(cold_ms, 0.95):.1f}, cached "
+        f"{_pct(warm_ms, 0.5):.1f}/{_pct(warm_ms, 0.95):.1f}  [{card}]")
+
+    # Sampled: T = 0.8 with the embedding divided by 8 (as phase 12), the
+    # first 8 requests, cached against cold; the draws must decide tokens
+    # (held against the greedy streams of the first 2).
+    soft = dict(params, embed=params["embed"] / 8)
+    hot = reqs[:DUR_HOT]
+    greedy, _, _, _ = _cont_run(cfg, soft, hot[:2])
+    hot_cold, _, _, _ = _cont_run(cfg, soft, hot, temperature=0.8)
+    hot_warm, sh, _, _ = _cont_run(cfg, soft, hot, temperature=0.8,
+                                   prefix_cache_bytes=budget)
+    _same_streams(hot_cold, hot_warm, "T = 0.8, cached vs cold")
+    differ = [r for r in greedy if not np.array_equal(hot_warm[r],
+                                                      greedy[r])]
+    if not differ or sh["prefix_hits"] < len(hot) - 1:
+        raise AssertionError(f"sampled: {len(differ)} streams off greedy, "
+                             f"{sh['prefix_hits']} prefix hits")
+    log(f"  sampled (T = 0.8, embedding / 8) rids 0-{len(hot) - 1}: cached "
+        f"streams equal to cold ({sh['prefix_hits']} hits); {len(differ)} "
+        f"of rids 0-{len(greedy) - 1} differ from greedy")
+    del eng
+    _dur_crash_restore(cfg, params, reqs, warm, card)
+    del params
+    torch.cuda.empty_cache()
+    log(f"serve (prefix cache, crash-safe): the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s  [{card}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; it needs an "
@@ -1928,6 +2187,7 @@ def main() -> int:
     phase_serve_two(card_line, fused_outs)
     two = phase_train_two(card_line, fused_loss0, fused_step_s)
     cont, b4b = phase_serve_continuous(card_line, lock_ms)
+    phase_serve_durable(card_line)
     kernels = [
         dict(name="slay_fused_fwd", route="cuda",
              source="src/repro_torch/csrc/slay_fused.cu",

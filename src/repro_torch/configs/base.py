@@ -90,7 +90,10 @@ class ServingConfig:
     and logits for NaN/Inf inside the dispatch; a faulted request is
     retried ``fault_retries`` times, then ends as ``fault``.
     ``debug_audit`` checks the slot pool's bookkeeping at the end of
-    every ``run()``.
+    every ``run()``. ``prefix_cache_bytes`` > 0 is the budget of the
+    prefix cache of (S, z) snapshots; ``checkpoint_every_ticks`` > 0
+    writes an engine checkpoint beside the engine's journal every that
+    many ticks.
 
     :meth:`check_supported` rejects the knobs of features the port does
     not have yet; the engine calls it when it is built.
@@ -173,10 +176,6 @@ class ServingConfig:
         later = [
             (self.page_size > 0, "page_size > 0 (paged slot memory, "
              "pages.py)"),
-            (self.prefix_cache_bytes > 0, "prefix_cache_bytes > 0 (the "
-             "prefix cache, prefix_cache.py)"),
-            (self.checkpoint_every_ticks > 0, "checkpoint_every_ticks > 0 "
-             "(journal, serving/checkpoint.py and restore)"),
             (self.speculative, "speculative=True (speculative.py)"),
             (self.slot_shards > 1, f"slot_shards={self.slot_shards} (a "
              f"sharded slot pool)"),

@@ -1,0 +1,214 @@
+"""Atomic engine checkpoints for crash-safe serving
+(``repro.serving.checkpoint``; DESIGN.md §12).
+
+A checkpoint holds what the journal does not: the slot pool's decode
+state, the host slot mirrors, which rid is resident in which slot, and
+the prefix-cache index. ``restore`` loads the latest valid checkpoint,
+then replays the journal to rebuild queued requests and to deduplicate
+tokens already emitted.
+
+File format, the JAX package's::
+
+    magic (8B) | version u32 | payload_len u64 | sha256(payload) 32B | payload
+
+The payload is a pickled dict of numpy arrays and builtins, never a
+torch tensor, with the JAX package's keys: the pool as a list of leaves
+in ``jax.tree.leaves`` order (``attn.pos, attn.s, attn.z, pos``), and
+``page_pool``, ``draft_pool``, ``speculative`` at their "off" values (the
+port has neither paging nor speculative decoding). So a directory written
+by either package is one format. numpy has no bfloat16 without
+``ml_dtypes``: the port writes a bfloat16 tensor (the last-token logits
+of a full-width prefix entry) as float32, which is exact, and reads a
+JAX-written bfloat16 leaf through its uint16 bits, widened to float32;
+the engine casts both back on restore.
+
+Writes are atomic: tmp file, fsync, ``os.replace``, directory fsync.
+``latest_valid`` scans ``ckpt-*.ckpt`` newest first and skips a file
+whose header, checksum or contents fail, so a crash mid-checkpoint falls
+back to the previous checkpoint, or to recovery from the journal alone.
+"""
+from __future__ import annotations
+
+import hashlib
+import io
+import os
+import pickle
+import re
+import struct
+
+import numpy as np
+import torch
+
+from repro_torch.tree import tree_leaves
+
+MAGIC = b"SLAYCKPT"
+CKPT_VERSION = 1
+_HEADER = struct.Struct("<8sIQ")
+_CKPT_RE = re.compile(r"^ckpt-(\d+)\.ckpt$")
+
+# The only globals a payload may name: numpy's array and dtype
+# reconstruction (its module moved in numpy 2), and the bfloat16 type of
+# ml_dtypes, which a JAX-written payload names and which is read as its
+# uint16 bits.
+_NUMPY_GLOBALS = {("numpy", "ndarray"), ("numpy", "dtype"),
+                  ("numpy.core.multiarray", "_reconstruct"),
+                  ("numpy._core.multiarray", "_reconstruct")}
+_BF16 = ("ml_dtypes", "bfloat16")
+
+
+class CheckpointError(RuntimeError):
+    """Raised when a checkpoint file fails header/checksum validation."""
+
+
+class _Unpickler(pickle.Unpickler):
+    """Loads numpy arrays and builtins only; nothing else is constructed."""
+
+    def find_class(self, module, name):
+        if (module, name) == _BF16:
+            return np.uint16
+        if (module, name) in _NUMPY_GLOBALS:
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(
+            f"checkpoint payload names {module}.{name}, which is neither a "
+            f"numpy array nor a builtin")
+
+
+def _widen_bf16(node):
+    """Replace every uint16 array (a JAX-written bfloat16 leaf's bits; the
+    format has no uint16 leaf of its own) by the float32 it encodes."""
+    if isinstance(node, dict):
+        return {k: _widen_bf16(v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_widen_bf16(v) for v in node]
+    if isinstance(node, np.ndarray) and node.dtype == np.uint16:
+        return (node.astype(np.uint32) << 16).view(np.float32)
+    return node
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t`` as numpy; bfloat16 as float32 (exact)."""
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.detach().to("cpu", copy=True).numpy()
+
+
+def leaf_matches(t: torch.Tensor, a) -> bool:
+    """Whether the numpy leaf ``a`` has the shape and dtype of ``t``."""
+    return (isinstance(a, np.ndarray) and tuple(t.shape) == a.shape
+            and a.dtype.kind in "biuf"
+            and torch.from_numpy(np.empty(0, a.dtype)).dtype == t.dtype)
+
+
+def checkpoint_path(directory: str, tick: int) -> str:
+    return os.path.join(directory, f"ckpt-{tick:012d}.ckpt")
+
+
+def save(path: str, state: dict) -> None:
+    """Atomically write ``state`` to ``path`` (tmp + rename + fsync)."""
+    payload = pickle.dumps(state, protocol=4)
+    d = os.path.dirname(path) or "."
+    os.makedirs(d, exist_ok=True)
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "wb") as f:
+        f.write(_HEADER.pack(MAGIC, CKPT_VERSION, len(payload)))
+        f.write(hashlib.sha256(payload).digest())
+        f.write(payload)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+    dirfd = os.open(d, os.O_RDONLY)
+    try:
+        os.fsync(dirfd)
+    finally:
+        os.close(dirfd)
+
+
+def load(path: str) -> dict:
+    """Load and validate one checkpoint file; raises CheckpointError."""
+    with open(path, "rb") as f:
+        blob = memoryview(f.read())
+    if len(blob) < _HEADER.size + 32:
+        raise CheckpointError(f"{path}: truncated header")
+    magic, version, plen = _HEADER.unpack_from(blob)
+    if magic != MAGIC:
+        raise CheckpointError(f"{path}: bad magic {magic!r}")
+    if version != CKPT_VERSION:
+        raise CheckpointError(f"{path}: unsupported version {version}")
+    digest = bytes(blob[_HEADER.size:_HEADER.size + 32])
+    payload = blob[_HEADER.size + 32:]
+    if len(payload) != plen:
+        raise CheckpointError(f"{path}: payload length {len(payload)} != {plen}")
+    if hashlib.sha256(payload).digest() != digest:
+        raise CheckpointError(f"{path}: checksum mismatch")
+    state = _Unpickler(io.BytesIO(payload)).load()
+    if not isinstance(state, dict):
+        raise CheckpointError(f"{path}: payload is not a state dict")
+    return _widen_bf16(state)
+
+
+def list_checkpoints(directory: str) -> list[tuple[int, str]]:
+    """All checkpoint files in ``directory`` as (tick, path), newest first."""
+    if not os.path.isdir(directory):
+        return []
+    out = []
+    for name in os.listdir(directory):
+        m = _CKPT_RE.match(name)
+        if m:
+            out.append((int(m.group(1)), os.path.join(directory, name)))
+    out.sort(reverse=True)
+    return out
+
+
+def latest_valid(directory: str) -> dict | None:
+    """Newest checkpoint that passes validation, or None."""
+    for _tick, path in list_checkpoints(directory):
+        try:
+            return load(path)
+        except (CheckpointError, OSError, pickle.UnpicklingError, EOFError):
+            continue  # corrupt or torn checkpoint: fall back to an older one
+    return None
+
+
+def snapshot_engine(eng) -> dict:
+    """The checkpoint state dict of a live engine.
+
+    Mid-prefill state is not captured: a request whose chunked prefill is
+    in flight re-admits from its journaled admission at restore (the same
+    chunk schedule, the same stream).
+    """
+    inflight_slot = eng._prefill.slot if eng._prefill is not None else None
+    slots = {int(slot): int(rec.rid) for slot, rec in eng.sched.active.items()
+             if slot != inflight_slot}
+    prefix_entries = None
+    if eng.prefix_cache is not None:
+        prefix_entries = [
+            {"tokens": np.asarray(ent.tokens, np.int32),
+             "length": int(ent.length),
+             "cache": [to_numpy(x) for x in tree_leaves(ent.cache)],
+             "logits": (to_numpy(ent.logits) if ent.logits is not None
+                        else None)}
+            for ent in eng.prefix_cache.entries()]
+    return {
+        "version": CKPT_VERSION,
+        "tick": int(eng.tick),
+        "next_rid": int(eng._next_rid),
+        "num_slots": int(eng.serving.num_slots),
+        "max_len": int(eng.serving.max_len),
+        "page_size": 0,
+        "seed": int(eng.serving.seed),
+        "speculative": False,
+        "spec_gamma": 0,
+        "pool": [to_numpy(x) for x in tree_leaves(eng.pool)],
+        "draft_pool": None,
+        "mirrors": {
+            "last_tok": eng._last_tok.copy(),
+            "active": eng._active.copy(),
+            "rids": eng._rids.copy(),
+            "gen": eng._gen.copy(),
+            "eos": eng._eos.copy(),
+            "maxn": eng._maxn.copy(),
+        },
+        "slots": slots,
+        "page_pool": None,
+        "prefix": prefix_entries,
+    }

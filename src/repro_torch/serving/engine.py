@@ -26,11 +26,22 @@ per-slot NaN/Inf lane in the decode dispatch detects numeric faults,
 which the host quarantines and retries. ``serving.faults`` holds the
 deterministic chaos injector that exercises all of it.
 
+A ``prefix_cache_bytes`` budget (or a shared ``prefix_cache``) turns on
+the content-addressed prefix cache (``serving.prefix_cache``): an
+admission whose prompt shares a cached prefix seeds its slot from the
+stored (S, z) snapshot and chunk-prefills only the suffix, or skips
+prefill when the whole prompt is cached. With a ``journal`` attached
+(``serving.journal``) every admission, token, retry and termination is
+journaled, ``checkpoint_every_ticks`` adds periodic atomic checkpoints
+(``serving.checkpoint``) beside it, and :meth:`ContinuousServingEngine.
+restore` rebuilds an engine from that directory after a crash with
+byte-identical streams. Directories are one format with the JAX
+package's.
+
 Not in the port yet (ROADMAP Queue A item 11), each refused by
 ``ServingConfig.check_supported`` when the engine is built: paged slot
-memory, the prefix cache, journal, checkpoints and ``restore``,
-speculative decoding, a sharded slot pool and the bucketed whole-prompt
-prefill fallback.
+memory, speculative decoding, a sharded slot pool and the bucketed
+whole-prompt prefill fallback.
 """
 from __future__ import annotations
 
@@ -47,8 +58,12 @@ from repro_torch import prng
 from repro_torch.configs.base import ArchConfig, ServingConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import api
+from repro_torch.serving import checkpoint as checkpoint_lib
 from repro_torch.serving import faults as faults_lib
+from repro_torch.serving import journal as journal_lib
+from repro_torch.serving import prefix_cache as prefix_lib
 from repro_torch.serving import sampling
+from repro_torch.tree import tree_leaves, tree_map
 
 
 class AdmissionError(RuntimeError):
@@ -261,6 +276,8 @@ class RequestStats:
     arrival_wall: float | None = None
     finish_reason: str | None = None  # sampling.FINISH_REASONS; None = live
     retries: int = 0                 # fault-quarantine re-admissions so far
+    prefix_cached: bool = False      # seeded from the prefix cache
+    prefix_tokens: int = 0           # prompt tokens reused from a snapshot
 
     @property
     def ttft_ticks(self) -> float | None:
@@ -291,9 +308,13 @@ class ServingMetrics:
     ``requests_terminated`` counts every terminal request,
     ``requests_completed`` the successful ones (eos | length);
     ``fault_events`` records each quarantine as {"rid", "slot", "tick"}.
-    ``summary()`` has the reference's keys; those of features the port
-    does not have yet (paging, prefix cache, journal and checkpoints,
-    speculative decoding, bucketed prefill) read 0 or False.
+    ``prefix_hits`` counts admissions seeded from the prefix cache and
+    ``prefix_tokens_reused`` the prompt tokens they skipped;
+    ``tokens_replayed`` counts tokens regenerated after a restore and
+    checked against the journal instead of delivered again,
+    ``checkpoints_written`` the atomic checkpoints. ``summary()`` has the
+    reference's keys; those of features the port does not have yet
+    (paging, speculative decoding, bucketed prefill) read 0 or False.
     """
 
     num_slots: int = 0
@@ -316,6 +337,10 @@ class ServingMetrics:
     fault_retries: int = 0
     fault_retries_succeeded: int = 0
     fault_events: list = dataclasses.field(default_factory=list)
+    prefix_hits: int = 0
+    prefix_tokens_reused: int = 0
+    tokens_replayed: int = 0
+    checkpoints_written: int = 0
     clock: Callable[[], float] = time.perf_counter
     wall_start: float | None = None
     per_request: dict = dataclasses.field(default_factory=dict)
@@ -335,6 +360,12 @@ class ServingMetrics:
                        if s.ttft_ticks is not None)
         ttfts_s = sorted(s.ttft_s for s in self.per_request.values()
                          if s.ttft_s is not None)
+        # TTFT split by prefix-cache seeding (cached admissions skip
+        # prefill work).
+        ttfts_c = sorted(s.ttft_ticks for s in self.per_request.values()
+                         if s.ttft_ticks is not None and s.prefix_cached)
+        ttfts_w = sorted(s.ttft_ticks for s in self.per_request.values()
+                         if s.ttft_ticks is not None and not s.prefix_cached)
 
         def pct(xs, q):
             return xs[min(int(q * len(xs)), len(xs) - 1)] if xs else None
@@ -370,8 +401,8 @@ class ServingMetrics:
             "faults_detected": self.faults_detected,
             "fault_retries": self.fault_retries,
             "fault_retries_succeeded": self.fault_retries_succeeded,
-            "tokens_replayed": 0,
-            "checkpoints_written": 0,
+            "tokens_replayed": self.tokens_replayed,
+            "checkpoints_written": self.checkpoints_written,
             "wall_s": wall,
             "decode_tokens_per_s": self.tokens_generated / wall,
             "total_tokens_per_s":
@@ -384,13 +415,12 @@ class ServingMetrics:
             "ttft_ticks_p95": pct(ttfts, 0.95),
             "ttft_s_p50": pct(ttfts_s, 0.50),
             "ttft_s_p95": pct(ttfts_s, 0.95),
-            "prefix_hits": 0,
-            "prefix_tokens_reused": 0,
-            # With no prefix cache every admission is cold.
-            "ttft_cached_ticks_p50": None,
-            "ttft_cached_ticks_p95": None,
-            "ttft_cold_ticks_p50": pct(ttfts, 0.50),
-            "ttft_cold_ticks_p95": pct(ttfts, 0.95),
+            "prefix_hits": self.prefix_hits,
+            "prefix_tokens_reused": self.prefix_tokens_reused,
+            "ttft_cached_ticks_p50": pct(ttfts_c, 0.50),
+            "ttft_cached_ticks_p95": pct(ttfts_c, 0.95),
+            "ttft_cold_ticks_p50": pct(ttfts_w, 0.50),
+            "ttft_cold_ticks_p95": pct(ttfts_w, 0.95),
             "num_pages": 0,
             "pages_in_use": 0,
             "pages_peak": 0,
@@ -421,6 +451,7 @@ class _Prefill:
     slot: int
     cache: object                    # per-request (batch=1) decode cache
     offset: int = 0                  # prompt tokens absorbed so far
+    logits: torch.Tensor | None = None  # (1, 1, V): a full prefix hit
 
 
 class Scheduler:
@@ -556,14 +587,18 @@ class ContinuousServingEngine:
 
     Runs on the card unless given ``device="cpu"`` (the plain PyTorch
     versions of the kernels); asking for the card where there is none
-    raises.
+    raises. ``prefix_cache`` shares a :class:`~repro_torch.serving.
+    prefix_cache.PrefixCache` between engines (else ``serving.
+    prefix_cache_bytes`` > 0 builds one); ``journal`` makes the engine
+    crash-safe (:meth:`checkpoint`, :meth:`restore`).
     """
 
     def __init__(self, cfg: ArchConfig, params: dict, *,
                  serving: ServingConfig = ServingConfig(),
                  device: str | torch.device = "cuda",
                  clock: Callable[[], float] = time.perf_counter,
-                 fault_injector=None):
+                 fault_injector=None, prefix_cache=None,
+                 journal: journal_lib.Journal | None = None):
         cfg.check_supported()
         serving.check_supported()
         self.device = resolve_device(device)
@@ -574,6 +609,14 @@ class ContinuousServingEngine:
         # benchmarks only.
         self._injector = fault_injector
         self.sched = Scheduler(serving)
+        # Content-addressed prefix cache; its entries live on this
+        # engine's device. _pfx_refs pins the entry each live request was
+        # seeded from, so it is never evicted under the request.
+        self.prefix_cache = prefix_cache
+        if self.prefix_cache is None and serving.prefix_cache_bytes:
+            self.prefix_cache = prefix_lib.PrefixCache(
+                serving.prefix_cache_bytes)
+        self._pfx_refs: dict[int, prefix_lib.PrefixEntry] = {}
         self.metrics = ServingMetrics(num_slots=serving.num_slots,
                                       macro_ticks=serving.macro_ticks,
                                       clock=clock)
@@ -581,6 +624,18 @@ class ContinuousServingEngine:
         self._next_rid = 0
         self._outputs: dict[int, list] = {}
         self._prefill: _Prefill | None = None
+        # Durability. With a journal every admission, token and
+        # termination is journaled (one fsync per engine step), and
+        # checkpoint_every_ticks > 0 adds periodic atomic checkpoints in
+        # the journal's directory. _replay_until[rid] is how many tokens
+        # of a restored request the journal already holds: regenerated
+        # tokens below it are checked byte-equal and not delivered again.
+        self.journal = journal
+        self._ckpt_dir = (os.path.dirname(os.path.abspath(journal.path))
+                          if journal is not None else None)
+        self._last_ckpt_tick = 0
+        self._replay_until: dict[int, int] = {}
+        self.recovery: dict | None = None
         self._audit = serving.debug_audit or (
             os.environ.get("REPRO_DEBUG_AUDIT", "") not in ("", "0"))
         S = serving.num_slots
@@ -597,6 +652,17 @@ class ContinuousServingEngine:
         self._gen = np.zeros(S, np.int32)
         self._eos = np.full(S, -1, np.int32)
         self._maxn = np.zeros(S, np.int32)
+        if journal is not None and journal.nbytes == 0:
+            # A fresh journal: stamp the sampling and geometry contract
+            # once. restore() refuses a journal whose stream keying or
+            # sampling differ (regenerated tokens would not be equal).
+            journal.append({
+                "t": "meta", "v": journal_lib.JOURNAL_VERSION,
+                "stream_key_v": sampling.STREAM_KEY_VERSION,
+                "seed": serving.seed, "temperature": serving.temperature,
+                "num_slots": S, "max_len": serving.max_len,
+                "speculative": False, "spec_gamma": 0})
+            journal.flush()
 
     # -- submission ---------------------------------------------------------
 
@@ -632,8 +698,25 @@ class ContinuousServingEngine:
         st.arrival_wall = self._clock()
         self.metrics.per_request[rid] = st
         self._outputs[rid] = []
+        if self.journal is not None:
+            prompt = np.asarray(req.prompt, np.int32).reshape(-1)
+            self.journal.append({
+                "t": "admit", "rid": rid,
+                "prompt": [int(x) for x in prompt],
+                "digest": prefix_lib.token_digest(prompt).hex(),
+                "arrival": float(req.arrival_time),
+                "max_new": int(req.max_new_tokens),
+                "eos": int(req.eos_id),
+                "ttft_deadline_ticks": req.ttft_deadline_ticks,
+                "deadline_ticks": req.deadline_ticks,
+                "ttft_deadline_s": req.ttft_deadline_s,
+                "deadline_s": req.deadline_s,
+                "ts": self._clock()})
         for srid, sreq in shed:
             self._terminate(srid, sreq, "shed")
+        if self.journal is not None:
+            # Admission is durable before the caller learns the rid.
+            self.journal.flush()
         return rid
 
     # -- engine ticks -------------------------------------------------------
@@ -669,6 +752,13 @@ class ContinuousServingEngine:
             self.metrics.sample(sched.queue_depth, sched.occupancy)
             self.tick += 1
         self.metrics.ticks = self.tick
+        if self.journal is not None:
+            # One fsync per engine step: a K-tick dispatch journals its
+            # emissions here.
+            self.journal.flush()
+            every = self.serving.checkpoint_every_ticks
+            if every and self.tick - self._last_ckpt_tick >= every:
+                self.checkpoint()
         return did or bool(sched.waiting)
 
     def run(self, requests: list[Request] | None = None, *,
@@ -684,12 +774,15 @@ class ContinuousServingEngine:
                     or self.sched.waiting or self._prefill):
                 break
             self.step()
+        if self.journal is not None:
+            self.journal.flush()
         if self._audit:
             self._debug_audit()
         outs = {rid: np.asarray(toks, np.int32)
                 for rid, toks in self._outputs.items()}
         summary = self.metrics.summary()
-        summary["journal_bytes"] = 0
+        summary["journal_bytes"] = (self.journal.nbytes
+                                    if self.journal is not None else 0)
         # Leak contract: a drained engine holds no live slot and an empty
         # queue, whatever path each request left by.
         summary["final_occupancy"] = self.sched.occupancy
@@ -697,11 +790,249 @@ class ContinuousServingEngine:
         summary["final_pages_in_use"] = 0
         return outs, summary
 
+    # -- durability: checkpoint / restore ------------------------------------
+
+    def checkpoint(self) -> str:
+        """Write an atomic engine checkpoint next to the journal; its path.
+
+        Journal first, checkpoint second: the flush puts on disk every
+        token the checkpointed mirrors count as emitted, so a restored
+        resident slot's ``gen`` never runs ahead of its journaled stream.
+        Called every ``serving.checkpoint_every_ticks`` ticks (at step
+        boundaries), or explicitly."""
+        if self.journal is None:
+            raise RuntimeError(
+                "checkpointing requires the engine to have a journal "
+                "(ContinuousServingEngine(..., journal=Journal(path)))")
+        self.journal.flush()
+        state = checkpoint_lib.snapshot_engine(self)
+        path = checkpoint_lib.checkpoint_path(self._ckpt_dir, self.tick)
+        checkpoint_lib.save(path, state)
+        self._last_ckpt_tick = self.tick
+        self.metrics.checkpoints_written += 1
+        return path
+
+    @classmethod
+    def restore(cls, path: str, cfg: ArchConfig, params: dict, *,
+                serving: ServingConfig = ServingConfig(),
+                device: str | torch.device = "cuda",
+                fault_injector=None, prefix_cache=None,
+                clock: Callable[[], float] = time.perf_counter,
+                on_token: Callable[[int, int], None] | None = None,
+                on_finish: Callable[[int, str], None] | None = None,
+                redeliver: bool = False) -> "ContinuousServingEngine":
+        """Rebuild an engine from a durability directory (journal and
+        checkpoints) after a crash, with byte-identical streams.
+
+        Recovery: a tolerant journal replay (a torn tail is dropped and
+        truncated), the latest *valid* checkpoint (corrupt files
+        skipped), a fresh engine on ``device``, then :meth:`_apply_restore`:
+        the pool, mirrors and prefix cache come from the checkpoint when
+        its geometry matches this config; every live rid is rebuilt from
+        its journaled admission. Residents of the checkpoint resume
+        mid-stream in their slots; every other live request queues again
+        in arrival order and prefills from scratch. Sampling is keyed on
+        (seed, rid, token index), so both regenerate the pre-crash tokens
+        bit for bit; the journal's horizon dedupes them (checked in
+        :meth:`_emit`), so callbacks see each token once. A checkpoint of
+        another geometry (slot count, max_len) is not used: recovery runs
+        from the journal alone, with the same streams and more replay.
+
+        ``on_token``/``on_finish`` attach to every restored live request;
+        ``redeliver=True`` also fires them for the journaled tokens (and
+        the journaled terminations) at restore time, for a consumer that
+        lost its own state with the process. The directory may have been
+        written by the JAX package's engine: the formats are one."""
+        t0 = clock()
+        jpath = os.path.join(path, journal_lib.JOURNAL_NAME)
+        jst = journal_lib.replay(jpath)
+        meta = jst.meta
+        if meta is not None:
+            if meta.get("stream_key_v") != sampling.STREAM_KEY_VERSION:
+                raise ValueError(
+                    f"journal stream keying v{meta.get('stream_key_v')} != "
+                    f"engine v{sampling.STREAM_KEY_VERSION}: regenerated "
+                    f"tokens would not be byte-identical; cannot resume")
+            if (int(meta.get("seed", serving.seed)) != serving.seed
+                    or float(meta.get("temperature", serving.temperature))
+                    != serving.temperature):
+                raise ValueError(
+                    "journal was written under a different sampling config "
+                    f"(seed={meta.get('seed')}, temperature="
+                    f"{meta.get('temperature')}); restore with the same "
+                    "seed/temperature or streams diverge")
+            if meta.get("speculative"):
+                raise ValueError(
+                    "journal was written by a speculative engine, whose "
+                    "sampled streams differ; the port has no speculative "
+                    "decoding (ROADMAP Queue A item 11)")
+        ck = checkpoint_lib.latest_valid(path)
+        jr = journal_lib.Journal(jpath, truncate_to=jst.valid_bytes)
+        eng = cls(cfg, params, serving=serving, device=device, clock=clock,
+                  fault_injector=fault_injector, prefix_cache=prefix_cache,
+                  journal=jr)
+        eng._apply_restore(jst, ck, on_token=on_token, on_finish=on_finish,
+                           redeliver=redeliver)
+        eng.recovery["wall_s"] = clock() - t0
+        return eng
+
+    def _leaves_from(self, template, saved: list):
+        """A new tree shaped as ``template`` from the numpy leaves
+        ``saved`` (checked by :meth:`_fits`), in fresh tensors on the
+        engine's device."""
+        it = iter(saved)
+        return tree_map(lambda t: torch.from_numpy(np.array(next(it))).to(
+            self.device), template)
+
+    @staticmethod
+    def _fits(template, saved) -> bool:
+        cur = tree_leaves(template)
+        return (isinstance(saved, list) and len(cur) == len(saved)
+                and all(checkpoint_lib.leaf_matches(c, s)
+                        for c, s in zip(cur, saved)))
+
+    @torch.inference_mode()
+    def _apply_restore(self, jst: journal_lib.JournalState,
+                       ck: dict | None, *, on_token, on_finish,
+                       redeliver: bool):
+        S = self.serving.num_slots
+        usable = (
+            ck is not None
+            and int(ck.get("num_slots", -1)) == S
+            and int(ck.get("max_len", -1)) == self.serving.max_len
+            and int(ck.get("page_size", -1)) == 0
+            and not ck.get("speculative", False)
+            and int(ck.get("spec_gamma", 0)) == 0
+            and self._fits(self.pool, ck.get("pool")))
+        resident: dict[int, int] = {}       # rid -> slot
+        if usable:
+            # Fresh pool tensors, which the decode kernel then updates in
+            # place and the slot functions write into.
+            self.pool = self._leaves_from(self.pool, ck["pool"])
+            mir = ck["mirrors"]
+            self._last_tok = np.asarray(mir["last_tok"], np.int32).copy()
+            self._active = np.asarray(mir["active"], bool).copy()
+            self._rids = np.asarray(mir["rids"], np.int32).copy()
+            self._gen = np.asarray(mir["gen"], np.int32).copy()
+            self._eos = np.asarray(mir["eos"], np.int32).copy()
+            self._maxn = np.asarray(mir["maxn"], np.int32).copy()
+            self.tick = int(ck["tick"])
+            self.metrics.ticks = self.tick
+            self._last_ckpt_tick = self.tick
+            resident = {int(r): int(s) for s, r in ck["slots"].items()}
+            if self.prefix_cache is not None and ck.get("prefix"):
+                # Rebuild the prefix-cache index, oldest first so the LRU
+                # order holds. Refcounts restart at zero: restored requests
+                # pin again when they re-admit. An entry of another shape
+                # is skipped (a later miss).
+                one = api.init_cache(self.cfg, 1, self.serving.max_len,
+                                     device=self.device)
+                V = self.cfg.vocab_size
+                for ent in ck["prefix"]:
+                    lg = ent["logits"]
+                    if not self._fits(one, ent["cache"]) or (
+                            lg is not None and lg.shape != (1, 1, V)):
+                        continue
+                    if lg is not None:
+                        lg = torch.from_numpy(np.array(lg)).to(
+                            self.device, self.cfg.activation_dtype)
+                    self.prefix_cache.insert(
+                        ent["tokens"], self._leaves_from(one, ent["cache"]),
+                        logits=lg, copy=False)
+        nr = int(ck["next_rid"]) if usable else 0
+        if jst.admits:
+            nr = max(nr, max(jst.admits) + 1)
+        self._next_rid = nr
+        # Residency is checked against the journal: a resident slot needs
+        # a journaled admission, no termination, agreeing mirrors, and a
+        # journaled stream at least as long as its gen (which the
+        # flush-before-checkpoint order guarantees); otherwise the request
+        # re-admits from scratch.
+        for rid, slot in list(resident.items()):
+            toks = jst.tokens.get(rid, [])
+            ok = (rid in jst.admits and rid not in jst.fins
+                  and 0 <= slot < S and bool(self._active[slot])
+                  and int(self._rids[slot]) == rid
+                  and 0 < int(self._gen[slot]) <= len(toks))
+            if not ok:
+                resident.pop(rid)
+        now_wall = self._clock()
+        for rid in sorted(jst.admits):
+            a = jst.admits[rid]
+            toks = [int(t) for t in jst.tokens.get(rid, [])]
+            st = RequestStats(rid=rid, arrival=float(a["arrival"]),
+                              prompt_len=len(a["prompt"]))
+            st.arrival_wall = now_wall   # wall deadlines re-anchor here
+            st.retries = int(jst.retries.get(rid, 0))
+            self.metrics.per_request[rid] = st
+            self._outputs[rid] = list(toks)
+            fin = jst.fins.get(rid)
+            if fin is not None:
+                # Terminal before the crash: its stream is the journal's;
+                # not re-admitted, not counted in this engine's counters.
+                st.finish_reason = fin
+                st.finished = self.tick
+                continue
+            req = Request(
+                np.asarray(a["prompt"], np.int32),
+                max_new_tokens=int(a["max_new"]),
+                eos_id=int(a["eos"]),
+                arrival_time=float(a["arrival"]),
+                on_token=on_token, on_finish=on_finish,
+                ttft_deadline_ticks=a.get("ttft_deadline_ticks"),
+                deadline_ticks=a.get("deadline_ticks"),
+                ttft_deadline_s=a.get("ttft_deadline_s"),
+                deadline_s=a.get("deadline_s"))
+            if toks:
+                self._replay_until[rid] = len(toks)
+            slot = resident.get(rid)
+            if slot is not None:
+                gen = int(self._gen[slot])
+                rec = _Slot(rid, req, int(self._last_tok[slot]),
+                            tokens=list(toks[:gen]))
+                self.sched.active[slot] = rec
+                self.sched.free.remove(slot)
+                st.slot = slot
+                st.admitted = self.tick
+                st.first_token = self.tick
+                st.first_token_wall = now_wall
+            else:
+                self.sched.waiting.append((rid, req))
+        self.sched.waiting = collections.deque(
+            sorted(self.sched.waiting,
+                   key=lambda t: (t[1].arrival_time, t[0])))
+        # Slots the journal shows evicted after the checkpoint (or whose
+        # residency failed the check) go idle in the mirrors. No device op:
+        # idle slots pass through the decode unchanged and write_slot
+        # overwrites a slot whole on reuse.
+        for slot in range(S):
+            if self._active[slot] and slot not in self.sched.active:
+                self._active[slot] = False
+        if redeliver:
+            for rid in sorted(self._outputs):
+                if on_token is not None:
+                    for tok in self._outputs[rid]:
+                        on_token(rid, int(tok))
+                fin = jst.fins.get(rid)
+                if fin is not None and on_finish is not None:
+                    on_finish(rid, fin)
+        self.recovery = {
+            "checkpoint_used": bool(usable),
+            "checkpoint_tick": int(ck["tick"]) if usable else None,
+            "journal_records": jst.records,
+            "journal_dropped_tail": jst.dropped_tail,
+            "resident_resumed": len(self.sched.active),
+            "requeued": len(self.sched.waiting),
+            "terminal_from_journal": len(jst.fins),
+        }
+
     def _debug_audit(self):
         """Invariant audit (``ServingConfig.debug_audit`` or the
         ``REPRO_DEBUG_AUDIT`` environment variable), run at the end of
-        every :meth:`run`: free and resident slots partition the pool, and
-        the host mirrors mark exactly the resident slots live."""
+        every :meth:`run`: free and resident slots partition the pool, the
+        host mirrors mark exactly the resident slots live, and every
+        prefix-cache refcount is a live request's pin (a leaked pin would
+        block eviction for good)."""
         S = self.serving.num_slots
         free, live = set(self.sched.free), set(self.sched.active)
         assert not free & live and free | live | (
@@ -709,8 +1040,41 @@ class ContinuousServingEngine:
                 range(S)), f"slot pool partition broken: {free}, {live}"
         assert set(np.flatnonzero(self._active)) <= live, (
             "a free slot is marked live in the decode mirrors")
+        if self.prefix_cache is not None:
+            refs = self.prefix_cache.live_refs()
+            pins = len(self._pfx_refs)
+            assert refs == pins, (
+                f"prefix-cache refcount leak: {refs} live refs vs {pins} "
+                f"engine pins")
 
     # -- internals ----------------------------------------------------------
+
+    def _seed_from_prefix(self, pf: _Prefill, C: int):
+        """Seed an admission from the longest cached prompt prefix.
+
+        A full-prompt hit skips prefill: the stored last-token logits
+        sample token 0 (sampling is keyed on (seed, rid, idx), never on how
+        the state was produced) and ``write_slot`` copies the snapshot into
+        the pool. A proper-prefix hit clones the snapshot and
+        chunk-prefills only the suffix; hits land on chunk multiples only,
+        so the suffix's chunks are a cold prefill's and the stream is
+        byte-identical."""
+        entry = self.prefix_cache.lookup(pf.req.prompt, chunk=C)
+        if entry is None:
+            return
+        self.prefix_cache.acquire(entry)
+        self._pfx_refs[pf.rid] = entry
+        st = self.metrics.per_request[pf.rid]
+        st.prefix_cached = True
+        st.prefix_tokens = entry.length
+        self.metrics.prefix_hits += 1
+        self.metrics.prefix_tokens_reused += entry.length
+        if entry.length == len(pf.req.prompt):
+            pf.cache = entry.cache   # write_slot copies it into the pool
+            pf.logits = entry.logits
+        else:
+            pf.cache = prefix_lib.tree_copy(entry.cache)
+        pf.offset = entry.length
 
     def _prefill_tick(self):
         pf = self._prefill
@@ -723,15 +1087,24 @@ class ContinuousServingEngine:
             pf = _Prefill(rid, req, slot,
                           api.init_cache(self.cfg, 1, self.serving.max_len,
                                          device=self.device))
+            if self.prefix_cache is not None:
+                self._seed_from_prefix(pf, C)
             self._prefill = pf
             self.metrics.per_request[rid].admitted = self.tick
             self.metrics.per_request[rid].slot = slot
         req, prompt = pf.req, np.asarray(pf.req.prompt, np.int32)
-        chunk = torch.tensor(prompt[None, pf.offset:pf.offset + C])
-        logits, pf.cache = api.prefill_chunk(
-            self.cfg, self.params, pf.cache,
-            chunk.to(self.device, non_blocking=True))
-        pf.offset += chunk.shape[1]
+        logits = pf.logits
+        if logits is None:               # else a full prefix hit: no chunk
+            chunk = torch.tensor(prompt[None, pf.offset:pf.offset + C])
+            logits, pf.cache = api.prefill_chunk(
+                self.cfg, self.params, pf.cache,
+                chunk.to(self.device, non_blocking=True))
+            pf.offset += chunk.shape[1]
+            if (self.prefix_cache is not None and pf.offset % C == 0
+                    and pf.offset < len(prompt)):
+                # Chunk-boundary snapshot (a clone): a later prompt with
+                # this prefix seeds from it and prefills only its suffix.
+                self.prefix_cache.insert(prompt[:pf.offset], pf.cache)
         if pf.offset < len(prompt):
             return                       # more chunks; decode may interleave
         # Prompt absorbed: sample the first token on the device (the decode
@@ -743,9 +1116,15 @@ class ContinuousServingEngine:
             logits[:, -1, :], rid_t, torch.zeros_like(rid_t),
             temperature=self.serving.temperature, seed=self.serving.seed)[0])
         self.metrics.prefill_token_syncs += 1
+        if self.prefix_cache is not None and pf.logits is None:
+            # Full-prompt entry with its last-token logits: a repeat of
+            # this prompt is admitted with no prefill.
+            self.prefix_cache.insert(prompt, pf.cache,
+                                     logits=logits[:, -1:, :])
         api.write_slot(self.cfg, self.pool, pf.cache, pf.slot)
         self._prefill = None
-        self.metrics.prompt_tokens += len(prompt)
+        self.metrics.prompt_tokens += (
+            len(prompt) - self.metrics.per_request[pf.rid].prefix_tokens)
         slot_rec = _Slot(pf.rid, req, tok0)
         self.sched.active[pf.slot] = slot_rec
         self._last_tok[pf.slot] = tok0
@@ -813,14 +1192,37 @@ class ContinuousServingEngine:
 
     def _emit(self, rec: _Slot, tok: int, idx: int):
         """Deliver one emitted token; ``idx`` is the request's token index
-        (the sampling key index, 0 for the prefill-sampled first token)."""
+        (the sampling key index, 0 for the prefill-sampled first token).
+
+        After a restore, tokens with ``idx`` below the request's journaled
+        horizon were delivered before the crash. Sampling keyed on (seed,
+        rid, idx) regenerates them bit for bit, which is checked here (the
+        byte-identity assertion); they count as replayed and are neither
+        journaled nor delivered again."""
         st = self.metrics.per_request[rec.rid]
+        out = self._outputs[rec.rid]
+        if idx < self._replay_until.get(rec.rid, 0):
+            if idx >= len(out) or tok != out[idx]:
+                raise RuntimeError(
+                    f"restore byte-identity violated: rid {rec.rid} token "
+                    f"{idx} regenerated {tok} != journaled "
+                    f"{out[idx] if idx < len(out) else '<missing>'}")
+            rec.tokens.append(tok)
+            self.metrics.tokens_generated += 1
+            self.metrics.tokens_replayed += 1
+            if st.first_token is None:
+                st.first_token = self.tick
+                st.first_token_wall = self._clock()
+            return
         rec.tokens.append(tok)
-        self._outputs[rec.rid].append(tok)
+        out.append(tok)
         self.metrics.tokens_generated += 1
         if st.first_token is None:
             st.first_token = self.tick
             st.first_token_wall = self._clock()
+        if self.journal is not None:
+            self.journal.append({"t": "tok", "rid": rec.rid,
+                                 "tok": int(tok)})
         if rec.req.on_token is not None:
             rec.req.on_token(rec.rid, tok)
 
@@ -844,6 +1246,13 @@ class ContinuousServingEngine:
         st = self.metrics.per_request[rid]
         st.finished = self.tick
         st.finish_reason = reason
+        self._replay_until.pop(rid, None)
+        if self.journal is not None:
+            self.journal.append({"t": "fin", "rid": rid, "reason": reason,
+                                 "tick": self.tick})
+        entry = self._pfx_refs.pop(rid, None)
+        if entry is not None:       # release the seeding snapshot's pin
+            self.prefix_cache.release(entry)
         m = self.metrics
         m.requests_terminated += 1
         m.finish_reasons[reason] = m.finish_reasons.get(reason, 0) + 1
@@ -870,12 +1279,23 @@ class ContinuousServingEngine:
         self._active[slot] = False
         self._evict_slot_state(slot)
         self.sched.evict(slot)
+        ent = self._pfx_refs.pop(rec.rid, None)
+        if ent is not None:
+            self.prefix_cache.release(ent)
         if st.retries < self.serving.fault_retries:
             st.retries += 1
             m.fault_retries += 1
             self._outputs[rec.rid] = []
+            # A retry restarts the stream at index 0: void the journaled
+            # prefix (replay folds a retry record into an empty stream) and
+            # any restore horizon with it.
+            self._replay_until.pop(rec.rid, None)
+            if self.journal is not None:
+                self.journal.append({"t": "retry", "rid": rec.rid})
             st.first_token = None
             st.first_token_wall = None
+            st.prefix_cached = False
+            st.prefix_tokens = 0
             # Head of the ready queue: the request already waited its turn.
             self.sched.ready.appendleft((rec.rid, rec.req))
         else:

@@ -37,8 +37,9 @@ class EngineCrash(RuntimeError):
 
     Raised out of ``engine.step()`` at the crash tick. The harness must
     *abandon* the engine object — no cleanup runs, exactly as a real
-    crash would. The port has no journal or ``restore`` yet (ROADMAP
-    Queue A item 11), so nothing can recover from it.
+    crash would; buffered journal records are lost with it. An engine
+    built with a journal recovers through
+    ``ContinuousServingEngine.restore`` on its directory.
     """
 
     def __init__(self, tick: int):

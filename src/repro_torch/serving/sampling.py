@@ -38,6 +38,15 @@ from repro_torch import prng
 # them); the other four are degraded-mode exits.
 FINISH_REASONS = ("eos", "length", "deadline", "cancelled", "shed", "fault")
 
+# Version of the (seed, rid, token index) stream keying below: threefry
+# ``fold_in`` of the rid, then of the index, into ``PRNGKey(seed)``, the
+# Gumbel construction and the first-maximum argmax, which give the JAX
+# engine's bits (the JAX package's version 1). The journal stamps it into
+# its meta record and ``restore`` refuses a journal of another version:
+# recovery regenerates tokens by sampling again, so restored streams are
+# byte-identical only under an unchanged keying. Bump on any change.
+STREAM_KEY_VERSION = 1
+
 
 def stop_hit(tok, gen, eos_id, max_new):
     """Natural-stop predicate: did the just-emitted token end the request?

@@ -28,6 +28,8 @@ from repro_torch.kernels import slay_fused as tfused
 from repro_torch.kernels import slay_scan as tscan
 from repro_torch.models import api as tapi
 from repro_torch.serving import engine as tengine
+from repro_torch.serving import faults as tfaults
+from repro_torch.serving import journal as tjournal
 from repro_torch.serving import sampling as tsampling
 
 D_HEAD = 16
@@ -410,3 +412,54 @@ def test_continuous_engine_on_card_matches_cpu(temperature):
     assert launches["slay_decode_step_masked"] == (
         cfg.num_layers * serving.macro_ticks * s_card["decode_dispatches"])
     assert launches["slay_fused_fwd"] == launches["slay_decode_step"] == 0
+
+
+@needs_card
+def test_prefix_cache_and_restore_on_card_match_cpu(tmp_path):
+    # The smoke model in fp32 with a prefix cache and a journal on the
+    # card: a run that crashes (its first step from tick 24) after a
+    # checkpoint with a request resident, then restore on the card from
+    # the directory; every stream equal to the same engine's on the CPU
+    # with no crash, and the prefix cache hit on both.
+    cfg = get_smoke_config("slayformer-124m", dtype="float32")
+    params = tapi.init_params(cfg, 0, device="cpu")
+    params["embed"] = params["embed"] / 8.0
+    rng = np.random.default_rng(0)
+    shared = rng.integers(3, 256, 16)
+    prompts = [np.concatenate([shared, rng.integers(3, 256, n)])
+               .astype(np.int32) for n in (5, 9, 3, 12)]
+    prompts.append(prompts[0])
+    arrivals = (0.0, 2.0, 4.0, 6.0, 70.0)
+    serving = ServingConfig(num_slots=2, max_len=64, prefill_chunk=8,
+                            macro_ticks=4, temperature=0.8,
+                            prefix_cache_bytes=1 << 24,
+                            checkpoint_every_ticks=6, debug_audit=True)
+
+    def trace():
+        return [tengine.Request(p, max_new_tokens=10, arrival_time=a)
+                for p, a in zip(prompts, arrivals)]
+
+    cpu_eng = tengine.ContinuousServingEngine(cfg, params, serving=serving,
+                                              device="cpu")
+    want, s_cpu = cpu_eng.run(trace())
+    jr = tjournal.Journal(str(tmp_path / tjournal.JOURNAL_NAME))
+    eng = tengine.ContinuousServingEngine(
+        cfg, params, serving=serving, device="cuda", journal=jr,
+        fault_injector=tfaults.FaultInjector(seed=3, crash_window=(24, 28)))
+    with pytest.raises(tfaults.EngineCrash):
+        eng.run(trace())
+    assert eng.metrics.checkpoints_written >= 1
+    _build.reset_launches()
+    eng2 = tengine.ContinuousServingEngine.restore(
+        str(tmp_path), cfg, params, serving=serving, device="cuda")
+    rec = eng2.recovery
+    assert rec["checkpoint_used"] and rec["resident_resumed"] >= 1
+    assert eng2.pool.attn.s.is_cuda and len(eng2.prefix_cache) > 0
+    got, s = eng2.run()
+    for rid in want:
+        np.testing.assert_array_equal(got[rid], want[rid], f"rid {rid}")
+    assert s_cpu["prefix_hits"] == 4 and s["tokens_replayed"] > 0
+    assert s["final_occupancy"] == 0
+    assert _build.LAUNCHES["slay_decode_step_masked"] == (
+        cfg.num_layers * serving.macro_ticks * s["decode_dispatches"])
+

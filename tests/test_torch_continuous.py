@@ -288,8 +288,9 @@ def test_injected_fault_is_quarantined_and_retried_like_jax(models):
 
 def test_unported_knobs_raise_when_the_engine_is_built(models):
     _, tcfg, _, tp, _ = models
-    for kw in (dict(page_size=8), dict(prefix_cache_bytes=1 << 20),
-               dict(checkpoint_every_ticks=4), dict(speculative=True),
+    # The prefix cache and checkpoints are ported
+    # (tests/test_torch_prefix_cache.py, tests/test_torch_restore.py).
+    for kw in (dict(page_size=8), dict(speculative=True),
                dict(slot_shards=2), dict(prefill_chunk=0)):
         with pytest.raises(NotImplementedError, match="Queue A item 11"):
             tengine.ContinuousServingEngine(
