@@ -56,7 +56,10 @@ Phases, each of which raises (nonzero exit) on failure:
    ``ServingEngine.generate`` on 4 ragged prompts, 32 greedy new tokens,
    launch counters read around that call; prefill and decode tokens/s;
    a ``torch.profiler`` window over one prefill and four decode steps
-   (device busy time, idle share, the largest kernels); last-token
+   (device busy time, idle share, the largest kernels); the engine's
+   decode step, one CUDA graph per batch size and temperature, against
+   the same engine run eagerly: equal tokens greedy and at T = 0.8, ms
+   per step of each in turns and a profiler window over each; last-token
    prefill logits of one request held against the port's own CPU plain
    path in fp32;
 9. train: full-width slayformer-124m, 8 AdamW steps of 8 x 1024 tokens
@@ -83,16 +86,22 @@ Phases, each of which raises (nonzero exit) on failure:
     ``ServingConfig(num_slots=8, max_len=2048, prefill_chunk=128,
     macro_ticks=8)`` on 16 requests (prompts of 64-512 tokens, 16-48 new
     tokens, one arrival every 2 ticks), launch counters read around that
-    run (12 x 8 masked decode launches, B4b, per dispatch; no K1, the
-    chunked prefill being torch code); the greedy streams for K = 8 and
-    K = 1 (the first 8 requests) identical, and the sampled ones (T =
-    0.8); the Gumbel rows on
+    run (12 x 8 masked decode launches, B4b, per dispatch, counted per
+    replay of the dispatch's CUDA graph; no K1, the chunked prefill being
+    torch code); one captured graph of the dispatch and one of a full
+    prefill chunk, with their capture times; the first 8 requests with
+    the graphs and without (eager), in turns, streams equal, with each
+    side's ms per dispatch and prefill tick, pool tokens/s and TTFT; the
+    greedy streams for K = 8 and K = 1 (the first 8 requests) identical,
+    and the sampled ones (T = 0.8, graphed at K = 8 and 1 and eager);
+    the Gumbel rows on
     the card against numpy; one slot NaN-corrupted at tick 40,
     quarantined at its next dispatch and retried, every stream equal to
     the fault-free run's; pool decode tokens/s, ms per dispatch and per
     prefill tick, TTFT in ticks and ms, host syncs per token; one
-    full-pool dispatch's idle share (profiler) and its tick's pieces
-    timed alone; in fp32, 4 requests' chunked-prefill first-token logits
+    full-pool dispatch graphed and eager in turns, each with its idle
+    share (profiler), and a tick's pieces timed alone; in fp32, 4
+    requests' chunked-prefill first-token logits
     against the whole-prompt prefill (K1) and their streams against the
     lockstep engine's, up to a near-tie; B4b at the pool's shape against
     its plain version;
@@ -107,7 +116,12 @@ Phases, each of which raises (nonzero exit) on failure:
     fewer prefill ticks; then a journaled run crashed at tick 70 (after
     its first checkpoint, requests resident) and ``restore`` from its
     directory, every stream equal to the uncrashed run's, the checkpoint
-    used, tokens replayed, each token delivered once; B4b's launches =
+    used, tokens replayed, each token delivered once, the graphs captured
+    after the restore; the prefix entries' bf16 logits through a
+    checkpoint file as ``ml_dtypes.bfloat16`` arrays, back bit for bit,
+    and the checkpoint state pickled in turns by the port's writer and by
+    the C pickler with those leaves widened to float32 (the old format);
+    B4b's launches =
     12 x 8 per dispatch in every run; prefix hits, evictions and bytes,
     prefill ticks, TTFT cached against cold, checkpoint size and time,
     journal bytes per token, restore time.
@@ -125,6 +139,7 @@ import dataclasses
 import functools
 import json
 import os
+import pickle
 import re
 import shutil
 import statistics
@@ -1192,6 +1207,8 @@ def phase_serve(card: str) -> tuple:
         profile("decode x4", lambda: decode(cache, tok, 4),
                 4 * t_dec / steps * 1e3)
 
+    _lockstep_graphs(cfg, params, reqs, eng, outs, card)
+
     # One request against the port's CPU plain path, both in fp32.
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     one = torch.from_numpy(prompts[0][None])
@@ -1217,6 +1234,58 @@ def phase_serve(card: str) -> tuple:
         f"fp32 agree={first_cpu == int(lg_gpu.argmax())}, "
         f"bf16 agree={first_cpu == int(outs[0][0])}")
     return launches, outs, lock_ms
+
+
+def _same_outputs(want, got, what: str) -> None:
+    """Equal token streams, request by request (lists of arrays)."""
+    bad = [i for i, (w, g) in enumerate(zip(want, got))
+           if not np.array_equal(w, g)]
+    if bad or len(want) != len(got):
+        raise AssertionError(f"{what}: streams differ for requests {bad}")
+
+
+def _lockstep_graphs(cfg, params, reqs, eng, outs, card: str) -> None:
+    """The lockstep decode step (model and sampler) replayed as one CUDA
+    graph per batch size and temperature, against the same engine run
+    eagerly (``_graphs=False``): equal tokens greedy and at T = 0.8 (the
+    embedding divided by 8, as phase 12, so that the draws decide tokens;
+    at least one stream must then differ from greedy), and ms per decode
+    step of each, in turns (CUDA events around each step, which ends in
+    a sync as ``generate``'s does)."""
+    eager = engine.ServingEngine(cfg, params, device="cuda", max_len=2048,
+                                 _graphs=False)
+    _same_outputs(outs, eager.generate(reqs), "lockstep greedy, graphed vs "
+                  "eager")
+    soft = dict(params, embed=params["embed"] / 8)
+    hot = [engine.ServingEngine(cfg, soft, device="cuda", max_len=2048,
+                                _graphs=g) for g in (True, False)]
+    greedy = hot[0].generate(reqs)
+    sampled = [e.generate(reqs, temperature=0.8, seed=SEED) for e in hot]
+    _same_outputs(*sampled, "lockstep T = 0.8, graphed vs eager")
+    differ = sum(not np.array_equal(a, b) for a, b in zip(sampled[0], greedy))
+    if not differ:
+        raise AssertionError("lockstep T = 0.8: no stream differs from "
+                             "greedy, the draws decided no token")
+    graphs = eng.graph_cache_entries()
+    if graphs != {"decode": 2}:      # batch 1 (the warm-up) and batch 4
+        raise AssertionError(f"lockstep graphs {graphs}, want 2")
+    B = len(reqs)
+    steps = {"graphed": eng._lockstep(B, 0.0).step,
+             "eager": eager._lockstep(B, 0.0).step}
+    ms: dict = {k: [] for k in steps}
+    with torch.inference_mode():
+        for name in ("graphed", "eager", "eager", "graphed"):
+            ms[name].append(time_ms(steps[name], iters=MAX_NEW - 1,
+                                    warmup=2))
+        med = {k: statistics.median(v) for k, v in ms.items()}
+        each = {k: ", ".join(f"{x:.3f}" for x in v) for k, v in ms.items()}
+        log(f"  lockstep graphs: {graphs}; streams equal to eager greedy "
+            f"({B}) and at T = 0.8 ({differ} of {B} off greedy); ms per "
+            f"decode step graphed {med['graphed']:.3f} ({each['graphed']}), "
+            f"eager {med['eager']:.3f} ({each['eager']}) (in turns)  "
+            f"[{card}]")
+        for name in ("graphed", "eager"):
+            profile(f"lockstep decode step, {name}", steps[name], med[name])
 
 
 TRAIN_STEPS = 8
@@ -1517,7 +1586,7 @@ CONT_SERVING = dict(num_slots=8, max_len=2048, prefill_chunk=128,
                     macro_ticks=8)
 CONT_REQUESTS = 16
 CONT_K1_REQUESTS = 8           # the greedy K = 1 run takes the first 8
-CONT_HOT_REQUESTS = 4          # the sampled runs take the first 4
+CONT_HOT_REQUESTS = 8          # the sampled runs take the first 8
 CONT_FP32 = 4                  # requests held against the lockstep engine
 CONT_FAULT_TICK = 40           # the injected fault lands at this tick
 GAP_FRAC = 1e-4                # a near-tie: top-2 gap under this x max logit
@@ -1551,17 +1620,19 @@ def _cont_requests(cfg, n=CONT_REQUESTS):
             for i, (L, m) in enumerate(zip(lens, news))]
 
 
-def _cont_run(cfg, params, reqs, timed=None, **serving):
+def _cont_run(cfg, params, reqs, timed=None, graphs=True, **serving):
     """One ContinuousServingEngine run on the card: (outputs, summary,
     engine, wall seconds). ``timed`` collects the seconds of every decode
     dispatch and prefill tick, from CUDA events recorded around each (the
     engine syncs only where it would unwrapped: once per dispatch, once
-    per finished prompt), and the wall time at which each step ends."""
+    per finished prompt), and the wall time at which each step ends.
+    ``graphs=False`` runs the engine's programs eagerly instead of
+    replaying their CUDA graphs."""
     kw = {**CONT_SERVING, **serving}
     inj = kw.pop("fault_injector", None)
     eng = engine.ContinuousServingEngine(
         cfg, params, serving=ServingConfig(**kw), device="cuda",
-        fault_injector=inj)
+        fault_injector=inj, _graphs=graphs)
     return _timed_run(eng, reqs, timed)
 
 
@@ -1753,32 +1824,50 @@ def _b4b_pool_row(occupancy: float) -> dict:
 
 
 def _cont_profile(cfg, params, card: str) -> None:
-    """One macro dispatch of a full pool (8 slots live): its wall time,
-    the profiler's device time and idle share, and beside it the pieces
-    of one tick timed alone (CUDA events): the model's masked decode
-    step, sampling at T = 0.8 and greedy, the fault lane."""
+    """One macro dispatch of a full pool (8 slots live), replayed as the
+    engine's CUDA graph and run eagerly (``_graphs=False``), in turns, and
+    graphed at T = 0.8 (the sampler's device time): the wall time of each
+    (median of 3), the profiler's device time and idle share, and beside
+    it the pieces of one tick timed alone (CUDA events):
+    the model's masked decode step, sampling at T = 0.8 and greedy, the
+    fault lane."""
     S, K = CONT_SERVING["num_slots"], CONT_SERVING["macro_ticks"]
-    eng = engine.ContinuousServingEngine(
-        cfg, params, serving=ServingConfig(**CONT_SERVING), device="cuda")
-    rng = np.random.default_rng(SEED + 3)
-    for _ in range(S):
-        eng.submit(engine.Request(rng.integers(0, cfg.vocab_size, 128)
-                                  .astype(np.int32), max_new_tokens=512))
-    while eng._prefill is not None or eng.sched.ready or eng.sched.waiting:
-        eng.step()
-    if len(eng.sched.active) != S:
-        raise AssertionError(f"pool not full: {sorted(eng.sched.active)}")
-    walls = []
-    for _ in range(3):
+    engs = {}
+    for name, graphed, temp in (("graphed", True, 0.0),
+                                ("eager", False, 0.0),
+                                ("graphed, T = 0.8", True, 0.8)):
+        eng = engine.ContinuousServingEngine(
+            cfg, params, serving=ServingConfig(**CONT_SERVING,
+                                               temperature=temp),
+            device="cuda", _graphs=graphed)
+        rng = np.random.default_rng(SEED + 3)
+        for _ in range(S):
+            eng.submit(engine.Request(rng.integers(0, cfg.vocab_size, 128)
+                                      .astype(np.int32), max_new_tokens=512))
+        while eng._prefill is not None or eng.sched.ready or eng.sched.waiting:
+            eng.step()
+        if len(eng.sched.active) != S:
+            raise AssertionError(f"pool not full: {sorted(eng.sched.active)}")
+        eng.step()                   # a full-pool dispatch (captured first)
+        engs[name] = eng
+    if engs["graphed"].graph_cache_entries()["macro_decode"] != 1:
+        raise AssertionError("the full-pool engine captured no graph")
+    walls: dict = {name: [] for name in engs}
+    for name in ("graphed", "eager", "eager", "graphed", "graphed", "eager",
+                 "graphed, T = 0.8", "graphed, T = 0.8", "graphed, T = 0.8"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        eng.step()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    wall = statistics.median(walls)
-    log(f"  one dispatch of a full pool ({S} slots, K = {K}): "
-        f"{wall:.2f} ms wall (median of 3), {wall / K:.2f} ms a tick  "
-        f"[{card}]")
-    profile(f"continuous dispatch (K={K}, {S} slots)", eng.step, wall)
+        engs[name].step()
+        walls[name].append((time.perf_counter() - t0) * 1e3)
+    for name, eng in engs.items():
+        wall = statistics.median(walls[name])
+        log(f"  one dispatch of a full pool ({S} slots, K = {K}), {name}: "
+            f"{wall:.2f} ms wall (median of 3: "
+            f"{', '.join(f'{w:.2f}' for w in walls[name])}), "
+            f"{wall / K:.2f} ms a tick  [{card}]")
+        profile(f"continuous dispatch (K={K}, {S} slots), {name}", eng.step,
+                wall)
+    eng = engs["eager"]
     with torch.inference_mode():
         pool = eng.pool
         tok = torch.ones(S, 1, dtype=torch.int32, device="cuda")
@@ -1796,6 +1885,65 @@ def _cont_profile(cfg, params, card: str) -> None:
     log(f"  one tick's pieces alone (CUDA events): masked decode step "
         f"{dec:.3f} ms, sampling T=0.8 {samp:.3f} ms, greedy {greedy:.3f} "
         f"ms, fault lane {lane:.3f} ms  [{card}]")
+
+
+def _cont_graphs_vs_eager(cfg, params, sub, outs, card: str) -> None:
+    """The first requests of the trace, greedy, with the engine's CUDA
+    graphs and without (``_graphs=False``), in turns (eager, graphed,
+    graphed, eager): every stream equal to the main run's; per side the
+    median over its runs of ms per dispatch and per prefill tick (CUDA
+    events), pool decode tokens/s, TTFT and the run's wall time. Then, on
+    the last engine of each side, ms per full prefill chunk (a replay of
+    its graph, or the program run eagerly) in turns, and of a tail of
+    half a chunk, which runs eagerly on both."""
+    side: dict = {True: [], False: []}
+    engs = {}
+    for graphed in (False, True, True, False):
+        timed: dict = {}
+        o, s, e, wall = _cont_run(cfg, params, sub, timed=timed,
+                                  graphs=graphed)
+        engs[graphed] = e
+        name = "graphed" if graphed else "eager"
+        _same_streams(outs, o, f"greedy rids 0-{len(sub) - 1}, {name} vs "
+                      f"the main run")
+        disp, pre = timed["_decode_macro"], timed["_prefill_tick"]
+        side[graphed].append(dict(
+            disp=statistics.median(disp) * 1e3,
+            pre=statistics.median(pre) * 1e3,
+            tps=(s["tokens_generated"] - len(sub)) / sum(disp),
+            ttft=statistics.median(_ttft_ms(e.metrics.per_request, timed)),
+            wall=wall, graphs=e.graph_cache_entries(),
+            n=s["decode_dispatches"]))
+    for graphed in (True, False):
+        runs = side[graphed]
+
+        def med(k, runs=runs):
+            return statistics.median(r[k] for r in runs)
+
+        each = ", ".join(f"{r['disp']:.2f}" for r in runs)
+        log(f"  {'graphed' if graphed else 'eager'}, rids 0-{len(sub) - 1} "
+            f"({len(runs)} runs, in turns): ms per dispatch {med('disp'):.2f}"
+            f" (runs {each}; {runs[0]['n']} dispatches), prefill tick "
+            f"{med('pre'):.2f} ms, "
+            f"pool decode {med('tps'):.1f} tokens/s, TTFT median "
+            f"{med('ttft'):.1f} ms, run {med('wall'):.3f} s; graphs "
+            f"{runs[0]['graphs']}  [{card}]")
+    log(f"  greedy streams of rids 0-{len(sub) - 1} graphed and eager: "
+        f"identical to the main run's")
+    C = CONT_SERVING["prefill_chunk"]
+    tail = torch.from_numpy(sub[0].prompt[None, :C // 2]).cuda()
+    chunk: dict = {True: [], False: []}
+    with torch.inference_mode():
+        for graphed in (True, False, False, True):
+            chunk[graphed].append(time_ms(engs[graphed]._chunk, iters=10))
+        tails = {g: time_ms(lambda e=e: e._absorb(tail), iters=10)
+                 for g, e in engs.items()}
+    each = {g: ", ".join(f"{x:.2f}" for x in v) for g, v in chunk.items()}
+    log(f"  a full prefill chunk ({C} tokens), in turns: graphed "
+        f"{statistics.median(chunk[True]):.2f} ms ({each[True]}), eager "
+        f"{statistics.median(chunk[False]):.2f} ms ({each[False]}); a "
+        f"{C // 2}-token tail, eager in both: {tails[True]:.2f} ms "
+        f"(graphed engine), {tails[False]:.2f} ms (eager engine)  [{card}]")
 
 
 def phase_serve_continuous(card: str, lockstep_ms: float) -> tuple:
@@ -1869,6 +2017,16 @@ def phase_serve_continuous(card: str, lockstep_ms: float) -> tuple:
     log(f"  host syncs per token {s['host_syncs_per_token']:.4f} (<= 1/K = "
         f"{1 / K:.4f}); mean slot occupancy {s['mean_slot_occupancy']:.3f}, "
         f"max queue depth {s['max_queue_depth']}")
+    graphs = eng.graph_cache_entries()
+    if graphs != {"macro_decode": 1, "chunk": 1}:
+        raise AssertionError(f"graphs after the run: {graphs}")
+    log(f"  graphs {graphs}: one decode dispatch replayed "
+        f"{s['decode_dispatches'] - 1} times after its eager first call "
+        f"(capture {eng._decode.capture_s * 1e3:.1f} ms, "
+        f"{eng._decode.launches} per replay); one full prefill chunk "
+        f"(capture {eng._chunk.capture_s * 1e3:.1f} ms); a tail shorter "
+        f"than the chunk runs eagerly  [{card}]")
+    _cont_graphs_vs_eager(cfg, params, reqs[:CONT_K1_REQUESTS], outs, card)
 
     # K invariance, greedy: the same streams with one tick per dispatch
     # (the first 8 requests, a smaller batch too: streams depend on
@@ -1894,10 +2052,14 @@ def phase_serve_continuous(card: str, lockstep_ms: float) -> tuple:
     hot1, _, _, _ = _cont_run(cfg, soft, hot, temperature=0.8,
                               macro_ticks=1)
     _same_streams(hot8, hot1, "temperature 0.8, macro_ticks 8 vs 1")
+    hot_eager, _, _, _ = _cont_run(cfg, soft, hot, temperature=0.8,
+                                   graphs=False)
+    _same_streams(hot_eager, hot8, "temperature 0.8, graphed vs eager")
     differ = [r for r in hot8 if not np.array_equal(hot8[r], cold[r])]
     moved = sum(int((hot8[r] != cold[r]).sum()) for r in hot8)
     log(f"  sampled streams (T = 0.8, embedding / 8) of rids 0-{len(hot) - 1}"
-        f" for macro_ticks 8 and 1: identical; {len(differ)} of {len(hot8)}"
+        f" for macro_ticks 8 and 1 and eager: identical; {len(differ)} of "
+        f"{len(hot8)}"
         f" differ from the greedy ones ({moved} of "
         f"{sum(len(o) for o in hot8.values())} tokens)")
     if not differ:
@@ -1988,6 +2150,67 @@ def _timed_checkpoints(eng, ms: list) -> None:
     eng.checkpoint = timed
 
 
+def _widened(node):
+    """``node`` with every bf16 leaf widened to float32, as the port wrote
+    its checkpoints before it wrote them in the JAX writer's format."""
+    if isinstance(node, dict):
+        return {k: _widened(v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_widened(v) for v in node]
+    if isinstance(node, checkpoint.Bf16Words):
+        return (node.words.astype(np.uint32) << 16).view(np.float32)
+    return node
+
+
+def _checkpoint_format(eng, card: str) -> None:
+    """The bf16 last-token logits of the cached run's whole-prompt prefix
+    entries through a checkpoint file and back: the payload names the
+    JAX writer's ``ml_dtypes.bfloat16`` global (the port never imports
+    it), and the loaded words are the tensors' own, bit for bit. Then the
+    engine's checkpoint state pickled in turns by the port's writer and
+    by the C pickler with the bf16 leaves widened to float32 (the format
+    before), ms and MB of each."""
+    ents = [e for e in eng.prefix_cache.entries() if e.logits is not None]
+    if not ents or ents[0].logits.dtype != torch.bfloat16:
+        raise AssertionError("no bf16 logits in the prefix cache")
+    d = tempfile.mkdtemp(prefix="chip_smoke_bf16_")
+    try:
+        path = checkpoint.checkpoint_path(d, 0)
+        checkpoint.save(path, {"logits": [checkpoint.to_numpy(e.logits)
+                                          for e in ents]})
+        with open(path, "rb") as f:
+            named = b"\x8c\tml_dtypes\x94\x8c\x08bfloat16\x94\x93" in f.read()
+        back = checkpoint.load(path)["logits"]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    for e, lg in zip(ents, back):
+        got = torch.from_numpy(lg).to(torch.bfloat16)
+        if not (named and torch.equal(got.view(torch.int16),
+                                      e.logits.cpu().view(torch.int16))):
+            raise AssertionError("a bf16 leaf did not come back bit for bit"
+                                 " as the JAX writer's bfloat16 array")
+    log(f"  bf16 checkpoint leaves: {len(ents)} prefix entries' logits "
+        f"({tuple(ents[0].logits.shape)}) written as ml_dtypes.bfloat16 "
+        f"arrays and read back bit for bit")
+    state = checkpoint.snapshot_engine(eng)
+    old = _widened(state)
+    writers = {"port": lambda: checkpoint.dumps(state),
+               "float32": lambda: pickle.dumps(old, protocol=4)}
+    ms: dict = {k: [] for k in writers}
+    mb = {}
+    for name in ("port", "float32", "float32", "port", "port", "float32"):
+        t0 = time.perf_counter()
+        mb[name] = len(writers[name]()) / 1e6
+        ms[name].append((time.perf_counter() - t0) * 1e3)
+    each = {k: ", ".join(f"{x:.1f}" for x in v) for k, v in ms.items()}
+    log(f"  the checkpoint state pickled, in turns: the port's writer "
+        f"(bf16 leaves as ml_dtypes.bfloat16, pure-Python pickler) "
+        f"{statistics.median(ms['port']):.1f} ms ({each['port']}), "
+        f"{mb['port']:.1f} MB; the C pickler, bf16 leaves widened to "
+        f"float32 {statistics.median(ms['float32']):.1f} ms "
+        f"({each['float32']}), {mb['float32']:.1f} MB  [{card}]")
+
+
 def _dur_crash_restore(cfg, params, reqs, want, card: str) -> None:
     """The cached trace on a journaled engine that crashes mid-run, then
     ``restore`` from its directory and the run to the end: every stream
@@ -2042,6 +2265,9 @@ def _dur_crash_restore(cfg, params, reqs, want, card: str) -> None:
         _build.reset_launches()
         outs, s, _, wall = _timed_run(eng2, [])
         n2 = _b4b_launches("restored run", s["decode_dispatches"], nl, K)
+        if eng2.graph_cache_entries()["macro_decode"] != 1:
+            raise AssertionError(f"restored engine graphs "
+                                 f"{eng2.graph_cache_entries()}")
         _same_streams(want, outs, "restored vs uncrashed cached run")
         if set(outs) != set(want):
             raise AssertionError(f"restored rids {sorted(outs)}")
@@ -2063,7 +2289,8 @@ def _dur_crash_restore(cfg, params, reqs, want, card: str) -> None:
             f"after it {wall * 1e3:.1f} ms, {s['decode_dispatches']} "
             f"dispatches, B4b launched {n2} times, {s['tokens_replayed']} "
             f"tokens replayed; every stream equal to the uncrashed run's, "
-            f"each token delivered once  [{card}]")
+            f"each token delivered once; graphs captured after restore "
+            f"{eng2.graph_cache_entries()}  [{card}]")
         log(f"  checkpoints: {len(ckpt_ms)} written, {np.mean(sizes) / 1e6:.1f}"
             f" MB each (min {min(sizes) / 1e6:.1f}, max {max(sizes) / 1e6:.1f}"
             f"), ms per checkpoint() median {statistics.median(ckpt_ms):.1f} "
@@ -2155,6 +2382,7 @@ def phase_serve_durable(card: str) -> None:
     log(f"  sampled (T = 0.8, embedding / 8) rids 0-{len(hot) - 1}: cached "
         f"streams equal to cold ({sh['prefix_hits']} hits); {len(differ)} "
         f"of rids 0-{len(greedy) - 1} differ from greedy")
+    _checkpoint_format(eng, card)
     del eng
     _dur_crash_restore(cfg, params, reqs, warm, card)
     del params

@@ -14,6 +14,9 @@ one ``nvcc`` process per source, all started together.
 
 Every wrapper counts its launches in :data:`LAUNCHES` (one per kernel
 launch, nowhere else), so a run can show that it went through the kernels.
+A captured CUDA graph launches its kernels without calling the wrappers:
+``serving.graphs`` takes back what the wrappers counted while capturing
+and adds it on every replay.
 """
 from __future__ import annotations
 

@@ -103,8 +103,9 @@ def decode_step(spec: AttentionSpec, params: dict | None, q, k, v,
                 cache: AttnCache, *,
                 active=None) -> tuple[torch.Tensor, AttnCache]:
     """One token for a batch of slots. q (B, H, Dh), k/v (B, Hkv, *)
-    -> (B, H, dv). The cache's s and z are updated in place by the decode
-    kernel (its plain twin on the CPU) and returned in the new cache.
+    -> (B, H, dv). The cache is updated in place and returned: s and z by
+    the decode kernel (its plain twin on the CPU), ``pos`` advanced, so a
+    captured CUDA graph of the step keeps updating the same tensors.
 
     ``active`` (B,) masks continuous-batching pool rows: drained rows keep
     their (S, z) bit-identical and ``pos`` frozen, and output y = 0.
@@ -112,8 +113,8 @@ def decode_step(spec: AttentionSpec, params: dict | None, q, k, v,
     _require_slay(spec)
     if q.dim() != 3:
         raise ValueError(f"decode q must be (B, H, Dh), got {tuple(q.shape)}")
-    step = 1 if active is None else active.to(torch.int32)
     qf = slay_features(q, params, spec.slay)
     kf = slay_features(k, params, spec.slay)
-    y, s2, z2 = ops.decode_linear_step(qf, kf, v, cache.s, cache.z, active)
-    return y, AttnCache(cache.pos + step, s2, z2)
+    y, _, _ = ops.decode_linear_step(qf, kf, v, cache.s, cache.z, active)
+    cache.pos.add_(1 if active is None else active.to(torch.int32))
+    return y, cache

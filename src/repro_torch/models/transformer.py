@@ -212,7 +212,7 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
     else:
         idx = torch.clamp(true_len - 1, min=0).long()
         x_last = x[torch.arange(B, device=dev), idx]
-        pos = true_len.to(torch.int32)
+        pos = true_len.to(torch.int32, copy=True)   # decode advances it
     a = attn.AttnCache(torch.stack([c.pos for c in caches]),
                        torch.stack([c.s for c in caches]),
                        torch.stack([c.z for c in caches]))
@@ -224,10 +224,11 @@ def decode_step(params: dict, cfg: ArchConfig, cache: DecodeCache,
                 ) -> tuple[torch.Tensor, DecodeCache]:
     """One autoregressive step. tokens (B, 1) -> logits (B, 1, V).
 
-    The cache's (S, z) tensors are updated in place (the JAX package
-    donates them); the returned cache holds the same tensors and advanced
-    positions. ``active`` (B,) freezes drained slots: their state stays
-    bit-identical, their logits rows are meaningless.
+    The cache is updated in place (the JAX package donates it) and
+    returned: every layer's (S, z) and positions, and ``pos``. So a slot
+    pool is one set of tensors for its whole life, which a captured CUDA
+    graph of the step can bind. ``active`` (B,) freezes drained slots:
+    their state stays bit-identical, their logits rows are meaningless.
     """
     cfg.check_supported()
     dev = params["embed"].device
@@ -235,18 +236,15 @@ def decode_step(params: dict, cfg: ArchConfig, cache: DecodeCache,
     pos = cache.pos
     spec = cfg.attention_spec()
     ac = cache.attn
-    new_pos = []
     for i in range(cfg.num_layers):
         lp = _layer(params, i)
         q, k, v = _qkv(cfg, lp, x[:, None], pos[:, None])
         layer_cache = attn.AttnCache(ac.pos[i], ac.s[i], ac.z[i])
-        y, nc = attn.decode_step(spec, params["slay"], q[:, 0], k[:, 0],
-                                 v[:, 0], layer_cache, active=active)
-        new_pos.append(nc.pos)
+        y, _ = attn.decode_step(spec, params["slay"], q[:, 0], k[:, 0],
+                                v[:, 0], layer_cache, active=active)
         x = _finish_layer(cfg, lp, x, y)
-    step = 1 if active is None else active.to(torch.int32)
-    a = attn.AttnCache(torch.stack(new_pos), ac.s, ac.z)
-    return _logits(params, cfg, x)[:, None, :], DecodeCache(a, pos + step)
+    pos.add_(1 if active is None else active.to(torch.int32))
+    return _logits(params, cfg, x)[:, None, :], cache
 
 
 # -- the slot surface of a pooled cache (continuous batching) -------------

@@ -23,7 +23,9 @@ Leading key dimensions batch (as ``jax.vmap`` over keys would), so
 Results are torch tensors when the key or the data is one, or when a
 ``device`` is given, and numpy arrays otherwise. One numpy key is taken
 as two Python ints, so it enters torch arithmetic on the card with no
-host-to-device copy.
+host-to-device copy; a captured CUDA graph freezes such ints, so a key
+that changes between replays is passed as a device tensor instead (the
+lockstep engine's key buffer), with the same bits.
 
 Floats: :func:`uniform` builds each value from random mantissa bits as jax
 does, so the words match exactly; :func:`gumbel`'s two logarithms are the

@@ -17,10 +17,12 @@ in ``jax.tree.leaves`` order (``attn.pos, attn.s, attn.z, pos``), and
 ``page_pool``, ``draft_pool``, ``speculative`` at their "off" values (the
 port has neither paging nor speculative decoding). So a directory written
 by either package is one format. numpy has no bfloat16 without
-``ml_dtypes``: the port writes a bfloat16 tensor (the last-token logits
-of a full-width prefix entry) as float32, which is exact, and reads a
-JAX-written bfloat16 leaf through its uint16 bits, widened to float32;
-the engine casts both back on restore.
+``ml_dtypes``, which the port does not import: a bfloat16 tensor (the
+last-token logits of a full-width prefix entry) is written as the JAX
+writer writes it, a numpy array whose dtype names the global
+``ml_dtypes.bfloat16`` over the tensor's 16-bit words (:func:`dumps`),
+and read back through those words, widened to float32 (exact); the
+engine casts it back on restore.
 
 Writes are atomic: tmp file, fsync, ``os.replace``, directory fsync.
 ``latest_valid`` scans ``ckpt-*.ckpt`` newest first and skips a file
@@ -85,11 +87,66 @@ def _widen_bf16(node):
     return node
 
 
-def to_numpy(t: torch.Tensor) -> np.ndarray:
-    """A host copy of ``t`` as numpy; bfloat16 as float32 (exact)."""
+class Bf16Words:
+    """A bfloat16 leaf on the host: its 16-bit words, ``(...,)`` uint16.
+    :func:`dumps` writes it as an ``ml_dtypes.bfloat16`` array."""
+
+    def __init__(self, words: np.ndarray):
+        self.words = words
+
+
+class _BF16Type:
+    """Stands in for ``ml_dtypes.bfloat16`` while pickling: written as
+    that global, never imported."""
+
+
+_BF16_DTYPE = object()    # stands in for numpy.dtype(ml_dtypes.bfloat16)
+# numpy.dtype(ml_dtypes.bfloat16).__reduce__()'s state: byte order, no
+# subarray, names or fields, item size 2, alignment 2, flags 64.
+_BF16_DTYPE_STATE = (3, "<", None, None, None, 2, 2, 64)
+
+
+class _Pickler(pickle._Pickler):
+    """The payload pickler: protocol 4, and a :class:`Bf16Words` leaf as
+    ``pickle.dumps`` writes an ``ml_dtypes.bfloat16`` array, opcode for
+    opcode. The standard library's pure-Python pickler, because the C
+    pickler imports a global's module to check it (``save_global``) and
+    ``ml_dtypes`` is not there; the large leaves' bytes are written by the
+    same buffer copies either way."""
+
+    def reducer_override(self, obj):
+        if isinstance(obj, Bf16Words):
+            fn, args, (ver, shape, _, fortran, raw) = obj.words.__reduce__()
+            return fn, args, (ver, shape, _BF16_DTYPE, fortran, raw)
+        if obj is _BF16_DTYPE:
+            return np.dtype, (_BF16Type, False, True), _BF16_DTYPE_STATE
+        return NotImplemented
+
+    def save_global(self, obj, name=None):
+        if obj is not _BF16Type:
+            return super().save_global(obj, name)
+        # pickle._Pickler.save_global at protocol 4, less the import.
+        self.save(_BF16[0])
+        self.save(_BF16[1])
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
+        return None
+
+
+def dumps(state) -> bytes:
+    """The checkpoint payload: ``state`` pickled at protocol 4, each
+    :class:`Bf16Words` leaf as the JAX writer's bfloat16 array."""
+    buf = io.BytesIO()
+    _Pickler(buf, protocol=4).dump(state)
+    return buf.getvalue()
+
+
+def to_numpy(t: torch.Tensor):
+    """A host copy of ``t`` as numpy; bfloat16 as :class:`Bf16Words`."""
+    t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
-        t = t.float()
-    return t.detach().to("cpu", copy=True).numpy()
+        return Bf16Words(t.view(torch.int16).numpy().view(np.uint16))
+    return t.numpy()
 
 
 def leaf_matches(t: torch.Tensor, a) -> bool:
@@ -105,7 +162,7 @@ def checkpoint_path(directory: str, tick: int) -> str:
 
 def save(path: str, state: dict) -> None:
     """Atomically write ``state`` to ``path`` (tmp + rename + fsync)."""
-    payload = pickle.dumps(state, protocol=4)
+    payload = dumps(state)
     d = os.path.dirname(path) or "."
     os.makedirs(d, exist_ok=True)
     tmp = f"{path}.tmp.{os.getpid()}"

@@ -38,6 +38,17 @@ restore` rebuilds an engine from that directory after a crash with
 byte-identical streams. Directories are one format with the JAX
 package's.
 
+Where the JAX package compiles each serving entry point into one device
+program (``jax.jit``), the port captures a CUDA graph (``serving.
+graphs``): the continuous engine's K-tick decode dispatch and its full
+prefill chunk, and the lockstep engine's decode step per batch size and
+temperature. Each runs over tensors the engine allocates once (the slot
+pool is one set of tensors for the engine's life, updated in place), so
+on the card a dispatch is one copy of the control vectors, one replay and
+one read-back; on the CPU the same programs run eagerly.
+:meth:`graph_cache_entries` counts the captured graphs, the analogue of
+the JAX engine's ``jit_cache_entries``.
+
 Not in the port yet (ROADMAP Queue A item 11), each refused by
 ``ServingConfig.check_supported`` when the engine is built: paged slot
 memory, speculative decoding, a sharded slot pool and the bucketed
@@ -60,6 +71,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import api
 from repro_torch.serving import checkpoint as checkpoint_lib
 from repro_torch.serving import faults as faults_lib
+from repro_torch.serving import graphs
 from repro_torch.serving import journal as journal_lib
 from repro_torch.serving import prefix_cache as prefix_lib
 from repro_torch.serving import sampling
@@ -137,18 +149,71 @@ def _to_device(tree, dev: torch.device):
     return tree.to(dev)
 
 
+def _copy_into(dst, src) -> None:
+    """Copy every leaf of ``src`` into the same leaf of ``dst``: a static
+    buffer that a captured graph reads keeps its storage."""
+    for d, s in zip(tree_leaves(dst), tree_leaves(src)):
+        d.copy_(s)
+
+
+@dataclasses.dataclass
+class _Lockstep:
+    """The lockstep decode step of one batch size and temperature over its
+    static buffers: the decode cache, the (B, 1) tokens (the step's input,
+    overwritten with the tokens it samples) and the (2,) int64 sampling
+    key, a device tensor so that a captured graph reads each step's key."""
+
+    cache: object
+    tok: torch.Tensor
+    key: torch.Tensor
+    step: graphs.Program
+
+
 class ServingEngine:
     """Lockstep engine. Batched ``generate`` left-pads prompts to a common
     length with token 0, so with mixed prompt lengths the pad tokens are
-    visible to the model — the JAX engine's behaviour, kept for parity."""
+    visible to the model — the JAX engine's behaviour, kept for parity.
+
+    On the card the decode step (model and sampler) is one CUDA graph per
+    batch size and temperature; ``_graphs=False`` runs it eagerly there
+    too (for holding the graph against eager runs)."""
 
     def __init__(self, cfg: ArchConfig, params: dict, *,
-                 device: str | torch.device = "cuda", max_len: int = 4096):
+                 device: str | torch.device = "cuda", max_len: int = 4096,
+                 _graphs: bool = True):
         cfg.check_supported()
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = _to_device(params, self.device)
         self.max_len = max_len
+        self._graphs = _graphs
+        self._steps: dict[tuple[int, float], _Lockstep] = {}
+
+    def graph_cache_entries(self) -> dict:
+        """Captured CUDA graphs by program, as the JAX engine's
+        ``jit_cache_entries``: ``decode``, one per batch size and
+        temperature that ``generate`` has decoded; 0 on the CPU or with
+        graphing off."""
+        return {"decode": sum(st.step.captured for st in self._steps.values())}
+
+    def _lockstep(self, batch: int, temperature: float) -> _Lockstep:
+        """The decode step of ``batch`` rows at ``temperature``, built at
+        its first use."""
+        st = self._steps.get((batch, temperature))
+        if st is None:
+            dev = self.device
+            cache = api.init_cache(self.cfg, batch, self.max_len, device=dev)
+            tok = torch.zeros(batch, 1, dtype=torch.int32, device=dev)
+            key = torch.zeros(2, dtype=torch.int64, device=dev)
+
+            def step():
+                logits, _ = api.decode_step(self.params, self.cfg, cache, tok)
+                return tok.copy_(self._sample(logits, temperature, key))
+
+            st = _Lockstep(cache, tok, key,
+                           graphs.Program(step, dev, graphed=self._graphs))
+            self._steps[(batch, temperature)] = st
+        return st
 
     @torch.inference_mode()
     def generate(self, requests: list[Request], *, temperature: float = 0.0,
@@ -181,9 +246,11 @@ class ServingEngine:
         out = np.zeros((B, max_new), np.int32)
         lengths = np.zeros(B, np.int64)
         done = np.zeros(B, bool)
-        tok = self._sample(logits, temperature, key)
+        st = self._lockstep(B, temperature)
+        _copy_into(st.cache, cache)
+        st.tok.copy_(self._sample(logits, temperature, key))
         for t in range(max_new):
-            tok_np = tok[:, 0].cpu().numpy()
+            tok_np = st.tok[:, 0].cpu().numpy()
             for i, r in enumerate(requests):
                 if done[i]:
                     continue
@@ -194,12 +261,14 @@ class ServingEngine:
             if done.all():
                 break
             key, sub = prng.split(key)
-            logits, cache = api.decode_step(self.params, self.cfg, cache, tok)
-            tok = self._sample(logits, temperature, sub)
+            st.key.copy_(torch.from_numpy(sub.astype(np.int64)))
+            st.step()
         return [out[i, :lengths[i]] for i in range(B)]
 
     @staticmethod
     def _sample(logits, temperature: float, key):
+        """(B, 1, V) logits -> (B, 1) int32 tokens; ``key`` a numpy key or
+        its two words as a device tensor (the same bits)."""
         logits = logits[:, -1, :]
         if temperature <= 0.0:
             return torch.argmax(logits, -1).to(torch.int32)[:, None]
@@ -215,7 +284,8 @@ class ServingEngine:
 def _macro_decode(params, cache, last_tok, active, rids, gen, eos_ids,
                   max_new, *, cfg: ArchConfig, num_ticks: int,
                   temperature: float, seed: int, fault_guard: bool = True):
-    """K decode ticks over the slot pool, all on the device.
+    """K decode ticks over the slot pool, all on the device, the pool
+    updated in place.
 
     Per tick the pool runs one masked ``api.decode_step`` (drained slots
     are an exact state passthrough), sampling is keyed per (seed, rid,
@@ -232,8 +302,8 @@ def _macro_decode(params, cache, last_tok, active, rids, gen, eos_ids,
     last_tok/active/rids/gen/eos_ids/max_new are (S,) device tensors
     (int32; ``active`` bool); ``gen`` counts tokens already emitted per
     slot, which is the sampling index of the next token, so the stream is
-    the same for every K. Returns the cache and one (3, K, S) int32
-    tensor: tokens, emitted flags and fault flags.
+    the same for every K. Returns one (3, K, S) int32 tensor: tokens,
+    emitted flags and fault flags.
     """
     toks, ems, flts = [], [], []
     for _ in range(num_ticks):
@@ -258,9 +328,8 @@ def _macro_decode(params, cache, last_tok, active, rids, gen, eos_ids,
         toks.append(tok)
         ems.append(emitted)
         flts.append(faulted)
-    buf = torch.stack([torch.stack(toks), torch.stack(ems).to(torch.int32),
-                       torch.stack(flts).to(torch.int32)])
-    return cache, buf
+    return torch.stack([torch.stack(toks), torch.stack(ems).to(torch.int32),
+                        torch.stack(flts).to(torch.int32)])
 
 
 @dataclasses.dataclass
@@ -449,7 +518,7 @@ class _Prefill:
     rid: int
     req: Request
     slot: int
-    cache: object                    # per-request (batch=1) decode cache
+    cache: object   # the static batch-1 prefill cache, or a full hit's snapshot
     offset: int = 0                  # prompt tokens absorbed so far
     logits: torch.Tensor | None = None  # (1, 1, V): a full prefix hit
 
@@ -590,7 +659,12 @@ class ContinuousServingEngine:
     raises. ``prefix_cache`` shares a :class:`~repro_torch.serving.
     prefix_cache.PrefixCache` between engines (else ``serving.
     prefix_cache_bytes`` > 0 builds one); ``journal`` makes the engine
-    crash-safe (:meth:`checkpoint`, :meth:`restore`).
+    crash-safe (:meth:`checkpoint`, :meth:`restore`). On the card the
+    decode dispatch and a full prefill chunk each replay one CUDA graph,
+    captured at their first call (pool shape, K, temperature, seed and
+    ``fault_guard`` are fixed per engine, as in the JAX engine's jit);
+    ``_graphs=False`` runs them eagerly there too (for holding the graphs
+    against eager runs).
     """
 
     def __init__(self, cfg: ArchConfig, params: dict, *,
@@ -598,7 +672,8 @@ class ContinuousServingEngine:
                  device: str | torch.device = "cuda",
                  clock: Callable[[], float] = time.perf_counter,
                  fault_injector=None, prefix_cache=None,
-                 journal: journal_lib.Journal | None = None):
+                 journal: journal_lib.Journal | None = None,
+                 _graphs: bool = True):
         cfg.check_supported()
         serving.check_supported()
         self.device = resolve_device(device)
@@ -639,9 +714,26 @@ class ContinuousServingEngine:
         self._audit = serving.debug_audit or (
             os.environ.get("REPRO_DEBUG_AUDIT", "") not in ("", "0"))
         S = serving.num_slots
+        # The static buffers of the captured programs (serving.graphs),
+        # each one set of tensors for the engine's life: the slot pool,
+        # the stacked control vectors of a dispatch, and one batch-1
+        # prefill cache with one chunk of tokens (one prefill is in flight
+        # at a time).
         with torch.inference_mode():
             self.pool = api.init_cache(cfg, S, serving.max_len,
                                        device=self.device)
+            self._ctl = torch.zeros(6, S, dtype=torch.int32,
+                                    device=self.device)
+            self._pf_cache = api.init_cache(cfg, 1, serving.max_len,
+                                            device=self.device)
+            self._pf_tokens = torch.zeros(1, serving.prefill_chunk,
+                                          dtype=torch.int32,
+                                          device=self.device)
+        self._decode = graphs.Program(self._decode_program, self.device,
+                                      graphed=_graphs)
+        self._chunk = graphs.Program(
+            lambda: self._absorb(self._pf_tokens), self.device,
+            graphed=_graphs)
         # Host mirrors of the per-slot decode vectors. The replay loop
         # applies the same emit/EOS/budget logic as the device ticks, so
         # mirrors and device never diverge and nothing but the token
@@ -790,6 +882,14 @@ class ContinuousServingEngine:
         summary["final_pages_in_use"] = 0
         return outs, summary
 
+    def graph_cache_entries(self) -> dict:
+        """Captured CUDA graphs by program, as the JAX engine's
+        ``jit_cache_entries``: ``macro_decode`` (the K-tick decode
+        dispatch) and ``chunk`` (a full prefill chunk; a shorter tail runs
+        eagerly), each 0 or 1; all 0 on the CPU or with graphing off."""
+        return {"macro_decode": int(self._decode.captured),
+                "chunk": int(self._chunk.captured)}
+
     # -- durability: checkpoint / restore ------------------------------------
 
     def checkpoint(self) -> str:
@@ -879,7 +979,7 @@ class ContinuousServingEngine:
     def _leaves_from(self, template, saved: list):
         """A new tree shaped as ``template`` from the numpy leaves
         ``saved`` (checked by :meth:`_fits`), in fresh tensors on the
-        engine's device."""
+        engine's device (a prefix-cache entry's snapshot)."""
         it = iter(saved)
         return tree_map(lambda t: torch.from_numpy(np.array(next(it))).to(
             self.device), template)
@@ -906,9 +1006,9 @@ class ContinuousServingEngine:
             and self._fits(self.pool, ck.get("pool")))
         resident: dict[int, int] = {}       # rid -> slot
         if usable:
-            # Fresh pool tensors, which the decode kernel then updates in
-            # place and the slot functions write into.
-            self.pool = self._leaves_from(self.pool, ck["pool"])
+            # Into the pool's own tensors, which the decode programs bind.
+            for dst, src in zip(tree_leaves(self.pool), ck["pool"]):
+                dst.copy_(torch.from_numpy(np.array(src)))
             mir = ck["mirrors"]
             self._last_tok = np.asarray(mir["last_tok"], np.int32).copy()
             self._active = np.asarray(mir["active"], bool).copy()
@@ -1073,8 +1173,26 @@ class ContinuousServingEngine:
             pf.cache = entry.cache   # write_slot copies it into the pool
             pf.logits = entry.logits
         else:
-            pf.cache = prefix_lib.tree_copy(entry.cache)
+            _copy_into(pf.cache, entry.cache)
         pf.offset = entry.length
+
+    def _decode_program(self) -> torch.Tensor:
+        """One decode dispatch over the static buffers: the pool and the
+        control vectors in ``_ctl``; the (3, K, S) token buffer."""
+        c, sv = self._ctl, self.serving
+        return _macro_decode(
+            self.params, self.pool, c[0], c[1].bool(), c[2], c[3], c[4],
+            c[5], cfg=self.cfg, num_ticks=sv.macro_ticks,
+            temperature=sv.temperature, seed=sv.seed,
+            fault_guard=sv.fault_guard)
+
+    def _absorb(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Absorb one prompt chunk into the static prefill cache, in place;
+        its last-token logits (1, 1, V)."""
+        logits, new = api.prefill_chunk(self.cfg, self.params,
+                                        self._pf_cache, tokens)
+        _copy_into(self._pf_cache, new)
+        return logits
 
     def _prefill_tick(self):
         pf = self._prefill
@@ -1084,9 +1202,9 @@ class ContinuousServingEngine:
             if admission is None:
                 return
             rid, req, slot = admission
-            pf = _Prefill(rid, req, slot,
-                          api.init_cache(self.cfg, 1, self.serving.max_len,
-                                         device=self.device))
+            for t in tree_leaves(self._pf_cache):
+                t.zero_()
+            pf = _Prefill(rid, req, slot, self._pf_cache)
             if self.prefix_cache is not None:
                 self._seed_from_prefix(pf, C)
             self._prefill = pf
@@ -1095,10 +1213,15 @@ class ContinuousServingEngine:
         req, prompt = pf.req, np.asarray(pf.req.prompt, np.int32)
         logits = pf.logits
         if logits is None:               # else a full prefix hit: no chunk
-            chunk = torch.tensor(prompt[None, pf.offset:pf.offset + C])
-            logits, pf.cache = api.prefill_chunk(
-                self.cfg, self.params, pf.cache,
-                chunk.to(self.device, non_blocking=True))
+            chunk = torch.from_numpy(prompt[None, pf.offset:pf.offset + C])
+            if chunk.shape[1] == C:
+                self._pf_tokens.copy_(chunk)
+                logits = self._chunk()
+            else:
+                # A tail shorter than C runs eagerly on the same buffers: the
+                # JAX engine compiles one chunk program per length, and one
+                # graph per tail length would capture for almost every prompt.
+                logits = self._absorb(chunk.to(self.device))
             pf.offset += chunk.shape[1]
             if (self.prefix_cache is not None and pf.offset % C == 0
                     and pf.offset < len(prompt)):
@@ -1142,16 +1265,10 @@ class ContinuousServingEngine:
         """One decode dispatch = K device ticks for the whole pool; replay
         the token buffer on the host tick by tick so streaming callbacks,
         TTFT and queue-depth samples and eviction stay exact."""
-        ctl = torch.from_numpy(np.stack([
+        self._ctl.copy_(torch.from_numpy(np.stack([
             self._last_tok, self._active.astype(np.int32), self._rids,
-            self._gen, self._eos, self._maxn])).to(self.device,
-                                                   non_blocking=True)
-        sv = self.serving
-        self.pool, buf = _macro_decode(
-            self.params, self.pool, ctl[0], ctl[1].bool(), ctl[2], ctl[3],
-            ctl[4], ctl[5], cfg=self.cfg, num_ticks=sv.macro_ticks,
-            temperature=sv.temperature, seed=sv.seed,
-            fault_guard=sv.fault_guard)
+            self._gen, self._eos, self._maxn])))
+        buf = self._decode()
         self.metrics.decode_dispatches += 1
         buf = buf.cpu().numpy()          # ONE host sync per K ticks
         self.metrics.host_syncs += 1

@@ -90,7 +90,9 @@ def sample_tokens(logits: torch.Tensor, rids: torch.Tensor,
     ``rids`` and ``idxs`` are (S,) integer tensors, the request id and
     token index each slot samples (values of drained slots are ignored by
     the caller). Greedy argmax when ``temperature <= 0``; Gumbel-max
-    otherwise, every row keyed on its own (seed, rid, idx).
+    otherwise, every row keyed on its own (seed, rid, idx). ``seed`` and
+    ``temperature`` enter as Python values, constants of the engine that a
+    captured CUDA graph may freeze; ``rids`` and ``idxs`` must be tensors.
     """
     logits = logits.float()
     if temperature <= 0.0:

@@ -13,6 +13,9 @@ The features config is the smoke config's (head dim 16, P = 8, D = 16,
 R = 3). Tolerances per case: fp32 differs from the plain versions in
 summation order only, bf16 by one rounding of each output.
 """
+import collections
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -31,6 +34,7 @@ from repro_torch.serving import engine as tengine
 from repro_torch.serving import faults as tfaults
 from repro_torch.serving import journal as tjournal
 from repro_torch.serving import sampling as tsampling
+from repro_torch.tree import tree_leaves
 
 D_HEAD = 16
 needs_card = pytest.mark.skipif(
@@ -455,7 +459,12 @@ def test_prefix_cache_and_restore_on_card_match_cpu(tmp_path):
     rec = eng2.recovery
     assert rec["checkpoint_used"] and rec["resident_resumed"] >= 1
     assert eng2.pool.attn.s.is_cuda and len(eng2.prefix_cache) > 0
+    # The graphs are captured after restore, over the restored pool.
+    assert eng2.graph_cache_entries() == {"macro_decode": 0, "chunk": 0}
+    ptrs = [t.data_ptr() for t in tree_leaves(eng2.pool)]
     got, s = eng2.run()
+    assert eng2.graph_cache_entries()["macro_decode"] == 1
+    assert ptrs == [t.data_ptr() for t in tree_leaves(eng2.pool)]
     for rid in want:
         np.testing.assert_array_equal(got[rid], want[rid], f"rid {rid}")
     assert s_cpu["prefix_hits"] == 4 and s["tokens_replayed"] > 0
@@ -463,3 +472,99 @@ def test_prefix_cache_and_restore_on_card_match_cpu(tmp_path):
     assert _build.LAUNCHES["slay_decode_step_masked"] == (
         cfg.num_layers * serving.macro_ticks * s["decode_dispatches"])
 
+
+
+def _side_by_side(engines, reqs):
+    """Step ``engines`` (the same config, one graphed, one not) in turn on
+    copies of ``reqs`` until all are idle; after every round their pools
+    must be byte-identical and the first engine's pool must keep its
+    tensors. Each engine's outputs, summary and launch counts."""
+    launches = [collections.Counter() for _ in engines]
+    for eng in engines:
+        for r in reqs:
+            eng.submit(dataclasses.replace(r))
+    ptrs = [t.data_ptr() for t in tree_leaves(engines[0].pool)]
+
+    def busy(e):
+        return bool(e.sched.active or e.sched.ready or e.sched.waiting
+                    or e._prefill)
+
+    while any(busy(e) for e in engines):
+        for eng, n in zip(engines, launches):
+            before = dict(_build.LAUNCHES)
+            eng.step()
+            n.update({k: v - before[k] for k, v in _build.LAUNCHES.items()})
+        for a, b in zip(tree_leaves(engines[0].pool),
+                        tree_leaves(engines[1].pool)):
+            assert torch.equal(a, b)
+        assert ptrs == [t.data_ptr() for t in tree_leaves(engines[0].pool)]
+    return [(eng.run(), dict(n)) for eng, n in zip(engines, launches)]
+
+
+@needs_card
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_graphed_engine_matches_eager_on_card(temperature):
+    # The smoke model in fp32 on the card: the engine that replays one
+    # CUDA graph per decode dispatch and per full prefill chunk against
+    # the same engine run eagerly, stepped side by side. The pools are
+    # byte-identical after every step (so the first dispatch, eager and
+    # then captured, and every replay did what the eager engine did), the
+    # streams and launch counts are equal, and one graph of each program
+    # serves every dispatch and chunk.
+    cfg = get_smoke_config("slayformer-124m", dtype="float32")
+    params = tapi.init_params(cfg, 0, device="cpu")
+    params["embed"] = params["embed"] / 8.0
+    rng = np.random.default_rng(0)
+    reqs = [tengine.Request(rng.integers(3, 256, n).astype(np.int32),
+                            max_new_tokens=10, arrival_time=2.0 * i)
+            for i, n in enumerate((20, 7, 33, 12, 26))]
+    serving = ServingConfig(num_slots=2, max_len=64, prefill_chunk=8,
+                            macro_ticks=4, temperature=temperature)
+    engines = [tengine.ContinuousServingEngine(cfg, params, serving=serving,
+                                               device="cuda", _graphs=g)
+               for g in (True, False)]
+    ((graphed, sg), ng), ((eager, se), ne) = _side_by_side(engines, reqs)
+    assert set(graphed) == set(eager) == set(range(len(reqs)))
+    for rid in eager:
+        np.testing.assert_array_equal(graphed[rid], eager[rid], f"rid {rid}")
+    assert sg["ticks"] == se["ticks"] and sg["decode_dispatches"] > 4
+    assert ng == ne and ng["slay_decode_step_masked"] == (
+        cfg.num_layers * serving.macro_ticks * sg["decode_dispatches"])
+    assert engines[0].graph_cache_entries() == {"macro_decode": 1,
+                                                "chunk": 1}
+    assert engines[1].graph_cache_entries() == {"macro_decode": 0,
+                                                "chunk": 0}
+    assert engines[0]._decode.launches == {
+        "slay_decode_step_masked": cfg.num_layers * serving.macro_ticks}
+
+
+@needs_card
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_lockstep_graph_matches_eager_on_card(temperature):
+    # The lockstep decode step (model and sampler, its key in a device
+    # buffer) replayed as one graph per batch size and temperature against
+    # the same engine run eagerly: equal tokens and decode launches, and
+    # a second batch of the same size replays the same graph.
+    cfg = get_smoke_config("slayformer-124m", dtype="float32")
+    params = tapi.init_params(cfg, 0, device="cpu")
+    params["embed"] = params["embed"] / 8.0
+    rng = np.random.default_rng(3)
+    batches = [[rng.integers(1, 256, n).astype(np.int32) for n in ns]
+               for ns in ((9, 14, 5), (11, 3, 8))]
+    runs = []
+    for g in (True, False):
+        eng = tengine.ServingEngine(cfg, params, device="cuda", max_len=64,
+                                    _graphs=g)
+        outs = []
+        _build.reset_launches()
+        for batch in batches:
+            outs.append(eng.generate([tengine.Request(p, max_new_tokens=12)
+                                      for p in batch],
+                                     temperature=temperature, seed=3))
+        runs.append((outs, dict(_build.LAUNCHES), eng.graph_cache_entries()))
+    (graphed, ng, cg), (eager, ne, ce) = runs
+    for a, b in zip(graphed, eager):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    assert ng == ne and ng["slay_decode_step"] == 2 * cfg.num_layers * 11
+    assert cg == {"decode": 1} and ce == {"decode": 0}

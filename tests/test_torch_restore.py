@@ -12,7 +12,11 @@ so the prefix cache is live and its index goes through the checkpoint.
 Across programs: under one fake clock the port's journal is byte for
 byte the JAX engine's, and the port restores a directory that a crashed
 JAX engine wrote, to the JAX engine's uncrashed streams (a near-tie of
-``logits / T + g`` would be reported as such, ROADMAP C-2).
+``logits / T + g`` would be reported as such, ROADMAP C-2); the other
+way round, the JAX engine restores a directory that the crashed port
+wrote, to the same streams in fp32, and in bf16 to the prefix cache
+(leaf dtypes and bytes) that it restores from its own directory, the
+port writing a bf16 leaf byte for byte as the JAX writer does.
 """
 import dataclasses
 import os
@@ -230,6 +234,23 @@ def test_checkpoint_reads_jax_bfloat16_and_refuses_other_objects(tmp_path):
     assert ckpt_lib.latest_valid(d)["tick"] == 2
 
 
+def test_bf16_leaf_pickles_as_the_jax_writer():
+    # The port writes a bfloat16 leaf as the JAX writer's ml_dtypes array,
+    # opcode for opcode, without importing ml_dtypes; and reads it back.
+    rng = np.random.default_rng(11)
+    cases = [np.array([[1.5, -2.0]], ml_dtypes.bfloat16).view(np.uint16),
+             rng.integers(0, 1 << 16, (1, 1, 300)).astype(np.uint16)]
+    for words in cases:
+        t = torch.from_numpy(words.view(np.int16)).view(torch.bfloat16)
+        leaf = ckpt_lib.to_numpy(t)
+        want = pickle.dumps(words.view(ml_dtypes.bfloat16), protocol=4)
+        assert ckpt_lib.dumps(leaf) == want
+        state = {"pool": [np.arange(3, dtype=np.float32)], "logits": leaf}
+        assert ckpt_lib.dumps(state) == pickle.dumps(
+            {"pool": state["pool"], "logits": words.view(ml_dtypes.bfloat16)},
+            protocol=4)
+
+
 def test_checkpoint_corruption_detected_and_skipped(tmp_path):
     d = str(tmp_path)
     ckpt_lib.save(ckpt_lib.checkpoint_path(d, 3), {"tick": 3})
@@ -279,8 +300,8 @@ def test_crash_uses_checkpoint_and_resumes_residents(models, tmp_path):
     assert rec["checkpoint_used"] and rec["checkpoint_tick"] >= 1
     assert rec["resident_resumed"] >= 1
     assert len(eng2.prefix_cache) > 0          # the index came back
-    # The pool was rebuilt into fresh tensors, whose (S, z) the decode
-    # and the slot functions then keep updating in place.
+    # The checkpoint was copied into the pool's own tensors, whose (S, z)
+    # the decode and the slot functions then keep updating in place.
     ptrs = [t.data_ptr() for t in (eng2.pool.attn.s, eng2.pool.attn.z)]
     outs, s = eng2.run()
     assert ptrs == [t.data_ptr() for t in (eng2.pool.attn.s,
@@ -493,3 +514,61 @@ def test_port_restores_a_jax_written_directory(models, jax_dirs):
     outs, s = eng.run()
     _same(outs, want)
     assert s["tokens_replayed"] > 0
+
+
+def test_jax_engine_restores_a_port_written_directory(models, jax_dirs,
+                                                      tmp_path):
+    jcfg, _, jp, _, mesh = models
+    d = str(tmp_path)
+    _crash_run(models, d, _sv())
+    eng = jengine.ContinuousServingEngine.restore(
+        d, jcfg, jp, mesh, serving=JServingConfig(**_kw()))
+    rec = eng.recovery
+    assert rec["checkpoint_used"] and rec["resident_resumed"] >= 1
+    assert len(eng.prefix_cache) > 0
+    outs, s = eng.run()
+    _same(outs, jax_dirs["streams"])
+    assert s["tokens_replayed"] > 0
+
+
+@pytest.fixture(scope="module")
+def models_bf16(models):
+    jcfg = jax_smoke_config(NAME)
+    tcfg = get_smoke_config(NAME)
+    assert jcfg.dtype == tcfg.dtype == "bfloat16"
+    tree = jax.device_get(jtr.init_params(jcfg, jax.random.PRNGKey(0)))
+    jp = jax.tree.map(jnp.asarray, tree)
+    tp = convert.params_from_numpy(tree, device="cpu")
+    return jcfg, tcfg, jp, tp, models[4]
+
+
+def test_jax_engine_restores_port_bf16_prefix_cache_as_its_own(models_bf16,
+                                                                tmp_path):
+    # A bf16 model's prefix entries carry bf16 last-token logits. Both
+    # engines crash on one trace at the same tick with the same checkpoint;
+    # the JAX engine restores either directory to the same prefix cache:
+    # leaf dtypes, logits in bfloat16, and the LRU's byte count.
+    jcfg, _, jp, _, mesh = models_bf16
+    kw = _kw(temperature=0.0)
+    port_dir, jax_dir = str(tmp_path / "port"), str(tmp_path / "jax")
+    _crash_run(models_bf16, port_dir, ServingConfig(**kw))
+    jr = jjournal.Journal(os.path.join(jax_dir, jjournal.JOURNAL_NAME))
+    jeng = jengine.ContinuousServingEngine(
+        jcfg, jp, mesh, serving=JServingConfig(**kw), journal=jr,
+        fault_injector=jfaults.FaultInjector(seed=3, crash_window=CRASH))
+    with pytest.raises(jfaults.EngineCrash):
+        jeng.run(_trace(jengine))
+    caches = []
+    for d in (port_dir, jax_dir):
+        eng = jengine.ContinuousServingEngine.restore(
+            d, jcfg, jp, mesh, serving=JServingConfig(**kw))
+        assert eng.recovery["checkpoint_used"]
+        pc = eng.prefix_cache
+        caches.append((pc.nbytes, [
+            (e.tokens.tolist(), [str(x.dtype) for x in jax.tree.leaves(
+                e.cache)], None if e.logits is None else str(e.logits.dtype))
+            for e in pc.entries()]))
+    (port_bytes, port_entries), (jax_bytes, jax_entries) = caches
+    assert port_entries == jax_entries
+    assert any(lg == "bfloat16" for *_, lg in jax_entries)
+    assert port_bytes == jax_bytes
