@@ -124,7 +124,31 @@ Phases, each of which raises (nonzero exit) on failure:
     B4b's launches =
     12 x 8 per dispatch in every run; prefix hits, evictions and bytes,
     prefill ticks, TTFT cached against cold, checkpoint size and time,
-    journal bytes per token, restore time.
+    journal bytes per token, restore time;
+14. serve, exact kinds, lockstep (``phase_serve_exact``): softmax
+    slayformer-124m at 12 layers and yat_spherical at 4 (KV rings of
+    2048 rows, no kernel) on phase 8's prompts, graphed equal to eager,
+    ms per decode step of each in turns beside SLAY's, a profiler window;
+    fp32 logits of a 64-token prompt and 4 decode steps on the card
+    against the CPU plain path (softmax checked at 2 layers, where fp32
+    rounding is well below the tolerance, and printed at 12 as a reading);
+15. serve, exact kinds, continuous (``phase_serve_exact_continuous``):
+    phase 12's trace and pool on softmax, unpaged, paged (64-row pages,
+    every slot's ring) and overcommitted (half the pages), with
+    ``debug_audit``: streams equal across the three and to eager (rids
+    0-7), no page left allocated, ms per dispatch and prefill tick, pages
+    peak, pool MB beside SLAY's; a full-pool dispatch graphed and eager
+    with its idle share, unpaged and paged;
+16. serve, exact kinds, prefix cache and crash-safe
+    (``phase_serve_exact_durable``): phase 13's trace on the paged
+    softmax pool with a prefix cache of as many ring snapshots as phase
+    13's holds (S, z) ones: cached streams equal to cold ones, then a
+    journaled run crashed after its first checkpoint (every 128 ticks)
+    and restored to the uncrashed streams; MB and ms per checkpoint;
+17. train, exact kind (``phase_train_exact``): 4 AdamW steps of softmax
+    slayformer-124m (8 x 1024, plain autograd), a finite, falling loss,
+    ms per step beside the fused SLAY step's.
+Phases 14-17 check that no SLAY kernel launched.
 
 The last two lines are a JSON object with every kernel's numbers and
 ``{"ok": true, "device": {...}}``. Every ``ms`` is CUDA events around the
@@ -1207,7 +1231,7 @@ def phase_serve(card: str) -> tuple:
         profile("decode x4", lambda: decode(cache, tok, 4),
                 4 * t_dec / steps * 1e3)
 
-    _lockstep_graphs(cfg, params, reqs, eng, outs, card)
+    step_ms = _lockstep_graphs(cfg, params, reqs, eng, outs, card)
 
     # One request against the port's CPU plain path, both in fp32.
     cfg32 = dataclasses.replace(cfg, dtype="float32")
@@ -1233,7 +1257,7 @@ def phase_serve(card: str) -> tuple:
         f"{int(lg_gpu.argmax())}, card bf16 serve {int(outs[0][0])}; "
         f"fp32 agree={first_cpu == int(lg_gpu.argmax())}, "
         f"bf16 agree={first_cpu == int(outs[0][0])}")
-    return launches, outs, lock_ms
+    return launches, outs, lock_ms, step_ms
 
 
 def _same_outputs(want, got, what: str) -> None:
@@ -1286,6 +1310,7 @@ def _lockstep_graphs(cfg, params, reqs, eng, outs, card: str) -> None:
             f"[{card}]")
         for name in ("graphed", "eager"):
             profile(f"lockstep decode step, {name}", steps[name], med[name])
+    return med
 
 
 TRAIN_STEPS = 8
@@ -1823,21 +1848,25 @@ def _b4b_pool_row(occupancy: float) -> dict:
                 bound_by=by, device_ms=dev_ms)
 
 
-def _cont_profile(cfg, params, card: str) -> None:
+def _cont_profile(cfg, params, card: str, extra=None,
+                  pieces: bool = True, sampled: bool = True) -> dict:
     """One macro dispatch of a full pool (8 slots live), replayed as the
     engine's CUDA graph and run eagerly (``_graphs=False``), in turns, and
     graphed at T = 0.8 (the sampler's device time): the wall time of each
     (median of 3), the profiler's device time and idle share, and beside
-    it the pieces of one tick timed alone (CUDA events):
+    it (``pieces``) the pieces of one tick timed alone (CUDA events):
     the model's masked decode step, sampling at T = 0.8 and greedy, the
-    fault lane."""
+    fault lane. ``extra`` adds ServingConfig fields (paging);
+    ``sampled=False`` leaves out the T = 0.8 engine. Returns the median
+    wall ms by name."""
     S, K = CONT_SERVING["num_slots"], CONT_SERVING["macro_ticks"]
     engs = {}
     for name, graphed, temp in (("graphed", True, 0.0),
                                 ("eager", False, 0.0),
-                                ("graphed, T = 0.8", True, 0.8)):
+                                ("graphed, T = 0.8", True, 0.8))[
+                                    :3 if sampled else 2]:
         eng = engine.ContinuousServingEngine(
-            cfg, params, serving=ServingConfig(**CONT_SERVING,
+            cfg, params, serving=ServingConfig(**CONT_SERVING, **(extra or {}),
                                                temperature=temp),
             device="cuda", _graphs=graphed)
         rng = np.random.default_rng(SEED + 3)
@@ -1854,19 +1883,23 @@ def _cont_profile(cfg, params, card: str) -> None:
         raise AssertionError("the full-pool engine captured no graph")
     walls: dict = {name: [] for name in engs}
     for name in ("graphed", "eager", "eager", "graphed", "graphed", "eager",
-                 "graphed, T = 0.8", "graphed, T = 0.8", "graphed, T = 0.8"):
+                 "graphed, T = 0.8", "graphed, T = 0.8", "graphed, T = 0.8")[
+                     :9 if sampled else 6]:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         engs[name].step()
         walls[name].append((time.perf_counter() - t0) * 1e3)
+    med = {}
     for name, eng in engs.items():
-        wall = statistics.median(walls[name])
+        wall = med[name] = statistics.median(walls[name])
         log(f"  one dispatch of a full pool ({S} slots, K = {K}), {name}: "
             f"{wall:.2f} ms wall (median of 3: "
             f"{', '.join(f'{w:.2f}' for w in walls[name])}), "
             f"{wall / K:.2f} ms a tick  [{card}]")
         profile(f"continuous dispatch (K={K}, {S} slots), {name}", eng.step,
                 wall)
+    if not pieces:
+        return med
     eng = engs["eager"]
     with torch.inference_mode():
         pool = eng.pool
@@ -1885,6 +1918,7 @@ def _cont_profile(cfg, params, card: str) -> None:
     log(f"  one tick's pieces alone (CUDA events): masked decode step "
         f"{dec:.3f} ms, sampling T=0.8 {samp:.3f} ms, greedy {greedy:.3f} "
         f"ms, fault lane {lane:.3f} ms  [{card}]")
+    return med
 
 
 def _cont_graphs_vs_eager(cfg, params, sub, outs, card: str) -> None:
@@ -2084,14 +2118,15 @@ def phase_serve_continuous(card: str, lockstep_ms: float) -> tuple:
         f"{feng.metrics.fault_events[0]['tick']} (latency {lat[0]}), retried "
         f"once; every stream equal to the fault-free run's; summary "
         f"faults_detected={ev}")
-    _cont_profile(cfg, params, card)
+    pool = dict(dispatch_ms=_cont_profile(cfg, params, card),
+                pool_mb=_tree_mb(eng.pool))
     del params, eng, feng
     torch.cuda.empty_cache()
     _cont_fp32(cfg, reqs)
     b4b = _b4b_pool_row(s["mean_slot_occupancy"])
     log(f"serve (continuous): the phase took "
         f"{time.perf_counter() - t_phase:.1f} s")
-    return launches, b4b
+    return launches, b4b, pool
 
 
 DUR_SERVING = dict(CONT_SERVING, prefix_cache_bytes=160 << 20,
@@ -2211,13 +2246,17 @@ def _checkpoint_format(eng, card: str) -> None:
         f"({each['float32']}), {mb['float32']:.1f} MB  [{card}]")
 
 
-def _dur_crash_restore(cfg, params, reqs, want, card: str) -> None:
+def _dur_crash_restore(cfg, params, reqs, want, card: str, *, serving=None,
+                       crash_window=DUR_CRASH, launches=None) -> None:
     """The cached trace on a journaled engine that crashes mid-run, then
     ``restore`` from its directory and the run to the end: every stream
     equal to the uncrashed cached run's, each token delivered once across
-    the two engines, the checkpoint used and tokens replayed."""
+    the two engines, the checkpoint used and tokens replayed. ``serving``
+    (default phase 13's) and ``launches`` (default B4b's count) serve the
+    exact kinds' durable phase."""
     nl, K = cfg.num_layers, DUR_SERVING["macro_ticks"]
-    serving = ServingConfig(**DUR_SERVING)
+    serving = serving or ServingConfig(**DUR_SERVING)
+    launches = launches or _b4b_launches
     d = tempfile.mkdtemp(prefix="chip_smoke_durable_")
     try:
         delivered = collections.defaultdict(list)
@@ -2230,7 +2269,7 @@ def _dur_crash_restore(cfg, params, reqs, want, card: str) -> None:
             cfg, params, serving=serving, device="cuda",
             journal=journal.Journal(os.path.join(d, journal.JOURNAL_NAME)),
             fault_injector=faults.FaultInjector(seed=SEED,
-                                                crash_window=DUR_CRASH))
+                                                crash_window=crash_window))
         _timed_checkpoints(eng, ckpt_ms)
         _build.reset_launches()
         torch.cuda.synchronize()
@@ -2244,7 +2283,7 @@ def _dur_crash_restore(cfg, params, reqs, want, card: str) -> None:
             raise AssertionError("the injected crash did not fire")
         crashed_s = time.perf_counter() - t0
         m = eng.metrics
-        n1 = _b4b_launches("crashed run", m.decode_dispatches, nl, K)
+        n1 = launches("crashed run", m.decode_dispatches, nl, K)
         resident = sorted(rec.rid for rec in eng.sched.active.values())
         if not (m.checkpoints_written >= 1 and resident):
             raise AssertionError(f"crash at tick {tick}: {m.checkpoints_written}"
@@ -2264,7 +2303,7 @@ def _dur_crash_restore(cfg, params, reqs, want, card: str) -> None:
         _timed_checkpoints(eng2, ckpt_ms)
         _build.reset_launches()
         outs, s, _, wall = _timed_run(eng2, [])
-        n2 = _b4b_launches("restored run", s["decode_dispatches"], nl, K)
+        n2 = launches("restored run", s["decode_dispatches"], nl, K)
         if eng2.graph_cache_entries()["macro_decode"] != 1:
             raise AssertionError(f"restored engine graphs "
                                  f"{eng2.graph_cache_entries()}")
@@ -2391,6 +2430,346 @@ def phase_serve_durable(card: str) -> None:
         f"{time.perf_counter() - t_phase:.1f} s  [{card}]")
 
 
+# -- the exact kinds (softmax, yat, yat_spherical) --------------------------
+
+EXACT_FP32_PROMPT = 64         # the short prompt held against the CPU
+EXACT_FP32_DECODE = 4          # decode steps after it, also held
+# fp32 on both sides, the order of sums differs (cuBLAS against the CPU).
+# With these random weights a softmax layer amplifies a rounding about
+# threefold (the full-depth comparison is printed as a reading), so the
+# check runs softmax at EXACT_FP32_LAYERS, where rounding moves the
+# logits by about 1e-4 of their largest; 5e-4 of it is far below a fault.
+EXACT_FP32_TOL = 5e-4
+EXACT_FP32_LAYERS = 2
+SPHERICAL_LAYERS = 4           # yat_spherical's lockstep phase: depth cut
+EXACT_PAGE = 64                # page_size of the paged runs
+EXACT_CKPT_EVERY = 128         # the durable phase's checkpoint cadence,
+EXACT_CRASH = (140, 140)       # its crash: after the first checkpoint
+EXACT_TRAIN_STEPS = 4
+
+
+def _tree_mb(tree) -> float:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)) / 1e6
+
+
+def _no_slay_kernels(what: str) -> None:
+    """An exact kind launches none of the SLAY kernels."""
+    ran = {k: n for k, n in _build.LAUNCHES.items() if n}
+    if ran:
+        raise AssertionError(f"{what}: SLAY kernels ran on an exact kind: "
+                             f"{ran}")
+
+
+def _exact_fp32(cfg, check_layers: int) -> None:
+    """One short prompt's last-token prefill logits, then the logits of a
+    few decode steps on fixed tokens, on the card and on the CPU plain
+    path, both in fp32: held to EXACT_FP32_TOL of the largest logit at
+    ``check_layers`` (the config's first layers), printed as a reading at
+    the config's depth."""
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    full = api.init_params(cfg32, SEED, device="cpu")
+    for depth in sorted({check_layers, cfg.num_layers}):
+        p = dict(full, layers=tree_map(lambda t: t[:depth], full["layers"]))
+        _exact_fp32_at(dataclasses.replace(cfg32, num_layers=depth), p,
+                       check=depth == check_layers)
+
+
+def _exact_fp32_at(cfg32, params, check: bool) -> None:
+    rng = np.random.default_rng(SEED + 7)
+    prompt = rng.integers(0, cfg32.vocab_size, EXACT_FP32_PROMPT)
+    feed = rng.integers(0, cfg32.vocab_size, EXACT_FP32_DECODE)
+    rows, secs = {}, {}
+    with torch.inference_mode():
+        for dev in ("cuda", "cpu"):
+            p = tree_map(lambda t, dev=dev: t.to(dev), params)
+            t0 = time.perf_counter()
+            lg, cache = api.prefill(
+                p, cfg32, torch.from_numpy(prompt[None].astype(np.int32)),
+                max_len=128)
+            out = [lg[0, -1].float().cpu()]
+            for tok in feed:
+                lg, cache = api.decode_step(
+                    p, cfg32, cache, torch.tensor([[int(tok)]],
+                                                  dtype=torch.int32))
+                out.append(lg[0, -1].float().cpu())
+            rows[dev] = torch.stack(out)
+            secs[dev] = time.perf_counter() - t0
+            del p, cache
+    scale = float(rows["cpu"].abs().max())
+    what = (f"{cfg32.attn_kind} ({cfg32.num_layers}L) fp32 card vs CPU: "
+            f"prefill "
+            f"+ {EXACT_FP32_DECODE} decode logits ({EXACT_FP32_PROMPT}-token "
+            f"prompt, CPU {secs['cpu']:.1f} s)")
+    if check:
+        close(rows["cuda"], rows["cpu"], EXACT_FP32_TOL * scale, 0.0, what)
+        return
+    err = float((rows["cuda"] - rows["cpu"]).abs().max())
+    log(f"  {what}, a reading: max_abs_err={err:.3e} of a largest logit "
+        f"{scale:.2f} ({err / scale:.2e})")
+
+
+def _exact_lockstep(cfg, params, reqs, card: str, slay: dict) -> dict:
+    """``ServingEngine.generate`` of the serve phase's prompts (32 greedy
+    tokens) graphed and eager: equal tokens and no SLAY kernel; ms per
+    decode step of each, in turns, beside SLAY's (``slay``)."""
+    engs = {g: engine.ServingEngine(cfg, params, device="cuda", max_len=2048,
+                                    _graphs=g) for g in (True, False)}
+    engs[True].generate([engine.Request(reqs[0].prompt[:64],
+                                        max_new_tokens=2)])      # warm
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = engs[True].generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _no_slay_kernels(f"{cfg.attn_kind} lockstep generate")
+    for o in outs:
+        if len(o) != MAX_NEW or o.min() < 0 or o.max() >= cfg.vocab_size:
+            raise AssertionError(f"bad output stream {o}")
+    _same_outputs(outs, engs[False].generate(reqs),
+                  f"{cfg.attn_kind} lockstep greedy, graphed vs eager")
+    B = len(reqs)
+    steps = {"graphed": engs[True]._lockstep(B, 0.0).step,
+             "eager": engs[False]._lockstep(B, 0.0).step}
+    ms: dict = {k: [] for k in steps}
+    with torch.inference_mode():
+        for name in ("graphed", "eager", "eager", "graphed"):
+            ms[name].append(time_ms(steps[name], iters=MAX_NEW - 1,
+                                    warmup=2))
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    log(f"  {cfg.attn_kind} ({cfg.num_layers}L) lockstep: generate {B} x "
+        f"{MAX_NEW} tokens in {wall:.3f} s, streams graphed equal to eager, "
+        f"no SLAY kernel; ms per decode step graphed {med['graphed']:.3f}, "
+        f"eager {med['eager']:.3f} (in turns); SLAY (12L) graphed "
+        f"{slay['graphed']:.3f}, eager {slay['eager']:.3f}; graphs "
+        f"{engs[True].graph_cache_entries()}  [{card}]")
+    with torch.inference_mode():
+        profile(f"{cfg.attn_kind} lockstep decode step, graphed",
+                steps["graphed"], med["graphed"])
+    return med
+
+
+def phase_serve_exact(card: str, slay_step_ms: dict) -> None:
+    """The exact kinds' lockstep serving at full width: softmax at 12
+    layers and yat_spherical at SPHERICAL_LAYERS, each on the serve
+    phase's 4 prompts graphed against eager, and its fp32 logits on the
+    card against the CPU plain path. ``slay_step_ms``: the serve phase's
+    ms per step, graphed and eager."""
+    t_phase = time.perf_counter()
+    for kind, over in (("softmax", {}),
+                       ("yat_spherical", {"num_layers": SPHERICAL_LAYERS})):
+        cfg = configs.get_config("slayformer-124m", attn_kind=kind, **over)
+        log(f"serve (exact kind, lockstep) {cfg.name} attn_kind={kind}: "
+            f"{cfg.num_layers}L x {cfg.d_model}d, {cfg.dtype}, KV rings of "
+            f"2048 rows, random weights from seed {SEED}")
+        params = api.init_params(cfg, SEED, device="cuda")
+        if "slay" in params:
+            raise AssertionError(f"{kind} drew SLAY projections")
+        rng = np.random.default_rng(SEED)
+        reqs = [engine.Request(rng.integers(0, cfg.vocab_size, n)
+                               .astype(np.int32), max_new_tokens=MAX_NEW)
+                for n in PROMPT_LENS]
+        _exact_lockstep(cfg, params, reqs, card, slay_step_ms)
+        del params
+        torch.cuda.empty_cache()
+        _exact_fp32(cfg, EXACT_FP32_LAYERS if kind == "softmax"
+                    else cfg.num_layers)
+    log(f"serve (exact kind, lockstep): the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s  [{card}]")
+
+
+def _exact_regimes(S: int, L: int) -> dict:
+    lp = L // EXACT_PAGE
+    return {"unpaged": {},
+            "paged": dict(page_size=EXACT_PAGE, num_pages=S * lp),
+            "overcommitted": dict(page_size=EXACT_PAGE, num_pages=S * lp // 2)}
+
+
+def phase_serve_exact_continuous(card: str, slay: dict) -> None:
+    """Phase 12's trace and pool on softmax slayformer-124m, unpaged,
+    paged (every slot's ring in pages) and overcommitted (half the
+    pages), graphed, with ``debug_audit``: streams equal across the
+    three, no page left allocated, no SLAY kernel; rids 0-7 eager against
+    graphed (unpaged and paged); a full-pool dispatch graphed and eager
+    with its idle share; ms per dispatch and pool MB beside SLAY's
+    (``slay``: phase 12's ``dispatch_ms`` and ``pool_mb``)."""
+    t_phase = time.perf_counter()
+    cfg = configs.get_config("slayformer-124m", attn_kind="softmax")
+    S, K, L = (CONT_SERVING[k] for k in ("num_slots", "macro_ticks",
+                                          "max_len"))
+    regimes = _exact_regimes(S, L)
+    log(f"serve (exact kind, continuous) {cfg.name} attn_kind=softmax: "
+        f"phase 12's ServingConfig and {CONT_REQUESTS} requests; unpaged, "
+        f"paged (page_size {EXACT_PAGE}, {S * L // EXACT_PAGE} pages) and "
+        f"overcommitted ({S * L // EXACT_PAGE // 2} pages)")
+    params = api.init_params(cfg, SEED, device="cuda")
+    reqs = _cont_requests(cfg)
+    _cont_run(cfg, params, reqs[:2], max_len=1024)          # warm-up
+    runs, mb = {}, {}
+    for name, kw in regimes.items():
+        timed: dict = {}
+        _build.reset_launches()
+        outs, s, eng, wall = _cont_run(cfg, params, reqs, timed=timed,
+                                       debug_audit=True, **kw)
+        _no_slay_kernels(f"softmax continuous, {name}")
+        if not (s["requests_completed"] == CONT_REQUESTS
+                and s["final_occupancy"] == 0
+                and s["final_pages_in_use"] == 0
+                and s["pages_peak"] <= s["num_pages"]
+                and (s["pages_peak"] > 0) == bool(kw)):
+            raise AssertionError(f"softmax continuous, {name}: {s}")
+        disp, pre = timed["_decode_macro"], timed["_prefill_tick"]
+        mb[name] = _tree_mb(eng.pool)
+        runs[name] = outs
+        log(f"  {name}: {wall:.3f} s, {s['ticks']} ticks "
+            f"({s['prefill_ticks']} prefill, {s['decode_dispatches']} "
+            f"dispatches); ms per dispatch median "
+            f"{statistics.median(disp) * 1e3:.2f}, prefill tick "
+            f"{statistics.median(pre) * 1e3:.2f}; pool decode "
+            f"{(s['tokens_generated'] - CONT_REQUESTS) / sum(disp):.1f} "
+            f"tokens/s; pool {mb[name]:.1f} MB; pages {s['num_pages']}, peak "
+            f"{s['pages_peak']}, left {s['final_pages_in_use']}; graphs "
+            f"{eng.graph_cache_entries()}, captured in "
+            f"{(eng._decode.capture_s or 0) * 1e3:.1f} (dispatch) and "
+            f"{(eng._chunk.capture_s or 0) * 1e3:.1f} ms (chunk)  [{card}]")
+        del eng
+    for name in ("paged", "overcommitted"):
+        _same_streams(runs["unpaged"], runs[name], f"softmax {name} vs "
+                      f"unpaged")
+    sub = reqs[:CONT_HOT_REQUESTS]
+    for name in ("unpaged", "paged"):
+        timed = {}
+        o, s, _, wall = _cont_run(cfg, params, sub, timed=timed,
+                                  graphs=False, **regimes[name])
+        _same_streams(runs[name], o, f"softmax {name}, rids 0-{len(sub) - 1}"
+                      f" eager vs graphed")
+        log(f"  {name}, rids 0-{len(sub) - 1} eager: {wall:.3f} s, ms per "
+            f"dispatch median "
+            f"{statistics.median(timed['_decode_macro']) * 1e3:.2f}; streams "
+            f"equal to the graphed run's  [{card}]")
+    full = {name: _cont_profile(cfg, params, card, extra=regimes[name],
+                                pieces=False, sampled=False)
+            for name in ("unpaged", "paged")}
+    sd = slay["dispatch_ms"]
+    log(f"  a full-pool dispatch (K = {K}), graphed/eager ms: softmax "
+        f"unpaged {full['unpaged']['graphed']:.2f}/"
+        f"{full['unpaged']['eager']:.2f}, paged {full['paged']['graphed']:.2f}"
+        f"/{full['paged']['eager']:.2f}, SLAY {sd['graphed']:.2f}/"
+        f"{sd['eager']:.2f}; pool MB softmax {mb['unpaged']:.1f} (paged "
+        f"{mb['paged']:.1f}, overcommitted {mb['overcommitted']:.1f}), SLAY "
+        f"{slay['pool_mb']:.1f}; streams equal across the three "
+        f"regimes  [{card}]")
+    del params
+    torch.cuda.empty_cache()
+    log(f"serve (exact kind, continuous): the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s  [{card}]")
+
+
+def phase_serve_exact_durable(card: str) -> None:
+    """Phase 13's shared-prompt trace on the paged softmax pool: a prefix
+    cache of as many ring snapshots as phase 13's holds (S, z) ones, cold
+    against cached (streams equal), then a journaled run crashed after
+    its first checkpoint and restored (streams equal to the uncrashed
+    cached run's); MB and ms per checkpoint."""
+    t_phase = time.perf_counter()
+    cfg = configs.get_config("slayformer-124m", attn_kind="softmax")
+    S, L = CONT_SERVING["num_slots"], CONT_SERVING["max_len"]
+    paging = _exact_regimes(S, L)["paged"]
+    ring = _tree_mb(api.init_cache(cfg, 1, L, device="cuda"))
+    state = _tree_mb(api.init_cache(configs.get_config("slayformer-124m"), 1,
+                                    L, device="cuda"))
+    budget = int(DUR_SERVING["prefix_cache_bytes"] * ring / state)
+    serving = dict(DUR_SERVING, prefix_cache_bytes=budget,
+                   checkpoint_every_ticks=EXACT_CKPT_EVERY, **paging)
+    log(f"serve (exact kind, prefix cache, crash-safe) {cfg.name} "
+        f"attn_kind=softmax: phase 13's trace, paged ({paging}), a prefix "
+        f"cache of {budget / 2 ** 20:.0f} MiB ({ring:.1f} MB a snapshot, "
+        f"SLAY's {state:.1f}), checkpoints every {EXACT_CKPT_EVERY} ticks")
+    params = api.init_params(cfg, SEED, device="cuda")
+    reqs = _dur_requests(cfg)
+    runs = {}
+    for name, nbytes in (("cold", 0), ("cached", budget)):
+        _build.reset_launches()
+        outs, s, eng, wall = _cont_run(cfg, params, reqs, debug_audit=True,
+                                       prefix_cache_bytes=nbytes, **paging)
+        _no_slay_kernels(f"softmax durable, {name}")
+        runs[name] = (outs, s, eng)
+        log(f"  {name} run: {wall:.3f} s, {s['ticks']} ticks "
+            f"({s['prefill_ticks']} prefill, {s['decode_dispatches']} "
+            f"dispatches), {s['prompt_tokens']} prompt tokens absorbed, "
+            f"pages peak {s['pages_peak']}  [{card}]")
+    (cold, sc, _), (warm, sw, eng) = runs["cold"], runs["cached"]
+    _same_streams(cold, warm, "softmax paged, cached vs cold")
+    st = eng.prefix_cache.stats()
+    if not (set(warm) == set(cold) and st["hits"] >= 15
+            and sw["final_pages_in_use"] == 0
+            and eng.prefix_cache.live_refs() == 0
+            and sw["prefill_ticks"] < sc["prefill_ticks"]):
+        raise AssertionError(f"softmax prefix cache: {st}, {sw}")
+    log(f"  prefix cache: {st['hits']} hits, {st['evictions']} evictions, "
+        f"{st['entries']} entries, {st['bytes'] / 2 ** 20:.1f} MiB; prefill "
+        f"ticks cold {sc['prefill_ticks']}, cached {sw['prefill_ticks']}; "
+        f"streams equal to the cold run's")
+    del eng, runs
+    _dur_crash_restore(cfg, params, reqs, warm, card,
+                       serving=ServingConfig(**serving),
+                       crash_window=EXACT_CRASH, launches=_no_slay_launches)
+    del params
+    torch.cuda.empty_cache()
+    log(f"serve (exact kind, prefix cache, crash-safe): the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s  [{card}]")
+
+
+def _no_slay_launches(what: str, dispatches: int, nl: int, K: int) -> int:
+    """:func:`_b4b_launches`' counterpart for an exact kind: no kernel."""
+    _no_slay_kernels(what)
+    if not dispatches:
+        raise AssertionError(f"{what}: no decode dispatch")
+    return 0
+
+
+def phase_train_exact(card: str, fused_step_s: float) -> None:
+    """Softmax slayformer-124m: EXACT_TRAIN_STEPS AdamW steps of the train
+    phase's batches through ``Trainer.run``, plain autograd with no
+    kernel; a finite, falling loss; ms per step beside the fused SLAY
+    step's (the quadratic against the linear kind at L = 1024)."""
+    cfg = configs.get_config("slayformer-124m", attn_kind="softmax")
+    log(f"train (exact kind) {cfg.name} attn_kind=softmax: "
+        f"{EXACT_TRAIN_STEPS} AdamW steps of {TRAIN_BATCH} x {TRAIN_LEN} "
+        f"tokens, as the train phase (lr {TRAIN_LR}, no remat)")
+    dcfg = pipeline.DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_LEN,
+                               global_batch=TRAIN_BATCH, seed=SEED)
+    ocfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                       total_steps=EXACT_TRAIN_STEPS)
+    d = tempfile.mkdtemp(prefix="chip_smoke_exact_train_")
+    try:
+        tr = loop.Trainer(cfg, ocfg, loop.TrainConfig(
+            remat=False, ckpt_dir=d, ckpt_every=1000), seed=SEED,
+            device="cuda")
+        _build.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        hist = tr.run(pipeline.batch_iterator(dcfg), EXACT_TRAIN_STEPS,
+                      log_every=1000)
+        _no_slay_kernels("softmax training")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del tr
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    losses = [h["loss"] for h in hist]
+    if not (len(hist) == EXACT_TRAIN_STEPS and all(np.isfinite(losses))
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"softmax training: loss {losses}")
+    times = [h["step_time_s"] for h in hist]
+    step_s = statistics.median(times[1:])
+    log(f"  loss per step: {', '.join(f'{x:.4f}' for x in losses)} (finite, "
+        f"falling); step time first {times[0] * 1e3:.1f} ms, median of "
+        f"steps 2-{EXACT_TRAIN_STEPS} {step_s * 1e3:.2f} ms = "
+        f"{TRAIN_BATCH * TRAIN_LEN / step_s:.1f} tokens/s; fused SLAY "
+        f"{fused_step_s * 1e3:.2f} ms (softmax / SLAY "
+        f"{step_s / fused_step_s:.3f}); peak memory {peak:.1f} GB  [{card}]")
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; it needs an "
@@ -2410,12 +2789,16 @@ def main() -> int:
     serve_shape = (len(PROMPT_LENS) * cfg.num_heads, max(PROMPT_LENS))
     fmap = phase_fmap(feat, sp, TRAIN_BATCH * TRAIN_LEN * cfg.num_heads)
     scan = phase_scan(feat, sp, serve_shape)
-    launches, fused_outs, lock_ms = phase_serve(card_line)
+    launches, fused_outs, lock_ms, slay_step_ms = phase_serve(card_line)
     train, fused_loss0, fused_step_s = phase_train(card_line)
     phase_serve_two(card_line, fused_outs)
     two = phase_train_two(card_line, fused_loss0, fused_step_s)
-    cont, b4b = phase_serve_continuous(card_line, lock_ms)
+    cont, b4b, slay_pool = phase_serve_continuous(card_line, lock_ms)
     phase_serve_durable(card_line)
+    phase_serve_exact(card_line, slay_step_ms)
+    phase_serve_exact_continuous(card_line, slay_pool)
+    phase_serve_exact_durable(card_line)
+    phase_train_exact(card_line, fused_step_s)
     kernels = [
         dict(name="slay_fused_fwd", route="cuda",
              source="src/repro_torch/csrc/slay_fused.cu",

@@ -1,9 +1,11 @@
 """Architecture and serving configuration for the port.
 
 A torch counterpart of ``repro.configs.base.ArchConfig`` holding the
-fields the ported decoder uses. MoE, SSM, hybrid, encoder-decoder and
-local/global windows are not ported yet (ROADMAP Queue A item 12).
-``ServingConfig`` has the reference's fields, defaults and validation.
+fields the ported decoder uses: SLAY and the exact quadratic kinds
+(``softmax``, ``yat``, ``yat_spherical``) on the dense decoder. MoE, SSM,
+hybrid, encoder-decoder, vision and local/global windows are not ported
+yet (ROADMAP Queue A item 12). ``ServingConfig`` has the reference's
+fields, defaults and validation.
 """
 from __future__ import annotations
 
@@ -14,6 +16,10 @@ import torch
 
 from repro_torch.core.features import SlayFeatureConfig
 from repro_torch.core.slay import AttentionSpec
+
+
+# The exact quadratic kinds: a KV ring per slot instead of (S, z).
+EXACT_KINDS = ("softmax", "yat", "yat_spherical")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,11 +33,12 @@ class ArchConfig:
     num_kv_heads: int = 0
     head_dim: int = 0
     d_ff: int = 0
+    attn_logit_softcap: float = 0.0   # gemma2 attention softcap
     final_logit_softcap: float = 0.0
     gated_mlp: bool = True
     tie_embeddings: bool = True
     rope_theta: float = 10000.0
-    attn_kind: str = "slay"          # only "slay" is ported
+    attn_kind: str = "slay"          # slay | softmax | yat | yat_spherical
     slay_anchors: int = 8
     slay_prf: int = 16
     slay_quad_nodes: int = 3
@@ -56,16 +63,25 @@ class ArchConfig:
             num_prf=self.slay_prf, num_quad_nodes=self.slay_quad_nodes)
 
     def attention_spec(self) -> AttentionSpec:
-        return AttentionSpec(kind=self.attn_kind, slay=self.slay_config(),
-                             chunk_size=self.chunk_size,
-                             fuse_features=self.fuse_attention_features)
+        """The AttentionSpec of a (global) layer under this config."""
+        if self.attn_kind == "slay":
+            return AttentionSpec(kind="slay", slay=self.slay_config(),
+                                 chunk_size=self.chunk_size,
+                                 fuse_features=self.fuse_attention_features)
+        return AttentionSpec(kind=self.attn_kind,
+                             logit_softcap=self.attn_logit_softcap,
+                             chunk_size=self.chunk_size)
 
     def check_supported(self) -> None:
-        if self.family != "decoder" or self.attn_kind != "slay":
+        if self.family != "decoder":
             raise NotImplementedError(
-                f"{self.name}: family={self.family!r}, attn_kind="
-                f"{self.attn_kind!r}; the port has the SLAY decoder only so "
-                f"far (ROADMAP Queue A items 7 and 12)")
+                f"{self.name}: family={self.family!r}; the port has the "
+                f"dense decoder only so far (ROADMAP Queue A item 12)")
+        if self.attn_kind not in EXACT_KINDS + ("slay",):
+            raise NotImplementedError(
+                f"{self.name}: attn_kind={self.attn_kind!r}; the port has "
+                f"'slay' and the exact kinds {EXACT_KINDS} (the linear "
+                f"baselines favor, cosformer, elu1: ROADMAP Queue A item 12)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,8 +90,13 @@ class ServingConfig:
     the reference's fields, defaults and validation
     (``repro.configs.base.ServingConfig``).
 
-    The pool has ``num_slots`` decode slots; the SLAY state is constant
-    size, so ``max_len`` bounds nothing for it. Prompts are absorbed
+    The pool has ``num_slots`` decode slots. ``max_len`` is the length
+    of an exact kind's KV ring, so it bounds prompt + new tokens there;
+    SLAY's (S, z) is constant-size, and ``max_len`` bounds nothing for
+    it. ``page_size`` > 0 splits the rings into pages of that many rows
+    drawn from one pool of ``num_pages`` (0: every slot's full ring),
+    allocated per request by its context (``serving.pages``); SLAY
+    configs ignore it. Prompts are absorbed
     ``prefill_chunk`` tokens per engine tick; ``decode_ticks_per_prefill``
     decode ticks run between two prefill chunks when both kinds of work
     wait. ``macro_ticks`` (K) decode ticks run per dispatch with sampling
@@ -91,7 +112,7 @@ class ServingConfig:
     retried ``fault_retries`` times, then ends as ``fault``.
     ``debug_audit`` checks the slot pool's bookkeeping at the end of
     every ``run()``. ``prefix_cache_bytes`` > 0 is the budget of the
-    prefix cache of (S, z) snapshots; ``checkpoint_every_ticks`` > 0
+    prefix cache of slot-state snapshots; ``checkpoint_every_ticks`` > 0
     writes an engine checkpoint beside the engine's journal every that
     many ticks.
 
@@ -172,18 +193,16 @@ class ServingConfig:
 
     def check_supported(self) -> None:
         """Raise ``NotImplementedError`` for a knob whose feature the port
-        has not yet (ROADMAP Queue A item 11), so none is ignored."""
+        has not yet, so none is ignored."""
         later = [
-            (self.page_size > 0, "page_size > 0 (paged slot memory, "
-             "pages.py)"),
-            (self.speculative, "speculative=True (speculative.py)"),
+            (self.speculative, "speculative=True (speculative.py, ROADMAP "
+             "Queue A item 11)"),
             (self.slot_shards > 1, f"slot_shards={self.slot_shards} (a "
-             f"sharded slot pool)"),
+             f"sharded slot pool, ROADMAP Queue A item 13)"),
             (self.prefill_chunk == 0, "prefill_chunk=0 (the bucketed "
-             "whole-prompt prefill fallback)"),
+             "whole-prompt prefill fallback, ROADMAP Queue A item 12)"),
         ]
         for bad, what in later:
             if bad:
                 raise NotImplementedError(
-                    f"ServingConfig {what} is not ported yet (ROADMAP Queue "
-                    f"A item 11)")
+                    f"ServingConfig {what} is not ported yet")

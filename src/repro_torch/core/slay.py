@@ -43,7 +43,14 @@ def slay_attention(params: dict, q, k, v, cfg: SlayFeatureConfig, *,
 class AttentionSpec:
     """Which attention mechanism a model layer uses."""
 
-    kind: str = "slay"           # only "slay" is ported so far
+    kind: str = "slay"           # slay | softmax | yat | yat_spherical
     slay: SlayFeatureConfig | None = None
+    window: int = 0              # sliding window for local softmax layers
+    logit_softcap: float = 0.0
     chunk_size: int = 256
     fuse_features: bool = True
+
+    @property
+    def is_linear(self) -> bool:
+        """Constant-size (S, z) decode state; else a KV ring."""
+        return self.kind == "slay"

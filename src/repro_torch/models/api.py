@@ -1,4 +1,5 @@
-"""Family-dispatching model API — the decoder family so far.
+"""Family-dispatching model API — the dense decoder so far (SLAY and the
+exact kinds softmax, yat, yat_spherical).
 
     params    = api.init_params(cfg, seed, device="cuda")
     logits, _ = api.forward(params, cfg, tokens)
@@ -33,8 +34,11 @@ def loss_fn(params, cfg: ArchConfig, batch: dict, *, remat=False):
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int = 0, *,
-               device="cuda"):
-    return _mod(cfg).init_cache(cfg, batch, max_len, device=device)
+               page_size: int = 0, num_pages: int = 0, device="cuda"):
+    """A zero decode cache; ``page_size`` > 0 pages an exact kind's rings
+    (ignored where :func:`supports_paging` is False)."""
+    return _mod(cfg).init_cache(cfg, batch, max_len, page_size=page_size,
+                                num_pages=num_pages, device=device)
 
 
 def prefill(params, cfg: ArchConfig, tokens, *, max_len: int | None = None,
@@ -51,29 +55,32 @@ def decode_step(params, cfg: ArchConfig, cache, tokens, active=None):
 #
 # A pool cache is an ordinary init_cache(cfg, num_slots); slots are batch
 # rows. Admission and eviction are single-slot overwrites, O(slot bytes):
-# the constant-state (S, z) and the per-slot positions live in contiguous
-# batch-indexed tensors. The decode kernel updates them in place, so the
-# slot ops below write into the pool's own storage and return it.
+# SLAY's constant-state (S, z), an exact kind's rings (or the pages a slot
+# owns) and the per-slot positions. The decode step updates them in
+# place, so the slot ops below write into the pool's own storage and
+# return it.
 
 
-def reset_slot(cfg: ArchConfig, cache, slot: int):
-    """Zero one slot (eviction). Slot-stable: other rows untouched."""
-    return _mod(cfg).reset_slot(cfg, cache, slot)
+def reset_slot(cfg: ArchConfig, cache, slot: int, pages=None):
+    """Zero one slot (eviction). Slot-stable: other rows untouched. A
+    paged pool also installs ``pages``, the allocator's tables after the
+    slot's free."""
+    return _mod(cfg).reset_slot(cfg, cache, slot, pages)
 
 
-def write_slot(cfg: ArchConfig, cache, src, slot: int):
+def write_slot(cfg: ArchConfig, cache, src, slot: int, pages=None):
     """Install a batch=1 request cache (a freshly prefilled request) into a
-    pool slot (admission), copying into the pool's storage."""
-    return _mod(cfg).write_slot(cfg, cache, src, slot)
+    pool slot (admission), copying into the pool's storage. A paged pool
+    first installs ``pages``, the allocator's tables after the slot's
+    allocation."""
+    return _mod(cfg).write_slot(cfg, cache, src, slot, pages)
 
 
 def supports_paging(cfg: ArchConfig) -> bool:
     """Whether the pooled KV rings can be page-indexed: only non-windowed
     exact quadratic rings can. SLAY's per-slot state is O(1) and bypasses
-    paging (the paper's serving asymmetry), so False for every ported
-    config."""
-    _mod(cfg)
-    return False
+    paging (the paper's serving asymmetry)."""
+    return _mod(cfg).supports_paging(cfg)
 
 
 def context_capacity(cfg: ArchConfig, max_len: int) -> int | None:
@@ -104,6 +111,6 @@ def supports_chunked_prefill(cfg: ArchConfig) -> bool:
 def prefill_chunk(cfg: ArchConfig, params, cache, tokens):
     """Absorb one prompt chunk into an existing cache; last-token logits.
 
-    Exact continuation for any chunk schedule: the linear (S, z) carry is
-    fp32."""
+    Exact continuation for any chunk schedule: SLAY's (S, z) carry is
+    fp32; the exact kinds attend to their ring prefix."""
     return _mod(cfg).prefill_chunk(params, cfg, cache, tokens)

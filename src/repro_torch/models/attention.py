@@ -1,9 +1,18 @@
-"""Attention dispatch for the ported decoder, ``kind="slay"`` only.
+"""Attention dispatch for the ported decoder (``repro.models.attention``).
 
-Convention as in ``repro.models.attention``: q (..., L, H, Dh),
-k/v (..., L, Hkv, Dh) -> (..., L, H, Dh). The decode cache of a linear
-kind is the constant-size (S, z) running state. Softmax and the exact yat
-kinds come later (ROADMAP Queue A items 7 and 12).
+Convention: q (..., L, H, Dh), k/v (..., L, Hkv, Dh) -> (..., L, H, Dh),
+and one decode interface over :class:`AttnCache`. Kinds:
+
+    slay          — the paper's linear-time mechanism: its CUDA kernels
+                    on the card; decode state the constant-size (S, z)
+    softmax       — exact quadratic (optionally logit-softcapped)
+    yat           — exact quadratic Yat-kernel attention (paper Eq. 1)
+    yat_spherical — exact quadratic spherical Yat (paper Eq. 5)
+
+The exact kinds decode from a ring-buffer KV cache of ``max_len`` rows
+and run as plain PyTorch ops, as the JAX package runs them in jnp. The
+linear baselines (favor, cosformer, elu1) and local windows come later
+(ROADMAP Queue A item 12).
 """
 from __future__ import annotations
 
@@ -11,110 +20,248 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core import kernels as exact
 from repro_torch.core import linear_attention as la
 from repro_torch.core import slay as slay_mod
-from repro_torch.core.features import slay_features
+from repro_torch.core.features import normalize, slay_features
 from repro_torch.core.slay import AttentionSpec
 from repro_torch.kernels import ops
 
 
 class AttnCache(NamedTuple):
-    """Decode cache of the SLAY kind: the constant-size (S, z) state.
+    """Uniform decode cache; the fields of the other kind are None.
 
-    ``pos`` counts tokens seen so far, per slot (lead-shaped). The JAX
-    package's ring-buffer ``k``/``v`` fields belong to the softmax and yat
-    kinds, not ported yet.
+    k, v:  the exact kinds' ring buffers (..., size, Hkv, Dh), a token at
+           absolute position p in row p % size.
+    s, z:  SLAY's running state (S = Σ ψ(k)ᵀv, z = Σ ψ(k)), fp32.
+    ``pos`` counts tokens seen so far, per slot (lead-shaped), so slots of
+    one pool hold sequences of different lengths.
     """
 
+    k: torch.Tensor | None           # (..., size, Hkv, Dh)
+    v: torch.Tensor | None           # (..., size, Hkv, dv)
     pos: torch.Tensor                # int32, lead-shaped
-    s: torch.Tensor                  # (..., Hkv, m, dv) fp32
-    z: torch.Tensor                  # (..., Hkv, m)     fp32
+    s: torch.Tensor | None           # (..., Hkv, m, dv) fp32
+    z: torch.Tensor | None           # (..., Hkv, m)     fp32
 
 
-def _require_slay(spec: AttentionSpec) -> None:
-    if spec.kind != "slay":
+def _check_kind(spec: AttentionSpec) -> None:
+    if spec.kind not in ("slay", "softmax", "yat", "yat_spherical"):
         raise NotImplementedError(
             f"attention kind {spec.kind!r} is not ported yet; the port has "
-            f"'slay' (ROADMAP Queue A items 7 and 12)")
+            f"slay, softmax, yat and yat_spherical (ROADMAP Queue A item 12)")
+    if spec.window:
+        raise NotImplementedError(
+            "windowed (local) attention layers are not ported yet (ROADMAP "
+            "Queue A item 12)")
 
 
-def init_cache(spec: AttentionSpec, lead_shape, num_kv: int, dv: int, *,
+def init_cache(spec: AttentionSpec, lead_shape, num_kv: int, head_dim: int,
+               dv: int, max_len: int, dtype: torch.dtype, *,
                device: torch.device) -> AttnCache:
-    _require_slay(spec)
-    st = la.init_state(lead_shape, num_kv, spec.slay.feature_dim, dv,
-                       device=device)
+    """A zero cache: (S, z) for SLAY, ``max_len``-row rings otherwise."""
+    _check_kind(spec)
     pos = torch.zeros(lead_shape, dtype=torch.int32, device=device)
-    return AttnCache(pos, st.s, st.z)
+    if spec.is_linear:
+        st = la.init_state(lead_shape, num_kv, spec.slay.feature_dim, dv,
+                           device=device)
+        return AttnCache(None, None, pos, st.s, st.z)
+    return AttnCache(
+        torch.zeros(*lead_shape, max_len, num_kv, head_dim, dtype=dtype,
+                    device=device),
+        torch.zeros(*lead_shape, max_len, num_kv, dv, dtype=dtype,
+                    device=device), pos, None, None)
 
 
 def full_attention(spec: AttentionSpec, params: dict | None, q, k, v, *,
                    causal: bool = True) -> torch.Tensor:
-    """Full-sequence attention (training / prefill): the fused SLAY kernel,
-    or with ``spec.fuse_features`` False the feature-map kernel then the
-    scan kernel."""
-    _require_slay(spec)
-    return slay_mod.slay_attention(
-        params, q, k, v, spec.slay, causal=causal,
-        chunk_size=spec.chunk_size, fuse_features=spec.fuse_features)
+    """Full-sequence attention (training / prefill). SLAY: the fused
+    kernel, or with ``spec.fuse_features`` False the feature-map kernel
+    then the scan kernel. The exact kinds broadcast kv over the GQA group
+    and run in PyTorch ops."""
+    _check_kind(spec)
+    if spec.kind == "slay":
+        return slay_mod.slay_attention(
+            params, q, k, v, spec.slay, causal=causal,
+            chunk_size=spec.chunk_size, fuse_features=spec.fuse_features)
+    if k.shape[-2] != q.shape[-2]:
+        g = q.shape[-2] // k.shape[-2]
+        k = torch.repeat_interleave(k, g, dim=-2)
+        v = torch.repeat_interleave(v, g, dim=-2)
+    if spec.kind == "softmax":
+        return exact.softmax_attention(q, k, v, causal=causal,
+                                       logit_softcap=spec.logit_softcap)
+    return exact.yat_attention(q, k, v, causal=causal,
+                               spherical=spec.kind == "yat_spherical")
 
 
 def prefill_cache(spec: AttentionSpec, params: dict | None, k, v,
-                  valid=None) -> AttnCache:
-    """Absorb a whole prompt's keys/values into a fresh (S, z) state.
+                  cache: AttnCache, valid=None) -> AttnCache:
+    """Absorb a whole prompt's keys/values into a fresh decode cache.
 
-    k/v: (..., L, Hkv, *). ``valid`` (..., L) bool masks a right-padded
-    prompt: invalid positions get zero key features and add nothing.
+    k/v: (..., L, Hkv, *). SLAY reduces them to (S, z) (new tensors); the
+    ring kinds write the trailing ``size`` tokens into ``cache``'s rings
+    in place at their ring rows and return them. ``valid`` (..., L) bool
+    masks a right-padded prompt: SLAY zeroes pad key features, the rings
+    get zero rows, which ``pos`` (the true length) keeps outside every
+    later validity horizon.
     """
-    _require_slay(spec)
+    _check_kind(spec)
     L, lead = k.shape[-3], k.shape[:-3]
     if valid is None:
         pos = torch.full(lead, L, dtype=torch.int32, device=k.device)
     else:
         pos = valid.to(torch.int32).sum(-1).expand(lead)
-    kf = slay_features(k, params, spec.slay)
+    if spec.is_linear:
+        kf = slay_features(k, params, spec.slay)
+        if valid is not None:
+            kf = torch.where(valid[..., None, None], kf, 0.0)
+        st = la.prefill_state(kf, v)
+        return AttnCache(None, None, pos, st.s, st.z)
     if valid is not None:
-        kf = torch.where(valid[..., None, None], kf, 0.0)
-    st = la.prefill_state(kf, v)
-    return AttnCache(pos, st.s, st.z)
+        k = torch.where(valid[..., None, None], k, 0)
+        v = torch.where(valid[..., None, None], v, 0)
+    size = cache.k.shape[-3]
+    take = min(L, size)
+    idx = (torch.arange(take, device=k.device) + (L - take)) % size
+    cache.k[..., idx, :, :] = k[..., L - take:, :, :].to(cache.k.dtype)
+    cache.v[..., idx, :, :] = v[..., L - take:, :, :].to(cache.v.dtype)
+    return AttnCache(cache.k, cache.v, pos, None, None)
+
+
+def _yat_scores(kind: str, qg, kb):
+    """Exact yat kernel weights (paper Eq. 1 / Eq. 5, eps 1e-3) of grouped
+    queries qg (..., Hkv, G, Dh) against keys kb (..., S, Hkv, Dh) ->
+    (..., Hkv, G, S): the one source of the weights of the decode step and
+    the chunked-prefill continuation. Callers mask to 0 and normalize."""
+    if kind == "yat_spherical":
+        x = torch.einsum("...kgd,...skd->...kgs", normalize(qg),
+                         normalize(kb))
+        return x * x / (exact.const(2.0 + 1e-3, x) - 2.0 * x)
+    x = torch.einsum("...kgd,...skd->...kgs", qg, kb)
+    q2 = torch.sum(qg * qg, -1)[..., None]               # (..., Hkv, G, 1)
+    k2 = torch.movedim(torch.sum(kb * kb, -1), -2, -1)[
+        ..., :, None, :]                                 # (..., Hkv, 1, S)
+    return x * x / (torch.clamp(q2 + k2 - 2 * x, min=0.0)
+                    + exact.const(1e-3, x))
+
+
+def _ring_attend(spec: AttentionSpec, qg, kb, vb, mask):
+    """Exact attention of grouped queries qg (..., Hkv, G, Dh) over keys
+    and values kb/vb (..., S, Hkv, *) where ``mask`` (broadcast to
+    (..., Hkv, G, S)) holds: softmax with masked logits at the dtype's
+    minimum, or the yat weights masked to 0 over their sum + 1e-6."""
+    if spec.kind in ("yat", "yat_spherical"):
+        scores = torch.where(mask, _yat_scores(spec.kind, qg, kb), 0.0)
+        num = torch.einsum("...kgs,...skd->...kgd", scores, vb)
+        den = torch.sum(scores, dim=-1)[..., None]
+        return num / (den + exact.const(1e-6, den))
+    logits = torch.einsum("...kgd,...skd->...kgs", qg, kb) / torch.sqrt(
+        exact.const(qg.shape[-1], qg))
+    logits = exact.softcap(logits, spec.logit_softcap)
+    probs = exact.masked_softmax(logits, mask)
+    return torch.einsum("...kgs,...skd->...kgd", probs, vb)
 
 
 def prefill_chunk(spec: AttentionSpec, params: dict | None, q, k, v,
                   cache: AttnCache) -> tuple[torch.Tensor, AttnCache]:
-    """Absorb one prompt chunk into an existing (S, z) state.
+    """Absorb one prompt chunk into an existing decode cache.
 
     q (B, Lc, H, Dh), k/v (B, Lc, Hkv, *); ``cache.pos`` (B,) counts the
-    tokens absorbed so far. The chunked causal scan in torch seeded with
-    the cache's fp32 state, as the JAX package runs it in jnp outside any
-    kernel: a prompt fed chunk by chunk ends in the state of a whole-prompt
-    prefill, up to the order of the fp32 sums. Returns new tensors; the
-    cache's are not written.
+    tokens absorbed so far. SLAY: the chunked causal scan in torch seeded
+    with the cache's fp32 state (new tensors; the cache's are not
+    written), as the JAX package runs it in jnp outside any kernel. The
+    ring kinds attend to the ring prefix (the row j holds the newest
+    position congruent to j mod size, visible once written) and causally
+    within the chunk, then write the chunk's keys and values into the
+    rings in place, only the trailing ``size`` of a chunk longer than the
+    ring. Either way a prompt fed chunk by chunk ends in the state of a
+    whole-prompt prefill (up to the order of fp32 sums for SLAY).
     """
-    _require_slay(spec)
-    Lc = q.shape[1]
-    qf = slay_features(q, params, spec.slay)
-    kf = slay_features(k, params, spec.slay)
-    y, st = la.causal_chunked(
-        qf, kf, v, chunk_size=max(min(spec.chunk_size, Lc), 1),
-        init_state=la.LinearState(cache.s, cache.z), return_state=True)
-    return y, AttnCache(cache.pos + Lc, st.s, st.z)
+    _check_kind(spec)
+    B, Lc = q.shape[0], q.shape[1]
+    start = cache.pos
+    if spec.is_linear:
+        qf = slay_features(q, params, spec.slay)
+        kf = slay_features(k, params, spec.slay)
+        y, st = la.causal_chunked(
+            qf, kf, v, chunk_size=max(min(spec.chunk_size, Lc), 1),
+            init_state=la.LinearState(cache.s, cache.z), return_state=True)
+        return y, AttnCache(None, None, start + Lc, st.s, st.z)
+    dev = q.device
+    size = cache.k.shape[-3]
+    dh, hkv = q.shape[-1], k.shape[-2]
+    g = q.shape[-2] // hkv
+    qg = q.reshape(B, Lc, hkv, g, dh)
+    st = start.long()
+    j = torch.arange(size, device=dev)[None, :]
+    # Absolute position held by ring row j before this chunk's writes: the
+    # newest written position congruent to j (mod size), negative if none.
+    a0 = j + torch.div(st[:, None] - 1 - j, size,
+                       rounding_mode="floor") * size
+    pre_ok = (a0 >= 0)[:, None, :].expand(B, Lc, size)
+    rel = (torch.arange(Lc, device=dev)[:, None]
+           - torch.arange(Lc, device=dev)[None, :])
+    in_ok = (rel >= 0)[None].expand(B, Lc, Lc)
+    mask = torch.cat([pre_ok, in_ok], dim=-1)[:, :, None, None, :]
+    k_all = torch.cat([cache.k.to(q.dtype), k.to(q.dtype)], dim=1)
+    v_all = torch.cat([cache.v.to(q.dtype), v.to(q.dtype)], dim=1)
+    y = _ring_attend(spec, qg, k_all[:, None], v_all[:, None], mask)
+    y = y.reshape(B, Lc, hkv * g, v.shape[-1])
+    take = min(Lc, size)
+    b = torch.arange(B, device=dev)[:, None]
+    idx = (st[:, None] + (Lc - take)
+           + torch.arange(take, device=dev)[None, :]) % size
+    cache.k[b, idx] = k[:, Lc - take:].to(cache.k.dtype)
+    cache.v[b, idx] = v[:, Lc - take:].to(cache.v.dtype)
+    return y, AttnCache(cache.k, cache.v, start + Lc, None, None)
 
 
 def decode_step(spec: AttentionSpec, params: dict | None, q, k, v,
                 cache: AttnCache, *,
                 active=None) -> tuple[torch.Tensor, AttnCache]:
     """One token for a batch of slots. q (B, H, Dh), k/v (B, Hkv, *)
-    -> (B, H, dv). The cache is updated in place and returned: s and z by
-    the decode kernel (its plain twin on the CPU), ``pos`` advanced, so a
-    captured CUDA graph of the step keeps updating the same tensors.
+    -> (B, H, dv). The cache is updated in place and returned, so a
+    captured CUDA graph of the step keeps updating the same tensors: SLAY's
+    s and z by the decode kernel (its plain twin on the CPU); a ring kind's
+    row ``pos % size`` of each slot; ``pos`` advanced.
 
     ``active`` (B,) masks continuous-batching pool rows: drained rows keep
-    their (S, z) bit-identical and ``pos`` frozen, and output y = 0.
+    their state bit-identical (a ring row is rewritten with its own bytes)
+    and ``pos`` frozen, and output y = 0.
     """
-    _require_slay(spec)
+    _check_kind(spec)
     if q.dim() != 3:
         raise ValueError(f"decode q must be (B, H, Dh), got {tuple(q.shape)}")
-    qf = slay_features(q, params, spec.slay)
-    kf = slay_features(k, params, spec.slay)
-    y, _, _ = ops.decode_linear_step(qf, kf, v, cache.s, cache.z, active)
-    cache.pos.add_(1 if active is None else active.to(torch.int32))
+    step = 1 if active is None else active.to(torch.int32)
+    if spec.is_linear:
+        qf = slay_features(q, params, spec.slay)
+        kf = slay_features(k, params, spec.slay)
+        y, _, _ = ops.decode_linear_step(qf, kf, v, cache.s, cache.z, active)
+        cache.pos.add_(step)
+        return y, cache
+    B = q.shape[0]
+    dev = q.device
+    size = cache.k.shape[-3]
+    b = torch.arange(B, device=dev)
+    ring = (cache.pos % size).long()
+    kw, vw = k.to(cache.k.dtype), v.to(cache.v.dtype)
+    if active is not None:
+        act = active.bool()[:, None, None]
+        kw = torch.where(act, kw, cache.k[b, ring])
+        vw = torch.where(act, vw, cache.v[b, ring])
+    cache.k[b, ring] = kw
+    cache.v[b, ring] = vw
+    n_seen = cache.pos + step
+    valid = (torch.arange(size, device=dev)[None, :]
+             < torch.clamp(n_seen, max=size)[:, None])   # (B, S)
+    h, dh = q.shape[-2], q.shape[-1]
+    hkv, dv = cache.k.shape[-2], cache.v.shape[-1]
+    qg = q.reshape(B, hkv, h // hkv, dh)
+    y = _ring_attend(spec, qg, cache.k.to(q.dtype), cache.v.to(q.dtype),
+                     valid[:, None, None, :])
+    y = y.reshape(B, h, dv)
+    if active is not None:
+        y = torch.where(active.bool()[:, None, None], y, 0).to(y.dtype)
+    cache.pos.add_(step)
     return y, cache

@@ -1,4 +1,4 @@
-"""The decoder LM (dense, no MoE/SSM/vision) with SLAY attention.
+"""The decoder LM (dense, no MoE/SSM/vision): SLAY or an exact kind.
 
 Parameters are a plain dict laid out like the JAX package's pytree, so
 ``repro_torch.convert`` moves weights across unchanged::
@@ -7,13 +7,17 @@ Parameters are a plain dict laid out like the JAX package's pytree, so
     layers: pre_attn (nl, d), pre_mlp (nl, d),
             attn: wq (nl, d, H, dh), wk/wv (nl, d, Hkv, dh), wo (nl, H, dh, d),
             mlp: up (nl, d, ff), down (nl, ff, d) [, gate (nl, d, ff)],
-    slay: anchors (P, dh), omegas (D, dh)   (fp32, shared by every layer)
+    slay: anchors (P, dh), omegas (D, dh)   (fp32, shared by every layer;
+                                             SLAY configs only)
 
 Layers are stacked along a leading axis and run by a Python loop.
 Training is ``loss_fn`` (next-token cross-entropy) under autograd, with
-optional per-layer recomputation (``remat``). Serving is ``prefill``
-(prompt -> last-token logits + (S, z) cache) then ``decode_step`` (one
-token, the cache updated in place).
+optional per-layer recomputation (``remat``): SLAY through its kernels'
+backward, the exact kinds (``softmax``, ``yat``, ``yat_spherical``)
+through plain autograd of PyTorch ops. Serving is ``prefill`` (prompt ->
+last-token logits + decode cache: (S, z) for SLAY, KV rings for the
+exact kinds, optionally paged) then ``decode_step`` (one token, the
+cache updated in place).
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from repro_torch.core.features import init_feature_params
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import embed, mlp, rmsnorm, rope, unembed
+from repro_torch.serving import pages as pg
 
 
 def _param_shapes(cfg: ArchConfig) -> dict:
@@ -59,7 +64,8 @@ def init_params(cfg: ArchConfig, seed: int = 0, *,
                 device: str | torch.device = "cuda") -> dict:
     """Random weights from ``seed`` (a CPU ``torch.Generator``, so the same
     seed gives the same weights on any device), in the activation dtype;
-    the SLAY projections stay fp32."""
+    the SLAY projections, drawn last and for SLAY configs only, stay fp32
+    (so one seed gives every kind the same model weights)."""
     cfg.check_supported()
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
@@ -77,9 +83,19 @@ def init_params(cfg: ArchConfig, seed: int = 0, *,
         for key in path:
             node = node.setdefault(key, {})
         node[leaf] = x.to(device=dev, dtype=cfg.activation_dtype)
-    # Random projections, fp32, shared by every layer and head.
-    params["slay"] = init_feature_params(cfg.slay_config(), gen, device=dev)
+    if cfg.attn_kind == "slay":
+        # Random projections, fp32, shared by every layer and head.
+        params["slay"] = init_feature_params(cfg.slay_config(), gen,
+                                             device=dev)
     return params
+
+
+def _slay_params(params: dict, detach: bool = False):
+    """The SLAY projections, or None for an exact kind."""
+    sp = params.get("slay")
+    if sp is None or not detach:
+        return sp
+    return {k: v.detach() for k, v in sp.items()}
 
 
 def _layer(params: dict, i: int) -> dict:
@@ -122,9 +138,10 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
     """tokens (B, L) -> (logits (B, L, V), aux loss 0).
 
     The SLAY projections are constants of the model (``detach``, as
-    ``stop_gradient`` in the JAX package). ``remat=True`` recomputes each
-    layer in the backward pass (``torch.utils.checkpoint``) instead of
-    keeping its activations, so the fused forward runs twice per layer.
+    ``stop_gradient`` in the JAX package); the exact kinds have none.
+    ``remat=True`` recomputes each layer in the backward pass
+    (``torch.utils.checkpoint``) instead of keeping its activations, so
+    the attention forward runs twice per layer.
     """
     cfg.check_supported()
     if remat == "save_collectives":
@@ -137,7 +154,7 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
     x = embed(params["embed"], tokens).to(cfg.activation_dtype)
     L = x.shape[1]
     positions = torch.arange(L, dtype=torch.int32, device=dev)[None, :]
-    slay_params = {k: v.detach() for k, v in params["slay"].items()}
+    slay_params = _slay_params(params, detach=True)
     layer = functools.partial(_layer_fwd, cfg, slay_params, positions)
     for i in range(cfg.num_layers):
         lp = _layer(params, i)
@@ -164,30 +181,93 @@ def loss_fn(params: dict, cfg: ArchConfig, batch: dict, *,
 
 class DecodeCache(NamedTuple):
     """Stacked (num_layers leading) per-layer decode state; ``pos`` (B,)
-    int32 counts the tokens each slot has seen."""
+    int32 counts the tokens each slot has seen.
+
+    ``pages`` is None except in a paged serving pool, where it holds a
+    ``serving.pages.PageState`` and the ring leaves are page-indexed
+    ``(nl, P, page, Hkv, dh)`` instead of ``(nl, S, kv_len, Hkv, dh)``.
+    """
 
     attn: attn.AttnCache
     pos: torch.Tensor
+    pages: pg.PageState | None = None
+
+
+def _layer_cache(ac: attn.AttnCache, i: int) -> attn.AttnCache:
+    """Layer i's views of a stacked AttnCache."""
+    return attn.AttnCache(*(None if t is None else t[i] for t in ac))
+
+
+def supports_paging(cfg: ArchConfig) -> bool:
+    """Whether the pooled rings can be paged: a non-windowed exact
+    quadratic ring, the one state whose per-slot size grows with the
+    context. SLAY's (S, z) is O(1) per slot and bypasses paging."""
+    cfg.check_supported()
+    return not cfg.attention_spec().is_linear
+
+
+def context_capacity(cfg: ArchConfig, max_len: int) -> int | None:
+    """Context rows (prompt + decode budget) one slot admits: None
+    (unbounded) for SLAY, whose constant-size (S, z) holds any context;
+    ``max_len`` for an exact kind's ring, which would overwrite live
+    context past it."""
+    cfg.check_supported()
+    return None if cfg.attention_spec().is_linear else max_len
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int = 0, *,
+               page_size: int = 0, num_pages: int = 0,
                device: str | torch.device = "cuda") -> DecodeCache:
-    """A zero cache for ``batch`` slots. The SLAY state is constant-size,
-    so ``max_len`` is accepted for API parity and unused."""
+    """A zero cache for ``batch`` slots. SLAY: constant-size (S, z), and
+    ``max_len`` is unused. The exact kinds: rings of ``max_len`` rows; with
+    ``page_size`` > 0, ``num_pages`` (0: ``batch * max_len / page_size``)
+    physical pages shared by all slots, and an all-free PageState."""
     cfg.check_supported()
     dev = resolve_device(device)
-    a = attn.init_cache(cfg.attention_spec(), (cfg.num_layers, batch),
-                        cfg.num_kv_heads, cfg.resolved_head_dim, device=dev)
-    return DecodeCache(a, torch.zeros(batch, dtype=torch.int32, device=dev))
+    spec = cfg.attention_spec()
+    nl, dh, hkv = cfg.num_layers, cfg.resolved_head_dim, cfg.num_kv_heads
+    if not spec.is_linear and max_len < 1:
+        raise ValueError(f"the {cfg.attn_kind} kind's KV ring needs "
+                         f"max_len >= 1, got {max_len}")
+    pos = torch.zeros(batch, dtype=torch.int32, device=dev)
+    if page_size > 0 and supports_paging(cfg):
+        if max_len % page_size:
+            raise ValueError(
+                f"page_size={page_size} must divide max_len={max_len}")
+        lp = max_len // page_size
+        P = num_pages if num_pages else batch * lp
+        shape = (nl, P, page_size, hkv, dh)
+        dt = cfg.activation_dtype
+        a = attn.AttnCache(
+            torch.zeros(shape, dtype=dt, device=dev),
+            torch.zeros(shape, dtype=dt, device=dev),
+            torch.zeros(nl, batch, dtype=torch.int32, device=dev), None, None)
+        return DecodeCache(a, pos, pg.init_state(batch, P, lp, device=dev))
+    a = attn.init_cache(spec, (nl, batch), hkv, dh, dh, max_len,
+                        cfg.activation_dtype, device=dev)
+    return DecodeCache(a, pos)
+
+
+def _stack_caches(spec, rings: attn.AttnCache | None, caches: list):
+    """One stacked AttnCache from per-layer results: SLAY's new (S, z)
+    stacked; the rings were written in place into ``rings``'."""
+    pos = torch.stack([c.pos for c in caches])
+    if spec.is_linear:
+        return attn.AttnCache(None, None, pos,
+                              torch.stack([c.s for c in caches]),
+                              torch.stack([c.z for c in caches]))
+    return attn.AttnCache(rings.k, rings.v, pos, None, None)
 
 
 def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
             max_len: int | None = None, true_len: torch.Tensor | None = None
             ) -> tuple[torch.Tensor, DecodeCache]:
     """Process a prompt batch; return last-token logits (B, 1, V) and a
-    primed cache. ``true_len`` (B,) marks the real lengths of right-padded
-    prompts: logits are read at ``true_len - 1`` and pad positions add
-    nothing to the cache. ``max_len`` is accepted for API parity."""
+    primed cache. ``max_len`` sizes an exact kind's rings (default: the
+    prompt + 64 rows of decode headroom, as the JAX package); SLAY's
+    state does not depend on it. ``true_len`` (B,) marks the real lengths
+    of right-padded prompts: logits are read at ``true_len - 1`` and pad
+    positions add nothing to the cache."""
     cfg.check_supported()
     dev = params["embed"].device
     tokens = tokens.to(dev)
@@ -199,12 +279,17 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
         true_len = true_len.to(dev)
         valid = positions < true_len[:, None]
     spec = cfg.attention_spec()
+    slay = _slay_params(params)
+    ring = None if spec.is_linear else init_cache(
+        cfg, B, max_len if max_len else L + 64, device=dev).attn
     caches = []
     for i in range(cfg.num_layers):
         lp = _layer(params, i)
         q, k, v = _qkv(cfg, lp, x, positions)
-        y = attn.full_attention(spec, params["slay"], q, k, v)
-        caches.append(attn.prefill_cache(spec, params["slay"], k, v, valid))
+        y = attn.full_attention(spec, slay, q, k, v)
+        caches.append(attn.prefill_cache(
+            spec, slay, k, v, None if ring is None else _layer_cache(ring, i),
+            valid))
         x = _finish_layer(cfg, lp, x, y)
     if true_len is None:
         x_last = x[:, -1]
@@ -213,9 +298,7 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
         idx = torch.clamp(true_len - 1, min=0).long()
         x_last = x[torch.arange(B, device=dev), idx]
         pos = true_len.to(torch.int32, copy=True)   # decode advances it
-    a = attn.AttnCache(torch.stack([c.pos for c in caches]),
-                       torch.stack([c.s for c in caches]),
-                       torch.stack([c.z for c in caches]))
+    a = _stack_caches(spec, ring, caches)
     return _logits(params, cfg, x_last)[:, None, :], DecodeCache(a, pos)
 
 
@@ -225,23 +308,34 @@ def decode_step(params: dict, cfg: ArchConfig, cache: DecodeCache,
     """One autoregressive step. tokens (B, 1) -> logits (B, 1, V).
 
     The cache is updated in place (the JAX package donates it) and
-    returned: every layer's (S, z) and positions, and ``pos``. So a slot
-    pool is one set of tensors for its whole life, which a captured CUDA
-    graph of the step can bind. ``active`` (B,) freezes drained slots:
-    their state stays bit-identical, their logits rows are meaningless.
+    returned: every layer's state (SLAY's (S, z), a ring's new row),
+    positions and ``pos``. So a slot pool is one set of tensors for its
+    whole life, which a captured CUDA graph of the step can bind.
+    ``active`` (B,) freezes drained slots: their state stays
+    bit-identical, their logits rows are meaningless.
+
+    A paged pool gathers each layer's pages into the dense ring, runs the
+    unchanged ring update on it and scatters the owned pages back.
     """
     cfg.check_supported()
     dev = params["embed"].device
     x = embed(params["embed"], tokens.to(dev)[:, 0]).to(cfg.activation_dtype)
     pos = cache.pos
     spec = cfg.attention_spec()
+    slay = _slay_params(params)
     ac = cache.attn
     for i in range(cfg.num_layers):
         lp = _layer(params, i)
         q, k, v = _qkv(cfg, lp, x[:, None], pos[:, None])
-        layer_cache = attn.AttnCache(ac.pos[i], ac.s[i], ac.z[i])
-        y, _ = attn.decode_step(spec, params["slay"], q[:, 0], k[:, 0],
-                                v[:, 0], layer_cache, active=active)
+        lc = _layer_cache(ac, i)
+        if cache.pages is not None:
+            lc = lc._replace(k=pg.gather_ring(lc.k, cache.pages),
+                             v=pg.gather_ring(lc.v, cache.pages))
+        y, nc = attn.decode_step(spec, slay, q[:, 0], k[:, 0], v[:, 0], lc,
+                                 active=active)
+        if cache.pages is not None:
+            pg.scatter_ring_(ac.k[i], nc.k, cache.pages)
+            pg.scatter_ring_(ac.v[i], nc.v, cache.pages)
         x = _finish_layer(cfg, lp, x, y)
     pos.add_(1 if active is None else active.to(torch.int32))
     return _logits(params, cfg, x)[:, None, :], cache
@@ -250,23 +344,26 @@ def decode_step(params: dict, cfg: ArchConfig, cache: DecodeCache,
 # -- the slot surface of a pooled cache (continuous batching) -------------
 #
 # A pool is an ordinary init_cache(cfg, num_slots); slots are batch rows.
-# The decode kernel updates the pool's (S, z) in place, so every slot op
-# below writes into the pool's own storage (copy_, zero_, fill_) on slot
-# ``slot`` of every layer and returns the same cache: a new tensor would
-# leave the next decode writing into a stale buffer. Other slots' bytes
-# are untouched (the reference's slot-stable contract).
+# The decode step updates the pool in place, so every slot op below
+# writes into the pool's own storage (copy_, zero_, fill_, where(out=))
+# on slot ``slot`` of every layer and returns the same cache: a new
+# tensor would leave the next decode writing into a stale buffer. Other
+# slots' bytes are untouched (the reference's slot-stable contract). A
+# paged pool's ops take the host allocator's PageState as ``pages`` and
+# copy it into the pool's page tables.
 
 
 def prefill_chunk(params: dict, cfg: ArchConfig, cache: DecodeCache,
                   tokens: torch.Tensor) -> tuple[torch.Tensor, DecodeCache]:
-    """Absorb one prompt chunk into an existing decode cache.
+    """Absorb one prompt chunk into an existing (unpaged) decode cache.
 
     tokens (B, Lc); ``cache`` holds the state of the prefix absorbed so
     far (per-slot ``pos``). Returns last-token logits (B, 1, V) and the
-    advanced cache (new tensors), so a prompt fed chunk by chunk ends in
-    the state of a whole-prompt :func:`prefill` (the fp32 recurrence in
-    another order of sums) and the engine can interleave prefill chunks
-    with decode ticks.
+    advanced cache, so a prompt fed chunk by chunk ends in the state of a
+    whole-prompt :func:`prefill` (SLAY: the fp32 recurrence in another
+    order of sums) and the engine can interleave prefill chunks with
+    decode ticks. SLAY returns new tensors; the rings of an exact kind
+    are written in place (the positions are new tensors).
     """
     cfg.check_supported()
     dev = params["embed"].device
@@ -276,39 +373,61 @@ def prefill_chunk(params: dict, cfg: ArchConfig, cache: DecodeCache,
     positions = (cache.pos[:, None]
                  + torch.arange(Lc, dtype=torch.int32, device=dev)[None, :])
     spec = cfg.attention_spec()
+    slay = _slay_params(params)
     ac = cache.attn
     caches = []
     for i in range(cfg.num_layers):
         lp = _layer(params, i)
         q, k, v = _qkv(cfg, lp, x, positions)
-        y, nc = attn.prefill_chunk(spec, params["slay"], q, k, v,
-                                   attn.AttnCache(ac.pos[i], ac.s[i], ac.z[i]))
+        y, nc = attn.prefill_chunk(spec, slay, q, k, v, _layer_cache(ac, i))
         caches.append(nc)
         x = _finish_layer(cfg, lp, x, y)
-    a = attn.AttnCache(torch.stack([c.pos for c in caches]),
-                       torch.stack([c.s for c in caches]),
-                       torch.stack([c.z for c in caches]))
     return (_logits(params, cfg, x[:, -1])[:, None, :],
-            DecodeCache(a, cache.pos + Lc))
+            DecodeCache(_stack_caches(spec, ac, caches), cache.pos + Lc))
 
 
-def reset_slot(cfg: ArchConfig, cache: DecodeCache, slot: int) -> DecodeCache:
-    """Zero one slot of a pooled cache (eviction), in place: its (S, z) and
-    positions. Constant-state SLAY: a single overwrite of the slot."""
+def _float_leaves(a: attn.AttnCache) -> list:
+    return [t for t in (a.k, a.v, a.s, a.z) if t is not None]
+
+
+def reset_slot(cfg: ArchConfig, cache: DecodeCache, slot: int,
+               pages=None) -> DecodeCache:
+    """Zero one slot of a pooled cache (eviction), in place: its state
+    and positions. SLAY: a single overwrite of the slot's (S, z). A paged
+    pool zeroes the pages the slot owns under the current tables (so a
+    quarantined NaN never reaches the page's next owner), then installs
+    ``pages``, the host allocator's tables after the slot's free."""
     a = cache.attn
-    for t in (a.s, a.z, a.pos):
-        t[:, slot].zero_()
+    if cache.pages is not None:
+        for t in (a.k, a.v):
+            pg.write_zero_pages(t, slot, cache.pages)
+        if pages is not None:
+            pg.install(cache.pages, pages)
+    else:
+        for t in _float_leaves(a):
+            t[:, slot].zero_()
+    a.pos[:, slot] = 0
     cache.pos[slot] = 0
     return cache
 
 
 def write_slot(cfg: ArchConfig, cache: DecodeCache, src: DecodeCache,
-               slot: int) -> DecodeCache:
+               slot: int, pages=None) -> DecodeCache:
     """Install a single-sequence cache (batch 1, e.g. a freshly prefilled
-    request) into slot ``slot`` of a pooled cache (admission), in place."""
+    request) into slot ``slot`` of a pooled cache (admission), in place.
+    A paged pool first installs ``pages`` (the tables after the slot's
+    allocation), then overwrites every page the slot owns from the dense
+    source ring."""
     a, b = cache.attn, src.attn
-    for dst, s in ((a.s, b.s), (a.z, b.z), (a.pos, b.pos)):
-        dst[:, slot].copy_(s[:, 0])
+    if cache.pages is not None:
+        if pages is not None:
+            pg.install(cache.pages, pages)
+        pg.write_slot_pages(a.k, b.k, slot, cache.pages)
+        pg.write_slot_pages(a.v, b.v, slot, cache.pages)
+    else:
+        for dst, s in zip(_float_leaves(a), _float_leaves(b)):
+            dst[:, slot].copy_(s[:, 0])
+    a.pos[:, slot].copy_(b.pos[:, 0])
     cache.pos[slot] = src.pos[0]
     return cache
 
@@ -316,10 +435,14 @@ def write_slot(cfg: ArchConfig, cache: DecodeCache, src: DecodeCache,
 def slot_state_finite(cfg: ArchConfig, cache: DecodeCache) -> torch.Tensor:
     """(B,) bool: every float decode-state element of each slot, over all
     layers, is finite (the NaN/Inf quarantine probe). Per-slot reductions
-    only; positions are integers and are skipped."""
+    only; positions are integers and are skipped. A paged pool checks the
+    pages each slot owns: a free page's stale bytes blame no slot."""
+    if cache.pages is not None:
+        return pg.pages_finite([cache.attn.k, cache.attn.v], cache.pages,
+                               cache.pos.shape[0])
     ok = None
-    for leaf in (cache.attn.s, cache.attn.z):
-        f = torch.isfinite(leaf).flatten(2).all(-1).all(0)
+    for leaf in _float_leaves(cache.attn):
+        f = pg.rows_finite(leaf).all(0)
         ok = f if ok is None else ok & f
     return ok
 
@@ -328,20 +451,17 @@ def corrupt_slot(cfg: ArchConfig, cache: DecodeCache, slot: int) -> DecodeCache:
     """Overwrite one slot's float state with NaN, in place (the chaos
     harness's fault; never on a production path). Positions stay, so the
     fault is numeric, not bookkeeping."""
-    for t in (cache.attn.s, cache.attn.z):
+    if cache.pages is not None:
+        for t in (cache.attn.k, cache.attn.v):
+            pg.corrupt_slot_pages(t, slot, cache.pages)
+        return cache
+    for t in _float_leaves(cache.attn):
         t[:, slot].fill_(float("nan"))
     return cache
 
 
-def context_capacity(cfg: ArchConfig, max_len: int) -> int | None:
-    """Context rows one slot admits: None (unbounded) for SLAY, whose
-    constant-size (S, z) holds any context."""
-    cfg.check_supported()
-    return None
-
-
 def supports_chunked_prefill(cfg: ArchConfig) -> bool:
-    """Chunked prefill continues the fp32 (S, z) recurrence: always True
-    for the ported SLAY decoder."""
+    """Chunked prefill continues every ported kind: SLAY's fp32 (S, z)
+    recurrence, the exact kinds' ring prefix plus causal chunk."""
     cfg.check_supported()
     return True

@@ -13,15 +13,18 @@ File format, the JAX package's::
 
 The payload is a pickled dict of numpy arrays and builtins, never a
 torch tensor, with the JAX package's keys: the pool as a list of leaves
-in ``jax.tree.leaves`` order (``attn.pos, attn.s, attn.z, pos``), and
-``page_pool``, ``draft_pool``, ``speculative`` at their "off" values (the
-port has neither paging nor speculative decoding). So a directory written
-by either package is one format. numpy has no bfloat16 without
-``ml_dtypes``, which the port does not import: a bfloat16 tensor (the
-last-token logits of a full-width prefix entry) is written as the JAX
-writer writes it, a numpy array whose dtype names the global
-``ml_dtypes.bfloat16`` over the tensor's 16-bit words (:func:`dumps`),
-and read back through those words, widened to float32 (exact); the
+in ``jax.tree.leaves`` order (SLAY ``attn.pos, attn.s, attn.z, pos``;
+an exact kind ``attn.k, attn.v, attn.pos, pos``, and paged the page
+tables ``table, owner_slot, owner_lp`` after them), ``page_size`` and
+the ``page_pool`` allocator snapshot (None unpaged), and ``draft_pool``,
+``speculative`` at their "off" values (the port has no speculative
+decoding). So a directory written by either package is one format.
+numpy has no bfloat16 without ``ml_dtypes``, which the port does not
+import: a bfloat16 tensor (a ring leaf, the last-token logits of a
+prefix entry) is written as the JAX writer writes it, a numpy array
+whose dtype names the global ``ml_dtypes.bfloat16`` over the tensor's
+16-bit words (:func:`dumps`), and read back through those words, widened
+to float32 (exact) and marked as bfloat16 (:class:`Bf16Array`); the
 engine casts it back on restore.
 
 Writes are atomic: tmp file, fsync, ``os.replace``, directory fsync.
@@ -75,15 +78,21 @@ class _Unpickler(pickle.Unpickler):
             f"numpy array nor a builtin")
 
 
+class Bf16Array(np.ndarray):
+    """A bfloat16 leaf read back: the float32 it encodes (exact), marked
+    so that :func:`leaf_matches` takes it for a bfloat16 tensor."""
+
+
 def _widen_bf16(node):
-    """Replace every uint16 array (a JAX-written bfloat16 leaf's bits; the
-    format has no uint16 leaf of its own) by the float32 it encodes."""
+    """Replace every uint16 array (a bfloat16 leaf's bits; the format has
+    no uint16 leaf of its own) by the float32 it encodes."""
     if isinstance(node, dict):
         return {k: _widen_bf16(v) for k, v in node.items()}
     if isinstance(node, list):
         return [_widen_bf16(v) for v in node]
     if isinstance(node, np.ndarray) and node.dtype == np.uint16:
-        return (node.astype(np.uint32) << 16).view(np.float32)
+        return ((node.astype(np.uint32) << 16).view(np.float32)
+                .view(Bf16Array))
     return node
 
 
@@ -150,10 +159,14 @@ def to_numpy(t: torch.Tensor):
 
 
 def leaf_matches(t: torch.Tensor, a) -> bool:
-    """Whether the numpy leaf ``a`` has the shape and dtype of ``t``."""
-    return (isinstance(a, np.ndarray) and tuple(t.shape) == a.shape
-            and a.dtype.kind in "biuf"
-            and torch.from_numpy(np.empty(0, a.dtype)).dtype == t.dtype)
+    """Whether the numpy leaf ``a`` has the shape and dtype of ``t`` (a
+    :class:`Bf16Array` counting as bfloat16)."""
+    if not (isinstance(a, np.ndarray) and tuple(t.shape) == a.shape
+            and a.dtype.kind in "biuf"):
+        return False
+    if isinstance(a, Bf16Array):
+        return t.dtype == torch.bfloat16
+    return torch.from_numpy(np.empty(0, a.dtype)).dtype == t.dtype
 
 
 def checkpoint_path(directory: str, tick: int) -> str:
@@ -231,9 +244,21 @@ def snapshot_engine(eng) -> dict:
 
     Mid-prefill state is not captured: a request whose chunked prefill is
     in flight re-admits from its journaled admission at restore (the same
-    chunk schedule, the same stream).
+    chunk schedule, the same stream), so a paged pool's snapshot has that
+    slot's pages freed, in a clone of the allocator.
     """
     inflight_slot = eng._prefill.slot if eng._prefill is not None else None
+    page_snap = None
+    pp = eng.page_pool
+    if pp is not None:
+        if inflight_slot is not None and pp.slot_pages(inflight_slot):
+            clone = type(pp)(pp.num_slots, pp.num_pages, pp.page_size,
+                             pp.pages_per_slot, shards=pp.shards)
+            clone.load_snapshot(pp.snapshot())
+            clone.free_slot(inflight_slot)
+            page_snap = clone.snapshot()
+        else:
+            page_snap = pp.snapshot()
     slots = {int(slot): int(rec.rid) for slot, rec in eng.sched.active.items()
              if slot != inflight_slot}
     prefix_entries = None
@@ -251,7 +276,7 @@ def snapshot_engine(eng) -> dict:
         "next_rid": int(eng._next_rid),
         "num_slots": int(eng.serving.num_slots),
         "max_len": int(eng.serving.max_len),
-        "page_size": 0,
+        "page_size": int(eng.serving.page_size) if pp is not None else 0,
         "seed": int(eng.serving.seed),
         "speculative": False,
         "spec_gamma": 0,
@@ -266,6 +291,6 @@ def snapshot_engine(eng) -> dict:
             "maxn": eng._maxn.copy(),
         },
         "slots": slots,
-        "page_pool": None,
+        "page_pool": page_snap,
         "prefix": prefix_entries,
     }

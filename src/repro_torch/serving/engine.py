@@ -14,8 +14,14 @@
 
 SLAY's per-slot decode state is the constant-size (S, z), O(m·dv) per
 layer and head whatever the context, so admission is one ``write_slot``
-copy and eviction one ``reset_slot`` zero. On the card every decode tick
-of the pool launches the masked decode kernel once per layer.
+copy and eviction one ``reset_slot`` zero; on the card every decode tick
+of the pool launches the masked decode kernel once per layer. The exact
+kinds (``softmax``, ``yat``, ``yat_spherical``) hold a KV ring of
+``max_len`` rows per slot instead, so a request must fit it
+(:class:`RequestTooLargeError`); with ``ServingConfig.page_size`` set the
+rings draw pages from a shared :class:`~repro_torch.serving.pages.
+PagePool` sized by each request's context, and admission waits for free
+pages.
 
 Fault model (DESIGN.md §10): every request ends with exactly one
 ``finish_reason`` of ``sampling.FINISH_REASONS``. Admission failures are
@@ -49,10 +55,10 @@ one read-back; on the CPU the same programs run eagerly.
 :meth:`graph_cache_entries` counts the captured graphs, the analogue of
 the JAX engine's ``jit_cache_entries``.
 
-Not in the port yet (ROADMAP Queue A item 11), each refused by
-``ServingConfig.check_supported`` when the engine is built: paged slot
-memory, speculative decoding, a sharded slot pool and the bucketed
-whole-prompt prefill fallback.
+Not in the port yet, each refused by ``ServingConfig.check_supported``
+when the engine is built: speculative decoding (ROADMAP Queue A item 11),
+a sharded slot pool (item 13) and the bucketed whole-prompt prefill
+fallback (item 12).
 """
 from __future__ import annotations
 
@@ -73,6 +79,7 @@ from repro_torch.serving import checkpoint as checkpoint_lib
 from repro_torch.serving import faults as faults_lib
 from repro_torch.serving import graphs
 from repro_torch.serving import journal as journal_lib
+from repro_torch.serving import pages as pages_lib
 from repro_torch.serving import prefix_cache as prefix_lib
 from repro_torch.serving import sampling
 from repro_torch.tree import tree_leaves, tree_map
@@ -233,6 +240,7 @@ class ServingEngine:
         lp = max(len(r.prompt) for r in requests)
         over = max(lp + r.max_new_tokens for r in requests)
         if over > self.max_len:
+            # An exact kind's ring would silently drop live context.
             raise ValueError(f"prompt+max_new ({over}) exceeds "
                              f"max_len {self.max_len}")
         prompts = np.zeros((B, lp), np.int32)
@@ -381,9 +389,11 @@ class ServingMetrics:
     ``prefix_tokens_reused`` the prompt tokens they skipped;
     ``tokens_replayed`` counts tokens regenerated after a restore and
     checked against the journal instead of delivered again,
-    ``checkpoints_written`` the atomic checkpoints. ``summary()`` has the
-    reference's keys; those of features the port does not have yet
-    (paging, speculative decoding, bucketed prefill) read 0 or False.
+    ``checkpoints_written`` the atomic checkpoints. ``num_pages``,
+    ``pages_in_use`` and ``pages_peak`` mirror the page allocator of a
+    paged pool (0 unpaged). ``summary()`` has the reference's keys; those
+    of features the port does not have yet (speculative decoding,
+    bucketed prefill) read 0 or False.
     """
 
     num_slots: int = 0
@@ -408,6 +418,9 @@ class ServingMetrics:
     fault_events: list = dataclasses.field(default_factory=list)
     prefix_hits: int = 0
     prefix_tokens_reused: int = 0
+    num_pages: int = 0
+    pages_in_use: int = 0
+    pages_peak: int = 0
     tokens_replayed: int = 0
     checkpoints_written: int = 0
     clock: Callable[[], float] = time.perf_counter
@@ -490,9 +503,9 @@ class ServingMetrics:
             "ttft_cached_ticks_p95": pct(ttfts_c, 0.95),
             "ttft_cold_ticks_p50": pct(ttfts_w, 0.50),
             "ttft_cold_ticks_p95": pct(ttfts_w, 0.95),
-            "num_pages": 0,
-            "pages_in_use": 0,
-            "pages_peak": 0,
+            "num_pages": self.num_pages,
+            "pages_in_use": self.pages_in_use,
+            "pages_peak": self.pages_peak,
             "speculative": False,
             "spec_gamma": 0,
             "draft_tokens_proposed": 0,
@@ -596,12 +609,22 @@ class Scheduler:
         while self.waiting and self.waiting[0][1].arrival_time <= now:
             self.ready.append(self.waiting.popleft())
 
-    def next_admission(self):
-        """Pop the request to admit next and reserve a slot, or None."""
+    def next_admission(self, slot_ok=None):
+        """Pop the request to admit next and reserve a slot, or None.
+
+        ``slot_ok(slot, req)`` filters the free slots (a paged pool admits
+        only where the slot's shard has the request's pages); when none
+        qualifies the head request stays queued, so admission stays FIFO.
+        """
         if not self.ready or not self.free:
             return None
-        rid, req = self.ready.popleft()
-        slot = min(self.free)
+        rid, req = self.ready[0]
+        cands = (self.free if slot_ok is None
+                 else [s for s in self.free if slot_ok(s, req)])
+        if not cands:
+            return None
+        self.ready.popleft()
+        slot = min(cands)
         self.free.remove(slot)
         return rid, req, slot
 
@@ -684,6 +707,15 @@ class ContinuousServingEngine:
         # benchmarks only.
         self._injector = fault_injector
         self.sched = Scheduler(serving)
+        S, L = serving.num_slots, serving.max_len
+        # Paged slot memory: only the exact kinds' rings page; SLAY's (S, z)
+        # is O(1) per slot, so page_size is a no-op for it.
+        self.page_pool: pages_lib.PagePool | None = None
+        if serving.page_size and api.supports_paging(cfg):
+            lp = L // serving.page_size      # the config checks divisibility
+            self.page_pool = pages_lib.PagePool(
+                S, serving.num_pages or S * lp, serving.page_size, lp)
+        pp = self.page_pool
         # Content-addressed prefix cache; its entries live on this
         # engine's device. _pfx_refs pins the entry each live request was
         # seeded from, so it is never evicted under the request.
@@ -692,9 +724,9 @@ class ContinuousServingEngine:
             self.prefix_cache = prefix_lib.PrefixCache(
                 serving.prefix_cache_bytes)
         self._pfx_refs: dict[int, prefix_lib.PrefixEntry] = {}
-        self.metrics = ServingMetrics(num_slots=serving.num_slots,
-                                      macro_ticks=serving.macro_ticks,
-                                      clock=clock)
+        self.metrics = ServingMetrics(
+            num_slots=S, macro_ticks=serving.macro_ticks,
+            num_pages=pp.num_pages if pp else 0, clock=clock)
         self.tick = 0
         self._next_rid = 0
         self._outputs: dict[int, list] = {}
@@ -713,15 +745,17 @@ class ContinuousServingEngine:
         self.recovery: dict | None = None
         self._audit = serving.debug_audit or (
             os.environ.get("REPRO_DEBUG_AUDIT", "") not in ("", "0"))
-        S = serving.num_slots
         # The static buffers of the captured programs (serving.graphs),
         # each one set of tensors for the engine's life: the slot pool,
         # the stacked control vectors of a dispatch, and one batch-1
         # prefill cache with one chunk of tokens (one prefill is in flight
-        # at a time).
+        # at a time). A paged pool's page tables are among the pool's
+        # tensors, updated in place by the slot ops.
         with torch.inference_mode():
-            self.pool = api.init_cache(cfg, S, serving.max_len,
-                                       device=self.device)
+            self.pool = api.init_cache(
+                cfg, S, L, device=self.device,
+                page_size=pp.page_size if pp else 0,
+                num_pages=pp.num_pages if pp else 0)
             self._ctl = torch.zeros(6, S, dtype=torch.int32,
                                     device=self.device)
             self._pf_cache = api.init_cache(cfg, 1, serving.max_len,
@@ -762,9 +796,10 @@ class ContinuousServingEngine:
         """Queue a request; returns its request id.
 
         Raises :class:`RequestTooLargeError` when prompt + max_new exceeds
-        the slot's context capacity (never for SLAY, whose state is
-        constant-size) and :class:`QueueFullError` when the queue is at
-        ``max_queue`` under ``reject_new``. Under ``shed_oldest`` the
+        the slot's context capacity (an exact kind's ``max_len`` ring;
+        never for SLAY, whose state is constant-size) and
+        :class:`QueueFullError` when the queue is at ``max_queue`` under
+        ``reject_new``. Under ``shed_oldest`` the
         longest-waiting queued request ends as ``shed`` instead; under
         ``queue_wait`` admission always succeeds. A rejected request is
         never enqueued and consumes no rid."""
@@ -773,13 +808,15 @@ class ContinuousServingEngine:
             if delay:
                 req = dataclasses.replace(
                     req, arrival_time=req.arrival_time + delay)
-        need = len(req.prompt) + req.max_new_tokens
+        need = self._need_rows(req)
         cap = api.context_capacity(self.cfg, self.serving.max_len)
         if cap is not None and need > cap:
             raise RequestTooLargeError(
                 f"request does not fit its decode slot: {len(req.prompt)} "
                 f"prompt + {req.max_new_tokens} max_new = {need} > context "
-                f"capacity {cap}",
+                f"capacity {cap} (the cache ring would overwrite live "
+                f"context; shorten the prompt/max_new_tokens or raise "
+                f"ServingConfig.max_len)",
                 queue_depth=self.sched.queue_depth,
                 max_queue=self.serving.max_queue)
         rid = self._next_rid
@@ -879,7 +916,9 @@ class ContinuousServingEngine:
         # queue, whatever path each request left by.
         summary["final_occupancy"] = self.sched.occupancy
         summary["final_queue_depth"] = self.sched.queue_depth
-        summary["final_pages_in_use"] = 0
+        # A paged pool: every exit path returned its pages.
+        summary["final_pages_in_use"] = (
+            self.page_pool.pages_in_use() if self.page_pool else 0)
         return outs, summary
 
     def graph_cache_entries(self) -> dict:
@@ -927,15 +966,15 @@ class ContinuousServingEngine:
         Recovery: a tolerant journal replay (a torn tail is dropped and
         truncated), the latest *valid* checkpoint (corrupt files
         skipped), a fresh engine on ``device``, then :meth:`_apply_restore`:
-        the pool, mirrors and prefix cache come from the checkpoint when
-        its geometry matches this config; every live rid is rebuilt from
+        the pool, mirrors, page allocator and prefix cache come from the
+        checkpoint when its geometry matches this config; every live rid is rebuilt from
         its journaled admission. Residents of the checkpoint resume
         mid-stream in their slots; every other live request queues again
         in arrival order and prefills from scratch. Sampling is keyed on
         (seed, rid, token index), so both regenerate the pre-crash tokens
         bit for bit; the journal's horizon dedupes them (checked in
         :meth:`_emit`), so callbacks see each token once. A checkpoint of
-        another geometry (slot count, max_len) is not used: recovery runs
+        another geometry (slot count, max_len, page size) is not used: recovery runs
         from the journal alone, with the same streams and more replay.
 
         ``on_token``/``on_finish`` attach to every restored live request;
@@ -982,7 +1021,7 @@ class ContinuousServingEngine:
         engine's device (a prefix-cache entry's snapshot)."""
         it = iter(saved)
         return tree_map(lambda t: torch.from_numpy(np.array(next(it))).to(
-            self.device), template)
+            self.device, t.dtype), template)
 
     @staticmethod
     def _fits(template, saved) -> bool:
@@ -1000,7 +1039,8 @@ class ContinuousServingEngine:
             ck is not None
             and int(ck.get("num_slots", -1)) == S
             and int(ck.get("max_len", -1)) == self.serving.max_len
-            and int(ck.get("page_size", -1)) == 0
+            and int(ck.get("page_size", -1))
+            == (self.page_pool.page_size if self.page_pool else 0)
             and not ck.get("speculative", False)
             and int(ck.get("spec_gamma", 0)) == 0
             and self._fits(self.pool, ck.get("pool")))
@@ -1016,6 +1056,8 @@ class ContinuousServingEngine:
             self._gen = np.asarray(mir["gen"], np.int32).copy()
             self._eos = np.asarray(mir["eos"], np.int32).copy()
             self._maxn = np.asarray(mir["maxn"], np.int32).copy()
+            if self.page_pool is not None and ck.get("page_pool"):
+                self.page_pool.load_snapshot(ck["page_pool"])
             self.tick = int(ck["tick"])
             self.metrics.ticks = self.tick
             self._last_ckpt_tick = self.tick
@@ -1102,12 +1144,18 @@ class ContinuousServingEngine:
             sorted(self.sched.waiting,
                    key=lambda t: (t[1].arrival_time, t[0])))
         # Slots the journal shows evicted after the checkpoint (or whose
-        # residency failed the check) go idle in the mirrors. No device op:
-        # idle slots pass through the decode unchanged and write_slot
-        # overwrites a slot whole on reuse.
+        # residency failed the check) go idle in the mirrors and return
+        # their pages. No device op: idle slots pass through the decode
+        # unchanged, write_slot overwrites a slot's pages whole on reuse
+        # and installs the allocator's tables.
         for slot in range(S):
             if self._active[slot] and slot not in self.sched.active:
                 self._active[slot] = False
+                if (self.page_pool is not None
+                        and self.page_pool.slot_pages(slot)):
+                    self.page_pool.free_slot(slot)
+        if self.page_pool is not None:
+            self._note_pages()
         if redeliver:
             for rid in sorted(self._outputs):
                 if on_token is not None:
@@ -1130,9 +1178,10 @@ class ContinuousServingEngine:
         """Invariant audit (``ServingConfig.debug_audit`` or the
         ``REPRO_DEBUG_AUDIT`` environment variable), run at the end of
         every :meth:`run`: free and resident slots partition the pool, the
-        host mirrors mark exactly the resident slots live, and every
-        prefix-cache refcount is a live request's pin (a leaked pin would
-        block eviction for good)."""
+        host mirrors mark exactly the resident slots live, the page
+        allocator's free and owned pages partition the page pool, and
+        every prefix-cache refcount is a live request's pin (a leaked pin
+        would block eviction for good)."""
         S = self.serving.num_slots
         free, live = set(self.sched.free), set(self.sched.active)
         assert not free & live and free | live | (
@@ -1140,6 +1189,8 @@ class ContinuousServingEngine:
                 range(S)), f"slot pool partition broken: {free}, {live}"
         assert set(np.flatnonzero(self._active)) <= live, (
             "a free slot is marked live in the decode mirrors")
+        if self.page_pool is not None:
+            self.page_pool.check()
         if self.prefix_cache is not None:
             refs = self.prefix_cache.live_refs()
             pins = len(self._pfx_refs)
@@ -1148,6 +1199,15 @@ class ContinuousServingEngine:
                 f"engine pins")
 
     # -- internals ----------------------------------------------------------
+
+    def _need_rows(self, req: Request) -> int:
+        """Context rows a request occupies, prompt + decode budget: what
+        the page allocator sizes a slot's pages by."""
+        return len(req.prompt) + req.max_new_tokens
+
+    def _note_pages(self):
+        self.metrics.pages_in_use = self.page_pool.pages_in_use()
+        self.metrics.pages_peak = self.page_pool.pages_peak
 
     def _seed_from_prefix(self, pf: _Prefill, C: int):
         """Seed an admission from the longest cached prompt prefix.
@@ -1198,13 +1258,23 @@ class ContinuousServingEngine:
         pf = self._prefill
         C = self.serving.prefill_chunk
         if pf is None:
-            admission = self.sched.next_admission()
+            slot_ok = None
+            if self.page_pool is not None:
+                slot_ok = (lambda s, r:
+                           self.page_pool.can_alloc(s, self._need_rows(r)))
+            admission = self.sched.next_admission(slot_ok)
             if admission is None:
                 return
             rid, req, slot = admission
             for t in tree_leaves(self._pf_cache):
                 t.zero_()
             pf = _Prefill(rid, req, slot, self._pf_cache)
+            if self.page_pool is not None:
+                # Host-side reservation only: the device tables learn the
+                # mapping at install (write_slot), so an admission that
+                # ends mid-prefill frees host-side with no device op.
+                self.page_pool.alloc(slot, self._need_rows(req))
+                self._note_pages()
             if self.prefix_cache is not None:
                 self._seed_from_prefix(pf, C)
             self._prefill = pf
@@ -1244,7 +1314,9 @@ class ContinuousServingEngine:
             # this prompt is admitted with no prefill.
             self.prefix_cache.insert(prompt, pf.cache,
                                      logits=logits[:, -1:, :])
-        api.write_slot(self.cfg, self.pool, pf.cache, pf.slot)
+        api.write_slot(self.cfg, self.pool, pf.cache, pf.slot,
+                       self.page_pool.device_vectors()
+                       if self.page_pool is not None else None)
         self._prefill = None
         self.metrics.prompt_tokens += (
             len(prompt) - self.metrics.per_request[pf.rid].prefix_tokens)
@@ -1345,8 +1417,16 @@ class ContinuousServingEngine:
 
     def _evict_slot_state(self, slot: int):
         """Zero a slot's device state, so its next owner starts from zeros
-        (never from a previous owner's bytes, nor an injected NaN)."""
-        api.reset_slot(self.cfg, self.pool, slot)
+        (never from a previous owner's bytes, nor an injected NaN). A paged
+        pool returns the slot's pages to the free list; the reset zeroes
+        them under the old tables, then installs the new ones."""
+        if self.page_pool is None:
+            api.reset_slot(self.cfg, self.pool, slot)
+            return
+        self.page_pool.free_slot(slot)
+        self._note_pages()
+        api.reset_slot(self.cfg, self.pool, slot,
+                       self.page_pool.device_vectors())
 
     def _finish(self, slot: int, reason: str):
         """Evict a slot-resident request into terminal state ``reason``."""
@@ -1420,9 +1500,13 @@ class ContinuousServingEngine:
 
     def _release_prefill_slot(self, slot: int):
         """Return a mid-prefill slot to the pool (cancel or deadline before
-        install); the pool was never written, so this is host-only."""
+        install); the pool and its page tables were never written, so this
+        is host-only."""
         self.sched.free.append(slot)
         self.sched.free.sort()
+        if self.page_pool is not None:
+            self.page_pool.free_slot(slot)
+            self._note_pages()
 
     # -- lifecycle: cancellation, deadlines, queue-age shedding -------------
 

@@ -17,6 +17,11 @@ runs no kernel), and every later call replays it. On the CPU, or with
 graphing off, every call runs the program eagerly: one program either
 way, so the CPU tests of the engines test what the card replays.
 
+Python's cyclic garbage collector is run before a capture and kept off
+during it: an engine that became garbage in a reference cycle (its
+programs refer back to it) holds graphs, and destroying a graph while
+another is being captured invalidates that capture.
+
 A value that reaches the program as a Python number is frozen into the
 graph at capture, so everything that varies between calls must come from
 a static buffer; constants of the engine (temperature, seed, shapes) may
@@ -30,6 +35,7 @@ nothing), and every replay adds them.
 """
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable
 
@@ -72,8 +78,15 @@ class Program:
         before = dict(_build.LAUNCHES)
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self.out = self.fn()
+        gc.collect()
+        enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                self.out = self.fn()
+        finally:
+            if enabled:
+                gc.enable()
         self.capture_s = time.perf_counter() - t0
         self.launches = {k: n - before[k] for k, n in _build.LAUNCHES.items()
                          if n != before[k]}

@@ -2,11 +2,13 @@
 
 The step: microbatched gradient accumulation in fp32, optional per-layer
 recomputation (``remat``), optional error-feedback int8 gradient
-compression, global-norm clipping, AdamW. Attention runs the fused SLAY
+compression, global-norm clipping, AdamW. SLAY attention runs its fused
 kernels and their backward (K1, K3, K4) on the card, or with
 ``fuse_attention_features=False`` the two-dispatch path (feature map,
 then scan, and their backward), and the plain versions on the CPU: the
-tensors' device chooses, so there is no ``use_pallas`` knob.
+tensors' device chooses, so there is no ``use_pallas`` knob. The exact
+kinds (``softmax``, ``yat``, ``yat_spherical``) have no kernel: plain
+autograd of their PyTorch ops on either device.
 
 The loop: resume from the latest checkpoint on start, an atomic
 checkpoint every ``ckpt_every`` steps and at the end, and a step-time

@@ -4,6 +4,8 @@ Parameters, optimizer moments and gradients are plain nested dicts of
 tensors, as the JAX package's pytrees are. Leaves are visited in sorted key
 order, the order of ``jax.tree.leaves``, so sums over leaves add in the
 same order on both sides. A path joins keys with ``/`` (``layers/attn/wq``).
+``None`` is an empty subtree, as in JAX: it has no leaves and maps to
+itself (the unused fields of a cache).
 """
 from __future__ import annotations
 
@@ -26,6 +28,8 @@ def tree_map_with_path(fn, tree, *rest, path: str = ""):
             tree_map_with_path(fn, getattr(tree, f), *(getattr(r, f) for r in rest),
                                path=sub(f))
             for f in tree._fields))
+    if tree is None:
+        return None
     return fn(path, tree, *rest)
 
 
@@ -45,7 +49,7 @@ def tree_items(tree) -> list:
         elif _is_namedtuple(node):
             for f in node._fields:
                 visit(f"{path}/{f}" if path else f, getattr(node, f))
-        else:
+        elif node is not None:
             out.append((path, node))
 
     visit("", tree)

@@ -11,7 +11,10 @@ oracle is the port's own plain versions, which the other
 ``tests/test_torch_*.py`` files hold against the JAX package on the CPU.
 The features config is the smoke config's (head dim 16, P = 8, D = 16,
 R = 3). Tolerances per case: fp32 differs from the plain versions in
-summation order only, bf16 by one rounding of each output.
+summation order only, bf16 by one rounding of each output. The exact
+kinds (softmax, yat, yat_spherical) have no kernel: their serving on the
+card is held to the CPU and graphed to eager, their training step to the
+CPU's loss.
 """
 import collections
 import dataclasses
@@ -30,10 +33,12 @@ from repro_torch.kernels import feature_map as tfm
 from repro_torch.kernels import slay_fused as tfused
 from repro_torch.kernels import slay_scan as tscan
 from repro_torch.models import api as tapi
+from repro_torch.optim import adamw as tadamw
 from repro_torch.serving import engine as tengine
 from repro_torch.serving import faults as tfaults
 from repro_torch.serving import journal as tjournal
 from repro_torch.serving import sampling as tsampling
+from repro_torch.train import loop as tloop
 from repro_torch.tree import tree_leaves
 
 D_HEAD = 16
@@ -568,3 +573,76 @@ def test_lockstep_graph_matches_eager_on_card(temperature):
             np.testing.assert_array_equal(x, y)
     assert ng == ne and ng["slay_decode_step"] == 2 * cfg.num_layers * 11
     assert cg == {"decode": 1} and ce == {"decode": 0}
+
+
+@needs_card
+@pytest.mark.parametrize("kind,page_size", [
+    ("softmax", 0), ("softmax", 8), ("yat_spherical", 8)],
+    ids=["softmax-ring", "softmax-paged", "yat_spherical-paged"])
+def test_exact_kind_engines_graphed_match_eager_on_card(kind, page_size):
+    # The smoke model of an exact kind in fp32, its KV ring unpaged or in
+    # 8-row pages: the graphed engine and the eager one stepped side by
+    # side on the card (pools, page tables included, byte-identical after
+    # every step), both equal to the CPU engine's streams; no SLAY kernel;
+    # no page left allocated. Then the lockstep engine, graphed and eager.
+    cfg = get_smoke_config("slayformer-124m", dtype="float32",
+                           attn_kind=kind)
+    params = tapi.init_params(cfg, 0, device="cpu")
+    params["embed"] = params["embed"] / 8.0
+    rng = np.random.default_rng(0)
+    reqs = [tengine.Request(rng.integers(3, 256, n).astype(np.int32),
+                            max_new_tokens=10, arrival_time=2.0 * i)
+            for i, n in enumerate((20, 7, 33, 12, 26))]
+    serving = ServingConfig(num_slots=2, max_len=64, prefill_chunk=8,
+                            macro_ticks=4, page_size=page_size,
+                            num_pages=12 if page_size else 0,
+                            debug_audit=True)
+    want, s_cpu = tengine.ContinuousServingEngine(
+        cfg, params, serving=serving, device="cpu").run(
+            [dataclasses.replace(r) for r in reqs])
+    engines = [tengine.ContinuousServingEngine(cfg, params, serving=serving,
+                                               device="cuda", _graphs=g)
+               for g in (True, False)]
+    _build.reset_launches()
+    ((graphed, sg), ng), ((eager, se), ne) = _side_by_side(engines, reqs)
+    for rid in want:
+        np.testing.assert_array_equal(graphed[rid], want[rid], f"rid {rid}")
+        np.testing.assert_array_equal(eager[rid], want[rid], f"rid {rid}")
+    assert sg["ticks"] == se["ticks"] == s_cpu["ticks"]
+    assert not any(_build.LAUNCHES.values())
+    assert not any(ng.values()) and not any(ne.values())
+    assert engines[0].graph_cache_entries() == {"macro_decode": 1,
+                                                "chunk": 1}
+    assert sg["final_pages_in_use"] == 0
+    if page_size:
+        assert 0 < sg["pages_peak"] <= 12
+    prompts = [r.prompt for r in reqs[:3]]
+    lock = [tengine.ServingEngine(cfg, params, device="cuda", max_len=64,
+                                  _graphs=g).generate(
+        [tengine.Request(p, max_new_tokens=8) for p in prompts])
+        for g in (True, False)]
+    for a, b in zip(*lock):
+        np.testing.assert_array_equal(a, b)
+
+
+@needs_card
+def test_softmax_train_step_on_card_is_finite_and_matches_cpu():
+    # One AdamW step of the softmax smoke model in fp32 through plain
+    # autograd on the card: a finite loss and gradient norm, equal to the
+    # CPU's to 1e-5 and 1e-4 relative (the order of sums).
+    cfg = get_smoke_config("slayformer-124m", dtype="float32",
+                           attn_kind="softmax")
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, 256, (2, 33)).astype(np.int32))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    ocfg = tadamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    step = tloop.make_train_step(cfg, ocfg, tloop.TrainConfig(remat=True))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tapi.init_params(cfg, 0, device=dev)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        m = step(p, tadamw.adamw_init(p, ocfg), torch.zeros(()), b)[3]
+        out[dev] = (float(m["loss"]), float(m["grad_norm"]))
+    assert all(np.isfinite(out["cuda"]))
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-4)

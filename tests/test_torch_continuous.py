@@ -288,11 +288,13 @@ def test_injected_fault_is_quarantined_and_retried_like_jax(models):
 
 def test_unported_knobs_raise_when_the_engine_is_built(models):
     _, tcfg, _, tp, _ = models
-    # The prefix cache and checkpoints are ported
-    # (tests/test_torch_prefix_cache.py, tests/test_torch_restore.py).
-    for kw in (dict(page_size=8), dict(speculative=True),
-               dict(slot_shards=2), dict(prefill_chunk=0)):
-        with pytest.raises(NotImplementedError, match="Queue A item 11"):
+    # The prefix cache, checkpoints and paging are ported
+    # (tests/test_torch_prefix_cache.py, tests/test_torch_restore.py,
+    # tests/test_torch_pages.py); each refusal cites its open item.
+    for kw, item in ((dict(speculative=True), 11), (dict(slot_shards=2), 13),
+                     (dict(prefill_chunk=0), 12)):
+        with pytest.raises(NotImplementedError,
+                           match=f"Queue A item {item}"):
             tengine.ContinuousServingEngine(
                 tcfg, tp, serving=ServingConfig(**{**BASE, **kw}),
                 device="cpu")

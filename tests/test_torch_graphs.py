@@ -11,7 +11,9 @@ lockstep sampling key) must come from a static device buffer. The card
 side (graphed against eager, launch counts, the graph count) is in
 ``tests/test_torch_card.py``. No JAX here: the engines' streams are held
 to the JAX engines in ``tests/test_torch_continuous.py``,
-``test_torch_sampling.py`` and ``test_torch_restore.py``.
+``test_torch_sampling.py`` and ``test_torch_restore.py``. Each engine
+test runs on SLAY's (S, z) pool and on softmax's KV ring, unpaged and
+paged (whose page tables are pool tensors too).
 """
 import dataclasses
 import os
@@ -33,18 +35,24 @@ from repro_torch.tree import tree_leaves
 NAME = "slayformer-124m"
 
 
-@pytest.fixture(scope="module")
-def model():
-    cfg = get_smoke_config(NAME, dtype="float32")
+# regime -> (attention kind, ServingConfig keywords)
+REGIMES = {"slay": ("slay", {}), "softmax": ("softmax", {}),
+           "softmax_paged": ("softmax", {"page_size": 8})}
+
+
+@pytest.fixture(scope="module", params=sorted(REGIMES))
+def model(request):
+    kind, paging = REGIMES[request.param]
+    cfg = get_smoke_config(NAME, dtype="float32", attn_kind=kind)
     params = api.init_params(cfg, 0, device="cpu")
     params["embed"] = params["embed"] / 8.0     # logits flat enough to vary
-    return cfg, params
+    return cfg, params, paging
 
 
-def _serving(**kw):
+def _serving(paging, **kw):
     return ServingConfig(**{"num_slots": 2, "max_len": 64,
                             "prefill_chunk": 4, "macro_ticks": 4,
-                            "temperature": 0.8, **kw})
+                            "temperature": 0.8, **paging, **kw})
 
 
 def _trace(n=4, max_new=8):
@@ -77,7 +85,8 @@ class _OneFault(faults.FaultInjector):
 
 
 def _ptrs(cache) -> list[int]:
-    """Data pointers of every pool leaf: attn.pos, attn.s, attn.z, pos."""
+    """Data pointers of every pool leaf (SLAY: attn.pos, attn.s, attn.z,
+    pos; a ring: attn.k, attn.v, attn.pos, pos [, the page tables])."""
     return [t.data_ptr() for t in tree_leaves(cache)]
 
 
@@ -104,9 +113,9 @@ def test_pool_tensors_are_never_replaced(model, tmp_path, monkeypatch):
     # Every pool leaf keeps its storage through dispatches, admissions,
     # evictions, a quarantine, a prefix hit and a restore: a captured
     # graph binds these addresses.
-    cfg, params = model
-    sv = _serving(prefix_cache_bytes=1 << 22, checkpoint_every_ticks=6,
-                  debug_audit=True)
+    cfg, params, paging = model
+    sv = _serving(paging, prefix_cache_bytes=1 << 22,
+                  checkpoint_every_ticks=6, debug_audit=True)
     seen: list = []
     step = tengine.ContinuousServingEngine.step
 
@@ -154,8 +163,9 @@ def test_pool_tensors_are_never_replaced(model, tmp_path, monkeypatch):
 def test_all_inactive_dispatch_leaves_the_pool_bytes_identical(model):
     # Drained slots are an exact passthrough, positions included now
     # that they advance in place by ``active``.
-    cfg, params = model
-    eng = tengine.ContinuousServingEngine(cfg, params, serving=_serving(),
+    cfg, params, paging = model
+    eng = tengine.ContinuousServingEngine(cfg, params,
+                                          serving=_serving(paging),
                                           device="cpu")
     with torch.inference_mode():
         _fill_pool(eng)
@@ -188,11 +198,11 @@ class _FreshControl:
 
 @pytest.mark.parametrize("temperature", [0.0, 0.8])
 def test_static_program_streams_equal_fresh_control(model, temperature):
-    cfg, params = model
+    cfg, params, paging = model
     runs = []
     for fresh in (False, True):
         eng = tengine.ContinuousServingEngine(
-            cfg, params, serving=_serving(temperature=temperature),
+            cfg, params, serving=_serving(paging, temperature=temperature),
             device="cpu")
         if fresh:
             eng._decode = _FreshControl(eng)
@@ -204,7 +214,7 @@ def test_static_program_streams_equal_fresh_control(model, temperature):
         np.testing.assert_array_equal(got[rid], want[rid], f"rid {rid}")
     if temperature > 0:
         greedy = tengine.ContinuousServingEngine(
-            cfg, params, serving=_serving(temperature=0.0),
+            cfg, params, serving=_serving(paging, temperature=0.0),
             device="cpu").run(_trace())[0]
         assert any(not np.array_equal(got[r], greedy[r]) for r in got)
 
@@ -214,9 +224,9 @@ def _storages(tensors) -> set[int]:
 
 
 def test_prefill_buffer_never_aliases_a_snapshot_or_the_pool(model):
-    cfg, params = model
+    cfg, params, paging = model
     eng = tengine.ContinuousServingEngine(
-        cfg, params, serving=_serving(prefix_cache_bytes=1 << 22),
+        cfg, params, serving=_serving(paging, prefix_cache_bytes=1 << 22),
         device="cpu")
     static = _storages(tree_leaves(eng._pf_cache) + [eng._pf_tokens])
     pool = _storages(tree_leaves(eng.pool))
@@ -265,7 +275,7 @@ def test_lockstep_device_key_reproduces_the_sampled_streams(model):
     # The lockstep step reads its key from a (2,) int64 device buffer (a
     # graph would freeze a host key); the draws are the numpy key's, the
     # streams ``tests/test_torch_sampling.py`` holds to the JAX engine.
-    cfg, params = model
+    cfg, params, paging = model
     rng = np.random.default_rng(3)
     prompts = [rng.integers(1, 256, n).astype(np.int32) for n in (9, 14)]
     eng = tengine.ServingEngine(cfg, params, device="cpu", max_len=64)
@@ -282,8 +292,9 @@ def test_lockstep_device_key_reproduces_the_sampled_streams(model):
 
 
 def test_graph_cache_entries_are_zero_on_the_cpu(model):
-    cfg, params = model
-    eng = tengine.ContinuousServingEngine(cfg, params, serving=_serving(),
+    cfg, params, paging = model
+    eng = tengine.ContinuousServingEngine(cfg, params,
+                                          serving=_serving(paging),
                                           device="cpu")
     assert eng.graph_cache_entries() == {"macro_decode": 0, "chunk": 0}
     outs, s = eng.run(_trace())

@@ -6,12 +6,14 @@ logits rule, LRU under the byte budget with refcount pins, snapshots that
 share no storage, stats; and the same inserts and lookups on both
 packages' caches, with real decode-state snapshots of the smoke model,
 giving equal stats and byte counts. Engine level, at the smoke config in
-fp32 (embedding divided by 8 so streams vary): cached streams equal cold
-ones, greedy and at T = 0.8, with partial hits and full hits that run no
-prefill chunk; and the port's engine against the JAX engine with the same
-budget on one trace (streams, per-request stats and the deterministic
-summary counters), where a near-tie of ``logits / T + g`` would be
-reported as such (ROADMAP C-2).
+fp32 (embedding divided by 8 so streams vary), in the JAX package's three
+cache regimes (SLAY's constant state; softmax's KV ring, unpaged and
+paged): cached streams equal cold ones, greedy and at T = 0.8, with
+partial hits and full hits that run no prefill chunk; and the port's
+engine against the JAX engine with the same budget on one trace
+(streams, per-request stats and the deterministic summary counters),
+where a near-tie of ``logits / T + g`` would be reported as such
+(ROADMAP C-2).
 """
 import jax
 import jax.numpy as jnp
@@ -32,7 +34,8 @@ from repro_torch.configs.base import ServingConfig
 from repro_torch.models import api
 from repro_torch.serving import engine as tengine
 from repro_torch.serving import sampling
-from repro_torch.serving.prefix_cache import PrefixCache, token_digest
+from repro_torch.serving.prefix_cache import (PrefixCache, token_digest,
+                                              tree_bytes)
 
 NAME = "slayformer-124m"
 TIE_GAP = 1e-5
@@ -194,10 +197,18 @@ def test_same_inserts_and_lookups_as_jax(dtype):
 # ---------------------------------------------------------------------------
 
 
-@pytest.fixture(scope="module")
-def models():
-    jcfg = jax_smoke_config(NAME, dtype="float32")
-    tcfg = get_smoke_config(NAME, dtype="float32")
+# regime -> (attention kind, ServingConfig keywords), as
+# tests/test_prefix_cache.py parametrises the JAX cache.
+REGIMES = {"constant_state": ("slay", {}),
+           "kv_ring": ("softmax", {}),
+           "kv_ring_paged": ("softmax", {"page_size": 8})}
+
+
+@pytest.fixture(scope="module", params=sorted(REGIMES))
+def models(request):
+    kind, paging = REGIMES[request.param]
+    jcfg = jax_smoke_config(NAME, dtype="float32", attn_kind=kind)
+    tcfg = get_smoke_config(NAME, dtype="float32", attn_kind=kind)
     tree = jax.device_get(jtr.init_params(jcfg, jax.random.PRNGKey(0)))
     tree["embed"] = tree["embed"] / 8.0
     jp = jax.tree.map(jnp.asarray, tree)
@@ -207,7 +218,7 @@ def models():
     auto = (jax.sharding.AxisType.Auto,) * len(mesh.axis_names)
     mesh = jax.make_mesh(mesh.devices.shape, mesh.axis_names,
                          axis_types=auto)
-    return jcfg, tcfg, jp, tp, mesh
+    return jcfg, tcfg, jp, tp, mesh, paging
 
 
 def _prompts():
@@ -231,14 +242,13 @@ def _budget(tcfg):
     once (the oldest chunk-boundary entry), and the repeats' full-prompt
     entries survive."""
     one = api.init_cache(tcfg, 1, 64, device="cpu")
-    return 7 * (sum(t.numel() * t.element_size() for t in (
-        one.attn.pos, one.attn.s, one.attn.z, one.pos)) + tcfg.vocab_size * 4)
+    return 7 * (tree_bytes(one) + tcfg.vocab_size * 4)
 
 
 def _port_run(models, prompts, **serving):
-    _, tcfg, _, tp, _ = models
+    _, tcfg, _, tp, _, paging = models
     eng = tengine.ContinuousServingEngine(
-        tcfg, tp, serving=ServingConfig(**{**BASE, **serving}),
+        tcfg, tp, serving=ServingConfig(**{**BASE, **paging, **serving}),
         device="cpu")
     outs, s = eng.run(_requests(tengine, prompts))
     return outs, s, eng
@@ -275,10 +285,10 @@ def test_shared_cache_warms_a_second_engine(models):
     prompts = _prompts()
     cold, _, _ = _port_run(models, prompts)
     pc = PrefixCache(1 << 24)
-    _, tcfg, _, tp, _ = models
+    _, tcfg, _, tp, _, paging = models
     for n in range(2):
         eng = tengine.ContinuousServingEngine(
-            tcfg, tp, serving=ServingConfig(**BASE), device="cpu",
+            tcfg, tp, serving=ServingConfig(**BASE, **paging), device="cpu",
             prefix_cache=pc)
         outs, s = eng.run(_requests(tengine, prompts))
         for rid in cold:
@@ -291,7 +301,7 @@ def test_shared_cache_warms_a_second_engine(models):
 def _gaps(models, prompt, stream, rid, temperature, seed=0):
     """Top-2 gaps of logits / T + g along ``stream``, the port alone,
     teacher-forced from a whole-prompt prefill."""
-    _, tcfg, _, tp, _ = models
+    _, tcfg, _, tp, _, _ = models
     gaps = []
     with torch.inference_mode():
         logits, cache = api.prefill(tp, tcfg, torch.from_numpy(prompt[None]))
@@ -309,10 +319,10 @@ def _gaps(models, prompt, stream, rid, temperature, seed=0):
 
 
 def test_prefix_cached_engine_matches_jax(models):
-    jcfg, tcfg, jp, _, mesh = models
+    jcfg, tcfg, jp, _, mesh, paging = models
     prompts = _prompts()
     temperature = 0.8
-    kw = {**BASE, "temperature": temperature,
+    kw = {**BASE, **paging, "temperature": temperature,
           "prefix_cache_bytes": _budget(tcfg)}
     jeng = jengine.ContinuousServingEngine(jcfg, jp, mesh,
                                            serving=JServingConfig(**kw))
@@ -333,3 +343,5 @@ def test_prefix_cached_engine_matches_jax(models):
         assert ts[k] == js[k], (k, ts[k], js[k])
     assert ts["prefix_hits"] == 5
     assert teng.prefix_cache.stats() == jeng.prefix_cache.stats()
+    if paging:
+        assert ts["final_pages_in_use"] == 0 and ts["pages_peak"] > 0

@@ -1,7 +1,8 @@
 """Crash-safe serving in the port (``repro_torch.serving.journal``,
 ``.checkpoint`` and ``ContinuousServingEngine.restore``) on the CPU, the
-counterparts of ``tests/test_serving_restore.py`` for the constant-state
-regime, and two cross-program checks against the JAX package.
+counterparts of ``tests/test_serving_restore.py`` in its three regimes
+(SLAY's constant state; softmax's KV ring, unpaged and paged), and two
+cross-program checks against the JAX package.
 
 The journal's framing and torn-tail replay, atomic checkpoints with
 corrupt-file fallback, and the kill-and-restore contract: a crash
@@ -46,16 +47,25 @@ from repro_torch.serving import engine as tengine
 from repro_torch.serving import faults
 from repro_torch.serving import journal as journal_lib
 from repro_torch.serving import sampling
+from repro_torch.tree import tree_leaves
 
 NAME = "slayformer-124m"
 TIE_GAP = 1e-5
 CRASH = (10, 16)                # lands on tick 12, checkpoint at 7
 
 
-@pytest.fixture(scope="module")
-def models():
-    jcfg = jax_smoke_config(NAME, dtype="float32")
-    tcfg = get_smoke_config(NAME, dtype="float32")
+# regime -> (attention kind, ServingConfig keywords), the regimes of
+# tests/test_serving_restore.py.
+REGIMES = {"constant_state": ("slay", {}),
+           "kv_ring": ("softmax", {}),
+           "paged": ("softmax", {"page_size": 8})}
+
+
+@pytest.fixture(scope="module", params=sorted(REGIMES))
+def models(request):
+    kind, paging = REGIMES[request.param]
+    jcfg = jax_smoke_config(NAME, dtype="float32", attn_kind=kind)
+    tcfg = get_smoke_config(NAME, dtype="float32", attn_kind=kind)
     tree = jax.device_get(jtr.init_params(jcfg, jax.random.PRNGKey(0)))
     tree["embed"] = tree["embed"] / 8.0
     jp = jax.tree.map(jnp.asarray, tree)
@@ -65,7 +75,7 @@ def models():
     auto = (jax.sharding.AxisType.Auto,) * len(mesh.axis_names)
     mesh = jax.make_mesh(mesh.devices.shape, mesh.axis_names,
                          axis_types=auto)
-    return jcfg, tcfg, jp, tp, mesh
+    return jcfg, tcfg, jp, tp, mesh, paging
 
 
 def _kw(**kw):
@@ -95,30 +105,32 @@ def _trace(mod=tengine, n=3, max_new=12, plen=5):
 
 def _baseline(models, sv, **tr):
     """Fault-free streams of the trace (no journal)."""
-    _, tcfg, _, tp, _ = models
+    _, tcfg, _, tp, _, paging = models
     eng = tengine.ContinuousServingEngine(
         tcfg, tp, device="cpu",
-        serving=dataclasses.replace(sv, checkpoint_every_ticks=0))
+        serving=dataclasses.replace(sv, checkpoint_every_ticks=0, **paging))
     return eng.run(_trace(**tr))[0]
 
 
 def _crash_run(models, d, sv, *, crash_window=CRASH, **tr):
     """Run the trace on a journaled engine until the injected crash kills
     it; the dead engine."""
-    _, tcfg, _, tp, _ = models
+    _, tcfg, _, tp, _, paging = models
     jr = journal_lib.Journal(os.path.join(d, journal_lib.JOURNAL_NAME))
     inj = faults.FaultInjector(seed=3, crash_window=crash_window)
-    eng = tengine.ContinuousServingEngine(tcfg, tp, serving=sv, device="cpu",
-                                          fault_injector=inj, journal=jr)
+    eng = tengine.ContinuousServingEngine(
+        tcfg, tp, serving=dataclasses.replace(sv, **paging), device="cpu",
+        fault_injector=inj, journal=jr)
     with pytest.raises(faults.EngineCrash):
         eng.run(_trace(**tr))
     return eng
 
 
 def _restore(models, d, sv, **kw):
-    _, tcfg, _, tp, _ = models
-    return tengine.ContinuousServingEngine.restore(d, tcfg, tp, serving=sv,
-                                                   device="cpu", **kw)
+    _, tcfg, _, tp, _, paging = models
+    return tengine.ContinuousServingEngine.restore(
+        d, tcfg, tp, serving=dataclasses.replace(sv, **paging),
+        device="cpu", **kw)
 
 
 def _same(outs, base):
@@ -300,12 +312,12 @@ def test_crash_uses_checkpoint_and_resumes_residents(models, tmp_path):
     assert rec["checkpoint_used"] and rec["checkpoint_tick"] >= 1
     assert rec["resident_resumed"] >= 1
     assert len(eng2.prefix_cache) > 0          # the index came back
-    # The checkpoint was copied into the pool's own tensors, whose (S, z)
-    # the decode and the slot functions then keep updating in place.
-    ptrs = [t.data_ptr() for t in (eng2.pool.attn.s, eng2.pool.attn.z)]
+    # The checkpoint was copied into the pool's own tensors (a paged
+    # pool's page tables among them), which the decode and the slot
+    # functions then keep updating in place.
+    ptrs = [t.data_ptr() for t in tree_leaves(eng2.pool)]
     outs, s = eng2.run()
-    assert ptrs == [t.data_ptr() for t in (eng2.pool.attn.s,
-                                           eng2.pool.attn.z)]
+    assert ptrs == [t.data_ptr() for t in tree_leaves(eng2.pool)]
     _same(outs, _baseline(models, sv))
     assert s["journal_bytes"] > 0
 
@@ -431,8 +443,8 @@ class _Clock:
 def jax_dirs(models, tmp_path_factory):
     """The JAX engine on the trace, under a fake clock: uncrashed with a
     journal, and crashed; (its streams, the two directories)."""
-    jcfg, _, jp, _, mesh = models
-    sv = JServingConfig(**_kw())
+    jcfg, _, jp, _, mesh, paging = models
+    sv = JServingConfig(**_kw(**paging))
     out = {}
     for name in ("whole", "crashed"):
         d = str(tmp_path_factory.mktemp(name))
@@ -454,10 +466,10 @@ def jax_dirs(models, tmp_path_factory):
 
 def test_journal_bytes_equal_jax_under_one_clock(models, jax_dirs,
                                                  tmp_path):
-    _, tcfg, _, tp, _ = models
+    _, tcfg, _, tp, _, paging = models
     d = str(tmp_path)
     jr = journal_lib.Journal(os.path.join(d, journal_lib.JOURNAL_NAME))
-    eng = tengine.ContinuousServingEngine(tcfg, tp, serving=_sv(),
+    eng = tengine.ContinuousServingEngine(tcfg, tp, serving=_sv(**paging),
                                           device="cpu", journal=jr,
                                           clock=_Clock())
     outs, s = eng.run(_trace())
@@ -476,9 +488,15 @@ def test_journal_bytes_equal_jax_under_one_clock(models, jax_dirs,
     assert set(a) == set(b)
     assert [(x.shape, x.dtype) for x in a["pool"]] == [
         (x.shape, x.dtype) for x in b["pool"]]
-    for k in ("tick", "next_rid", "slots", "page_pool", "draft_pool",
-              "speculative", "spec_gamma", "page_size"):
+    for k in ("tick", "next_rid", "slots", "draft_pool", "speculative",
+              "spec_gamma", "page_size"):
         assert a[k] == b[k], k
+    assert (a["page_pool"] is None) == (b["page_pool"] is None)
+    if b["page_pool"] is not None:
+        for k, want in b["page_pool"].items():
+            np.testing.assert_array_equal(
+                np.asarray(a["page_pool"][k], dtype=object),
+                np.asarray(want, dtype=object), k)
     for k in a["mirrors"]:
         np.testing.assert_array_equal(a["mirrors"][k], b["mirrors"][k])
     assert [(e["length"], e["tokens"].tolist()) for e in a["prefix"]] == [
@@ -488,7 +506,7 @@ def test_journal_bytes_equal_jax_under_one_clock(models, jax_dirs,
 def _gaps(models, prompt, stream, rid, temperature, seed=0):
     """Top-2 gaps of logits / T + g along ``stream``, the port alone,
     teacher-forced from a whole-prompt prefill."""
-    _, tcfg, _, tp, _ = models
+    _, tcfg, _, tp, _, _ = models
     gaps = []
     with torch.inference_mode():
         logits, cache = api.prefill(tp, tcfg, torch.from_numpy(prompt[None]))
@@ -518,11 +536,11 @@ def test_port_restores_a_jax_written_directory(models, jax_dirs):
 
 def test_jax_engine_restores_a_port_written_directory(models, jax_dirs,
                                                       tmp_path):
-    jcfg, _, jp, _, mesh = models
+    jcfg, _, jp, _, mesh, paging = models
     d = str(tmp_path)
     _crash_run(models, d, _sv())
     eng = jengine.ContinuousServingEngine.restore(
-        d, jcfg, jp, mesh, serving=JServingConfig(**_kw()))
+        d, jcfg, jp, mesh, serving=JServingConfig(**_kw(**paging)))
     rec = eng.recovery
     assert rec["checkpoint_used"] and rec["resident_resumed"] >= 1
     assert len(eng.prefix_cache) > 0
@@ -533,23 +551,25 @@ def test_jax_engine_restores_a_port_written_directory(models, jax_dirs,
 
 @pytest.fixture(scope="module")
 def models_bf16(models):
-    jcfg = jax_smoke_config(NAME)
-    tcfg = get_smoke_config(NAME)
+    kind = models[0].attn_kind
+    jcfg = jax_smoke_config(NAME, attn_kind=kind)
+    tcfg = get_smoke_config(NAME, attn_kind=kind)
     assert jcfg.dtype == tcfg.dtype == "bfloat16"
     tree = jax.device_get(jtr.init_params(jcfg, jax.random.PRNGKey(0)))
     jp = jax.tree.map(jnp.asarray, tree)
     tp = convert.params_from_numpy(tree, device="cpu")
-    return jcfg, tcfg, jp, tp, models[4]
+    return jcfg, tcfg, jp, tp, models[4], models[5]
 
 
 def test_jax_engine_restores_port_bf16_prefix_cache_as_its_own(models_bf16,
                                                                 tmp_path):
-    # A bf16 model's prefix entries carry bf16 last-token logits. Both
-    # engines crash on one trace at the same tick with the same checkpoint;
-    # the JAX engine restores either directory to the same prefix cache:
-    # leaf dtypes, logits in bfloat16, and the LRU's byte count.
-    jcfg, _, jp, _, mesh = models_bf16
-    kw = _kw(temperature=0.0)
+    # A bf16 model's prefix entries carry bf16 last-token logits (and an
+    # exact kind's bf16 rings). Both engines crash on one trace at the same
+    # tick with the same checkpoint; the JAX engine restores either
+    # directory to the same prefix cache: leaf dtypes, logits in bfloat16,
+    # and the LRU's byte count.
+    jcfg, _, jp, _, mesh, paging = models_bf16
+    kw = _kw(temperature=0.0, **paging)
     port_dir, jax_dir = str(tmp_path / "port"), str(tmp_path / "jax")
     _crash_run(models_bf16, port_dir, ServingConfig(**kw))
     jr = jjournal.Journal(os.path.join(jax_dir, jjournal.JOURNAL_NAME))
