@@ -147,8 +147,21 @@ Phases, each of which raises (nonzero exit) on failure:
     and restored to the uncrashed streams; MB and ms per checkpoint;
 17. train, exact kind (``phase_train_exact``): 4 AdamW steps of softmax
     slayformer-124m (8 x 1024, plain autograd), a finite, falling loss,
-    ms per step beside the fused SLAY step's.
-Phases 14-17 check that no SLAY kernel launched.
+    ms per step beside the fused SLAY step's;
+18. serve, speculative (``phase_serve_spec``): the first 8 requests of
+    phase 12's trace on its pool with ``speculative=True,
+    spec_gamma=2``, the yat_spherical verifier at 12 layers and its SLAY
+    twin as the draft (B4b on every draft and resync step): greedy
+    streams equal to plain exact decoding's up to near ties of the
+    verifier (printed as ties), graphed equal to eager over the first
+    dispatches, paged (64-row pages) equal with no page left, the
+    acceptance accounting against the rounds in the dispatch buffers,
+    B4b 12 x 8 x 5 launches a dispatch, K = 8 and K = 1 equal at T = 0.8
+    (4 requests, embedding / 8); ms and tokens per dispatch and pool
+    tokens/s beside the plain run's, the acceptance rate, capture ms,
+    the pools' MB, a full-pool dispatch's device time and idle share.
+Phases 14-17 check that no SLAY kernel launched; the kernel line's B4b
+launches are phase 12's and phase 18's.
 
 The last two lines are a JSON object with every kernel's numbers and
 ``{"ok": true, "device": {...}}``. Every ``ms`` is CUDA events around the
@@ -1661,9 +1674,10 @@ def _cont_run(cfg, params, reqs, timed=None, graphs=True, **serving):
     return _timed_run(eng, reqs, timed)
 
 
-def _timed_run(eng, reqs, timed=None):
-    """``eng.run`` over copies of ``reqs`` on the card, timed as
-    :func:`_cont_run` says; (outputs, summary, engine, wall seconds)."""
+def _timed_run(eng, reqs, timed=None, max_ticks=None):
+    """``eng.run`` over copies of ``reqs`` on the card (up to
+    ``max_ticks``), timed as :func:`_cont_run` says; (outputs, summary,
+    engine, wall seconds)."""
     events: list = []
     if timed is not None:
         marks = timed.setdefault("ticks", [(0, time.perf_counter())])
@@ -1675,7 +1689,7 @@ def _timed_run(eng, reqs, timed=None):
             return out
 
         eng.step = stepped
-        for name in ("_decode_macro", "_prefill_tick"):
+        for name in ("_decode_macro", "_decode_spec", "_prefill_tick"):
             inner = getattr(eng, name)
 
             def run(inner=inner, name=name):
@@ -1691,7 +1705,8 @@ def _timed_run(eng, reqs, timed=None):
     t0 = time.perf_counter()
     if timed is not None:
         timed["ticks"][0] = (0, t0)
-    outs, s = eng.run([dataclasses.replace(r) for r in reqs])
+    outs, s = eng.run([dataclasses.replace(r) for r in reqs],
+                      max_ticks=max_ticks)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     for name, a, b in events:
@@ -1849,7 +1864,8 @@ def _b4b_pool_row(occupancy: float) -> dict:
 
 
 def _cont_profile(cfg, params, card: str, extra=None,
-                  pieces: bool = True, sampled: bool = True) -> dict:
+                  pieces: bool = True, sampled: bool = True,
+                  eager: bool = True) -> dict:
     """One macro dispatch of a full pool (8 slots live), replayed as the
     engine's CUDA graph and run eagerly (``_graphs=False``), in turns, and
     graphed at T = 0.8 (the sampler's device time): the wall time of each
@@ -1857,14 +1873,15 @@ def _cont_profile(cfg, params, card: str, extra=None,
     it (``pieces``) the pieces of one tick timed alone (CUDA events):
     the model's masked decode step, sampling at T = 0.8 and greedy, the
     fault lane. ``extra`` adds ServingConfig fields (paging);
-    ``sampled=False`` leaves out the T = 0.8 engine. Returns the median
-    wall ms by name."""
+    ``sampled=False`` leaves out the T = 0.8 engine, ``eager=False`` the
+    eager one. Returns the median wall ms by name."""
     S, K = CONT_SERVING["num_slots"], CONT_SERVING["macro_ticks"]
     engs = {}
     for name, graphed, temp in (("graphed", True, 0.0),
                                 ("eager", False, 0.0),
-                                ("graphed, T = 0.8", True, 0.8))[
-                                    :3 if sampled else 2]:
+                                ("graphed, T = 0.8", True, 0.8)):
+        if (temp and not sampled) or not (graphed or eager):
+            continue
         eng = engine.ContinuousServingEngine(
             cfg, params, serving=ServingConfig(**CONT_SERVING, **(extra or {}),
                                                temperature=temp),
@@ -1879,12 +1896,15 @@ def _cont_profile(cfg, params, card: str, extra=None,
             raise AssertionError(f"pool not full: {sorted(eng.sched.active)}")
         eng.step()                   # a full-pool dispatch (captured first)
         engs[name] = eng
-    if engs["graphed"].graph_cache_entries()["macro_decode"] != 1:
-        raise AssertionError("the full-pool engine captured no graph")
+    graphs = engs["graphed"].graph_cache_entries()
+    if graphs.get("spec_macro", graphs["macro_decode"]) != 1:
+        raise AssertionError(f"the full-pool engine captured no dispatch "
+                             f"graph: {graphs}")
     walls: dict = {name: [] for name in engs}
     for name in ("graphed", "eager", "eager", "graphed", "graphed", "eager",
-                 "graphed, T = 0.8", "graphed, T = 0.8", "graphed, T = 0.8")[
-                     :9 if sampled else 6]:
+                 "graphed, T = 0.8", "graphed, T = 0.8", "graphed, T = 0.8"):
+        if name not in engs:
+            continue
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         engs[name].step()
@@ -2770,6 +2790,199 @@ def phase_train_exact(card: str, fused_step_s: float) -> None:
     torch.cuda.empty_cache()
 
 
+SPEC_KW = dict(speculative=True, spec_gamma=2)
+SPEC_REQUESTS = 8              # the first 8 requests of phase 12's trace
+SPEC_HOT = 4                   # the sampled K-invariance runs take 4
+SPEC_EAGER_TICKS = 28          # the eager run: its first dispatches
+# A near-tie of the bf16 verifier: a top-2 gap under this share of the
+# largest logit. Decode steps and verify chunks are different programs,
+# each rounding to bf16 (2**-8 relative) through 12 layers, so their
+# argmax may differ only where the top two logits are that close; a
+# divergence above it is a fault.
+SPEC_TIE_FRAC = 2e-2
+
+
+def _spec_ties(cfg, params, reqs, want, got, what: str) -> int:
+    """Every stream of ``got`` equals ``want``'s, or first diverges where
+    the verifier's top-2 gap (fp32 of the bf16 logits, teacher-forced
+    along ``want`` by decode steps) is under SPEC_TIE_FRAC of its largest
+    logit: a near tie (ROADMAP C-2), printed as such. The number of
+    ties."""
+    ties = 0
+    for rid, w in want.items():
+        g = got[rid]
+        if np.array_equal(w, g):
+            continue
+        n = min(len(w), len(g))
+        diff = np.flatnonzero(w[:n] != g[:n])
+        if len(w) != len(g) or not len(diff):
+            raise AssertionError(f"{what}: rid {rid} streams of lengths "
+                                 f"{len(w)} and {len(g)}")
+        i = int(diff[0])
+        gap, scale = _greedy_gaps(params, cfg, reqs[rid].prompt,
+                                  w[:i + 1])[i]
+        if gap >= SPEC_TIE_FRAC * scale:
+            raise AssertionError(
+                f"{what}: rid {rid} diverges at token {i} ({w[i:i + 4]} vs "
+                f"{g[i:i + 4]}) where the verifier's top-2 gap is {gap:.4g} "
+                f"of a largest logit {scale:.4g}: not a near tie")
+        log(f"  {what}: rid {rid} diverges at token {i}, a near tie of the "
+            f"verifier (top-2 gap {gap:.3e} of a largest logit {scale:.2f},"
+            f" under {SPEC_TIE_FRAC}); printed as a tie")
+        ties += 1
+    return ties
+
+
+def _spec_launches(what: str, s: dict, nl: int, K: int, G: int) -> int:
+    """B4b's launches since the last reset: nl x K x (2 gamma + 1) per
+    speculative dispatch (gamma draft steps and gamma + 1 resync steps a
+    round), and no fused-forward or unmasked decode launch."""
+    got = _build.LAUNCHES["slay_decode_step_masked"]
+    want = nl * K * (2 * G + 1) * s["decode_dispatches"]
+    if got != want or not want:
+        raise AssertionError(f"{what}: B4b launched {got} times, want {nl} x "
+                             f"{K} x {2 * G + 1} x {s['decode_dispatches']} "
+                             f"dispatches = {want}")
+    if _build.LAUNCHES["slay_fused_fwd"] or _build.LAUNCHES[
+            "slay_decode_step"]:
+        raise AssertionError(f"{what}: K1 or the unmasked K2 ran: "
+                             f"{_build.LAUNCHES}")
+    return got
+
+
+def phase_serve_spec(card: str) -> int:
+    """Draft-verify speculative decoding at full width: the yat_spherical
+    verifier (12 layers, KV rings of 2048 rows) and its SLAY twin as the
+    draft on phase 12's pool, gamma = 2, the first 8 requests of its
+    trace, greedy. Checks the streams against plain exact decoding (up to
+    near ties of the verifier), graphed against eager over the first
+    dispatches, paged (64-row pages) against unpaged with no page left,
+    the acceptance accounting against the rounds counted in the dispatch
+    buffers, B4b's launches (nl x K x (2 gamma + 1) a dispatch), and K
+    invariance at T = 0.8 (4 requests, embedding / 8); prints ms and
+    tokens per dispatch, the acceptance rate, tokens/s beside the plain
+    run's, capture ms, the pools' MB and a full-pool dispatch's device
+    time and idle share. Returns B4b's launches in the greedy run."""
+    t_phase = time.perf_counter()
+    cfg = configs.get_config("slayformer-124m", attn_kind="yat_spherical")
+    nl, K, G = cfg.num_layers, CONT_SERVING["macro_ticks"], SPEC_KW[
+        "spec_gamma"]
+    log(f"serve (speculative) {cfg.name}: verifier attn_kind=yat_spherical "
+        f"({nl}L x {cfg.d_model}d, {cfg.dtype}, KV rings of "
+        f"{CONT_SERVING['max_len']} rows), draft its SLAY twin (m = "
+        f"{cfg.slay_config().feature_dim}), gamma {G}; phase 12's "
+        f"ServingConfig, its first {SPEC_REQUESTS} requests, greedy")
+    params = api.init_params(cfg, SEED, device="cuda")
+    reqs = _cont_requests(cfg)[:SPEC_REQUESTS]
+    timed_p: dict = {}
+    plain, sp, _, wall_p = _cont_run(cfg, params, reqs, timed=timed_p)
+    eng = engine.ContinuousServingEngine(
+        cfg, params, serving=ServingConfig(**CONT_SERVING, **SPEC_KW),
+        device="cuda")
+    prog, first_rows = eng._spec_decode, []
+
+    def recorded():
+        buf = prog()
+        first_rows.append(buf[:, G + 1].clone())   # emitted j = 0: a round
+        return buf
+
+    eng._spec_decode = recorded
+    timed: dict = {}
+    _build.reset_launches()
+    outs, s, _, wall = _timed_run(eng, reqs, timed)
+    launches = _spec_launches("speculative, greedy", s, nl, K, G)
+    eng._spec_decode = prog
+    rounds = sum(int(r.sum()) for r in first_rows)
+    if not (s["draft_tokens_proposed"] == G * rounds > 0
+            and 0 <= s["draft_tokens_accepted"] <= s["draft_tokens_proposed"]
+            and s["requests_completed"] == len(reqs)
+            and s["final_occupancy"] == 0
+            and s["host_syncs"] == s["decode_dispatches"]):
+        raise AssertionError(f"speculative accounting: {rounds} rounds "
+                             f"counted in the buffers, summary {s}")
+    graphs = eng.graph_cache_entries()
+    if graphs != {"macro_decode": 0, "chunk": 1, "spec_macro": 1}:
+        raise AssertionError(f"graphs after the speculative run: {graphs}")
+    ties = _spec_ties(cfg, params, reqs, plain, outs,
+                      "greedy speculative vs plain exact")
+    disp, pdisp = timed["_decode_spec"], timed_p["_decode_macro"]
+    dec, pdec = (x["tokens_generated"] - len(reqs) for x in (s, sp))
+    log(f"  speculative run: {wall:.3f} s, {s['ticks']} ticks "
+        f"({s['prefill_ticks']} prefill, {s['decode_dispatches']} "
+        f"dispatches of {K} rounds); tokens per dispatch "
+        f"{s['tokens_per_dispatch']:.3f} (plain "
+        f"{sp['tokens_per_dispatch']:.3f}); draft acceptance "
+        f"{s['draft_acceptance_rate']:.4f} ({s['draft_tokens_accepted']} of "
+        f"{s['draft_tokens_proposed']} proposed in {rounds} rounds); B4b "
+        f"{launches} launches  [{card}]")
+    log(f"  ms per dispatch (CUDA events), median: speculative "
+        f"{statistics.median(disp) * 1e3:.2f} (min {min(disp) * 1e3:.2f}), "
+        f"plain exact {statistics.median(pdisp) * 1e3:.2f}; pool decode "
+        f"{dec / sum(disp):.1f} tokens/s speculative, "
+        f"{pdec / sum(pdisp):.1f} plain; run {wall:.3f} s against "
+        f"{wall_p:.3f} s ({sp['ticks']} ticks, {sp['decode_dispatches']} "
+        f"dispatches); streams equal but for {ties} near ties  [{card}]")
+    log(f"  capture: spec dispatch {prog.capture_s * 1e3:.1f} ms ("
+        f"{prog.launches} per replay), chunk (verifier and draft) "
+        f"{eng._chunk.capture_s * 1e3:.1f} ms; pools: verifier "
+        f"{_tree_mb(eng.pool):.1f} MB, draft {_tree_mb(eng.draft_pool):.1f} "
+        f"MB and its scratch twin {_tree_mb(eng._draft_scratch):.1f} MB  "
+        f"[{card}]")
+    del eng
+
+    timed_e: dict = {}
+    eager = engine.ContinuousServingEngine(
+        cfg, params, serving=ServingConfig(**CONT_SERVING, **SPEC_KW),
+        device="cuda", _graphs=False)
+    e_outs, se, _, _ = _timed_run(eager, reqs, timed_e,
+                                  max_ticks=SPEC_EAGER_TICKS)
+    edisp = timed_e["_decode_spec"]
+    bad = [r for r, o in e_outs.items() if len(o) and not np.array_equal(
+        o, outs[r][:len(o)])]
+    if bad or se["decode_dispatches"] < 2:
+        raise AssertionError(f"eager speculative run: rids {bad} differ "
+                             f"from the graphed run; {se}")
+    log(f"  eager, its first {se['ticks']} ticks ({se['decode_dispatches']} "
+        f"dispatches, {sum(len(o) for o in e_outs.values())} tokens): "
+        f"every stream a prefix of the graphed run's; ms per dispatch eager "
+        f"median {statistics.median(edisp) * 1e3:.2f} against graphed "
+        f"{statistics.median(disp) * 1e3:.2f}  [{card}]")
+    del eager
+
+    _build.reset_launches()
+    paged, spg, peng, wall_pg = _cont_run(
+        cfg, params, reqs, debug_audit=True, page_size=EXACT_PAGE, **SPEC_KW)
+    _spec_launches("speculative, paged", spg, nl, K, G)
+    _same_streams(outs, paged, "speculative, paged vs unpaged")
+    if spg["final_pages_in_use"] or not spg["pages_peak"]:
+        raise AssertionError(f"speculative, paged: {spg}")
+    log(f"  paged ({EXACT_PAGE}-row pages, {spg['num_pages']}): streams "
+        f"equal, pages peak {spg['pages_peak']}, left "
+        f"{spg['final_pages_in_use']}, {wall_pg:.3f} s  [{card}]")
+    del peng
+
+    soft = dict(params, embed=params["embed"] / 8)
+    hot = reqs[:SPEC_HOT]
+    hot8, sh8, _, w8 = _cont_run(cfg, soft, hot, temperature=0.8, **SPEC_KW)
+    hot1, _, _, w1 = _cont_run(cfg, soft, hot, temperature=0.8,
+                               macro_ticks=1, **SPEC_KW)
+    _same_streams(hot8, hot1, "speculative T = 0.8, macro_ticks 8 vs 1")
+    log(f"  T = 0.8 (embedding / 8), rids 0-{len(hot) - 1}: streams equal "
+        f"for K = 8 and K = 1 (runs {w8:.3f} and {w1:.3f} s); acceptance "
+        f"{sh8['draft_acceptance_rate']:.4f}, tokens per dispatch "
+        f"{sh8['tokens_per_dispatch']:.3f}")
+    del soft
+    log(f"  a full-pool speculative dispatch, graphed (the eager one's ms "
+        f"above), at {time.perf_counter() - t_phase:.1f} s into the phase:")
+    _cont_profile(cfg, params, card, extra=SPEC_KW, pieces=False,
+                  sampled=False, eager=False)
+    del params
+    torch.cuda.empty_cache()
+    log(f"serve (speculative): the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s  [{card}]")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; it needs an "
@@ -2799,6 +3012,7 @@ def main() -> int:
     phase_serve_exact_continuous(card_line, slay_pool)
     phase_serve_exact_durable(card_line)
     phase_train_exact(card_line, fused_step_s)
+    spec_b4b = phase_serve_spec(card_line)
     kernels = [
         dict(name="slay_fused_fwd", route="cuda",
              source="src/repro_torch/csrc/slay_fused.cu",
@@ -2811,7 +3025,7 @@ def main() -> int:
         dict(name="slay_decode_step_masked", route="cuda",
              source="src/repro_torch/csrc/decode_step.cu",
              replaces="src/repro/kernels/decode_step.py:57",
-             launches=cont["slay_decode_step_masked"], **b4b,
+             launches=cont["slay_decode_step_masked"] + spec_b4b, **b4b,
              library_ms=None),
         dict(name="slay_fused_bwd_q", route="cuda",
              source="src/repro_torch/csrc/slay_fused_bwd.cu",

@@ -114,7 +114,9 @@ class ServingConfig:
     every ``run()``. ``prefix_cache_bytes`` > 0 is the budget of the
     prefix cache of slot-state snapshots; ``checkpoint_every_ticks`` > 0
     writes an engine checkpoint beside the engine's journal every that
-    many ticks.
+    many ticks. ``speculative`` decodes draft-verify rounds of
+    ``spec_gamma`` draft tokens (an exact kind's verifier and its SLAY
+    twin as the draft; not with the prefix cache).
 
     :meth:`check_supported` rejects the knobs of features the port does
     not have yet; the engine calls it when it is built.
@@ -195,8 +197,6 @@ class ServingConfig:
         """Raise ``NotImplementedError`` for a knob whose feature the port
         has not yet, so none is ignored."""
         later = [
-            (self.speculative, "speculative=True (speculative.py, ROADMAP "
-             "Queue A item 11)"),
             (self.slot_shards > 1, f"slot_shards={self.slot_shards} (a "
              f"sharded slot pool, ROADMAP Queue A item 13)"),
             (self.prefill_chunk == 0, "prefill_chunk=0 (the bucketed "

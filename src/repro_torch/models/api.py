@@ -8,11 +8,17 @@ exact kinds softmax, yat, yat_spherical).
     logits, c = api.decode_step(params, cfg, c, tokens)
 
 and the slot surface of a pooled cache for continuous batching
-(``reset_slot``, ``write_slot``, ``prefill_chunk``, ...).
+(``reset_slot``, ``write_slot``, ``prefill_chunk``, ...) with its
+speculative-decoding part (``verify_chunk``, ``rollback_slots``, ...).
 """
 from __future__ import annotations
 
+import dataclasses
+
+import torch
+
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.features import init_feature_params
 from repro_torch.models import transformer
 
 
@@ -114,3 +120,59 @@ def prefill_chunk(cfg: ArchConfig, params, cache, tokens):
     Exact continuation for any chunk schedule: SLAY's (S, z) carry is
     fp32; the exact kinds attend to their ring prefix."""
     return _mod(cfg).prefill_chunk(params, cfg, cache, tokens)
+
+
+# -- Speculative decoding surface ------------------------------------------
+
+
+def supports_speculative(cfg: ArchConfig) -> bool:
+    """Whether ``cfg`` can verify draft-verify speculative decoding: an
+    exact kind's ring (rollback is a ``pos`` rewind) whose parameters are
+    the SLAY draft's but for the draft's ``slay`` entry."""
+    return _mod(cfg).supports_speculative(cfg)
+
+
+def draft_config(cfg: ArchConfig) -> ArchConfig:
+    """The linear SLAY draft twin of a verifier config: the same
+    architecture with ``attn_kind="slay"``, the paper's linearization of
+    the verifier's own kernel."""
+    return dataclasses.replace(cfg, attn_kind="slay")
+
+
+def ensure_draft_params(draft_cfg: ArchConfig, params: dict) -> dict:
+    """The verifier's parameters with the draft's ``slay`` projections
+    (anchors, omegas; fp32, on the parameters' device) added.
+
+    The draft shares every other weight with the verifier. A tree that
+    has a ``slay`` entry keeps it: one converted from the JAX package
+    after its ``ensure_draft_params`` carries the JAX draft's projections.
+    Otherwise they are drawn by :func:`init_feature_params` from a
+    ``torch.Generator`` seeded 0, so the draft is fixed per checkpoint;
+    those bits differ from ``jax.random.PRNGKey(0)``'s, so only a
+    converted tree gives the JAX engine's draft. (The draft decides the
+    acceptance rate, never the emitted distribution.)"""
+    if "slay" in params:
+        return params
+    return {**params, "slay": init_feature_params(
+        draft_cfg.slay_config(), torch.Generator().manual_seed(0),
+        device=params["embed"].device)}
+
+
+def verify_chunk(cfg: ArchConfig, params, cache, tokens, active=None):
+    """Score ``Lc`` candidate tokens per slot in one exact chunk: tokens
+    (B, Lc) -> (logits (B, Lc, V), the cache advanced in place). Row j is
+    the verifier's distribution after absorbing tokens[:, :j + 1];
+    ``active`` masks drained slots as ``decode_step`` does."""
+    return _mod(cfg).verify_chunk(params, cfg, cache, tokens, active)
+
+
+def slot_positions(cfg: ArchConfig, cache) -> torch.Tensor:
+    """(B,) int32 per-slot absorbed-context horizons (the cache's own
+    tensor)."""
+    return cache.pos
+
+
+def rollback_slots(cfg: ArchConfig, cache, new_pos):
+    """Rewind per-slot horizons to ``new_pos`` (B,) in place: a ``pos``
+    rewind, no ring bytes moved, a paged pool's tables untouched."""
+    return _mod(cfg).rollback_slots(cfg, cache, new_pos)

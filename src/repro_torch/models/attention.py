@@ -164,7 +164,8 @@ def _ring_attend(spec: AttentionSpec, qg, kb, vb, mask):
 
 
 def prefill_chunk(spec: AttentionSpec, params: dict | None, q, k, v,
-                  cache: AttnCache) -> tuple[torch.Tensor, AttnCache]:
+                  cache: AttnCache, *,
+                  active=None) -> tuple[torch.Tensor, AttnCache]:
     """Absorb one prompt chunk into an existing decode cache.
 
     q (B, Lc, H, Dh), k/v (B, Lc, Hkv, *); ``cache.pos`` (B,) counts the
@@ -177,17 +178,28 @@ def prefill_chunk(spec: AttentionSpec, params: dict | None, q, k, v,
     rings in place, only the trailing ``size`` of a chunk longer than the
     ring. Either way a prompt fed chunk by chunk ends in the state of a
     whole-prompt prefill (up to the order of fp32 sums for SLAY).
+
+    ``active`` (B,) masks slots as :func:`decode_step` does (the
+    speculative verifier's chunk): a drained slot's state keeps its bytes
+    (its ring rows are rewritten with their own) and its ``pos`` does not
+    advance; its output rows are meaningless.
     """
     _check_kind(spec)
     B, Lc = q.shape[0], q.shape[1]
     start = cache.pos
+    act = None if active is None else active.bool()
+    step = Lc if act is None else Lc * act.to(torch.int32)
     if spec.is_linear:
         qf = slay_features(q, params, spec.slay)
         kf = slay_features(k, params, spec.slay)
         y, st = la.causal_chunked(
             qf, kf, v, chunk_size=max(min(spec.chunk_size, Lc), 1),
             init_state=la.LinearState(cache.s, cache.z), return_state=True)
-        return y, AttnCache(None, None, start + Lc, st.s, st.z)
+        s, z = st.s, st.z
+        if act is not None:
+            s = torch.where(act[:, None, None, None], s, cache.s)
+            z = torch.where(act[:, None, None], z, cache.z)
+        return y, AttnCache(None, None, start + step, s, z)
     dev = q.device
     size = cache.k.shape[-3]
     dh, hkv = q.shape[-1], k.shape[-2]
@@ -212,9 +224,15 @@ def prefill_chunk(spec: AttentionSpec, params: dict | None, q, k, v,
     b = torch.arange(B, device=dev)[:, None]
     idx = (st[:, None] + (Lc - take)
            + torch.arange(take, device=dev)[None, :]) % size
-    cache.k[b, idx] = k[:, Lc - take:].to(cache.k.dtype)
-    cache.v[b, idx] = v[:, Lc - take:].to(cache.v.dtype)
-    return y, AttnCache(cache.k, cache.v, start + Lc, None, None)
+    kw = k[:, Lc - take:].to(cache.k.dtype)
+    vw = v[:, Lc - take:].to(cache.v.dtype)
+    if act is not None:
+        a = act[:, None, None, None]
+        kw = torch.where(a, kw, cache.k[b, idx])
+        vw = torch.where(a, vw, cache.v[b, idx])
+    cache.k[b, idx] = kw
+    cache.v[b, idx] = vw
+    return y, AttnCache(cache.k, cache.v, start + step, None, None)
 
 
 def decode_step(spec: AttentionSpec, params: dict | None, q, k, v,

@@ -17,7 +17,8 @@ backward, the exact kinds (``softmax``, ``yat``, ``yat_spherical``)
 through plain autograd of PyTorch ops. Serving is ``prefill`` (prompt ->
 last-token logits + decode cache: (S, z) for SLAY, KV rings for the
 exact kinds, optionally paged) then ``decode_step`` (one token, the
-cache updated in place).
+cache updated in place); an exact kind also verifies speculative drafts
+(``verify_chunk``, ``rollback_slots``).
 """
 from __future__ import annotations
 
@@ -353,19 +354,13 @@ def decode_step(params: dict, cfg: ArchConfig, cache: DecodeCache,
 # copy it into the pool's page tables.
 
 
-def prefill_chunk(params: dict, cfg: ArchConfig, cache: DecodeCache,
-                  tokens: torch.Tensor) -> tuple[torch.Tensor, DecodeCache]:
-    """Absorb one prompt chunk into an existing (unpaged) decode cache.
-
-    tokens (B, Lc); ``cache`` holds the state of the prefix absorbed so
-    far (per-slot ``pos``). Returns last-token logits (B, 1, V) and the
-    advanced cache, so a prompt fed chunk by chunk ends in the state of a
-    whole-prompt :func:`prefill` (SLAY: the fp32 recurrence in another
-    order of sums) and the engine can interleave prefill chunks with
-    decode ticks. SLAY returns new tensors; the rings of an exact kind
-    are written in place (the positions are new tensors).
-    """
-    cfg.check_supported()
+def _chunk_layers(params: dict, cfg: ArchConfig, cache: DecodeCache,
+                  tokens: torch.Tensor, active=None):
+    """The layers over a chunk of tokens (B, Lc) that continues ``cache``:
+    the final hidden rows (B, Lc, d) and each layer's new AttnCache. A
+    ring is written in place (a paged pool's through its gathered dense
+    view, scattered back); SLAY's (S, z) come back as new tensors.
+    ``active`` masks slots as in :func:`decode_step`."""
     dev = params["embed"].device
     tokens = tokens.to(dev)
     Lc = tokens.shape[1]
@@ -379,11 +374,86 @@ def prefill_chunk(params: dict, cfg: ArchConfig, cache: DecodeCache,
     for i in range(cfg.num_layers):
         lp = _layer(params, i)
         q, k, v = _qkv(cfg, lp, x, positions)
-        y, nc = attn.prefill_chunk(spec, slay, q, k, v, _layer_cache(ac, i))
+        lc = _layer_cache(ac, i)
+        if cache.pages is not None:
+            lc = lc._replace(k=pg.gather_ring(lc.k, cache.pages),
+                             v=pg.gather_ring(lc.v, cache.pages))
+        y, nc = attn.prefill_chunk(spec, slay, q, k, v, lc, active=active)
+        if cache.pages is not None:
+            pg.scatter_ring_(ac.k[i], nc.k, cache.pages)
+            pg.scatter_ring_(ac.v[i], nc.v, cache.pages)
         caches.append(nc)
         x = _finish_layer(cfg, lp, x, y)
+    return x, caches
+
+
+def prefill_chunk(params: dict, cfg: ArchConfig, cache: DecodeCache,
+                  tokens: torch.Tensor) -> tuple[torch.Tensor, DecodeCache]:
+    """Absorb one prompt chunk into an existing decode cache.
+
+    tokens (B, Lc); ``cache`` holds the state of the prefix absorbed so
+    far (per-slot ``pos``). Returns last-token logits (B, 1, V) and the
+    advanced cache, so a prompt fed chunk by chunk ends in the state of a
+    whole-prompt :func:`prefill` (SLAY: the fp32 recurrence in another
+    order of sums) and the engine can interleave prefill chunks with
+    decode ticks. SLAY returns new tensors; the rings of an exact kind
+    are written in place (the positions are new tensors).
+    """
+    cfg.check_supported()
+    x, caches = _chunk_layers(params, cfg, cache, tokens)
     return (_logits(params, cfg, x[:, -1])[:, None, :],
-            DecodeCache(_stack_caches(spec, ac, caches), cache.pos + Lc))
+            DecodeCache(_stack_caches(cfg.attention_spec(), cache.attn,
+                                      caches),
+                        cache.pos + tokens.shape[1], cache.pages))
+
+
+# -- the speculative verifier (draft-verify decoding) ----------------------
+
+
+def supports_speculative(cfg: ArchConfig) -> bool:
+    """Whether ``cfg`` can verify draft-verify speculative decoding: an
+    exact kind's ring, where rejecting a suffix is a per-slot ``pos``
+    rewind. SLAY folds a token into (S, z) for good, so it cannot. (The
+    reference also excludes windowed rings, SSM carries and frontends,
+    none of which the port has.)"""
+    cfg.check_supported()
+    return not cfg.attention_spec().is_linear
+
+
+def verify_chunk(params: dict, cfg: ArchConfig, cache: DecodeCache,
+                 tokens: torch.Tensor, active: torch.Tensor | None = None
+                 ) -> tuple[torch.Tensor, DecodeCache]:
+    """Score a block of candidate tokens: tokens (B, Lc) -> logits
+    (B, Lc, V), row j the verifier's next-token logits after absorbing
+    tokens[:, :j + 1] on top of the cached prefix.
+
+    :func:`prefill_chunk`'s continuation, with every row's logits, masked
+    per slot as :func:`decode_step` is (a drained slot's ring rows keep
+    their bytes and its ``pos`` stays), and the cache updated in place
+    (rings, a paged pool's pages, both positions) and returned. The
+    caller rewinds to the accept horizon with :func:`rollback_slots`.
+    """
+    if not supports_speculative(cfg):
+        raise ValueError(f"verify_chunk needs an exact kind's ring, not "
+                         f"attn_kind={cfg.attn_kind!r}")
+    x, _ = _chunk_layers(params, cfg, cache, tokens, active)
+    Lc = tokens.shape[1]
+    step = Lc if active is None else Lc * active.to(torch.int32)
+    cache.attn.pos.add_(step)
+    cache.pos.add_(step)
+    return _logits(params, cfg, x), cache
+
+
+def rollback_slots(cfg: ArchConfig, cache: DecodeCache,
+                   new_pos: torch.Tensor) -> DecodeCache:
+    """Rewind each slot's horizon to ``new_pos`` (B,), in place. A ring's
+    validity follows ``pos`` alone, so rejecting a speculative suffix
+    moves no ring bytes (rows past the horizon are invisible and are
+    overwritten by the next absorb), and a paged pool's tables stay (the
+    slot's pages cover its context plus the verify overshoot)."""
+    cache.pos.copy_(new_pos)
+    cache.attn.pos.copy_(new_pos[None].expand_as(cache.attn.pos))
+    return cache
 
 
 def _float_leaves(a: attn.AttnCache) -> list:

@@ -16,9 +16,10 @@ torch tensor, with the JAX package's keys: the pool as a list of leaves
 in ``jax.tree.leaves`` order (SLAY ``attn.pos, attn.s, attn.z, pos``;
 an exact kind ``attn.k, attn.v, attn.pos, pos``, and paged the page
 tables ``table, owner_slot, owner_lp`` after them), ``page_size`` and
-the ``page_pool`` allocator snapshot (None unpaged), and ``draft_pool``,
-``speculative`` at their "off" values (the port has no speculative
-decoding). So a directory written by either package is one format.
+the ``page_pool`` allocator snapshot (None unpaged), and in speculative
+mode the draft pool's leaves (``draft_pool``, the SLAY order; None
+otherwise) with ``speculative`` and ``spec_gamma``. So a directory
+written by either package is one format.
 numpy has no bfloat16 without ``ml_dtypes``, which the port does not
 import: a bfloat16 tensor (a ring leaf, the last-token logits of a
 prefix entry) is written as the JAX writer writes it, a numpy array
@@ -278,10 +279,14 @@ def snapshot_engine(eng) -> dict:
         "max_len": int(eng.serving.max_len),
         "page_size": int(eng.serving.page_size) if pp is not None else 0,
         "seed": int(eng.serving.seed),
-        "speculative": False,
-        "spec_gamma": 0,
+        "speculative": bool(eng._spec),
+        "spec_gamma": int(eng.serving.spec_gamma) if eng._spec else 0,
         "pool": [to_numpy(x) for x in tree_leaves(eng.pool)],
-        "draft_pool": None,
+        # The draft pool is live decode state too: a resident slot resumed
+        # without it would draft from zeros (other proposals, so other
+        # sampled streams and a lower acceptance rate).
+        "draft_pool": ([to_numpy(x) for x in tree_leaves(eng.draft_pool)]
+                       if eng._spec else None),
         "mirrors": {
             "last_tok": eng._last_tok.copy(),
             "active": eng._active.copy(),

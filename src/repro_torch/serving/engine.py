@@ -55,10 +55,16 @@ one read-back; on the CPU the same programs run eagerly.
 :meth:`graph_cache_entries` counts the captured graphs, the analogue of
 the JAX engine's ``jit_cache_entries``.
 
+With ``ServingConfig.speculative`` the continuous engine decodes by
+draft-verify rounds (``serving.speculative``): an exact kind's pool is
+the verifier and a second, never-paged pool of its SLAY twin the draft,
+the two admitted, evicted and checkpointed in lockstep; a dispatch runs
+K rounds of ``spec_gamma`` draft tokens each, every draft step and
+resync step the masked decode kernel once per layer.
+
 Not in the port yet, each refused by ``ServingConfig.check_supported``
-when the engine is built: speculative decoding (ROADMAP Queue A item 11),
-a sharded slot pool (item 13) and the bucketed whole-prompt prefill
-fallback (item 12).
+when the engine is built: a sharded slot pool (ROADMAP Queue A item 13)
+and the bucketed whole-prompt prefill fallback (item 12).
 """
 from __future__ import annotations
 
@@ -82,6 +88,7 @@ from repro_torch.serving import journal as journal_lib
 from repro_torch.serving import pages as pages_lib
 from repro_torch.serving import prefix_cache as prefix_lib
 from repro_torch.serving import sampling
+from repro_torch.serving import speculative
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -391,9 +398,12 @@ class ServingMetrics:
     checked against the journal instead of delivered again,
     ``checkpoints_written`` the atomic checkpoints. ``num_pages``,
     ``pages_in_use`` and ``pages_peak`` mirror the page allocator of a
-    paged pool (0 unpaged). ``summary()`` has the reference's keys; those
-    of features the port does not have yet (speculative decoding,
-    bucketed prefill) read 0 or False.
+    paged pool (0 unpaged). In speculative mode ``draft_tokens_proposed``
+    counts the draft tokens offered to the verifier in counted rounds
+    (slot live, not faulted; ``spec_gamma`` each) and
+    ``draft_tokens_accepted`` those it accepted. ``summary()`` has the
+    reference's keys; those of a feature the port does not have yet
+    (bucketed prefill) read 0.
     """
 
     num_slots: int = 0
@@ -423,6 +433,10 @@ class ServingMetrics:
     pages_peak: int = 0
     tokens_replayed: int = 0
     checkpoints_written: int = 0
+    speculative: bool = False
+    spec_gamma: int = 0
+    draft_tokens_proposed: int = 0
+    draft_tokens_accepted: int = 0
     clock: Callable[[], float] = time.perf_counter
     wall_start: float | None = None
     per_request: dict = dataclasses.field(default_factory=dict)
@@ -506,11 +520,12 @@ class ServingMetrics:
             "num_pages": self.num_pages,
             "pages_in_use": self.pages_in_use,
             "pages_peak": self.pages_peak,
-            "speculative": False,
-            "spec_gamma": 0,
-            "draft_tokens_proposed": 0,
-            "draft_tokens_accepted": 0,
-            "draft_acceptance_rate": 0.0,
+            "speculative": self.speculative,
+            "spec_gamma": self.spec_gamma,
+            "draft_tokens_proposed": self.draft_tokens_proposed,
+            "draft_tokens_accepted": self.draft_tokens_accepted,
+            "draft_acceptance_rate": self.draft_tokens_accepted
+            / max(self.draft_tokens_proposed, 1),
         }
 
 
@@ -727,6 +742,28 @@ class ContinuousServingEngine:
         self.metrics = ServingMetrics(
             num_slots=S, macro_ticks=serving.macro_ticks,
             num_pages=pp.num_pages if pp else 0, clock=clock)
+        # Speculative decoding: two pools over one parameter dict, the
+        # verifier's (self.pool, paged or not) and the SLAY draft's
+        # (constant-state, never paged), admitted, evicted and
+        # checkpointed in lockstep.
+        self._spec = serving.speculative
+        self.draft_cfg: ArchConfig | None = None
+        if self._spec:
+            if not api.supports_speculative(cfg):
+                raise ValueError(
+                    f"speculative decoding needs a verifier config with "
+                    f"api.supports_speculative (a non-windowed exact "
+                    f"quadratic attention kind); got attn_kind="
+                    f"{cfg.attn_kind!r}, family={cfg.family!r}")
+            self.draft_cfg = api.draft_config(cfg)
+            self.params = api.ensure_draft_params(self.draft_cfg,
+                                                  self.params)
+            self.metrics.speculative = True
+            self.metrics.spec_gamma = serving.spec_gamma
+            # The config refuses a byte budget with speculative decoding;
+            # a shared cache is dropped too: a prefix snapshot seeds only
+            # the verifier's ring, the draft would have nothing to seed.
+            self.prefix_cache = None
         self.tick = 0
         self._next_rid = 0
         self._outputs: dict[int, list] = {}
@@ -763,8 +800,20 @@ class ContinuousServingEngine:
             self._pf_tokens = torch.zeros(1, serving.prefill_chunk,
                                           dtype=torch.int32,
                                           device=self.device)
+            # Speculative: the draft pool, its round-start scratch twin
+            # and its batch-1 prefill cache.
+            self.draft_pool = self._draft_scratch = self._pf_draft = None
+            if self._spec:
+                self.draft_pool, self._draft_scratch = (
+                    api.init_cache(self.draft_cfg, S, L, device=self.device)
+                    for _ in range(2))
+                self._pf_draft = api.init_cache(self.draft_cfg, 1, L,
+                                                device=self.device)
         self._decode = graphs.Program(self._decode_program, self.device,
                                       graphed=_graphs)
+        self._spec_decode = (graphs.Program(self._spec_program, self.device,
+                                            graphed=_graphs)
+                             if self._spec else None)
         self._chunk = graphs.Program(
             lambda: self._absorb(self._pf_tokens), self.device,
             graphed=_graphs)
@@ -787,7 +836,10 @@ class ContinuousServingEngine:
                 "stream_key_v": sampling.STREAM_KEY_VERSION,
                 "seed": serving.seed, "temperature": serving.temperature,
                 "num_slots": S, "max_len": serving.max_len,
-                "speculative": False, "spec_gamma": 0})
+                # Sampled speculative streams draw on other substreams,
+                # and gamma decides which indices take the bonus draw.
+                "speculative": self._spec,
+                "spec_gamma": serving.spec_gamma if self._spec else 0})
             journal.flush()
 
     # -- submission ---------------------------------------------------------
@@ -813,7 +865,10 @@ class ContinuousServingEngine:
         if cap is not None and need > cap:
             raise RequestTooLargeError(
                 f"request does not fit its decode slot: {len(req.prompt)} "
-                f"prompt + {req.max_new_tokens} max_new = {need} > context "
+                f"prompt + {req.max_new_tokens} max_new "
+                + (f"+ {self.serving.spec_gamma} spec verify headroom "
+                   if self._spec else "")
+                + f"= {need} > context "
                 f"capacity {cap} (the cache ring would overwrite live "
                 f"context; shorten the prompt/max_new_tokens or raise "
                 f"ServingConfig.max_len)",
@@ -875,7 +930,10 @@ class ContinuousServingEngine:
             self.tick += 1
             did = True
         elif sched.active:
-            self._decode_macro()
+            if self._spec:
+                self._decode_spec()
+            else:
+                self._decode_macro()
             did = True
         else:
             self.metrics.sample(sched.queue_depth, sched.occupancy)
@@ -924,10 +982,15 @@ class ContinuousServingEngine:
     def graph_cache_entries(self) -> dict:
         """Captured CUDA graphs by program, as the JAX engine's
         ``jit_cache_entries``: ``macro_decode`` (the K-tick decode
-        dispatch) and ``chunk`` (a full prefill chunk; a shorter tail runs
-        eagerly), each 0 or 1; all 0 on the CPU or with graphing off."""
-        return {"macro_decode": int(self._decode.captured),
-                "chunk": int(self._chunk.captured)}
+        dispatch), ``chunk`` (a full prefill chunk, the draft's with the
+        verifier's in speculative mode; a shorter tail runs eagerly) and,
+        in speculative mode, ``spec_macro`` (the K-round dispatch), each
+        0 or 1; all 0 on the CPU or with graphing off."""
+        out = {"macro_decode": int(self._decode.captured),
+               "chunk": int(self._chunk.captured)}
+        if self._spec:
+            out["spec_macro"] = int(self._spec_decode.captured)
+        return out
 
     # -- durability: checkpoint / restore ------------------------------------
 
@@ -1000,11 +1063,18 @@ class ContinuousServingEngine:
                     f"(seed={meta.get('seed')}, temperature="
                     f"{meta.get('temperature')}); restore with the same "
                     "seed/temperature or streams diverge")
-            if meta.get("speculative"):
+            if "speculative" in meta and (
+                    bool(meta["speculative"]) != bool(serving.speculative)
+                    or int(meta.get("spec_gamma", 0))
+                    != (serving.spec_gamma if serving.speculative else 0)):
+                # Sampled speculative streams draw on tagged substreams and
+                # gamma decides the bonus indices: crossing modes (or
+                # gammas) would regenerate other tokens.
                 raise ValueError(
-                    "journal was written by a speculative engine, whose "
-                    "sampled streams differ; the port has no speculative "
-                    "decoding (ROADMAP Queue A item 11)")
+                    "journal was written under a different speculative "
+                    f"config (speculative={meta['speculative']}, "
+                    f"spec_gamma={meta.get('spec_gamma')}); restore with "
+                    "the same speculative/spec_gamma or streams diverge")
         ck = checkpoint_lib.latest_valid(path)
         jr = journal_lib.Journal(jpath, truncate_to=jst.valid_bytes)
         eng = cls(cfg, params, serving=serving, device=device, clock=clock,
@@ -1041,14 +1111,21 @@ class ContinuousServingEngine:
             and int(ck.get("max_len", -1)) == self.serving.max_len
             and int(ck.get("page_size", -1))
             == (self.page_pool.page_size if self.page_pool else 0)
-            and not ck.get("speculative", False)
-            and int(ck.get("spec_gamma", 0)) == 0
-            and self._fits(self.pool, ck.get("pool")))
+            and bool(ck.get("speculative", False)) == self._spec
+            and int(ck.get("spec_gamma", 0))
+            == (self.serving.spec_gamma if self._spec else 0)
+            and self._fits(self.pool, ck.get("pool"))
+            and (not self._spec
+                 or self._fits(self.draft_pool, ck.get("draft_pool"))))
         resident: dict[int, int] = {}       # rid -> slot
         if usable:
             # Into the pool's own tensors, which the decode programs bind.
             for dst, src in zip(tree_leaves(self.pool), ck["pool"]):
                 dst.copy_(torch.from_numpy(np.array(src)))
+            if self._spec:
+                for dst, src in zip(tree_leaves(self.draft_pool),
+                                    ck["draft_pool"]):
+                    dst.copy_(torch.from_numpy(np.array(src)))
             mir = ck["mirrors"]
             self._last_tok = np.asarray(mir["last_tok"], np.int32).copy()
             self._active = np.asarray(mir["active"], bool).copy()
@@ -1179,9 +1256,12 @@ class ContinuousServingEngine:
         ``REPRO_DEBUG_AUDIT`` environment variable), run at the end of
         every :meth:`run`: free and resident slots partition the pool, the
         host mirrors mark exactly the resident slots live, the page
-        allocator's free and owned pages partition the page pool, and
-        every prefix-cache refcount is a live request's pin (a leaked pin
-        would block eviction for good)."""
+        allocator's free and owned pages partition the page pool, every
+        prefix-cache refcount is a live request's pin (a leaked pin would
+        block eviction for good), and in speculative mode the draft pool
+        and the verifier's have absorbed the same context in every live
+        slot and no plain decode dispatch was captured (``spec_macro`` is
+        the engine's one)."""
         S = self.serving.num_slots
         free, live = set(self.sched.free), set(self.sched.active)
         assert not free & live and free | live | (
@@ -1197,13 +1277,28 @@ class ContinuousServingEngine:
             assert refs == pins, (
                 f"prefix-cache refcount leak: {refs} live refs vs {pins} "
                 f"engine pins")
+        if self._spec:
+            graphs_now = self.graph_cache_entries()
+            assert graphs_now["macro_decode"] == 0, (
+                f"a speculative engine dispatched the plain macro step: "
+                f"{graphs_now}")
+            slots = sorted(live)
+            vpos = self.pool.pos.cpu().numpy()[slots]
+            dpos = self.draft_pool.pos.cpu().numpy()[slots]
+            assert (vpos == dpos).all(), (
+                f"draft and verifier pools out of step in slots {slots}: "
+                f"positions {dpos} against {vpos}")
 
     # -- internals ----------------------------------------------------------
 
     def _need_rows(self, req: Request) -> int:
         """Context rows a request occupies, prompt + decode budget: what
-        the page allocator sizes a slot's pages by."""
-        return len(req.prompt) + req.max_new_tokens
+        the page allocator sizes a slot's pages by. Speculative decoding
+        adds ``spec_gamma`` rows: a round writes that far past the accept
+        horizon before it rolls back, so the slot's pages cover them and
+        rollback never touches the page tables."""
+        need = len(req.prompt) + req.max_new_tokens
+        return need + self.serving.spec_gamma if self._spec else need
 
     def _note_pages(self):
         self.metrics.pages_in_use = self.page_pool.pages_in_use()
@@ -1246,12 +1341,31 @@ class ContinuousServingEngine:
             temperature=sv.temperature, seed=sv.seed,
             fault_guard=sv.fault_guard)
 
+    def _spec_program(self) -> torch.Tensor:
+        """One speculative dispatch over the static buffers: both pools,
+        the draft's scratch twin and the control vectors in ``_ctl``; the
+        (K, 3 (gamma + 1) + 1, S) token buffer."""
+        c, sv = self._ctl, self.serving
+        return speculative.spec_macro(
+            self.params, self.draft_pool, self._draft_scratch, self.pool,
+            c[0], c[1].bool(), c[2], c[3], c[4], c[5],
+            draft_cfg=self.draft_cfg, cfg=self.cfg,
+            num_rounds=sv.macro_ticks, gamma=sv.spec_gamma,
+            temperature=sv.temperature, seed=sv.seed,
+            fault_guard=sv.fault_guard)
+
     def _absorb(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Absorb one prompt chunk into the static prefill cache, in place;
-        its last-token logits (1, 1, V)."""
+        """Absorb one prompt chunk into the static prefill cache, in place
+        (and into the draft's, in speculative mode, so both regimes enter
+        decoding in agreement); the verifier's last-token logits
+        (1, 1, V)."""
         logits, new = api.prefill_chunk(self.cfg, self.params,
                                         self._pf_cache, tokens)
         _copy_into(self._pf_cache, new)
+        if self._spec:
+            _, new = api.prefill_chunk(self.draft_cfg, self.params,
+                                       self._pf_draft, tokens)
+            _copy_into(self._pf_draft, new)
         return logits
 
     def _prefill_tick(self):
@@ -1266,7 +1380,8 @@ class ContinuousServingEngine:
             if admission is None:
                 return
             rid, req, slot = admission
-            for t in tree_leaves(self._pf_cache):
+            for t in tree_leaves({"v": self._pf_cache,
+                                  "d": self._pf_draft}):
                 t.zero_()
             pf = _Prefill(rid, req, slot, self._pf_cache)
             if self.page_pool is not None:
@@ -1317,6 +1432,9 @@ class ContinuousServingEngine:
         api.write_slot(self.cfg, self.pool, pf.cache, pf.slot,
                        self.page_pool.device_vectors()
                        if self.page_pool is not None else None)
+        if self._spec:
+            api.write_slot(self.draft_cfg, self.draft_pool, self._pf_draft,
+                           pf.slot)
         self._prefill = None
         self.metrics.prompt_tokens += (
             len(prompt) - self.metrics.per_request[pf.rid].prefix_tokens)
@@ -1333,44 +1451,81 @@ class ContinuousServingEngine:
             self._finish(pf.slot,
                          sampling.finish_reason_of(tok0, req.eos_id))
 
-    def _decode_macro(self):
-        """One decode dispatch = K device ticks for the whole pool; replay
-        the token buffer on the host tick by tick so streaming callbacks,
-        TTFT and queue-depth samples and eviction stay exact."""
+    def _load_ctl(self):
+        """Copy the host mirrors into the static control buffer."""
         self._ctl.copy_(torch.from_numpy(np.stack([
             self._last_tok, self._active.astype(np.int32), self._rids,
             self._gen, self._eos, self._maxn])))
+
+    def _decode_macro(self):
+        """One decode dispatch = K device ticks for the whole pool, then
+        its replay on the host (:meth:`_replay`)."""
+        self._load_ctl()
         buf = self._decode()
         self.metrics.decode_dispatches += 1
-        buf = buf.cpu().numpy()          # ONE host sync per K ticks
+        buf = buf.cpu().numpy()[:, :, None]   # ONE host sync per K ticks
         self.metrics.host_syncs += 1
-        toks, em, flt = buf[0], buf[1].astype(bool), buf[2].astype(bool)
+        self._replay(buf[0], buf[1].astype(bool), buf[2].astype(bool))
+
+    def _decode_spec(self):
+        """One speculative dispatch = K draft-verify rounds, then its
+        replay on the host one round per tick (:meth:`_replay`): a round is
+        one engine tick (one scheduling quantum) that emits up to
+        gamma + 1 tokens per slot."""
+        G = self.serving.spec_gamma
+        self._load_ctl()
+        buf = self._spec_decode()
+        self.metrics.decode_dispatches += 1
+        buf = buf.cpu().numpy()          # ONE host sync per K rounds
+        self.metrics.host_syncs += 1
+        self._replay(buf[:, :G + 1], buf[:, G + 1:2 * G + 2].astype(bool),
+                     buf[:, 2 * G + 2:3 * G + 3].astype(bool),
+                     buf[:, 3 * G + 3])
+
+    def _replay(self, toks, em, flt, acc=None):
+        """Replay a dispatch's (K, J, S) token and emitted buffers on the
+        host tick by tick, so streaming callbacks, TTFT and queue-depth
+        samples and eviction stay exact: per tick up to J tokens a slot (1
+        for a decode tick, gamma + 1 for a speculative round), in emission
+        order. ``flt[t, 0]`` flags the slots that faulted at tick t; ``acc``
+        (K, S), speculative only, is each round's accepted drafts, -1
+        where the slot ran no counted round."""
+        G = self.serving.spec_gamma
         for t in range(toks.shape[0]):
             if not (em[t].any() or flt[t].any()):
-                break   # every slot drained mid-macro-step; suffix unused
+                break   # every slot drained mid-dispatch; suffix unused
             self.sched.poll_arrivals(self.tick)
             self.metrics.sample(self.sched.queue_depth,
                                 self.sched.occupancy)
-            # Quarantine before emission: a faulted slot did not emit at
-            # this tick (its sampled token is garbage).
-            for slot in np.nonzero(flt[t])[0]:
+            # Quarantine before emission: a faulted slot emitted nothing
+            # at this tick (its token is garbage; a faulted round's
+            # verifier rewound and its draft absorbed nothing).
+            for slot in np.nonzero(flt[t, 0])[0]:
                 if int(slot) in self.sched.active:
                     self._quarantine(int(slot))
-            for slot in list(self.sched.active):
-                if not em[t, slot]:
-                    continue
-                rec = self.sched.active.get(slot)
-                if rec is None:          # cancelled by an earlier callback
-                    continue
-                tk = int(toks[t, slot])
-                rec.last_tok = tk
-                self._last_tok[slot] = tk
-                self._gen[slot] += 1
-                self._emit(rec, tk, int(self._gen[slot]) - 1)
-                if (tk == rec.req.eos_id
-                        or len(rec.tokens) >= rec.req.max_new_tokens):
-                    self._finish(slot, sampling.finish_reason_of(
-                        tk, rec.req.eos_id))
+            if acc is not None:
+                for v in acc[t]:
+                    if v >= 0:       # a counted round offered G drafts
+                        self.metrics.draft_tokens_proposed += G
+                        self.metrics.draft_tokens_accepted += int(v)
+            for j in range(toks.shape[1]):
+                if not em[t, j].any():
+                    break   # per-slot emissions are a j-prefix: done
+                for slot in list(self.sched.active):
+                    if not em[t, j, slot]:
+                        continue
+                    rec = self.sched.active.get(slot)
+                    if rec is None:      # cancelled by an earlier callback
+                        continue
+                    tk = int(toks[t, j, slot])
+                    rec.last_tok = tk
+                    self._last_tok[slot] = tk
+                    self._gen[slot] += 1
+                    self._emit(rec, tk, int(self._gen[slot]) - 1)
+                    if (tk == rec.req.eos_id
+                            or len(rec.tokens) >= rec.req.max_new_tokens):
+                        self._finish(slot, sampling.finish_reason_of(
+                            tk, rec.req.eos_id))
             self.sched.note_decode()
             self.metrics.decode_ticks += 1
             self.tick += 1
@@ -1419,7 +1574,10 @@ class ContinuousServingEngine:
         """Zero a slot's device state, so its next owner starts from zeros
         (never from a previous owner's bytes, nor an injected NaN). A paged
         pool returns the slot's pages to the free list; the reset zeroes
-        them under the old tables, then installs the new ones."""
+        them under the old tables, then installs the new ones. A
+        speculative engine resets the slot's draft state too."""
+        if self._spec:
+            api.reset_slot(self.draft_cfg, self.draft_pool, slot)
         if self.page_pool is None:
             api.reset_slot(self.cfg, self.pool, slot)
             return

@@ -73,6 +73,41 @@ def _gumbel_row(seed: int, rid, idx, vocab: int, *, device=None):
     return prng.gumbel(key, (vocab,), device=device)
 
 
+# Speculative-decoding substreams, as in the JAX package. Each token index
+# needs up to three independent draws (the draft proposal, the accept
+# coin and the rejection resample), each on its own stream: one more
+# ``fold_in`` of a tag into the (seed, rid, idx) base key. The bonus token
+# (every draft of a round accepted) takes the untagged base stream, the
+# draw plain decoding makes there. Covered by STREAM_KEY_VERSION.
+SPEC_TAG_DRAFT = 1
+SPEC_TAG_ACCEPT = 2
+SPEC_TAG_RESAMPLE = 3
+
+
+def spec_key(seed: int, rid, idx, tag: int):
+    """Threefry key of a speculative substream of (seed, rid, idx): the
+    tag folded into the base key. Derived from the request id and token
+    index only, never from slot or round, so it is placement-invariant.
+    ``rid`` and ``idx`` are ints or (S,) tensors, as for
+    :func:`_gumbel_row`."""
+    return prng.fold_in(
+        prng.fold_in(prng.fold_in(prng.PRNGKey(seed), rid), idx), tag)
+
+
+def spec_gumbel_row(seed: int, rid, idx, tag: int, vocab: int, *,
+                    device=None):
+    """Gumbel(0, 1) noise on a speculative substream, fp32, (..., vocab)."""
+    return prng.gumbel(spec_key(seed, rid, idx, tag), (vocab,),
+                       device=device)
+
+
+def spec_uniform(seed: int, rid, idx, *, device=None):
+    """The accept coin u ~ U[0, 1) of token index ``idx``, fp32: a scalar
+    for ints, (S,) for tensors."""
+    return prng.uniform(spec_key(seed, rid, idx, SPEC_TAG_ACCEPT), (),
+                        device=device)
+
+
 def scale_logits(logits: torch.Tensor, temperature: float) -> torch.Tensor:
     """``logits / temperature`` with the temperature rounded to the
     logits' dtype first and a true division, as ``jnp`` divides by a

@@ -482,8 +482,9 @@ def test_prefix_cache_and_restore_on_card_match_cpu(tmp_path):
 def _side_by_side(engines, reqs):
     """Step ``engines`` (the same config, one graphed, one not) in turn on
     copies of ``reqs`` until all are idle; after every round their pools
-    must be byte-identical and the first engine's pool must keep its
-    tensors. Each engine's outputs, summary and launch counts."""
+    (a speculative engine's draft pool too) must be byte-identical and
+    the first engine's pool must keep its tensors. Each engine's outputs,
+    summary and launch counts."""
     launches = [collections.Counter() for _ in engines]
     for eng in engines:
         for r in reqs:
@@ -499,8 +500,8 @@ def _side_by_side(engines, reqs):
             before = dict(_build.LAUNCHES)
             eng.step()
             n.update({k: v - before[k] for k, v in _build.LAUNCHES.items()})
-        for a, b in zip(tree_leaves(engines[0].pool),
-                        tree_leaves(engines[1].pool)):
+        for a, b in zip(*(tree_leaves({"p": e.pool, "d": e.draft_pool})
+                          for e in engines[:2])):
             assert torch.equal(a, b)
         assert ptrs == [t.data_ptr() for t in tree_leaves(engines[0].pool)]
     return [(eng.run(), dict(n)) for eng, n in zip(engines, launches)]
@@ -623,6 +624,61 @@ def test_exact_kind_engines_graphed_match_eager_on_card(kind, page_size):
         for g in (True, False)]
     for a, b in zip(*lock):
         np.testing.assert_array_equal(a, b)
+
+
+@needs_card
+@pytest.mark.parametrize("temperature,page_size", [(0.0, 0), (0.8, 8)],
+                         ids=["greedy", "sampled-paged"])
+def test_speculative_engine_graphed_matches_eager_on_card(temperature,
+                                                         page_size):
+    # Draft-verify decoding of the yat_spherical smoke model in fp32 (its
+    # SLAY twin the draft, gamma = 2): the engine that replays one CUDA
+    # graph per K-round dispatch against the same engine run eagerly,
+    # stepped side by side (both pools byte-identical after every step);
+    # equal streams, and greedy the CPU engine's streams (every token the
+    # verifier's argmax); the masked decode kernel K x (2 gamma + 1) x
+    # layers times a dispatch (gamma draft steps, gamma + 1 resync steps),
+    # per replay of the graph too; no page left allocated.
+    cfg = get_smoke_config("slayformer-124m", dtype="float32",
+                           attn_kind="yat_spherical")
+    params = tapi.init_params(cfg, 0, device="cpu")
+    params["embed"] = params["embed"] / 8.0
+    rng = np.random.default_rng(0)
+    reqs = [tengine.Request(rng.integers(3, 256, n).astype(np.int32),
+                            max_new_tokens=12, arrival_time=2.0 * i)
+            for i, n in enumerate((20, 7, 33, 12, 26))]
+    G, K = 2, 4
+    serving = ServingConfig(num_slots=2, max_len=64, prefill_chunk=8,
+                            macro_ticks=K, temperature=temperature,
+                            speculative=True, spec_gamma=G,
+                            page_size=page_size, debug_audit=True)
+    engines = [tengine.ContinuousServingEngine(cfg, params, serving=serving,
+                                               device="cuda", _graphs=g)
+               for g in (True, False)]
+    ((graphed, sg), ng), ((eager, se), ne) = _side_by_side(engines, reqs)
+    assert set(graphed) == set(eager) == set(range(len(reqs)))
+    for rid in eager:
+        np.testing.assert_array_equal(graphed[rid], eager[rid], f"rid {rid}")
+    for k in ("ticks", "decode_dispatches", "draft_tokens_proposed",
+              "draft_tokens_accepted", "tokens_generated"):
+        assert sg[k] == se[k], k
+    per = cfg.num_layers * K * (2 * G + 1)
+    assert sg["decode_dispatches"] > 2 and sg["draft_tokens_proposed"] > 0
+    assert ng == ne and ng["slay_decode_step_masked"] == (
+        per * sg["decode_dispatches"])
+    assert not ng.get("slay_decode_step") and not ng.get("slay_fused_fwd")
+    assert engines[0].graph_cache_entries() == {
+        "macro_decode": 0, "chunk": 1, "spec_macro": 1}
+    assert engines[0]._spec_decode.launches == {
+        "slay_decode_step_masked": per}
+    assert sg["final_pages_in_use"] == 0
+    if temperature == 0.0:
+        want, _ = tengine.ContinuousServingEngine(
+            cfg, params, serving=serving, device="cpu").run(
+                [dataclasses.replace(r) for r in reqs])
+        for rid in want:
+            np.testing.assert_array_equal(graphed[rid], want[rid],
+                                          f"rid {rid}")
 
 
 @needs_card

@@ -288,16 +288,21 @@ def test_injected_fault_is_quarantined_and_retried_like_jax(models):
 
 def test_unported_knobs_raise_when_the_engine_is_built(models):
     _, tcfg, _, tp, _ = models
-    # The prefix cache, checkpoints and paging are ported
-    # (tests/test_torch_prefix_cache.py, tests/test_torch_restore.py,
-    # tests/test_torch_pages.py); each refusal cites its open item.
-    for kw, item in ((dict(speculative=True), 11), (dict(slot_shards=2), 13),
-                     (dict(prefill_chunk=0), 12)):
+    # The prefix cache, checkpoints, paging and speculative decoding are
+    # ported (tests/test_torch_prefix_cache.py, tests/test_torch_restore.py,
+    # tests/test_torch_pages.py, tests/test_torch_spec_engine.py); each
+    # refusal cites its open item.
+    for kw, item in ((dict(slot_shards=2), 13), (dict(prefill_chunk=0), 12)):
         with pytest.raises(NotImplementedError,
                            match=f"Queue A item {item}"):
             tengine.ContinuousServingEngine(
                 tcfg, tp, serving=ServingConfig(**{**BASE, **kw}),
                 device="cpu")
+    # SLAY cannot verify: it cannot roll a suffix back out of (S, z).
+    with pytest.raises(ValueError, match="speculative"):
+        tengine.ContinuousServingEngine(
+            tcfg, tp, serving=ServingConfig(**BASE, speculative=True),
+            device="cpu")
     for bad in (dict(num_slots=0), dict(temperature=-1.0),
                 dict(overload_policy="drop")):
         with pytest.raises(ValueError):
