@@ -25,7 +25,11 @@ Phases, each of which raises (nonzero exit) on failure:
    drained rows bit-identical, state updated in place, at the serving
    shape and at m = 390 with G = 8 (a ragged last feature slice; masked,
    whole clusters idle); times and bounds of the unmasked and the masked
-   step; grid, cluster size, residency, registers and spills;
+   step; grid, cluster size, residency, registers and spills; then at the
+   linear baselines' widths, dv = 64, v bf16: m = 64 (favor's fp32 and
+   elu1's bf16 features) and m = 128 (cosformer's bf16 features, their
+   second half zero), 48 kv rows (the lockstep shape) and 96 masked (the
+   pool's), drained rows bit-identical, each timed beside its bound;
 5. K3 and K4, the fused backward's two scans, against their plain
    versions on the card: slayformer's training shape (BH = 96, L = 1024)
    in fp32 and bf16, GQA (BH = 2·BK), R = 2 quadrature nodes, head dim
@@ -159,9 +163,23 @@ Phases, each of which raises (nonzero exit) on failure:
     B4b 12 x 8 x 5 launches a dispatch, K = 8 and K = 1 equal at T = 0.8
     (4 requests, embedding / 8); ms and tokens per dispatch and pool
     tokens/s beside the plain run's, the acceptance rate, capture ms,
-    the pools' MB, a full-pool dispatch's device time and idle share.
-Phases 14-17 check that no SLAY kernel launched; the kernel line's B4b
-launches are phase 12's and phase 18's.
+    the pools' MB, a full-pool dispatch's device time and idle share;
+19. serve and train, linear baselines (``phase_serve_baselines``):
+    favor, cosformer and elu1 slayformer-124m at 12 layers (their
+    (S, z) at m = 64, 128 and 64): phase 8's prompts through the lockstep
+    engine graphed and eager (equal streams, B4a 12 x 31 launches and no
+    other kernel, ms per step in turns); phase 12's trace on its pool,
+    graphed, with page_size 64 given and ignored (B4b 12 x 8 a dispatch
+    and no other kernel, ms per dispatch, pool tokens/s, pool and prefix
+    snapshot MB); a full-pool dispatch under the profiler; fp32 prefill
+    and decode logits on the card against the CPU plain path at 12
+    layers; 2 AdamW steps of 8 x 1024 tokens (plain autograd, no kernel);
+20. the command-line drivers in-process (``phase_drivers``):
+    ``train_slayformer --preset paper --attn-kind favor --steps 4`` and
+    ``serve --attn-kind cosformer --no-smoke`` (continuous, B4b only).
+Phases 14-17 check that no SLAY kernel launched, phases 19-20 that only
+K2 did; the kernel line's B4a launches are phase 8's and 19's, its B4b
+launches phase 12's, 18's, 19's and 20's.
 
 The last two lines are a JSON object with every kernel's numbers and
 ``{"ok": true, "device": {...}}``. Every ``ms`` is CUDA events around the
@@ -194,6 +212,8 @@ sys.path.insert(0, os.path.join(REPO, "src"))
 from repro_torch import configs, prng  # noqa: E402
 from repro_torch.configs.base import ServingConfig  # noqa: E402
 from repro_torch.core.features import init_feature_params  # noqa: E402
+from repro_torch.core.slay import feature_dim  # noqa: E402
+from repro_torch.examples import serve, train_slayformer  # noqa: E402
 from repro_torch.kernels import (_build, decode_step, feature_map, ops,  # noqa: E402
                                  slay_fused, slay_scan)
 from repro_torch.data import pipeline  # noqa: E402
@@ -708,6 +728,23 @@ def _k2_inputs(gen, bh, bk, m, dv, qdt, vdt):
     return qf, kf, v, s, z
 
 
+# K2 at the linear baselines' widths (favor and elu1 m = 64: 4 blocks of
+# 16 feature rows a kv row; cosformer m = 128: 8 of 16, its features'
+# second half zero, ROADMAP C-8): (name, BK, m, qf dtype, masked), dv =
+# 64, G = 1, v bf16 as the models' values. The lockstep engine's shape is
+# BK = 4 prompts x 12 heads = 48, the pool's 8 slots x 12 = 96.
+K2_BASELINE_CASES = (
+    ("favor lockstep BK=48 m=64 qf fp32", 48, 64, torch.float32, False),
+    ("favor pool BK=96 m=64 qf fp32 masked", 96, 64, torch.float32, True),
+    ("elu1 lockstep BK=48 m=64 qf bf16", 48, 64, torch.bfloat16, False),
+    ("elu1 pool BK=96 m=64 qf bf16 masked", 96, 64, torch.bfloat16, True),
+    ("cosformer lockstep BK=48 m=128 qf bf16", 48, 128, torch.bfloat16,
+     False),
+    ("cosformer pool BK=96 m=128 qf bf16 masked", 96, 128, torch.bfloat16,
+     True),
+)
+
+
 def phase_k2(m_main) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     dv, result = 64, {}
@@ -727,9 +764,15 @@ def phase_k2(m_main) -> dict:
               False),
              ("m=390 G=8 bf16 masked, whole clusters idle", 64, 8, 390,
               torch.bfloat16, torch.bfloat16, True)]
+    cases += [(name, bk, bk, m, qdt, torch.bfloat16, masked)
+              for name, bk, m, qdt, masked in K2_BASELINE_CASES]
+    baselines = {}
     for name, bh, bk, m, qdt, vdt, masked in cases:
         log(f"K2 {name}")
         qf, kf, v, s, z = _k2_inputs(gen, bh, bk, m, dv, qdt, vdt)
+        if name.startswith("cosformer"):
+            qf[:, m // 2:] = 0
+            kf[:, m // 2:] = 0
         active = None
         if masked:
             active = (torch.arange(bk, device="cuda") % 3 != 1).to(torch.int32)
@@ -793,7 +836,40 @@ def phase_k2(m_main) -> dict:
                 f"({dev_ms:.4f} ms on the card), plain "
                 f"{plain_ms:.4f} ms, bound {bound:.4f} ms by {by} "
                 f"({n_ops:.3e} FLOP, {nb:.3e} B)")
-    return result
+        if name.split()[0] in ("favor", "elu1", "cosformer"):
+            baselines[name] = _k2_timed(
+                name, qf, kf, v, s, z, active, err)
+            if name.endswith("masked") and name.startswith(("favor",
+                                                            "cosformer")):
+                log_residency("slay_decode_step", "decode_step",
+                              "decode_step_kernel",
+                              decode_step.residency(bk, 1, m, dv, qdt, vdt),
+                              dv, f"{name}, dv={dv}",
+                              inst=("If13__nv_bfloat16Li64E"
+                                    if qdt == torch.float32
+                                    else "I13__nv_bfloat16S1_Li64E"),
+                              unit="feature rows")
+    return dict(result, baselines=baselines)
+
+
+def _k2_timed(name, qf, kf, v, s, z, active, err) -> dict:
+    """K2's times at one of K2_BASELINE_CASES: CUDA events around the
+    wrapper, the profiler's device time, the plain version's, and the
+    bound over the active rows."""
+    step = functools.partial(decode_step.decode_linear_attention, qf, kf, v,
+                             s, z, active)
+    ms, dev_ms = time_ms(step, iters=50), device_ms(step)
+    plain_ms = time_ms(lambda: decode_step.decode_linear_attention_plain(
+        qf, kf, v, s, z, active), iters=20)
+    bk, m = kf.shape
+    n_act = bk if active is None else int(active.sum())
+    bound, by, n_ops, nb = k2_bound(qf.shape[0], bk, n_act, m, v.shape[1],
+                                    qf.element_size(), v.element_size())
+    log(f"  {name}: kernel {ms:.4f} ms ({dev_ms:.4f} ms on the card), plain "
+        f"{plain_ms:.4f} ms, bound {bound:.5f} ms by {by} ({n_ops:.3e} FLOP, "
+        f"{nb:.3e} B, {n_act} of {bk} rows active); library: none")
+    return dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by)
 
 
 def _kernel_row(name, ms, plain_ms, bound, err, what,
@@ -2528,10 +2604,12 @@ def _exact_fp32_at(cfg32, params, check: bool) -> None:
         f"{scale:.2f} ({err / scale:.2e})")
 
 
-def _exact_lockstep(cfg, params, reqs, card: str, slay: dict) -> dict:
+def _exact_lockstep(cfg, params, reqs, card: str, slay: dict,
+                    k2: int = 0) -> dict:
     """``ServingEngine.generate`` of the serve phase's prompts (32 greedy
-    tokens) graphed and eager: equal tokens and no SLAY kernel; ms per
-    decode step of each, in turns, beside SLAY's (``slay``)."""
+    tokens) graphed and eager: equal tokens, and no SLAY kernel but ``k2``
+    unmasked decode launches (a linear baseline's B4a) in the graphed
+    run; ms per decode step of each, in turns, beside SLAY's (``slay``)."""
     engs = {g: engine.ServingEngine(cfg, params, device="cuda", max_len=2048,
                                     _graphs=g) for g in (True, False)}
     engs[True].generate([engine.Request(reqs[0].prompt[:64],
@@ -2542,7 +2620,11 @@ def _exact_lockstep(cfg, params, reqs, card: str, slay: dict) -> dict:
     outs = engs[True].generate(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    _no_slay_kernels(f"{cfg.attn_kind} lockstep generate")
+    if k2:
+        _only_k2(f"{cfg.attn_kind} lockstep generate",
+                 {"slay_decode_step": k2})
+    else:
+        _no_slay_kernels(f"{cfg.attn_kind} lockstep generate")
     for o in outs:
         if len(o) != MAX_NEW or o.min() < 0 or o.max() >= cfg.vocab_size:
             raise AssertionError(f"bad output stream {o}")
@@ -2559,7 +2641,8 @@ def _exact_lockstep(cfg, params, reqs, card: str, slay: dict) -> dict:
     med = {k: statistics.median(v) for k, v in ms.items()}
     log(f"  {cfg.attn_kind} ({cfg.num_layers}L) lockstep: generate {B} x "
         f"{MAX_NEW} tokens in {wall:.3f} s, streams graphed equal to eager, "
-        f"no SLAY kernel; ms per decode step graphed {med['graphed']:.3f}, "
+        f"{f'B4a {k2} launches' if k2 else 'no SLAY kernel'}; ms per decode "
+        f"step graphed {med['graphed']:.3f}, "
         f"eager {med['eager']:.3f} (in turns); SLAY (12L) graphed "
         f"{slay['graphed']:.3f}, eager {slay['eager']:.3f}; graphs "
         f"{engs[True].graph_cache_entries()}  [{card}]")
@@ -2749,45 +2832,52 @@ def _no_slay_launches(what: str, dispatches: int, nl: int, K: int) -> int:
 
 
 def phase_train_exact(card: str, fused_step_s: float) -> None:
-    """Softmax slayformer-124m: EXACT_TRAIN_STEPS AdamW steps of the train
-    phase's batches through ``Trainer.run``, plain autograd with no
-    kernel; a finite, falling loss; ms per step beside the fused SLAY
-    step's (the quadratic against the linear kind at L = 1024)."""
+    """Softmax slayformer-124m: EXACT_TRAIN_STEPS AdamW steps (the
+    quadratic against the linear kind at L = 1024)."""
     cfg = configs.get_config("slayformer-124m", attn_kind="softmax")
     log(f"train (exact kind) {cfg.name} attn_kind=softmax: "
         f"{EXACT_TRAIN_STEPS} AdamW steps of {TRAIN_BATCH} x {TRAIN_LEN} "
         f"tokens, as the train phase (lr {TRAIN_LR}, no remat)")
+    _train_plain(cfg, EXACT_TRAIN_STEPS, card, fused_step_s)
+
+
+def _train_plain(cfg, n_steps: int, card: str, fused_step_s: float) -> float:
+    """``n_steps`` AdamW steps of the train phase's batches through
+    ``Trainer.run`` of a kind without a training kernel: plain autograd,
+    no kernel launch; a finite, falling loss; ms per step beside the
+    fused SLAY step's. Returns the median ms of steps 2 on."""
+    kind = cfg.attn_kind
     dcfg = pipeline.DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_LEN,
                                global_batch=TRAIN_BATCH, seed=SEED)
-    ocfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
-                       total_steps=EXACT_TRAIN_STEPS)
-    d = tempfile.mkdtemp(prefix="chip_smoke_exact_train_")
+    ocfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=n_steps)
+    d = tempfile.mkdtemp(prefix="chip_smoke_plain_train_")
     try:
         tr = loop.Trainer(cfg, ocfg, loop.TrainConfig(
             remat=False, ckpt_dir=d, ckpt_every=1000), seed=SEED,
             device="cuda")
         _build.reset_launches()
         torch.cuda.reset_peak_memory_stats()
-        hist = tr.run(pipeline.batch_iterator(dcfg), EXACT_TRAIN_STEPS,
+        hist = tr.run(pipeline.batch_iterator(dcfg), n_steps,
                       log_every=1000)
-        _no_slay_kernels("softmax training")
+        _no_slay_kernels(f"{kind} training")
         peak = torch.cuda.max_memory_allocated() / 1e9
         del tr
     finally:
         shutil.rmtree(d, ignore_errors=True)
     losses = [h["loss"] for h in hist]
-    if not (len(hist) == EXACT_TRAIN_STEPS and all(np.isfinite(losses))
+    if not (len(hist) == n_steps and all(np.isfinite(losses))
             and losses[-1] < losses[0]):
-        raise AssertionError(f"softmax training: loss {losses}")
+        raise AssertionError(f"{kind} training: loss {losses}")
     times = [h["step_time_s"] for h in hist]
     step_s = statistics.median(times[1:])
     log(f"  loss per step: {', '.join(f'{x:.4f}' for x in losses)} (finite, "
         f"falling); step time first {times[0] * 1e3:.1f} ms, median of "
-        f"steps 2-{EXACT_TRAIN_STEPS} {step_s * 1e3:.2f} ms = "
+        f"steps 2-{n_steps} {step_s * 1e3:.2f} ms = "
         f"{TRAIN_BATCH * TRAIN_LEN / step_s:.1f} tokens/s; fused SLAY "
-        f"{fused_step_s * 1e3:.2f} ms (softmax / SLAY "
+        f"{fused_step_s * 1e3:.2f} ms ({kind} / SLAY "
         f"{step_s / fused_step_s:.3f}); peak memory {peak:.1f} GB  [{card}]")
     torch.cuda.empty_cache()
+    return step_s * 1e3
 
 
 SPEC_KW = dict(speculative=True, spec_gamma=2)
@@ -2983,6 +3073,159 @@ def phase_serve_spec(card: str) -> int:
     return launches
 
 
+BASELINE_KINDS = ("favor", "cosformer", "elu1")
+BASELINE_TRAIN_STEPS = 2
+
+
+def _only_k2(what: str, want: dict) -> None:
+    """The launches since the last reset are exactly ``want`` (K2's
+    unmasked and masked counts): a linear baseline runs no other kernel."""
+    got = {k: n for k, n in _build.LAUNCHES.items() if n}
+    need = {k: n for k, n in want.items() if n}
+    if got != need or not need:
+        raise AssertionError(f"{what}: launches {got}, want {need} and no "
+                             f"other kernel")
+
+
+def _baseline_continuous(cfg, params, card: str) -> tuple:
+    """Phase 12's 16-request trace on its pool, graphed and greedy: B4b nl
+    x K a dispatch and no other kernel, every request complete, one graph
+    of the dispatch and one of a chunk; ms per dispatch, pool tokens/s;
+    the pool's and a prefix snapshot's MB; a full-pool dispatch under the
+    profiler. Returns (readings, B4b launches)."""
+    nl, K = cfg.num_layers, CONT_SERVING["macro_ticks"]
+    reqs = _cont_requests(cfg)
+    _cont_run(cfg, params, reqs[:2])                         # warm-up
+    timed: dict = {}
+    _build.reset_launches()
+    outs, s, eng, wall = _cont_run(cfg, params, reqs, timed=timed,
+                                   page_size=64)
+    want = nl * K * s["decode_dispatches"]
+    _only_k2(f"{cfg.attn_kind} continuous", {"slay_decode_step_masked": want})
+    if not (s["requests_completed"] == CONT_REQUESTS
+            and s["final_occupancy"] == 0 and s["num_pages"] == 0
+            and eng.page_pool is None):
+        raise AssertionError(f"{cfg.attn_kind} continuous: {s}")
+    for rid, r in enumerate(reqs):
+        o = outs[rid]
+        if (len(o) != r.max_new_tokens or o.min() < 0
+                or o.max() >= cfg.vocab_size):
+            raise AssertionError(f"bad stream rid {rid}: {o}")
+    graphs = eng.graph_cache_entries()
+    if graphs != {"macro_decode": 1, "chunk": 1}:
+        raise AssertionError(f"graphs after the run: {graphs}")
+    disp, pre = timed["_decode_macro"], timed["_prefill_tick"]
+    dec_tokens = s["tokens_generated"] - CONT_REQUESTS
+    pool_mb = _tree_mb(eng.pool)
+    snap_mb = _tree_mb(api.init_cache(cfg, 1, device="cuda"))
+    out = dict(dispatch_ms=statistics.median(disp) * 1e3,
+               tokens_s=dec_tokens / sum(disp), pool_mb=pool_mb,
+               snapshot_mb=snap_mb)
+    log(f"  continuous (page_size 64 given, ignored): {wall:.3f} s, "
+        f"{s['ticks']} ticks ({s['prefill_ticks']} prefill, "
+        f"{s['decode_dispatches']} dispatches); B4b {want} launches ({nl} x "
+        f"{K} x {s['decode_dispatches']}) and no other kernel; ms per "
+        f"dispatch median {out['dispatch_ms']:.2f} (min "
+        f"{min(disp) * 1e3:.2f}, max {max(disp) * 1e3:.2f}), prefill tick "
+        f"{statistics.median(pre) * 1e3:.2f}; pool decode "
+        f"{out['tokens_s']:.1f} tokens/s; pool {pool_mb:.1f} MB, a prefix "
+        f"snapshot {snap_mb:.2f} MB; graphs {graphs}, captured in "
+        f"{(eng._decode.capture_s or 0) * 1e3:.1f} (dispatch) and "
+        f"{(eng._chunk.capture_s or 0) * 1e3:.1f} ms (chunk)  [{card}]")
+    del eng
+    full = _cont_profile(cfg, params, card, pieces=False, sampled=False,
+                         eager=False)
+    out["full_dispatch_ms"] = full["graphed"]
+    return out, want
+
+
+def phase_serve_baselines(card: str, slay: dict, fused_step_s: float) -> dict:
+    """The linear baselines favor, cosformer and elu1 at full width and
+    depth (12 x 768, bf16, random weights from seed 0): lockstep graphed
+    against eager, the continuous engine on phase 12's trace, a full-pool
+    dispatch under the profiler, fp32 logits on the card against the CPU
+    plain path, and BASELINE_TRAIN_STEPS train steps; every decode step
+    one K2 launch a layer and no other kernel. ``slay``: SLAY's readings
+    beside them. Returns the B4a and B4b launches of the lockstep and
+    continuous runs."""
+    t_phase = time.perf_counter()
+    launches = {"slay_decode_step": 0, "slay_decode_step_masked": 0}
+    rows = {}
+    for kind in BASELINE_KINDS:
+        cfg = configs.get_config("slayformer-124m", attn_kind=kind)
+        m = feature_dim(cfg.attention_spec(), cfg.resolved_head_dim)
+        log(f"serve and train (linear baseline) {cfg.name} attn_kind={kind}: "
+            f"{cfg.num_layers}L x {cfg.d_model}d, {cfg.dtype}, (S, z) at m = "
+            f"{m}, random weights from seed {SEED}")
+        params = api.init_params(cfg, SEED, device="cuda")
+        if ("slay" in params) != (kind == "favor"):
+            raise AssertionError(f"{kind}: projections {list(params)}")
+        rng = np.random.default_rng(SEED)
+        reqs = [engine.Request(rng.integers(0, cfg.vocab_size, n)
+                               .astype(np.int32), max_new_tokens=MAX_NEW)
+                for n in PROMPT_LENS]
+        n_a = cfg.num_layers * (MAX_NEW - 1)
+        med = _exact_lockstep(cfg, params, reqs, card, slay["step_ms"],
+                              k2=n_a)
+        cont, n_b = _baseline_continuous(cfg, params, card)
+        launches["slay_decode_step"] += n_a
+        launches["slay_decode_step_masked"] += n_b
+        del params
+        torch.cuda.empty_cache()
+        _exact_fp32(cfg, cfg.num_layers)
+        log(f"  train: {BASELINE_TRAIN_STEPS} AdamW steps of {TRAIN_BATCH} "
+            f"x {TRAIN_LEN} tokens, plain autograd")
+        train_ms = _train_plain(cfg, BASELINE_TRAIN_STEPS, card,
+                                fused_step_s)
+        rows[kind] = dict(step_ms=med["graphed"], train_ms=train_ms, **cont)
+    sd = slay["dispatch_ms"]
+    log("  beside SLAY (12L, m = 384): "
+        + "; ".join(f"{k} step {r['step_ms']:.3f} ms, dispatch "
+                    f"{r['dispatch_ms']:.2f} ms, full pool "
+                    f"{r['full_dispatch_ms']:.2f} ms, {r['tokens_s']:.1f} "
+                    f"tokens/s, pool {r['pool_mb']:.1f} MB, train "
+                    f"{r['train_ms']:.2f} ms" for k, r in rows.items())
+        + f"; SLAY step {slay['step_ms']['graphed']:.3f} ms, full pool "
+        f"{sd['graphed']:.2f} ms, pool {slay['pool_mb']:.1f} MB  [{card}]")
+    log(f"serve and train (linear baselines): the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s  [{card}]")
+    return launches
+
+
+def phase_drivers(card: str) -> dict:
+    """The port's command-line drivers in-process on the card: training
+    (``--preset paper --attn-kind favor --steps 4``, a fresh checkpoint
+    directory, removed after) and continuous serving of the full-width
+    cosformer model; every kernel launch a K2 one. Returns their K2
+    launches."""
+    t_phase = time.perf_counter()
+    d = tempfile.mkdtemp(prefix="chip_smoke_driver_ckpt_")
+    try:
+        _build.reset_launches()
+        hist = train_slayformer.main(["--preset", "paper", "--attn-kind",
+                                      "favor", "--steps", "4", "--ckpt-dir",
+                                      d])
+        ran = {k: n for k, n in _build.LAUNCHES.items() if n}
+        losses = [h["loss"] for h in hist]
+        if ran or len(losses) != 4 or not all(np.isfinite(losses)):
+            raise AssertionError(f"train driver: losses {losses}, launches "
+                                 f"{ran}")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    _build.reset_launches()
+    outs = serve.main(["--attn-kind", "cosformer", "--no-smoke"])
+    n_b = _build.LAUNCHES["slay_decode_step_masked"]
+    _only_k2("serve driver", {"slay_decode_step_masked": n_b})
+    if len(outs) != 4 or any(len(o) != 24 for o in outs):
+        raise AssertionError(f"serve driver: streams {outs}")
+    log(f"drivers: train_slayformer --preset paper --attn-kind favor --steps "
+        f"4 (losses {', '.join(f'{x:.4f}' for x in losses)}, no kernel); "
+        f"serve --attn-kind cosformer --no-smoke (4 streams of 24, B4b {n_b}"
+        f" launches); {time.perf_counter() - t_phase:.1f} s  [{card}]")
+    torch.cuda.empty_cache()
+    return {"slay_decode_step_masked": n_b}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; it needs an "
@@ -3013,6 +3256,11 @@ def main() -> int:
     phase_serve_exact_durable(card_line)
     phase_train_exact(card_line, fused_step_s)
     spec_b4b = phase_serve_spec(card_line)
+    bl = phase_serve_baselines(card_line, dict(slay_pool,
+                                               step_ms=slay_step_ms),
+                               fused_step_s)
+    drv = phase_drivers(card_line)
+    k2_bl = k2.pop("baselines")
     kernels = [
         dict(name="slay_fused_fwd", route="cuda",
              source="src/repro_torch/csrc/slay_fused.cu",
@@ -3021,12 +3269,19 @@ def main() -> int:
         dict(name="slay_decode_step", route="cuda",
              source="src/repro_torch/csrc/decode_step.cu",
              replaces="src/repro/kernels/decode_step.py:49",
-             launches=launches["slay_decode_step"], **k2, library_ms=None),
+             launches=launches["slay_decode_step"] + bl["slay_decode_step"],
+             **k2, library_ms=None,
+             baseline_widths={k: v for k, v in k2_bl.items()
+                              if not k.endswith("masked")}),
         dict(name="slay_decode_step_masked", route="cuda",
              source="src/repro_torch/csrc/decode_step.cu",
              replaces="src/repro/kernels/decode_step.py:57",
-             launches=cont["slay_decode_step_masked"] + spec_b4b, **b4b,
-             library_ms=None),
+             launches=(cont["slay_decode_step_masked"] + spec_b4b
+                       + bl["slay_decode_step_masked"]
+                       + drv["slay_decode_step_masked"]), **b4b,
+             library_ms=None,
+             baseline_widths={k: v for k, v in k2_bl.items()
+                              if k.endswith("masked")}),
         dict(name="slay_fused_bwd_q", route="cuda",
              source="src/repro_torch/csrc/slay_fused_bwd.cu",
              replaces="src/repro/kernels/slay_fused.py:161",

@@ -1,7 +1,9 @@
-"""Config registry of the port: slayformer-124m so far.
+"""Config registry of the port: slayformer-124m so far, with every
+attention kind of the port (``core.slay.ATTN_KINDS``) as an override.
 
     cfg = configs.get_config("slayformer-124m")          # full width
     cfg = configs.get_smoke_config("slayformer-124m")    # CPU smoke size
+    cfg = configs.get_config("slayformer-124m", attn_kind="favor")
 """
 from __future__ import annotations
 
@@ -13,6 +15,8 @@ from repro_torch.configs.base import ArchConfig
 _MODULES = {
     "slayformer-124m": "slayformer_124m",
 }
+# The ported configs (the command-line drivers' --arch choices).
+ALL_ARCHS = tuple(_MODULES)
 
 
 def _module(name: str):
@@ -32,4 +36,4 @@ def get_smoke_config(name: str, **overrides) -> ArchConfig:
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
 
 
-__all__ = ["ArchConfig", "get_config", "get_smoke_config"]
+__all__ = ["ALL_ARCHS", "ArchConfig", "get_config", "get_smoke_config"]

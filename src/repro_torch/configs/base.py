@@ -1,8 +1,9 @@
 """Architecture and serving configuration for the port.
 
 A torch counterpart of ``repro.configs.base.ArchConfig`` holding the
-fields the ported decoder uses: SLAY and the exact quadratic kinds
-(``softmax``, ``yat``, ``yat_spherical``) on the dense decoder. MoE, SSM,
+fields the ported decoder uses: SLAY, the linear baselines (``favor``,
+``cosformer``, ``elu1``) and the exact quadratic kinds (``softmax``,
+``yat``, ``yat_spherical``) on the dense decoder. MoE, SSM,
 hybrid, encoder-decoder, vision and local/global windows are not ported
 yet (ROADMAP Queue A item 12). ``ServingConfig`` has the reference's
 fields, defaults and validation.
@@ -15,11 +16,7 @@ import math
 import torch
 
 from repro_torch.core.features import SlayFeatureConfig
-from repro_torch.core.slay import AttentionSpec
-
-
-# The exact quadratic kinds: a KV ring per slot instead of (S, z).
-EXACT_KINDS = ("softmax", "yat", "yat_spherical")
+from repro_torch.core.slay import ATTN_KINDS, AttentionSpec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,7 +35,7 @@ class ArchConfig:
     gated_mlp: bool = True
     tie_embeddings: bool = True
     rope_theta: float = 10000.0
-    attn_kind: str = "slay"          # slay | softmax | yat | yat_spherical
+    attn_kind: str = "slay"          # one of core.slay.ATTN_KINDS
     slay_anchors: int = 8
     slay_prf: int = 16
     slay_quad_nodes: int = 3
@@ -77,11 +74,10 @@ class ArchConfig:
             raise NotImplementedError(
                 f"{self.name}: family={self.family!r}; the port has the "
                 f"dense decoder only so far (ROADMAP Queue A item 12)")
-        if self.attn_kind not in EXACT_KINDS + ("slay",):
+        if self.attn_kind not in ATTN_KINDS:
             raise NotImplementedError(
                 f"{self.name}: attn_kind={self.attn_kind!r}; the port has "
-                f"'slay' and the exact kinds {EXACT_KINDS} (the linear "
-                f"baselines favor, cosformer, elu1: ROADMAP Queue A item 12)")
+                f"{', '.join(ATTN_KINDS)}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,11 +88,11 @@ class ServingConfig:
 
     The pool has ``num_slots`` decode slots. ``max_len`` is the length
     of an exact kind's KV ring, so it bounds prompt + new tokens there;
-    SLAY's (S, z) is constant-size, and ``max_len`` bounds nothing for
-    it. ``page_size`` > 0 splits the rings into pages of that many rows
-    drawn from one pool of ``num_pages`` (0: every slot's full ring),
-    allocated per request by its context (``serving.pages``); SLAY
-    configs ignore it. Prompts are absorbed
+    a linear kind's (S, z) is constant-size, and ``max_len`` bounds
+    nothing for it. ``page_size`` > 0 splits the rings into pages of that
+    many rows drawn from one pool of ``num_pages`` (0: every slot's full
+    ring), allocated per request by its context (``serving.pages``); the
+    linear kinds ignore it. Prompts are absorbed
     ``prefill_chunk`` tokens per engine tick; ``decode_ticks_per_prefill``
     decode ticks run between two prefill chunks when both kinds of work
     wait. ``macro_ticks`` (K) decode ticks run per dispatch with sampling

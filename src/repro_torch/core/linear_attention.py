@@ -6,6 +6,7 @@ of G query heads *without* materialising the repeat —
 
     Y = Ψ(Q) (Ψ(K)ᵀ V) / (Ψ(Q) (Ψ(K)ᵀ 1) + δ)
 
+* non-causal: two contractions, O(L·m·dv);
 * causal: chunked form — intra-chunk causal quadratic on features plus
   the inter-chunk running (S, z) state, O(m·dv) carry;
 * decode: O(m·dv) per token with persistent (S, z) state.
@@ -34,6 +35,19 @@ def _group(qf: torch.Tensor, num_kv: int) -> torch.Tensor:
     if H % num_kv:
         raise ValueError(f"q heads {H} not divisible by kv heads {num_kv}")
     return qf.reshape(*lead, L, num_kv, H // num_kv, m)
+
+
+def noncausal(qf, kf, v, delta: float = 1e-6):
+    """Non-causal (or cross-) linear attention; kf/v may have another
+    length than qf. Returns v's dtype."""
+    num_kv = kf.shape[-2]
+    qg = _group(qf, num_kv).float()                 # (..., L, Hkv, G, m)
+    s = torch.einsum("...lkm,...lkd->...kmd", kf.float(), v.float())
+    z = kf.float().sum(-3)                          # (..., Hkv, m)
+    num = torch.einsum("...lkgm,...kmd->...lkgd", qg, s)
+    den = torch.einsum("...lkgm,...km->...lkg", qg, z)
+    out = num / (den[..., None] + delta)
+    return out.reshape(*qf.shape[:-1], v.shape[-1]).to(v.dtype)
 
 
 def causal_chunked(qf, kf, v, chunk_size: int = 256, delta: float = 1e-6,

@@ -11,8 +11,17 @@ from __future__ import annotations
 
 import dataclasses
 
+from repro_torch.core import linear_attention as la
 from repro_torch.core.features import SlayFeatureConfig
 from repro_torch.kernels import ops
+
+# The linear kinds: a constant-size (S, z) decode state. SLAY, then the
+# paper's linear baselines (Table 5, ``core.baselines``).
+LINEAR_KINDS = ("slay", "favor", "cosformer", "elu1")
+# The exact quadratic kinds: a KV ring per slot instead of (S, z).
+EXACT_KINDS = ("softmax", "yat", "yat_spherical")
+# Every attention kind of the port.
+ATTN_KINDS = LINEAR_KINDS + EXACT_KINDS
 
 
 def slay_attention(params: dict, q, k, v, cfg: SlayFeatureConfig, *,
@@ -24,12 +33,14 @@ def slay_attention(params: dict, q, k, v, cfg: SlayFeatureConfig, *,
     fused kernel and never written to device memory. ``fuse_features=False``
     keeps the two-dispatch path for A/B comparison: the feature-map kernel
     writes Ψ(Q), Ψ(K) in the activation dtype, then the scan kernel reads
-    them. Both are differentiable. Non-causal attention is not ported yet.
+    them. Both are differentiable. Non-causal attention (``causal=False``)
+    maps Ψ through the feature-map kernel and contracts it in PyTorch
+    (:func:`linear_attention.noncausal`), as the JAX package does in jnp.
     """
     if not causal:
-        raise NotImplementedError(
-            "non-causal SLAY attention is not ported yet (ROADMAP Queue A "
-            "item 4, linear_attention.noncausal)")
+        qf = ops.slay_features(q, params, cfg)
+        kf = ops.slay_features(k, params, cfg)
+        return la.noncausal(qf, kf, v, delta=delta)
     if fuse_features:
         return ops.slay_fused_attention(q, k, v, params, cfg,
                                         chunk_size=chunk_size, delta=delta)
@@ -43,7 +54,7 @@ def slay_attention(params: dict, q, k, v, cfg: SlayFeatureConfig, *,
 class AttentionSpec:
     """Which attention mechanism a model layer uses."""
 
-    kind: str = "slay"           # slay | softmax | yat | yat_spherical
+    kind: str = "slay"  # slay|softmax|yat|yat_spherical|favor|cosformer|elu1
     slay: SlayFeatureConfig | None = None
     window: int = 0              # sliding window for local softmax layers
     logit_softcap: float = 0.0
@@ -53,4 +64,19 @@ class AttentionSpec:
     @property
     def is_linear(self) -> bool:
         """Constant-size (S, z) decode state; else a KV ring."""
-        return self.kind == "slay"
+        return self.kind in LINEAR_KINDS
+
+
+def feature_dim(spec: AttentionSpec, head_dim: int) -> int:
+    """m, the width of a linear kind's features and of its (S, z) state
+    (``_baseline_dim`` in the JAX package): SLAY's R·P·D, favor's 64
+    random features, cosformer's [cos, sin] halves, elu1's head dim."""
+    if spec.kind == "slay":
+        return spec.slay.feature_dim
+    if spec.kind == "favor":
+        return 64
+    if spec.kind == "cosformer":
+        return 2 * head_dim
+    if spec.kind == "elu1":
+        return head_dim
+    raise ValueError(f"{spec.kind!r} is not a linear kind")

@@ -1,5 +1,6 @@
-"""Family-dispatching model API — the dense decoder so far (SLAY and the
-exact kinds softmax, yat, yat_spherical).
+"""Family-dispatching model API — the dense decoder so far (SLAY, the
+linear baselines favor, cosformer, elu1 and the exact kinds softmax, yat,
+yat_spherical).
 
     params    = api.init_params(cfg, seed, device="cuda")
     logits, _ = api.forward(params, cfg, tokens)
@@ -45,6 +46,15 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int = 0, *,
     (ignored where :func:`supports_paging` is False)."""
     return _mod(cfg).init_cache(cfg, batch, max_len, page_size=page_size,
                                 num_pages=num_pages, device=device)
+
+
+def abstract_cache(cfg: ArchConfig, batch: int, max_len: int = 0, *,
+                   page_size: int = 0, num_pages: int = 0):
+    """The decode cache's shapes and dtypes without allocation: the cache
+    of :func:`init_cache` in ``meta`` tensors (the JAX package's
+    ``eval_shape``), e.g. for its bytes (``prefix_cache.tree_bytes``)."""
+    return init_cache(cfg, batch, max_len, page_size=page_size,
+                      num_pages=num_pages, device=torch.device("meta"))
 
 
 def prefill(params, cfg: ArchConfig, tokens, *, max_len: int | None = None,

@@ -5,14 +5,17 @@ and one decode interface over :class:`AttnCache`. Kinds:
 
     slay          — the paper's linear-time mechanism: its CUDA kernels
                     on the card; decode state the constant-size (S, z)
+    favor | cosformer | elu1
+                  — the linear baselines (paper Table 5,
+                    ``core.baselines``): plain PyTorch for the sequence,
+                    the (S, z) decode step through the decode kernel
     softmax       — exact quadratic (optionally logit-softcapped)
     yat           — exact quadratic Yat-kernel attention (paper Eq. 1)
     yat_spherical — exact quadratic spherical Yat (paper Eq. 5)
 
 The exact kinds decode from a ring-buffer KV cache of ``max_len`` rows
-and run as plain PyTorch ops, as the JAX package runs them in jnp. The
-linear baselines (favor, cosformer, elu1) and local windows come later
-(ROADMAP Queue A item 12).
+and run as plain PyTorch ops, as the JAX package runs them in jnp. Local
+windows come later (ROADMAP Queue A item 12).
 """
 from __future__ import annotations
 
@@ -20,11 +23,12 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core import baselines as bl
 from repro_torch.core import kernels as exact
 from repro_torch.core import linear_attention as la
 from repro_torch.core import slay as slay_mod
 from repro_torch.core.features import normalize, slay_features
-from repro_torch.core.slay import AttentionSpec
+from repro_torch.core.slay import AttentionSpec, feature_dim
 from repro_torch.kernels import ops
 
 
@@ -33,7 +37,8 @@ class AttnCache(NamedTuple):
 
     k, v:  the exact kinds' ring buffers (..., size, Hkv, Dh), a token at
            absolute position p in row p % size.
-    s, z:  SLAY's running state (S = Σ ψ(k)ᵀv, z = Σ ψ(k)), fp32.
+    s, z:  a linear kind's running state (S = Σ ψ(k)ᵀv, z = Σ ψ(k)),
+           fp32, m = :func:`core.slay.feature_dim` features wide.
     ``pos`` counts tokens seen so far, per slot (lead-shaped), so slots of
     one pool hold sequences of different lengths.
     """
@@ -46,10 +51,10 @@ class AttnCache(NamedTuple):
 
 
 def _check_kind(spec: AttentionSpec) -> None:
-    if spec.kind not in ("slay", "softmax", "yat", "yat_spherical"):
+    if spec.kind not in slay_mod.ATTN_KINDS:
         raise NotImplementedError(
             f"attention kind {spec.kind!r} is not ported yet; the port has "
-            f"slay, softmax, yat and yat_spherical (ROADMAP Queue A item 12)")
+            f"{', '.join(slay_mod.ATTN_KINDS)} (ROADMAP Queue A item 12)")
     if spec.window:
         raise NotImplementedError(
             "windowed (local) attention layers are not ported yet (ROADMAP "
@@ -59,12 +64,13 @@ def _check_kind(spec: AttentionSpec) -> None:
 def init_cache(spec: AttentionSpec, lead_shape, num_kv: int, head_dim: int,
                dv: int, max_len: int, dtype: torch.dtype, *,
                device: torch.device) -> AttnCache:
-    """A zero cache: (S, z) for SLAY, ``max_len``-row rings otherwise."""
+    """A zero cache: (S, z) for a linear kind, ``max_len``-row rings
+    otherwise."""
     _check_kind(spec)
     pos = torch.zeros(lead_shape, dtype=torch.int32, device=device)
     if spec.is_linear:
-        st = la.init_state(lead_shape, num_kv, spec.slay.feature_dim, dv,
-                           device=device)
+        st = la.init_state(lead_shape, num_kv, feature_dim(spec, head_dim),
+                           dv, device=device)
         return AttnCache(None, None, pos, st.s, st.z)
     return AttnCache(
         torch.zeros(*lead_shape, max_len, num_kv, head_dim, dtype=dtype,
@@ -77,13 +83,18 @@ def full_attention(spec: AttentionSpec, params: dict | None, q, k, v, *,
                    causal: bool = True) -> torch.Tensor:
     """Full-sequence attention (training / prefill). SLAY: the fused
     kernel, or with ``spec.fuse_features`` False the feature-map kernel
-    then the scan kernel. The exact kinds broadcast kv over the GQA group
-    and run in PyTorch ops."""
+    then the scan kernel. A linear baseline: its features (cosformer's
+    reweighted by position) and the chunked scan in PyTorch ops. The exact
+    kinds broadcast kv over the GQA group and run in PyTorch ops."""
     _check_kind(spec)
     if spec.kind == "slay":
         return slay_mod.slay_attention(
             params, q, k, v, spec.slay, causal=causal,
             chunk_size=spec.chunk_size, fuse_features=spec.fuse_features)
+    if spec.is_linear:
+        return bl.linear_baseline_attention(spec.kind, params, q, k, v,
+                                            causal=causal,
+                                            chunk_size=spec.chunk_size)
     if k.shape[-2] != q.shape[-2]:
         g = q.shape[-2] // k.shape[-2]
         k = torch.repeat_interleave(k, g, dim=-2)
@@ -99,12 +110,12 @@ def prefill_cache(spec: AttentionSpec, params: dict | None, k, v,
                   cache: AttnCache, valid=None) -> AttnCache:
     """Absorb a whole prompt's keys/values into a fresh decode cache.
 
-    k/v: (..., L, Hkv, *). SLAY reduces them to (S, z) (new tensors); the
-    ring kinds write the trailing ``size`` tokens into ``cache``'s rings
-    in place at their ring rows and return them. ``valid`` (..., L) bool
-    masks a right-padded prompt: SLAY zeroes pad key features, the rings
-    get zero rows, which ``pos`` (the true length) keeps outside every
-    later validity horizon.
+    k/v: (..., L, Hkv, *). A linear kind reduces them to (S, z) (new
+    tensors); the ring kinds write the trailing ``size`` tokens into
+    ``cache``'s rings in place at their ring rows and return them.
+    ``valid`` (..., L) bool masks a right-padded prompt: a linear kind
+    zeroes pad key features, the rings get zero rows, which ``pos`` (the
+    true length) keeps outside every later validity horizon.
     """
     _check_kind(spec)
     L, lead = k.shape[-3], k.shape[:-3]
@@ -113,7 +124,7 @@ def prefill_cache(spec: AttentionSpec, params: dict | None, k, v,
     else:
         pos = valid.to(torch.int32).sum(-1).expand(lead)
     if spec.is_linear:
-        kf = slay_features(k, params, spec.slay)
+        kf = _features(spec, params, k)
         if valid is not None:
             kf = torch.where(valid[..., None, None], kf, 0.0)
         st = la.prefill_state(kf, v)
@@ -169,9 +180,10 @@ def prefill_chunk(spec: AttentionSpec, params: dict | None, q, k, v,
     """Absorb one prompt chunk into an existing decode cache.
 
     q (B, Lc, H, Dh), k/v (B, Lc, Hkv, *); ``cache.pos`` (B,) counts the
-    tokens absorbed so far. SLAY: the chunked causal scan in torch seeded
-    with the cache's fp32 state (new tensors; the cache's are not
-    written), as the JAX package runs it in jnp outside any kernel. The
+    tokens absorbed so far. A linear kind: the chunked causal scan in
+    torch on its cache features (:func:`_features`) seeded with the
+    cache's fp32 state (new tensors; the cache's are not written), as the
+    JAX package runs it in jnp outside any kernel. The
     ring kinds attend to the ring prefix (the row j holds the newest
     position congruent to j mod size, visible once written) and causally
     within the chunk, then write the chunk's keys and values into the
@@ -190,8 +202,8 @@ def prefill_chunk(spec: AttentionSpec, params: dict | None, q, k, v,
     act = None if active is None else active.bool()
     step = Lc if act is None else Lc * act.to(torch.int32)
     if spec.is_linear:
-        qf = slay_features(q, params, spec.slay)
-        kf = slay_features(k, params, spec.slay)
+        qf = _features(spec, params, q)
+        kf = _features(spec, params, k)
         y, st = la.causal_chunked(
             qf, kf, v, chunk_size=max(min(spec.chunk_size, Lc), 1),
             init_state=la.LinearState(cache.s, cache.z), return_state=True)
@@ -253,8 +265,8 @@ def decode_step(spec: AttentionSpec, params: dict | None, q, k, v,
         raise ValueError(f"decode q must be (B, H, Dh), got {tuple(q.shape)}")
     step = 1 if active is None else active.to(torch.int32)
     if spec.is_linear:
-        qf = slay_features(q, params, spec.slay)
-        kf = slay_features(k, params, spec.slay)
+        qf = _features(spec, params, q)
+        kf = _features(spec, params, k)
         y, _, _ = ops.decode_linear_step(qf, kf, v, cache.s, cache.z, active)
         cache.pos.add_(step)
         return y, cache
@@ -283,3 +295,12 @@ def decode_step(spec: AttentionSpec, params: dict | None, q, k, v,
         y = torch.where(active.bool()[:, None, None], y, 0).to(y.dtype)
     cache.pos.add_(step)
     return y, cache
+
+
+def _features(spec: AttentionSpec, params: dict | None, u):
+    """A linear kind's features on the cache paths: SLAY's Ψ in fp32
+    (``core.features``), or a baseline's (cosformer without its position
+    weights, as in the JAX package; ROADMAP C-8)."""
+    if spec.kind == "slay":
+        return slay_features(u, params, spec.slay)
+    return bl.decode_features(spec.kind, params, u)

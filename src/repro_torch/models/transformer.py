@@ -1,4 +1,5 @@
-"""The decoder LM (dense, no MoE/SSM/vision): SLAY or an exact kind.
+"""The decoder LM (dense, no MoE/SSM/vision): SLAY, a linear baseline
+(favor, cosformer, elu1) or an exact kind.
 
 Parameters are a plain dict laid out like the JAX package's pytree, so
 ``repro_torch.convert`` moves weights across unchanged::
@@ -9,16 +10,18 @@ Parameters are a plain dict laid out like the JAX package's pytree, so
             mlp: up (nl, d, ff), down (nl, ff, d) [, gate (nl, d, ff)],
     slay: anchors (P, dh), omegas (D, dh)   (fp32, shared by every layer;
                                              SLAY configs only)
+          proj (64, dh)                     (fp32, favor's projection,
+                                             under the same key)
 
 Layers are stacked along a leading axis and run by a Python loop.
 Training is ``loss_fn`` (next-token cross-entropy) under autograd, with
 optional per-layer recomputation (``remat``): SLAY through its kernels'
-backward, the exact kinds (``softmax``, ``yat``, ``yat_spherical``)
-through plain autograd of PyTorch ops. Serving is ``prefill`` (prompt ->
-last-token logits + decode cache: (S, z) for SLAY, KV rings for the
-exact kinds, optionally paged) then ``decode_step`` (one token, the
-cache updated in place); an exact kind also verifies speculative drafts
-(``verify_chunk``, ``rollback_slots``).
+backward, the linear baselines and the exact kinds (``softmax``, ``yat``,
+``yat_spherical``) through plain autograd of PyTorch ops. Serving is
+``prefill`` (prompt -> last-token logits + decode cache: (S, z) for the
+linear kinds, KV rings for the exact kinds, optionally paged) then
+``decode_step`` (one token, the cache updated in place); an exact kind
+also verifies speculative drafts (``verify_chunk``, ``rollback_slots``).
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.baselines import favor_init
 from repro_torch.core.features import init_feature_params
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
@@ -65,8 +69,10 @@ def init_params(cfg: ArchConfig, seed: int = 0, *,
                 device: str | torch.device = "cuda") -> dict:
     """Random weights from ``seed`` (a CPU ``torch.Generator``, so the same
     seed gives the same weights on any device), in the activation dtype;
-    the SLAY projections, drawn last and for SLAY configs only, stay fp32
-    (so one seed gives every kind the same model weights)."""
+    the random projections, drawn last and for SLAY and favor configs
+    only, stay fp32 (so one seed gives every kind the same model
+    weights). favor's sits under ``slay`` as in the JAX package, so
+    checkpoints and prefix snapshots keep its format."""
     cfg.check_supported()
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
@@ -84,15 +90,18 @@ def init_params(cfg: ArchConfig, seed: int = 0, *,
         for key in path:
             node = node.setdefault(key, {})
         node[leaf] = x.to(device=dev, dtype=cfg.activation_dtype)
+    # Random projections, fp32, shared by every layer and head.
     if cfg.attn_kind == "slay":
-        # Random projections, fp32, shared by every layer and head.
         params["slay"] = init_feature_params(cfg.slay_config(), gen,
                                              device=dev)
+    elif cfg.attn_kind == "favor":
+        params["slay"] = favor_init(gen, cfg.resolved_head_dim, device=dev)
     return params
 
 
 def _slay_params(params: dict, detach: bool = False):
-    """The SLAY projections, or None for an exact kind."""
+    """The random projections (SLAY's anchors and omegas, favor's
+    ``proj``), or None for a kind without them."""
     sp = params.get("slay")
     if sp is None or not detach:
         return sp
@@ -138,8 +147,9 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
             remat: bool | str = False):
     """tokens (B, L) -> (logits (B, L, V), aux loss 0).
 
-    The SLAY projections are constants of the model (``detach``, as
-    ``stop_gradient`` in the JAX package); the exact kinds have none.
+    The random projections are constants of the model (``detach``, as
+    ``stop_gradient`` in the JAX package); cosformer, elu1 and the exact
+    kinds have none.
     ``remat=True`` recomputes each layer in the backward pass
     (``torch.utils.checkpoint``) instead of keeping its activations, so
     the attention forward runs twice per layer.
@@ -202,16 +212,17 @@ def _layer_cache(ac: attn.AttnCache, i: int) -> attn.AttnCache:
 def supports_paging(cfg: ArchConfig) -> bool:
     """Whether the pooled rings can be paged: a non-windowed exact
     quadratic ring, the one state whose per-slot size grows with the
-    context. SLAY's (S, z) is O(1) per slot and bypasses paging."""
+    context. A linear kind's (S, z) is O(1) per slot and bypasses
+    paging."""
     cfg.check_supported()
     return not cfg.attention_spec().is_linear
 
 
 def context_capacity(cfg: ArchConfig, max_len: int) -> int | None:
     """Context rows (prompt + decode budget) one slot admits: None
-    (unbounded) for SLAY, whose constant-size (S, z) holds any context;
-    ``max_len`` for an exact kind's ring, which would overwrite live
-    context past it."""
+    (unbounded) for a linear kind, whose constant-size (S, z) holds any
+    context; ``max_len`` for an exact kind's ring, which would overwrite
+    live context past it."""
     cfg.check_supported()
     return None if cfg.attention_spec().is_linear else max_len
 
@@ -219,8 +230,9 @@ def context_capacity(cfg: ArchConfig, max_len: int) -> int | None:
 def init_cache(cfg: ArchConfig, batch: int, max_len: int = 0, *,
                page_size: int = 0, num_pages: int = 0,
                device: str | torch.device = "cuda") -> DecodeCache:
-    """A zero cache for ``batch`` slots. SLAY: constant-size (S, z), and
-    ``max_len`` is unused. The exact kinds: rings of ``max_len`` rows; with
+    """A zero cache for ``batch`` slots. A linear kind: constant-size
+    (S, z), and ``max_len`` is unused. The exact kinds: rings of
+    ``max_len`` rows; with
     ``page_size`` > 0, ``num_pages`` (0: ``batch * max_len / page_size``)
     physical pages shared by all slots, and an all-free PageState."""
     cfg.check_supported()
@@ -250,7 +262,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int = 0, *,
 
 
 def _stack_caches(spec, rings: attn.AttnCache | None, caches: list):
-    """One stacked AttnCache from per-layer results: SLAY's new (S, z)
+    """One stacked AttnCache from per-layer results: a linear kind's new (S, z)
     stacked; the rings were written in place into ``rings``'."""
     pos = torch.stack([c.pos for c in caches])
     if spec.is_linear:
@@ -265,7 +277,7 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
             ) -> tuple[torch.Tensor, DecodeCache]:
     """Process a prompt batch; return last-token logits (B, 1, V) and a
     primed cache. ``max_len`` sizes an exact kind's rings (default: the
-    prompt + 64 rows of decode headroom, as the JAX package); SLAY's
+    prompt + 64 rows of decode headroom, as the JAX package); a linear kind's
     state does not depend on it. ``true_len`` (B,) marks the real lengths
     of right-padded prompts: logits are read at ``true_len - 1`` and pad
     positions add nothing to the cache."""
@@ -309,7 +321,7 @@ def decode_step(params: dict, cfg: ArchConfig, cache: DecodeCache,
     """One autoregressive step. tokens (B, 1) -> logits (B, 1, V).
 
     The cache is updated in place (the JAX package donates it) and
-    returned: every layer's state (SLAY's (S, z), a ring's new row),
+    returned: every layer's state (a linear kind's (S, z), a ring's new row),
     positions and ``pos``. So a slot pool is one set of tensors for its
     whole life, which a captured CUDA graph of the step can bind.
     ``active`` (B,) freezes drained slots: their state stays
@@ -359,7 +371,7 @@ def _chunk_layers(params: dict, cfg: ArchConfig, cache: DecodeCache,
     """The layers over a chunk of tokens (B, Lc) that continues ``cache``:
     the final hidden rows (B, Lc, d) and each layer's new AttnCache. A
     ring is written in place (a paged pool's through its gathered dense
-    view, scattered back); SLAY's (S, z) come back as new tensors.
+    view, scattered back); a linear kind's (S, z) come back as new tensors.
     ``active`` masks slots as in :func:`decode_step`."""
     dev = params["embed"].device
     tokens = tokens.to(dev)
@@ -394,9 +406,9 @@ def prefill_chunk(params: dict, cfg: ArchConfig, cache: DecodeCache,
     tokens (B, Lc); ``cache`` holds the state of the prefix absorbed so
     far (per-slot ``pos``). Returns last-token logits (B, 1, V) and the
     advanced cache, so a prompt fed chunk by chunk ends in the state of a
-    whole-prompt :func:`prefill` (SLAY: the fp32 recurrence in another
+    whole-prompt :func:`prefill` (a linear kind: the fp32 recurrence in another
     order of sums) and the engine can interleave prefill chunks with
-    decode ticks. SLAY returns new tensors; the rings of an exact kind
+    decode ticks. A linear kind returns new tensors; the rings of an exact kind
     are written in place (the positions are new tensors).
     """
     cfg.check_supported()
@@ -413,9 +425,9 @@ def prefill_chunk(params: dict, cfg: ArchConfig, cache: DecodeCache,
 def supports_speculative(cfg: ArchConfig) -> bool:
     """Whether ``cfg`` can verify draft-verify speculative decoding: an
     exact kind's ring, where rejecting a suffix is a per-slot ``pos``
-    rewind. SLAY folds a token into (S, z) for good, so it cannot. (The
-    reference also excludes windowed rings, SSM carries and frontends,
-    none of which the port has.)"""
+    rewind. A linear kind folds a token into (S, z) for good, so it
+    cannot. (The reference also excludes windowed rings, SSM carries and
+    frontends, none of which the port has.)"""
     cfg.check_supported()
     return not cfg.attention_spec().is_linear
 
@@ -463,7 +475,7 @@ def _float_leaves(a: attn.AttnCache) -> list:
 def reset_slot(cfg: ArchConfig, cache: DecodeCache, slot: int,
                pages=None) -> DecodeCache:
     """Zero one slot of a pooled cache (eviction), in place: its state
-    and positions. SLAY: a single overwrite of the slot's (S, z). A paged
+    and positions. A linear kind: a single overwrite of the slot's (S, z). A paged
     pool zeroes the pages the slot owns under the current tables (so a
     quarantined NaN never reaches the page's next owner), then installs
     ``pages``, the host allocator's tables after the slot's free."""
@@ -531,7 +543,8 @@ def corrupt_slot(cfg: ArchConfig, cache: DecodeCache, slot: int) -> DecodeCache:
 
 
 def supports_chunked_prefill(cfg: ArchConfig) -> bool:
-    """Chunked prefill continues every ported kind: SLAY's fp32 (S, z)
-    recurrence, the exact kinds' ring prefix plus causal chunk."""
+    """Chunked prefill continues every ported kind: the linear kinds'
+    fp32 (S, z) recurrence, the exact kinds' ring prefix plus causal
+    chunk."""
     cfg.check_supported()
     return True

@@ -219,6 +219,94 @@ def test_decode_kernel_clusters_on_card(bh, bk, m, dv, masked):
         assert bool((y.reshape(bk, bh // bk, dv)[off] == 0).all())
 
 
+@needs_card
+@pytest.mark.parametrize("m,dtype,masked", [
+    (64, torch.float32, False),     # favor's features (fp32 in bf16 models)
+    (64, torch.bfloat16, True),     # elu1's, the pool's masked step
+    (128, torch.bfloat16, False),   # cosformer's, its sin half zero
+    (128, torch.bfloat16, True),
+])
+def test_decode_kernel_at_the_baselines_widths_on_card(m, dtype, masked):
+    # The linear baselines decode through K2 at m = 64 (favor, elu1) and
+    # m = 128 (cosformer, whose cache features are [relu(u), 0], ROADMAP
+    # C-8), dv = 64, 96 kv rows; v fp32, so y differs from the plain
+    # version in summation order only (1e-5), S' and z' not at all.
+    qf, kf, v, s, z = (torch.from_numpy(x).cuda()
+                       for x in _decode_inputs(3, 96, 96, m=m, dv=64))
+    qf, kf = qf.to(dtype), kf.to(dtype)
+    if m == 128:
+        qf[:, 64:] = 0
+        kf[:, 64:] = 0
+    args = [qf, kf, v, s, z]
+    active = None
+    if masked:
+        active = (torch.arange(96, device="cuda") % 4 != 1).to(torch.int32)
+    s0, z0 = s.clone(), z.clone()
+    plain = [a.clone() for a in args]
+    yp, sp, zp = tdecode.decode_linear_attention_plain(*plain, active)
+    _build.reset_launches()
+    y, s2, z2 = tdecode.decode_linear_attention(*args, active)
+    assert _build.LAUNCHES["slay_decode_step_masked" if masked
+                           else "slay_decode_step"] == 1
+    assert s2 is s and z2 is z
+    torch.testing.assert_close(y, yp, rtol=1e-5, atol=1e-5)
+    assert torch.equal(s, sp) and torch.equal(z, zp)
+    if m == 128:
+        assert torch.equal(s[:, 64:], s0[:, 64:])
+    if masked:
+        off = active == 0
+        assert torch.equal(s[off], s0[off]) and torch.equal(z[off], z0[off])
+        assert not y[off].any()
+
+
+@needs_card
+@pytest.mark.parametrize("kind", ["favor", "cosformer", "elu1"])
+def test_baseline_engines_on_card_match_cpu(kind):
+    # The smoke model of each linear baseline in fp32 (embedding scaled
+    # down so the streams vary): the continuous engine (graphed, T = 0.8)
+    # and the lockstep engine (greedy) on the card and on the CPU give the
+    # same streams; on the card every decode step is one K2 launch per
+    # layer (masked in the pool) and no SLAY kernel other than K2 runs.
+    cfg = get_smoke_config("slayformer-124m", dtype="float32",
+                           attn_kind=kind)
+    params = tapi.init_params(cfg, 0, device="cpu")
+    params["embed"] = params["embed"] / 8.0
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(3, 256, n).astype(np.int32)
+               for n in (20, 7, 33, 12, 26)]
+    serving = ServingConfig(num_slots=2, max_len=64, prefill_chunk=8,
+                            macro_ticks=4, temperature=0.8)
+    runs = []
+    for device in ("cpu", "cuda"):
+        eng = tengine.ContinuousServingEngine(cfg, params, serving=serving,
+                                              device=device)
+        lock = tengine.ServingEngine(cfg, params, device=device, max_len=64)
+        _build.reset_launches()
+        outs, s = eng.run([tengine.Request(p, max_new_tokens=10,
+                                           arrival_time=2.0 * i)
+                           for i, p in enumerate(prompts)])
+        cont = dict(_build.LAUNCHES)
+        _build.reset_launches()
+        gen = lock.generate([tengine.Request(p, max_new_tokens=10)
+                             for p in prompts[:3]])
+        runs.append((outs, s, gen, cont, dict(_build.LAUNCHES)))
+    (cpu, s_cpu, gen_cpu, _, _), (card, s_card, gen, cont, lock) = runs
+    for rid in cpu:
+        np.testing.assert_array_equal(card[rid], cpu[rid], f"rid {rid}")
+    for a, b in zip(gen, gen_cpu):
+        np.testing.assert_array_equal(a, b)
+    assert s_card["ticks"] == s_cpu["ticks"]
+    nl = cfg.num_layers
+    assert cont["slay_decode_step_masked"] == (
+        nl * serving.macro_ticks * s_card["decode_dispatches"])
+    assert lock["slay_decode_step"] == nl * 9
+    others = {k: n for k, n in {**cont, **lock}.items()
+              if n and k not in ("slay_decode_step",
+                                 "slay_decode_step_masked")}
+    assert not others, others
+    assert cont["slay_decode_step"] == lock["slay_decode_step_masked"] == 0
+
+
 # -- B7, B8, B5, B6a, B6b: the two-dispatch path -----------------------------
 
 

@@ -193,8 +193,11 @@ def test_slay_attention_matches_jax_and_rejects_unported_paths():
                                 jcfg, chunk_size=8)
     _close(got, want)
     t = [torch.from_numpy(x) for x in (q, k, v)]
-    with pytest.raises(NotImplementedError, match="noncausal"):
-        tslay.slay_attention(tp, *t, tcfg, causal=False)
+    # Non-causal (ported with linear_attention.noncausal) against JAX's.
+    got = tslay.slay_attention(tp, *t, tcfg, causal=False)
+    want = jslay.slay_attention(jp, *(jnp.asarray(x) for x in (q, k, v)),
+                                jcfg, causal=False)
+    _close(got, want)
     # The two-dispatch path (feature map, then scan) against the JAX one.
     got = tslay.slay_attention(tp, *t, tcfg, chunk_size=8, fuse_features=False)
     want = jslay.slay_attention(jp, *(jnp.asarray(x) for x in (q, k, v)),
