@@ -176,10 +176,37 @@ Phases, each of which raises (nonzero exit) on failure:
     layers; 2 AdamW steps of 8 x 1024 tokens (plain autograd, no kernel);
 20. the command-line drivers in-process (``phase_drivers``):
     ``train_slayformer --preset paper --attn-kind favor --steps 4`` and
-    ``serve --attn-kind cosformer --no-smoke`` (continuous, B4b only).
+    ``serve --attn-kind cosformer --no-smoke`` (continuous, B4b only);
+21. kernels at head dim 128 (``phase_dense_kernels``): K1 at each dense
+    decoder's lockstep prefill shape (4 prompts padded to 512; G = 3
+    phi4-mini, 48 granite, 8 qwen3) and K3/K4 at its training shape (8 x
+    1024), bf16, d = dv = 128, against their plain versions (K3/K4 also
+    summed over the group), timed beside their bounds, with residency
+    lines (one block of K1, K3, K4 per SM there); K2 at dv = 128 for G =
+    1, 2, 3, 8, 48 and 64, masked and not, drained rows bit-identical,
+    the three configs' groups timed;
+22. the dense decoders at full width (``phase_dense``), random weights
+    from the seed, the host init timed on its own line: phi4-mini-3.8b at
+    full depth (32 layers), granite-20b and qwen3-32b cut to 4 layers
+    (reduced: full depth would draw 27.9 B and 32.8 B values on the
+    host): phase 8's prompts through the lockstep engine graphed and
+    eager (equal streams; K1 once a layer, B4a once a layer and step);
+    phase 12's trace on its pool, graphed (B4b nl x 8 a dispatch), its
+    first 4 requests again graphed and eager, equal streams; a full-pool
+    dispatch under the profiler beside the least time a tick takes to
+    read the weights; the first 2 layers in fp32 on the card against the
+    CPU plain path (prefill and 2 decode steps' logits, one batch's loss
+    and gradients); 4 AdamW steps (lr 1e-4) of 8 x 1024 tokens at 4
+    layers through K1, K3 and K4, the step donating the weights and
+    moments (a finite, falling loss; the batch halved only if the card
+    cannot hold it, and the cut printed: qwen3's 151936-row logits take
+    a batch of 4).
 Phases 14-17 check that no SLAY kernel launched, phases 19-20 that only
-K2 did; the kernel line's B4a launches are phase 8's and 19's, its B4b
-launches phase 12's, 18's, 19's and 20's.
+K2 did; the kernel line's B4a launches are phase 8's, 19's and 22's, its
+B4b launches phase 12's, 18's, 19's, 20's and 22's, its K1 launches
+phase 8's and 22's, its K3 and K4 launches phase 9's and 22's (each row
+has the dense decoders' launches, G and head-dim-128 numbers per config
+under ``dense_decoders``).
 
 The last two lines are a JSON object with every kernel's numbers and
 ``{"ok": true, "device": {...}}``. Every ``ms`` is CUDA events around the
@@ -192,6 +219,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
+import gc
 import json
 import os
 import pickle
@@ -222,7 +250,8 @@ from repro_torch.optim.adamw import AdamWConfig, adamw_init  # noqa: E402
 from repro_torch.serving import (checkpoint, engine, faults,  # noqa: E402
                                  journal, sampling)
 from repro_torch.train import loop  # noqa: E402
-from repro_torch.tree import tree_items, tree_leaves, tree_map  # noqa: E402
+from repro_torch.tree import (tree_items, tree_leaves, tree_map,  # noqa: E402
+                              tree_map_with_path)
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
@@ -3226,6 +3255,471 @@ def phase_drivers(card: str) -> dict:
     return {"slay_decode_step_masked": n_b}
 
 
+# -- the dense decoders: phi4-mini-3.8b, granite-20b, qwen3-32b -----------
+
+DENSE_ARCHS = ("phi4-mini-3.8b", "granite-20b", "qwen3-32b")
+DENSE_FULL = "phi4-mini-3.8b"  # served at full depth; the others cut
+DENSE_LAYERS = 4               # granite's and qwen3's depth; every training's
+DENSE_TRAIN_STEPS = 4
+# AdamWConfig's default rate (paper App. H). Phase 9's 3e-4 overshoots at
+# these widths: qwen3-32b's loss (untied 151936-row unembedding) rose over
+# 4 steps at 3e-4 and fell at 1e-4 on an H100, its fp32 gradients equal to
+# the CPU's.
+DENSE_LR = 1e-4
+DENSE_FP32_LAYERS = 2          # the card-vs-CPU logits: the first 2 layers
+DENSE_FP32_PROMPT = 128
+DENSE_SUB = 4                  # requests run again graphed and eager
+# K2's groups at head dim 128: the three configs' (phi4-mini 3, qwen3 8,
+# granite 48) and 1, 2 and 64 beside them.
+K2_DENSE_G = (1, 2, 3, 8, 48, 64)
+
+
+def _dense_kernel_cases(feat, a, w, name, G, dims, gen) -> dict:
+    """K1 at a config's lockstep prefill shape (4 prompts padded to 512)
+    and K3/K4 at its training shape (8 x 1024), bf16, d = dv = 128,
+    against their plain versions (K3/K4 also summed over the group, as
+    autograd returns them), timed beside their bounds, with residency
+    lines. Returns each kernel's row."""
+    d = dv = feat.head_dim
+    H, Hkv = dims
+    rows = {}
+    P, D, R = feat.num_anchors, feat.num_prf, feat.num_quad_nodes
+    bh, bk, L = len(PROMPT_LENS) * H, len(PROMPT_LENS) * Hkv, max(PROMPT_LENS)
+    log(f"K1 {name}: BH={bh} BK={bk} (G={G}) L={L} d=dv={d} bf16")
+    q, k, v = _k1_inputs(gen, bh, bk, L, d, dv, torch.bfloat16)
+    y, den = slay_fused.fused_causal_attention(q, k, v, a, w, feat)
+    yp, denp = slay_fused.fused_causal_attention_plain(q, k, v, a, w, feat)
+    torch.cuda.synchronize()
+    err = close(y, yp, *K1_TOL[torch.bfloat16], "y")
+    close(den, denp, 0.0, DEN_RTOL, "den")
+    shape = (bh, bk, L, d, dv, P, D, R, 2)
+    row = _kernel_row(
+        "slay_fused_fwd",
+        time_ms(lambda: slay_fused.fused_causal_attention(q, k, v, a, w, feat),
+                iters=10),
+        time_ms(lambda: slay_fused.fused_causal_attention_plain(
+            q, k, v, a, w, feat), iters=5, warmup=1),
+        k1_tc_bound(*shape), err, "SLAY attention",
+        "with the state products on 3xTF32 tensor cores")
+    rows["slay_fused_fwd"] = dict(row, G=G, bound_fp32_ms=k1_bound(*shape)[0],
+                                  shape=f"BH={bh} BK={bk} L={L} d=dv={d} bf16")
+    log_residency("slay_fused_fwd", "slay_fused", "fused_fwd_kernel",
+                  slay_fused.fwd_residency(bh, d, dv, feat, torch.bfloat16),
+                  dv, f"{name}, bf16, BH={bh}, d=dv={d}")
+    del q, k, v, y, den, yp, denp
+
+    bh, bk, L = TRAIN_BATCH * H, TRAIN_BATCH * Hkv, TRAIN_LEN
+    log(f"K3/K4 {name}: BH={bh} BK={bk} (G={G}) L={L} d=dv={d} bf16")
+    q, k, v = _k1_inputs(gen, bh, bk, L, d, dv, torch.bfloat16)
+    dy = torch.randn(bh, L, dv, generator=gen, device="cuda").bfloat16()
+    y, den = slay_fused.fused_causal_attention(q, k, v, a, w, feat)
+    args = (q, k, v, a, w, y, den, dy, feat)
+    e3 = _check_grads(slay_fused.launch_bwd_q(*args),
+                      slay_fused.fused_bwd_q_plain(*args), K3_OUT,
+                      torch.bfloat16, "K3 vs plain")
+    e4 = _check_grads(slay_fused.launch_bwd_kv(*args),
+                      slay_fused.fused_bwd_kv_plain(*args), K4_OUT,
+                      torch.bfloat16, "K4 vs plain")
+    _check_grads(slay_fused.fused_causal_attention_bwd(*args),
+                 slay_fused.fused_causal_attention_bwd_plain(*args), ALL_OUT,
+                 torch.bfloat16, f"summed over the group of {G} vs plain")
+    torch.cuda.synchronize()
+    shape = (bh, bk, L, d, dv, P, D, R, 2)
+    bounds, fp32 = bwd_tc_bounds(*shape), bwd_bounds(*shape)
+    for kname, kern, plain, err, kv, entry in (
+            ("slay_fused_bwd_q", slay_fused.launch_bwd_q,
+             slay_fused.fused_bwd_q_plain, e3, False, "fused_bwd_q_kernel"),
+            ("slay_fused_bwd_kv", slay_fused.launch_bwd_kv,
+             slay_fused.fused_bwd_kv_plain, e4, True, "fused_bwd_kv_kernel")):
+        row = _kernel_row(kname, time_ms(lambda: kern(*args), iters=5),
+                          time_ms(lambda: plain(*args), iters=3, warmup=0),
+                          bounds[kname], err, "this scan",
+                          "with the state products on 3xTF32 tensor cores")
+        rows[kname] = dict(row, G=G, bound_fp32_ms=fp32[kname][0],
+                           shape=f"BH={bh} BK={bk} L={L} d=dv={d} bf16")
+        log_residency(kname, "slay_fused_bwd", entry,
+                      slay_fused.bwd_residency(kv, bh, d, dv, feat,
+                                               torch.bfloat16),
+                      dv, f"{name}, bf16, BH={bh}, d=dv={d}")
+    del q, k, v, dy, y, den, args
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _dense_k2(gen, timed: set) -> dict:
+    """K2 at head dim 128 (dv = 128, m = 384, qf fp32 and v bf16 as the
+    models' decode gives them) for every group of K2_DENSE_G, masked and
+    not, against its plain version: y, S' and z' in place, drained rows
+    bit-identical with y = 0. The lockstep shape has 4 prompts' kv rows
+    (32 at G <= 8, 4 at G >= 48), the pool's 8 slots' (64 or 8), every
+    third masked row drained. The groups in ``timed`` (the configs') are
+    timed beside their bounds, with residency lines. Returns {(G, masked):
+    row} of the timed cases."""
+    m, dv = 384, 128
+    rows = {}
+    for G in sorted(set(K2_DENSE_G) | timed):
+        for masked in (False, True):
+            bk = (4 if G >= 48 else 32) * (2 if masked else 1)
+            bh = bk * G
+            what = (f"G={G} BK={bk} BH={bh} d=dv={dv} m={m} qf fp32 v bf16"
+                    f"{' masked' if masked else ''}")
+            log(f"K2 {what}")
+            qf, kf, v, s, z = _k2_inputs(gen, bh, bk, m, dv, torch.float32,
+                                         torch.bfloat16)
+            active = ((torch.arange(bk, device="cuda") % 3 != 1)
+                      .to(torch.int32) if masked else None)
+            s0, z0 = s.clone(), z.clone()
+            sp_, zp_ = s.clone(), z.clone()
+            yp, _, _ = decode_step.decode_linear_attention_plain(
+                qf, kf, v, sp_, zp_, active)
+            y, s2, z2 = decode_step.decode_linear_attention(qf, kf, v, s, z,
+                                                           active)
+            torch.cuda.synchronize()
+            if s2 is not s or z2 is not z:
+                raise AssertionError("decode state not updated in place")
+            err = close(y, yp, *K2_YTOL[torch.bfloat16], "y")
+            close(s, sp_, 1e-5, 1e-6, "s' (in place)")
+            close(z, zp_, 1e-5, 1e-6, "z' (in place)")
+            if masked:
+                off = active == 0
+                if not (torch.equal(s[off], s0[off])
+                        and torch.equal(z[off], z0[off])):
+                    raise AssertionError("drained rows' state changed")
+                if not bool((y.reshape(bk, G, dv)[off] == 0).all()):
+                    raise AssertionError("drained rows' y is not zero")
+                log(f"  drained rows: {int(off.sum())} of {bk} "
+                    f"bit-identical, y=0")
+            if G in timed:
+                s.copy_(s0)
+                z.copy_(z0)
+                rows[(G, masked)] = _k2_timed(what, qf, kf, v, s, z, active,
+                                              err)
+                if not masked:
+                    log_residency("slay_decode_step", "decode_step",
+                                  "decode_step_kernel",
+                                  decode_step.residency(bk, G, m, dv,
+                                                        torch.float32,
+                                                        torch.bfloat16),
+                                  dv, what, inst="If13__nv_bfloat16Li128E",
+                                  unit="feature rows")
+    return rows
+
+
+def phase_dense_kernels() -> dict:
+    """K1, K2, K3 and K4 at head dim 128 and the dense decoders' groups
+    (phase 21). Returns {kernel: {config: row}}."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    out: dict = collections.defaultdict(dict)
+    for name in DENSE_ARCHS:
+        cfg = configs.get_config(name)
+        feat = cfg.slay_config()
+        sp = init_feature_params(feat, torch.Generator().manual_seed(SEED),
+                                 device="cuda")
+        G = cfg.num_heads // cfg.num_kv_heads
+        rows = _dense_kernel_cases(feat, sp["anchors"], sp["omegas"], name, G,
+                                   (cfg.num_heads, cfg.num_kv_heads), gen)
+        for kname, row in rows.items():
+            out[kname][name] = row
+    groups = {name: configs.get_config(name).num_heads
+              // configs.get_config(name).num_kv_heads for name in DENSE_ARCHS}
+    k2 = _dense_k2(gen, set(groups.values()))
+    for name, G in groups.items():
+        out["slay_decode_step"][name] = dict(k2[(G, False)], G=G)
+        out["slay_decode_step_masked"][name] = dict(k2[(G, True)], G=G)
+    log(f"kernels at head dim 128: {time.perf_counter() - t_phase:.1f} s")
+    return dict(out)
+
+
+def _dense_init(name: str, layers: int | None, card: str):
+    """A dense config (depth cut to ``layers`` if given) and its random
+    weights from the script's seed, drawn on the host (``init_params``'s
+    CPU generator) and moved to the card; the time on its own line."""
+    cfg = configs.get_config(name)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, SEED, device="cuda")
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in tree_leaves(params))
+    full = configs.get_config(name).num_layers
+    cut = f" (reduced from {full})" if cfg.num_layers < full else ""
+    log(f"{name}: {cfg.num_layers}L{cut} x {cfg.d_model}d, {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} heads of {cfg.resolved_head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, qk_norm={cfg.qk_norm}, tied="
+        f"{cfg.tie_embeddings}, {cfg.dtype}; {n / 1e9:.3f} B params, "
+        f"{_tree_mb(params) / 1e3:.2f} GB")
+    log(f"  host init of {n / 1e9:.3f} B params (torch.Generator on the CPU, "
+        f"then to the card): {time.perf_counter() - t0:.1f} s")
+    return cfg, params
+
+
+def _dense_lockstep(cfg, params, card: str) -> dict:
+    """Phase 8's 4 prompts, 32 greedy tokens, through the lockstep engine
+    (its decode step one CUDA graph), launch counters read around that
+    call (K1 once a layer, B4a once a layer and step); the same engine
+    eager, equal streams; ms per step of each in turns; a profiler window
+    over the graphed step. Returns the launches."""
+    nl = cfg.num_layers
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in PROMPT_LENS]
+    reqs = [engine.Request(p, max_new_tokens=MAX_NEW) for p in prompts]
+    eng = engine.ServingEngine(cfg, params, device="cuda", max_len=2048)
+    eng.generate([engine.Request(prompts[0][:64], max_new_tokens=2)])  # warm
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    outs = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+    want = {"slay_fused_fwd": nl, "slay_decode_step": nl * (MAX_NEW - 1)}
+    if launches != want:
+        raise AssertionError(f"{cfg.name} lockstep: launches {launches}, "
+                             f"want {want}")
+    for o in outs:
+        if len(o) != MAX_NEW or o.min() < 0 or o.max() >= cfg.vocab_size:
+            raise AssertionError(f"{cfg.name}: bad output stream {o}")
+    eager = engine.ServingEngine(cfg, params, device="cuda", max_len=2048,
+                                 _graphs=False)
+    _same_outputs(outs, eager.generate(reqs),
+                  f"{cfg.name} lockstep greedy, graphed vs eager")
+    B = len(reqs)
+    steps = {"graphed": eng._lockstep(B, 0.0).step,
+             "eager": eager._lockstep(B, 0.0).step}
+    ms: dict = {k: [] for k in steps}
+    with torch.inference_mode():
+        for nm in ("graphed", "eager", "eager", "graphed"):
+            ms[nm].append(time_ms(steps[nm], iters=MAX_NEW - 1, warmup=2))
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    log(f"  lockstep: {B} requests x {MAX_NEW} greedy tokens in {wall:.3f} s "
+        f"(prefill included); launches {launches}; streams equal to eager; "
+        f"ms per decode step graphed {med['graphed']:.3f}, eager "
+        f"{med['eager']:.3f} (in turns)  [{card}]")
+    profile(f"{cfg.name} lockstep decode step, graphed", steps["graphed"],
+            med["graphed"])
+    del eng, eager
+    return launches
+
+
+def _dense_continuous(cfg, params, card: str) -> int:
+    """Phase 12's trace on its 8-slot pool, graphed: B4b's launches (nl x
+    K a dispatch, no other kernel), every request served, ms per dispatch
+    and prefill tick, pool tokens/s; its first 4 requests again graphed
+    and eager, streams equal to the whole run's; one full-pool dispatch
+    under the profiler beside the least time a tick can take, the weights
+    read once from device memory. Returns B4b's launches."""
+    nl, K = cfg.num_layers, CONT_SERVING["macro_ticks"]
+    reqs = _cont_requests(cfg)
+    _cont_run(cfg, params, reqs[:2], max_len=1024)          # warm-up
+    timed: dict = {}
+    _build.reset_launches()
+    outs, s, eng, wall = _cont_run(cfg, params, reqs, timed=timed)
+    n_b = _b4b_launches(f"{cfg.name} continuous", s["decode_dispatches"], nl,
+                        K)
+    for rid, r in enumerate(reqs):
+        o = outs[rid]
+        if (len(o) != r.max_new_tokens or o.min() < 0
+                or o.max() >= cfg.vocab_size):
+            raise AssertionError(f"{cfg.name}: bad stream rid {rid}: {o}")
+    if not (s["requests_completed"] == CONT_REQUESTS
+            and s["final_occupancy"] == 0
+            and s["host_syncs"] == s["decode_dispatches"]):
+        raise AssertionError(f"{cfg.name} continuous: {s}")
+    graphs = eng.graph_cache_entries()
+    if graphs != {"macro_decode": 1, "chunk": 1}:
+        raise AssertionError(f"{cfg.name}: graphs after the run: {graphs}")
+    disp, pre = timed["_decode_macro"], timed["_prefill_tick"]
+    dec_tokens = s["tokens_generated"] - CONT_REQUESTS
+    log(f"  continuous: {wall:.3f} s, {s['ticks']} ticks ({s['prefill_ticks']}"
+        f" prefill, {s['decode_dispatches']} dispatches), B4b {n_b} launches "
+        f"({nl} x {K} a dispatch, G = {cfg.num_heads // cfg.num_kv_heads}); "
+        f"ms per dispatch median {statistics.median(disp) * 1e3:.2f}, "
+        f"prefill tick median {statistics.median(pre) * 1e3:.2f}; pool "
+        f"decode {dec_tokens / sum(disp):.1f} tokens/s; pool "
+        f"{_tree_mb(eng.pool):.1f} MB  [{card}]")
+    sub = reqs[:DENSE_SUB]
+    graphed, _, _, g_wall = _cont_run(cfg, params, sub)
+    eager, _, _, e_wall = _cont_run(cfg, params, sub, graphs=False)
+    _same_streams(outs, graphed, f"{cfg.name} continuous rids 0-3, graphed")
+    _same_streams(outs, eager, f"{cfg.name} continuous rids 0-3, eager")
+    log(f"  rids 0-{DENSE_SUB - 1} alone, graphed {g_wall:.3f} s and eager "
+        f"{e_wall:.3f} s: streams equal to the whole run's")
+    del eng
+    wall_ms = _cont_profile(cfg, params, card, pieces=False, sampled=False,
+                            eager=False)["graphed"]
+    floor = _tree_mb(params) * 1e6 / HBM_BYTES_PER_S * 1e3
+    log(f"  a full-pool tick {wall_ms / K:.3f} ms graphed against "
+        f"{floor:.3f} ms to read the {_tree_mb(params) / 1e3:.2f} GB of "
+        f"weights once at 3.35 TB/s ({floor / (wall_ms / K):.1%} of it)  "
+        f"[{card}]")
+    return n_b
+
+
+def _dense_fp32(cfg, params, card: str) -> None:
+    """The first 2 layers of the served weights widened to fp32, on the
+    card against the port's CPU plain path: a 128-token prompt's
+    last-token prefill logits (K1) and 2 decode steps' (B4a); the loss and
+    every gradient of one 1 x 256 batch (K1, K3, K4), as phase 9 holds
+    slayformer's."""
+    cfg32 = dataclasses.replace(cfg, num_layers=DENSE_FP32_LAYERS,
+                                dtype="float32")
+    p32 = tree_map_with_path(
+        lambda path, t: (t[:DENSE_FP32_LAYERS] if path.startswith("layers")
+                         else t).float(), params)
+    rng = np.random.default_rng(SEED + 9)
+    prompt = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (1, DENSE_FP32_PROMPT)).astype(
+            np.int32))
+    toks = [torch.tensor([[int(t)]], dtype=torch.int32)
+            for t in rng.integers(0, cfg.vocab_size, 2)]
+    batch = pipeline.make_batch(pipeline.DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=256, global_batch=1, seed=SEED), 0)
+
+    def run(p):
+        with torch.inference_mode():
+            lg, cache = api.prefill(p, cfg32, prompt)
+            rows = [lg[0, -1].cpu()]
+            for t in toks:
+                lg, cache = api.decode_step(p, cfg32, cache, t)
+                rows.append(lg[0, -1].cpu())
+        loss, _, grads = loop.value_and_grad(p, cfg32, batch)
+        return rows, loss.cpu(), tree_map(lambda t: t.cpu(), grads)
+
+    got = run(p32)
+    p_cpu = tree_map(lambda t: t.cpu(), p32)
+    del p32
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    want = run(p_cpu)
+    log(f"  card fp32 vs CPU plain fp32, {DENSE_FP32_LAYERS} layers at full "
+        f"width: a {DENSE_FP32_PROMPT}-token prompt and 2 decode steps, the "
+        f"loss and gradients of 1 x 256 tokens (CPU "
+        f"{time.perf_counter() - t0:.1f} s):")
+    # fp32 on both sides, summation order differs (cuBLAS and the kernels'
+    # tiles vs the CPU's GEMMs and 256-token chunks) through 2 layers as
+    # wide as 25600: logits to 1e-5 of the largest, as phase 8 holds 12
+    # layers of slayformer; the loss to 1e-5 relative and each gradient to
+    # 1e-4 of its largest magnitude, as phase 9.
+    for i, (g, w) in enumerate(zip(got[0], want[0])):
+        scale = float(w.abs().max())
+        close(g, w, 1e-5 * scale, 0.0,
+              "prefill logits" if i == 0 else f"decode step {i} logits")
+    close(got[1], want[1], 0.0, 1e-5, "loss")
+    for (key, g), (_, c) in zip(tree_items(got[2]), tree_items(want[2])):
+        close(g, c, 1e-4 * (float(c.abs().max()) or 1.0), 0.0,
+              f"grad {key}")
+
+
+def _free_card() -> None:
+    """Collect what reference cycles keep alive (a timed engine's wrapped
+    step closes over the engine, with its pool and graphs), then hand the
+    cached blocks back to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _dense_train(cfg, box: list, card: str) -> dict:
+    """4 AdamW steps of 8 x 1024 tokens (lr DENSE_LR) at the
+    config's width and DENSE_LAYERS layers, every attention layer through
+    K1, K3 and K4 once a step; a finite, falling loss. The step donates
+    the weights and moments (``make_train_step(donate=True)``, as the JAX
+    package's jitted step and the port's ``Trainer``): with new tensors
+    beside the old, the update alone would need 28 bytes a parameter.
+    ``box`` holds the weights, taken out of it so that nothing else keeps
+    them. If the card cannot hold a batch of 8, the batch is halved
+    (never the width), the cut printed, and the weights copied back from
+    a host copy taken before the first step. Returns the launches."""
+    nl = cfg.num_layers
+    ocfg = AdamWConfig(lr=DENSE_LR, warmup_steps=1,
+                       total_steps=DENSE_TRAIN_STEPS)
+    step = loop.make_train_step(cfg, ocfg, loop.TrainConfig(remat=False),
+                                donate=True)
+    p = box.pop()
+    host = tree_map(lambda t: t.cpu(), p)
+    _free_card()
+    log(f"  train {cfg.name}: {torch.cuda.memory_allocated() / 1e9:.1f} GB "
+        f"allocated before the first step (the weights)")
+    for batch in (TRAIN_BATCH, TRAIN_BATCH // 2, TRAIN_BATCH // 4):
+        dcfg = pipeline.DataConfig(vocab_size=cfg.vocab_size,
+                                   seq_len=TRAIN_LEN, global_batch=batch,
+                                   seed=SEED)
+        if p is None:
+            p = tree_map(lambda t: t.to("cuda"), host)
+        opt, ef, losses, times = adamw_init(p, ocfg), torch.zeros(()), [], []
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        try:
+            for i in range(DENSE_TRAIN_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                p, opt, ef, mx = step(p, opt, ef,
+                                      pipeline.make_batch(dcfg, i))
+                losses.append(float(mx["loss"]))
+                times.append(time.perf_counter() - t0)
+        except torch.cuda.OutOfMemoryError as e:
+            why = str(e).splitlines()[0][:160]
+        else:
+            break
+        p = opt = ef = None
+        _free_card()
+        log(f"  train {cfg.name}: batch {batch} x {TRAIN_LEN} does not fit "
+            f"the card ({why}); the batch is cut to {batch // 2}, the same "
+            f"weights copied back")
+    else:
+        raise AssertionError(f"train {cfg.name}: no batch fits the card")
+    launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+    _expect_launches(launches, {k: nl * DENSE_TRAIN_STEPS
+                                for k in TRAIN_KERNELS},
+                     f"train {cfg.name}")
+    log(f"  train: {DENSE_TRAIN_STEPS} AdamW steps (lr {DENSE_LR:g}) of "
+        f"{batch} x {TRAIN_LEN} tokens, {nl} layers (reduced); loss per step "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; ms per step "
+        f"{', '.join(f'{x * 1e3:.1f}' for x in times)} (median of steps 2-"
+        f"{DENSE_TRAIN_STEPS} {statistics.median(times[1:]) * 1e3:.1f} = "
+        f"{batch * TRAIN_LEN / statistics.median(times[1:]):.1f} tokens/s); "
+        f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB; "
+        f"launches {launches}  [{card}]")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train {cfg.name}: losses {losses}")
+    del p, opt, ef, step, host
+    _free_card()
+    return launches
+
+
+def phase_dense(card: str) -> dict:
+    """The dense decoders at full width (phase 22): phi4-mini-3.8b at full
+    depth, granite-20b and qwen3-32b cut to 4 layers, each served lockstep
+    and continuous, its fp32 logits at 2 layers against the CPU, and
+    trained 4 steps at 4 layers. Returns {config: launches by kernel}."""
+    t_phase = time.perf_counter()
+    out = {}
+    for name in DENSE_ARCHS:
+        _free_card()                 # earlier phases' and configs' engines
+        t_cfg = time.perf_counter()
+        cfg, params = _dense_init(name, None if name == DENSE_FULL
+                                  else DENSE_LAYERS, card)
+        got = collections.Counter(_dense_lockstep(cfg, params, card))
+        got["slay_decode_step_masked"] += _dense_continuous(cfg, params, card)
+        _dense_fp32(cfg, params, card)
+        if cfg.num_layers > DENSE_LAYERS:
+            cut = dataclasses.replace(cfg, num_layers=DENSE_LAYERS)
+            params = tree_map_with_path(
+                lambda path, t: (t[:DENSE_LAYERS].clone()
+                                 if path.startswith("layers") else t), params)
+            cfg = cut
+        box = [params]
+        del params
+        got.update(_dense_train(cfg, box, card))
+        out[name] = dict(got)
+        log(f"{name}: {time.perf_counter() - t_cfg:.1f} s; launches {dict(got)}"
+            f"  [{card}]")
+    log(f"dense decoders: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; it needs an "
@@ -3260,6 +3754,8 @@ def main() -> int:
                                                step_ms=slay_step_ms),
                                fused_step_s)
     drv = phase_drivers(card_line)
+    dense_k = phase_dense_kernels()
+    dense = phase_dense(card_line)
     k2_bl = k2.pop("baselines")
     kernels = [
         dict(name="slay_fused_fwd", route="cuda",
@@ -3303,6 +3799,15 @@ def main() -> int:
             name=name, route="cuda", source=f"src/repro_torch/csrc/{src}",
             replaces=f"src/repro/kernels/{jax_line}", launches=two[name],
             **numbers[name], library_ms=None))
+    # The dense decoders' launches (phase 22) join each row's count; beside
+    # them, per config, its group G and the kernel at head dim 128 (phase
+    # 21).
+    for row in kernels[:5]:
+        name = row["name"]
+        row["launches"] += sum(d.get(name, 0) for d in dense.values())
+        row["dense_decoders"] = {
+            arch: dict(dense_k[name][arch], launches=dense[arch].get(name, 0))
+            for arch in DENSE_ARCHS}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi())
     print(json.dumps({"kernels": kernels}), flush=True)

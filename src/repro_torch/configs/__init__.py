@@ -1,5 +1,6 @@
-"""Config registry of the port: slayformer-124m so far, with every
-attention kind of the port (``core.slay.ATTN_KINDS``) as an override.
+"""Config registry of the port: slayformer-124m and the dense decoders
+phi4-mini-3.8b, granite-20b and qwen3-32b, with every attention kind of
+the port (``core.slay.ATTN_KINDS``) as an override.
 
     cfg = configs.get_config("slayformer-124m")          # full width
     cfg = configs.get_smoke_config("slayformer-124m")    # CPU smoke size
@@ -14,6 +15,9 @@ from repro_torch.configs.base import ArchConfig
 
 _MODULES = {
     "slayformer-124m": "slayformer_124m",
+    "phi4-mini-3.8b": "phi4_mini",
+    "granite-20b": "granite_20b",
+    "qwen3-32b": "qwen3_32b",
 }
 # The ported configs (the command-line drivers' --arch choices).
 ALL_ARCHS = tuple(_MODULES)

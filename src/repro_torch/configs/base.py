@@ -3,9 +3,11 @@
 A torch counterpart of ``repro.configs.base.ArchConfig`` holding the
 fields the ported decoder uses: SLAY, the linear baselines (``favor``,
 ``cosformer``, ``elu1``) and the exact quadratic kinds (``softmax``,
-``yat``, ``yat_spherical``) on the dense decoder. MoE, SSM,
-hybrid, encoder-decoder, vision and local/global windows are not ported
-yet (ROADMAP Queue A item 12). ``ServingConfig`` has the reference's
+``yat``, ``yat_spherical``) on the dense decoder, with GQA/MQA, gated or
+plain MLPs, tied or untied embeddings and qk-norm. MoE, SSM, hybrid,
+encoder-decoder, vision and local/global windows are not ported yet
+(ROADMAP Queue A item 12); their fields are here only so that
+:meth:`ArchConfig.check_supported` refuses them. ``ServingConfig`` has the reference's
 fields, defaults and validation.
 """
 from __future__ import annotations
@@ -30,11 +32,18 @@ class ArchConfig:
     num_kv_heads: int = 0
     head_dim: int = 0
     d_ff: int = 0
+    qk_norm: bool = False            # RMSNorm on q and k over the head dim
     attn_logit_softcap: float = 0.0   # gemma2 attention softcap
     final_logit_softcap: float = 0.0
     gated_mlp: bool = True
     tie_embeddings: bool = True
     rope_theta: float = 10000.0
+    # Not ported (check_supported refuses them): gemma2's windows, MoE,
+    # modality frontends.
+    local_window: int = 0
+    local_global_period: int = 0
+    moe_experts: int = 0
+    frontend: str = ""
     attn_kind: str = "slay"          # one of core.slay.ATTN_KINDS
     slay_anchors: int = 8
     slay_prf: int = 16
@@ -74,6 +83,21 @@ class ArchConfig:
             raise NotImplementedError(
                 f"{self.name}: family={self.family!r}; the port has the "
                 f"dense decoder only so far (ROADMAP Queue A item 12)")
+        later = [
+            (self.local_window or self.local_global_period,
+             f"local_window={self.local_window}, local_global_period="
+             f"{self.local_global_period} (gemma2's local/global windowed "
+             f"layers and the windowed ring)"),
+            (self.moe_experts,
+             f"moe_experts={self.moe_experts} (the MoE layer, layers.moe)"),
+            (self.frontend, f"frontend={self.frontend!r} (a modality "
+             f"frontend)"),
+        ]
+        for bad, what in later:
+            if bad:
+                raise NotImplementedError(
+                    f"{self.name}: {what} is not ported yet (ROADMAP Queue "
+                    f"A item 12)")
         if self.attn_kind not in ATTN_KINDS:
             raise NotImplementedError(
                 f"{self.name}: attn_kind={self.attn_kind!r}; the port has "

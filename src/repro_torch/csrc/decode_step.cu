@@ -35,6 +35,14 @@
 // One launch per layer and decode step, as before, and a fixed order of
 // every sum: no atomics. The blocks of an inactive row's cluster all leave
 // before either barrier, so no barrier waits on a block that has exited.
+//
+// Any group size G: a thread keeps the sums of kGroupTile query heads in
+// registers, so the G heads go in tiles of kGroupTile. The first tile
+// walks the slice as above, updating S and z; each later tile walks it
+// again, reading back the S' and z' that the same thread wrote (granite's
+// MQA has G = 48: six walks of a slice that stays in L1/L2). Every head's
+// sums keep their order, so y is the same bits for any tiling, and S and
+// z are still written once, by one block per slice.
 #include <cooperative_groups.h>
 
 #include <cstdint>
@@ -43,7 +51,7 @@
 
 namespace slay {
 
-constexpr int kMaxGroup = 8;        // query heads per kv head the kernel takes
+constexpr int kGroupTile = 8;       // query heads a thread sums at once
 constexpr int kMaxCluster = 8;      // blocks per kv row (the portable size)
 constexpr int kDecodeThreads = 128; // threads per block
 constexpr int kMinSliceRows = 16;   // fewest feature rows worth a block
@@ -62,14 +70,15 @@ inline DecodeSlices decode_slices(int m) {
 }
 
 // Dynamic shared memory of one block (floats): Ψq of the slice (G, rows),
-// Ψk (rows), the row groups' partial numerators (RG, G, DV), the warps'
-// partial denominators (warps, G), the block's partial num (G, DV) and
-// den (G).
+// Ψk (rows), one group tile's row-group partial numerators (RG, T, DV)
+// and warp partial denominators (warps, T), with T = min(G, kGroupTile),
+// and the block's partial num (G, DV) and den (G).
 template <int DV>
 constexpr size_t decode_smem_floats(int G, int rows) {
+  const int T = G < kGroupTile ? G : kGroupTile;
   return (size_t)G * rows + rows +
-         (size_t)(kDecodeThreads / (DV / 4)) * G * DV +
-         (kDecodeThreads / 32) * G + (size_t)G * DV + G;
+         (size_t)(kDecodeThreads / (DV / 4)) * T * DV +
+         (kDecodeThreads / 32) * T + (size_t)G * DV + G;
 }
 
 __device__ __forceinline__ float4 ld4(const float* p, bool vec) {
@@ -114,11 +123,12 @@ decode_step_kernel(const TQ* __restrict__ qf, const TQ* __restrict__ kf,
         yrow[o] = from_f32<TV>(0.f);
     return;
   }
+  const int T = G < kGroupTile ? G : kGroupTile;
   float* qs = smem;                  // (G, rows)
   float* ks = qs + G * rows;         // (rows,)
-  float* red = ks + rows;            // (RG, G, DV)
-  float* wden = red + RG * G * DV;   // (kWarps, G)
-  float* pnum = wden + kWarps * G;   // (G, DV): this block's partial num
+  float* red = ks + rows;            // (RG, T, DV): one tile's partials
+  float* wden = red + RG * T * DV;   // (kWarps, T)
+  float* pnum = wden + kWarps * T;   // (G, DV): this block's partial num
   float* pden = pnum + G * DV;       // (G,): this block's partial den
   const int i0 = rank * rows;
   const int mc = m - i0 < rows ? m - i0 : rows;
@@ -130,81 +140,93 @@ decode_step_kernel(const TQ* __restrict__ qf, const TQ* __restrict__ kf,
     ks[i] = to_f32(kf[(int64_t)row * m + i0 + i]);
   __syncthreads();
 
-  // S' = S + Ψkᵀv and Σ_i Ψq[g,i]·S'[i, 4·cgi..4·cgi+3], rows rg, rg + RG, …
   const int cgi = tid % CG, rg = tid / CG;
   const TV* vr = v + (int64_t)row * DV + 4 * cgi;
   const float v0 = to_f32(vr[0]), v1 = to_f32(vr[1]), v2 = to_f32(vr[2]),
               v3 = to_f32(vr[3]);
   float* srow = s + ((int64_t)row * m + i0) * DV + 4 * cgi;
-  float acc[kMaxGroup][4];
+  float* zrow = z + (int64_t)row * m + i0;
+  for (int g0 = 0; g0 < G; g0 += kGroupTile) {
+    const bool first = g0 == 0;      // this walk updates S and z
+    const int gt = G - g0 < kGroupTile ? G - g0 : kGroupTile;
+    const float* qt = qs + g0 * rows;
+    // S' = S + Ψkᵀv (first walk; later walks read S' back) and
+    // Σ_i Ψq[g,i]·S'[i, 4·cgi..4·cgi+3], rows rg, rg + RG, …
+    float acc[kGroupTile][4];
 #pragma unroll
-  for (int g = 0; g < kMaxGroup; ++g)
-    acc[g][0] = acc[g][1] = acc[g][2] = acc[g][3] = 0.f;
-  for (int b0 = rg; b0 < mc; b0 += RG * kBatch) {
-    float4 sv[kBatch];
+    for (int g = 0; g < kGroupTile; ++g)
+      acc[g][0] = acc[g][1] = acc[g][2] = acc[g][3] = 0.f;
+    for (int b0 = rg; b0 < mc; b0 += RG * kBatch) {
+      float4 sv[kBatch];
 #pragma unroll
-    for (int k = 0; k < kBatch; ++k) {
-      const int i = b0 + k * RG;
-      if (i < mc) sv[k] = ld4(srow + (int64_t)i * DV, vec);
-    }
+      for (int k = 0; k < kBatch; ++k) {
+        const int i = b0 + k * RG;
+        if (i < mc) sv[k] = ld4(srow + (int64_t)i * DV, vec);
+      }
 #pragma unroll
-    for (int k = 0; k < kBatch; ++k) {
-      const int i = b0 + k * RG;
-      if (i < mc) {
-        const float kv = ks[i];
-        float4 x = sv[k];
-        x.x = x.x + __fmul_rn(kv, v0);
-        x.y = x.y + __fmul_rn(kv, v1);
-        x.z = x.z + __fmul_rn(kv, v2);
-        x.w = x.w + __fmul_rn(kv, v3);
-        st4(srow + (int64_t)i * DV, x, vec);
+      for (int k = 0; k < kBatch; ++k) {
+        const int i = b0 + k * RG;
+        if (i < mc) {
+          float4 x = sv[k];
+          if (first) {
+            const float kv = ks[i];
+            x.x = x.x + __fmul_rn(kv, v0);
+            x.y = x.y + __fmul_rn(kv, v1);
+            x.z = x.z + __fmul_rn(kv, v2);
+            x.w = x.w + __fmul_rn(kv, v3);
+            st4(srow + (int64_t)i * DV, x, vec);
+          }
 #pragma unroll
-        for (int g = 0; g < kMaxGroup; ++g) {
-          if (g < G) {
-            const float q = qs[g * rows + i];
-            acc[g][0] += q * x.x;
-            acc[g][1] += q * x.y;
-            acc[g][2] += q * x.z;
-            acc[g][3] += q * x.w;
+          for (int g = 0; g < kGroupTile; ++g) {
+            if (g < gt) {
+              const float q = qt[g * rows + i];
+              acc[g][0] += q * x.x;
+              acc[g][1] += q * x.y;
+              acc[g][2] += q * x.z;
+              acc[g][3] += q * x.w;
+            }
           }
         }
       }
     }
-  }
-  // z' = z + Ψk and the partial denominators Ψq_g·z'.
-  float* zrow = z + (int64_t)row * m + i0;
-  float dacc[kMaxGroup];
+    // z' = z + Ψk (first walk) and the partial denominators Ψq_g·z'.
+    float dacc[kGroupTile];
 #pragma unroll
-  for (int g = 0; g < kMaxGroup; ++g) dacc[g] = 0.f;
-  for (int i = tid; i < mc; i += kDecodeThreads) {
-    const float zv = zrow[i] + ks[i];
-    zrow[i] = zv;
+    for (int g = 0; g < kGroupTile; ++g) dacc[g] = 0.f;
+    for (int i = tid; i < mc; i += kDecodeThreads) {
+      float zv = zrow[i];
+      if (first) {
+        zv = zv + ks[i];
+        zrow[i] = zv;
+      }
 #pragma unroll
-    for (int g = 0; g < kMaxGroup; ++g)
-      if (g < G) dacc[g] += qs[g * rows + i] * zv;
-  }
-#pragma unroll
-  for (int g = 0; g < kMaxGroup; ++g) {
-    if (g < G) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        red[(rg * G + g) * DV + 4 * cgi + e] = acc[g][e];
-      const float w = warp_sum(dacc[g]);
-      if (lane == 0) wden[warp * G + g] = w;
+      for (int g = 0; g < kGroupTile; ++g)
+        if (g < gt) dacc[g] += qt[g * rows + i] * zv;
     }
-  }
-  __syncthreads();
-  // The block's partials, its row groups and warps added in order.
-  for (int o = tid; o < G * DV; o += kDecodeThreads) {
-    const int g = o / DV, j = o % DV;
-    float num = 0.f;
-    for (int r = 0; r < RG; ++r) num += red[(r * G + g) * DV + j];
-    pnum[o] = num;
-  }
-  for (int g = tid; g < G; g += kDecodeThreads) {
-    float den = 0.f;
-    for (int w = 0; w < kWarps; ++w) den += wden[w * G + g];
-    pden[g] = den;
+#pragma unroll
+    for (int g = 0; g < kGroupTile; ++g) {
+      if (g < gt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          red[(rg * T + g) * DV + 4 * cgi + e] = acc[g][e];
+        const float w = warp_sum(dacc[g]);
+        if (lane == 0) wden[warp * T + g] = w;
+      }
+    }
+    __syncthreads();
+    // The tile's partials, its row groups and warps added in order.
+    for (int o = tid; o < gt * DV; o += kDecodeThreads) {
+      const int g = o / DV, j = o % DV;
+      float num = 0.f;
+      for (int r = 0; r < RG; ++r) num += red[(r * T + g) * DV + j];
+      pnum[(g0 + g) * DV + j] = num;
+    }
+    for (int g = tid; g < gt; g += kDecodeThreads) {
+      float den = 0.f;
+      for (int w = 0; w < kWarps; ++w) den += wden[w * T + g];
+      pden[g0 + g] = den;
+    }
+    __syncthreads();   // red and wden are the next tile's
   }
   cluster.sync();
   if (rank == 0) {
@@ -292,7 +314,7 @@ int slay_decode_step(const void* qf, const void* kf, const void* v, void* s,
                      void* z, void* y, const void* active, int bk, int g,
                      int m, int dv, int q_dtype, int v_dtype, float delta,
                      void* stream) {
-  if (g < 1 || g > slay::kMaxGroup || m < 1) return (int)cudaErrorInvalidValue;
+  if (g < 1 || m < 1) return (int)cudaErrorInvalidValue;
   const void* kern = slay::decode_kernel(q_dtype, v_dtype, dv);
   if (kern == nullptr) return (int)cudaErrorInvalidValue;
   if (bk == 0) return 0;
@@ -316,7 +338,7 @@ int slay_decode_step(const void* qf, const void* kf, const void* v, void* s,
 int slay_decode_step_occupancy(int g, int m, int dv, int q_dtype,
                                int v_dtype, int* out) {
   const void* kern = slay::decode_kernel(q_dtype, v_dtype, dv);
-  if (kern == nullptr || g < 1 || g > slay::kMaxGroup || m < 1)
+  if (kern == nullptr || g < 1 || m < 1)
     return (int)cudaErrorInvalidValue;
   const slay::DecodeSlices sl = slay::decode_slices(m);
   const size_t smem = slay::decode_smem(g, sl.rows, dv);

@@ -6,7 +6,8 @@ Parameters are a plain dict laid out like the JAX package's pytree, so
 
     embed (V, d), final_norm (d,), [unembed (V, d) if untied],
     layers: pre_attn (nl, d), pre_mlp (nl, d),
-            attn: wq (nl, d, H, dh), wk/wv (nl, d, Hkv, dh), wo (nl, H, dh, d),
+            attn: wq (nl, d, H, dh), wk/wv (nl, d, Hkv, dh), wo (nl, H, dh, d)
+                  [, q_norm, k_norm (nl, dh) if qk_norm],
             mlp: up (nl, d, ff), down (nl, ff, d) [, gate (nl, d, ff)],
     slay: anchors (P, dh), omegas (D, dh)   (fp32, shared by every layer;
                                              SLAY configs only)
@@ -58,6 +59,9 @@ def _param_shapes(cfg: ArchConfig) -> dict:
         "layers.mlp.up": ((nl, d, ff), "normal", None),
         "layers.mlp.down": ((nl, ff, d), "normal", None),
     }
+    if cfg.qk_norm:
+        shapes["layers.attn.q_norm"] = ((nl, dh), "zeros", None)
+        shapes["layers.attn.k_norm"] = ((nl, dh), "zeros", None)
     if cfg.gated_mlp:
         shapes["layers.mlp.gate"] = ((nl, d, ff), "normal", None)
     if not cfg.tie_embeddings:
@@ -117,10 +121,16 @@ def _layer(params: dict, i: int) -> dict:
 
 
 def _qkv(cfg: ArchConfig, lp: dict, x, positions):
+    """q, k, v of one layer: every path (forward, prefill, chunks, decode,
+    verify) projects through here. qk-norm (qwen3) normalises q and k
+    over the head dim before RoPE."""
     xa = rmsnorm(lp["pre_attn"], x)
     q = torch.einsum("...d,dhk->...hk", xa, lp["attn"]["wq"])
     k = torch.einsum("...d,dhk->...hk", xa, lp["attn"]["wk"])
     v = torch.einsum("...d,dhk->...hk", xa, lp["attn"]["wv"])
+    if cfg.qk_norm:
+        q = rmsnorm(lp["attn"]["q_norm"], q)
+        k = rmsnorm(lp["attn"]["k_norm"], k)
     return (rope(q, positions, cfg.rope_theta),
             rope(k, positions, cfg.rope_theta), v)
 

@@ -1,7 +1,10 @@
 """AdamW with warmup+cosine schedule and global-norm clipping.
 
 Functional over the parameter dict, as ``repro.optim.adamw``: every
-function returns new tensors and leaves its inputs as they are. Moments
+function returns new tensors and leaves its inputs as they are, except
+``adamw_update(donate=True)``, which writes the step into the parameter
+and moment tensors it is given, as the JAX package's jitted train step
+donates them (``repro/train/loop.py:142``). Moments
 are fp32 by default or bf16 (``moment_dtype``); the update runs in fp32 in
 the same order of operations as the JAX package, and the new parameters
 are cast back to each parameter's dtype.
@@ -36,6 +39,10 @@ class AdamWState(NamedTuple):
     v: dict
 
 
+# Elements of a leaf that ``adamw_update(donate=True)`` updates at once.
+DONATE_SLICE = 1 << 26
+
+
 def _mdtype(cfg: AdamWConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.moment_dtype == "bfloat16" else torch.float32
 
@@ -67,8 +74,14 @@ def global_norm(tree) -> torch.Tensor:
 
 
 def adamw_update(grads: dict, state: AdamWState, params: dict,
-                 cfg: AdamWConfig) -> tuple[dict, AdamWState, dict]:
-    """One step; returns (new_params, new_state, metrics)."""
+                 cfg: AdamWConfig, *, donate: bool = False
+                 ) -> tuple[dict, AdamWState, dict]:
+    """One step; returns (new_params, new_state, metrics). ``donate=True``
+    copies the new parameters and moments into ``params`` and ``state``'s
+    tensors and returns those, a slice of at most ``DONATE_SLICE``
+    elements (whole rows of the leading axis) at a time, so the step holds
+    one copy of them and one slice's fp32 temporaries, not two copies and
+    a whole leaf's (the arithmetic is elementwise and the same)."""
     step = state.step + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
@@ -86,7 +99,16 @@ def adamw_update(grads: dict, state: AdamWState, params: dict,
         delta = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * p.float()
         return ((p.float() - lr * delta).to(p.dtype), m32.to(dt), v32.to(dt))
 
-    out = tree_map(upd, params, grads, state.m, state.v)
+    def upd_in_place(p, g, m, v):
+        rows = max(1, DONATE_SLICE // max(p[0].numel(), 1))
+        for i in range(0, p.shape[0], rows):
+            ps, gs, ms, vs = (t[i:i + rows] for t in (p, g, m, v))
+            for dst, src in zip((ps, ms, vs), upd(ps, gs, ms, vs)):
+                dst.copy_(src)
+        return p, m, v
+
+    out = tree_map(upd_in_place if donate else upd, params, grads, state.m,
+                   state.v)
     new_params = tree_map(lambda t: t[0], out)
     new_m = tree_map(lambda t: t[1], out)
     new_v = tree_map(lambda t: t[2], out)

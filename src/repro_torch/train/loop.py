@@ -79,10 +79,14 @@ def value_and_grad(params: dict, cfg: ArchConfig, batch: dict, *,
 
 
 def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
-                    train_cfg: TrainConfig):
+                    train_cfg: TrainConfig, *, donate: bool = False):
     """Returns train_step(params, opt_state, ef_state, batch)
     -> (params, opt_state, ef_state, metrics), with new tensors for the
-    parameters and optimizer state."""
+    parameters and optimizer state, or with ``donate=True`` the given
+    ones updated in place (``adamw_update(donate=True)``), as the JAX
+    package's jitted step donates them: the step then holds one copy of
+    the weights and moments, which a few billion parameters need on one
+    card."""
     cfg = resolve_attention_path(cfg, train_cfg)
     remat = train_cfg.remat
 
@@ -108,7 +112,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
         if train_cfg.compress_grads:
             grads, ef_state = gcomp.compress_decompress(grads, ef_state)
         params, opt_state, opt_metrics = adamw_update(
-            grads, opt_state, params, opt_cfg)
+            grads, opt_state, params, opt_cfg, donate=donate)
         metrics = {**metrics, **opt_metrics, "loss": loss}
         return params, opt_state, ef_state, metrics
 
@@ -116,12 +120,14 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
 
 
 class Trainer:
-    """Fault-tolerant loop around the step, on one device."""
+    """Fault-tolerant loop around the step, on one device. The step
+    donates the parameters and moments (``make_train_step(donate=True)``),
+    as the JAX package's Trainer jits it with ``donate_argnums``."""
 
     def __init__(self, cfg: ArchConfig, opt_cfg: AdamWConfig,
                  train_cfg: TrainConfig, *, seed: int = 0, device="cuda"):
         self.cfg, self.opt_cfg, self.train_cfg = cfg, opt_cfg, train_cfg
-        self.step_fn = make_train_step(cfg, opt_cfg, train_cfg)
+        self.step_fn = make_train_step(cfg, opt_cfg, train_cfg, donate=True)
         self.params = api.init_params(cfg, seed, device=device)
         self.opt_state = adamw_init(self.params, opt_cfg)
         self.ef_state = (gcomp.init(self.params) if train_cfg.compress_grads

@@ -48,6 +48,8 @@ from repro_torch.serving import faults
 from repro_torch.serving import journal as journal_lib
 from repro_torch.serving import sampling
 
+torch.set_num_threads(1)    # small ops; the suite runs one process per core
+
 NAME = "slayformer-124m"
 KINDS = ["favor", "cosformer", "elu1"]
 TIE_GAP = 1e-5

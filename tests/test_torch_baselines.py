@@ -40,6 +40,8 @@ from repro_torch.optim import adamw as tadamw
 from repro_torch.train import loop as tloop
 from repro_torch.tree import tree_items
 
+torch.set_num_threads(1)    # small ops; the suite runs one process per core
+
 NAME = "slayformer-124m"
 KINDS = ["favor", "cosformer", "elu1"]
 TOL = {"float32": dict(rtol=1e-5, atol=1e-5),

@@ -57,6 +57,8 @@ from repro_torch.kernels import feature_map as tfm
 from repro_torch.kernels import slay_fused as tfused
 from repro_torch.kernels import slay_scan as tscan
 
+torch.set_num_threads(1)    # small ops; the suite runs one process per core
+
 D_HEAD, TILE, DELTA = 16, 16, 1e-6
 
 

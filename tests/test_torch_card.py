@@ -307,6 +307,128 @@ def test_baseline_engines_on_card_match_cpu(kind):
     assert cont["slay_decode_step"] == lock["slay_decode_step_masked"] == 0
 
 
+# -- the dense decoders: head dim 128, any GQA group -------------------------
+
+
+@needs_card
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("g", [1, 2, 3, 8, 48, 64])
+def test_decode_kernel_any_group_at_head_dim_128_on_card(g, masked):
+    # K2 at the dense decoders' head dim (dv = 128, m = 384) for every
+    # group: phi4-mini's 3, qwen3's 8, granite's MQA 48, and 1, 2, 64
+    # beside them. Past 8 q heads a block sums the heads in tiles of 8,
+    # walking its slice again; S' and z' are written once. v fp32: y
+    # differs from the plain version in summation order only (1e-5), S'
+    # and z' not at all; drained rows bit-identical, y zero.
+    bk = 4 if g >= 48 else 16
+    args = [torch.from_numpy(x).cuda()
+            for x in _decode_inputs(4 + g, bk * g, bk, m=384, dv=128)]
+    active = None
+    if masked:
+        active = (torch.arange(bk, device="cuda") % 3 != 1).to(torch.int32)
+    s0, z0 = args[3].clone(), args[4].clone()
+    plain = [a.clone() for a in args]
+    yp, sp, zp = tdecode.decode_linear_attention_plain(*plain, active)
+    _build.reset_launches()
+    y, s, z = tdecode.decode_linear_attention(*args, active)
+    assert _build.LAUNCHES["slay_decode_step_masked" if masked
+                           else "slay_decode_step"] == 1
+    assert s is args[3] and z is args[4]
+    torch.testing.assert_close(y, yp, rtol=1e-5, atol=1e-5)
+    assert torch.equal(s, sp) and torch.equal(z, zp)
+    if masked:
+        off = active == 0
+        assert torch.equal(s[off], s0[off]) and torch.equal(z[off], z0[off])
+        assert bool((y.reshape(bk, g, 128)[off] == 0).all())
+
+
+@needs_card
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_kernels_at_head_dim_128_and_group_48_on_card(dtype):
+    # K1, K3 and K4 at d = dv = 128 (one block per SM) with granite's MQA
+    # group of 48 q heads on one kv head, two sequences, L = 256: each
+    # against its plain version, and the backward summed over the group
+    # as autograd returns it. fp32: summation order (1e-4, of each
+    # output's scale in the backward); bf16: one rounding (2e-2 forward,
+    # 1e-2 of scale backward).
+    cfg = tfeat.SlayFeatureConfig(head_dim=128)
+    p = tfeat.init_feature_params(cfg, torch.Generator().manual_seed(0))
+    a, w = p["anchors"].cuda(), p["omegas"].cuda()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q = torch.randn(96, 256, 128, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(2, 256, 128, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(2, 256, 128, generator=gen, device="cuda").to(dtype)
+    dy = torch.randn(96, 256, 128, generator=gen, device="cuda").to(dtype)
+    y, den = tfused.fused_causal_attention(q, k, v, a, w, cfg)
+    yp, denp = tfused.fused_causal_attention_plain(q, k, v, a, w, cfg)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(y.float(), yp.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(den, denp, rtol=1e-4, atol=0.0)
+    args = (q, k, v, a, w, y, den, dy, cfg)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for kern, plain in ((tfused.launch_bwd_q, tfused.fused_bwd_q_plain),
+                        (tfused.launch_bwd_kv, tfused.fused_bwd_kv_plain),
+                        (tfused.fused_causal_attention_bwd,
+                         tfused.fused_causal_attention_bwd_plain)):
+        got, want = kern(*args), plain(*args)
+        for g, wnt in zip(got, want):
+            assert g.shape == wnt.shape
+            scale = float(wnt.float().abs().max())
+            torch.testing.assert_close(g.float(), wnt.float(), rtol=0.0,
+                                       atol=tol * scale)
+
+
+@needs_card
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "granite-20b",
+                                  "qwen3-32b"])
+def test_dense_decoder_engines_on_card_match_cpu(arch):
+    # Each dense decoder's smoke model (2 layers, head dim 16; G = 2, 4,
+    # 2; qwen3 with qk-norm scales drawn away from zero) in fp32, embedding
+    # scaled down so the streams vary: the continuous engine (graphed,
+    # greedy) and the lockstep engine on the card and on the CPU give the
+    # same streams; on the card every decode step is one K2 launch a
+    # layer (masked in the pool), the lockstep prefill one K1 launch a
+    # layer.
+    cfg = get_smoke_config(arch, dtype="float32")
+    params = tapi.init_params(cfg, 0, device="cpu")
+    params["embed"] = params["embed"] / 8.0
+    if cfg.qk_norm:
+        gen = torch.Generator().manual_seed(1)
+        for name in ("q_norm", "k_norm"):
+            leaf = params["layers"]["attn"][name]
+            leaf.copy_(0.5 * torch.randn(leaf.shape, generator=gen))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(3, 256, n).astype(np.int32)
+               for n in (20, 7, 33, 12, 26)]
+    serving = ServingConfig(num_slots=2, max_len=64, prefill_chunk=8,
+                            macro_ticks=4)
+    runs = []
+    for device in ("cpu", "cuda"):
+        eng = tengine.ContinuousServingEngine(cfg, params, serving=serving,
+                                              device=device)
+        lock = tengine.ServingEngine(cfg, params, device=device, max_len=64)
+        _build.reset_launches()
+        outs, s = eng.run([tengine.Request(p, max_new_tokens=10,
+                                           arrival_time=2.0 * i)
+                           for i, p in enumerate(prompts)])
+        cont = dict(_build.LAUNCHES)
+        _build.reset_launches()
+        gen_out = lock.generate([tengine.Request(p, max_new_tokens=10)
+                                 for p in prompts[:3]])
+        runs.append((outs, s, gen_out, cont, dict(_build.LAUNCHES)))
+    (cpu, s_cpu, gen_cpu, _, _), (card, s_card, gen_card, cont, lock) = runs
+    for rid in cpu:
+        np.testing.assert_array_equal(card[rid], cpu[rid], f"rid {rid}")
+    for a, b in zip(gen_card, gen_cpu):
+        np.testing.assert_array_equal(a, b)
+    assert s_card["ticks"] == s_cpu["ticks"]
+    nl = cfg.num_layers
+    assert cont["slay_decode_step_masked"] == (
+        nl * serving.macro_ticks * s_card["decode_dispatches"])
+    assert lock["slay_decode_step"] == nl * 9
+    assert lock["slay_fused_fwd"] == nl
+
+
 # -- B7, B8, B5, B6a, B6b: the two-dispatch path -----------------------------
 
 

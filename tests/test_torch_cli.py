@@ -26,15 +26,7 @@ from repro_torch.models import api
 from repro_torch.serving import engine as tengine
 from repro_torch.serving.prefix_cache import PrefixCache
 
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for this file's smoke-size ops: as fast here,
-    and it leaves the other test processes their cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+torch.set_num_threads(1)    # small ops; the suite runs one process per core
 
 
 @pytest.mark.parametrize("kind", ["slay", "favor", "cosformer", "elu1",

@@ -20,6 +20,8 @@ from repro_torch.core import linear_attention as tla
 from repro_torch.core import quadrature as tquad
 from repro_torch.kernels import common as tcommon
 
+torch.set_num_threads(1)    # small ops; the suite runs one process per core
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 

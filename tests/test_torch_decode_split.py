@@ -27,6 +27,8 @@ import torch
 from repro.kernels import decode_step as jdecode
 from repro_torch.kernels import decode_step as tdecode
 
+torch.set_num_threads(1)    # small ops; the suite runs one process per core
+
 DELTA = 1e-6
 
 

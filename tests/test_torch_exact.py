@@ -20,6 +20,8 @@ from repro_torch.core import kernels as tk
 from repro_torch.core.slay import AttentionSpec as TSpec
 from repro_torch.models import attention as tattn
 
+torch.set_num_threads(1)    # small ops; the suite runs one process per core
+
 TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
        "bfloat16": dict(rtol=3e-2, atol=3e-2)}
 

@@ -23,6 +23,8 @@ import torch
 from repro_torch.core import features as tfeat
 from repro_torch.kernels.common import feature_statics, features_fwd
 
+torch.set_num_threads(1)    # small ops; the suite runs one process per core
+
 TILE = 32       # kFwdTile
 THREADS = 256   # kThreads
 

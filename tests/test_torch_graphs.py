@@ -32,6 +32,8 @@ from repro_torch.serving import graphs
 from repro_torch.serving import journal as journal_lib
 from repro_torch.tree import tree_leaves
 
+torch.set_num_threads(1)    # small ops; the suite runs one process per core
+
 NAME = "slayformer-124m"
 
 

@@ -15,6 +15,8 @@ from repro_torch.kernels import _build
 from repro_torch.models import api
 from repro_torch.serving import engine
 
+torch.set_num_threads(1)    # small ops; the suite runs one process per core
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
 no_card = pytest.mark.skipif(

@@ -30,6 +30,8 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import slay_fused as tfused
 
+torch.set_num_threads(1)    # small ops; the suite runs one process per core
+
 D_HEAD, CHUNK = 16, 16
 
 

@@ -35,6 +35,8 @@ from repro_torch.serving import engine as tengine
 from repro_torch.serving import faults as tfaults
 from repro_torch.serving import pages
 
+torch.set_num_threads(1)    # small ops; the suite runs one process per core
+
 NAME = "slayformer-124m"
 TIE_GAP = 1e-5
 PROMPT_LENS = (20, 7, 33, 12, 26)

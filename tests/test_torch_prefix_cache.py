@@ -37,6 +37,8 @@ from repro_torch.serving import sampling
 from repro_torch.serving.prefix_cache import (PrefixCache, token_digest,
                                               tree_bytes)
 
+torch.set_num_threads(1)    # small ops; the suite runs one process per core
+
 NAME = "slayformer-124m"
 TIE_GAP = 1e-5
 BASE = dict(num_slots=2, max_len=64, prefill_chunk=8, macro_ticks=4,

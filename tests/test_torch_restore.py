@@ -49,6 +49,8 @@ from repro_torch.serving import journal as journal_lib
 from repro_torch.serving import sampling
 from repro_torch.tree import tree_leaves
 
+torch.set_num_threads(1)    # small ops; the suite runs one process per core
+
 NAME = "slayformer-124m"
 TIE_GAP = 1e-5
 CRASH = (10, 16)                # lands on tick 12, checkpoint at 7

@@ -43,6 +43,8 @@ from repro_torch.optim import adamw as tadamw
 from repro_torch.train import loop as tloop
 from repro_torch.tree import tree_items
 
+torch.set_num_threads(1)    # small ops; the suite runs one process per core
+
 D_HEAD, CHUNK = 16, 16
 
 

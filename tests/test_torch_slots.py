@@ -20,6 +20,8 @@ from repro_torch import convert
 from repro_torch.configs import get_smoke_config
 from repro_torch.models import api
 
+torch.set_num_threads(1)    # small ops; the suite runs one process per core
+
 NAME = "slayformer-124m"
 LOGIT_ATOL = 1e-4
 STATE_TOL = dict(rtol=1e-5, atol=1e-5)

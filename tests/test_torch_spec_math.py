@@ -32,6 +32,8 @@ from repro_torch.serving import sampling
 from repro_torch.serving import speculative
 from repro_torch.tree import tree_leaves
 
+torch.set_num_threads(1)    # small ops; the suite runs one process per core
+
 NAME = "slayformer-124m"
 SEEDS = [0, 3, 2 ** 31 + 5]
 RIDS = [0, 1, 70001]

@@ -47,6 +47,8 @@ from repro_torch.serving import journal as journal_lib
 from repro_torch.serving import speculative
 from repro_torch.tree import tree_leaves
 
+torch.set_num_threads(1)    # small ops; the suite runs one process per core
+
 NAME = "slayformer-124m"
 KIND = dict(attn_kind="yat_spherical", slay_anchors=16, slay_prf=32,
             dtype="float32")

@@ -36,6 +36,8 @@ from repro_torch.optim import compress as tcompress
 from repro_torch.train import loop as tloop
 from repro_torch.tree import tree_items, tree_leaves
 
+torch.set_num_threads(1)    # small ops; the suite runs one process per core
+
 NAME = "slayformer-124m"
 
 
@@ -318,6 +320,32 @@ def test_checkpoint_round_trip_keep_and_errors(tmp_path):
     assert restore_latest(str(tmp_path / "none"), tree) == (None, None)
     with pytest.raises(ValueError, match="shape mismatch"):
         restore_latest(str(tmp_path), {**tree, "a": torch.zeros(3, 2)})
+
+
+@pytest.mark.parametrize("moments", ["float32", "bfloat16"])
+def test_donated_step_is_the_same_step_in_place(moments, monkeypatch):
+    # make_train_step(donate=True), the Trainer's step, writes the new
+    # weights and moments into the given tensors, a few rows at a time
+    # (DONATE_SLICE, shrunk here so that every leaf takes several
+    # slices): bit for bit the functional step's.
+    cfg = get_smoke_config(NAME, dtype="bfloat16")
+    ocfg = tadamw.AdamWConfig(lr=1e-2, warmup_steps=1, moment_dtype=moments)
+    monkeypatch.setattr(tadamw, "DONATE_SLICE", 300)
+    b = _torch_batch(_batch(2))
+    tp = api.init_params(cfg, 0, device="cpu")
+    want = tloop.make_train_step(cfg, ocfg, tloop.TrainConfig(remat=False))(
+        tp, tadamw.adamw_init(tp, ocfg), torch.zeros(()), b)
+    mine = {k: t.clone() for k, t in tree_items(tp)}
+    got = tloop.make_train_step(cfg, ocfg, tloop.TrainConfig(remat=False),
+                                donate=True)(
+        tp, tadamw.adamw_init(tp, ocfg), torch.zeros(()), b)
+    assert float(got[3]["loss"]) == float(want[3]["loss"])
+    for (k, g), (_, w) in zip(tree_items(got[0]), tree_items(want[0])):
+        assert torch.equal(g, w), k
+        assert g.data_ptr() == dict(tree_items(tp))[k].data_ptr()
+        assert not torch.equal(g, mine[k]) or k.startswith("slay"), k
+    for a, w in zip(tree_leaves(got[1]), tree_leaves(want[1])):
+        assert torch.equal(a, w)
 
 
 def test_trainer_runs_saves_and_resumes_exactly(tmp_path):
