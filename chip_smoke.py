@@ -183,11 +183,13 @@ Phases, each of which raises (nonzero exit) on failure:
     1024), bf16, d = dv = 128, against their plain versions (K3/K4 also
     summed over the group), timed beside their bounds, with residency
     lines (one block of K1, K3, K4 per SM there); K2 at dv = 128 for G =
-    1, 2, 3, 8, 48 and 64, masked and not, drained rows bit-identical,
-    the three configs' groups timed;
+    1, 2, 3, 4, 6, 8, 48 and 64, masked and not, drained rows
+    bit-identical, the groups of the dense configs and of phase 23's
+    (gemma2 2, phi3.5-moe 4, grok-1 6) timed beside their byte bounds;
 22. the dense decoders at full width (``phase_dense``), random weights
-    from the seed, the host init timed on its own line: phi4-mini-3.8b at
-    full depth (32 layers), granite-20b and qwen3-32b cut to 4 layers
+    from the seed, the host init timed on its own line: phi4-mini-3.8b cut
+    to 16 layers (reduced, for the script's time), granite-20b and
+    qwen3-32b to 4 layers
     (reduced: full depth would draw 27.9 B and 32.8 B values on the
     host): phase 8's prompts through the lockstep engine graphed and
     eager (equal streams; K1 once a layer, B4a once a layer and step);
@@ -200,13 +202,33 @@ Phases, each of which raises (nonzero exit) on failure:
     layers through K1, K3 and K4, the step donating the weights and
     moments (a finite, falling loss; the batch halved only if the card
     cannot hold it, and the cut printed: qwen3's 151936-row logits take
-    a batch of 4).
+    a batch of 4);
+23. gemma2-27b and the top-2 MoE decoders at full width
+    (``phase_mixed``), random weights from the seed drawn on the host:
+    gemma2-27b cut to 4 layers (0 and 2 local: sliding-window softmax
+    over 4096 tokens, softcap 50; 1 and 3 global SLAY), phi3.5-moe-
+    42b-a6.6b to 4 (16 experts of 6400, top 2) and grok-1-314b to 1 (8
+    experts of 32768; 64 layers would draw 316 B values on the host), as
+    phase 22 serves the dense ones (lockstep graphed and eager, phase
+    12's trace graphed, a full-pool dispatch under the profiler beside
+    the weights' read); the SLAY kernels' launches counted per layer kind
+    (gemma2's local layers launch none); a 6144-token prompt (past the
+    window) on the pool with rings of 4096 rows, graphed equal to eager,
+    its first token against the whole-prompt prefill's argmax (gemma2;
+    a reading for phi3.5-moe, whose capacity is per call); gemma2's
+    last-token logits at 1 x 8192 through the banded route against the
+    masked one; fp32 at 2 layers against the CPU (gemma2: one local, one
+    global; logits, loss, ``moe_aux``, gradients); 4 AdamW steps of
+    gemma2 and phi3.5-moe at 4 layers (batch halved only if the card
+    cannot hold it; the peak memory printed); grok-1 gets no train step
+    (one layer's would need about 78 GB), which a line says.
 Phases 14-17 check that no SLAY kernel launched, phases 19-20 that only
-K2 did; the kernel line's B4a launches are phase 8's, 19's and 22's, its
-B4b launches phase 12's, 18's, 19's, 20's and 22's, its K1 launches
-phase 8's and 22's, its K3 and K4 launches phase 9's and 22's (each row
-has the dense decoders' launches, G and head-dim-128 numbers per config
-under ``dense_decoders``).
+K2 did; the kernel line's B4a launches are phase 8's, 19's, 22's and
+23's, its B4b launches phase 12's, 18's, 19's, 20's, 22's and 23's, its
+K1 launches phase 8's, 22's and 23's, its K3 and K4 launches phase 9's,
+22's and 23's (each row has the dense decoders' launches, G and
+head-dim-128 numbers per config under ``dense_decoders``, and phase
+23's configs' under ``mixed_and_moe``).
 
 The last two lines are a JSON object with every kernel's numbers and
 ``{"ok": true, "device": {...}}``. Every ``ms`` is CUDA events around the
@@ -3258,7 +3280,9 @@ def phase_drivers(card: str) -> dict:
 # -- the dense decoders: phi4-mini-3.8b, granite-20b, qwen3-32b -----------
 
 DENSE_ARCHS = ("phi4-mini-3.8b", "granite-20b", "qwen3-32b")
-DENSE_FULL = "phi4-mini-3.8b"  # served at full depth; the others cut
+# phi4-mini served at 16 of its 32 layers (reduced, to keep the script
+# within its time with phase 23 beside it); granite and qwen3 at 4.
+DENSE_SERVE_LAYERS = {"phi4-mini-3.8b": 16}
 DENSE_LAYERS = 4               # granite's and qwen3's depth; every training's
 DENSE_TRAIN_STEPS = 4
 # AdamWConfig's default rate (paper App. H). Phase 9's 3e-4 overshoots at
@@ -3269,9 +3293,10 @@ DENSE_LR = 1e-4
 DENSE_FP32_LAYERS = 2          # the card-vs-CPU logits: the first 2 layers
 DENSE_FP32_PROMPT = 128
 DENSE_SUB = 4                  # requests run again graphed and eager
-# K2's groups at head dim 128: the three configs' (phi4-mini 3, qwen3 8,
-# granite 48) and 1, 2 and 64 beside them.
-K2_DENSE_G = (1, 2, 3, 8, 48, 64)
+# K2's groups at head dim 128: the dense configs' (phi4-mini 3, qwen3 8,
+# granite 48), phase 23's (gemma2 2, phi3.5-moe 4, grok-1 6) and 1 and 64
+# beside them.
+K2_DENSE_G = (1, 2, 3, 4, 6, 8, 48, 64)
 
 
 def _dense_kernel_cases(feat, a, w, name, G, dims, gen) -> dict:
@@ -3406,8 +3431,9 @@ def _dense_k2(gen, timed: set) -> dict:
 
 
 def phase_dense_kernels() -> dict:
-    """K1, K2, K3 and K4 at head dim 128 and the dense decoders' groups
-    (phase 21). Returns {kernel: {config: row}}."""
+    """K1, K2, K3 and K4 at head dim 128 and the dense decoders' groups,
+    K2 also at phase 23's (gemma2 2, phi3.5-moe 4, grok-1 6) (phase 21).
+    Returns {kernel: {config: row}}."""
     t_phase = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     out: dict = collections.defaultdict(dict)
@@ -3422,7 +3448,8 @@ def phase_dense_kernels() -> dict:
         for kname, row in rows.items():
             out[kname][name] = row
     groups = {name: configs.get_config(name).num_heads
-              // configs.get_config(name).num_kv_heads for name in DENSE_ARCHS}
+              // configs.get_config(name).num_kv_heads
+              for name in DENSE_ARCHS + MIXED_ARCHS}
     k2 = _dense_k2(gen, set(groups.values()))
     for name, G in groups.items():
         out["slay_decode_step"][name] = dict(k2[(G, False)], G=G)
@@ -3431,8 +3458,14 @@ def phase_dense_kernels() -> dict:
     return dict(out)
 
 
+def _slay_layers(cfg) -> int:
+    """The layers that run the SLAY kernels: every layer but gemma2's
+    local (windowed softmax) ones, which are PyTorch ops."""
+    return int((api.layer_kinds(cfg) == 0).sum())
+
+
 def _dense_init(name: str, layers: int | None, card: str):
-    """A dense config (depth cut to ``layers`` if given) and its random
+    """A config (depth cut to ``layers`` if given) and its random
     weights from the script's seed, drawn on the host (``init_params``'s
     CPU generator) and moved to the card; the time on its own line."""
     cfg = configs.get_config(name)
@@ -3448,7 +3481,10 @@ def _dense_init(name: str, layers: int | None, card: str):
     log(f"{name}: {cfg.num_layers}L{cut} x {cfg.d_model}d, {cfg.num_heads}/"
         f"{cfg.num_kv_heads} heads of {cfg.resolved_head_dim}, d_ff "
         f"{cfg.d_ff}, vocab {cfg.vocab_size}, qk_norm={cfg.qk_norm}, tied="
-        f"{cfg.tie_embeddings}, {cfg.dtype}; {n / 1e9:.3f} B params, "
+        f"{cfg.tie_embeddings}, experts {cfg.moe_experts} (top "
+        f"{cfg.moe_top_k}), window {cfg.local_window} (layers "
+        f"{''.join(map(str, api.layer_kinds(cfg)))}, 1 = local), "
+        f"{cfg.dtype}; {n / 1e9:.3f} B params, "
         f"{_tree_mb(params) / 1e3:.2f} GB")
     log(f"  host init of {n / 1e9:.3f} B params (torch.Generator on the CPU, "
         f"then to the card): {time.perf_counter() - t0:.1f} s")
@@ -3458,10 +3494,10 @@ def _dense_init(name: str, layers: int | None, card: str):
 def _dense_lockstep(cfg, params, card: str) -> dict:
     """Phase 8's 4 prompts, 32 greedy tokens, through the lockstep engine
     (its decode step one CUDA graph), launch counters read around that
-    call (K1 once a layer, B4a once a layer and step); the same engine
-    eager, equal streams; ms per step of each in turns; a profiler window
-    over the graphed step. Returns the launches."""
-    nl = cfg.num_layers
+    call (K1 once a SLAY layer, B4a once a SLAY layer and step); the same
+    engine eager, equal streams; ms per step of each in turns; a profiler
+    window over the graphed step. Returns the launches."""
+    nl = _slay_layers(cfg)
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in PROMPT_LENS]
@@ -3510,8 +3546,9 @@ def _dense_continuous(cfg, params, card: str) -> int:
     and prefill tick, pool tokens/s; its first 4 requests again graphed
     and eager, streams equal to the whole run's; one full-pool dispatch
     under the profiler beside the least time a tick can take, the weights
-    read once from device memory. Returns B4b's launches."""
-    nl, K = cfg.num_layers, CONT_SERVING["macro_ticks"]
+    read once from device memory. Returns B4b's launches (nl x K a
+    dispatch, nl the SLAY layers)."""
+    nl, K = _slay_layers(cfg), CONT_SERVING["macro_ticks"]
     reqs = _cont_requests(cfg)
     _cont_run(cfg, params, reqs[:2], max_len=1024)          # warm-up
     timed: dict = {}
@@ -3561,14 +3598,15 @@ def _dense_continuous(cfg, params, card: str) -> int:
 def _dense_fp32(cfg, params, card: str) -> None:
     """The first 2 layers of the served weights widened to fp32, on the
     card against the port's CPU plain path: a 128-token prompt's
-    last-token prefill logits (K1) and 2 decode steps' (B4a); the loss and
-    every gradient of one 1 x 256 batch (K1, K3, K4), as phase 9 holds
-    slayformer's."""
+    last-token prefill logits (K1) and 2 decode steps' (B4a); the loss,
+    the MoE aux loss and every gradient of one 1 x 256 batch (K1, K3,
+    K4), as phase 9 holds slayformer's; gemma2's with its embedding
+    divided by UNSATURATE."""
     cfg32 = dataclasses.replace(cfg, num_layers=DENSE_FP32_LAYERS,
                                 dtype="float32")
     p32 = tree_map_with_path(
         lambda path, t: (t[:DENSE_FP32_LAYERS] if path.startswith("layers")
-                         else t).float(), params)
+                         else t).float(), _unsaturated(cfg, params))
     rng = np.random.default_rng(SEED + 9)
     prompt = torch.from_numpy(
         rng.integers(0, cfg.vocab_size, (1, DENSE_FP32_PROMPT)).astype(
@@ -3585,8 +3623,9 @@ def _dense_fp32(cfg, params, card: str) -> None:
             for t in toks:
                 lg, cache = api.decode_step(p, cfg32, cache, t)
                 rows.append(lg[0, -1].cpu())
-        loss, _, grads = loop.value_and_grad(p, cfg32, batch)
-        return rows, loss.cpu(), tree_map(lambda t: t.cpu(), grads)
+        loss, mx, grads = loop.value_and_grad(p, cfg32, batch)
+        return (rows, loss.cpu(), tree_map(lambda t: t.cpu(), grads),
+                mx["moe_aux"].cpu())
 
     got = run(p32)
     p_cpu = tree_map(lambda t: t.cpu(), p32)
@@ -3608,8 +3647,14 @@ def _dense_fp32(cfg, params, card: str) -> None:
         close(g, w, 1e-5 * scale, 0.0,
               "prefill logits" if i == 0 else f"decode step {i} logits")
     close(got[1], want[1], 0.0, 1e-5, "loss")
+    close(got[3], want[3], 0.0, 1e-5, "moe_aux")
+    # gemma2's local layers (a softcapped softmax over random weights)
+    # amplify the rounding, as on the CPU, where the port's tests need 5x
+    # the dense decoders' logit tolerance against the JAX package: its
+    # attention gradients reached 1.06e-4 of their largest on the card.
+    grad_rel = 5e-4 if cfg.mixed_layers else 1e-4
     for (key, g), (_, c) in zip(tree_items(got[2]), tree_items(want[2])):
-        close(g, c, 1e-4 * (float(c.abs().max()) or 1.0), 0.0,
+        close(g, c, grad_rel * (float(c.abs().max()) or 1.0), 0.0,
               f"grad {key}")
 
 
@@ -3621,34 +3666,43 @@ def _free_card() -> None:
     torch.cuda.empty_cache()
 
 
-def _dense_train(cfg, box: list, card: str) -> dict:
+def _dense_train(cfg, box: list, card: str, cuts=None) -> dict:
     """4 AdamW steps of 8 x 1024 tokens (lr DENSE_LR) at the
-    config's width and DENSE_LAYERS layers, every attention layer through
-    K1, K3 and K4 once a step; a finite, falling loss. The step donates
-    the weights and moments (``make_train_step(donate=True)``, as the JAX
-    package's jitted step and the port's ``Trainer``): with new tensors
-    beside the old, the update alone would need 28 bytes a parameter.
-    ``box`` holds the weights, taken out of it so that nothing else keeps
-    them. If the card cannot hold a batch of 8, the batch is halved
-    (never the width), the cut printed, and the weights copied back from
-    a host copy taken before the first step. Returns the launches."""
-    nl = cfg.num_layers
+    config's width and depth, every SLAY layer through K1, K3 and K4 once
+    a step; a finite, falling loss. The step donates the weights and
+    moments (``make_train_step(donate=True)``, as the JAX package's jitted
+    step and the port's ``Trainer``): with new tensors beside the old,
+    the update alone would need 28 bytes a parameter. ``box`` holds the
+    weights, taken out of it so that nothing else keeps them. ``cuts``
+    is the (layers, batch) tried in turn while the card cannot hold the
+    step (by default the batch halved, never the width), each cut
+    printed, the weights copied back from a host copy taken before the
+    first step. Returns the launches (each kernel once a SLAY layer and
+    step)."""
+    cuts = cuts or [(cfg.num_layers, b) for b in
+                    (TRAIN_BATCH, TRAIN_BATCH // 2, TRAIN_BATCH // 4)]
     ocfg = AdamWConfig(lr=DENSE_LR, warmup_steps=1,
                        total_steps=DENSE_TRAIN_STEPS)
-    step = loop.make_train_step(cfg, ocfg, loop.TrainConfig(remat=False),
-                                donate=True)
     p = box.pop()
     host = tree_map(lambda t: t.cpu(), p)
     _free_card()
     log(f"  train {cfg.name}: {torch.cuda.memory_allocated() / 1e9:.1f} GB "
-        f"allocated before the first step (the weights)")
-    for batch in (TRAIN_BATCH, TRAIN_BATCH // 2, TRAIN_BATCH // 4):
+        f"allocated before the first step (the weights), "
+        f"{torch.cuda.memory_reserved() / 1e9:.1f} GB reserved")
+    for n, (layers, batch) in enumerate(cuts):
+        tcfg = dataclasses.replace(cfg, num_layers=layers)
+        step = loop.make_train_step(tcfg, ocfg,
+                                    loop.TrainConfig(remat=False),
+                                    donate=True)
         dcfg = pipeline.DataConfig(vocab_size=cfg.vocab_size,
                                    seq_len=TRAIN_LEN, global_batch=batch,
                                    seed=SEED)
         if p is None:
-            p = tree_map(lambda t: t.to("cuda"), host)
+            p = tree_map_with_path(
+                lambda path, t: (t[:layers] if path.startswith("layers")
+                                 else t).to("cuda"), host)
         opt, ef, losses, times = adamw_init(p, ocfg), torch.zeros(()), [], []
+        auxes = []
         torch.cuda.reset_peak_memory_stats()
         _build.reset_launches()
         try:
@@ -3658,25 +3712,33 @@ def _dense_train(cfg, box: list, card: str) -> dict:
                 p, opt, ef, mx = step(p, opt, ef,
                                       pipeline.make_batch(dcfg, i))
                 losses.append(float(mx["loss"]))
+                auxes.append(float(mx["moe_aux"]))
                 times.append(time.perf_counter() - t0)
         except torch.cuda.OutOfMemoryError as e:
-            why = str(e).splitlines()[0][:160]
+            why = " ".join(str(e).split())[:420]
         else:
             break
-        p = opt = ef = None
+        p = opt = ef = step = None
         _free_card()
-        log(f"  train {cfg.name}: batch {batch} x {TRAIN_LEN} does not fit "
-            f"the card ({why}); the batch is cut to {batch // 2}, the same "
-            f"weights copied back")
+        nxt = (f"cut to {cuts[n + 1][0]} layers x batch {cuts[n + 1][1]}"
+               if n + 1 < len(cuts) else "no cut left")
+        log(f"  train {cfg.name}: {layers} layers x batch {batch} x "
+            f"{TRAIN_LEN} does not fit the card ({why}); "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated after "
+            f"it; {nxt}, the same weights copied back")
     else:
-        raise AssertionError(f"train {cfg.name}: no batch fits the card")
+        raise AssertionError(f"train {cfg.name}: no cut fits the card")
+    cfg = tcfg
+    nl = _slay_layers(cfg)
     launches = {k: n for k, n in _build.LAUNCHES.items() if n}
     _expect_launches(launches, {k: nl * DENSE_TRAIN_STEPS
                                 for k in TRAIN_KERNELS},
                      f"train {cfg.name}")
     log(f"  train: {DENSE_TRAIN_STEPS} AdamW steps (lr {DENSE_LR:g}) of "
-        f"{batch} x {TRAIN_LEN} tokens, {nl} layers (reduced); loss per step "
-        f"{', '.join(f'{x:.4f}' for x in losses)}; ms per step "
+        f"{batch} x {TRAIN_LEN} tokens, {cfg.num_layers} layers (reduced); "
+        f"loss per step {', '.join(f'{x:.4f}' for x in losses)}"
+        + (f" (moe_aux {', '.join(f'{x:.4f}' for x in auxes)})"
+           if cfg.moe_experts else "") + "; ms per step "
         f"{', '.join(f'{x * 1e3:.1f}' for x in times)} (median of steps 2-"
         f"{DENSE_TRAIN_STEPS} {statistics.median(times[1:]) * 1e3:.1f} = "
         f"{batch * TRAIN_LEN / statistics.median(times[1:]):.1f} tokens/s); "
@@ -3690,8 +3752,8 @@ def _dense_train(cfg, box: list, card: str) -> dict:
 
 
 def phase_dense(card: str) -> dict:
-    """The dense decoders at full width (phase 22): phi4-mini-3.8b at full
-    depth, granite-20b and qwen3-32b cut to 4 layers, each served lockstep
+    """The dense decoders at full width (phase 22): phi4-mini-3.8b cut to
+    16 layers, granite-20b and qwen3-32b to 4, each served lockstep
     and continuous, its fp32 logits at 2 layers against the CPU, and
     trained 4 steps at 4 layers. Returns {config: launches by kernel}."""
     t_phase = time.perf_counter()
@@ -3699,8 +3761,8 @@ def phase_dense(card: str) -> dict:
     for name in DENSE_ARCHS:
         _free_card()                 # earlier phases' and configs' engines
         t_cfg = time.perf_counter()
-        cfg, params = _dense_init(name, None if name == DENSE_FULL
-                                  else DENSE_LAYERS, card)
+        cfg, params = _dense_init(name, DENSE_SERVE_LAYERS.get(
+            name, DENSE_LAYERS), card)
         got = collections.Counter(_dense_lockstep(cfg, params, card))
         got["slay_decode_step_masked"] += _dense_continuous(cfg, params, card)
         _dense_fp32(cfg, params, card)
@@ -3717,6 +3779,196 @@ def phase_dense(card: str) -> dict:
         log(f"{name}: {time.perf_counter() - t_cfg:.1f} s; launches {dict(got)}"
             f"  [{card}]")
     log(f"dense decoders: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# -- gemma2-27b and the top-2 MoE decoders (phase 23) ----------------------
+
+# Each at full width, depth cut: gemma2-27b to 4 layers (0 and 2 local, 1
+# and 3 global), phi3.5-moe-42b-a6.6b to 4, grok-1-314b to 1 (64 layers
+# would draw 316 B values on the host).
+MIXED_LAYERS = {"gemma2-27b": 4, "phi3.5-moe-42b-a6.6b": 4,
+                "grok-1-314b": 1}
+MIXED_ARCHS = tuple(MIXED_LAYERS)
+# One request longer than gemma2's 4096-token window on the continuous
+# pool (rings of min(8192, 4096) rows), chunks of 128.
+LONG_PROMPT, LONG_NEW, LONG_MAX_LEN = 6144, 16, 8192
+LONG_ARCHS = ("gemma2-27b", "phi3.5-moe-42b-a6.6b")
+# The train steps' cuts while the card cannot hold them, (layers, batch)
+# in turn: gemma2 halves its batch (its 256000-wide fp32 logits);
+# phi3.5-moe keeps 8 x 1024 and drops layers (64 GB of weights, gradients
+# and fp32 moments at 4 layers).
+MIXED_TRAIN_CUTS = {"phi3.5-moe-42b-a6.6b": [(4, 8), (3, 8), (2, 8)]}
+# A near-tie of bf16 logits through 4 layers: a top-2 gap under this
+# fraction of the largest logit decides nothing between two programs.
+LONG_GAP_FRAC = 3e-2
+# gemma2's local layers at 1 x 8192 (8192 % 4096 == 0: the banded route)
+# against the masked route: the last token's bf16 logits within this
+# fraction of the largest (each route's own bf16 rounding of the
+# attention, through 4 layers).
+BANDED_LEN, BANDED_REL = 8192, 3e-2
+# gemma2's final softcap (30) saturates the logits of random weights
+# (their scale is about sqrt(4608) x the tied embedding's 1): every
+# comparison of logits (the long prompt's first token, fp32 against the
+# CPU) runs with the embedding divided by this, so that the logits it
+# compares are not flattened to the cap and tied there.
+UNSATURATE = 64.0
+
+
+def _unsaturated(cfg, params):
+    """``params`` with the embedding divided by UNSATURATE for a config
+    with a final logit softcap; the same tree otherwise."""
+    if not cfg.final_logit_softcap:
+        return params
+    return dict(params, embed=params["embed"] / UNSATURATE)
+
+
+def _long_prompt(cfg, params, card: str) -> int:
+    """One 6144-token request (16 greedy tokens) on the continuous pool
+    with rings of 4096 rows, chunks of 128: graphed and eager streams
+    equal, B4b's launches (SLAY layers x K a dispatch); its first token
+    against the whole-prompt prefill's argmax (for gemma2 equal unless a
+    bf16 near-tie decides; an MoE layer's capacity is per call, so a
+    chunked prefill may drop tokens a whole one keeps: a reading there).
+    gemma2's embedding is divided by UNSATURATE. Returns B4b's
+    launches."""
+    nl, K = _slay_layers(cfg), CONT_SERVING["macro_ticks"]
+    params = _unsaturated(cfg, params)
+    rng = np.random.default_rng(SEED + 11)
+    req = engine.Request(rng.integers(0, cfg.vocab_size, LONG_PROMPT)
+                         .astype(np.int32), max_new_tokens=LONG_NEW)
+    timed: dict = {}
+    _build.reset_launches()
+    outs, s, eng, wall = _cont_run(cfg, params, [req], timed=timed,
+                                   max_len=LONG_MAX_LEN)
+    n_b = _b4b_launches(f"{cfg.name} {LONG_PROMPT}-token prompt",
+                        s["decode_dispatches"], nl, K)
+    pool_mb = _tree_mb(eng.pool)
+    rings = _tree_mb({"k": eng.pool.attn.k, "v": eng.pool.attn.v})
+    del eng
+    _free_card()
+    eager, _, _, e_wall = _cont_run(cfg, params, [req], graphs=False,
+                                    max_len=LONG_MAX_LEN)
+    _same_streams(outs, eager, f"{cfg.name} {LONG_PROMPT}-token prompt, "
+                  f"graphed vs eager")
+    pre = timed["_prefill_tick"]
+    log(f"  {LONG_PROMPT}-token prompt, {LONG_NEW} greedy tokens, pool of "
+        f"{CONT_SERVING['num_slots']} slots at max_len {LONG_MAX_LEN} "
+        f"({pool_mb:.1f} MB: rings {rings:.1f} MB, (S, z) "
+        f"{pool_mb - rings:.1f} MB): graphed {wall:.3f} s ({s['prefill_ticks']}"
+        f" prefill ticks, median {statistics.median(pre) * 1e3:.2f} ms), eager"
+        f" {e_wall:.3f} s, streams equal; B4b {n_b}  [{card}]")
+    with torch.inference_mode():
+        logits, _ = api.prefill(params, cfg,
+                                torch.from_numpy(req.prompt[None]).cuda())
+    row = logits[0, -1].float()
+    top2 = torch.topk(row, 2)
+    gap, scale = float(top2.values[0] - top2.values[1]), float(row.abs().max())
+    whole, first = int(top2.indices[0]), int(outs[0][0])
+    tie = gap < LONG_GAP_FRAC * scale
+    log(f"  first token chunked {first}, whole-prompt prefill argmax {whole} "
+        f"(top-2 gap {gap:.4f} of max |logit| {scale:.3f}"
+        f"{', a bf16 near-tie' if tie else ''})")
+    if first != whole and not tie:
+        if cfg.moe_experts:
+            log("  (a reading: the chunks' MoE capacity drops differ from "
+                "the whole prompt's)")
+        else:
+            raise AssertionError(f"{cfg.name}: the {LONG_PROMPT}-token "
+                                 f"prompt's first token {first} != whole-"
+                                 f"prompt argmax {whole}")
+    return n_b
+
+
+def _banded_vs_masked(cfg, params, card: str) -> None:
+    """gemma2's last-token logits of a 1 x 8192 prompt, the local layers
+    through the banded route (8192 % 4096 == 0) against the same prompt
+    with ``windowed_softmax_attention`` pointed at the masked route; the
+    embedding divided by UNSATURATE."""
+    from repro_torch.core import kernels as exact
+    params = _unsaturated(cfg, params)
+    rng = np.random.default_rng(SEED + 12)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, BANDED_LEN))
+                            .astype(np.int32)).cuda()
+    banded = exact.windowed_softmax_attention
+    calls = []
+
+    def masked(q, k, v, window, logit_softcap=0.0):
+        calls.append(q.shape[-3])
+        return exact.masked_softmax_attention(q, k, v, True, logit_softcap,
+                                              window)
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            lg, _ = api.prefill(params, cfg, toks, max_len=LONG_MAX_LEN)
+        torch.cuda.synchronize()
+        return lg[0, -1].float(), (time.perf_counter() - t0) * 1e3
+
+    def counted(*a, **kw):
+        calls.append(-1)
+        return banded(*a, **kw)
+
+    exact.windowed_softmax_attention = counted
+    try:
+        got, b_ms = run()
+        n_banded = len(calls)
+        exact.windowed_softmax_attention = masked
+        want, m_ms = run()
+    finally:
+        exact.windowed_softmax_attention = banded
+    n_local = int(api.layer_kinds(cfg).sum())
+    if n_banded != n_local or len(calls) != 2 * n_local:
+        raise AssertionError(f"banded route taken {n_banded} times, masked "
+                             f"{len(calls) - n_banded}; want {n_local} each")
+    scale = float(want.abs().max())
+    err = close(got, want, BANDED_REL * scale, 0.0,
+                f"1 x {BANDED_LEN} last-token logits, banded vs masked local "
+                f"layers (bf16)")
+    log(f"  banded route {b_ms:.1f} ms, masked {m_ms:.1f} ms (the prefill, "
+        f"first calls); argmax {int(got.argmax())} / {int(want.argmax())}; "
+        f"max_abs_err {err:.4f} of max |logit| {scale:.3f}  [{card}]")
+    _free_card()
+
+
+def phase_mixed(card: str) -> dict:
+    """gemma2-27b, phi3.5-moe-42b-a6.6b and grok-1-314b at full width
+    (phase 23), depth cut: served lockstep and continuous (graphed against
+    eager), the 6144-token prompt (gemma2, phi3.5-moe), gemma2's banded
+    against masked route, fp32 at 2 layers against the CPU (gemma2,
+    phi3.5-moe) and 4 train steps (gemma2, phi3.5-moe); the SLAY kernels'
+    launches counted per layer kind. Returns {config: launches}."""
+    t_phase = time.perf_counter()
+    out = {}
+    for name in MIXED_ARCHS:
+        _free_card()
+        t_cfg = time.perf_counter()
+        cfg, params = _dense_init(name, MIXED_LAYERS[name], card)
+        got = collections.Counter(_dense_lockstep(cfg, params, card))
+        got["slay_decode_step_masked"] += _dense_continuous(cfg, params, card)
+        if name in LONG_ARCHS:
+            got["slay_decode_step_masked"] += _long_prompt(cfg, params, card)
+        if cfg.local_window:
+            _banded_vs_masked(cfg, params, card)
+        if cfg.num_layers >= DENSE_FP32_LAYERS:
+            _dense_fp32(cfg, params, card)
+        if name in LONG_ARCHS:
+            box = [params]
+            del params
+            got.update(_dense_train(cfg, box, card,
+                                    MIXED_TRAIN_CUTS.get(name)))
+        else:
+            n = sum(t.numel() for t in tree_leaves(params))
+            log(f"  train {name}: not run (reduced): one layer's AdamW step "
+                f"needs about 12 bytes a parameter (bf16 weights and "
+                f"gradients, fp32 moments) x {n / 1e9:.2f} B = "
+                f"{12 * n / 1e9:.0f} GB, more than the card's 80 GB")
+            del params
+        out[name] = dict(got)
+        log(f"{name}: {time.perf_counter() - t_cfg:.1f} s; launches "
+            f"{dict(got)}  [{card}]")
+    log(f"gemma2 and the MoE decoders: {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -3756,6 +4008,7 @@ def main() -> int:
     drv = phase_drivers(card_line)
     dense_k = phase_dense_kernels()
     dense = phase_dense(card_line)
+    mixed = phase_mixed(card_line)
     k2_bl = k2.pop("baselines")
     kernels = [
         dict(name="slay_fused_fwd", route="cuda",
@@ -3802,12 +4055,19 @@ def main() -> int:
     # The dense decoders' launches (phase 22) join each row's count; beside
     # them, per config, its group G and the kernel at head dim 128 (phase
     # 21).
+    # Phase 23's launches join them too; its configs' K2 rows at their
+    # groups (phase 21) sit under ``mixed_and_moe``.
     for row in kernels[:5]:
         name = row["name"]
         row["launches"] += sum(d.get(name, 0) for d in dense.values())
+        row["launches"] += sum(d.get(name, 0) for d in mixed.values())
         row["dense_decoders"] = {
             arch: dict(dense_k[name][arch], launches=dense[arch].get(name, 0))
             for arch in DENSE_ARCHS}
+        row["mixed_and_moe"] = {
+            arch: dict(dense_k.get(name, {}).get(arch, {}),
+                       launches=mixed[arch].get(name, 0))
+            for arch in MIXED_ARCHS}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi())
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,6 +1,8 @@
-"""Config registry of the port: slayformer-124m and the dense decoders
-phi4-mini-3.8b, granite-20b and qwen3-32b, with every attention kind of
-the port (``core.slay.ATTN_KINDS``) as an override.
+"""Config registry of the port: slayformer-124m, the dense decoders
+phi4-mini-3.8b, granite-20b and qwen3-32b, gemma2-27b (local/global
+layers) and the top-2 MoE decoders phi3.5-moe-42b-a6.6b and grok-1-314b,
+with every attention kind of the port (``core.slay.ATTN_KINDS``) as an
+override.
 
     cfg = configs.get_config("slayformer-124m")          # full width
     cfg = configs.get_smoke_config("slayformer-124m")    # CPU smoke size
@@ -18,6 +20,9 @@ _MODULES = {
     "phi4-mini-3.8b": "phi4_mini",
     "granite-20b": "granite_20b",
     "qwen3-32b": "qwen3_32b",
+    "gemma2-27b": "gemma2_27b",
+    "phi3.5-moe-42b-a6.6b": "phi35_moe",
+    "grok-1-314b": "grok1_314b",
 }
 # The ported configs (the command-line drivers' --arch choices).
 ALL_ARCHS = tuple(_MODULES)

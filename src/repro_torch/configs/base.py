@@ -3,12 +3,14 @@
 A torch counterpart of ``repro.configs.base.ArchConfig`` holding the
 fields the ported decoder uses: SLAY, the linear baselines (``favor``,
 ``cosformer``, ``elu1``) and the exact quadratic kinds (``softmax``,
-``yat``, ``yat_spherical``) on the dense decoder, with GQA/MQA, gated or
-plain MLPs, tied or untied embeddings and qk-norm. MoE, SSM, hybrid,
-encoder-decoder, vision and local/global windows are not ported yet
-(ROADMAP Queue A item 12); their fields are here only so that
-:meth:`ArchConfig.check_supported` refuses them. ``ServingConfig`` has the reference's
-fields, defaults and validation.
+``yat``, ``yat_spherical``) on the decoder, with GQA/MQA, gated or
+plain MLPs, tied or untied embeddings, qk-norm, gemma2's local/global
+layers (a sliding-window softcapped softmax on every layer but each
+``local_global_period``-th) and the top-k MoE layer. SSM, hybrid,
+encoder-decoder and modality frontends are not ported yet (ROADMAP
+Queue A item 12); their fields are here only so that
+:meth:`ArchConfig.check_supported` refuses them. ``ServingConfig`` has
+the reference's fields, defaults and validation.
 """
 from __future__ import annotations
 
@@ -34,15 +36,16 @@ class ArchConfig:
     d_ff: int = 0
     qk_norm: bool = False            # RMSNorm on q and k over the head dim
     attn_logit_softcap: float = 0.0   # gemma2 attention softcap
-    final_logit_softcap: float = 0.0
+    final_logit_softcap: float = 0.0  # gemma2 output softcap
+    local_window: int = 0             # sliding window for local layers
+    local_global_period: int = 0      # every Nth layer global (0 = all global)
     gated_mlp: bool = True
     tie_embeddings: bool = True
     rope_theta: float = 10000.0
-    # Not ported (check_supported refuses them): gemma2's windows, MoE,
-    # modality frontends.
-    local_window: int = 0
-    local_global_period: int = 0
+    # MoE (0 experts = a dense MLP)
     moe_experts: int = 0
+    moe_top_k: int = 2
+    # Not ported (check_supported refuses it): a modality frontend.
     frontend: str = ""
     attn_kind: str = "slay"          # one of core.slay.ATTN_KINDS
     slay_anchors: int = 8
@@ -68,8 +71,20 @@ class ArchConfig:
             head_dim=self.resolved_head_dim, num_anchors=self.slay_anchors,
             num_prf=self.slay_prf, num_quad_nodes=self.slay_quad_nodes)
 
-    def attention_spec(self) -> AttentionSpec:
-        """The AttentionSpec of a (global) layer under this config."""
+    @property
+    def mixed_layers(self) -> bool:
+        """Whether local windowed layers alternate with global ones."""
+        return bool(self.local_global_period and self.local_window)
+
+    def attention_spec(self, *, local: bool = False) -> AttentionSpec:
+        """The AttentionSpec of a (global|local) layer under this config:
+        a local layer is a sliding-window softmax with the attention
+        softcap; a global SLAY layer takes no softcap (kernel scores are
+        not logits)."""
+        if local and self.local_window:
+            return AttentionSpec(kind="softmax", window=self.local_window,
+                                 logit_softcap=self.attn_logit_softcap,
+                                 chunk_size=self.chunk_size)
         if self.attn_kind == "slay":
             return AttentionSpec(kind="slay", slay=self.slay_config(),
                                  chunk_size=self.chunk_size,
@@ -80,24 +95,18 @@ class ArchConfig:
 
     def check_supported(self) -> None:
         if self.family != "decoder":
+            what = {"ssm": ", A12b's SSM families",
+                    "hybrid": ", A12b's SSM families",
+                    "encdec": ", A12b and A5's encoder-decoder"}
             raise NotImplementedError(
-                f"{self.name}: family={self.family!r}; the port has the "
-                f"dense decoder only so far (ROADMAP Queue A item 12)")
-        later = [
-            (self.local_window or self.local_global_period,
-             f"local_window={self.local_window}, local_global_period="
-             f"{self.local_global_period} (gemma2's local/global windowed "
-             f"layers and the windowed ring)"),
-            (self.moe_experts,
-             f"moe_experts={self.moe_experts} (the MoE layer, layers.moe)"),
-            (self.frontend, f"frontend={self.frontend!r} (a modality "
-             f"frontend)"),
-        ]
-        for bad, what in later:
-            if bad:
-                raise NotImplementedError(
-                    f"{self.name}: {what} is not ported yet (ROADMAP Queue "
-                    f"A item 12)")
+                f"{self.name}: family={self.family!r} is not ported yet; "
+                f"the port has the decoder family only so far (ROADMAP "
+                f"Queue A item 12{what.get(self.family, '')})")
+        if self.frontend:
+            raise NotImplementedError(
+                f"{self.name}: frontend={self.frontend!r} (a modality "
+                f"frontend) is not ported yet (ROADMAP Queue A item 12, "
+                f"A12b's vision prefix)")
         if self.attn_kind not in ATTN_KINDS:
             raise NotImplementedError(
                 f"{self.name}: attn_kind={self.attn_kind!r}; the port has "

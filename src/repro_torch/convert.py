@@ -5,7 +5,9 @@ turned into a numpy array (``jax.device_get``) and returns the port's
 parameter dict: the same nesting and names (``embed``, ``final_norm``,
 an untied ``unembed``, stacked ``layers.{pre_attn, pre_mlp,
 attn.{wq,wk,wv,wo}, mlp.{up,down,gate}}`` with qk-norm's
-``attn.{q_norm,k_norm}``, ``slay.{anchors,omegas}``) as torch tensors.
+``attn.{q_norm,k_norm}``, or an MoE config's ``layers.moe.{router,
+gate, up, down}`` in place of ``mlp``, ``slay.{anchors,omegas}``) as
+torch tensors.
 ``params_to_numpy`` goes the other way. bf16 goes through fp32 both ways:
 numpy has no bf16 of its own, and the cast is exact.
 """

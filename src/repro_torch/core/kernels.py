@@ -120,6 +120,15 @@ def softmax_attention(q, k, v, causal: bool = True,
     Lq, Lk = q.shape[-3], k.shape[-3]
     if window and causal and Lq == Lk and Lq % window == 0 and Lq > window:
         return windowed_softmax_attention(q, k, v, window, logit_softcap)
+    return masked_softmax_attention(q, k, v, causal, logit_softcap, window)
+
+
+def masked_softmax_attention(q, k, v, causal: bool = True,
+                             logit_softcap: float = 0.0,
+                             window: int = 0) -> torch.Tensor:
+    """:func:`softmax_attention`'s masked route: the whole (Lq, Lk) logits
+    with the causal and window masks, at any length."""
+    Lq, Lk = q.shape[-3], k.shape[-3]
     dh = q.shape[-1]
     logits = torch.einsum("...qhd,...khd->...hqk", q, k) / torch.sqrt(
         const(dh, q))

@@ -2,10 +2,15 @@
 streaming) or the lockstep engine, the counterpart of the JAX package's
 ``examples/serve.py``. A linear kind (SLAY, favor, cosformer, elu1)
 decodes from a constant-size (S, z) state, the exact kinds from a KV
-ring. It runs on the card unless given ``--device cpu``::
+ring. ``--arch`` takes every config of ``configs.ALL_ARCHS``: the
+dense decoders, gemma2-27b (windowed KV rings of its local layers
+beside the global layers' state in one slot pool) and the MoE decoders
+phi3.5-moe-42b-a6.6b and grok-1-314b. It runs on the card unless given
+``--device cpu``::
 
     python -m repro_torch.examples.serve --attn-kind favor
     python -m repro_torch.examples.serve --lockstep
+    python -m repro_torch.examples.serve --arch gemma2-27b
     PYTHONPATH=src python -m repro_torch.examples.serve --device cpu \\
         --attn-kind softmax --page-size 16 --prefix-cache 64
 

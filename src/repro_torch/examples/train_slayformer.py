@@ -7,7 +7,9 @@ The CPU preset (default) trains a small model (4 layers x 128, vocab
 512, fp32); ``--preset paper`` is the 124M GPT-2-small-scale slayformer
 of Table 5; ``--attn-kind`` picks any attention kind of the port (SLAY,
 the linear baselines favor, cosformer, elu1, and the exact softmax, yat,
-yat_spherical). It runs on the card unless given ``--device cpu``::
+yat_spherical); ``--arch`` any config of ``configs.ALL_ARCHS`` (the MoE
+decoders report their load-balance loss as ``moe_aux``). It runs on the
+card unless given ``--device cpu``::
 
     python -m repro_torch.examples.train_slayformer --preset paper \\
         --attn-kind favor --steps 200

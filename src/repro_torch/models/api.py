@@ -1,6 +1,6 @@
-"""Family-dispatching model API — the dense decoder so far (SLAY, the
-linear baselines favor, cosformer, elu1 and the exact kinds softmax, yat,
-yat_spherical).
+"""Family-dispatching model API — the decoder family so far (dense or
+top-k MoE, gemma2's local/global layers; SLAY, the linear baselines
+favor, cosformer, elu1 and the exact kinds softmax, yat, yat_spherical).
 
     params    = api.init_params(cfg, seed, device="cuda")
     logits, _ = api.forward(params, cfg, tokens)
@@ -26,6 +26,13 @@ from repro_torch.models import transformer
 def _mod(cfg: ArchConfig):
     cfg.check_supported()
     return transformer
+
+
+def layer_kinds(cfg: ArchConfig):
+    """Per-layer flags (numpy int32): 1 = a local sliding-window softmax
+    layer, 0 = a layer of the config's attention kind (every layer but
+    gemma2's local ones)."""
+    return _mod(cfg)._layer_kinds(cfg)
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, *, device="cuda") -> dict:
@@ -101,8 +108,16 @@ def supports_paging(cfg: ArchConfig) -> bool:
 
 def context_capacity(cfg: ArchConfig, max_len: int) -> int | None:
     """Rows of context (prefix + prompt + decode budget) one slot admits;
-    ``None`` = unbounded (constant-state decode)."""
+    ``None`` = unbounded (constant-state decode, or windowed rings, which
+    wrap exactly)."""
     return _mod(cfg).context_capacity(cfg, max_len)
+
+
+def supports_masked_prefill(cfg: ArchConfig) -> bool:
+    """Whether ``prefill`` takes ``true_len`` (right-padded prompts);
+    False with windowed rings, where a pad row would evict in-window
+    history."""
+    return _mod(cfg).supports_masked_prefill(cfg)
 
 
 def slot_state_finite(cfg: ArchConfig, cache):

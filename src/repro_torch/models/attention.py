@@ -9,13 +9,14 @@ and one decode interface over :class:`AttnCache`. Kinds:
                   — the linear baselines (paper Table 5,
                     ``core.baselines``): plain PyTorch for the sequence,
                     the (S, z) decode step through the decode kernel
-    softmax       — exact quadratic (optionally logit-softcapped)
+    softmax       — exact quadratic (optionally logit-softcapped and,
+                    on gemma2's local layers, sliding-window)
     yat           — exact quadratic Yat-kernel attention (paper Eq. 1)
     yat_spherical — exact quadratic spherical Yat (paper Eq. 5)
 
 The exact kinds decode from a ring-buffer KV cache of ``max_len`` rows
-and run as plain PyTorch ops, as the JAX package runs them in jnp. Local
-windows come later (ROADMAP Queue A item 12).
+(``min(max_len, window)`` for a windowed layer, which wraps in place)
+and run as plain PyTorch ops, as the JAX package runs them in jnp.
 """
 from __future__ import annotations
 
@@ -55,27 +56,24 @@ def _check_kind(spec: AttentionSpec) -> None:
         raise NotImplementedError(
             f"attention kind {spec.kind!r} is not ported yet; the port has "
             f"{', '.join(slay_mod.ATTN_KINDS)} (ROADMAP Queue A item 12)")
-    if spec.window:
-        raise NotImplementedError(
-            "windowed (local) attention layers are not ported yet (ROADMAP "
-            "Queue A item 12)")
 
 
 def init_cache(spec: AttentionSpec, lead_shape, num_kv: int, head_dim: int,
                dv: int, max_len: int, dtype: torch.dtype, *,
                device: torch.device) -> AttnCache:
-    """A zero cache: (S, z) for a linear kind, ``max_len``-row rings
-    otherwise."""
+    """A zero cache: (S, z) for a linear kind, rings of ``max_len`` rows
+    otherwise (``min(max_len, window)`` for a windowed layer)."""
     _check_kind(spec)
     pos = torch.zeros(lead_shape, dtype=torch.int32, device=device)
     if spec.is_linear:
         st = la.init_state(lead_shape, num_kv, feature_dim(spec, head_dim),
                            dv, device=device)
         return AttnCache(None, None, pos, st.s, st.z)
+    size = min(max_len, spec.window) if spec.window else max_len
     return AttnCache(
-        torch.zeros(*lead_shape, max_len, num_kv, head_dim, dtype=dtype,
+        torch.zeros(*lead_shape, size, num_kv, head_dim, dtype=dtype,
                     device=device),
-        torch.zeros(*lead_shape, max_len, num_kv, dv, dtype=dtype,
+        torch.zeros(*lead_shape, size, num_kv, dv, dtype=dtype,
                     device=device), pos, None, None)
 
 
@@ -85,7 +83,9 @@ def full_attention(spec: AttentionSpec, params: dict | None, q, k, v, *,
     kernel, or with ``spec.fuse_features`` False the feature-map kernel
     then the scan kernel. A linear baseline: its features (cosformer's
     reweighted by position) and the chunked scan in PyTorch ops. The exact
-    kinds broadcast kv over the GQA group and run in PyTorch ops."""
+    kinds broadcast kv over the GQA group and run in PyTorch ops; a
+    windowed softmax takes the banded route when the window divides a
+    longer sequence, else the masked one."""
     _check_kind(spec)
     if spec.kind == "slay":
         return slay_mod.slay_attention(
@@ -101,7 +101,8 @@ def full_attention(spec: AttentionSpec, params: dict | None, q, k, v, *,
         v = torch.repeat_interleave(v, g, dim=-2)
     if spec.kind == "softmax":
         return exact.softmax_attention(q, k, v, causal=causal,
-                                       logit_softcap=spec.logit_softcap)
+                                       logit_softcap=spec.logit_softcap,
+                                       window=spec.window)
     return exact.yat_attention(q, k, v, causal=causal,
                                spherical=spec.kind == "yat_spherical")
 
@@ -183,10 +184,11 @@ def prefill_chunk(spec: AttentionSpec, params: dict | None, q, k, v,
     tokens absorbed so far. A linear kind: the chunked causal scan in
     torch on its cache features (:func:`_features`) seeded with the
     cache's fp32 state (new tensors; the cache's are not written), as the
-    JAX package runs it in jnp outside any kernel. The
-    ring kinds attend to the ring prefix (the row j holds the newest
-    position congruent to j mod size, visible once written) and causally
-    within the chunk, then write the chunk's keys and values into the
+    JAX package runs it in jnp outside any kernel. The ring kinds attend
+    to the ring prefix (the row j holds the newest position congruent to
+    j mod size, visible once written and, for a windowed layer, while
+    less than ``window`` behind the query) and causally within the chunk
+    (within the window), then write the chunk's keys and values into the
     rings in place, only the trailing ``size`` of a chunk longer than the
     ring. Either way a prompt fed chunk by chunk ends in the state of a
     whole-prompt prefill (up to the order of fp32 sums for SLAY).
@@ -223,10 +225,16 @@ def prefill_chunk(spec: AttentionSpec, params: dict | None, q, k, v,
     # newest written position congruent to j (mod size), negative if none.
     a0 = j + torch.div(st[:, None] - 1 - j, size,
                        rounding_mode="floor") * size
-    pre_ok = (a0 >= 0)[:, None, :].expand(B, Lc, size)
+    pre_ok = (a0 >= 0)[:, None, :]
     rel = (torch.arange(Lc, device=dev)[:, None]
            - torch.arange(Lc, device=dev)[None, :])
-    in_ok = (rel >= 0)[None].expand(B, Lc, Lc)
+    in_ok = rel >= 0
+    if spec.window:
+        p = st[:, None] + torch.arange(Lc, device=dev)[None, :]
+        pre_ok = pre_ok & (p[:, :, None] - a0[:, None, :] < spec.window)
+        in_ok = in_ok & (rel < spec.window)
+    pre_ok = pre_ok.expand(B, Lc, size)
+    in_ok = in_ok[None].expand(B, Lc, Lc)
     mask = torch.cat([pre_ok, in_ok], dim=-1)[:, :, None, None, :]
     k_all = torch.cat([cache.k.to(q.dtype), k.to(q.dtype)], dim=1)
     v_all = torch.cat([cache.v.to(q.dtype), v.to(q.dtype)], dim=1)

@@ -1,4 +1,4 @@
-"""Shared neural-net layers: RMSNorm, RoPE, MLP, embeddings.
+"""Shared neural-net layers: RMSNorm, RoPE, MLP, MoE, embeddings.
 
 Plain functions ``f(params, x, ...) -> y`` on tensors, mirroring
 ``repro.models.layers``.
@@ -38,6 +38,70 @@ def mlp(params: dict, x: torch.Tensor, gated: bool = True) -> torch.Tensor:
     else:
         up = F.silu(up)
     return up @ params["down"]
+
+
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """fp32 one-hot of ``idx`` over ``n`` classes; an index outside
+    [0, n) gives a zero row, as ``jax.nn.one_hot``. A comparison, not
+    ``F.one_hot``, whose range check would sync the host (a captured
+    CUDA graph cannot)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).float()
+
+
+def moe(params: dict, x: torch.Tensor, num_experts: int, top_k: int = 2,
+        capacity_factor: float = 1.25,
+        seq_chunk: int = 4096) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k MoE with capacity-bounded one-hot dispatch (GShard/Switch),
+    ``repro.models.layers.moe`` op for op. x (..., S, d) -> (y, aux).
+
+    Each call's capacity is ``max(int(1.25 * S * k / E), 1)`` slots per
+    expert and row group; a token's k choices queue token by token (its
+    first choice before its second) and choices past an expert's
+    capacity are dropped. Gate values are renormalised over the top k
+    (+ 1e-9). ``aux`` is the Switch load-balance loss E · mean_G Σ_e
+    density · frac, frac from the argmax. A sequence longer than
+    ``seq_chunk`` and a multiple of it runs chunk by chunk (capacity per
+    chunk), with the aux averaged over the chunks. Fixed shapes only: no
+    host sync, so a CUDA graph can capture it. ``torch.topk`` does not
+    promise the lower index on a tie, as ``lax.top_k`` does; router
+    probabilities tie only on degenerate inputs.
+    """
+    *lead, s, d = x.shape
+    if s > seq_chunk and s % seq_chunk == 0:
+        n = s // seq_chunk
+        xc = torch.movedim(x.reshape(*lead, n, seq_chunk, d), len(lead), 0)
+        outs = [moe(params, xi, num_experts, top_k, capacity_factor,
+                    seq_chunk) for xi in xc]
+        y = torch.movedim(torch.stack([o[0] for o in outs]), 0, len(lead))
+        return (y.reshape(*lead, s, d),
+                torch.mean(torch.stack([o[1] for o in outs])))
+    xf = x.reshape(-1, s, d)                                  # (G, S, d)
+    g = xf.shape[0]
+    e, k = num_experts, top_k
+    cap = max(int(capacity_factor * s * k / e), 1)
+    logits = torch.einsum("gsd,de->gse", xf, params["router"]).float()
+    probs = torch.softmax(logits, dim=-1)
+    # Load-balance auxiliary loss (Switch eq. 4).
+    density = torch.mean(probs, dim=1)                        # (G, E)
+    frac = torch.mean(_one_hot(torch.argmax(probs, -1), e), dim=1)
+    aux = torch.mean(torch.sum(density * frac, dim=-1)) * e
+    gate_vals, gate_idx = torch.topk(probs, k, dim=-1)        # (G, S, k)
+    gate_vals = gate_vals / (torch.sum(gate_vals, -1, keepdim=True) + 1e-9)
+    # Position within each expert's queue, capacity-masked.
+    onehot = _one_hot(gate_idx, e)                            # (G,S,k,E)
+    flat = onehot.reshape(g, s * k, e)
+    pos = (torch.cumsum(flat, dim=1) - flat).reshape(g, s, k, e)
+    keep = (pos < cap).float() * onehot
+    posc = _one_hot(torch.sum(pos * onehot, -1).to(torch.int32), cap)
+    dispatch = torch.einsum("gske,gskc->gsec", keep, posc)    # (G,S,E,C)
+    combine = torch.einsum("gsec,gsk,gske->gsec", dispatch, gate_vals,
+                           onehot)
+    xe = torch.einsum("gsec,gsd->gecd", dispatch.to(x.dtype), xf)
+    h = F.silu(torch.einsum("gecd,edf->gecf", xe, params["gate"]))
+    h = h * torch.einsum("gecd,edf->gecf", xe, params["up"])
+    ye = torch.einsum("gecf,efd->gecd", h, params["down"])
+    y = torch.einsum("gsec,gecd->gsd", combine.to(x.dtype), ye)
+    return y.reshape(*lead, s, d), aux
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,7 @@
-"""The decoder LM (dense, no MoE/SSM/vision): SLAY, a linear baseline
-(favor, cosformer, elu1) or an exact kind.
+"""The decoder LM (dense or top-k MoE, no SSM/vision): SLAY, a linear
+baseline (favor, cosformer, elu1) or an exact kind, and gemma2's
+local/global alternation (a sliding-window softcapped softmax on every
+layer but each ``local_global_period``-th, which runs the config's kind).
 
 Parameters are a plain dict laid out like the JAX package's pytree, so
 ``repro_torch.convert`` moves weights across unchanged::
@@ -9,6 +11,8 @@ Parameters are a plain dict laid out like the JAX package's pytree, so
             attn: wq (nl, d, H, dh), wk/wv (nl, d, Hkv, dh), wo (nl, H, dh, d)
                   [, q_norm, k_norm (nl, dh) if qk_norm],
             mlp: up (nl, d, ff), down (nl, ff, d) [, gate (nl, d, ff)],
+            or with E = moe_experts > 0, in place of mlp:
+            moe: router (nl, d, E), gate/up (nl, E, d, ff), down (nl, E, ff, d),
     slay: anchors (P, dh), omegas (D, dh)   (fp32, shared by every layer;
                                              SLAY configs only)
           proj (64, dh)                     (fp32, favor's projection,
@@ -23,6 +27,12 @@ backward, the linear baselines and the exact kinds (``softmax``, ``yat``,
 linear kinds, KV rings for the exact kinds, optionally paged) then
 ``decode_step`` (one token, the cache updated in place); an exact kind
 also verifies speculative drafts (``verify_chunk``, ``rollback_slots``).
+A config with local layers keeps the reference's union cache: every
+layer has rings of ``min(max_len, local_window)`` rows and, under a
+linear kind, (S, z) too; each layer uses its kind's leaves and leaves
+the others as they are. The MoE aux loss is summed over layers into
+``forward``'s second output; the serving paths drop it, as the
+reference does.
 """
 from __future__ import annotations
 
@@ -36,9 +46,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.baselines import favor_init
 from repro_torch.core.features import init_feature_params
+from repro_torch.core.slay import feature_dim
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import embed, mlp, rmsnorm, rope, unembed
+from repro_torch.models.layers import embed, mlp, moe, rmsnorm, rope, unembed
 from repro_torch.serving import pages as pg
 
 
@@ -56,14 +67,21 @@ def _param_shapes(cfg: ArchConfig) -> dict:
         "layers.attn.wk": ((nl, d, Hkv, dh), "normal", None),
         "layers.attn.wv": ((nl, d, Hkv, dh), "normal", None),
         "layers.attn.wo": ((nl, H, dh, d), "normal", None),
-        "layers.mlp.up": ((nl, d, ff), "normal", None),
-        "layers.mlp.down": ((nl, ff, d), "normal", None),
     }
     if cfg.qk_norm:
         shapes["layers.attn.q_norm"] = ((nl, dh), "zeros", None)
         shapes["layers.attn.k_norm"] = ((nl, dh), "zeros", None)
-    if cfg.gated_mlp:
-        shapes["layers.mlp.gate"] = ((nl, d, ff), "normal", None)
+    E = cfg.moe_experts
+    if E:
+        shapes["layers.moe.router"] = ((nl, d, E), "normal", None)
+        shapes["layers.moe.gate"] = ((nl, E, d, ff), "normal", None)
+        shapes["layers.moe.up"] = ((nl, E, d, ff), "normal", None)
+        shapes["layers.moe.down"] = ((nl, E, ff, d), "normal", None)
+    else:
+        shapes["layers.mlp.up"] = ((nl, d, ff), "normal", None)
+        shapes["layers.mlp.down"] = ((nl, ff, d), "normal", None)
+        if cfg.gated_mlp:
+            shapes["layers.mlp.gate"] = ((nl, d, ff), "normal", None)
     if not cfg.tie_embeddings:
         shapes["unembed"] = ((cfg.vocab_size, d), "normal", 1.0)
     return shapes
@@ -135,10 +153,33 @@ def _qkv(cfg: ArchConfig, lp: dict, x, positions):
             rope(k, positions, cfg.rope_theta), v)
 
 
+def _layer_kinds(cfg: ArchConfig) -> np.ndarray:
+    """Per-layer flag: 1 = local sliding-window softmax, 0 = the config's
+    kind (every ``local_global_period``-th layer, counting from 1)."""
+    if cfg.mixed_layers:
+        idx = np.arange(cfg.num_layers)
+        return (idx % cfg.local_global_period
+                != cfg.local_global_period - 1).astype(np.int32)
+    return np.zeros(cfg.num_layers, np.int32)
+
+
+def _layer_specs(cfg: ArchConfig) -> list:
+    """Each layer's AttentionSpec, local or global by :func:`_layer_kinds`."""
+    return [cfg.attention_spec(local=bool(kind))
+            for kind in _layer_kinds(cfg)]
+
+
 def _finish_layer(cfg: ArchConfig, lp: dict, x, y):
-    """Output projection, residual, MLP block."""
+    """Output projection, residual, MLP or MoE block: (x, the MoE aux
+    loss, None for a dense MLP). A decode row (B, d) routes as a
+    sequence of one token per slot, as the reference does."""
     x = x + torch.einsum("...hk,hkd->...d", y, lp["attn"]["wo"])
-    return x + mlp(lp["mlp"], rmsnorm(lp["pre_mlp"], x), cfg.gated_mlp)
+    xm = rmsnorm(lp["pre_mlp"], x)
+    if not cfg.moe_experts:
+        return x + mlp(lp["mlp"], xm, cfg.gated_mlp), None
+    seq = xm if xm.dim() == 3 else xm[:, None, :]
+    y2, aux = moe(lp["moe"], seq, cfg.moe_experts, cfg.moe_top_k)
+    return x + y2.reshape(x.shape), aux
 
 
 def _logits(params: dict, cfg: ArchConfig, x):
@@ -147,15 +188,19 @@ def _logits(params: dict, cfg: ArchConfig, x):
     return unembed(table, x, cfg.final_logit_softcap)
 
 
-def _layer_fwd(cfg: ArchConfig, slay_params: dict, positions, lp: dict, x):
+def _layer_fwd(cfg: ArchConfig, slay_params: dict, positions, spec,
+               lp: dict, x):
+    """One layer over the whole sequence: (x, its MoE aux, 0 if dense)."""
     q, k, v = _qkv(cfg, lp, x, positions)
-    y = attn.full_attention(cfg.attention_spec(), slay_params, q, k, v)
-    return _finish_layer(cfg, lp, x, y)
+    y = attn.full_attention(spec, slay_params, q, k, v)
+    x, aux = _finish_layer(cfg, lp, x, y)
+    return x, torch.zeros((), device=x.device) if aux is None else aux
 
 
 def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
             remat: bool | str = False):
-    """tokens (B, L) -> (logits (B, L, V), aux loss 0).
+    """tokens (B, L) -> (logits (B, L, V), the MoE aux loss summed over
+    layers, fp32; 0 for a dense MLP).
 
     The random projections are constants of the model (``detach``, as
     ``stop_gradient`` in the JAX package); cosformer, elu1 and the exact
@@ -177,19 +222,22 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
     positions = torch.arange(L, dtype=torch.int32, device=dev)[None, :]
     slay_params = _slay_params(params, detach=True)
     layer = functools.partial(_layer_fwd, cfg, slay_params, positions)
-    for i in range(cfg.num_layers):
+    aux = torch.zeros((), device=dev)
+    for i, spec in enumerate(_layer_specs(cfg)):
         lp = _layer(params, i)
         if remat:
-            x = checkpoint(layer, lp, x, use_reentrant=False)
+            x, a = checkpoint(layer, spec, lp, x, use_reentrant=False)
         else:
-            x = layer(lp, x)
-    return _logits(params, cfg, x), torch.zeros((), device=dev)
+            x, a = layer(spec, lp, x)
+        aux = aux + a
+    return _logits(params, cfg, x), aux
 
 
 def loss_fn(params: dict, cfg: ArchConfig, batch: dict, *,
             remat: bool | str = False) -> tuple[torch.Tensor, dict]:
     """Next-token cross-entropy: fp32 logits, logsumexp minus the gold
-    logit, mean over tokens (+ 0.01 x the MoE aux loss, 0 here)."""
+    logit, mean over tokens, + 0.01 x the MoE aux loss (0 for a dense
+    MLP), reported as ``moe_aux``."""
     logits, aux = forward(params, cfg, batch["tokens"], remat=remat)
     labels = batch["labels"].to(logits.device).long()
     logits = logits.float()
@@ -223,18 +271,35 @@ def supports_paging(cfg: ArchConfig) -> bool:
     """Whether the pooled rings can be paged: a non-windowed exact
     quadratic ring, the one state whose per-slot size grows with the
     context. A linear kind's (S, z) is O(1) per slot and bypasses
-    paging."""
+    paging; windowed rings are bounded by the window and wrap in
+    place."""
     cfg.check_supported()
+    if cfg.local_window:
+        return False
     return not cfg.attention_spec().is_linear
 
 
 def context_capacity(cfg: ArchConfig, max_len: int) -> int | None:
     """Context rows (prompt + decode budget) one slot admits: None
     (unbounded) for a linear kind, whose constant-size (S, z) holds any
-    context; ``max_len`` for an exact kind's ring, which would overwrite
-    live context past it."""
+    context, and for windowed rings, which wrap exactly; ``max_len`` for
+    an exact kind's ring, which would overwrite live context past it."""
     cfg.check_supported()
-    return None if cfg.attention_spec().is_linear else max_len
+    if cfg.attention_spec().is_linear or cfg.local_window:
+        return None
+    return max_len
+
+
+def supports_masked_prefill(cfg: ArchConfig) -> bool:
+    """Whether ``prefill`` takes ``true_len`` (right-padded prompts):
+    not with windowed rings, where a pad row would evict in-window
+    history."""
+    cfg.check_supported()
+    return not cfg.local_window
+
+
+def _needs_rings(cfg: ArchConfig) -> bool:
+    return cfg.mixed_layers or not cfg.attention_spec().is_linear
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int = 0, *,
@@ -244,14 +309,18 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int = 0, *,
     (S, z), and ``max_len`` is unused. The exact kinds: rings of
     ``max_len`` rows; with
     ``page_size`` > 0, ``num_pages`` (0: ``batch * max_len / page_size``)
-    physical pages shared by all slots, and an all-free PageState."""
+    physical pages shared by all slots, and an all-free PageState.
+    With ``local_window`` set every layer's rings have ``min(max_len,
+    local_window)`` rows (the reference's union layout, global layers
+    included), beside a linear kind's (S, z) on every layer when the
+    layers are mixed; they are never paged."""
     cfg.check_supported()
     dev = resolve_device(device)
     spec = cfg.attention_spec()
     nl, dh, hkv = cfg.num_layers, cfg.resolved_head_dim, cfg.num_kv_heads
-    if not spec.is_linear and max_len < 1:
-        raise ValueError(f"the {cfg.attn_kind} kind's KV ring needs "
-                         f"max_len >= 1, got {max_len}")
+    if _needs_rings(cfg) and max_len < 1:
+        raise ValueError(f"{cfg.name}'s KV rings need max_len >= 1, got "
+                         f"{max_len}")
     pos = torch.zeros(batch, dtype=torch.int32, device=dev)
     if page_size > 0 and supports_paging(cfg):
         if max_len % page_size:
@@ -266,20 +335,44 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int = 0, *,
             torch.zeros(shape, dtype=dt, device=dev),
             torch.zeros(nl, batch, dtype=torch.int32, device=dev), None, None)
         return DecodeCache(a, pos, pg.init_state(batch, P, lp, device=dev))
-    a = attn.init_cache(spec, (nl, batch), hkv, dh, dh, max_len,
-                        cfg.activation_dtype, device=dev)
+    if not cfg.mixed_layers:
+        size = min(max_len, cfg.local_window) if cfg.local_window else max_len
+        a = attn.init_cache(spec, (nl, batch), hkv, dh, dh, size,
+                            cfg.activation_dtype, device=dev)
+        return DecodeCache(a, pos)
+    # Mixed local/global layers: the union of both kinds' leaves.
+    kv_len = min(max_len, cfg.local_window)
+    ring = (nl, batch, kv_len, hkv, dh)
+    s = z = None
+    if spec.is_linear:
+        m = feature_dim(spec, dh)
+        s = torch.zeros(nl, batch, hkv, m, dh, device=dev)
+        z = torch.zeros(nl, batch, hkv, m, device=dev)
+    a = attn.AttnCache(
+        torch.zeros(ring, dtype=cfg.activation_dtype, device=dev),
+        torch.zeros(ring, dtype=cfg.activation_dtype, device=dev),
+        torch.zeros(nl, batch, dtype=torch.int32, device=dev), s, z)
     return DecodeCache(a, pos)
 
 
-def _stack_caches(spec, rings: attn.AttnCache | None, caches: list):
-    """One stacked AttnCache from per-layer results: a linear kind's new (S, z)
-    stacked; the rings were written in place into ``rings``'."""
+def _stack_caches(ac: attn.AttnCache | None, caches: list):
+    """One stacked AttnCache from per-layer results over the stacked
+    cache ``ac`` they continued (None: a linear kind's prefill, which
+    starts from nothing). The rings are ``ac``'s, written in place; a
+    linear layer's new (S, z) are stacked, and a local layer's unused
+    (S, z) taken from ``ac`` as they were."""
+    def state(name):
+        own = None if ac is None else getattr(ac, name)
+        rows = [getattr(c, name) for c in caches]
+        if own is None and rows[0] is None:
+            return None
+        return torch.stack([own[i] if r is None else r
+                            for i, r in enumerate(rows)])
+
     pos = torch.stack([c.pos for c in caches])
-    if spec.is_linear:
-        return attn.AttnCache(None, None, pos,
-                              torch.stack([c.s for c in caches]),
-                              torch.stack([c.z for c in caches]))
-    return attn.AttnCache(rings.k, rings.v, pos, None, None)
+    if ac is None:
+        return attn.AttnCache(None, None, pos, state("s"), state("z"))
+    return attn.AttnCache(ac.k, ac.v, pos, state("s"), state("z"))
 
 
 def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
@@ -290,8 +383,13 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
     prompt + 64 rows of decode headroom, as the JAX package); a linear kind's
     state does not depend on it. ``true_len`` (B,) marks the real lengths
     of right-padded prompts: logits are read at ``true_len - 1`` and pad
-    positions add nothing to the cache."""
+    positions add nothing to the cache (not with windowed rings,
+    :func:`supports_masked_prefill`)."""
     cfg.check_supported()
+    if true_len is not None and not supports_masked_prefill(cfg):
+        raise NotImplementedError(
+            f"true_len-masked prefill unsupported for {cfg.name} "
+            f"(local_window={cfg.local_window})")
     dev = params["embed"].device
     tokens = tokens.to(dev)
     B, L = tokens.shape
@@ -301,19 +399,18 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
     if true_len is not None:
         true_len = true_len.to(dev)
         valid = positions < true_len[:, None]
-    spec = cfg.attention_spec()
     slay = _slay_params(params)
-    ring = None if spec.is_linear else init_cache(
+    ring = None if not _needs_rings(cfg) else init_cache(
         cfg, B, max_len if max_len else L + 64, device=dev).attn
     caches = []
-    for i in range(cfg.num_layers):
+    for i, spec in enumerate(_layer_specs(cfg)):
         lp = _layer(params, i)
         q, k, v = _qkv(cfg, lp, x, positions)
         y = attn.full_attention(spec, slay, q, k, v)
         caches.append(attn.prefill_cache(
             spec, slay, k, v, None if ring is None else _layer_cache(ring, i),
             valid))
-        x = _finish_layer(cfg, lp, x, y)
+        x, _ = _finish_layer(cfg, lp, x, y)
     if true_len is None:
         x_last = x[:, -1]
         pos = torch.full((B,), L, dtype=torch.int32, device=dev)
@@ -321,7 +418,7 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
         idx = torch.clamp(true_len - 1, min=0).long()
         x_last = x[torch.arange(B, device=dev), idx]
         pos = true_len.to(torch.int32, copy=True)   # decode advances it
-    a = _stack_caches(spec, ring, caches)
+    a = _stack_caches(ring, caches)
     return _logits(params, cfg, x_last)[:, None, :], DecodeCache(a, pos)
 
 
@@ -344,10 +441,9 @@ def decode_step(params: dict, cfg: ArchConfig, cache: DecodeCache,
     dev = params["embed"].device
     x = embed(params["embed"], tokens.to(dev)[:, 0]).to(cfg.activation_dtype)
     pos = cache.pos
-    spec = cfg.attention_spec()
     slay = _slay_params(params)
     ac = cache.attn
-    for i in range(cfg.num_layers):
+    for i, spec in enumerate(_layer_specs(cfg)):
         lp = _layer(params, i)
         q, k, v = _qkv(cfg, lp, x[:, None], pos[:, None])
         lc = _layer_cache(ac, i)
@@ -359,7 +455,7 @@ def decode_step(params: dict, cfg: ArchConfig, cache: DecodeCache,
         if cache.pages is not None:
             pg.scatter_ring_(ac.k[i], nc.k, cache.pages)
             pg.scatter_ring_(ac.v[i], nc.v, cache.pages)
-        x = _finish_layer(cfg, lp, x, y)
+        x, _ = _finish_layer(cfg, lp, x, y)
     pos.add_(1 if active is None else active.to(torch.int32))
     return _logits(params, cfg, x)[:, None, :], cache
 
@@ -389,11 +485,10 @@ def _chunk_layers(params: dict, cfg: ArchConfig, cache: DecodeCache,
     x = embed(params["embed"], tokens).to(cfg.activation_dtype)
     positions = (cache.pos[:, None]
                  + torch.arange(Lc, dtype=torch.int32, device=dev)[None, :])
-    spec = cfg.attention_spec()
     slay = _slay_params(params)
     ac = cache.attn
     caches = []
-    for i in range(cfg.num_layers):
+    for i, spec in enumerate(_layer_specs(cfg)):
         lp = _layer(params, i)
         q, k, v = _qkv(cfg, lp, x, positions)
         lc = _layer_cache(ac, i)
@@ -405,7 +500,7 @@ def _chunk_layers(params: dict, cfg: ArchConfig, cache: DecodeCache,
             pg.scatter_ring_(ac.k[i], nc.k, cache.pages)
             pg.scatter_ring_(ac.v[i], nc.v, cache.pages)
         caches.append(nc)
-        x = _finish_layer(cfg, lp, x, y)
+        x, _ = _finish_layer(cfg, lp, x, y)
     return x, caches
 
 
@@ -424,8 +519,7 @@ def prefill_chunk(params: dict, cfg: ArchConfig, cache: DecodeCache,
     cfg.check_supported()
     x, caches = _chunk_layers(params, cfg, cache, tokens)
     return (_logits(params, cfg, x[:, -1])[:, None, :],
-            DecodeCache(_stack_caches(cfg.attention_spec(), cache.attn,
-                                      caches),
+            DecodeCache(_stack_caches(cache.attn, caches),
                         cache.pos + tokens.shape[1], cache.pages))
 
 
@@ -434,11 +528,15 @@ def prefill_chunk(params: dict, cfg: ArchConfig, cache: DecodeCache,
 
 def supports_speculative(cfg: ArchConfig) -> bool:
     """Whether ``cfg`` can verify draft-verify speculative decoding: an
-    exact kind's ring, where rejecting a suffix is a per-slot ``pos``
-    rewind. A linear kind folds a token into (S, z) for good, so it
-    cannot. (The reference also excludes windowed rings, SSM carries and
-    frontends, none of which the port has.)"""
+    exact kind's non-windowed ring, where rejecting a suffix is a
+    per-slot ``pos`` rewind. A linear kind folds a token into (S, z) for
+    good, and a windowed ring's in-window eviction cannot be rewound, so
+    neither can. (The reference also excludes SSM carries and frontends,
+    which the port does not have.) An MoE config verifies like a dense
+    one; each verify chunk routes with that chunk's capacity."""
     cfg.check_supported()
+    if cfg.local_window or cfg.local_global_period:
+        return False
     return not cfg.attention_spec().is_linear
 
 

@@ -15,7 +15,9 @@ The payload is a pickled dict of numpy arrays and builtins, never a
 torch tensor, with the JAX package's keys: the pool as a list of leaves
 in ``jax.tree.leaves`` order (SLAY ``attn.pos, attn.s, attn.z, pos``;
 an exact kind ``attn.k, attn.v, attn.pos, pos``, and paged the page
-tables ``table, owner_slot, owner_lp`` after them), ``page_size`` and
+tables ``table, owner_slot, owner_lp`` after them; gemma2's union pool
+under SLAY ``attn.k, attn.v, attn.pos, attn.s, attn.z, pos``, every
+layer's leaves whichever its kind), ``page_size`` and
 the ``page_pool`` allocator snapshot (None unpaged), and in speculative
 mode the draft pool's leaves (``draft_pool``, the SLAY order; None
 otherwise) with ``speculative`` and ``spec_gamma``. So a directory

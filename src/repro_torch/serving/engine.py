@@ -21,7 +21,11 @@ kinds (``softmax``, ``yat``, ``yat_spherical``) hold a KV ring of
 (:class:`RequestTooLargeError`); with ``ServingConfig.page_size`` set the
 rings draw pages from a shared :class:`~repro_torch.serving.pages.
 PagePool` sized by each request's context, and admission waits for free
-pages.
+pages. A config with local windowed layers (gemma2) holds rings of
+``min(max_len, local_window)`` rows that wrap in place, beside its
+global layers' state in the same slot (the reference's union layout):
+any prompt is admitted and absorbed chunk by chunk, and they are never
+paged.
 
 Fault model (DESIGN.md §10): every request ends with exactly one
 ``finish_reason`` of ``sampling.FINISH_REASONS``. Admission failures are
@@ -165,9 +169,11 @@ def _to_device(tree, dev: torch.device):
 
 def _copy_into(dst, src) -> None:
     """Copy every leaf of ``src`` into the same leaf of ``dst``: a static
-    buffer that a captured graph reads keeps its storage."""
+    buffer that a captured graph reads keeps its storage. A leaf that is
+    already ``dst``'s (a ring written in place) is left as it is."""
     for d, s in zip(tree_leaves(dst), tree_leaves(src)):
-        d.copy_(s)
+        if d is not s:
+            d.copy_(s)
 
 
 @dataclasses.dataclass
@@ -849,7 +855,8 @@ class ContinuousServingEngine:
 
         Raises :class:`RequestTooLargeError` when prompt + max_new exceeds
         the slot's context capacity (an exact kind's ``max_len`` ring;
-        never for SLAY, whose state is constant-size) and
+        never for SLAY, whose state is constant-size, nor for windowed
+        rings, which wrap exactly) and
         :class:`QueueFullError` when the queue is at ``max_queue`` under
         ``reject_new``. Under ``shed_oldest`` the
         longest-waiting queued request ends as ``shed`` instead; under

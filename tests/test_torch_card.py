@@ -312,14 +312,15 @@ def test_baseline_engines_on_card_match_cpu(kind):
 
 @needs_card
 @pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("g", [1, 2, 3, 8, 48, 64])
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 6, 8, 48, 64])
 def test_decode_kernel_any_group_at_head_dim_128_on_card(g, masked):
-    # K2 at the dense decoders' head dim (dv = 128, m = 384) for every
-    # group: phi4-mini's 3, qwen3's 8, granite's MQA 48, and 1, 2, 64
-    # beside them. Past 8 q heads a block sums the heads in tiles of 8,
-    # walking its slice again; S' and z' are written once. v fp32: y
-    # differs from the plain version in summation order only (1e-5), S'
-    # and z' not at all; drained rows bit-identical, y zero.
+    # K2 at the decoders' head dim (dv = 128, m = 384) for every group:
+    # phi4-mini's 3, qwen3's 8, granite's MQA 48, gemma2's 2, phi3.5-moe's
+    # 4, grok-1's 6, and 1, 64 beside them. Past 8 q heads a block sums
+    # the heads in tiles of 8, walking its slice again; S' and z' are
+    # written once. v fp32: y differs from the plain version in summation
+    # order only (1e-5), S' and z' not at all; drained rows
+    # bit-identical, y zero.
     bk = 4 if g >= 48 else 16
     args = [torch.from_numpy(x).cuda()
             for x in _decode_inputs(4 + g, bk * g, bk, m=384, dv=128)]
@@ -423,6 +424,54 @@ def test_dense_decoder_engines_on_card_match_cpu(arch):
         np.testing.assert_array_equal(a, b)
     assert s_card["ticks"] == s_cpu["ticks"]
     nl = cfg.num_layers
+    assert cont["slay_decode_step_masked"] == (
+        nl * serving.macro_ticks * s_card["decode_dispatches"])
+    assert lock["slay_decode_step"] == nl * 9
+    assert lock["slay_fused_fwd"] == nl
+
+
+@needs_card
+@pytest.mark.parametrize("arch", ["gemma2-27b", "phi3.5-moe-42b-a6.6b",
+                                  "grok-1-314b"])
+def test_mixed_and_moe_engines_on_card_match_cpu(arch):
+    # gemma2's smoke model (4 layers, 0 and 2 local with a 32-token
+    # window, 1 and 3 global SLAY) and the MoE ones (2 layers of 4
+    # experts, top 2) in fp32, embedding scaled down so the streams vary:
+    # the continuous engine (graphed, greedy; a 45-token prompt wraps
+    # gemma2's rings) and the lockstep engine on the card and on the CPU
+    # give the same streams; only the SLAY layers launch the kernels (K2
+    # once a SLAY layer and step, masked in the pool; K1 once a SLAY
+    # layer in the lockstep prefill).
+    cfg = get_smoke_config(arch, dtype="float32")
+    params = tapi.init_params(cfg, 0, device="cpu")
+    params["embed"] = params["embed"] / 8.0
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(3, 256, n).astype(np.int32)
+               for n in (20, 7, 45, 12, 26)]
+    serving = ServingConfig(num_slots=2, max_len=64, prefill_chunk=8,
+                            macro_ticks=4)
+    runs = []
+    for device in ("cpu", "cuda"):
+        eng = tengine.ContinuousServingEngine(cfg, params, serving=serving,
+                                              device=device)
+        lock = tengine.ServingEngine(cfg, params, device=device, max_len=64)
+        _build.reset_launches()
+        outs, s = eng.run([tengine.Request(p, max_new_tokens=10,
+                                           arrival_time=2.0 * i)
+                           for i, p in enumerate(prompts)])
+        cont = dict(_build.LAUNCHES)
+        _build.reset_launches()
+        gen_out = lock.generate([tengine.Request(p, max_new_tokens=10)
+                                 for p in prompts[:3]])
+        runs.append((outs, s, gen_out, cont, dict(_build.LAUNCHES)))
+    (cpu, s_cpu, gen_cpu, _, _), (card, s_card, gen_card, cont, lock) = runs
+    for rid in cpu:
+        np.testing.assert_array_equal(card[rid], cpu[rid], f"rid {rid}")
+    for a, b in zip(gen_card, gen_cpu):
+        np.testing.assert_array_equal(a, b)
+    assert s_card["ticks"] == s_cpu["ticks"]
+    nl = int((tapi.layer_kinds(cfg) == 0).sum())
+    assert nl == (2 if arch == "gemma2-27b" else cfg.num_layers)
     assert cont["slay_decode_step_masked"] == (
         nl * serving.macro_ticks * s_card["decode_dispatches"])
     assert lock["slay_decode_step"] == nl * 9
