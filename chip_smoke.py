@@ -186,9 +186,13 @@ Phases, each of which raises (nonzero exit) on failure:
     1, 2, 3, 4, 6, 8, 48 and 64, masked and not, drained rows
     bit-identical, the groups of the dense configs and of phase 23's
     (gemma2 2, phi3.5-moe 4, grok-1 6) timed beside their byte bounds;
+    then hymba-1.5b's cases at head dim 64, G = 5: K1 at its lockstep
+    prefill shape (BH = 100, BK = 20, L = 512), K3/K4 at its training
+    shape (BH = 200, BK = 40, L = 1024), K2 masked and not at its
+    lockstep (20 kv rows) and pool (40) shapes;
 22. the dense decoders at full width (``phase_dense``), random weights
     from the seed, the host init timed on its own line: phi4-mini-3.8b cut
-    to 16 layers (reduced, for the script's time), granite-20b and
+    to 8 layers (reduced, for the script's time), granite-20b and
     qwen3-32b to 4 layers
     (reduced: full depth would draw 27.9 B and 32.8 B values on the
     host): phase 8's prompts through the lockstep engine graphed and
@@ -202,12 +206,12 @@ Phases, each of which raises (nonzero exit) on failure:
     layers through K1, K3 and K4, the step donating the weights and
     moments (a finite, falling loss; the batch halved only if the card
     cannot hold it, and the cut printed: qwen3's 151936-row logits take
-    a batch of 4);
+    a batch of 4, where it starts, ``TRAIN_CUTS``);
 23. gemma2-27b and the top-2 MoE decoders at full width
     (``phase_mixed``), random weights from the seed drawn on the host:
     gemma2-27b cut to 4 layers (0 and 2 local: sliding-window softmax
     over 4096 tokens, softcap 50; 1 and 3 global SLAY), phi3.5-moe-
-    42b-a6.6b to 4 (16 experts of 6400, top 2) and grok-1-314b to 1 (8
+    42b-a6.6b to 2 (16 experts of 6400, top 2) and grok-1-314b to 1 (8
     experts of 32768; 64 layers would draw 316 B values on the host), as
     phase 22 serves the dense ones (lockstep graphed and eager, phase
     12's trace graphed, a full-pool dispatch under the profiler beside
@@ -219,16 +223,34 @@ Phases, each of which raises (nonzero exit) on failure:
     last-token logits at 1 x 8192 through the banded route against the
     masked one; fp32 at 2 layers against the CPU (gemma2: one local, one
     global; logits, loss, ``moe_aux``, gradients); 4 AdamW steps of
-    gemma2 and phi3.5-moe at 4 layers (batch halved only if the card
-    cannot hold it; the peak memory printed); grok-1 gets no train step
+    gemma2 (4 layers, from a batch of 2: ``TRAIN_CUTS``) and phi3.5-moe
+    (2 layers) (batch halved only if the card cannot hold it; the peak
+    memory printed); grok-1 gets no train step
     (one layer's would need about 78 GB), which a line says.
-Phases 14-17 check that no SLAY kernel launched, phases 19-20 that only
-K2 did; the kernel line's B4a launches are phase 8's, 19's, 22's and
-23's, its B4b launches phase 12's, 18's, 19's, 20's, 22's and 23's, its
-K1 launches phase 8's, 22's and 23's, its K3 and K4 launches phase 9's,
-22's and 23's (each row has the dense decoders' launches, G and
-head-dim-128 numbers per config under ``dense_decoders``, and phase
-23's configs' under ``mixed_and_moe``).
+24. the SSM families at full width and full depth (``phase_ssm``),
+    random weights from the seed drawn on the host: mamba2-780m (48
+    attention-free SSD layers, a 75.5 MB carry per slot) and hymba-1.5b
+    (32 layers of SLAY at G = 5 beside SSD heads), each served lockstep
+    graphed and eager (hymba: K1 once a layer, B4a once a layer and
+    step; mamba2: no SLAY kernel), phase 12's trace graphed (B4b nl x 8
+    a dispatch for hymba) and its first 4 requests graphed and eager, a
+    full-pool dispatch under the profiler beside the weights' read plus
+    the pool state's read and write, a 6144-token prompt in 128-token
+    chunks graphed and eager (its first token against the whole-prompt
+    prefill's argmax), mamba2's prefix cache and crash-restore through a
+    checkpoint of its pool, fp32 at 2 layers against the CPU (logits;
+    the loss and gradients of one 256-token chunk, finite, ROADMAP
+    C-10), and 4 AdamW steps of 8 x 1024 tokens with remat (hymba's
+    through K1 twice, K3 and K4 once a layer), the peak memory printed.
+Phases 14-17 and mamba2's part of phase 24 check that no SLAY kernel
+launched, phases 19-20 that only K2 did; the kernel line's B4a launches
+are phase 8's, 19's, 22's, 23's and 24's, its B4b launches phase 12's,
+18's, 19's, 20's, 22's, 23's and 24's, its K1 launches phase 8's, 22's,
+23's and 24's, its K3 and K4 launches phase 9's, 22's, 23's and 24's
+(each row has the dense decoders' launches, G and head-dim-128 numbers
+per config under ``dense_decoders``, phase 23's configs' under
+``mixed_and_moe`` and phase 24's, with hymba's kernels at head dim 64,
+under ``ssm_families``).
 
 The last two lines are a JSON object with every kernel's numbers and
 ``{"ok": true, "device": {...}}``. Every ``ms`` is CUDA events around the
@@ -251,6 +273,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -3280,9 +3303,10 @@ def phase_drivers(card: str) -> dict:
 # -- the dense decoders: phi4-mini-3.8b, granite-20b, qwen3-32b -----------
 
 DENSE_ARCHS = ("phi4-mini-3.8b", "granite-20b", "qwen3-32b")
-# phi4-mini served at 16 of its 32 layers (reduced, to keep the script
-# within its time with phase 23 beside it); granite and qwen3 at 4.
-DENSE_SERVE_LAYERS = {"phi4-mini-3.8b": 16}
+# phi4-mini served at 8 of its 32 layers (reduced, to keep the script
+# within its time with phases 23 and 24 beside it); granite and qwen3 at
+# 4.
+DENSE_SERVE_LAYERS = {"phi4-mini-3.8b": 8}
 DENSE_LAYERS = 4               # granite's and qwen3's depth; every training's
 DENSE_TRAIN_STEPS = 4
 # AdamWConfig's default rate (paper App. H). Phase 9's 3e-4 overshoots at
@@ -3371,20 +3395,24 @@ def _dense_kernel_cases(feat, a, w, name, G, dims, gen) -> dict:
     return rows
 
 
-def _dense_k2(gen, timed: set) -> dict:
-    """K2 at head dim 128 (dv = 128, m = 384, qf fp32 and v bf16 as the
-    models' decode gives them) for every group of K2_DENSE_G, masked and
-    not, against its plain version: y, S' and z' in place, drained rows
-    bit-identical with y = 0. The lockstep shape has 4 prompts' kv rows
-    (32 at G <= 8, 4 at G >= 48), the pool's 8 slots' (64 or 8), every
-    third masked row drained. The groups in ``timed`` (the configs') are
-    timed beside their bounds, with residency lines. Returns {(G, masked):
-    row} of the timed cases."""
-    m, dv = 384, 128
+def _dense_k2(gen, timed: set, dv: int = 128, groups=K2_DENSE_G,
+              kv_rows=None) -> dict:
+    """K2 at head dim ``dv`` (128 by default; m = 384, qf fp32 and v bf16
+    as the models' decode gives them) for every group of ``groups``,
+    masked and not, against its plain version: y, S' and z' in place,
+    drained rows bit-identical with y = 0. The lockstep shape has 4
+    prompts' kv rows (32 at G <= 8, 4 at G >= 48), the pool's 8 slots'
+    (64 or 8), every third masked row drained. The groups in ``timed``
+    (the configs') are timed beside their bounds, with residency lines.
+    ``kv_rows`` (lockstep, pool) sets the rows instead. Returns {(G,
+    masked): row} of the timed cases."""
+    m = 384
     rows = {}
-    for G in sorted(set(K2_DENSE_G) | timed):
+    for G in sorted(set(groups) | timed):
         for masked in (False, True):
             bk = (4 if G >= 48 else 32) * (2 if masked else 1)
+            if kv_rows:
+                bk = kv_rows[masked]
             bh = bk * G
             what = (f"G={G} BK={bk} BH={bh} d=dv={dv} m={m} qf fp32 v bf16"
                     f"{' masked' if masked else ''}")
@@ -3425,19 +3453,21 @@ def _dense_k2(gen, timed: set) -> dict:
                                   decode_step.residency(bk, G, m, dv,
                                                         torch.float32,
                                                         torch.bfloat16),
-                                  dv, what, inst="If13__nv_bfloat16Li128E",
+                                  dv, what,
+                                  inst=f"If13__nv_bfloat16Li{dv}E",
                                   unit="feature rows")
     return rows
 
 
 def phase_dense_kernels() -> dict:
     """K1, K2, K3 and K4 at head dim 128 and the dense decoders' groups,
-    K2 also at phase 23's (gemma2 2, phi3.5-moe 4, grok-1 6) (phase 21).
-    Returns {kernel: {config: row}}."""
+    K2 also at phase 23's (gemma2 2, phi3.5-moe 4, grok-1 6), and all
+    four at hymba-1.5b's head dim 64 and G = 5 (phase 21). Returns
+    {kernel: {config: row}}."""
     t_phase = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     out: dict = collections.defaultdict(dict)
-    for name in DENSE_ARCHS:
+    for name in DENSE_ARCHS + (HYBRID,):
         cfg = configs.get_config(name)
         feat = cfg.slay_config()
         sp = init_feature_params(feat, torch.Generator().manual_seed(SEED),
@@ -3454,40 +3484,117 @@ def phase_dense_kernels() -> dict:
     for name, G in groups.items():
         out["slay_decode_step"][name] = dict(k2[(G, False)], G=G)
         out["slay_decode_step_masked"][name] = dict(k2[(G, True)], G=G)
-    log(f"kernels at head dim 128: {time.perf_counter() - t_phase:.1f} s")
+    hy = configs.get_config(HYBRID)
+    G = hy.num_heads // hy.num_kv_heads
+    # hymba's lockstep rows (4 prompts x 5 kv heads) and its pool's (8
+    # slots x 5).
+    k2 = _dense_k2(gen, {G}, dv=hy.resolved_head_dim, groups=(G,),
+                   kv_rows=(len(PROMPT_LENS) * hy.num_kv_heads,
+                            CONT_SERVING["num_slots"] * hy.num_kv_heads))
+    out["slay_decode_step"][HYBRID] = dict(k2[(G, False)], G=G)
+    out["slay_decode_step_masked"][HYBRID] = dict(k2[(G, True)], G=G)
+    log(f"kernels at the configs' head dims and groups: "
+        f"{time.perf_counter() - t_phase:.1f} s")
     return dict(out)
 
 
 def _slay_layers(cfg) -> int:
     """The layers that run the SLAY kernels: every layer but gemma2's
-    local (windowed softmax) ones, which are PyTorch ops."""
+    local (windowed softmax) ones, which are PyTorch ops, and none of
+    mamba2's (no attention)."""
+    if cfg.family == "ssm":
+        return 0
     return int((api.layer_kinds(cfg) == 0).sum())
+
+
+def _cut_config(name: str, layers: int | None):
+    cfg = configs.get_config(name)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    return cfg
+
+
+class _HostDraws:
+    """Draws the random weights of phases 22-24's configs on the host in
+    one background thread, in the order the phases take them, at most
+    two configs ahead: ``init_params(device="cpu")``, the same
+    ``torch.Generator`` values as a draw for the card, while the card
+    runs the phases before. Drawing 22 B values takes a few minutes of
+    the host's time (one core, serially), which the script would
+    otherwise spend with the card idle."""
+
+    def __init__(self, specs: list):
+        self._specs = list(specs)
+        self._ready: list = []
+        self._cond = threading.Condition()
+        threading.Thread(target=self._run, daemon=True).start()
+
+    def _run(self) -> None:
+        for name, layers in self._specs:
+            with self._cond:
+                self._cond.wait_for(lambda: len(self._ready) < 2)
+            t0 = time.perf_counter()
+            try:
+                item = (name, layers, api.init_params(
+                    _cut_config(name, layers), SEED, device="cpu"), None)
+            except BaseException as e:     # re-raised by take()
+                item = (name, layers, None, e)
+            with self._cond:
+                self._ready.append(item + (time.perf_counter() - t0,))
+                self._cond.notify_all()
+
+    def take(self, name: str, layers: int | None):
+        """(host weights, seconds the draw took, seconds waited for it)."""
+        t0 = time.perf_counter()
+        with self._cond:
+            self._cond.wait_for(lambda: bool(self._ready))
+            got, got_layers, params, err, draw_s = self._ready.pop(0)
+            self._cond.notify_all()
+        if err is not None:
+            raise err
+        if (got, got_layers) != (name, layers):
+            raise AssertionError(f"host draws out of order: {got} x "
+                                 f"{got_layers} for {name} x {layers}")
+        return params, draw_s, time.perf_counter() - t0
+
+
+_HOST_DRAWS: _HostDraws | None = None
 
 
 def _dense_init(name: str, layers: int | None, card: str):
     """A config (depth cut to ``layers`` if given) and its random
     weights from the script's seed, drawn on the host (``init_params``'s
-    CPU generator) and moved to the card; the time on its own line."""
-    cfg = configs.get_config(name)
-    if layers is not None:
-        cfg = dataclasses.replace(cfg, num_layers=layers)
+    CPU generator; in the background when ``main`` started the draws)
+    and moved to the card; the times on their own line."""
+    cfg = _cut_config(name, layers)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    params = api.init_params(cfg, SEED, device="cuda")
+    if _HOST_DRAWS is None:
+        params = api.init_params(cfg, SEED, device="cuda")
+        how = f"{time.perf_counter() - t0:.1f} s"
+    else:
+        host, draw_s, waited = _HOST_DRAWS.take(name, layers)
+        params = tree_map(lambda t: t.to("cuda"), host)
+        del host
+        how = (f"drawn in {draw_s:.1f} s in the background while the card "
+               f"ran earlier phases; {waited:.1f} s waited for it, "
+               f"{time.perf_counter() - t0:.1f} s in all with the copy")
     torch.cuda.synchronize()
     n = sum(t.numel() for t in tree_leaves(params))
     full = configs.get_config(name).num_layers
     cut = f" (reduced from {full})" if cfg.num_layers < full else ""
-    log(f"{name}: {cfg.num_layers}L{cut} x {cfg.d_model}d, {cfg.num_heads}/"
-        f"{cfg.num_kv_heads} heads of {cfg.resolved_head_dim}, d_ff "
-        f"{cfg.d_ff}, vocab {cfg.vocab_size}, qk_norm={cfg.qk_norm}, tied="
-        f"{cfg.tie_embeddings}, experts {cfg.moe_experts} (top "
-        f"{cfg.moe_top_k}), window {cfg.local_window} (layers "
-        f"{''.join(map(str, api.layer_kinds(cfg)))}, 1 = local), "
-        f"{cfg.dtype}; {n / 1e9:.3f} B params, "
-        f"{_tree_mb(params) / 1e3:.2f} GB")
+    layers = ("SSD blocks only" if cfg.family == "ssm" else
+              f"{cfg.num_heads}/{cfg.num_kv_heads} heads of "
+              f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, qk_norm="
+              f"{cfg.qk_norm}, experts {cfg.moe_experts} (top "
+              f"{cfg.moe_top_k}), window {cfg.local_window} (layers "
+              f"{''.join(map(str, api.layer_kinds(cfg)))}, 1 = local)"
+              + (", SSD heads beside" if cfg.family == "hybrid" else ""))
+    log(f"{name}: {cfg.num_layers}L{cut} x {cfg.d_model}d, {layers}, vocab "
+        f"{cfg.vocab_size}, tied={cfg.tie_embeddings}, {cfg.dtype}; "
+        f"{n / 1e9:.3f} B params, {_tree_mb(params) / 1e3:.2f} GB")
     log(f"  host init of {n / 1e9:.3f} B params (torch.Generator on the CPU, "
-        f"then to the card): {time.perf_counter() - t0:.1f} s")
+        f"then to the card): {how}")
     return cfg, params
 
 
@@ -3511,7 +3618,8 @@ def _dense_lockstep(cfg, params, card: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: n for k, n in _build.LAUNCHES.items() if n}
-    want = {"slay_fused_fwd": nl, "slay_decode_step": nl * (MAX_NEW - 1)}
+    want = {k: n for k, n in (("slay_fused_fwd", nl),
+                              ("slay_decode_step", nl * (MAX_NEW - 1))) if n}
     if launches != want:
         raise AssertionError(f"{cfg.name} lockstep: launches {launches}, "
                              f"want {want}")
@@ -3540,14 +3648,16 @@ def _dense_lockstep(cfg, params, card: str) -> dict:
     return launches
 
 
-def _dense_continuous(cfg, params, card: str) -> int:
+def _dense_continuous(cfg, params, card: str, carry: bool = False) -> int:
     """Phase 12's trace on its 8-slot pool, graphed: B4b's launches (nl x
     K a dispatch, no other kernel), every request served, ms per dispatch
     and prefill tick, pool tokens/s; its first 4 requests again graphed
     and eager, streams equal to the whole run's; one full-pool dispatch
     under the profiler beside the least time a tick can take, the weights
-    read once from device memory. Returns B4b's launches (nl x K a
-    dispatch, nl the SLAY layers)."""
+    read once from device memory (with ``carry``, also the pool's state
+    read and written once: an SSM carry is as large as a share of the
+    weights). Returns B4b's launches (nl x K a dispatch, nl the SLAY
+    layers)."""
     nl, K = _slay_layers(cfg), CONT_SERVING["macro_ticks"]
     reqs = _cont_requests(cfg)
     _cont_run(cfg, params, reqs[:2], max_len=1024)          # warm-up
@@ -3572,7 +3682,7 @@ def _dense_continuous(cfg, params, card: str) -> int:
     dec_tokens = s["tokens_generated"] - CONT_REQUESTS
     log(f"  continuous: {wall:.3f} s, {s['ticks']} ticks ({s['prefill_ticks']}"
         f" prefill, {s['decode_dispatches']} dispatches), B4b {n_b} launches "
-        f"({nl} x {K} a dispatch, G = {cfg.num_heads // cfg.num_kv_heads}); "
+        f"({nl} x {K} a dispatch, G = {cfg.num_heads // max(cfg.num_kv_heads, 1)}); "
         f"ms per dispatch median {statistics.median(disp) * 1e3:.2f}, "
         f"prefill tick median {statistics.median(pre) * 1e3:.2f}; pool "
         f"decode {dec_tokens / sum(disp):.1f} tokens/s; pool "
@@ -3584,14 +3694,17 @@ def _dense_continuous(cfg, params, card: str) -> int:
     _same_streams(outs, eager, f"{cfg.name} continuous rids 0-3, eager")
     log(f"  rids 0-{DENSE_SUB - 1} alone, graphed {g_wall:.3f} s and eager "
         f"{e_wall:.3f} s: streams equal to the whole run's")
+    pool_mb = _tree_mb(eng.pool) if carry else 0.0
     del eng
     wall_ms = _cont_profile(cfg, params, card, pieces=False, sampled=False,
                             eager=False)["graphed"]
-    floor = _tree_mb(params) * 1e6 / HBM_BYTES_PER_S * 1e3
+    floor = (_tree_mb(params) + 2 * pool_mb) * 1e6 / HBM_BYTES_PER_S * 1e3
+    what = (f"read the {_tree_mb(params) / 1e3:.2f} GB of weights once"
+            + (f" and the {pool_mb:.1f} MB pool state once each way"
+               if carry else ""))
     log(f"  a full-pool tick {wall_ms / K:.3f} ms graphed against "
-        f"{floor:.3f} ms to read the {_tree_mb(params) / 1e3:.2f} GB of "
-        f"weights once at 3.35 TB/s ({floor / (wall_ms / K):.1%} of it)  "
-        f"[{card}]")
+        f"{floor:.3f} ms to {what} at 3.35 TB/s ({floor / (wall_ms / K):.1%}"
+        f" of it)  [{card}]")
     return n_b
 
 
@@ -3666,7 +3779,8 @@ def _free_card() -> None:
     torch.cuda.empty_cache()
 
 
-def _dense_train(cfg, box: list, card: str, cuts=None) -> dict:
+def _dense_train(cfg, box: list, card: str, cuts=None,
+                 remat: bool = False, held: bool = False) -> dict:
     """4 AdamW steps of 8 x 1024 tokens (lr DENSE_LR) at the
     config's width and depth, every SLAY layer through K1, K3 and K4 once
     a step; a finite, falling loss. The step donates the weights and
@@ -3677,8 +3791,17 @@ def _dense_train(cfg, box: list, card: str, cuts=None) -> dict:
     is the (layers, batch) tried in turn while the card cannot hold the
     step (by default the batch halved, never the width), each cut
     printed, the weights copied back from a host copy taken before the
-    first step. Returns the launches (each kernel once a SLAY layer and
-    step)."""
+    first step. ``remat`` recomputes every layer in the backward (K1
+    then twice a SLAY layer and step). ``held`` judges the fall on the
+    first batch, its loss after the 4 steps against before them, where
+    the batches' own losses differ by more than 4 steps move them
+    (hymba-1.5b's rose from batch to batch at every rate of 1e-5 to 1e-4
+    while its first batch's fell). Returns the launches (each kernel
+    once a SLAY layer and step, K1 twice with ``remat``)."""
+    if cuts:
+        log(f"  train {cfg.name}: from {cuts[0][0]} layers x batch "
+            f"{cuts[0][1]} (TRAIN_CUTS: {cfg.num_layers} x {TRAIN_BATCH} did "
+            f"not fit the card in PR 26's runs)")
     cuts = cuts or [(cfg.num_layers, b) for b in
                     (TRAIN_BATCH, TRAIN_BATCH // 2, TRAIN_BATCH // 4)]
     ocfg = AdamWConfig(lr=DENSE_LR, warmup_steps=1,
@@ -3692,7 +3815,7 @@ def _dense_train(cfg, box: list, card: str, cuts=None) -> dict:
     for n, (layers, batch) in enumerate(cuts):
         tcfg = dataclasses.replace(cfg, num_layers=layers)
         step = loop.make_train_step(tcfg, ocfg,
-                                    loop.TrainConfig(remat=False),
+                                    loop.TrainConfig(remat=remat),
                                     donate=True)
         dcfg = pipeline.DataConfig(vocab_size=cfg.vocab_size,
                                    seq_len=TRAIN_LEN, global_batch=batch,
@@ -3731,11 +3854,15 @@ def _dense_train(cfg, box: list, card: str, cuts=None) -> dict:
     cfg = tcfg
     nl = _slay_layers(cfg)
     launches = {k: n for k, n in _build.LAUNCHES.items() if n}
-    _expect_launches(launches, {k: nl * DENSE_TRAIN_STEPS
-                                for k in TRAIN_KERNELS},
+    per = {k: nl * DENSE_TRAIN_STEPS * (2 if remat and k == TRAIN_KERNELS[0]
+                                        else 1) for k in TRAIN_KERNELS}
+    _expect_launches(launches, {k: n for k, n in per.items() if n},
                      f"train {cfg.name}")
+    cut = (" (reduced)" if cfg.num_layers
+           < configs.get_config(cfg.name).num_layers else " (full depth)")
     log(f"  train: {DENSE_TRAIN_STEPS} AdamW steps (lr {DENSE_LR:g}) of "
-        f"{batch} x {TRAIN_LEN} tokens, {cfg.num_layers} layers (reduced); "
+        f"{batch} x {TRAIN_LEN} tokens, {cfg.num_layers} layers{cut}"
+        f"{', remat' if remat else ''}; "
         f"loss per step {', '.join(f'{x:.4f}' for x in losses)}"
         + (f" (moe_aux {', '.join(f'{x:.4f}' for x in auxes)})"
            if cfg.moe_experts else "") + "; ms per step "
@@ -3744,8 +3871,15 @@ def _dense_train(cfg, box: list, card: str, cuts=None) -> dict:
         f"{batch * TRAIN_LEN / statistics.median(times[1:]):.1f} tokens/s); "
         f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB; "
         f"launches {launches}  [{card}]")
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"train {cfg.name}: losses {losses}")
+    last = losses[-1]
+    if held:
+        with torch.no_grad():
+            last = float(api.loss_fn(p, cfg, pipeline.make_batch(dcfg, 0))[0])
+        log(f"  train: the first batch's loss {losses[0]:.4f} before the "
+            f"{DENSE_TRAIN_STEPS} steps, {last:.4f} after them")
+    if not all(np.isfinite(losses + [last])) or not last < losses[0]:
+        raise AssertionError(f"train {cfg.name}: losses {losses}, the "
+                             f"first batch's after them {last}")
     del p, opt, ef, step, host
     _free_card()
     return launches
@@ -3753,7 +3887,7 @@ def _dense_train(cfg, box: list, card: str, cuts=None) -> dict:
 
 def phase_dense(card: str) -> dict:
     """The dense decoders at full width (phase 22): phi4-mini-3.8b cut to
-    16 layers, granite-20b and qwen3-32b to 4, each served lockstep
+    8 layers, granite-20b and qwen3-32b to 4, each served lockstep
     and continuous, its fp32 logits at 2 layers against the CPU, and
     trained 4 steps at 4 layers. Returns {config: launches by kernel}."""
     t_phase = time.perf_counter()
@@ -3774,7 +3908,7 @@ def phase_dense(card: str) -> dict:
             cfg = cut
         box = [params]
         del params
-        got.update(_dense_train(cfg, box, card))
+        got.update(_dense_train(cfg, box, card, TRAIN_CUTS.get(name)))
         out[name] = dict(got)
         log(f"{name}: {time.perf_counter() - t_cfg:.1f} s; launches {dict(got)}"
             f"  [{card}]")
@@ -3785,23 +3919,29 @@ def phase_dense(card: str) -> dict:
 # -- gemma2-27b and the top-2 MoE decoders (phase 23) ----------------------
 
 # Each at full width, depth cut: gemma2-27b to 4 layers (0 and 2 local, 1
-# and 3 global), phi3.5-moe-42b-a6.6b to 4, grok-1-314b to 1 (64 layers
-# would draw 316 B values on the host).
-MIXED_LAYERS = {"gemma2-27b": 4, "phi3.5-moe-42b-a6.6b": 4,
+# and 3 global), phi3.5-moe-42b-a6.6b to 2 (its train step holds no
+# more at 8 x 1024; 4 until phase 24 needed the script's time),
+# grok-1-314b to 1 (64 layers would draw 316 B values on the host).
+MIXED_LAYERS = {"gemma2-27b": 4, "phi3.5-moe-42b-a6.6b": 2,
                 "grok-1-314b": 1}
 MIXED_ARCHS = tuple(MIXED_LAYERS)
 # One request longer than gemma2's 4096-token window on the continuous
 # pool (rings of min(8192, 4096) rows), chunks of 128.
 LONG_PROMPT, LONG_NEW, LONG_MAX_LEN = 6144, 16, 8192
 LONG_ARCHS = ("gemma2-27b", "phi3.5-moe-42b-a6.6b")
-# The train steps' cuts while the card cannot hold them, (layers, batch)
-# in turn: gemma2 halves its batch (its 256000-wide fp32 logits);
-# phi3.5-moe keeps 8 x 1024 and drops layers (64 GB of weights, gradients
-# and fp32 moments at 4 layers).
-MIXED_TRAIN_CUTS = {"phi3.5-moe-42b-a6.6b": [(4, 8), (3, 8), (2, 8)]}
+# The train steps' first cut, (layers, batch), where the card was shown
+# not to hold 8 x 1024 (each tried and out of memory in PR 26's runs, on
+# an H100 80GB): qwen3's 151936-wide and gemma2's 256000-wide fp32
+# logits (qwen3 4 x 1024, gemma2 2 x 1024, their peaks 69.0 and 64.7
+# GB); halved further only if the card cannot hold that either.
+TRAIN_CUTS = {"qwen3-32b": [(4, 4), (4, 2)], "gemma2-27b": [(4, 2), (4, 1)]}
 # A near-tie of bf16 logits through 4 layers: a top-2 gap under this
 # fraction of the largest logit decides nothing between two programs.
 LONG_GAP_FRAC = 3e-2
+# An SSM config's long prompt in fp32, chunked against whole: the last
+# token's logits within this fraction of the largest (fp32 in another
+# order of sums through every layer's carry).
+LONG_FP32_REL = 1e-3
 # gemma2's local layers at 1 x 8192 (8192 % 4096 == 0: the banded route)
 # against the masked route: the last token's bf16 logits within this
 # fraction of the largest (each route's own bf16 rounding of the
@@ -3821,6 +3961,19 @@ def _unsaturated(cfg, params):
     if not cfg.final_logit_softcap:
         return params
     return dict(params, embed=params["embed"] / UNSATURATE)
+
+
+def _pool_parts(pool) -> str:
+    """The MB of a pool's kinds of state: rings, (S, z), SSD carry."""
+    a, parts = pool.attn, []
+    if a is not None and a.k is not None:
+        parts.append(f"rings {_tree_mb({"k": a.k, "v": a.v}):.1f} MB")
+    if a is not None and a.s is not None:
+        parts.append(f"(S, z) {_tree_mb({"s": a.s, "z": a.z}):.1f} MB")
+    if pool.ssm is not None:
+        parts.append(f"SSD carry {_tree_mb(pool.ssm.h):.1f} MB and conv "
+                     f"tail {_tree_mb(pool.ssm.conv):.1f} MB")
+    return ", ".join(parts)
 
 
 def _long_prompt(cfg, params, card: str) -> int:
@@ -3843,8 +3996,7 @@ def _long_prompt(cfg, params, card: str) -> int:
                                    max_len=LONG_MAX_LEN)
     n_b = _b4b_launches(f"{cfg.name} {LONG_PROMPT}-token prompt",
                         s["decode_dispatches"], nl, K)
-    pool_mb = _tree_mb(eng.pool)
-    rings = _tree_mb({"k": eng.pool.attn.k, "v": eng.pool.attn.v})
+    pool_mb, parts = _tree_mb(eng.pool), _pool_parts(eng.pool)
     del eng
     _free_card()
     eager, _, _, e_wall = _cont_run(cfg, params, [req], graphs=False,
@@ -3854,8 +4006,7 @@ def _long_prompt(cfg, params, card: str) -> int:
     pre = timed["_prefill_tick"]
     log(f"  {LONG_PROMPT}-token prompt, {LONG_NEW} greedy tokens, pool of "
         f"{CONT_SERVING['num_slots']} slots at max_len {LONG_MAX_LEN} "
-        f"({pool_mb:.1f} MB: rings {rings:.1f} MB, (S, z) "
-        f"{pool_mb - rings:.1f} MB): graphed {wall:.3f} s ({s['prefill_ticks']}"
+        f"({pool_mb:.1f} MB: {parts}): graphed {wall:.3f} s ({s['prefill_ticks']}"
         f" prefill ticks, median {statistics.median(pre) * 1e3:.2f} ms), eager"
         f" {e_wall:.3f} s, streams equal; B4b {n_b}  [{card}]")
     with torch.inference_mode():
@@ -3869,6 +4020,8 @@ def _long_prompt(cfg, params, card: str) -> int:
     log(f"  first token chunked {first}, whole-prompt prefill argmax {whole} "
         f"(top-2 gap {gap:.4f} of max |logit| {scale:.3f}"
         f"{', a bf16 near-tie' if tie else ''})")
+    if cfg.family in ("ssm", "hybrid"):
+        tie = _ssm_long_check(cfg, params, req.prompt, row, first, gap) or tie
     if first != whole and not tie:
         if cfg.moe_experts:
             log("  (a reading: the chunks' MoE capacity drops differ from "
@@ -3878,6 +4031,52 @@ def _long_prompt(cfg, params, card: str) -> int:
                                  f"prompt's first token {first} != whole-"
                                  f"prompt argmax {whole}")
     return n_b
+
+
+def _chunked_row(cfg, params, prompt) -> torch.Tensor:
+    """The last-token logits (fp32) of ``prompt`` absorbed in the engine's
+    chunks (``prefill_chunk`` from a zero batch-1 cache)."""
+    C = CONT_SERVING["prefill_chunk"]
+    with torch.inference_mode():
+        cache = api.init_cache(cfg, 1, LONG_MAX_LEN, device="cuda")
+        for o in range(0, len(prompt), C):
+            lg, cache = api.prefill_chunk(
+                cfg, params, cache,
+                torch.from_numpy(prompt[None, o:o + C]).cuda())
+    return lg[0, -1].float()
+
+
+def _ssm_long_check(cfg, params, prompt, whole_row, first: int,
+                    gap: float) -> bool:
+    """The long prompt of an SSM config, chunked against whole: in bf16
+    the engine's first token must be the chunked path's own argmax, and
+    it counts as a near-tie when the two paths' logits differ by at
+    least the whole prompt's top-2 gap (their bf16 roundings, through
+    every layer's carry, decide it); in fp32 (the weights widened) the
+    two paths' logits must agree within LONG_FP32_REL of the largest.
+    Returns whether the bf16 decision is such a near-tie."""
+    row = _chunked_row(cfg, params, prompt)
+    drift = float((row - whole_row).abs().max())
+    if int(row.argmax()) != first:
+        raise AssertionError(f"{cfg.name}: the engine's first token {first}"
+                             f" != its chunked prefill's argmax "
+                             f"{int(row.argmax())}")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    got = _chunked_row(cfg32, p32, prompt)
+    with torch.inference_mode():
+        want = api.prefill(p32, cfg32,
+                           torch.from_numpy(prompt[None]).cuda())[0][0, -1]
+    del p32
+    _free_card()
+    scale = float(want.abs().max())
+    close(got, want.float(), LONG_FP32_REL * scale, 0.0,
+          f"fp32 {LONG_PROMPT}-token prompt's last-token logits, chunks of "
+          f"{CONT_SERVING['prefill_chunk']} vs whole")
+    log(f"  bf16: chunked and whole logits differ by up to {drift:.4f} "
+        f"(top-2 gap {gap:.4f}); fp32 argmax chunked {int(got.argmax())}, "
+        f"whole {int(want.argmax())}")
+    return drift >= gap
 
 
 def _banded_vs_masked(cfg, params, card: str) -> None:
@@ -3956,8 +4155,7 @@ def phase_mixed(card: str) -> dict:
         if name in LONG_ARCHS:
             box = [params]
             del params
-            got.update(_dense_train(cfg, box, card,
-                                    MIXED_TRAIN_CUTS.get(name)))
+            got.update(_dense_train(cfg, box, card, TRAIN_CUTS.get(name)))
         else:
             n = sum(t.numel() for t in tree_leaves(params))
             log(f"  train {name}: not run (reduced): one layer's AdamW step "
@@ -3972,6 +4170,111 @@ def phase_mixed(card: str) -> dict:
     return out
 
 
+# -- the SSM families mamba2-780m and hymba-1.5b (phase 24) ----------------
+
+SSM_ARCH, HYBRID = "mamba2-780m", "hymba-1.5b"
+SSM_ARCHS = (SSM_ARCH, HYBRID)
+# mamba2's durable runs: phase 13's trace and checkpoint cadence; the
+# cached run's prefix cache holds every snapshot the trace stores (20 of
+# 77.5 MB: one slot's SSD carry and conv tail, and the logits), the
+# crashed run has none (its checkpoints hold the pool alone).
+SSM_DUR_SERVING = dict(DUR_SERVING, prefix_cache_bytes=2 << 30)
+# Without a cache this trace's pool holds one request at a time, and none
+# at tick 64: the crashed run checkpoints every 216 ticks and dies at its
+# first step from tick 220, so the checkpoint before the crash (tick 217)
+# holds the carry of a request still live at the crash, and the restored
+# run writes one more (each is the 619.3 MB pool).
+SSM_CRASH_SERVING = dict(DUR_SERVING, prefix_cache_bytes=0,
+                         checkpoint_every_ticks=216)
+SSM_CRASH = (220, 220)
+
+
+def _ssm_durable(cfg, params, card: str) -> None:
+    """mamba2 on phase 13's trace (16 requests on a shared 384-token
+    system prompt): a cached run's streams equal to a cold run's, its
+    hits (12-15 by their whole prompt), no pin left; then the run without
+    a cache crashed at tick 220 after a checkpoint of the pool (every
+    slot's SSD carry and tail, 619.3 MB) and restored, the cold run's
+    streams, each token once. No SLAY kernel runs."""
+    reqs = _dur_requests(cfg)
+    runs = {}
+    for name, nbytes in (("cold", 0),
+                         ("cached", SSM_DUR_SERVING["prefix_cache_bytes"])):
+        _build.reset_launches()
+        outs, s, eng, wall = _cont_run(cfg, params, reqs,
+                                       prefix_cache_bytes=nbytes)
+        _no_slay_launches(f"{cfg.name} {name} run", s["decode_dispatches"],
+                          0, 0)
+        runs[name] = (outs, s, eng)
+        log(f"  {name} run: {wall:.3f} s, {s['ticks']} ticks "
+            f"({s['prefill_ticks']} prefill, {s['decode_dispatches']} "
+            f"dispatches), {s['prompt_tokens']} prompt tokens absorbed  "
+            f"[{card}]")
+    (cold, sc, _), (warm, sw, eng) = runs["cold"], runs["cached"]
+    _same_streams(cold, warm, f"{cfg.name} greedy, cached vs cold")
+    pc, per = eng.prefix_cache, eng.metrics.per_request
+    st = pc.stats()
+    full = [r for r, x in per.items() if x.prefix_tokens == x.prompt_len]
+    if not (set(warm) == set(cold) and st["hits"] >= 15
+            and full == [12, 13, 14, 15] and pc.live_refs() == 0
+            and sw["prefill_ticks"] < sc["prefill_ticks"]):
+        raise AssertionError(f"{cfg.name} prefix cache: {st}, full hits "
+                             f"{full}")
+    log(f"  prefix cache: {st['hits']} hits ({len(full)} of whole prompts), "
+        f"{st['entries']} entries of {st['bytes'] / st['entries'] / 1e6:.1f}"
+        f" MB, {st['bytes'] / 2 ** 20:.1f} MiB, {st['evictions']} evictions;"
+        f" prefill ticks {sc['prefill_ticks']} cold, {sw['prefill_ticks']} "
+        f"cached; streams equal to the cold run's  [{card}]")
+    del eng, runs
+    _free_card()
+    _dur_crash_restore(cfg, params, reqs, cold, card,
+                       serving=ServingConfig(**SSM_CRASH_SERVING),
+                       crash_window=SSM_CRASH, launches=_no_slay_launches)
+
+
+def phase_ssm(card: str) -> dict:
+    """mamba2-780m (48 SSD layers, no attention) and hymba-1.5b (32
+    layers of SLAY at G = 5 beside SSD heads) at full width and full depth
+    (phase 24), random weights from the seed drawn on the host: phase 8's
+    prompts lockstep, graphed and eager; phase 12's trace on the 8-slot
+    pool, graphed, and its first 4 requests again graphed and eager; a
+    full-pool dispatch under the profiler beside the weights' read and
+    the pool's state read and written; a 6144-token prompt in 128-token
+    chunks, graphed and eager, its first token against the whole-prompt
+    prefill's argmax; mamba2's prefix cache and crash-restore; fp32 at 2
+    layers against the CPU (logits, and the loss and gradients of 1 x
+    256 tokens in one 256-step chunk, all finite: ROADMAP C-10); 4 AdamW
+    steps of 8 x 1024 tokens with remat. mamba2 launches no SLAY kernel.
+    Returns {config: launches}."""
+    t_phase = time.perf_counter()
+    out = {}
+    for name in SSM_ARCHS:
+        _free_card()
+        t_cfg = time.perf_counter()
+        cfg, params = _dense_init(name, None, card)
+        di = cfg.ssm_expand * cfg.d_model
+        slot = _tree_mb(api.abstract_cache(cfg, 1))
+        log(f"  SSD blocks: d_inner {di}, {di // cfg.ssm_head_dim} heads of "
+            f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, conv width "
+            f"{cfg.ssm_conv_width}, chunk {cfg.chunk_size}; decode state "
+            f"{slot:.1f} MB a slot")
+        got = collections.Counter(_dense_lockstep(cfg, params, card))
+        got["slay_decode_step_masked"] += _dense_continuous(
+            cfg, params, card, carry=True)
+        got["slay_decode_step_masked"] += _long_prompt(cfg, params, card)
+        if cfg.family == "ssm":
+            _ssm_durable(cfg, params, card)
+        _dense_fp32(cfg, params, card)
+        box = [params]
+        del params
+        got.update(_dense_train(cfg, box, card, remat=True, held=True))
+        out[name] = dict(got)
+        log(f"{name}: {time.perf_counter() - t_cfg:.1f} s; launches "
+            f"{dict(got)}  [{card}]")
+    log(f"the SSM families: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; it needs an "
@@ -3979,6 +4282,11 @@ def main() -> int:
         return 2
     t_start = time.perf_counter()
     card_line = phase_env()
+    global _HOST_DRAWS
+    _HOST_DRAWS = _HostDraws(
+        [(n, DENSE_SERVE_LAYERS.get(n, DENSE_LAYERS)) for n in DENSE_ARCHS]
+        + [(n, MIXED_LAYERS[n]) for n in MIXED_ARCHS]
+        + [(n, None) for n in SSM_ARCHS])
     phase_build()
     cfg = configs.get_config("slayformer-124m")
     feat = cfg.slay_config()
@@ -4009,6 +4317,7 @@ def main() -> int:
     dense_k = phase_dense_kernels()
     dense = phase_dense(card_line)
     mixed = phase_mixed(card_line)
+    ssm = phase_ssm(card_line)
     k2_bl = k2.pop("baselines")
     kernels = [
         dict(name="slay_fused_fwd", route="cuda",
@@ -4056,11 +4365,16 @@ def main() -> int:
     # them, per config, its group G and the kernel at head dim 128 (phase
     # 21).
     # Phase 23's launches join them too; its configs' K2 rows at their
-    # groups (phase 21) sit under ``mixed_and_moe``.
+    # groups (phase 21) sit under ``mixed_and_moe``; phase 24's under
+    # ``ssm_families`` (hymba's kernels at head dim 64 and G = 5).
     for row in kernels[:5]:
         name = row["name"]
-        row["launches"] += sum(d.get(name, 0) for d in dense.values())
-        row["launches"] += sum(d.get(name, 0) for d in mixed.values())
+        for phase in (dense, mixed, ssm):
+            row["launches"] += sum(d.get(name, 0) for d in phase.values())
+        row["ssm_families"] = {
+            arch: dict(dense_k.get(name, {}).get(arch, {}),
+                       launches=ssm[arch].get(name, 0))
+            for arch in SSM_ARCHS}
         row["dense_decoders"] = {
             arch: dict(dense_k[name][arch], launches=dense[arch].get(name, 0))
             for arch in DENSE_ARCHS}

@@ -1,8 +1,10 @@
 """Config registry of the port: slayformer-124m, the dense decoders
 phi4-mini-3.8b, granite-20b and qwen3-32b, gemma2-27b (local/global
-layers) and the top-2 MoE decoders phi3.5-moe-42b-a6.6b and grok-1-314b,
-with every attention kind of the port (``core.slay.ATTN_KINDS``) as an
-override.
+layers), the top-2 MoE decoders phi3.5-moe-42b-a6.6b and grok-1-314b,
+and the SSM families mamba2-780m (attention-free) and hymba-1.5b
+(attention beside mamba heads), with every attention kind of the port
+(``core.slay.ATTN_KINDS``) as an override (not on mamba2, which has no
+attention).
 
     cfg = configs.get_config("slayformer-124m")          # full width
     cfg = configs.get_smoke_config("slayformer-124m")    # CPU smoke size
@@ -23,6 +25,8 @@ _MODULES = {
     "gemma2-27b": "gemma2_27b",
     "phi3.5-moe-42b-a6.6b": "phi35_moe",
     "grok-1-314b": "grok1_314b",
+    "mamba2-780m": "mamba2_780m",
+    "hymba-1.5b": "hymba_1_5b",
 }
 # The ported configs (the command-line drivers' --arch choices).
 ALL_ARCHS = tuple(_MODULES)

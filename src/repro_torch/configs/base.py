@@ -1,16 +1,18 @@
 """Architecture and serving configuration for the port.
 
 A torch counterpart of ``repro.configs.base.ArchConfig`` holding the
-fields the ported decoder uses: SLAY, the linear baselines (``favor``,
+fields the port uses: SLAY, the linear baselines (``favor``,
 ``cosformer``, ``elu1``) and the exact quadratic kinds (``softmax``,
 ``yat``, ``yat_spherical``) on the decoder, with GQA/MQA, gated or
 plain MLPs, tied or untied embeddings, qk-norm, gemma2's local/global
 layers (a sliding-window softcapped softmax on every layer but each
-``local_global_period``-th) and the top-k MoE layer. SSM, hybrid,
-encoder-decoder and modality frontends are not ported yet (ROADMAP
-Queue A item 12); their fields are here only so that
-:meth:`ArchConfig.check_supported` refuses them. ``ServingConfig`` has
-the reference's fields, defaults and validation.
+``local_global_period``-th) and the top-k MoE layer; the SSM families,
+``family="ssm"`` (mamba2: SSD blocks only, ``attn_kind="none"``) and
+``family="hybrid"`` (hymba: attention beside SSD heads in every layer),
+with the SSD block's ``ssm_*`` fields. Encoder-decoder and modality
+frontends are not ported yet (ROADMAP Queue A item 12); their fields are
+here only so that :meth:`ArchConfig.check_supported` refuses them.
+``ServingConfig`` has the reference's fields, defaults and validation.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ from repro_torch.core.slay import ATTN_KINDS, AttentionSpec
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                      # only "decoder" is ported
+    family: str                      # decoder | ssm | hybrid
     num_layers: int
     d_model: int
     vocab_size: int
@@ -45,9 +47,15 @@ class ArchConfig:
     # MoE (0 experts = a dense MLP)
     moe_experts: int = 0
     moe_top_k: int = 2
+    # SSM / hybrid: the SSD block (models/ssm.py)
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_ngroups: int = 1
+    ssm_conv_width: int = 4
     # Not ported (check_supported refuses it): a modality frontend.
     frontend: str = ""
-    attn_kind: str = "slay"          # one of core.slay.ATTN_KINDS
+    attn_kind: str = "slay"          # core.slay.ATTN_KINDS; "none" for ssm
     slay_anchors: int = 8
     slay_prf: int = 16
     slay_quad_nodes: int = 3
@@ -94,20 +102,24 @@ class ArchConfig:
                              chunk_size=self.chunk_size)
 
     def check_supported(self) -> None:
-        if self.family != "decoder":
-            what = {"ssm": ", A12b's SSM families",
-                    "hybrid": ", A12b's SSM families",
-                    "encdec": ", A12b and A5's encoder-decoder"}
+        if self.family not in ("decoder", "ssm", "hybrid"):
+            what = {"encdec": ", A12b and A5's encoder-decoder"}
             raise NotImplementedError(
                 f"{self.name}: family={self.family!r} is not ported yet; "
-                f"the port has the decoder family only so far (ROADMAP "
-                f"Queue A item 12{what.get(self.family, '')})")
+                f"the port has the decoder, ssm and hybrid families so far "
+                f"(ROADMAP Queue A item 12{what.get(self.family, '')})")
         if self.frontend:
             raise NotImplementedError(
                 f"{self.name}: frontend={self.frontend!r} (a modality "
                 f"frontend) is not ported yet (ROADMAP Queue A item 12, "
                 f"A12b's vision prefix)")
-        if self.attn_kind not in ATTN_KINDS:
+        if (self.family == "ssm") != (self.attn_kind == "none"):
+            raise ValueError(
+                f"{self.name}: attn_kind={self.attn_kind!r} with family="
+                f"{self.family!r}; attn_kind='none' (no attention) goes "
+                f"with family='ssm' only, and family='ssm' has no "
+                f"attention")
+        if self.family != "ssm" and self.attn_kind not in ATTN_KINDS:
             raise NotImplementedError(
                 f"{self.name}: attn_kind={self.attn_kind!r}; the port has "
                 f"{', '.join(ATTN_KINDS)}")

@@ -6,8 +6,10 @@ parameter dict: the same nesting and names (``embed``, ``final_norm``,
 an untied ``unembed``, stacked ``layers.{pre_attn, pre_mlp,
 attn.{wq,wk,wv,wo}, mlp.{up,down,gate}}`` with qk-norm's
 ``attn.{q_norm,k_norm}``, or an MoE config's ``layers.moe.{router,
-gate, up, down}`` in place of ``mlp``, ``slay.{anchors,omegas}``) as
-torch tensors.
+gate, up, down}`` in place of ``mlp``, an SSM config's
+``layers.ssd.{in_proj, conv_w, conv_b, a_log, dt_bias, d_skip, norm,
+out_proj}`` (mamba2's layers hold only ``pre`` and ``ssd``),
+``slay.{anchors,omegas}``) as torch tensors.
 ``params_to_numpy`` goes the other way. bf16 goes through fp32 both ways:
 numpy has no bf16 of its own, and the cast is exact.
 """

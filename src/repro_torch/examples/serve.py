@@ -5,12 +5,15 @@ decodes from a constant-size (S, z) state, the exact kinds from a KV
 ring. ``--arch`` takes every config of ``configs.ALL_ARCHS``: the
 dense decoders, gemma2-27b (windowed KV rings of its local layers
 beside the global layers' state in one slot pool) and the MoE decoders
-phi3.5-moe-42b-a6.6b and grok-1-314b. It runs on the card unless given
-``--device cpu``::
+phi3.5-moe-42b-a6.6b and grok-1-314b, and the SSM families mamba2-780m
+(attention-free: each slot carries its SSD scan state and conv tail) and
+hymba-1.5b (that carry beside the attention state). It runs on the card
+unless given ``--device cpu``::
 
     python -m repro_torch.examples.serve --attn-kind favor
     python -m repro_torch.examples.serve --lockstep
     python -m repro_torch.examples.serve --arch gemma2-27b
+    python -m repro_torch.examples.serve --arch mamba2-780m --no-smoke
     PYTHONPATH=src python -m repro_torch.examples.serve --device cpu \\
         --attn-kind softmax --page-size 16 --prefix-cache 64
 
@@ -19,8 +22,10 @@ The smoke config is served by default, as by the JAX driver;
 (``--page-size``, ignored for the constant-state kinds) and the prefix
 cache (``--prefix-cache`` MB) keep the streams byte-identical;
 ``--speculative`` drafts with the SLAY twin of an exact verifier
-(yat_spherical unless ``--attn-kind`` names another exact kind). A
-sharded slot pool (``--slot-shards`` > 1) is not ported yet.
+(yat_spherical unless ``--attn-kind`` names another exact kind; not
+for the SSM families, whose carry cannot be rewound). mamba2 has no
+attention, so ``--attn-kind`` is refused for it. A sharded slot pool
+(``--slot-shards`` > 1) is not ported yet.
 """
 from __future__ import annotations
 
@@ -81,6 +86,12 @@ def parse_args(argv=None):
         ap.error("--speculative and --prefix-cache are mutually exclusive")
     if args.speculative and args.lockstep:
         ap.error("--speculative needs the continuous engine")
+    family = configs.get_config(args.arch).family
+    if args.attn_kind and family == "ssm":
+        ap.error(f"--attn-kind: {args.arch} has no attention")
+    if args.speculative and family in ("ssm", "hybrid"):
+        ap.error(f"--speculative: {args.arch} (family={family!r}) cannot "
+                 f"verify drafts; an SSM carry cannot be rewound")
     return args
 
 

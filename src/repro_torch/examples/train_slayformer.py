@@ -7,9 +7,11 @@ The CPU preset (default) trains a small model (4 layers x 128, vocab
 512, fp32); ``--preset paper`` is the 124M GPT-2-small-scale slayformer
 of Table 5; ``--attn-kind`` picks any attention kind of the port (SLAY,
 the linear baselines favor, cosformer, elu1, and the exact softmax, yat,
-yat_spherical); ``--arch`` any config of ``configs.ALL_ARCHS`` (the MoE
-decoders report their load-balance loss as ``moe_aux``). It runs on the
-card unless given ``--device cpu``::
+yat_spherical; not on mamba2, which has no attention); ``--arch`` any
+config of ``configs.ALL_ARCHS`` (the MoE decoders report their
+load-balance loss as ``moe_aux``; mamba2-780m and hymba-1.5b train their
+SSD blocks by plain autograd). It runs on the card unless given
+``--device cpu``::
 
     python -m repro_torch.examples.train_slayformer --preset paper \\
         --attn-kind favor --steps 200
@@ -75,7 +77,10 @@ def parse_args(argv=None):
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.attn_kind and configs.get_config(args.arch).family == "ssm":
+        ap.error(f"--attn-kind: {args.arch} has no attention")
+    return args
 
 
 def main(argv=None) -> list[dict]:

@@ -1,6 +1,9 @@
-"""Family-dispatching model API — the decoder family so far (dense or
-top-k MoE, gemma2's local/global layers; SLAY, the linear baselines
-favor, cosformer, elu1 and the exact kinds softmax, yat, yat_spherical).
+"""Family-dispatching model API: the decoder family (dense or top-k MoE,
+gemma2's local/global layers; SLAY, the linear baselines favor,
+cosformer, elu1 and the exact kinds softmax, yat, yat_spherical) and the
+SSM families ``ssm`` (mamba2, attention-free SSD layers) and ``hybrid``
+(hymba, attention beside SSD heads), all in ``models.transformer``, as in
+the reference (whose ``encdec`` goes to ``whisper``, not ported yet).
 
     params    = api.init_params(cfg, seed, device="cuda")
     logits, _ = api.forward(params, cfg, tokens)
@@ -24,6 +27,8 @@ from repro_torch.models import transformer
 
 
 def _mod(cfg: ArchConfig):
+    """The module of ``cfg``'s family: ``transformer`` for decoder, ssm
+    and hybrid; ``check_supported`` refuses the unported ones."""
     cfg.check_supported()
     return transformer
 
@@ -79,7 +84,8 @@ def decode_step(params, cfg: ArchConfig, cache, tokens, active=None):
 # A pool cache is an ordinary init_cache(cfg, num_slots); slots are batch
 # rows. Admission and eviction are single-slot overwrites, O(slot bytes):
 # SLAY's constant-state (S, z), an exact kind's rings (or the pages a slot
-# owns) and the per-slot positions. The decode step updates them in
+# owns), an SSD block's scan carry and conv tail and the per-slot
+# positions. The decode step updates them in
 # place, so the slot ops below write into the pool's own storage and
 # return it.
 
@@ -101,8 +107,9 @@ def write_slot(cfg: ArchConfig, cache, src, slot: int, pages=None):
 
 def supports_paging(cfg: ArchConfig) -> bool:
     """Whether the pooled KV rings can be page-indexed: only non-windowed
-    exact quadratic rings can. SLAY's per-slot state is O(1) and bypasses
-    paging (the paper's serving asymmetry)."""
+    exact quadratic rings of a decoder can. SLAY's per-slot state and an
+    SSD carry are O(1) and bypass paging (the paper's serving
+    asymmetry)."""
     return _mod(cfg).supports_paging(cfg)
 
 
@@ -142,8 +149,9 @@ def supports_chunked_prefill(cfg: ArchConfig) -> bool:
 def prefill_chunk(cfg: ArchConfig, params, cache, tokens):
     """Absorb one prompt chunk into an existing cache; last-token logits.
 
-    Exact continuation for any chunk schedule: SLAY's (S, z) carry is
-    fp32; the exact kinds attend to their ring prefix."""
+    Exact continuation for any chunk schedule: SLAY's (S, z) carry and an
+    SSD block's scan carry and conv tail are fp32; the exact kinds attend
+    to their ring prefix."""
     return _mod(cfg).prefill_chunk(params, cfg, cache, tokens)
 
 

@@ -1,7 +1,11 @@
-"""The decoder LM (dense or top-k MoE, no SSM/vision): SLAY, a linear
-baseline (favor, cosformer, elu1) or an exact kind, and gemma2's
-local/global alternation (a sliding-window softcapped softmax on every
-layer but each ``local_global_period``-th, which runs the config's kind).
+"""The decoder LM (dense or top-k MoE) and the SSM families (no
+vision): SLAY, a linear baseline (favor, cosformer, elu1) or an exact
+kind, gemma2's local/global alternation (a sliding-window softcapped
+softmax on every layer but each ``local_global_period``-th, which runs
+the config's kind), mamba2's attention-free SSD layers
+(``family="ssm"``: ``x + ssd(rmsnorm(pre, x))``, ``models/ssm.py``) and
+hymba's hybrid layers (``family="hybrid"``: attention and an SSD block
+on the same normalised input, averaged, then the MLP).
 
 Parameters are a plain dict laid out like the JAX package's pytree, so
 ``repro_torch.convert`` moves weights across unchanged::
@@ -13,6 +17,9 @@ Parameters are a plain dict laid out like the JAX package's pytree, so
             mlp: up (nl, d, ff), down (nl, ff, d) [, gate (nl, d, ff)],
             or with E = moe_experts > 0, in place of mlp:
             moe: router (nl, d, E), gate/up (nl, E, d, ff), down (nl, E, ff, d),
+            ssd: in_proj, conv_w, conv_b, a_log, dt_bias, d_skip, norm,
+                 out_proj (``ssm.ssd_shapes``, nl leading; hybrid)
+            or for an ssm config only pre (nl, d) and ssd,
     slay: anchors (P, dh), omegas (D, dh)   (fp32, shared by every layer;
                                              SLAY configs only)
           proj (64, dh)                     (fp32, favor's projection,
@@ -30,7 +37,11 @@ also verifies speculative drafts (``verify_chunk``, ``rollback_slots``).
 A config with local layers keeps the reference's union cache: every
 layer has rings of ``min(max_len, local_window)`` rows and, under a
 linear kind, (S, z) too; each layer uses its kind's leaves and leaves
-the others as they are. The MoE aux loss is summed over layers into
+the others as they are. An SSM config's cache carries each layer's SSD
+state (``DecodeCache.ssm``: the (nh, hd, ds) fp32 scan carry and the
+(W-1, conv_dim) fp32 conv tail per slot), beside hybrid's attention
+state; it is never paged, and it cannot be rewound, so neither family
+verifies speculative drafts. The MoE aux loss is summed over layers into
 ``forward``'s second output; the serving paths drop it, as the
 reference does.
 """
@@ -49,6 +60,7 @@ from repro_torch.core.features import init_feature_params
 from repro_torch.core.slay import feature_dim
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm
 from repro_torch.models.layers import embed, mlp, moe, rmsnorm, rope, unembed
 from repro_torch.serving import pages as pg
 
@@ -61,6 +73,24 @@ def _param_shapes(cfg: ArchConfig) -> dict:
     shapes = {
         "embed": ((cfg.vocab_size, d), "normal", 1.0),
         "final_norm": ((d,), "zeros", None),
+    }
+    if cfg.family != "ssm":
+        shapes.update(_attn_mlp_shapes(cfg, d, nl, dh, H, Hkv, ff))
+    else:
+        shapes["layers.pre"] = ((nl, d), "zeros", None)
+    if cfg.family in ("ssm", "hybrid"):
+        for k, (shape, init, scale) in ssm.ssd_shapes(
+                d, cfg.ssm_state, cfg.ssm_expand, cfg.ssm_head_dim,
+                cfg.ssm_ngroups, cfg.ssm_conv_width).items():
+            shapes[f"layers.ssd.{k}"] = ((nl, *shape), init, scale)
+    if not cfg.tie_embeddings:
+        shapes["unembed"] = ((cfg.vocab_size, d), "normal", 1.0)
+    return shapes
+
+
+def _attn_mlp_shapes(cfg: ArchConfig, d, nl, dh, H, Hkv, ff) -> dict:
+    """The attention and MLP (or MoE) leaves of a decoder layer."""
+    shapes = {
         "layers.pre_attn": ((nl, d), "zeros", None),
         "layers.pre_mlp": ((nl, d), "zeros", None),
         "layers.attn.wq": ((nl, d, H, dh), "normal", None),
@@ -82,8 +112,6 @@ def _param_shapes(cfg: ArchConfig) -> dict:
         shapes["layers.mlp.down"] = ((nl, ff, d), "normal", None)
         if cfg.gated_mlp:
             shapes["layers.mlp.gate"] = ((nl, d, ff), "normal", None)
-    if not cfg.tie_embeddings:
-        shapes["unembed"] = ((cfg.vocab_size, d), "normal", 1.0)
     return shapes
 
 
@@ -94,7 +122,8 @@ def init_params(cfg: ArchConfig, seed: int = 0, *,
     the random projections, drawn last and for SLAY and favor configs
     only, stay fp32 (so one seed gives every kind the same model
     weights). favor's sits under ``slay`` as in the JAX package, so
-    checkpoints and prefix snapshots keep its format."""
+    checkpoints and prefix snapshots keep its format. mamba2 (no
+    attention) draws none."""
     cfg.check_supported()
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
@@ -102,6 +131,8 @@ def init_params(cfg: ArchConfig, seed: int = 0, *,
     for name, (shape, init, scale) in _param_shapes(cfg).items():
         if init == "zeros":
             x = torch.zeros(shape)
+        elif init == "ones":
+            x = torch.ones(shape)
         else:
             if scale is None:
                 scale = 1.0 / np.sqrt(max(shape[-2] if len(shape) >= 2
@@ -138,11 +169,12 @@ def _layer(params: dict, i: int) -> dict:
     return take(params["layers"])
 
 
-def _qkv(cfg: ArchConfig, lp: dict, x, positions):
-    """q, k, v of one layer: every path (forward, prefill, chunks, decode,
-    verify) projects through here. qk-norm (qwen3) normalises q and k
-    over the head dim before RoPE."""
-    xa = rmsnorm(lp["pre_attn"], x)
+def _qkv(cfg: ArchConfig, lp: dict, xa, positions):
+    """q, k, v of one layer from its normalised input ``xa`` (``rmsnorm``
+    by ``pre_attn``, which a hybrid layer's SSD block reads too): every
+    path (forward, prefill, chunks, decode, verify) projects through
+    here. qk-norm (qwen3) normalises q and k over the head dim before
+    RoPE."""
     q = torch.einsum("...d,dhk->...hk", xa, lp["attn"]["wq"])
     k = torch.einsum("...d,dhk->...hk", xa, lp["attn"]["wk"])
     v = torch.einsum("...d,dhk->...hk", xa, lp["attn"]["wv"])
@@ -164,16 +196,30 @@ def _layer_kinds(cfg: ArchConfig) -> np.ndarray:
 
 
 def _layer_specs(cfg: ArchConfig) -> list:
-    """Each layer's AttentionSpec, local or global by :func:`_layer_kinds`."""
+    """Each layer's AttentionSpec, local or global by :func:`_layer_kinds`;
+    None for every layer of an ssm config (no attention)."""
+    if cfg.family == "ssm":
+        return [None] * cfg.num_layers
     return [cfg.attention_spec(local=bool(kind))
             for kind in _layer_kinds(cfg)]
 
 
-def _finish_layer(cfg: ArchConfig, lp: dict, x, y):
+def _ssd_kw(cfg: ArchConfig) -> dict:
+    return dict(d_state=cfg.ssm_state, expand=cfg.ssm_expand,
+                head_dim=cfg.ssm_head_dim, ngroups=cfg.ssm_ngroups,
+                conv_width=cfg.ssm_conv_width)
+
+
+def _finish_layer(cfg: ArchConfig, lp: dict, x, y, m=None):
     """Output projection, residual, MLP or MoE block: (x, the MoE aux
-    loss, None for a dense MLP). A decode row (B, d) routes as a
-    sequence of one token per slot, as the reference does."""
-    x = x + torch.einsum("...hk,hkd->...d", y, lp["attn"]["wo"])
+    loss, None for a dense MLP). A hybrid layer averages the attention
+    output with its SSD block's ``m``, ``0.5 (a + m)``, before the
+    residual. A decode row (B, d) routes as a sequence of one token per
+    slot, as the reference does."""
+    a = torch.einsum("...hk,hkd->...d", y, lp["attn"]["wo"])
+    if m is not None:
+        a = 0.5 * (a + m)
+    x = x + a
     xm = rmsnorm(lp["pre_mlp"], x)
     if not cfg.moe_experts:
         return x + mlp(lp["mlp"], xm, cfg.gated_mlp), None
@@ -191,10 +237,18 @@ def _logits(params: dict, cfg: ArchConfig, x):
 def _layer_fwd(cfg: ArchConfig, slay_params: dict, positions, spec,
                lp: dict, x):
     """One layer over the whole sequence: (x, its MoE aux, 0 if dense)."""
-    q, k, v = _qkv(cfg, lp, x, positions)
+    zero = torch.zeros((), device=x.device)
+    xn = rmsnorm(lp["pre" if spec is None else "pre_attn"], x)
+    m = None
+    if "ssd" in lp:
+        m = ssm.ssd_forward(lp["ssd"], xn, chunk_size=cfg.chunk_size,
+                            **_ssd_kw(cfg))
+    if spec is None:                         # an ssm layer
+        return x + m, zero
+    q, k, v = _qkv(cfg, lp, xn, positions)
     y = attn.full_attention(spec, slay_params, q, k, v)
-    x, aux = _finish_layer(cfg, lp, x, y)
-    return x, torch.zeros((), device=x.device) if aux is None else aux
+    x, aux = _finish_layer(cfg, lp, x, y, m)
+    return x, zero if aux is None else aux
 
 
 def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
@@ -207,7 +261,8 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
     kinds have none.
     ``remat=True`` recomputes each layer in the backward pass
     (``torch.utils.checkpoint``) instead of keeping its activations, so
-    the attention forward runs twice per layer.
+    the attention forward (and an SSD block's scan) runs twice per
+    layer.
     """
     cfg.check_supported()
     if remat == "save_collectives":
@@ -252,12 +307,21 @@ class DecodeCache(NamedTuple):
     """Stacked (num_layers leading) per-layer decode state; ``pos`` (B,)
     int32 counts the tokens each slot has seen.
 
+    ``attn`` is the attention state (None for an ssm config), ``ssm`` the
+    SSD state of an ssm or hybrid config (None otherwise): ``h`` (nl, B,
+    nh, hd, ds) and ``conv`` (nl, B, W-1, conv_dim), both fp32. The
+    fields come in the reference's order, so the leaves do too (mamba2
+    ``ssm.h, ssm.conv, pos``; hymba under SLAY ``attn.pos, attn.s,
+    attn.z, ssm.h, ssm.conv, pos``), and checkpoints and prefix snapshots
+    keep the JAX format. Build it with keywords.
+
     ``pages`` is None except in a paged serving pool, where it holds a
     ``serving.pages.PageState`` and the ring leaves are page-indexed
     ``(nl, P, page, Hkv, dh)`` instead of ``(nl, S, kv_len, Hkv, dh)``.
     """
 
-    attn: attn.AttnCache
+    attn: attn.AttnCache | None
+    ssm: ssm.SsmState | None
     pos: torch.Tensor
     pages: pg.PageState | None = None
 
@@ -267,24 +331,40 @@ def _layer_cache(ac: attn.AttnCache, i: int) -> attn.AttnCache:
     return attn.AttnCache(*(None if t is None else t[i] for t in ac))
 
 
+def _layer_ssm(st: ssm.SsmState, i: int) -> ssm.SsmState:
+    """Layer i's views of a stacked SsmState."""
+    return ssm.SsmState(st.h[i], st.conv[i])
+
+
+def _stack_ssm(states: list) -> ssm.SsmState | None:
+    if not states:
+        return None
+    return ssm.SsmState(torch.stack([s.h for s in states]),
+                        torch.stack([s.conv for s in states]))
+
+
 def supports_paging(cfg: ArchConfig) -> bool:
     """Whether the pooled rings can be paged: a non-windowed exact
     quadratic ring, the one state whose per-slot size grows with the
-    context. A linear kind's (S, z) is O(1) per slot and bypasses
-    paging; windowed rings are bounded by the window and wrap in
+    context. A linear kind's (S, z) and an SSM carry are O(1) per slot
+    and bypass paging (a hybrid config's rings too, as in the
+    reference); windowed rings are bounded by the window and wrap in
     place."""
     cfg.check_supported()
-    if cfg.local_window:
+    if cfg.family in ("ssm", "hybrid") or cfg.local_window:
         return False
     return not cfg.attention_spec().is_linear
 
 
 def context_capacity(cfg: ArchConfig, max_len: int) -> int | None:
     """Context rows (prompt + decode budget) one slot admits: None
-    (unbounded) for a linear kind, whose constant-size (S, z) holds any
-    context, and for windowed rings, which wrap exactly; ``max_len`` for
-    an exact kind's ring, which would overwrite live context past it."""
+    (unbounded) for an ssm config and a linear kind, whose constant-size
+    state holds any context, and for windowed rings, which wrap exactly;
+    ``max_len`` for an exact kind's ring (hybrid's included), which
+    would overwrite live context past it."""
     cfg.check_supported()
+    if cfg.family == "ssm":
+        return None
     if cfg.attention_spec().is_linear or cfg.local_window:
         return None
     return max_len
@@ -293,12 +373,14 @@ def context_capacity(cfg: ArchConfig, max_len: int) -> int | None:
 def supports_masked_prefill(cfg: ArchConfig) -> bool:
     """Whether ``prefill`` takes ``true_len`` (right-padded prompts):
     not with windowed rings, where a pad row would evict in-window
-    history."""
+    history, nor with an SSM carry, which decays through pad steps."""
     cfg.check_supported()
-    return not cfg.local_window
+    return cfg.family not in ("ssm", "hybrid") and not cfg.local_window
 
 
 def _needs_rings(cfg: ArchConfig) -> bool:
+    if cfg.family == "ssm":
+        return False
     return cfg.mixed_layers or not cfg.attention_spec().is_linear
 
 
@@ -313,15 +395,29 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int = 0, *,
     With ``local_window`` set every layer's rings have ``min(max_len,
     local_window)`` rows (the reference's union layout, global layers
     included), beside a linear kind's (S, z) on every layer when the
-    layers are mixed; they are never paged."""
+    layers are mixed; they are never paged. An ssm config has only the
+    SSD state, a hybrid one both (its rings never paged)."""
     cfg.check_supported()
     dev = resolve_device(device)
+    pos = torch.zeros(batch, dtype=torch.int32, device=dev)
+    st = None
+    if cfg.family in ("ssm", "hybrid"):
+        st = ssm.ssd_init_state((cfg.num_layers, batch), cfg.d_model,
+                                device=dev, **_ssd_kw(cfg))
+    a, pages = (None, None) if cfg.family == "ssm" else _init_attn(
+        cfg, batch, max_len, page_size, num_pages, dev)
+    return DecodeCache(attn=a, ssm=st, pos=pos, pages=pages)
+
+
+def _init_attn(cfg: ArchConfig, batch: int, max_len: int, page_size: int,
+               num_pages: int, dev: torch.device):
+    """:func:`init_cache`'s attention state: (the AttnCache, a paged
+    pool's all-free PageState or None)."""
     spec = cfg.attention_spec()
     nl, dh, hkv = cfg.num_layers, cfg.resolved_head_dim, cfg.num_kv_heads
     if _needs_rings(cfg) and max_len < 1:
         raise ValueError(f"{cfg.name}'s KV rings need max_len >= 1, got "
                          f"{max_len}")
-    pos = torch.zeros(batch, dtype=torch.int32, device=dev)
     if page_size > 0 and supports_paging(cfg):
         if max_len % page_size:
             raise ValueError(
@@ -334,12 +430,11 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int = 0, *,
             torch.zeros(shape, dtype=dt, device=dev),
             torch.zeros(shape, dtype=dt, device=dev),
             torch.zeros(nl, batch, dtype=torch.int32, device=dev), None, None)
-        return DecodeCache(a, pos, pg.init_state(batch, P, lp, device=dev))
+        return a, pg.init_state(batch, P, lp, device=dev)
     if not cfg.mixed_layers:
         size = min(max_len, cfg.local_window) if cfg.local_window else max_len
-        a = attn.init_cache(spec, (nl, batch), hkv, dh, dh, size,
-                            cfg.activation_dtype, device=dev)
-        return DecodeCache(a, pos)
+        return attn.init_cache(spec, (nl, batch), hkv, dh, dh, size,
+                               cfg.activation_dtype, device=dev), None
     # Mixed local/global layers: the union of both kinds' leaves.
     kv_len = min(max_len, cfg.local_window)
     ring = (nl, batch, kv_len, hkv, dh)
@@ -348,11 +443,10 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int = 0, *,
         m = feature_dim(spec, dh)
         s = torch.zeros(nl, batch, hkv, m, dh, device=dev)
         z = torch.zeros(nl, batch, hkv, m, device=dev)
-    a = attn.AttnCache(
+    return attn.AttnCache(
         torch.zeros(ring, dtype=cfg.activation_dtype, device=dev),
         torch.zeros(ring, dtype=cfg.activation_dtype, device=dev),
-        torch.zeros(nl, batch, dtype=torch.int32, device=dev), s, z)
-    return DecodeCache(a, pos)
+        torch.zeros(nl, batch, dtype=torch.int32, device=dev), s, z), None
 
 
 def _stack_caches(ac: attn.AttnCache | None, caches: list):
@@ -360,7 +454,11 @@ def _stack_caches(ac: attn.AttnCache | None, caches: list):
     cache ``ac`` they continued (None: a linear kind's prefill, which
     starts from nothing). The rings are ``ac``'s, written in place; a
     linear layer's new (S, z) are stacked, and a local layer's unused
-    (S, z) taken from ``ac`` as they were."""
+    (S, z) taken from ``ac`` as they were. None for an ssm config (no
+    layer attends)."""
+    if not caches:
+        return None
+
     def state(name):
         own = None if ac is None else getattr(ac, name)
         rows = [getattr(c, name) for c in caches]
@@ -383,13 +481,21 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
     prompt + 64 rows of decode headroom, as the JAX package); a linear kind's
     state does not depend on it. ``true_len`` (B,) marks the real lengths
     of right-padded prompts: logits are read at ``true_len - 1`` and pad
-    positions add nothing to the cache (not with windowed rings,
-    :func:`supports_masked_prefill`)."""
+    positions add nothing to the cache (not with windowed rings or an
+    SSM carry, :func:`supports_masked_prefill`).
+
+    An SSD block absorbs the prompt as one chunk from the zero state
+    (``ssm.ssd_prefill_chunk``): one scan gives its rows and its final
+    carry, which agrees with the reference's separate
+    ``_ssd_prefill_state`` (the same sums in another order) and, for a
+    prompt shorter than the conv's W-1 = 3 rows, with the reference's
+    ``prefill_chunk`` from a zero cache, where its ``prefill`` raises
+    (ROADMAP C-11)."""
     cfg.check_supported()
     if true_len is not None and not supports_masked_prefill(cfg):
         raise NotImplementedError(
             f"true_len-masked prefill unsupported for {cfg.name} "
-            f"(local_window={cfg.local_window})")
+            f"(family={cfg.family}, local_window={cfg.local_window})")
     dev = params["embed"].device
     tokens = tokens.to(dev)
     B, L = tokens.shape
@@ -402,15 +508,29 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
     slay = _slay_params(params)
     ring = None if not _needs_rings(cfg) else init_cache(
         cfg, B, max_len if max_len else L + 64, device=dev).attn
-    caches = []
+    st0 = None
+    if cfg.family in ("ssm", "hybrid"):
+        st0 = ssm.ssd_init_state((B,), cfg.d_model, device=dev,
+                                 **_ssd_kw(cfg))
+    caches, states = [], []
     for i, spec in enumerate(_layer_specs(cfg)):
         lp = _layer(params, i)
-        q, k, v = _qkv(cfg, lp, x, positions)
+        xn = rmsnorm(lp["pre" if spec is None else "pre_attn"], x)
+        m = None
+        if st0 is not None:
+            m, st = ssm.ssd_prefill_chunk(lp["ssd"], xn, st0,
+                                          chunk_size=cfg.chunk_size,
+                                          **_ssd_kw(cfg))
+            states.append(st)
+        if spec is None:                     # an ssm layer
+            x = x + m
+            continue
+        q, k, v = _qkv(cfg, lp, xn, positions)
         y = attn.full_attention(spec, slay, q, k, v)
         caches.append(attn.prefill_cache(
             spec, slay, k, v, None if ring is None else _layer_cache(ring, i),
             valid))
-        x, _ = _finish_layer(cfg, lp, x, y)
+        x, _ = _finish_layer(cfg, lp, x, y, m)
     if true_len is None:
         x_last = x[:, -1]
         pos = torch.full((B,), L, dtype=torch.int32, device=dev)
@@ -418,8 +538,19 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
         idx = torch.clamp(true_len - 1, min=0).long()
         x_last = x[torch.arange(B, device=dev), idx]
         pos = true_len.to(torch.int32, copy=True)   # decode advances it
-    a = _stack_caches(ring, caches)
-    return _logits(params, cfg, x_last)[:, None, :], DecodeCache(a, pos)
+    return _logits(params, cfg, x_last)[:, None, :], DecodeCache(
+        attn=_stack_caches(ring, caches), ssm=_stack_ssm(states), pos=pos)
+
+
+def _write_ssm(dst: ssm.SsmState, new: ssm.SsmState, act) -> None:
+    """Copy a layer's new SSD state into the cache's own tensors; with
+    ``act`` (B,) bool a drained slot keeps its bytes (the reference's
+    ``_state_passthrough``). The new tail is a fresh tensor, so the
+    one-row shift never copies a tensor onto itself."""
+    for d, n in zip(dst, new):
+        if act is not None:
+            n = torch.where(act.reshape(-1, *(1,) * (n.dim() - 1)), n, d)
+        d.copy_(n)
 
 
 def decode_step(params: dict, cfg: ArchConfig, cache: DecodeCache,
@@ -428,11 +559,13 @@ def decode_step(params: dict, cfg: ArchConfig, cache: DecodeCache,
     """One autoregressive step. tokens (B, 1) -> logits (B, 1, V).
 
     The cache is updated in place (the JAX package donates it) and
-    returned: every layer's state (a linear kind's (S, z), a ring's new row),
-    positions and ``pos``. So a slot pool is one set of tensors for its
-    whole life, which a captured CUDA graph of the step can bind.
-    ``active`` (B,) freezes drained slots: their state stays
-    bit-identical, their logits rows are meaningless.
+    returned: every layer's state (a linear kind's (S, z), a ring's new
+    row, an SSD block's carry and conv tail), positions and ``pos``. So
+    a slot pool is one set of tensors for its whole life, which a
+    captured CUDA graph of the step can bind, and nothing in the step
+    syncs the host. ``active`` (B,) freezes drained slots: their state
+    stays bit-identical, their SSD output is zero (as the reference's)
+    and their logits rows are meaningless.
 
     A paged pool gathers each layer's pages into the dense ring, runs the
     unchanged ring update on it and scatters the owned pages back.
@@ -443,9 +576,21 @@ def decode_step(params: dict, cfg: ArchConfig, cache: DecodeCache,
     pos = cache.pos
     slay = _slay_params(params)
     ac = cache.attn
+    act = None if active is None else active.bool()
     for i, spec in enumerate(_layer_specs(cfg)):
         lp = _layer(params, i)
-        q, k, v = _qkv(cfg, lp, x[:, None], pos[:, None])
+        xn = rmsnorm(lp["pre" if spec is None else "pre_attn"], x)
+        m = None
+        if cache.ssm is not None:
+            lst = _layer_ssm(cache.ssm, i)
+            m, st = ssm.ssd_decode_step(lp["ssd"], xn, lst, **_ssd_kw(cfg))
+            _write_ssm(lst, st, act)
+            if act is not None:
+                m = torch.where(act[:, None], m, 0)
+        if spec is None:                     # an ssm layer
+            x = x + m
+            continue
+        q, k, v = _qkv(cfg, lp, xn[:, None], pos[:, None])
         lc = _layer_cache(ac, i)
         if cache.pages is not None:
             lc = lc._replace(k=pg.gather_ring(lc.k, cache.pages),
@@ -455,7 +600,7 @@ def decode_step(params: dict, cfg: ArchConfig, cache: DecodeCache,
         if cache.pages is not None:
             pg.scatter_ring_(ac.k[i], nc.k, cache.pages)
             pg.scatter_ring_(ac.v[i], nc.v, cache.pages)
-        x, _ = _finish_layer(cfg, lp, x, y)
+        x, _ = _finish_layer(cfg, lp, x, y, m)
     pos.add_(1 if active is None else active.to(torch.int32))
     return _logits(params, cfg, x)[:, None, :], cache
 
@@ -475,10 +620,14 @@ def decode_step(params: dict, cfg: ArchConfig, cache: DecodeCache,
 def _chunk_layers(params: dict, cfg: ArchConfig, cache: DecodeCache,
                   tokens: torch.Tensor, active=None):
     """The layers over a chunk of tokens (B, Lc) that continues ``cache``:
-    the final hidden rows (B, Lc, d) and each layer's new AttnCache. A
-    ring is written in place (a paged pool's through its gathered dense
-    view, scattered back); a linear kind's (S, z) come back as new tensors.
-    ``active`` masks slots as in :func:`decode_step`."""
+    the final hidden rows (B, Lc, d), each layer's new AttnCache and
+    each layer's new SsmState. A ring is written in place (a paged
+    pool's through its gathered dense view, scattered back); a linear
+    kind's (S, z) and an SSD state come back as new tensors. An SSD
+    block scans in tiles of ``max(min(chunk_size, Lc), 1)`` (the
+    continuation is exact for any tile), as the reference does.
+    ``active`` masks slots as in :func:`decode_step` (the exact kinds'
+    verify chunk only)."""
     dev = params["embed"].device
     tokens = tokens.to(dev)
     Lc = tokens.shape[1]
@@ -487,10 +636,21 @@ def _chunk_layers(params: dict, cfg: ArchConfig, cache: DecodeCache,
                  + torch.arange(Lc, dtype=torch.int32, device=dev)[None, :])
     slay = _slay_params(params)
     ac = cache.attn
-    caches = []
+    tile = max(min(cfg.chunk_size, Lc), 1)
+    caches, states = [], []
     for i, spec in enumerate(_layer_specs(cfg)):
         lp = _layer(params, i)
-        q, k, v = _qkv(cfg, lp, x, positions)
+        xn = rmsnorm(lp["pre" if spec is None else "pre_attn"], x)
+        m = None
+        if cache.ssm is not None:
+            m, st = ssm.ssd_prefill_chunk(lp["ssd"], xn,
+                                          _layer_ssm(cache.ssm, i),
+                                          chunk_size=tile, **_ssd_kw(cfg))
+            states.append(st)
+        if spec is None:                     # an ssm layer
+            x = x + m
+            continue
+        q, k, v = _qkv(cfg, lp, xn, positions)
         lc = _layer_cache(ac, i)
         if cache.pages is not None:
             lc = lc._replace(k=pg.gather_ring(lc.k, cache.pages),
@@ -500,8 +660,8 @@ def _chunk_layers(params: dict, cfg: ArchConfig, cache: DecodeCache,
             pg.scatter_ring_(ac.k[i], nc.k, cache.pages)
             pg.scatter_ring_(ac.v[i], nc.v, cache.pages)
         caches.append(nc)
-        x, _ = _finish_layer(cfg, lp, x, y)
-    return x, caches
+        x, _ = _finish_layer(cfg, lp, x, y, m)
+    return x, caches, states
 
 
 def prefill_chunk(params: dict, cfg: ArchConfig, cache: DecodeCache,
@@ -511,16 +671,18 @@ def prefill_chunk(params: dict, cfg: ArchConfig, cache: DecodeCache,
     tokens (B, Lc); ``cache`` holds the state of the prefix absorbed so
     far (per-slot ``pos``). Returns last-token logits (B, 1, V) and the
     advanced cache, so a prompt fed chunk by chunk ends in the state of a
-    whole-prompt :func:`prefill` (a linear kind: the fp32 recurrence in another
-    order of sums) and the engine can interleave prefill chunks with
-    decode ticks. A linear kind returns new tensors; the rings of an exact kind
-    are written in place (the positions are new tensors).
+    whole-prompt :func:`prefill` (a linear kind and an SSD block: the
+    fp32 recurrence in another order of sums) and the engine can
+    interleave prefill chunks with decode ticks. A linear kind and an
+    SSD block return new tensors; the rings of an exact kind are written
+    in place (the positions are new tensors).
     """
     cfg.check_supported()
-    x, caches = _chunk_layers(params, cfg, cache, tokens)
+    x, caches, states = _chunk_layers(params, cfg, cache, tokens)
     return (_logits(params, cfg, x[:, -1])[:, None, :],
-            DecodeCache(_stack_caches(cache.attn, caches),
-                        cache.pos + tokens.shape[1], cache.pages))
+            DecodeCache(attn=_stack_caches(cache.attn, caches),
+                        ssm=_stack_ssm(states),
+                        pos=cache.pos + tokens.shape[1], pages=cache.pages))
 
 
 # -- the speculative verifier (draft-verify decoding) ----------------------
@@ -530,11 +692,14 @@ def supports_speculative(cfg: ArchConfig) -> bool:
     """Whether ``cfg`` can verify draft-verify speculative decoding: an
     exact kind's non-windowed ring, where rejecting a suffix is a
     per-slot ``pos`` rewind. A linear kind folds a token into (S, z) for
-    good, and a windowed ring's in-window eviction cannot be rewound, so
-    neither can. (The reference also excludes SSM carries and frontends,
-    which the port does not have.) An MoE config verifies like a dense
-    one; each verify chunk routes with that chunk's capacity."""
+    good, an SSD carry (ssm, hybrid) cannot un-absorb a step, and a
+    windowed ring's in-window eviction cannot be rewound, so none of
+    them can. (The reference also excludes frontends, which the port
+    does not have.) An MoE config verifies like a dense one; each verify
+    chunk routes with that chunk's capacity."""
     cfg.check_supported()
+    if cfg.family in ("ssm", "hybrid"):
+        return False
     if cfg.local_window or cfg.local_global_period:
         return False
     return not cfg.attention_spec().is_linear
@@ -555,8 +720,9 @@ def verify_chunk(params: dict, cfg: ArchConfig, cache: DecodeCache,
     """
     if not supports_speculative(cfg):
         raise ValueError(f"verify_chunk needs an exact kind's ring, not "
-                         f"attn_kind={cfg.attn_kind!r}")
-    x, _ = _chunk_layers(params, cfg, cache, tokens, active)
+                         f"attn_kind={cfg.attn_kind!r}, family="
+                         f"{cfg.family!r}")
+    x, _, _ = _chunk_layers(params, cfg, cache, tokens, active)
     Lc = tokens.shape[1]
     step = Lc if active is None else Lc * active.to(torch.int32)
     cache.attn.pos.add_(step)
@@ -570,23 +736,30 @@ def rollback_slots(cfg: ArchConfig, cache: DecodeCache,
     validity follows ``pos`` alone, so rejecting a speculative suffix
     moves no ring bytes (rows past the horizon are invisible and are
     overwritten by the next absorb), and a paged pool's tables stay (the
-    slot's pages cover its context plus the verify overshoot)."""
+    slot's pages cover its context plus the verify overshoot). An SSD
+    state is left as it is."""
     cache.pos.copy_(new_pos)
-    cache.attn.pos.copy_(new_pos[None].expand_as(cache.attn.pos))
+    if cache.attn is not None:
+        cache.attn.pos.copy_(new_pos[None].expand_as(cache.attn.pos))
     return cache
 
 
-def _float_leaves(a: attn.AttnCache) -> list:
-    return [t for t in (a.k, a.v, a.s, a.z) if t is not None]
+def _float_leaves(cache: DecodeCache) -> list:
+    """The float state leaves, (nl, B, ...): rings, (S, z), SSD state."""
+    a = cache.attn
+    out = [] if a is None else [t for t in (a.k, a.v, a.s, a.z)
+                                if t is not None]
+    return out + ([] if cache.ssm is None else list(cache.ssm))
 
 
 def reset_slot(cfg: ArchConfig, cache: DecodeCache, slot: int,
                pages=None) -> DecodeCache:
     """Zero one slot of a pooled cache (eviction), in place: its state
-    and positions. A linear kind: a single overwrite of the slot's (S, z). A paged
-    pool zeroes the pages the slot owns under the current tables (so a
-    quarantined NaN never reaches the page's next owner), then installs
-    ``pages``, the host allocator's tables after the slot's free."""
+    and positions. A linear kind: a single overwrite of the slot's (S,
+    z); an SSD block's carry and tail likewise. A paged pool zeroes the
+    pages the slot owns under the current tables (so a quarantined NaN
+    never reaches the page's next owner), then installs ``pages``, the
+    host allocator's tables after the slot's free."""
     a = cache.attn
     if cache.pages is not None:
         for t in (a.k, a.v):
@@ -594,9 +767,10 @@ def reset_slot(cfg: ArchConfig, cache: DecodeCache, slot: int,
         if pages is not None:
             pg.install(cache.pages, pages)
     else:
-        for t in _float_leaves(a):
+        for t in _float_leaves(cache):
             t[:, slot].zero_()
-    a.pos[:, slot] = 0
+    if a is not None:
+        a.pos[:, slot] = 0
     cache.pos[slot] = 0
     return cache
 
@@ -615,23 +789,25 @@ def write_slot(cfg: ArchConfig, cache: DecodeCache, src: DecodeCache,
         pg.write_slot_pages(a.k, b.k, slot, cache.pages)
         pg.write_slot_pages(a.v, b.v, slot, cache.pages)
     else:
-        for dst, s in zip(_float_leaves(a), _float_leaves(b)):
+        for dst, s in zip(_float_leaves(cache), _float_leaves(src)):
             dst[:, slot].copy_(s[:, 0])
-    a.pos[:, slot].copy_(b.pos[:, 0])
+    if a is not None:
+        a.pos[:, slot].copy_(b.pos[:, 0])
     cache.pos[slot] = src.pos[0]
     return cache
 
 
 def slot_state_finite(cfg: ArchConfig, cache: DecodeCache) -> torch.Tensor:
     """(B,) bool: every float decode-state element of each slot, over all
-    layers, is finite (the NaN/Inf quarantine probe). Per-slot reductions
-    only; positions are integers and are skipped. A paged pool checks the
-    pages each slot owns: a free page's stale bytes blame no slot."""
+    layers, is finite (the NaN/Inf quarantine probe): rings, (S, z) and
+    the SSD carry and tail. Per-slot reductions only; positions are
+    integers and are skipped. A paged pool checks the pages each slot
+    owns: a free page's stale bytes blame no slot."""
     if cache.pages is not None:
         return pg.pages_finite([cache.attn.k, cache.attn.v], cache.pages,
                                cache.pos.shape[0])
     ok = None
-    for leaf in _float_leaves(cache.attn):
+    for leaf in _float_leaves(cache):
         f = pg.rows_finite(leaf).all(0)
         ok = f if ok is None else ok & f
     return ok
@@ -645,14 +821,14 @@ def corrupt_slot(cfg: ArchConfig, cache: DecodeCache, slot: int) -> DecodeCache:
         for t in (cache.attn.k, cache.attn.v):
             pg.corrupt_slot_pages(t, slot, cache.pages)
         return cache
-    for t in _float_leaves(cache.attn):
+    for t in _float_leaves(cache):
         t[:, slot].fill_(float("nan"))
     return cache
 
 
 def supports_chunked_prefill(cfg: ArchConfig) -> bool:
-    """Chunked prefill continues every ported kind: the linear kinds'
+    """Chunked prefill continues every ported config: the linear kinds'
     fp32 (S, z) recurrence, the exact kinds' ring prefix plus causal
-    chunk."""
+    chunk, an SSD block's fp32 carry and conv tail."""
     cfg.check_supported()
     return True

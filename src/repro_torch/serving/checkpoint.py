@@ -17,7 +17,9 @@ in ``jax.tree.leaves`` order (SLAY ``attn.pos, attn.s, attn.z, pos``;
 an exact kind ``attn.k, attn.v, attn.pos, pos``, and paged the page
 tables ``table, owner_slot, owner_lp`` after them; gemma2's union pool
 under SLAY ``attn.k, attn.v, attn.pos, attn.s, attn.z, pos``, every
-layer's leaves whichever its kind), ``page_size`` and
+layer's leaves whichever its kind; mamba2 ``ssm.h, ssm.conv, pos``;
+hymba under SLAY ``attn.pos, attn.s, attn.z, ssm.h, ssm.conv, pos``),
+``page_size`` and
 the ``page_pool`` allocator snapshot (None unpaged), and in speculative
 mode the draft pool's leaves (``draft_pool``, the SLAY order; None
 otherwise) with ``speculative`` and ``spec_gamma``. So a directory

@@ -25,7 +25,11 @@ pages. A config with local windowed layers (gemma2) holds rings of
 ``min(max_len, local_window)`` rows that wrap in place, beside its
 global layers' state in the same slot (the reference's union layout):
 any prompt is admitted and absorbed chunk by chunk, and they are never
-paged.
+paged. The SSM families carry each layer's SSD state per slot (the
+(nh, hd, ds) fp32 scan carry and the (W-1, conv_dim) fp32 conv tail;
+mamba2 nothing else, hymba beside its attention state): constant-size,
+so any prompt is admitted, never paged (a ``page_size`` is ignored), and
+not rewindable, so neither family decodes speculatively.
 
 Fault model (DESIGN.md §10): every request ends with exactly one
 ``finish_reason`` of ``sampling.FINISH_REASONS``. Admission failures are
@@ -39,7 +43,7 @@ deterministic chaos injector that exercises all of it.
 A ``prefix_cache_bytes`` budget (or a shared ``prefix_cache``) turns on
 the content-addressed prefix cache (``serving.prefix_cache``): an
 admission whose prompt shares a cached prefix seeds its slot from the
-stored (S, z) snapshot and chunk-prefills only the suffix, or skips
+stored state snapshot and chunk-prefills only the suffix, or skips
 prefill when the whole prompt is cached. With a ``journal`` attached
 (``serving.journal``) every admission, token, retry and termination is
 journaled, ``checkpoint_every_ticks`` adds periodic atomic checkpoints
@@ -730,7 +734,8 @@ class ContinuousServingEngine:
         self.sched = Scheduler(serving)
         S, L = serving.num_slots, serving.max_len
         # Paged slot memory: only the exact kinds' rings page; SLAY's (S, z)
-        # is O(1) per slot, so page_size is a no-op for it.
+        # and an SSD carry are O(1) per slot, so page_size is a no-op for
+        # them.
         self.page_pool: pages_lib.PagePool | None = None
         if serving.page_size and api.supports_paging(cfg):
             lp = L // serving.page_size      # the config checks divisibility

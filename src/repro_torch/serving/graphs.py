@@ -5,7 +5,8 @@ program (``jax.jit`` of the K-tick decode dispatch, of a prefill chunk,
 of the lockstep decode step). The port's counterpart is a CUDA graph: a
 :class:`Program` is a function of no arguments that reads and writes
 only tensors the engine allocated once (its static buffers: the slot
-pool, a control buffer, a token buffer), so the same device addresses
+pool, every leaf of it, rings, (S, z) and an SSD carry and conv tail
+alike, a control buffer, a token buffer), so the same device addresses
 serve every call. What changes per call is copied into those buffers
 before the call, outside the program.
 

@@ -5,7 +5,9 @@ prompt prefix is one constant-size (S, z) state snapshot, and chunked
 prefill continues exactly from any chunk-boundary state, so the cache
 stores batch=1 ``DecodeCache`` snapshots keyed by the sha256 of the
 prompt-token prefix (an exact kind's rings; gemma2's union of windowed
-rings and (S, z), every leaf of every layer):
+rings and (S, z); an SSM config's SSD carry and conv tail, hymba's beside
+its (S, z): every leaf of every layer, and each counts in an entry's
+bytes):
 
 * **Keying.** ``(length, sha256(int32 prefix bytes))``. The raw tokens
   are stored beside the snapshot and compared on lookup, so a digest

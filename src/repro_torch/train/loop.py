@@ -7,8 +7,9 @@ kernels and their backward (K1, K3, K4) on the card, or with
 ``fuse_attention_features=False`` the two-dispatch path (feature map,
 then scan, and their backward), and the plain versions on the CPU: the
 tensors' device chooses, so there is no ``use_pallas`` knob. The exact
-kinds (``softmax``, ``yat``, ``yat_spherical``) have no kernel: plain
-autograd of their PyTorch ops on either device.
+kinds (``softmax``, ``yat``, ``yat_spherical``) and the SSM families'
+SSD blocks have no kernel: plain autograd of their PyTorch ops on either
+device (``remat`` recomputes an SSD block's chunk scan too).
 
 The loop: resume from the latest checkpoint on start, an atomic
 checkpoint every ``ckpt_every`` steps and at the end, and a step-time

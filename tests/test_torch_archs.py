@@ -131,19 +131,23 @@ def test_drivers_take_the_arch(name, tmp_path, capsys):
 
 
 def test_unported_fields_are_refused():
-    # What is still unported (ROADMAP Queue A item 12: A12b's SSM
-    # families and vision prefix, whisper's encoder-decoder) is refused
-    # with its label; gemma2's windows and MoE are ported.
+    # What is still unported (ROADMAP Queue A item 12: A12b's vision
+    # prefix, whisper's encoder-decoder) is refused with its label, and
+    # neither config is registered; gemma2's windows, MoE and the SSM
+    # families are ported.
     base = configs.get_smoke_config("phi4-mini-3.8b")
-    for kw, what in ((dict(family="ssm"), "SSM families"),
-                     (dict(family="hybrid"), "SSM families"),
-                     (dict(family="encdec"), "encoder-decoder"),
-                     (dict(frontend="vision"), "vision prefix")):
+    for kw, what in ((dict(family="encdec"), "encoder-decoder"),
+                     (dict(family="encdec", attn_kind="softmax"),
+                      "encoder-decoder"),
+                     (dict(frontend="vision"), "vision prefix"),
+                     (dict(frontend="vision", attn_kind="softmax"),
+                      "vision prefix")):
         with pytest.raises(NotImplementedError,
                            match=f"(?s)Queue A item 12.*{what}"):
             api.init_params(dataclasses.replace(base, **kw), device="cpu")
-    with pytest.raises(KeyError, match="unknown arch"):
-        configs.get_config("mamba2-780m")
+    for name in ("whisper-small", "internvl2-76b"):
+        with pytest.raises(KeyError, match="unknown arch"):
+            configs.get_config(name)
 
 
 def test_params_convert_and_checkpoint_round_trip(models, tmp_path):

@@ -37,6 +37,7 @@ from repro_torch.optim import adamw as tadamw
 from repro_torch.serving import engine as tengine
 from repro_torch.serving import faults as tfaults
 from repro_torch.serving import journal as tjournal
+from repro_torch.serving.prefix_cache import tree_copy
 from repro_torch.serving import sampling as tsampling
 from repro_torch.train import loop as tloop
 from repro_torch.tree import tree_leaves
@@ -476,6 +477,137 @@ def test_mixed_and_moe_engines_on_card_match_cpu(arch):
         nl * serving.macro_ticks * s_card["decode_dispatches"])
     assert lock["slay_decode_step"] == nl * 9
     assert lock["slay_fused_fwd"] == nl
+
+
+# -- the SSM families: mamba2 (no attention) and hymba (G = 5) --------------
+
+
+@needs_card
+@pytest.mark.parametrize("masked", [False, True])
+def test_decode_kernel_group_5_at_head_dim_64_on_card(masked):
+    # K2 at hymba-1.5b's group (25 q heads on 5 kv heads) and head dim
+    # (dv = 64, m = 384), 8 slots' kv rows: y to 1e-5 (summation order),
+    # S' and z' equal to the plain version's, in place; drained rows
+    # bit-identical, y zero.
+    g, bk = 5, 40
+    args = [torch.from_numpy(x).cuda()
+            for x in _decode_inputs(21, bk * g, bk, m=384, dv=64)]
+    active = None
+    if masked:
+        active = (torch.arange(bk, device="cuda") % 3 != 1).to(torch.int32)
+    s0, z0 = args[3].clone(), args[4].clone()
+    yp, sp, zp = tdecode.decode_linear_attention_plain(
+        *[a.clone() for a in args], active)
+    _build.reset_launches()
+    y, s, z = tdecode.decode_linear_attention(*args, active)
+    assert _build.LAUNCHES["slay_decode_step_masked" if masked
+                           else "slay_decode_step"] == 1
+    assert s is args[3] and z is args[4]
+    torch.testing.assert_close(y, yp, rtol=1e-5, atol=1e-5)
+    assert torch.equal(s, sp) and torch.equal(z, zp)
+    if masked:
+        off = active == 0
+        assert torch.equal(s[off], s0[off]) and torch.equal(z[off], z0[off])
+        assert bool((y.reshape(bk, g, 64)[off] == 0).all())
+
+
+@needs_card
+@pytest.mark.parametrize("arch", ["mamba2-780m", "hymba-1.5b"])
+def test_ssd_decode_step_graphed_writes_the_pool_on_card(arch):
+    # The masked decode step of a 3-slot pool (slots 0 and 2 prefilled
+    # and live, slot 1 prefilled and drained) captured in a CUDA graph
+    # and replayed, beside the same step run eagerly on a copy of the
+    # pool: the replay writes the pool's own SSD carry and conv tail
+    # (every leaf keeps its storage), its logits and every leaf equal the
+    # eager step's bit for bit, and the drained slot's leaves keep their
+    # bytes.
+    cfg = get_smoke_config(arch, dtype="float32")
+    params = tapi.init_params(cfg, 0, device="cuda")
+    rng = np.random.default_rng(2)
+    with torch.inference_mode():
+        pool = tapi.init_cache(cfg, 3, 64, device="cuda")
+        for slot, n in enumerate((9, 14, 5)):
+            toks = torch.from_numpy(rng.integers(3, 256, (1, n))
+                                    .astype(np.int32)).cuda()
+            _, one = tapi.prefill(params, cfg, toks, max_len=64)
+            tapi.write_slot(cfg, pool, one, slot)
+        tok = torch.tensor([[5], [6], [7]], dtype=torch.int32, device="cuda")
+        act = torch.tensor([True, False, True], device="cuda")
+        eager = tree_copy(pool)
+        want, _ = tapi.decode_step(params, cfg, eager, tok, act)
+        before = [t.clone() for t in tree_leaves(pool)]
+        ptrs = [t.data_ptr() for t in tree_leaves(pool)]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):       # warm-up, then restore
+            tapi.decode_step(params, cfg, pool, tok, act)
+        torch.cuda.current_stream().wait_stream(side)
+        for t, b in zip(tree_leaves(pool), before):
+            t.copy_(b)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            logits, _ = tapi.decode_step(params, cfg, pool, tok, act)
+        for t, b in zip(tree_leaves(pool), before):   # capture ran nothing
+            t.copy_(b)
+        graph.replay()
+        torch.cuda.synchronize()
+    assert [t.data_ptr() for t in tree_leaves(pool)] == ptrs
+    assert torch.equal(logits[act], want[act])
+    assert int(pool.pos[1]) == 14 and int(pool.pos[0]) == 10
+    for t, e, b in zip(tree_leaves(pool), tree_leaves(eager), before):
+        assert torch.equal(t, e)
+        if t.dim() > 1:                      # (nl, B, ...): slot 1 kept
+            assert torch.equal(t[:, 1], b[:, 1])
+    h0 = before[[id(t) for t in tree_leaves(pool)].index(id(pool.ssm.h))]
+    assert not torch.equal(pool.ssm.h[:, 0], h0[:, 0])
+
+
+@needs_card
+@pytest.mark.parametrize("arch", ["mamba2-780m", "hymba-1.5b"])
+def test_ssm_engines_on_card_match_cpu(arch):
+    # The smoke models in fp32, embedding scaled down so the streams
+    # vary: the continuous engine (graphed, greedy; a 70-token prompt
+    # past max_len, which the constant-size carry admits) and the
+    # lockstep engine on the card and on the CPU give the same streams;
+    # mamba2 launches no kernel, hymba K2 once a layer and step (masked
+    # in the pool) and K1 once a layer in the lockstep prefill.
+    cfg = get_smoke_config(arch, dtype="float32")
+    params = tapi.init_params(cfg, 0, device="cpu")
+    params["embed"] = params["embed"] / 8.0
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(3, 256, n).astype(np.int32)
+               for n in (20, 7, 70, 12, 26)]
+    serving = ServingConfig(num_slots=2, max_len=64, prefill_chunk=8,
+                            macro_ticks=4)
+    runs = []
+    for device in ("cpu", "cuda"):
+        eng = tengine.ContinuousServingEngine(cfg, params, serving=serving,
+                                              device=device)
+        lock = tengine.ServingEngine(cfg, params, device=device, max_len=64)
+        _build.reset_launches()
+        outs, s = eng.run([tengine.Request(p, max_new_tokens=10,
+                                           arrival_time=2.0 * i)
+                           for i, p in enumerate(prompts)])
+        cont = dict(_build.LAUNCHES)
+        _build.reset_launches()
+        gen_out = lock.generate([tengine.Request(p, max_new_tokens=10)
+                                 for p in prompts[:2]])
+        runs.append((outs, s, gen_out, cont, dict(_build.LAUNCHES),
+                     eng.graph_cache_entries()))
+    (cpu, s_cpu, gen_cpu, _, _, _), (card, s_card, gen_card, cont, lock,
+                                     graphs) = runs
+    for rid in cpu:
+        np.testing.assert_array_equal(card[rid], cpu[rid], f"rid {rid}")
+    for a, b in zip(gen_card, gen_cpu):
+        np.testing.assert_array_equal(a, b)
+    assert s_card["ticks"] == s_cpu["ticks"]
+    assert graphs == {"macro_decode": 1, "chunk": 1}
+    nl = cfg.num_layers if cfg.family == "hybrid" else 0
+    assert cont["slay_decode_step_masked"] == (
+        nl * serving.macro_ticks * s_card["decode_dispatches"])
+    assert lock["slay_decode_step"] == nl * 9
+    assert lock["slay_fused_fwd"] == nl
+    assert sum(cont.values()) == cont["slay_decode_step_masked"]
 
 
 # -- B7, B8, B5, B6a, B6b: the two-dispatch path -----------------------------
