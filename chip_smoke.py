@@ -227,10 +227,11 @@ Phases, each of which raises (nonzero exit) on failure:
     (2 layers) (batch halved only if the card cannot hold it; the peak
     memory printed); grok-1 gets no train step
     (one layer's would need about 78 GB), which a line says.
-24. the SSM families at full width and full depth (``phase_ssm``),
-    random weights from the seed drawn on the host: mamba2-780m (48
-    attention-free SSD layers, a 75.5 MB carry per slot) and hymba-1.5b
-    (32 layers of SLAY at G = 5 beside SSD heads), each served lockstep
+24. the SSM families at full width (``phase_ssm``), depth halved for
+    the script's time, random weights from the seed drawn on the host:
+    mamba2-780m (24 of its 48 attention-free SSD layers, a 37.7 MB carry
+    per slot) and hymba-1.5b (16 of its 32 layers of SLAY at G = 5
+    beside SSD heads), each served lockstep
     graphed and eager (hymba: K1 once a layer, B4a once a layer and
     step; mamba2: no SLAY kernel), phase 12's trace graphed (B4b nl x 8
     a dispatch for hymba) and its first 4 requests graphed and eager, a
@@ -242,15 +243,38 @@ Phases, each of which raises (nonzero exit) on failure:
     the loss and gradients of one 256-token chunk, finite, ROADMAP
     C-10), and 4 AdamW steps of 8 x 1024 tokens with remat (hymba's
     through K1 twice, K3 and K4 once a layer), the peak memory printed.
+25. the frontends (``phase_frontends``), random weights from the seed
+    drawn on the host: internvl2-76b at full width, 4 of its 80 layers
+    (reduced: 80 would be 70.6 B params, 141 GB), served as phase 22
+    serves the dense decoders with every request behind its zero
+    256-row patch prefix (the pool absorbs it in 2 chunks of 128 ahead
+    of the prompt), the 6144-token prompt behind the prefix chunked
+    against whole, fp32 at 2 layers against the CPU with random patch
+    embeddings, 4 AdamW steps at 2 layers of 4 x (256 + 768) rows;
+    whisper-small whole (12 + 12 layers x 768, 1500 frames): phase 8's
+    prompts over zero frames lockstep, graphed and eager, phase 12's
+    trace through the whole-prompt prefill (one tick a request, no
+    prefix cache), its pool's MB a slot under SLAY against softmax, a
+    full-pool dispatch under the profiler, fp32 at 2 + 2 layers against
+    the CPU (logits, loss, gradients), B7 and B8 at its shapes, 4 AdamW
+    steps of 8 x 448 tokens over 1500 random frames; and slayformer-124m
+    on phase 12's trace with ``prefill_chunk=0`` (the bucketed masked
+    prefill through K1), its bucket counters, its streams against the
+    chunked run's (bf16 up to near-ties of the whole-prompt path, fp32
+    up to each stream's first near-tie). Launches are checked per layer
+    kind: whisper's decoder self-attention runs K1 (K3, K4) and K2, its
+    encoder's and cross-attention's Ψ B7 (B8), twice a layer.
 Phases 14-17 and mamba2's part of phase 24 check that no SLAY kernel
 launched, phases 19-20 that only K2 did; the kernel line's B4a launches
-are phase 8's, 19's, 22's, 23's and 24's, its B4b launches phase 12's,
-18's, 19's, 20's, 22's, 23's and 24's, its K1 launches phase 8's, 22's,
-23's and 24's, its K3 and K4 launches phase 9's, 22's, 23's and 24's
-(each row has the dense decoders' launches, G and head-dim-128 numbers
-per config under ``dense_decoders``, phase 23's configs' under
-``mixed_and_moe`` and phase 24's, with hymba's kernels at head dim 64,
-under ``ssm_families``).
+are phase 8's, 19's, 22's, 23's, 24's and 25's, its B4b launches phase
+12's, 18's, 19's, 20's, 22's, 23's, 24's and 25's, its K1 launches phase
+8's, 22's, 23's, 24's and 25's, its K3 and K4 launches phase 9's, 22's,
+23's, 24's and 25's, its B7 and B8 launches phase 11's and 25's (each
+row has the dense decoders' launches, G and head-dim-128 numbers per
+config under ``dense_decoders``, phase 23's configs' under
+``mixed_and_moe``, phase 24's, with hymba's kernels at head dim 64,
+under ``ssm_families``, and phase 25's under ``frontends``, with B7's
+and B8's numbers at whisper's shapes).
 
 The last two lines are a JSON object with every kernel's numbers and
 ``{"ok": true, "device": {...}}``. Every ``ms`` is CUDA events around the
@@ -306,6 +330,18 @@ TF32_FLOP_PER_S = 495e12         # H100 SXM, dense TF32 tensor cores
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _timed(fn):
+    """Log the wall seconds each call of ``fn`` takes, a config's part
+    (where the script's time goes)."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        log(f"  [{fn.__name__}: {time.perf_counter() - t0:.1f} s]")
+        return out
+    return run
 
 
 def smi() -> str:
@@ -3598,12 +3634,15 @@ def _dense_init(name: str, layers: int | None, card: str):
     return cfg, params
 
 
-def _dense_lockstep(cfg, params, card: str) -> dict:
+@_timed
+def _dense_lockstep(cfg, params, card: str, extra_want=None) -> dict:
     """Phase 8's 4 prompts, 32 greedy tokens, through the lockstep engine
-    (its decode step one CUDA graph), launch counters read around that
-    call (K1 once a SLAY layer, B4a once a SLAY layer and step); the same
-    engine eager, equal streams; ms per step of each in turns; a profiler
-    window over the graphed step. Returns the launches."""
+    (its decode step one CUDA graph; a frontend config's prompts behind
+    the engine's zero stand-ins), launch counters read around that call
+    (K1 once a SLAY layer, B4a once a SLAY layer and step, and
+    ``extra_want`` besides: whisper's B7 in its prefill); the same engine
+    eager, equal streams; ms per step of each in turns; a profiler window
+    over the graphed step. Returns the launches."""
     nl = _slay_layers(cfg)
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
@@ -3620,6 +3659,7 @@ def _dense_lockstep(cfg, params, card: str) -> dict:
     launches = {k: n for k, n in _build.LAUNCHES.items() if n}
     want = {k: n for k, n in (("slay_fused_fwd", nl),
                               ("slay_decode_step", nl * (MAX_NEW - 1))) if n}
+    want.update(extra_want or {})
     if launches != want:
         raise AssertionError(f"{cfg.name} lockstep: launches {launches}, "
                              f"want {want}")
@@ -3648,6 +3688,7 @@ def _dense_lockstep(cfg, params, card: str) -> dict:
     return launches
 
 
+@_timed
 def _dense_continuous(cfg, params, card: str, carry: bool = False) -> int:
     """Phase 12's trace on its 8-slot pool, graphed: B4b's launches (nl x
     K a dispatch, no other kernel), every request served, ms per dispatch
@@ -3708,13 +3749,15 @@ def _dense_continuous(cfg, params, card: str, carry: bool = False) -> int:
     return n_b
 
 
+@_timed
 def _dense_fp32(cfg, params, card: str) -> None:
     """The first 2 layers of the served weights widened to fp32, on the
     card against the port's CPU plain path: a 128-token prompt's
     last-token prefill logits (K1) and 2 decode steps' (B4a); the loss,
     the MoE aux loss and every gradient of one 1 x 256 batch (K1, K3,
     K4), as phase 9 holds slayformer's; gemma2's with its embedding
-    divided by UNSATURATE."""
+    divided by UNSATURATE; a vision config's prompt and batch behind
+    random patch embeddings from the seed."""
     cfg32 = dataclasses.replace(cfg, num_layers=DENSE_FP32_LAYERS,
                                 dtype="float32")
     p32 = tree_map_with_path(
@@ -3728,17 +3771,22 @@ def _dense_fp32(cfg, params, card: str) -> None:
             for t in rng.integers(0, cfg.vocab_size, 2)]
     batch = pipeline.make_batch(pipeline.DataConfig(
         vocab_size=cfg.vocab_size, seq_len=256, global_batch=1, seed=SEED), 0)
+    kw = {}
+    if cfg.frontend == "vision":
+        pe = torch.from_numpy(rng.standard_normal(
+            (1, cfg.num_patches, cfg.d_model)).astype(np.float32))
+        kw = {"patch_embeds": pe}
+        batch = dict(batch, patch_embeds=pe)
 
     def run(p):
         with torch.inference_mode():
-            lg, cache = api.prefill(p, cfg32, prompt)
+            lg, cache = api.prefill(p, cfg32, prompt, **kw)
             rows = [lg[0, -1].cpu()]
             for t in toks:
                 lg, cache = api.decode_step(p, cfg32, cache, t)
                 rows.append(lg[0, -1].cpu())
         loss, mx, grads = loop.value_and_grad(p, cfg32, batch)
-        return (rows, loss.cpu(), tree_map(lambda t: t.cpu(), grads),
-                mx["moe_aux"].cpu())
+        return rows, loss.cpu(), grads, mx["moe_aux"].cpu()
 
     got = run(p32)
     p_cpu = tree_map(lambda t: t.cpu(), p32)
@@ -3766,8 +3814,17 @@ def _dense_fp32(cfg, params, card: str) -> None:
     # the dense decoders' logit tolerance against the JAX package: its
     # attention gradients reached 1.06e-4 of their largest on the card.
     grad_rel = 5e-4 if cfg.mixed_layers else 1e-4
-    for (key, g), (_, c) in zip(tree_items(got[2]), tree_items(want[2])):
-        close(g, c, grad_rel * (float(c.abs().max()) or 1.0), 0.0,
+    _close_grads(got[2], want[2], lambda key: grad_rel)
+
+
+def _close_grads(card, cpu, rel) -> None:
+    """Each gradient leaf of the card's run (on the card) within ``rel(
+    path)`` of its largest magnitude of the CPU's, compared on the card
+    one leaf at a time: the comparison's passes over several GB of fp32
+    took longer on the host than the CPU run itself."""
+    for (key, g), (_, c) in zip(tree_items(card), tree_items(cpu)):
+        c = c.to(g.device)
+        close(g, c, rel(key) * (float(c.abs().max()) or 1.0), 0.0,
               f"grad {key}")
 
 
@@ -3779,8 +3836,11 @@ def _free_card() -> None:
     torch.cuda.empty_cache()
 
 
+@_timed
 def _dense_train(cfg, box: list, card: str, cuts=None,
-                 remat: bool = False, held: bool = False) -> dict:
+                 remat: bool = False, held: bool = False,
+                 seq_len: int = TRAIN_LEN, batch0: int = TRAIN_BATCH,
+                 extra=None, extra_launches=None) -> dict:
     """4 AdamW steps of 8 x 1024 tokens (lr DENSE_LR) at the
     config's width and depth, every SLAY layer through K1, K3 and K4 once
     a step; a finite, falling loss. The step donates the weights and
@@ -3796,14 +3856,18 @@ def _dense_train(cfg, box: list, card: str, cuts=None,
     first batch, its loss after the 4 steps against before them, where
     the batches' own losses differ by more than 4 steps move them
     (hymba-1.5b's rose from batch to batch at every rate of 1e-5 to 1e-4
-    while its first batch's fell). Returns the launches (each kernel
-    once a SLAY layer and step, K1 twice with ``remat``)."""
+    while its first batch's fell). Batches are ``batch0`` x ``seq_len``
+    tokens unless cut; ``extra(batch, step)`` adds the frontend's inputs
+    to each (patch or frame embeddings on the card), and
+    ``extra_launches`` the launches a step makes besides (whisper's B7
+    and B8). Returns the launches (each kernel once a SLAY layer and
+    step, K1 twice with ``remat``)."""
     if cuts:
         log(f"  train {cfg.name}: from {cuts[0][0]} layers x batch "
             f"{cuts[0][1]} (TRAIN_CUTS: {cfg.num_layers} x {TRAIN_BATCH} did "
             f"not fit the card in PR 26's runs)")
     cuts = cuts or [(cfg.num_layers, b) for b in
-                    (TRAIN_BATCH, TRAIN_BATCH // 2, TRAIN_BATCH // 4)]
+                    (batch0, batch0 // 2, batch0 // 4) if b]
     ocfg = AdamWConfig(lr=DENSE_LR, warmup_steps=1,
                        total_steps=DENSE_TRAIN_STEPS)
     p = box.pop()
@@ -3818,8 +3882,13 @@ def _dense_train(cfg, box: list, card: str, cuts=None,
                                     loop.TrainConfig(remat=remat),
                                     donate=True)
         dcfg = pipeline.DataConfig(vocab_size=cfg.vocab_size,
-                                   seq_len=TRAIN_LEN, global_batch=batch,
+                                   seq_len=seq_len, global_batch=batch,
                                    seed=SEED)
+
+        def make(i, dcfg=dcfg, batch=batch):
+            b = pipeline.make_batch(dcfg, i)
+            return dict(b, **extra(batch, i)) if extra else b
+
         if p is None:
             p = tree_map_with_path(
                 lambda path, t: (t[:layers] if path.startswith("layers")
@@ -3832,8 +3901,7 @@ def _dense_train(cfg, box: list, card: str, cuts=None,
             for i in range(DENSE_TRAIN_STEPS):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                p, opt, ef, mx = step(p, opt, ef,
-                                      pipeline.make_batch(dcfg, i))
+                p, opt, ef, mx = step(p, opt, ef, make(i))
                 losses.append(float(mx["loss"]))
                 auxes.append(float(mx["moe_aux"]))
                 times.append(time.perf_counter() - t0)
@@ -3846,7 +3914,7 @@ def _dense_train(cfg, box: list, card: str, cuts=None,
         nxt = (f"cut to {cuts[n + 1][0]} layers x batch {cuts[n + 1][1]}"
                if n + 1 < len(cuts) else "no cut left")
         log(f"  train {cfg.name}: {layers} layers x batch {batch} x "
-            f"{TRAIN_LEN} does not fit the card ({why}); "
+            f"{seq_len} does not fit the card ({why}); "
             f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated after "
             f"it; {nxt}, the same weights copied back")
     else:
@@ -3856,25 +3924,27 @@ def _dense_train(cfg, box: list, card: str, cuts=None,
     launches = {k: n for k, n in _build.LAUNCHES.items() if n}
     per = {k: nl * DENSE_TRAIN_STEPS * (2 if remat and k == TRAIN_KERNELS[0]
                                         else 1) for k in TRAIN_KERNELS}
+    for k, n in (extra_launches or {}).items():
+        per[k] = n * DENSE_TRAIN_STEPS
     _expect_launches(launches, {k: n for k, n in per.items() if n},
                      f"train {cfg.name}")
     cut = (" (reduced)" if cfg.num_layers
            < configs.get_config(cfg.name).num_layers else " (full depth)")
     log(f"  train: {DENSE_TRAIN_STEPS} AdamW steps (lr {DENSE_LR:g}) of "
-        f"{batch} x {TRAIN_LEN} tokens, {cfg.num_layers} layers{cut}"
+        f"{batch} x {seq_len} tokens, {cfg.num_layers} layers{cut}"
         f"{', remat' if remat else ''}; "
         f"loss per step {', '.join(f'{x:.4f}' for x in losses)}"
         + (f" (moe_aux {', '.join(f'{x:.4f}' for x in auxes)})"
            if cfg.moe_experts else "") + "; ms per step "
         f"{', '.join(f'{x * 1e3:.1f}' for x in times)} (median of steps 2-"
         f"{DENSE_TRAIN_STEPS} {statistics.median(times[1:]) * 1e3:.1f} = "
-        f"{batch * TRAIN_LEN / statistics.median(times[1:]):.1f} tokens/s); "
+        f"{batch * seq_len / statistics.median(times[1:]):.1f} tokens/s); "
         f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB; "
         f"launches {launches}  [{card}]")
     last = losses[-1]
     if held:
         with torch.no_grad():
-            last = float(api.loss_fn(p, cfg, pipeline.make_batch(dcfg, 0))[0])
+            last = float(api.loss_fn(p, cfg, make(0))[0])
         log(f"  train: the first batch's loss {losses[0]:.4f} before the "
             f"{DENSE_TRAIN_STEPS} steps, {last:.4f} after them")
     if not all(np.isfinite(losses + [last])) or not last < losses[0]:
@@ -3976,6 +4046,7 @@ def _pool_parts(pool) -> str:
     return ", ".join(parts)
 
 
+@_timed
 def _long_prompt(cfg, params, card: str) -> int:
     """One 6144-token request (16 greedy tokens) on the continuous pool
     with rings of 4096 rows, chunks of 128: graphed and eager streams
@@ -4011,7 +4082,8 @@ def _long_prompt(cfg, params, card: str) -> int:
         f" {e_wall:.3f} s, streams equal; B4b {n_b}  [{card}]")
     with torch.inference_mode():
         logits, _ = api.prefill(params, cfg,
-                                torch.from_numpy(req.prompt[None]).cuda())
+                                torch.from_numpy(req.prompt[None]).cuda(),
+                                **_stand_ins(cfg))
     row = logits[0, -1].float()
     top2 = torch.topk(row, 2)
     gap, scale = float(top2.values[0] - top2.values[1]), float(row.abs().max())
@@ -4031,6 +4103,13 @@ def _long_prompt(cfg, params, card: str) -> int:
                                  f"prompt's first token {first} != whole-"
                                  f"prompt argmax {whole}")
     return n_b
+
+
+def _stand_ins(cfg, batch: int = 1) -> dict:
+    """The serving engines' zero frontend stand-ins of ``batch`` requests
+    on the card, as ``api.prefill`` keywords (none for a plain
+    decoder)."""
+    return engine._frontend_kw(cfg, batch, torch.device("cuda"))
 
 
 def _chunked_row(cfg, params, prompt) -> torch.Tensor:
@@ -4079,6 +4158,7 @@ def _ssm_long_check(cfg, params, prompt, whole_row, first: int,
     return drift >= gap
 
 
+@_timed
 def _banded_vs_masked(cfg, params, card: str) -> None:
     """gemma2's last-token logits of a 1 x 8192 prompt, the local layers
     through the banded route (8192 % 4096 == 0) against the same prompt
@@ -4174,27 +4254,31 @@ def phase_mixed(card: str) -> dict:
 
 SSM_ARCH, HYBRID = "mamba2-780m", "hymba-1.5b"
 SSM_ARCHS = (SSM_ARCH, HYBRID)
+# Each at half its depth (reduced, for the script's time: whole, the
+# phase took 218.7 s of a 926.0 s run on a fast host).
+SSM_LAYERS = {SSM_ARCH: 24, HYBRID: 16}
 # mamba2's durable runs: phase 13's trace and checkpoint cadence; the
 # cached run's prefix cache holds every snapshot the trace stores (20 of
-# 77.5 MB: one slot's SSD carry and conv tail, and the logits), the
-# crashed run has none (its checkpoints hold the pool alone).
+# 38.8 MB at 24 layers: one slot's SSD carry and conv tail, and the
+# logits), the crashed run has none (its checkpoints hold the pool alone).
 SSM_DUR_SERVING = dict(DUR_SERVING, prefix_cache_bytes=2 << 30)
 # Without a cache this trace's pool holds one request at a time, and none
 # at tick 64: the crashed run checkpoints every 216 ticks and dies at its
 # first step from tick 220, so the checkpoint before the crash (tick 217)
 # holds the carry of a request still live at the crash, and the restored
-# run writes one more (each is the 619.3 MB pool).
+# run writes one more (each is the 309.7 MB pool at 24 layers).
 SSM_CRASH_SERVING = dict(DUR_SERVING, prefix_cache_bytes=0,
                          checkpoint_every_ticks=216)
 SSM_CRASH = (220, 220)
 
 
+@_timed
 def _ssm_durable(cfg, params, card: str) -> None:
     """mamba2 on phase 13's trace (16 requests on a shared 384-token
     system prompt): a cached run's streams equal to a cold run's, its
     hits (12-15 by their whole prompt), no pin left; then the run without
     a cache crashed at tick 220 after a checkpoint of the pool (every
-    slot's SSD carry and tail, 619.3 MB) and restored, the cold run's
+    slot's SSD carry and tail, 309.7 MB) and restored, the cold run's
     streams, each token once. No SLAY kernel runs."""
     reqs = _dur_requests(cfg)
     runs = {}
@@ -4233,8 +4317,8 @@ def _ssm_durable(cfg, params, card: str) -> None:
 
 
 def phase_ssm(card: str) -> dict:
-    """mamba2-780m (48 SSD layers, no attention) and hymba-1.5b (32
-    layers of SLAY at G = 5 beside SSD heads) at full width and full depth
+    """mamba2-780m (24 of 48 SSD layers, no attention) and hymba-1.5b
+    (16 of 32 layers of SLAY at G = 5 beside SSD heads) at full width
     (phase 24), random weights from the seed drawn on the host: phase 8's
     prompts lockstep, graphed and eager; phase 12's trace on the 8-slot
     pool, graphed, and its first 4 requests again graphed and eager; a
@@ -4251,7 +4335,7 @@ def phase_ssm(card: str) -> dict:
     for name in SSM_ARCHS:
         _free_card()
         t_cfg = time.perf_counter()
-        cfg, params = _dense_init(name, None, card)
+        cfg, params = _dense_init(name, SSM_LAYERS[name], card)
         di = cfg.ssm_expand * cfg.d_model
         slot = _tree_mb(api.abstract_cache(cfg, 1))
         log(f"  SSD blocks: d_inner {di}, {di // cfg.ssm_head_dim} heads of "
@@ -4275,6 +4359,382 @@ def phase_ssm(card: str) -> dict:
     return out
 
 
+# -- internvl2-76b's vision prefix and whisper-small (phase 25) ------------
+
+VISION, AUDIO = "internvl2-76b", "whisper-small"
+FRONTEND_ARCHS = (VISION, AUDIO)
+# internvl2 served at 4 of its 80 layers (reduced: 80 would draw 70.6 B
+# values, 141 GB in bf16, which no H100 holds); trained at 2 on 4 x 768
+# text tokens behind its 256 patch rows, the batch halved only if the
+# card cannot hold it.
+VISION_LAYERS, VISION_TRAIN_LAYERS = 4, 2
+VISION_TRAIN_BATCH, VISION_TRAIN_LEN = 4, 768
+# whisper-small whole (12 + 12 layers); trained on 8 x 448 tokens (the
+# decoder context of arXiv:2212.04356, not a config field) over 1500
+# frames.
+AUDIO_TRAIN_BATCH, AUDIO_TRAIN_LEN = 8, 448
+AUDIO_FP32_LAYERS = 2          # encoder and decoder layers held to the CPU
+# The cross-attention's query and key side: gradients 1e-3 of the other
+# leaves' (the normalisation of a non-causal linear attention nearly
+# cancels them), where fp32 alone puts the JAX package's CPU run 0.7-1.1e-4
+# of their largest from its float64 run (2 + 2 layers at full width) and
+# the card 4.3e-4 from the CPU; held to 1e-3.
+AUDIO_CROSS_QK = ("dec_layers/cross/wq", "dec_layers/cross/wk",
+                  "dec_layers/pre_cross")
+
+
+def _b7_per_pass(cfg) -> int:
+    """B7 launches of one forward over whisper: Ψ of q and of k in every
+    encoder layer's self-attention and every decoder layer's
+    cross-attention (the decoder's self-attention runs K1)."""
+    return 2 * (cfg.enc_layers + cfg.num_layers)
+
+
+def _embeds(shape, step: int) -> torch.Tensor:
+    """Random bf16 frontend embeddings on the card, from the seed."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 100 + step)
+    return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+
+def _vision(card: str) -> dict:
+    """internvl2-76b at full width, 4 of 80 layers: phase 8's prompts
+    behind the zero 256-row prefix (lockstep, graphed and eager), phase
+    12's trace on the 8-slot pool with each prefix absorbed in 2 chunks of
+    128, a full-pool dispatch under the profiler beside the weights'
+    read, a 6144-token prompt behind the prefix chunked against whole,
+    fp32 at 2 layers against the CPU, 4 AdamW steps at 2 layers. Returns
+    (the launches, no kernel numbers)."""
+    cfg, params = _dense_init(VISION, VISION_LAYERS, card)
+    log(f"  vision prefix: {cfg.num_patches} patch rows ahead of every "
+        f"prompt (zero stand-ins for the frontend's embeddings)")
+    got = collections.Counter(_dense_lockstep(cfg, params, card))
+    got["slay_decode_step_masked"] += _dense_continuous(cfg, params, card)
+    got["slay_decode_step_masked"] += _long_prompt(cfg, params, card)
+    _dense_fp32(cfg, params, card)
+    n = VISION_TRAIN_LAYERS
+    params = tree_map_with_path(
+        lambda path, t: (t[:n].clone() if path.startswith("layers") else t),
+        params)
+    box = [params]
+    del params
+    got.update(_dense_train(
+        dataclasses.replace(cfg, num_layers=n), box, card,
+        seq_len=VISION_TRAIN_LEN, batch0=VISION_TRAIN_BATCH, held=True,
+        extra=lambda b, i: {"patch_embeds": _embeds(
+            (b, cfg.num_patches, cfg.d_model), i)}))
+    return dict(got), {}
+
+
+@_timed
+def _audio_continuous(cfg, params, card: str) -> int:
+    """Phase 12's trace on the 8-slot pool through whisper's whole-prompt
+    prefill (one tick a request over 1500 zero frames: K1 once a decoder
+    layer, B7 twice an encoder and a decoder layer; no prefix cache, no
+    bucket), decode graphed (B4b once a layer and tick); its first 4
+    requests again graphed and eager; the pool's MB under SLAY against
+    softmax, reckoned from the shapes; a full-pool dispatch under the
+    profiler beside the decoder's weights and the pool state read once.
+    Returns the launches."""
+    nl, K = cfg.num_layers, CONT_SERVING["macro_ticks"]
+    reqs = _cont_requests(cfg)
+    _cont_run(cfg, params, reqs[:2])                       # warm-up
+    timed: dict = {}
+    _build.reset_launches()
+    outs, s, eng, wall = _cont_run(cfg, params, reqs, timed=timed)
+    launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+    d = s["decode_dispatches"]
+    _expect_launches(launches, {
+        "slay_decode_step_masked": nl * K * d,
+        "slay_fused_fwd": nl * CONT_REQUESTS,
+        "feature_map_fwd": _b7_per_pass(cfg) * CONT_REQUESTS},
+        f"{cfg.name} continuous")
+    for rid, r in enumerate(reqs):
+        o = outs[rid]
+        if (len(o) != r.max_new_tokens or o.min() < 0
+                or o.max() >= cfg.vocab_size):
+            raise AssertionError(f"{cfg.name}: bad stream rid {rid}: {o}")
+    graphs = eng.graph_cache_entries()
+    if not (s["requests_completed"] == CONT_REQUESTS
+            and s["prefill_ticks"] == CONT_REQUESTS
+            and s["bucket_hits"] == 0 == s["bucket_misses"]
+            and eng.prefix_cache is None
+            and graphs == {"macro_decode": 1, "chunk": 0}):
+        raise AssertionError(f"{cfg.name} continuous: {s}, graphs {graphs}")
+    disp, pre = timed["_decode_macro"], timed["_prefill_tick"]
+    dec_tokens = s["tokens_generated"] - CONT_REQUESTS
+    slot = {kind: _tree_mb(api.abstract_cache(
+        dataclasses.replace(cfg, attn_kind=kind), 1,
+        CONT_SERVING["max_len"])) for kind in ("slay", "softmax")}
+    enc_kv = _tree_mb(api.abstract_cache(
+        dataclasses.replace(cfg, attn_kind="softmax"), 1, 1).cross_s) * 2
+    log(f"  continuous: {wall:.3f} s, {s['ticks']} ticks ({s['prefill_ticks']}"
+        f" whole-prompt prefills, {d} dispatches), launches {launches}; ms "
+        f"per dispatch median {statistics.median(disp) * 1e3:.2f}, prefill "
+        f"tick median {statistics.median(pre) * 1e3:.2f} (encoder, prompt "
+        f"and cross state, eager); pool decode {dec_tokens / sum(disp):.1f} "
+        f"tokens/s  [{card}]")
+    log(f"  decode state a slot: SLAY {slot['slay']:.1f} MB (self and cross "
+        f"(S, z)); softmax {slot['softmax']:.1f} MB at max_len "
+        f"{CONT_SERVING['max_len']} ({enc_kv:.1f} MB of it the encoder's "
+        f"fp32 keys and values); the pool {_tree_mb(eng.pool):.1f} MB")
+    sub = reqs[:DENSE_SUB]
+    graphed, _, _, g_wall = _cont_run(cfg, params, sub)
+    eager, _, _, e_wall = _cont_run(cfg, params, sub, graphs=False)
+    _same_streams(outs, graphed, f"{cfg.name} continuous rids 0-3, graphed")
+    _same_streams(outs, eager, f"{cfg.name} continuous rids 0-3, eager")
+    log(f"  rids 0-{DENSE_SUB - 1} alone, graphed {g_wall:.3f} s and eager "
+        f"{e_wall:.3f} s: streams equal to the whole run's")
+    pool_mb = _tree_mb(eng.pool)
+    del eng
+    wall_ms = _cont_profile(cfg, params, card, pieces=False, sampled=False,
+                            eager=False)["graphed"]
+    dec_mb = _tree_mb({k: v for k, v in params.items()
+                       if k not in ("enc_layers", "enc_pos", "enc_norm")})
+    floor = (dec_mb + pool_mb) * 1e6 / HBM_BYTES_PER_S * 1e3
+    log(f"  a full-pool tick {wall_ms / K:.3f} ms graphed against {floor:.3f}"
+        f" ms to read the decoder's {dec_mb:.1f} MB of weights and the "
+        f"{pool_mb:.1f} MB pool once at 3.35 TB/s ({floor / (wall_ms / K):.1%}"
+        f" of it)  [{card}]")
+    return launches
+
+
+@_timed
+def _audio_fp32(cfg, params, card: str) -> None:
+    """whisper's first 2 encoder and 2 decoder layers widened to fp32, on
+    the card against the port's CPU plain path, over random frames from
+    the seed: a 128-token prompt's last-token prefill logits and 2 decode
+    steps' logits; the loss and every gradient of one 1 x 256 batch (the
+    cross-attention's query and key side to 1e-3 of its largest,
+    ``AUDIO_CROSS_QK``)."""
+    n = AUDIO_FP32_LAYERS
+    cfg32 = dataclasses.replace(cfg, num_layers=n, enc_layers=n,
+                                dtype="float32")
+    p32 = tree_map_with_path(
+        lambda path, t: (t[:n] if path.startswith(("enc_layers",
+                                                   "dec_layers"))
+                         else t).float(), params)
+    rng = np.random.default_rng(SEED + 13)
+    frames = torch.from_numpy(rng.standard_normal(
+        (1, cfg.enc_seq, cfg.d_model)).astype(np.float32))
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (1, DENSE_FP32_PROMPT)).astype(np.int32))
+    toks = [torch.tensor([[int(t)]], dtype=torch.int32)
+            for t in rng.integers(0, cfg.vocab_size, 2)]
+    batch = dict(pipeline.make_batch(pipeline.DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=256, global_batch=1, seed=SEED),
+        0), frame_embeds=frames)
+
+    def run(p):
+        with torch.inference_mode():
+            lg, cache = api.prefill(p, cfg32, prompt, frame_embeds=frames)
+            rows = [lg[0, -1].cpu()]
+            for t in toks:
+                lg, cache = api.decode_step(p, cfg32, cache, t)
+                rows.append(lg[0, -1].cpu())
+        loss, _, grads = loop.value_and_grad(p, cfg32, batch)
+        return rows, loss.cpu(), grads
+
+    _build.reset_launches()
+    got = run(p32)
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    b7 = _b7_per_pass(cfg32)
+    _expect_launches(launches, {
+        "slay_fused_fwd": 2 * n, "slay_decode_step": 2 * n,
+        "feature_map_fwd": 2 * b7, "feature_map_bwd": b7,
+        "slay_fused_bwd_q": n, "slay_fused_bwd_kv": n},
+        f"{cfg.name} fp32 at {n} + {n} layers")
+    p_cpu = tree_map(lambda t: t.cpu(), p32)
+    del p32
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    want = run(p_cpu)
+    log(f"  card fp32 vs CPU plain fp32, {n} encoder and {n} decoder layers "
+        f"at full width over {cfg.enc_seq} random frames: a "
+        f"{DENSE_FP32_PROMPT}-token prompt and 2 decode steps, the loss and "
+        f"gradients of 1 x 256 tokens (CPU {time.perf_counter() - t0:.1f} s;"
+        f" launches on the card {launches}):")
+    for i, (g, w) in enumerate(zip(got[0], want[0])):
+        close(g, w, 1e-5 * float(w.abs().max()), 0.0,
+              "prefill logits" if i == 0 else f"decode step {i} logits")
+    close(got[1], want[1], 0.0, 1e-5, "loss")
+    _close_grads(got[2], want[2],
+                 lambda key: 1e-3 if key in AUDIO_CROSS_QK else 1e-4)
+
+
+@_timed
+def _audio_fmap(cfg, params) -> dict:
+    """B7 and B8 at whisper's shapes, bf16, head dim 64: N = 8 x 1500 x 12
+    rows (an encoder layer's q in the 8 x 448 training batch) against
+    their plain versions, timed beside their bounds, and N = 1500 x 12
+    (one request's prefill) checked. Returns each kernel's numbers at the
+    training shape."""
+    feat, sp = cfg.slay_config(), params["slay"]
+    a, w = sp["anchors"], sp["omegas"]
+    d, m = feat.head_dim, feat.feature_dim
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    rows = {}
+    for n in (AUDIO_TRAIN_BATCH * cfg.enc_seq * cfg.num_heads,
+              cfg.enc_seq * cfg.num_heads):
+        log(f"B7/B8 at whisper's shape: N={n}, d={d}, m={m}, bf16")
+        u = torch.randn(n, d, generator=gen, device="cuda").to(torch.bfloat16)
+        dpsi = torch.randn(n, m, generator=gen,
+                           device="cuda").to(torch.bfloat16)
+        e7 = close(feature_map.launch_fwd(u, a, w, feat),
+                   feature_map.feature_map_plain(u, a, w, feat),
+                   *PSI_TOL[torch.bfloat16], "psi")
+        bwd = (u, a, w, dpsi, feat)
+        e8 = _check_grads(feature_map.feature_map_bwd(*bwd),
+                          feature_map.feature_map_bwd_plain(*bwd), FMAP_OUT,
+                          torch.bfloat16, "B8 vs plain")
+        if rows:
+            continue
+        bounds = feature_map_bounds(n, d, feat.num_anchors, feat.num_prf,
+                                    feat.num_quad_nodes, u.element_size())
+        for name, kern, plain, err in (
+                ("feature_map_fwd",
+                 lambda: feature_map.launch_fwd(u, a, w, feat),
+                 lambda: feature_map.feature_map_plain(u, a, w, feat), e7),
+                ("feature_map_bwd", lambda: feature_map.launch_bwd(*bwd),
+                 lambda: feature_map.feature_map_bwd_plain(*bwd), e8)):
+            row = rows[name] = _kernel_row(
+                name, time_ms(kern), time_ms(plain, iters=10), bounds[name],
+                err, "the feature map")
+            row["device_ms"] = device_ms(kern)
+            row["n"] = n
+            log(f"  {name}: {row['device_ms']:.4f} ms on the card without "
+                f"the wrapper's host time")
+    return rows
+
+
+def _audio(card: str) -> tuple:
+    """whisper-small whole (12 encoder and 12 decoder layers x 768, 1500
+    frames): phase 8's prompts over 1500 zero frames, lockstep graphed
+    and eager (K1 once a decoder layer, B7 twice an encoder and a decoder
+    layer, B4a once a decoder layer and step); phase 12's trace through
+    the whole-prompt prefill; fp32 at 2 + 2 layers against the CPU; B7
+    and B8 at its shapes; 4 AdamW steps of 8 x 448 tokens over 1500
+    random frames (K1, K3, K4 once a decoder layer, B7 and B8 twice an
+    encoder and a decoder layer, a step). Returns (launches, B7/B8
+    numbers)."""
+    cfg, params = _dense_init(AUDIO, None, card)
+    b7 = _b7_per_pass(cfg)
+    log(f"  encoder: {cfg.enc_layers} layers over {cfg.enc_seq} frames "
+        f"(zero stand-ins when served); the decoder's cross-attention reads "
+        f"its (S, z) summaries")
+    got = collections.Counter(_dense_lockstep(
+        cfg, params, card, extra_want={"feature_map_fwd": b7}))
+    got.update(_audio_continuous(cfg, params, card))
+    _audio_fp32(cfg, params, card)
+    fmap = _audio_fmap(cfg, params)
+    box = [params]
+    del params
+    got.update(_dense_train(
+        cfg, box, card, seq_len=AUDIO_TRAIN_LEN, batch0=AUDIO_TRAIN_BATCH,
+        held=True, extra=lambda b, i: {"frame_embeds": _embeds(
+            (b, cfg.enc_seq, cfg.d_model), i)},
+        extra_launches={"feature_map_fwd": b7, "feature_map_bwd": b7}))
+    return dict(got), fmap
+
+
+@_timed
+def _bucketed(card: str) -> dict:
+    """Full-width slayformer-124m on phase 12's trace with
+    ``prefill_chunk=0``: every prompt right-padded to its pow-2 bucket and
+    prefilled whole through K1 (once a layer and request), masked by its
+    true length; the bucket counters; the greedy streams against the
+    chunked run's (bf16: equal, or parted at a bf16 near-tie of the
+    whole-prompt path; fp32: equal up to each stream's first near-tie, 4
+    requests). Returns (the launches, no kernel numbers)."""
+    cfg = configs.get_config("slayformer-124m")
+    params = api.init_params(cfg, SEED, device="cuda")
+    nl, K = cfg.num_layers, CONT_SERVING["macro_ticks"]
+    reqs = _cont_requests(cfg)
+    runs, total = {}, collections.Counter()
+    for name, C in (("chunked", CONT_SERVING["prefill_chunk"]),
+                    ("bucketed", 0)):
+        timed: dict = {}
+        _build.reset_launches()
+        outs, s, eng, wall = _cont_run(cfg, params, reqs, timed=timed,
+                                       prefill_chunk=C)
+        launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+        want = {"slay_decode_step_masked": nl * K * s["decode_dispatches"]}
+        if not C:
+            want["slay_fused_fwd"] = nl * CONT_REQUESTS
+        _expect_launches(launches, want, f"slayformer {name} run")
+        total.update(launches)
+        runs[name] = outs
+        pre = timed["_prefill_tick"]
+        log(f"  slayformer, prefill_chunk={C} ({name}): {wall:.3f} s, "
+            f"{s['prefill_ticks']} prefill ticks (median "
+            f"{statistics.median(pre) * 1e3:.2f} ms), bucket hits "
+            f"{s['bucket_hits']}, misses {s['bucket_misses']}, TTFT p50 "
+            f"{s['ttft_ticks_p50']} ticks; launches {launches}  [{card}]")
+        if not C:
+            lo = ServingConfig(**CONT_SERVING).prefill_bucket_min
+            buckets = {engine._bucket_len(len(r.prompt), lo,
+                                          CONT_SERVING["max_len"])
+                       for r in reqs}
+            if not (s["bucket_misses"] == len(buckets)
+                    and s["bucket_hits"] == CONT_REQUESTS - len(buckets)
+                    and s["prefill_ticks"] == CONT_REQUESTS):
+                raise AssertionError(f"bucketed run: {s}, buckets "
+                                     f"{sorted(buckets)}")
+        del eng
+    parted = []
+    for rid, r in enumerate(reqs):
+        a, b = runs["chunked"][rid], runs["bucketed"][rid]
+        if np.array_equal(a, b):
+            continue
+        j = int(np.flatnonzero(a[:len(b)] != b[:len(a)])[0])
+        gap, scale = _greedy_gaps(params, cfg, r.prompt, b[:j + 1])[j]
+        if gap >= LONG_GAP_FRAC * scale:
+            raise AssertionError(f"bucketed rid {rid} parts from the chunked "
+                                 f"run at token {j} with a top-2 gap {gap:.4f}"
+                                 f" of {scale:.3f}: not a near-tie")
+        parted.append((rid, j, gap))
+    log(f"  bf16 streams, bucketed vs chunked: {CONT_REQUESTS - len(parted)} "
+        f"of {CONT_REQUESTS} equal; parted at bf16 near-ties (rid, token, "
+        f"top-2 gap): {parted}")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    sub = reqs[:CONT_FP32]
+    chunked, _, _, _ = _cont_run(cfg32, p32, sub)
+    whole, _, _, _ = _cont_run(cfg32, p32, sub, prefill_chunk=0)
+    compared = 0
+    for rid, r in enumerate(sub):
+        gaps = _greedy_gaps(p32, cfg32, r.prompt, whole[rid])
+        n = next((i for i, (g, sc) in enumerate(gaps) if g < GAP_FRAC * sc),
+                 len(whole[rid]))
+        if not np.array_equal(chunked[rid][:n], whole[rid][:n]):
+            raise AssertionError(f"fp32 rid {rid}: bucketed {whole[rid]} vs "
+                                 f"chunked {chunked[rid]} before {n}")
+        compared += n
+    log(f"  fp32, {len(sub)} requests: bucketed and chunked streams equal over"
+        f" {compared} of {sum(len(o) for o in whole.values())} tokens (up to "
+        f"each stream's first near-tie)")
+    del params, p32
+    _free_card()
+    return dict(total), {}
+
+
+def phase_frontends(card: str) -> tuple:
+    """internvl2-76b's vision prefix at full width (4 of 80 layers),
+    whisper-small whole, and slayformer-124m's bucketed whole-prompt
+    prefill (phase 25). Returns ({config: launches}, whisper's B7/B8
+    numbers)."""
+    t_phase = time.perf_counter()
+    out, numbers = {}, {}
+    for name, fn in ((VISION, _vision), (AUDIO, _audio),
+                     ("slayformer-124m", _bucketed)):
+        _free_card()
+        t_cfg = time.perf_counter()
+        out[name], numbers[name] = fn(card)
+        log(f"{name}: {time.perf_counter() - t_cfg:.1f} s; launches "
+            f"{out[name]}  [{card}]")
+    log(f"the frontends: {time.perf_counter() - t_phase:.1f} s")
+    return out, numbers[AUDIO]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; it needs an "
@@ -4286,7 +4746,8 @@ def main() -> int:
     _HOST_DRAWS = _HostDraws(
         [(n, DENSE_SERVE_LAYERS.get(n, DENSE_LAYERS)) for n in DENSE_ARCHS]
         + [(n, MIXED_LAYERS[n]) for n in MIXED_ARCHS]
-        + [(n, None) for n in SSM_ARCHS])
+        + [(n, SSM_LAYERS[n]) for n in SSM_ARCHS]
+        + [(VISION, VISION_LAYERS), (AUDIO, None)])
     phase_build()
     cfg = configs.get_config("slayformer-124m")
     feat = cfg.slay_config()
@@ -4318,6 +4779,7 @@ def main() -> int:
     dense = phase_dense(card_line)
     mixed = phase_mixed(card_line)
     ssm = phase_ssm(card_line)
+    front, audio_fmap = phase_frontends(card_line)
     k2_bl = k2.pop("baselines")
     kernels = [
         dict(name="slay_fused_fwd", route="cuda",
@@ -4382,6 +4844,16 @@ def main() -> int:
             arch: dict(dense_k.get(name, {}).get(arch, {}),
                        launches=mixed[arch].get(name, 0))
             for arch in MIXED_ARCHS}
+    # Phase 25's launches join every row's count, per config under
+    # ``frontends`` (whisper's B7 and B8 rows with their numbers at its
+    # shapes).
+    for row in kernels:
+        name = row["name"]
+        row["launches"] += sum(d.get(name, 0) for d in front.values())
+        row["frontends"] = {arch: dict(audio_fmap.get(name, {})
+                                       if arch == AUDIO else {},
+                                       launches=d.get(name, 0))
+                            for arch, d in front.items()}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi())
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,8 +1,10 @@
 """Config registry of the port: slayformer-124m, the dense decoders
 phi4-mini-3.8b, granite-20b and qwen3-32b, gemma2-27b (local/global
 layers), the top-2 MoE decoders phi3.5-moe-42b-a6.6b and grok-1-314b,
-and the SSM families mamba2-780m (attention-free) and hymba-1.5b
-(attention beside mamba heads), with every attention kind of the port
+the SSM families mamba2-780m (attention-free) and hymba-1.5b
+(attention beside mamba heads), internvl2-76b (a vision patch prefix
+ahead of a decoder) and whisper-small (encoder-decoder), all 11 of the
+JAX package's configs, with every attention kind of the port
 (``core.slay.ATTN_KINDS``) as an override (not on mamba2, which has no
 attention).
 
@@ -27,6 +29,8 @@ _MODULES = {
     "grok-1-314b": "grok1_314b",
     "mamba2-780m": "mamba2_780m",
     "hymba-1.5b": "hymba_1_5b",
+    "internvl2-76b": "internvl2_76b",
+    "whisper-small": "whisper_small",
 }
 # The ported configs (the command-line drivers' --arch choices).
 ALL_ARCHS = tuple(_MODULES)
@@ -35,7 +39,7 @@ ALL_ARCHS = tuple(_MODULES)
 def _module(name: str):
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; the port has "
-                       f"{sorted(_MODULES)} (ROADMAP Queue A item 12)")
+                       f"{sorted(_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
 
 

@@ -9,9 +9,11 @@ layers (a sliding-window softcapped softmax on every layer but each
 ``local_global_period``-th) and the top-k MoE layer; the SSM families,
 ``family="ssm"`` (mamba2: SSD blocks only, ``attn_kind="none"``) and
 ``family="hybrid"`` (hymba: attention beside SSD heads in every layer),
-with the SSD block's ``ssm_*`` fields. Encoder-decoder and modality
-frontends are not ported yet (ROADMAP Queue A item 12); their fields are
-here only so that :meth:`ArchConfig.check_supported` refuses them.
+with the SSD block's ``ssm_*`` fields; the modality frontend stubs,
+``frontend="vision"`` (internvl2: ``num_patches`` precomputed patch
+embeddings ahead of the tokens) and ``family="encdec"`` with
+``frontend="audio"`` (whisper: ``enc_layers`` encoder layers over
+``enc_seq`` precomputed frame embeddings, ``models/whisper.py``).
 ``ServingConfig`` has the reference's fields, defaults and validation.
 """
 from __future__ import annotations
@@ -28,7 +30,7 @@ from repro_torch.core.slay import ATTN_KINDS, AttentionSpec
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                      # decoder | ssm | hybrid
+    family: str                      # decoder | ssm | hybrid | encdec
     num_layers: int
     d_model: int
     vocab_size: int
@@ -53,8 +55,12 @@ class ArchConfig:
     ssm_head_dim: int = 64
     ssm_ngroups: int = 1
     ssm_conv_width: int = 4
-    # Not ported (check_supported refuses it): a modality frontend.
+    # Encoder-decoder (whisper)
+    enc_layers: int = 0
+    enc_seq: int = 0                  # precomputed frame embeddings length
+    # Modality frontend stub: "" | "audio" | "vision"
     frontend: str = ""
+    num_patches: int = 0              # VLM: patch-embedding prefix length
     attn_kind: str = "slay"          # core.slay.ATTN_KINDS; "none" for ssm
     slay_anchors: int = 8
     slay_prf: int = 16
@@ -102,17 +108,15 @@ class ArchConfig:
                              chunk_size=self.chunk_size)
 
     def check_supported(self) -> None:
-        if self.family not in ("decoder", "ssm", "hybrid"):
-            what = {"encdec": ", A12b and A5's encoder-decoder"}
+        if self.family not in ("decoder", "ssm", "hybrid", "encdec"):
             raise NotImplementedError(
-                f"{self.name}: family={self.family!r} is not ported yet; "
-                f"the port has the decoder, ssm and hybrid families so far "
-                f"(ROADMAP Queue A item 12{what.get(self.family, '')})")
-        if self.frontend:
+                f"{self.name}: family={self.family!r}; the port has the "
+                f"decoder, ssm, hybrid and encdec families")
+        if self.frontend not in ("", "vision", "audio"):
             raise NotImplementedError(
-                f"{self.name}: frontend={self.frontend!r} (a modality "
-                f"frontend) is not ported yet (ROADMAP Queue A item 12, "
-                f"A12b's vision prefix)")
+                f"{self.name}: frontend={self.frontend!r}; the port has "
+                f"the 'vision' patch prefix and the 'audio' frames of an "
+                f"encoder-decoder")
         if (self.family == "ssm") != (self.attn_kind == "none"):
             raise ValueError(
                 f"{self.name}: attn_kind={self.attn_kind!r} with family="
@@ -138,7 +142,13 @@ class ServingConfig:
     many rows drawn from one pool of ``num_pages`` (0: every slot's full
     ring), allocated per request by its context (``serving.pages``); the
     linear kinds ignore it. Prompts are absorbed
-    ``prefill_chunk`` tokens per engine tick; ``decode_ticks_per_prefill``
+    ``prefill_chunk`` tokens per engine tick (a vision config's patch
+    prefix first, as zero embedding rows); with ``prefill_chunk=0``, or
+    for a config that cannot chunk (encdec), a whole prompt is absorbed
+    in one tick: right-padded to a pow-2 bucket of at least
+    ``prefill_bucket_min`` rows and masked by its true length where the
+    config takes a masked prefill and ``prefill_buckets`` is on, else
+    prefilled at its own length. ``decode_ticks_per_prefill``
     decode ticks run between two prefill chunks when both kinds of work
     wait. ``macro_ticks`` (K) decode ticks run per dispatch with sampling
     on the card, and the host pulls one (K, num_slots) token buffer per
@@ -240,8 +250,6 @@ class ServingConfig:
         later = [
             (self.slot_shards > 1, f"slot_shards={self.slot_shards} (a "
              f"sharded slot pool, ROADMAP Queue A item 13)"),
-            (self.prefill_chunk == 0, "prefill_chunk=0 (the bucketed "
-             "whole-prompt prefill fallback, ROADMAP Queue A item 12)"),
         ]
         for bad, what in later:
             if bad:

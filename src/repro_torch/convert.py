@@ -9,7 +9,10 @@ attn.{wq,wk,wv,wo}, mlp.{up,down,gate}}`` with qk-norm's
 gate, up, down}`` in place of ``mlp``, an SSM config's
 ``layers.ssd.{in_proj, conv_w, conv_b, a_log, dt_bias, d_skip, norm,
 out_proj}`` (mamba2's layers hold only ``pre`` and ``ssd``),
-``slay.{anchors,omegas}``) as torch tensors.
+whisper's ``enc_pos``, ``enc_norm``, ``enc_layers`` and ``dec_layers``
+(the decoder's with ``pre_cross`` and ``cross.{wq,wk,wv,wo}``),
+``slay.{anchors,omegas}``) as torch tensors; any nesting converts, leaf
+by leaf.
 ``params_to_numpy`` goes the other way. bf16 goes through fp32 both ways:
 numpy has no bf16 of its own, and the cast is exact.
 """

@@ -50,6 +50,15 @@ def slay_attention(params: dict, q, k, v, cfg: SlayFeatureConfig, *,
                                      delta=delta)
 
 
+def slay_cross_attention(params: dict, q, k, v, cfg: SlayFeatureConfig,
+                         delta: float = 1e-6):
+    """Non-causal cross-attention (whisper's decoder over its encoder):
+    q (..., Lq, H, Dh) against k/v (..., Lk, Hkv, *) of another length,
+    Ψ through the feature-map kernel, then :func:`linear_attention.
+    noncausal`."""
+    return slay_attention(params, q, k, v, cfg, causal=False, delta=delta)
+
+
 @dataclasses.dataclass(frozen=True)
 class AttentionSpec:
     """Which attention mechanism a model layer uses."""

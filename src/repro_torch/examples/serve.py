@@ -5,15 +5,19 @@ decodes from a constant-size (S, z) state, the exact kinds from a KV
 ring. ``--arch`` takes every config of ``configs.ALL_ARCHS``: the
 dense decoders, gemma2-27b (windowed KV rings of its local layers
 beside the global layers' state in one slot pool) and the MoE decoders
-phi3.5-moe-42b-a6.6b and grok-1-314b, and the SSM families mamba2-780m
+phi3.5-moe-42b-a6.6b and grok-1-314b, the SSM families mamba2-780m
 (attention-free: each slot carries its SSD scan state and conv tail) and
-hymba-1.5b (that carry beside the attention state). It runs on the card
-unless given ``--device cpu``::
+hymba-1.5b (that carry beside the attention state), internvl2-76b (each
+request behind a zero vision patch prefix, absorbed in chunks) and
+whisper-small (encoder-decoder over zero audio frames, each prompt
+prefilled whole), the frontends' stand-ins as the JAX driver's. It runs
+on the card unless given ``--device cpu``::
 
     python -m repro_torch.examples.serve --attn-kind favor
     python -m repro_torch.examples.serve --lockstep
     python -m repro_torch.examples.serve --arch gemma2-27b
     python -m repro_torch.examples.serve --arch mamba2-780m --no-smoke
+    python -m repro_torch.examples.serve --arch whisper-small --lockstep
     PYTHONPATH=src python -m repro_torch.examples.serve --device cpu \\
         --attn-kind softmax --page-size 16 --prefix-cache 64
 
@@ -23,7 +27,8 @@ The smoke config is served by default, as by the JAX driver;
 cache (``--prefix-cache`` MB) keep the streams byte-identical;
 ``--speculative`` drafts with the SLAY twin of an exact verifier
 (yat_spherical unless ``--attn-kind`` names another exact kind; not
-for the SSM families, whose carry cannot be rewound). mamba2 has no
+for the SSM families, whose carry cannot be rewound; the engine refuses
+it for internvl2 and whisper, as the reference's). mamba2 has no
 attention, so ``--attn-kind`` is refused for it. A sharded slot pool
 (``--slot-shards`` > 1) is not ported yet.
 """

@@ -10,7 +10,10 @@ the linear baselines favor, cosformer, elu1, and the exact softmax, yat,
 yat_spherical; not on mamba2, which has no attention); ``--arch`` any
 config of ``configs.ALL_ARCHS`` (the MoE decoders report their
 load-balance loss as ``moe_aux``; mamba2-780m and hymba-1.5b train their
-SSD blocks by plain autograd). It runs on the card unless given
+SSD blocks by plain autograd). The synthetic batches carry tokens and
+labels only, as the JAX driver's (``data/pipeline.py``): internvl2-76b
+trains as a plain decoder without its patch prefix, and whisper-small,
+which needs frame embeddings, is refused. It runs on the card unless given
 ``--device cpu``::
 
     python -m repro_torch.examples.train_slayformer --preset paper \\
@@ -78,8 +81,13 @@ def parse_args(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
-    if args.attn_kind and configs.get_config(args.arch).family == "ssm":
+    family = configs.get_config(args.arch).family
+    if args.attn_kind and family == "ssm":
         ap.error(f"--attn-kind: {args.arch} has no attention")
+    if family == "encdec":
+        ap.error(f"--arch {args.arch}: an encoder-decoder trains on frame "
+                 f"embeddings (batch['frame_embeds']), and the synthetic "
+                 f"LM batches carry tokens and labels only")
     return args
 
 

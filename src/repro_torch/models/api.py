@@ -1,15 +1,23 @@
 """Family-dispatching model API: the decoder family (dense or top-k MoE,
-gemma2's local/global layers; SLAY, the linear baselines favor,
-cosformer, elu1 and the exact kinds softmax, yat, yat_spherical) and the
-SSM families ``ssm`` (mamba2, attention-free SSD layers) and ``hybrid``
-(hymba, attention beside SSD heads), all in ``models.transformer``, as in
-the reference (whose ``encdec`` goes to ``whisper``, not ported yet).
+gemma2's local/global layers, internvl2's vision patch prefix; SLAY, the
+linear baselines favor, cosformer, elu1 and the exact kinds softmax,
+yat, yat_spherical) and the SSM families ``ssm`` (mamba2, attention-free
+SSD layers) and ``hybrid`` (hymba, attention beside SSD heads), all in
+``models.transformer``, and ``encdec`` (whisper) in ``models.whisper``,
+as in the reference.
 
     params    = api.init_params(cfg, seed, device="cuda")
     logits, _ = api.forward(params, cfg, tokens)
     loss, mx  = api.loss_fn(params, cfg, batch)     # batch: tokens, labels
     logits, c = api.prefill(params, cfg, tokens)
     logits, c = api.decode_step(params, cfg, c, tokens)
+
+The reference's ``forward`` and ``prefill`` take a batch dict; the port's
+take the tokens and the frontend stand-ins as keywords
+(``patch_embeds=`` (B, P, d) for a vision config, ``frame_embeds=`` (B,
+enc_seq, d) for encdec, which needs them), so every caller of a plain
+decoder keeps its call; ``loss_fn`` reads both from its batch, as the
+reference's does.
 
 and the slot surface of a pooled cache for continuous batching
 (``reset_slot``, ``write_slot``, ``prefill_chunk``, ...) with its
@@ -23,29 +31,33 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.features import init_feature_params
-from repro_torch.models import transformer
+from repro_torch.models import transformer, whisper
 
 
 def _mod(cfg: ArchConfig):
-    """The module of ``cfg``'s family: ``transformer`` for decoder, ssm
-    and hybrid; ``check_supported`` refuses the unported ones."""
+    """The module of ``cfg``'s family: ``whisper`` for encdec,
+    ``transformer`` for decoder, ssm and hybrid."""
     cfg.check_supported()
-    return transformer
+    return whisper if cfg.family == "encdec" else transformer
 
 
 def layer_kinds(cfg: ArchConfig):
     """Per-layer flags (numpy int32): 1 = a local sliding-window softmax
     layer, 0 = a layer of the config's attention kind (every layer but
     gemma2's local ones)."""
-    return _mod(cfg)._layer_kinds(cfg)
+    cfg.check_supported()
+    return transformer._layer_kinds(cfg)
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, *, device="cuda") -> dict:
     return _mod(cfg).init_params(cfg, seed, device=device)
 
 
-def forward(params, cfg: ArchConfig, tokens):
-    return _mod(cfg).forward(params, cfg, tokens)
+def forward(params, cfg: ArchConfig, tokens, *, patch_embeds=None,
+            frame_embeds=None):
+    if cfg.family == "encdec":
+        return whisper.forward(params, cfg, tokens, frame_embeds)
+    return _mod(cfg).forward(params, cfg, tokens, patch_embeds=patch_embeds)
 
 
 def loss_fn(params, cfg: ArchConfig, batch: dict, *, remat=False):
@@ -55,7 +67,8 @@ def loss_fn(params, cfg: ArchConfig, batch: dict, *, remat=False):
 def init_cache(cfg: ArchConfig, batch: int, max_len: int = 0, *,
                page_size: int = 0, num_pages: int = 0, device="cuda"):
     """A zero decode cache; ``page_size`` > 0 pages an exact kind's rings
-    (ignored where :func:`supports_paging` is False)."""
+    (ignored where :func:`supports_paging` is False, encdec's among
+    them)."""
     return _mod(cfg).init_cache(cfg, batch, max_len, page_size=page_size,
                                 num_pages=num_pages, device=device)
 
@@ -69,10 +82,15 @@ def abstract_cache(cfg: ArchConfig, batch: int, max_len: int = 0, *,
                       num_pages=num_pages, device=torch.device("meta"))
 
 
-def prefill(params, cfg: ArchConfig, tokens, *, max_len: int | None = None,
-            true_len=None):
-    return _mod(cfg).prefill(params, cfg, tokens, max_len=max_len,
-                             true_len=true_len)
+def prefill(params, cfg: ArchConfig, tokens, *, patch_embeds=None,
+            frame_embeds=None, max_len: int | None = None, true_len=None):
+    """Absorb a prompt batch; ``true_len`` (B,) marks the real lengths of
+    right-padded prompts, a vision prefix's rows included."""
+    if cfg.family == "encdec":
+        return whisper.prefill(params, cfg, tokens, frame_embeds,
+                               max_len=max_len, true_len=true_len)
+    return _mod(cfg).prefill(params, cfg, tokens, patch_embeds=patch_embeds,
+                             max_len=max_len, true_len=true_len)
 
 
 def decode_step(params, cfg: ArchConfig, cache, tokens, active=None):
@@ -146,13 +164,15 @@ def supports_chunked_prefill(cfg: ArchConfig) -> bool:
     return _mod(cfg).supports_chunked_prefill(cfg)
 
 
-def prefill_chunk(cfg: ArchConfig, params, cache, tokens):
+def prefill_chunk(cfg: ArchConfig, params, cache, tokens, embeds=None):
     """Absorb one prompt chunk into an existing cache; last-token logits.
 
     Exact continuation for any chunk schedule: SLAY's (S, z) carry and an
     SSD block's scan carry and conv tail are fp32; the exact kinds attend
-    to their ring prefix."""
-    return _mod(cfg).prefill_chunk(params, cfg, cache, tokens)
+    to their ring prefix. ``embeds`` (B, Lc, d) feeds pre-embedded rows
+    (a vision patch prefix) in place of token ids. encdec raises."""
+    return _mod(cfg).prefill_chunk(params, cfg, cache, tokens,
+                                   embeds=embeds)
 
 
 # -- Speculative decoding surface ------------------------------------------

@@ -54,8 +54,8 @@ class AttnCache(NamedTuple):
 def _check_kind(spec: AttentionSpec) -> None:
     if spec.kind not in slay_mod.ATTN_KINDS:
         raise NotImplementedError(
-            f"attention kind {spec.kind!r} is not ported yet; the port has "
-            f"{', '.join(slay_mod.ATTN_KINDS)} (ROADMAP Queue A item 12)")
+            f"unknown attention kind {spec.kind!r}; the port has "
+            f"{', '.join(slay_mod.ATTN_KINDS)}")
 
 
 def init_cache(spec: AttentionSpec, lead_shape, num_kv: int, head_dim: int,
@@ -105,6 +105,15 @@ def full_attention(spec: AttentionSpec, params: dict | None, q, k, v, *,
                                        window=spec.window)
     return exact.yat_attention(q, k, v, causal=causal,
                                spherical=spec.kind == "yat_spherical")
+
+
+def cross_attention(spec: AttentionSpec, params: dict | None, q, k, v
+                    ) -> torch.Tensor:
+    """Non-causal cross-attention (encoder-decoder): q (..., Lq, H, Dh)
+    over k/v (..., Lk, Hkv, *) of the encoder's length. SLAY's is
+    :func:`core.slay.slay_cross_attention`'s: Ψ by the feature-map
+    kernel, the contraction in PyTorch."""
+    return full_attention(spec, params, q, k, v, causal=False)
 
 
 def prefill_cache(spec: AttentionSpec, params: dict | None, k, v,

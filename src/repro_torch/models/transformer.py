@@ -1,11 +1,16 @@
-"""The decoder LM (dense or top-k MoE) and the SSM families (no
-vision): SLAY, a linear baseline (favor, cosformer, elu1) or an exact
-kind, gemma2's local/global alternation (a sliding-window softcapped
-softmax on every layer but each ``local_global_period``-th, which runs
-the config's kind), mamba2's attention-free SSD layers
-(``family="ssm"``: ``x + ssd(rmsnorm(pre, x))``, ``models/ssm.py``) and
-hymba's hybrid layers (``family="hybrid"``: attention and an SSD block
-on the same normalised input, averaged, then the MLP).
+"""The decoder LM (dense or top-k MoE, optionally behind a vision patch
+prefix) and the SSM families: SLAY, a linear baseline (favor, cosformer,
+elu1) or an exact kind, gemma2's local/global alternation (a
+sliding-window softcapped softmax on every layer but each
+``local_global_period``-th, which runs the config's kind), mamba2's
+attention-free SSD layers (``family="ssm"``: ``x + ssd(rmsnorm(pre,
+x))``, ``models/ssm.py``) and hymba's hybrid layers
+(``family="hybrid"``: attention and an SSD block on the same normalised
+input, averaged, then the MLP). internvl2's vision frontend is a stub,
+as in the reference: ``patch_embeds`` (B, P, d), precomputed patch
+embeddings, are concatenated ahead of the token embeddings, and the
+prefix is one more run of rows to every path (``prefill_chunk(embeds=)``
+feeds it chunk by chunk).
 
 Parameters are a plain dict laid out like the JAX package's pytree, so
 ``repro_torch.convert`` moves weights across unchanged::
@@ -115,20 +120,12 @@ def _attn_mlp_shapes(cfg: ArchConfig, d, nl, dh, H, Hkv, ff) -> dict:
     return shapes
 
 
-def init_params(cfg: ArchConfig, seed: int = 0, *,
-                device: str | torch.device = "cuda") -> dict:
-    """Random weights from ``seed`` (a CPU ``torch.Generator``, so the same
-    seed gives the same weights on any device), in the activation dtype;
-    the random projections, drawn last and for SLAY and favor configs
-    only, stay fp32 (so one seed gives every kind the same model
-    weights). favor's sits under ``slay`` as in the JAX package, so
-    checkpoints and prefix snapshots keep its format. mamba2 (no
-    attention) draws none."""
-    cfg.check_supported()
-    dev = resolve_device(device)
-    gen = torch.Generator().manual_seed(seed)
+def realize(shapes: dict, gen: torch.Generator, dev: torch.device,
+            dtype: torch.dtype) -> dict:
+    """The nested parameter dict of ``shapes`` (dotted name -> (shape,
+    init, scale)), drawn in that order from ``gen`` on the CPU."""
     params: dict = {}
-    for name, (shape, init, scale) in _param_shapes(cfg).items():
+    for name, (shape, init, scale) in shapes.items():
         if init == "zeros":
             x = torch.zeros(shape)
         elif init == "ones":
@@ -142,7 +139,23 @@ def init_params(cfg: ArchConfig, seed: int = 0, *,
         *path, leaf = name.split(".")
         for key in path:
             node = node.setdefault(key, {})
-        node[leaf] = x.to(device=dev, dtype=cfg.activation_dtype)
+        node[leaf] = x.to(device=dev, dtype=dtype)
+    return params
+
+
+def init_params(cfg: ArchConfig, seed: int = 0, *,
+                device: str | torch.device = "cuda") -> dict:
+    """Random weights from ``seed`` (a CPU ``torch.Generator``, so the same
+    seed gives the same weights on any device), in the activation dtype;
+    the random projections, drawn last and for SLAY and favor configs
+    only, stay fp32 (so one seed gives every kind the same model
+    weights). favor's sits under ``slay`` as in the JAX package, so
+    checkpoints and prefix snapshots keep its format. mamba2 (no
+    attention) draws none."""
+    cfg.check_supported()
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    params = realize(_param_shapes(cfg), gen, dev, cfg.activation_dtype)
     # Random projections, fp32, shared by every layer and head.
     if cfg.attn_kind == "slay":
         params["slay"] = init_feature_params(cfg.slay_config(), gen,
@@ -251,10 +264,22 @@ def _layer_fwd(cfg: ArchConfig, slay_params: dict, positions, spec,
     return x, zero if aux is None else aux
 
 
+def _embed_rows(params: dict, cfg: ArchConfig, tokens, patch_embeds):
+    """The input rows (B, P + L, d): the token embeddings behind the
+    vision prefix ``patch_embeds`` (B, P, d) if given."""
+    dev = params["embed"].device
+    x = embed(params["embed"], tokens.to(dev)).to(cfg.activation_dtype)
+    if patch_embeds is None:
+        return x
+    return torch.cat([patch_embeds.to(dev, x.dtype), x], dim=1)
+
+
 def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
+            patch_embeds: torch.Tensor | None = None,
             remat: bool | str = False):
-    """tokens (B, L) -> (logits (B, L, V), the MoE aux loss summed over
-    layers, fp32; 0 for a dense MLP).
+    """tokens (B, L) -> (logits (B, P + L, V), the MoE aux loss summed
+    over layers, fp32; 0 for a dense MLP). ``patch_embeds`` (B, P, d), a
+    vision prefix, comes ahead of the tokens (P = 0 without it).
 
     The random projections are constants of the model (``detach``, as
     ``stop_gradient`` in the JAX package); cosformer, elu1 and the exact
@@ -271,8 +296,7 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
             "tensor-parallel collectives, which come with sharding (ROADMAP "
             "Queue A item 13)")
     dev = params["embed"].device
-    tokens = tokens.to(dev)
-    x = embed(params["embed"], tokens).to(cfg.activation_dtype)
+    x = _embed_rows(params, cfg, tokens, patch_embeds)
     L = x.shape[1]
     positions = torch.arange(L, dtype=torch.int32, device=dev)[None, :]
     slay_params = _slay_params(params, detach=True)
@@ -292,9 +316,14 @@ def loss_fn(params: dict, cfg: ArchConfig, batch: dict, *,
             remat: bool | str = False) -> tuple[torch.Tensor, dict]:
     """Next-token cross-entropy: fp32 logits, logsumexp minus the gold
     logit, mean over tokens, + 0.01 x the MoE aux loss (0 for a dense
-    MLP), reported as ``moe_aux``."""
-    logits, aux = forward(params, cfg, batch["tokens"], remat=remat)
+    MLP), reported as ``moe_aux``. With ``batch["patch_embeds"]`` (a
+    vision prefix) only the text tail is scored."""
+    logits, aux = forward(params, cfg, batch["tokens"],
+                          patch_embeds=batch.get("patch_embeds"),
+                          remat=remat)
     labels = batch["labels"].to(logits.device).long()
+    if logits.shape[1] != labels.shape[1]:   # vision prefix: text tail only
+        logits = logits[:, logits.shape[1] - labels.shape[1]:]
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None])[..., 0]
@@ -349,9 +378,10 @@ def supports_paging(cfg: ArchConfig) -> bool:
     context. A linear kind's (S, z) and an SSM carry are O(1) per slot
     and bypass paging (a hybrid config's rings too, as in the
     reference); windowed rings are bounded by the window and wrap in
-    place."""
+    place. A frontend config's rings are not paged either, as in the
+    reference."""
     cfg.check_supported()
-    if cfg.family in ("ssm", "hybrid") or cfg.local_window:
+    if cfg.family in ("ssm", "hybrid") or cfg.local_window or cfg.frontend:
         return False
     return not cfg.attention_spec().is_linear
 
@@ -474,13 +504,16 @@ def _stack_caches(ac: attn.AttnCache | None, caches: list):
 
 
 def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
+            patch_embeds: torch.Tensor | None = None,
             max_len: int | None = None, true_len: torch.Tensor | None = None
             ) -> tuple[torch.Tensor, DecodeCache]:
     """Process a prompt batch; return last-token logits (B, 1, V) and a
-    primed cache. ``max_len`` sizes an exact kind's rings (default: the
-    prompt + 64 rows of decode headroom, as the JAX package); a linear kind's
-    state does not depend on it. ``true_len`` (B,) marks the real lengths
-    of right-padded prompts: logits are read at ``true_len - 1`` and pad
+    primed cache. ``patch_embeds`` (B, P, d), a vision prefix, comes
+    ahead of the tokens. ``max_len`` sizes an exact kind's rings
+    (default: the prefix and prompt + 64 rows of decode headroom, as the
+    JAX package); a linear kind's state does not depend on it.
+    ``true_len`` (B,) marks the real lengths of right-padded prompts,
+    prefix rows included: logits are read at ``true_len - 1`` and pad
     positions add nothing to the cache (not with windowed rings or an
     SSM carry, :func:`supports_masked_prefill`).
 
@@ -497,9 +530,8 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
             f"true_len-masked prefill unsupported for {cfg.name} "
             f"(family={cfg.family}, local_window={cfg.local_window})")
     dev = params["embed"].device
-    tokens = tokens.to(dev)
-    B, L = tokens.shape
-    x = embed(params["embed"], tokens).to(cfg.activation_dtype)
+    x = _embed_rows(params, cfg, tokens, patch_embeds)
+    B, L = x.shape[:2]
     positions = torch.arange(L, dtype=torch.int32, device=dev)[None, :]
     valid = None
     if true_len is not None:
@@ -618,8 +650,9 @@ def decode_step(params: dict, cfg: ArchConfig, cache: DecodeCache,
 
 
 def _chunk_layers(params: dict, cfg: ArchConfig, cache: DecodeCache,
-                  tokens: torch.Tensor, active=None):
-    """The layers over a chunk of tokens (B, Lc) that continues ``cache``:
+                  tokens: torch.Tensor | None, active=None, embeds=None):
+    """The layers over a chunk of tokens (B, Lc), or of pre-embedded rows
+    ``embeds`` (B, Lc, d) in their place, that continues ``cache``:
     the final hidden rows (B, Lc, d), each layer's new AttnCache and
     each layer's new SsmState. A ring is written in place (a paged
     pool's through its gathered dense view, scattered back); a linear
@@ -629,9 +662,11 @@ def _chunk_layers(params: dict, cfg: ArchConfig, cache: DecodeCache,
     ``active`` masks slots as in :func:`decode_step` (the exact kinds'
     verify chunk only)."""
     dev = params["embed"].device
-    tokens = tokens.to(dev)
-    Lc = tokens.shape[1]
-    x = embed(params["embed"], tokens).to(cfg.activation_dtype)
+    if embeds is not None:
+        x = embeds.to(dev, cfg.activation_dtype)
+    else:
+        x = embed(params["embed"], tokens.to(dev)).to(cfg.activation_dtype)
+    Lc = x.shape[1]
     positions = (cache.pos[:, None]
                  + torch.arange(Lc, dtype=torch.int32, device=dev)[None, :])
     slay = _slay_params(params)
@@ -665,7 +700,9 @@ def _chunk_layers(params: dict, cfg: ArchConfig, cache: DecodeCache,
 
 
 def prefill_chunk(params: dict, cfg: ArchConfig, cache: DecodeCache,
-                  tokens: torch.Tensor) -> tuple[torch.Tensor, DecodeCache]:
+                  tokens: torch.Tensor | None, *,
+                  embeds: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, DecodeCache]:
     """Absorb one prompt chunk into an existing decode cache.
 
     tokens (B, Lc); ``cache`` holds the state of the prefix absorbed so
@@ -676,13 +713,19 @@ def prefill_chunk(params: dict, cfg: ArchConfig, cache: DecodeCache,
     interleave prefill chunks with decode ticks. A linear kind and an
     SSD block return new tensors; the rings of an exact kind are written
     in place (the positions are new tensors).
+
+    ``embeds`` (B, Lc, d) feeds pre-embedded rows in place of token ids
+    (``tokens`` is then ignored): how a vision patch prefix is absorbed
+    chunk by chunk. The continuation follows the positions, so prefix
+    chunks and token chunks interleave exactly.
     """
     cfg.check_supported()
-    x, caches, states = _chunk_layers(params, cfg, cache, tokens)
+    x, caches, states = _chunk_layers(params, cfg, cache, tokens,
+                                      embeds=embeds)
     return (_logits(params, cfg, x[:, -1])[:, None, :],
             DecodeCache(attn=_stack_caches(cache.attn, caches),
                         ssm=_stack_ssm(states),
-                        pos=cache.pos + tokens.shape[1], pages=cache.pages))
+                        pos=cache.pos + x.shape[1], pages=cache.pages))
 
 
 # -- the speculative verifier (draft-verify decoding) ----------------------
@@ -694,11 +737,12 @@ def supports_speculative(cfg: ArchConfig) -> bool:
     per-slot ``pos`` rewind. A linear kind folds a token into (S, z) for
     good, an SSD carry (ssm, hybrid) cannot un-absorb a step, and a
     windowed ring's in-window eviction cannot be rewound, so none of
-    them can. (The reference also excludes frontends, which the port
-    does not have.) An MoE config verifies like a dense one; each verify
-    chunk routes with that chunk's capacity."""
+    them can. A frontend config cannot either: the draft swap must
+    leave the parameter tree as it is, as the reference requires. An MoE
+    config verifies like a dense one; each verify chunk routes with that
+    chunk's capacity."""
     cfg.check_supported()
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.family in ("ssm", "hybrid") or cfg.frontend:
         return False
     if cfg.local_window or cfg.local_global_period:
         return False
@@ -827,8 +871,10 @@ def corrupt_slot(cfg: ArchConfig, cache: DecodeCache, slot: int) -> DecodeCache:
 
 
 def supports_chunked_prefill(cfg: ArchConfig) -> bool:
-    """Chunked prefill continues every ported config: the linear kinds'
-    fp32 (S, z) recurrence, the exact kinds' ring prefix plus causal
-    chunk, an SSD block's fp32 carry and conv tail."""
+    """Chunked prefill continues every decoder-only config: the linear
+    kinds' fp32 (S, z) recurrence, the exact kinds' ring prefix plus
+    causal chunk, an SSD block's fp32 carry and conv tail; a vision patch
+    prefix through ``prefill_chunk(embeds=)``. (encdec is
+    ``whisper.supports_chunked_prefill``'s.)"""
     cfg.check_supported()
     return True

@@ -18,7 +18,10 @@ an exact kind ``attn.k, attn.v, attn.pos, pos``, and paged the page
 tables ``table, owner_slot, owner_lp`` after them; gemma2's union pool
 under SLAY ``attn.k, attn.v, attn.pos, attn.s, attn.z, pos``, every
 layer's leaves whichever its kind; mamba2 ``ssm.h, ssm.conv, pos``;
-hymba under SLAY ``attn.pos, attn.s, attn.z, ssm.h, ssm.conv, pos``),
+hymba under SLAY ``attn.pos, attn.s, attn.z, ssm.h, ssm.conv, pos``;
+whisper's ``WhisperCache`` under SLAY ``self_attn.pos, self_attn.s,
+self_attn.z, cross_s, cross_z, pos``, under an exact kind
+``self_attn.k, self_attn.v, self_attn.pos, cross_s, cross_z, pos``),
 ``page_size`` and
 the ``page_pool`` allocator snapshot (None unpaged), and in speculative
 mode the draft pool's leaves (``draft_pool``, the SLAY order; None

@@ -31,6 +31,16 @@ mamba2 nothing else, hymba beside its attention state): constant-size,
 so any prompt is admitted, never paged (a ``page_size`` is ignored), and
 not rewindable, so neither family decodes speculatively.
 
+A vision config (internvl2) absorbs each request's patch prefix (zero
+stand-ins for the frontend's embeddings) ahead of its prompt, as
+pre-embedded chunks of up to ``prefill_chunk`` rows; the prefix counts
+in a request's context. With ``prefill_chunk=0``, or for encdec
+(whisper, whose encoding has no chunked continuation) a prompt is
+absorbed whole in one tick: right-padded to a pow-2 bucket and masked
+by its true length where the config takes a masked prefill, else at
+its own length (encdec's, behind zero frames); an unbounded capacity
+is then capped at ``max_len``, and there is no prefix cache for encdec.
+
 Fault model (DESIGN.md §10): every request ends with exactly one
 ``finish_reason`` of ``sampling.FINISH_REASONS``. Admission failures are
 typed (:class:`AdmissionError` and its subclasses), overload degrades
@@ -70,9 +80,8 @@ the two admitted, evicted and checkpointed in lockstep; a dispatch runs
 K rounds of ``spec_gamma`` draft tokens each, every draft step and
 resync step the masked decode kernel once per layer.
 
-Not in the port yet, each refused by ``ServingConfig.check_supported``
-when the engine is built: a sharded slot pool (ROADMAP Queue A item 13)
-and the bucketed whole-prompt prefill fallback (item 12).
+Not in the port yet, refused by ``ServingConfig.check_supported`` when
+the engine is built: a sharded slot pool (ROADMAP Queue A item 13).
 """
 from __future__ import annotations
 
@@ -163,6 +172,36 @@ class Request:
             if v is not None and (not np.isfinite(v) or v <= 0):
                 raise ValueError(f"{name} must be finite and > 0 when "
                                  f"set, got {v!r}")
+
+
+def _frontend_kw(cfg: ArchConfig, batch: int, dev: torch.device) -> dict:
+    """The zero frontend stand-ins of ``batch`` requests, as keywords of
+    ``api.prefill``: a vision config's ``patch_embeds`` (B, num_patches,
+    d), an audio config's ``frame_embeds`` (B, enc_seq, d), in the
+    activation dtype (the reference's ``_model_batch``)."""
+    if cfg.frontend == "vision":
+        return {"patch_embeds": torch.zeros(
+            batch, cfg.num_patches, cfg.d_model, dtype=cfg.activation_dtype,
+            device=dev)}
+    if cfg.frontend == "audio":
+        return {"frame_embeds": torch.zeros(
+            batch, cfg.enc_seq, cfg.d_model, dtype=cfg.activation_dtype,
+            device=dev)}
+    return {}
+
+
+def _prefix_rows(cfg: ArchConfig) -> int:
+    """Rows a request's vision patch prefix takes ahead of its prompt."""
+    return cfg.num_patches if cfg.frontend == "vision" else 0
+
+
+def _bucket_len(n: int, lo: int, cap: int) -> int:
+    """Smallest power-of-2 multiple of ``lo`` >= n, capped at ``cap``
+    (n itself if ``cap`` < n)."""
+    b = lo
+    while b < n:
+        b *= 2
+    return min(b, cap) if cap >= n else n
 
 
 def _to_device(tree, dev: torch.device):
@@ -265,7 +304,8 @@ class ServingEngine:
             prompts[i, lp - len(r.prompt):] = r.prompt
         tokens = torch.from_numpy(prompts).to(self.device)
         logits, cache = api.prefill(self.params, self.cfg, tokens,
-                                    max_len=self.max_len)
+                                    max_len=self.max_len,
+                                    **_frontend_kw(self.cfg, B, self.device))
         key = prng.PRNGKey(seed)
         max_new = max(r.max_new_tokens for r in requests)
         out = np.zeros((B, max_new), np.int32)
@@ -411,9 +451,11 @@ class ServingMetrics:
     paged pool (0 unpaged). In speculative mode ``draft_tokens_proposed``
     counts the draft tokens offered to the verifier in counted rounds
     (slot live, not faulted; ``spec_gamma`` each) and
-    ``draft_tokens_accepted`` those it accepted. ``summary()`` has the
-    reference's keys; those of a feature the port does not have yet
-    (bucketed prefill) read 0.
+    ``draft_tokens_accepted`` those it accepted. ``bucket_hits`` and
+    ``bucket_misses`` count the bucketed whole-prompt prefills whose
+    pow-2 length was seen before and those of a new length (the
+    reference's compile-cache counters). ``summary()`` has the
+    reference's keys.
     """
 
     num_slots: int = 0
@@ -447,6 +489,8 @@ class ServingMetrics:
     spec_gamma: int = 0
     draft_tokens_proposed: int = 0
     draft_tokens_accepted: int = 0
+    bucket_hits: int = 0
+    bucket_misses: int = 0
     clock: Callable[[], float] = time.perf_counter
     wall_start: float | None = None
     per_request: dict = dataclasses.field(default_factory=dict)
@@ -495,8 +539,8 @@ class ServingMetrics:
                 self.tokens_generated / max(self.decode_dispatches, 1),
             "dispatches_per_decode_tick":
                 self.decode_dispatches / max(self.decode_ticks, 1),
-            "bucket_hits": 0,
-            "bucket_misses": 0,
+            "bucket_hits": self.bucket_hits,
+            "bucket_misses": self.bucket_misses,
             "requests_terminated": self.requests_terminated,
             "finish_reasons": dict(self.finish_reasons),
             # Rates over terminated requests (0.0 when none terminated).
@@ -558,7 +602,9 @@ class _Prefill:
     slot: int
     cache: object   # the static batch-1 prefill cache, or a full hit's snapshot
     offset: int = 0                  # prompt tokens absorbed so far
+    prefix_offset: int = 0           # vision prefix rows absorbed so far
     logits: torch.Tensor | None = None  # (1, 1, V): a full prefix hit
+    draft: object = None             # the draft's batch-1 cache (speculative)
 
 
 class Scheduler:
@@ -712,7 +758,9 @@ class ContinuousServingEngine:
     captured at their first call (pool shape, K, temperature, seed and
     ``fault_guard`` are fixed per engine, as in the JAX engine's jit);
     ``_graphs=False`` runs them eagerly there too (for holding the graphs
-    against eager runs).
+    against eager runs). A vision prefix's chunks and a whole-prompt
+    prefill run eagerly (the JAX engine compiles one program per bucket
+    or length).
     """
 
     def __init__(self, cfg: ArchConfig, params: dict, *,
@@ -749,6 +797,15 @@ class ContinuousServingEngine:
         if self.prefix_cache is None and serving.prefix_cache_bytes:
             self.prefix_cache = prefix_lib.PrefixCache(
                 serving.prefix_cache_bytes)
+        # Seeding continues a snapshot chunk by chunk, so encdec (no
+        # chunked prefill) never caches; nor does a whole-prompt prefill
+        # (prefill_chunk=0) seed or insert.
+        self._chunkable = api.supports_chunked_prefill(cfg)
+        self._bucketable = (serving.prefill_buckets
+                            and api.supports_masked_prefill(cfg))
+        self._seen_buckets: set[int] = set()
+        if not self._chunkable:
+            self.prefix_cache = None
         self._pfx_refs: dict[int, prefix_lib.PrefixEntry] = {}
         self.metrics = ServingMetrics(
             num_slots=S, macro_ticks=serving.macro_ticks,
@@ -873,11 +930,20 @@ class ContinuousServingEngine:
                 req = dataclasses.replace(
                     req, arrival_time=req.arrival_time + delay)
         need = self._need_rows(req)
+        prefix = _prefix_rows(self.cfg)
+        # An unbounded capacity (constant-size state, windowed rings)
+        # still needs chunked prefill: a whole-prompt prefill runs at the
+        # prompt's length into a ring of max_len rows, which it cannot
+        # exceed.
         cap = api.context_capacity(self.cfg, self.serving.max_len)
+        if cap is None and not (self._chunkable
+                                and self.serving.prefill_chunk):
+            cap = self.serving.max_len
         if cap is not None and need > cap:
             raise RequestTooLargeError(
-                f"request does not fit its decode slot: {len(req.prompt)} "
-                f"prompt + {req.max_new_tokens} max_new "
+                f"request does not fit its decode slot: "
+                + (f"{prefix} vision-prefix patches + " if prefix else "")
+                + f"{len(req.prompt)} prompt + {req.max_new_tokens} max_new "
                 + (f"+ {self.serving.spec_gamma} spec verify headroom "
                    if self._spec else "")
                 + f"= {need} > context "
@@ -1304,12 +1370,12 @@ class ContinuousServingEngine:
     # -- internals ----------------------------------------------------------
 
     def _need_rows(self, req: Request) -> int:
-        """Context rows a request occupies, prompt + decode budget: what
-        the page allocator sizes a slot's pages by. Speculative decoding
-        adds ``spec_gamma`` rows: a round writes that far past the accept
-        horizon before it rolls back, so the slot's pages cover them and
-        rollback never touches the page tables."""
-        need = len(req.prompt) + req.max_new_tokens
+        """Context rows a request occupies, a vision prefix + prompt +
+        decode budget: what the page allocator sizes a slot's pages by.
+        Speculative decoding adds ``spec_gamma`` rows: a round writes that
+        far past the accept horizon before it rolls back, so the slot's
+        pages cover them and rollback never touches the page tables."""
+        need = _prefix_rows(self.cfg) + len(req.prompt) + req.max_new_tokens
         return need + self.serving.spec_gamma if self._spec else need
 
     def _note_pages(self):
@@ -1342,6 +1408,7 @@ class ContinuousServingEngine:
         else:
             _copy_into(pf.cache, entry.cache)
         pf.offset = entry.length
+        pf.prefix_offset = _prefix_rows(self.cfg)   # the snapshot holds it
 
     def _decode_program(self) -> torch.Tensor:
         """One decode dispatch over the static buffers: the pool and the
@@ -1380,6 +1447,57 @@ class ContinuousServingEngine:
             _copy_into(self._pf_draft, new)
         return logits
 
+    def _absorb_prefix(self, pf: _Prefill, C: int) -> None:
+        """Absorb the next up to ``C`` rows of the vision patch prefix
+        (zero stand-ins, as the reference's) into the static prefill cache
+        as pre-embedded rows, one engine tick, eagerly."""
+        n = min(C, _prefix_rows(self.cfg) - pf.prefix_offset)
+        emb = torch.zeros(1, n, self.cfg.d_model,
+                          dtype=self.cfg.activation_dtype, device=self.device)
+        _, new = api.prefill_chunk(self.cfg, self.params, self._pf_cache,
+                                   None, embeds=emb)
+        _copy_into(self._pf_cache, new)
+        pf.prefix_offset += n
+
+    def _prefill_whole(self, pf: _Prefill, prompt: np.ndarray):
+        """Absorb a whole prompt in one tick (``prefill_chunk=0``, or a
+        config that cannot chunk), behind its frontend stand-ins: right-
+        padded to a pow-2 bucket and masked by its true length where the
+        config takes a masked prefill (``bucket_hits``/``bucket_misses``
+        count the buckets seen before and new ones), else at its own
+        length. The prefill returns a fresh batch-1 cache, which
+        ``write_slot`` copies into the pool; the static prefill cache is
+        not used. Runs eagerly. The last-token logits (1, 1, V)."""
+        cfg, dev, L = self.cfg, self.device, self.serving.max_len
+        n = len(prompt)
+        kw = _frontend_kw(cfg, 1, dev)
+        if self._bucketable:
+            # The cap leaves room for the vision prefix: prefix + bucket
+            # must fit the ring, or its writes would drop prefix rows
+            # still inside the validity horizon (submit() refuses what
+            # does not fit, so the cap never falls under the prompt).
+            prefix = _prefix_rows(cfg)
+            Lb = _bucket_len(n, self.serving.prefill_bucket_min, L - prefix)
+            if Lb in self._seen_buckets:
+                self.metrics.bucket_hits += 1
+            else:
+                self._seen_buckets.add(Lb)
+                self.metrics.bucket_misses += 1
+            padded = np.zeros((1, Lb), np.int32)
+            padded[0, :n] = prompt
+            tokens = torch.from_numpy(padded).to(dev)
+            kw["true_len"] = torch.full((1,), prefix + n, dtype=torch.int32,
+                                        device=dev)
+        else:
+            tokens = torch.from_numpy(prompt[None, :]).to(dev)
+        logits, pf.cache = api.prefill(self.params, cfg, tokens, max_len=L,
+                                       **kw)
+        if self._spec:
+            _, pf.draft = api.prefill(self.params, self.draft_cfg, tokens,
+                                      max_len=L, **kw)
+        pf.offset = n
+        return logits
+
     def _prefill_tick(self):
         pf = self._prefill
         C = self.serving.prefill_chunk
@@ -1395,21 +1513,27 @@ class ContinuousServingEngine:
             for t in tree_leaves({"v": self._pf_cache,
                                   "d": self._pf_draft}):
                 t.zero_()
-            pf = _Prefill(rid, req, slot, self._pf_cache)
+            pf = _Prefill(rid, req, slot, self._pf_cache,
+                          draft=self._pf_draft)
             if self.page_pool is not None:
                 # Host-side reservation only: the device tables learn the
                 # mapping at install (write_slot), so an admission that
                 # ends mid-prefill frees host-side with no device op.
                 self.page_pool.alloc(slot, self._need_rows(req))
                 self._note_pages()
-            if self.prefix_cache is not None:
+            if self.prefix_cache is not None and C:
                 self._seed_from_prefix(pf, C)
             self._prefill = pf
             self.metrics.per_request[rid].admitted = self.tick
             self.metrics.per_request[rid].slot = slot
         req, prompt = pf.req, np.asarray(pf.req.prompt, np.int32)
         logits = pf.logits
-        if logits is None:               # else a full prefix hit: no chunk
+        if logits is not None:
+            pass                     # a full prefix hit: nothing to run
+        elif self._chunkable and C:
+            if pf.prefix_offset < _prefix_rows(self.cfg):
+                self._absorb_prefix(pf, C)
+                return
             chunk = torch.from_numpy(prompt[None, pf.offset:pf.offset + C])
             if chunk.shape[1] == C:
                 self._pf_tokens.copy_(chunk)
@@ -1425,6 +1549,8 @@ class ContinuousServingEngine:
                 # Chunk-boundary snapshot (a clone): a later prompt with
                 # this prefix seeds from it and prefills only its suffix.
                 self.prefix_cache.insert(prompt[:pf.offset], pf.cache)
+        else:
+            logits = self._prefill_whole(pf, prompt)
         if pf.offset < len(prompt):
             return                       # more chunks; decode may interleave
         # Prompt absorbed: sample the first token on the device (the decode
@@ -1436,7 +1562,7 @@ class ContinuousServingEngine:
             logits[:, -1, :], rid_t, torch.zeros_like(rid_t),
             temperature=self.serving.temperature, seed=self.serving.seed)[0])
         self.metrics.prefill_token_syncs += 1
-        if self.prefix_cache is not None and pf.logits is None:
+        if (self.prefix_cache is not None and C and pf.logits is None):
             # Full-prompt entry with its last-token logits: a repeat of
             # this prompt is admitted with no prefill.
             self.prefix_cache.insert(prompt, pf.cache,
@@ -1445,7 +1571,7 @@ class ContinuousServingEngine:
                        self.page_pool.device_vectors()
                        if self.page_pool is not None else None)
         if self._spec:
-            api.write_slot(self.draft_cfg, self.draft_pool, self._pf_draft,
+            api.write_slot(self.draft_cfg, self.draft_pool, pf.draft,
                            pf.slot)
         self._prefill = None
         self.metrics.prompt_tokens += (

@@ -9,7 +9,10 @@ then scan, and their backward), and the plain versions on the CPU: the
 tensors' device chooses, so there is no ``use_pallas`` knob. The exact
 kinds (``softmax``, ``yat``, ``yat_spherical``) and the SSM families'
 SSD blocks have no kernel: plain autograd of their PyTorch ops on either
-device (``remat`` recomputes an SSD block's chunk scan too).
+device (``remat`` recomputes an SSD block's chunk scan too). A batch's
+frontend stand-ins (``patch_embeds`` of a vision config, ``frame_embeds``
+of encdec) go to ``api.loss_fn`` with its tokens and labels, as in the
+reference's step.
 
 The loop: resume from the latest checkpoint on start, an atomic
 checkpoint every ``ckpt_every`` steps and at the end, and a step-time

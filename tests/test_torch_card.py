@@ -1093,3 +1093,136 @@ def test_softmax_train_step_on_card_is_finite_and_matches_cpu():
     assert all(np.isfinite(out["cuda"]))
     np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
     np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-4)
+
+
+# -- the frontends: internvl2's vision prefix, whisper, bucketed prefill ----
+
+
+@needs_card
+@pytest.mark.parametrize("arch", ["internvl2-76b", "whisper-small"])
+def test_frontend_engines_on_card_match_cpu(arch):
+    # The smoke models in fp32, embedding scaled down so the streams
+    # vary, behind the engines' zero stand-ins: the continuous engine
+    # (graphed, greedy) and the lockstep engine on the card and on the
+    # CPU give the same streams. internvl2 absorbs its 8-row prefix in
+    # chunks and launches K2 once a layer and step (masked in the pool)
+    # and K1 once a layer in the lockstep prefill; whisper prefills each
+    # prompt whole (K1 once a decoder layer, B7 twice an encoder and a
+    # decoder layer) and captures no chunk graph.
+    cfg = get_smoke_config(arch, dtype="float32")
+    params = tapi.init_params(cfg, 0, device="cpu")
+    params["embed"] = params["embed"] / 8.0
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(3, 256, n).astype(np.int32)
+               for n in (20, 7, 30, 12)]
+    serving = ServingConfig(num_slots=2, max_len=64, prefill_chunk=8,
+                            macro_ticks=4)
+    runs = []
+    for device in ("cpu", "cuda"):
+        eng = tengine.ContinuousServingEngine(cfg, params, serving=serving,
+                                              device=device)
+        lock = tengine.ServingEngine(cfg, params, device=device, max_len=64)
+        _build.reset_launches()
+        outs, s = eng.run([tengine.Request(p, max_new_tokens=10,
+                                           arrival_time=2.0 * i)
+                           for i, p in enumerate(prompts)])
+        cont = {k: n for k, n in _build.LAUNCHES.items() if n}
+        _build.reset_launches()
+        gen_out = lock.generate([tengine.Request(p, max_new_tokens=10)
+                                 for p in prompts[:2]])
+        runs.append((outs, s, gen_out, cont,
+                     {k: n for k, n in _build.LAUNCHES.items() if n},
+                     eng.graph_cache_entries()))
+    (cpu, s_cpu, gen_cpu, _, _, _), (card, s_card, gen_card, cont, lock,
+                                     graphs) = runs
+    for rid in cpu:
+        np.testing.assert_array_equal(card[rid], cpu[rid], f"rid {rid}")
+    for a, b in zip(gen_card, gen_cpu):
+        np.testing.assert_array_equal(a, b)
+    assert s_card["ticks"] == s_cpu["ticks"]
+    nl, K = cfg.num_layers, serving.macro_ticks
+    want_cont = {"slay_decode_step_masked": nl * K * s_card["decode_dispatches"]}
+    want_lock = {"slay_fused_fwd": nl, "slay_decode_step": nl * 9}
+    if cfg.family == "encdec":
+        b7 = 2 * (cfg.enc_layers + nl)
+        want_cont.update(slay_fused_fwd=nl * len(prompts),
+                         feature_map_fwd=b7 * len(prompts))
+        want_lock["feature_map_fwd"] = b7
+    assert graphs == {"macro_decode": 1,
+                      "chunk": int(cfg.family != "encdec")}
+    assert cont == want_cont and lock == want_lock
+
+
+@needs_card
+def test_bucketed_prefill_on_card_matches_cpu():
+    # prefill_chunk=0 on the smoke slayformer in fp32: each prompt padded
+    # to its pow-2 bucket and prefilled through K1 (once a layer), masked
+    # by its length; the same streams and bucket counters as on the CPU.
+    cfg = get_smoke_config("slayformer-124m", dtype="float32")
+    params = tapi.init_params(cfg, 0, device="cpu")
+    params["embed"] = params["embed"] / 8.0
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(3, 256, n).astype(np.int32)
+               for n in (5, 20, 9, 33)]
+    serving = ServingConfig(num_slots=2, max_len=64, prefill_chunk=0,
+                            macro_ticks=4)
+    runs = []
+    for device in ("cpu", "cuda"):
+        eng = tengine.ContinuousServingEngine(cfg, params, serving=serving,
+                                              device=device)
+        _build.reset_launches()
+        runs.append((*eng.run([tengine.Request(p, max_new_tokens=8,
+                                               arrival_time=float(i))
+                               for i, p in enumerate(prompts)]),
+                     {k: n for k, n in _build.LAUNCHES.items() if n}))
+    (cpu, s_cpu, _), (card, s_card, launches) = runs
+    for rid in cpu:
+        np.testing.assert_array_equal(card[rid], cpu[rid], f"rid {rid}")
+    for k in ("ticks", "bucket_hits", "bucket_misses", "prefill_ticks"):
+        assert s_card[k] == s_cpu[k], k
+    assert (s_card["bucket_misses"], s_card["bucket_hits"]) == (3, 1)
+    nl = cfg.num_layers
+    assert launches == {
+        "slay_fused_fwd": nl * len(prompts),
+        "slay_decode_step_masked": nl * 4 * s_card["decode_dispatches"]}
+
+
+@needs_card
+def test_whisper_train_step_on_card_matches_cpu():
+    # whisper's smoke model in fp32, one batch over random frames: the
+    # loss and every gradient on the card (K1, K3, K4 once a decoder
+    # layer; B7 and B8 twice an encoder and a decoder layer) equal to the
+    # CPU's to 1e-5 relative and 1e-4 of each leaf's largest magnitude.
+    cfg = get_smoke_config("whisper-small", dtype="float32")
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(0, 256, (2, 33)).astype(np.int32))
+    frames = torch.from_numpy(rng.standard_normal(
+        (2, cfg.enc_seq, cfg.d_model)).astype(np.float32))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "frame_embeds": frames}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tapi.init_params(cfg, 0, device=dev)
+        _build.reset_launches()
+        loss, _, grads = tloop.value_and_grad(
+            p, cfg, {k: v.to(dev) for k, v in batch.items()})
+        out[dev] = (float(loss), {k: g.cpu() for k, g in _flat(grads)},
+                    {k: n for k, n in _build.LAUNCHES.items() if n})
+    nl, b7 = cfg.num_layers, 2 * (cfg.enc_layers + cfg.num_layers)
+    assert out["cuda"][2] == {"slay_fused_fwd": nl, "slay_fused_bwd_q": nl,
+                              "slay_fused_bwd_kv": nl,
+                              "feature_map_fwd": b7, "feature_map_bwd": b7}
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    for k, want in out["cpu"][1].items():
+        got = out["cuda"][1][k]
+        scale = float(want.abs().max()) or 1.0
+        assert float((got - want).abs().max()) <= 1e-4 * scale, k
+
+
+def _flat(tree, prefix=""):
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            yield from _flat(v, key)
+        else:
+            yield key, v

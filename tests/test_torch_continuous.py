@@ -290,21 +290,34 @@ def test_injected_fault_is_quarantined_and_retried_like_jax(models):
 
 def test_unported_knobs_raise_when_the_engine_is_built(models):
     _, tcfg, _, tp, _ = models
-    # The prefix cache, checkpoints, paging and speculative decoding are
-    # ported (tests/test_torch_prefix_cache.py, tests/test_torch_restore.py,
-    # tests/test_torch_pages.py, tests/test_torch_spec_engine.py); each
-    # refusal cites its open item.
-    for kw, item in ((dict(slot_shards=2), 13), (dict(prefill_chunk=0), 12)):
-        with pytest.raises(NotImplementedError,
-                           match=f"Queue A item {item}"):
-            tengine.ContinuousServingEngine(
-                tcfg, tp, serving=ServingConfig(**{**BASE, **kw}),
-                device="cpu")
-    # SLAY cannot verify: it cannot roll a suffix back out of (S, z).
-    with pytest.raises(ValueError, match="speculative"):
+    # The prefix cache, checkpoints, paging, speculative decoding and the
+    # whole-prompt prefill (prefill_chunk=0) are ported
+    # (tests/test_torch_prefix_cache.py, tests/test_torch_restore.py,
+    # tests/test_torch_pages.py, tests/test_torch_spec_engine.py,
+    # tests/test_torch_frontend_serving.py); a sharded slot pool is not,
+    # and its refusal cites its open item.
+    with pytest.raises(NotImplementedError, match="Queue A item 13"):
         tengine.ContinuousServingEngine(
-            tcfg, tp, serving=ServingConfig(**BASE, speculative=True),
+            tcfg, tp, serving=ServingConfig(**{**BASE, "slot_shards": 2}),
             device="cpu")
+    eng = tengine.ContinuousServingEngine(
+        tcfg, tp, serving=ServingConfig(**{**BASE, "prefill_chunk": 0}),
+        device="cpu")
+    outs, s = eng.run([tengine.Request(np.arange(3, 12, dtype=np.int32),
+                                       max_new_tokens=3)])
+    assert len(outs[0]) == 3 and s["bucket_misses"] == 1
+    # SLAY cannot verify: it cannot roll a suffix back out of (S, z); nor
+    # can a frontend or encdec config under an exact kind (the draft swap
+    # would change its parameter tree), as in the reference.
+    exact = [get_smoke_config(name, dtype="float32",
+                              attn_kind="yat_spherical")
+             for name in ("internvl2-76b", "whisper-small")]
+    for cfg, params in [(tcfg, tp)] + [
+            (c, api.init_params(c, 0, device="cpu")) for c in exact]:
+        with pytest.raises(ValueError, match="speculative"):
+            tengine.ContinuousServingEngine(
+                cfg, params, serving=ServingConfig(**BASE, speculative=True),
+                device="cpu")
     for bad in (dict(num_slots=0), dict(temperature=-1.0),
                 dict(overload_policy="drop")):
         with pytest.raises(ValueError):
