@@ -308,9 +308,12 @@ sys.path.insert(0, os.path.join(REPO, "src"))
 
 from repro_torch import configs, prng  # noqa: E402
 from repro_torch.configs.base import ServingConfig  # noqa: E402
+from repro_torch.core import features  # noqa: E402
+from repro_torch.core import linear_attention as la  # noqa: E402
 from repro_torch.core.features import init_feature_params  # noqa: E402
 from repro_torch.core.slay import feature_dim  # noqa: E402
-from repro_torch.examples import serve, train_slayformer  # noqa: E402
+from repro_torch.examples import (long_context, quickstart, serve,  # noqa: E402
+                                  train_slayformer)
 from repro_torch.kernels import (_build, decode_step, feature_map, ops,  # noqa: E402
                                  slay_fused, slay_scan)
 from repro_torch.data import pipeline  # noqa: E402
@@ -4112,12 +4115,12 @@ def _stand_ins(cfg, batch: int = 1) -> dict:
     return engine._frontend_kw(cfg, batch, torch.device("cuda"))
 
 
-def _chunked_row(cfg, params, prompt) -> torch.Tensor:
+def _chunked_row(cfg, params, prompt, max_len=LONG_MAX_LEN) -> torch.Tensor:
     """The last-token logits (fp32) of ``prompt`` absorbed in the engine's
     chunks (``prefill_chunk`` from a zero batch-1 cache)."""
     C = CONT_SERVING["prefill_chunk"]
     with torch.inference_mode():
-        cache = api.init_cache(cfg, 1, LONG_MAX_LEN, device="cuda")
+        cache = api.init_cache(cfg, 1, max_len, device="cuda")
         for o in range(0, len(prompt), C):
             lg, cache = api.prefill_chunk(
                 cfg, params, cache,
@@ -4735,6 +4738,402 @@ def phase_frontends(card: str) -> tuple:
     return out, numbers[AUDIO]
 
 
+# -- phase 26: the rest of the core ---------------------------------------
+
+# (a)'s cases: every poly kind and fusion at slayformer's head shape (d =
+# dv = 64, P = 8, D = 16, R = 3) over 1 x 1024 tokens and 12 heads;
+# ``exact`` (m = R·d²·D = 196,608 under the tensor fusion, a 9.7 GB Ψ at
+# 12 heads) over 2; ``subsample`` at 96 of the P·D columns (m = 288, a
+# ragged last slice of the scan; laplace's P·D is 16: 12 of those); then
+# Table 2's "large" budget, d = 32, P = D = 32 (m = 3072) over 1 x 256
+# tokens, 2 heads, chunks of 64, past the fused kernels' width.
+CORE_L, CORE_HEADS, CORE_EXACT_HEADS, CORE_CHUNK = 1024, 12, 2, 256
+LARGE = dict(head_dim=32, num_anchors=32, num_prf=32)
+LARGE_L, LARGE_HEADS, LARGE_CHUNK = 256, 2, 64
+# The kernel route's num = y·(den + δ) and den against the plain route's,
+# each within this fraction of the plain's largest |num| or |den|: fp32 in
+# another summation order (B5's 3xTF32 tiles, K1's node shares). Signed
+# kinds (rm, tensorsketch, nystrom, a subsampled or exact Ψ) can drive a
+# row's den toward 0, where y alone says nothing of the kernel.
+CORE_REL = 1e-4
+# Gradients against autograd of the plain route, within this fraction of
+# each one's largest |value|: rm's signed den amplifies the fp32
+# differences (1e-3); anchor's is a sum of nonnegative terms (1e-4).
+CORE_GRAD_REL = {"rm": 1e-3, "anchor": 1e-4}
+# The long-context example's (S, z) against the feature map's plain twin
+# then la.prefill_state, within this fraction of the largest |S|, |z|:
+# B7 and its twin round the same fp32 Ψ to bf16 and differ only where
+# their last fp32 bits straddle a rounding; its decode outputs (bf16)
+# against la.decode_step at one bf16 rounding of the largest |y|.
+LONGCTX_REL, LONGCTX_Y_REL = 1e-4, 2e-2
+# (c): one 32,768-token prompt on slayformer-124m, 16 greedy tokens, each
+# engine with room for it; the last-token prefill logits of the lockstep
+# engine (K1 over the whole prompt) against the continuous engine's
+# chunks (fp32 state carried over 256 chunks of 128), within this
+# fraction of the largest |logit| (bf16 rounded in other places through
+# 12 layers); a greedy token may differ only at a top-2 gap under
+# LONG_GAP_FRAC of the largest (C-2).
+CORE_PROMPT, CORE_NEW = 32768, 16
+CORE_MAX_LEN = CORE_PROMPT + CORE_NEW
+CORE_SHORT = 512
+CORE_TIMED = 64                # new tokens of the tick-timing runs
+CORE_LOGIT_REL = 3e-2
+
+
+def _core_config(kind, fusion, **extra):
+    sketch = 0
+    if fusion == "subsample":
+        sketch = 12 if kind == "laplace" else 96
+    return features.SlayFeatureConfig(poly_kind=kind, fusion=fusion,
+                                      sketch_dim=sketch, **extra)
+
+
+def _core_inputs(cfg, L, h, dv):
+    p = init_feature_params(cfg, torch.Generator().manual_seed(SEED),
+                            device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k = (torch.randn(1, L, h, cfg.head_dim, generator=gen, device="cuda")
+            for _ in range(2))
+    v, dy = (torch.randn(1, L, h, dv, generator=gen, device="cuda")
+             for _ in range(2))
+    return p, q, k, v, dy
+
+
+def _core_route(cfg, dv, fused_fits) -> dict:
+    """The launches one call of ``ops.slay_fused_attention`` must make."""
+    if not cfg.kernelizable:
+        return {"slay_scan_fwd": 1}
+    if fused_fits:
+        return {"slay_fused_fwd": 1}
+    return {"feature_map_fwd": 2, "slay_scan_fwd": 1}
+
+
+def _plain_route(p, q, k, v, cfg, chunk):
+    """The plain route on the card: Ψ of core.features (PyTorch ops), then
+    the scan's plain twin, head-major; -> (y, den)."""
+    def hm(x):
+        return x[0].transpose(0, 1).contiguous()
+    qf, kf = (features.slay_features(x, p, cfg) for x in (q, k))
+    return slay_scan.causal_linear_attention_plain(hm(qf), hm(kf), hm(v),
+                                                   chunk_size=chunk)
+
+
+def _kernel_route(p, q, k, v, cfg, chunk, fused_fits):
+    """The kernels ``ops.slay_fused_attention`` routes to, head-major;
+    -> (y, den): K1, or Ψ (B7 or PyTorch ops) then B5."""
+    def hm(x):
+        return x[0].transpose(0, 1).contiguous()
+    if cfg.kernelizable and fused_fits:
+        return slay_fused.fused_causal_attention(
+            hm(q), hm(k), hm(v), p["anchors"], p["omegas"], cfg,
+            chunk_size=chunk)
+    qf, kf = (ops.slay_features(x, p, cfg) for x in (q, k))
+    return slay_scan.launch_fwd(hm(qf), hm(kf), hm(v))
+
+
+def _core_case(kind, fusion, L, h, chunk, dv=64, **extra) -> tuple:
+    """One feature config through ``ops.slay_fused_attention`` (its
+    launches counted) against the plain route: num and den compared
+    apart; -> (launches, kernel ms, plain ms)."""
+    cfg = _core_config(kind, fusion, **extra)
+    fits = slay_fused.fused_fits(cfg.head_dim, dv, cfg.num_anchors,
+                                 cfg.num_prf, "cuda")
+    p, q, k, v, _ = _core_inputs(cfg, L, h, dv)
+    what = f"{kind}+{fusion} m={cfg.feature_dim} ({h} heads x {L})"
+    with torch.inference_mode():
+        _build.reset_launches()
+        y = ops.slay_fused_attention(q, k, v, p, cfg, chunk_size=chunk)
+        torch.cuda.synchronize()
+        got = {n: c for n, c in _build.LAUNCHES.items() if c}
+        want = _core_route(cfg, dv, fits)
+        if got != want:
+            raise AssertionError(f"{what}: launches {got}, want {want}")
+        yk, dk = _kernel_route(p, q, k, v, cfg, chunk, fits)
+        if not torch.equal(y[0].transpose(0, 1), yk):
+            raise AssertionError(f"{what}: the routed call's y is not the "
+                                 f"kernel's")
+        yp, dp = _plain_route(p, q, k, v, cfg, chunk)
+        num_k, num_p = (a.float() * (b[..., None] + 1e-6)
+                        for a, b in ((yk, dk), (yp, dp)))
+        close(num_k, num_p, CORE_REL * float(num_p.abs().max()), 0.0,
+              f"{what} num")
+        close(dk, dp, CORE_REL * float(dp.abs().max()), 0.0, f"{what} den")
+        del yk, dk, yp, dp, num_k, num_p
+        ms = time_ms(lambda: ops.slay_fused_attention(q, k, v, p, cfg,
+                                                      chunk_size=chunk),
+                     iters=5, warmup=1)
+        pms = time_ms(lambda: _plain_route(p, q, k, v, cfg, chunk), iters=3,
+                      warmup=1)
+    log(f"    {what}: route {sorted(got)}, {ms:.3f} ms (plain {pms:.3f})")
+    return got, ms, pms
+
+
+def _core_grads(kind, L, h, chunk, dv=64, **extra) -> dict:
+    """dq, dk, dv, dA, dΩ through ``ops.slay_fused_attention`` against
+    autograd of the plain route (core.features, la.causal_chunked), fp32;
+    -> the launches."""
+    cfg = _core_config(kind, "tensor", **extra)
+    p, q, k, v, dy = _core_inputs(cfg, L, h, dv)
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_(True)
+                  for t in (q, k, v, p["anchors"], p["omegas"])]
+        prm = dict(p, anchors=leaves[3], omegas=leaves[4])
+        (fn(prm, *leaves[:3]) * dy).sum().backward()
+        return [t.grad for t in leaves]
+
+    _build.reset_launches()
+    got = grads(lambda prm, q, k, v: ops.slay_fused_attention(
+        q, k, v, prm, cfg, chunk_size=chunk))
+    torch.cuda.synchronize()
+    counts = {n: c for n, c in _build.LAUNCHES.items() if c}
+    route = {"slay_scan_fwd": 1, "slay_scan_bwd_q": 1, "slay_scan_bwd_kv": 1}
+    if cfg.kernelizable:
+        route.update(feature_map_fwd=2, feature_map_bwd=2)
+    if counts != route:
+        raise AssertionError(f"{kind} backward: launches {counts}, want "
+                             f"{route}")
+    want = grads(lambda prm, q, k, v: la.causal_chunked(
+        features.slay_features(q, prm, cfg),
+        features.slay_features(k, prm, cfg), v, chunk_size=chunk))
+    rel = CORE_GRAD_REL[kind]
+    for name, g, w in zip(("dq", "dk", "dv", "dA", "dOmega"), got, want,
+                          strict=True):
+        if w is None:      # rm reads no anchors
+            if g is not None:
+                raise AssertionError(f"{kind}: a {name} for unread anchors")
+            continue
+        close(g, w, rel * float(w.abs().max()), 0.0,
+              f"{kind} m={cfg.feature_dim} {name} vs plain autograd")
+    log(f"    {kind} m={cfg.feature_dim} backward: launches {counts}")
+    return counts
+
+
+@_timed
+def _core_kinds(card: str) -> collections.Counter:
+    """(a): every poly kind x fusion through ``slay_attention``'s causal
+    entry, and the anchor kind past the fused kernels' width, against the
+    plain route; two backwards. Returns the launches."""
+    launches: collections.Counter = collections.Counter()
+    log(f"  (a) every feature config, causal, fp32, d = 64, P = 8, D = 16, "
+        f"R = 3; num and den within {CORE_REL:g} of the plain's largest")
+    for kind in features.POLY_KINDS:
+        for fusion in features.FUSIONS:
+            h = CORE_EXACT_HEADS if kind == "exact" else CORE_HEADS
+            got, _, _ = _core_case(kind, fusion, CORE_L, h, CORE_CHUNK,
+                                   head_dim=64)
+            launches.update(got)
+            _free_card()
+    log(f"  Table 2's large budget, d = 32, P = D = 32, R = 3 "
+        f"(K1 and K4 need {slay_fused.fused_smem_bytes(32, 32, 32, 32)} and "
+        f"{slay_fused.fused_bwd_smem_bytes(32, 32, 32, 32)} B > "
+        f"{_build.SMEM_LIMIT})")
+    for kind in features.POLY_KINDS:
+        got, _, _ = _core_case(kind, "tensor", LARGE_L, LARGE_HEADS,
+                               LARGE_CHUNK, dv=32, **LARGE)
+        if kind == "anchor" and got.get("slay_fused_fwd", 0):
+            raise AssertionError("anchor at P = D = 32 launched K1")
+        launches.update(got)
+    launches.update(_core_grads("rm", CORE_L, CORE_HEADS, CORE_CHUNK,
+                                head_dim=64))
+    launches.update(_core_grads("anchor", LARGE_L, LARGE_HEADS, LARGE_CHUNK,
+                                dv=32, **LARGE))
+    log(f"  (a) launches {dict(launches)}  [{card}]")
+    return launches
+
+
+@_timed
+def _core_long_context(card: str, lock_ms: dict) -> collections.Counter:
+    """(b): ``examples/long_context.py`` in-process at its defaults (32,768
+    tokens, 16 steps): its (S, z) against the feature map's plain twin
+    then la.prefill_state, its decode outputs against la.decode_step from
+    that state. Returns the launches."""
+    _build.reset_launches()
+    r = long_context.main([])
+    counts = collections.Counter(
+        {n: c for n, c in _build.LAUNCHES.items() if c})
+    steps = len(r["ys"])
+    want = {"feature_map_fwd": 1 + 2 * steps, "slay_decode_step": steps}
+    if counts != want:
+        raise AssertionError(f"long context: launches {dict(counts)}, want "
+                             f"{want}")
+    cfg, a, w = r["cfg"], r["params"]["anchors"], r["params"]["omegas"]
+
+    def psi(u):
+        return feature_map.feature_map_plain(
+            u.reshape(-1, u.shape[-1]), a, w, cfg).reshape(*u.shape[:-1], -1)
+
+    with torch.inference_mode():
+        plain = la.prefill_state(psi(r["k"]), r["v"])
+        for name, got, exp in zip("sz", r["state0"], plain, strict=True):
+            close(got, exp, LONGCTX_REL * float(exp.abs().max()), 0.0,
+                  f"long context prefill {name}")
+        qf = psi(r["q"])
+        st, err = r["state0"], 0.0
+        for y in r["ys"]:
+            yw, st = la.decode_step(qf, qf, r["q"], st)
+            err = max(err, close(y, yw, LONGCTX_Y_REL * float(
+                yw.float().abs().max()), 0.0, "long context decode y"))
+        for name, got, exp in zip("sz", r["state"], st, strict=True):
+            close(got, exp, LONGCTX_REL * float(exp.abs().max()), 0.0,
+                  f"long context state after {steps} steps, {name}")
+    log(f"  (b) long context: state {r['state_mb']:.2f} MB against a "
+        f"{r['kv_mb']:.2f} MB KV cache; prefill {r['prefill_s'] * 1e3:.1f} ms"
+        f"; decode {r['ms_per_token']:.4f} ms/token (one layer's 8 heads, "
+        f"batch 1) beside phase 8's lockstep step (12 layers x 4 requests) "
+        f"{lock_ms['graphed']:.3f} ms graphed, {lock_ms['eager']:.3f} "
+        f"eager; launches {dict(counts)}  [{card}]")
+    return counts
+
+
+@_timed
+def _core_long_prompt(card: str, lock_ms: dict) -> collections.Counter:
+    """(c): one 32,768-token prompt on slayformer-124m (12 x 768) through
+    the lockstep engine (K1 once a layer over the whole prompt) and the
+    continuous engine (chunks of 128, fp32 state carried in PyTorch ops,
+    B4b ticks); equal greedy streams but for C-2 ties, last-token logits
+    within CORE_LOGIT_REL; decode ms per step at 32,768 against 512
+    tokens. Returns the launches."""
+    cfg = configs.get_config("slayformer-124m")
+    nl, K = cfg.num_layers, CONT_SERVING["macro_ticks"]
+    laps = [("start", time.perf_counter())]
+    params = api.init_params(cfg, SEED, device="cuda")
+    laps.append(("weights", time.perf_counter()))
+    rng = np.random.default_rng(SEED + 26)
+    prompt = rng.integers(0, cfg.vocab_size, CORE_PROMPT).astype(np.int32)
+    req = engine.Request(prompt, max_new_tokens=CORE_NEW)
+    launches: collections.Counter = collections.Counter()
+
+    lock = engine.ServingEngine(cfg, params, device="cuda",
+                                max_len=CORE_MAX_LEN + 64)
+    lock.generate([engine.Request(prompt[:64], max_new_tokens=2)])   # warm
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out_l = lock.generate([req])[0]
+    torch.cuda.synchronize()
+    wall_l = time.perf_counter() - t0
+    got = {n: c for n, c in _build.LAUNCHES.items() if c}
+    want = {"slay_fused_fwd": nl, "slay_decode_step": nl * (CORE_NEW - 1)}
+    if got != want:
+        raise AssertionError(f"32k lockstep: launches {got}, want {want}")
+    launches.update(got)
+    # The graphed lockstep step (batch 1) at 32,768 and 512 tokens of
+    # context, in turns: CUDA events around each replay, after a
+    # generate that leaves the engine's cache at that context.
+    short = prompt[-CORE_SHORT:]
+    step_ms: dict = {CORE_PROMPT: [], CORE_SHORT: []}
+    with torch.inference_mode():
+        for p in (short, prompt, prompt, short):
+            lock.generate([engine.Request(p, max_new_tokens=2)])
+            step_ms[len(p)].append(time_ms(lock._lockstep(1, 0.0).step,
+                                           iters=16, warmup=2))
+    del lock
+    _free_card()
+    laps.append(("lockstep", time.perf_counter()))
+
+    timed: dict = {}
+    _build.reset_launches()
+    outs, s, eng, wall_c = _cont_run(cfg, params, [req], timed=timed,
+                                     max_len=CORE_MAX_LEN)
+    n_b = _b4b_launches("32k continuous", s["decode_dispatches"], nl, K)
+    launches["slay_decode_step_masked"] += n_b
+    out_c = outs[next(iter(outs))]
+    del eng
+    _free_card()
+    pre = timed["_prefill_tick"]
+    laps.append(("continuous", time.perf_counter()))
+    # Tick time at 32,768 and 512 tokens of context, in turns: graphed
+    # dispatches of K ticks after the first two (the eager warm-up and the
+    # capture), CUDA events around each.
+    tick_ms: dict = {CORE_PROMPT: [], CORE_SHORT: []}
+    for p in (short, prompt, prompt, short):
+        timed_p: dict = {}
+        _cont_run(cfg, params, [engine.Request(p, max_new_tokens=CORE_TIMED)],
+                  timed=timed_p, max_len=len(p) + CORE_TIMED)
+        tick_ms[len(p)] += [t / K * 1e3 for t in timed_p["_decode_macro"][2:]]
+        _free_card()
+    laps.append(("tick timing", time.perf_counter()))
+
+    gaps = _greedy_gaps(params, cfg, prompt, out_l)
+    laps.append(("gaps", time.perf_counter()))
+    diff = [t for t in range(CORE_NEW) if out_l[t] != out_c[t]]
+    if diff:
+        t = diff[0]
+        gap, scale = gaps[t]
+        if gap >= LONG_GAP_FRAC * scale:
+            raise AssertionError(f"32k prompt: streams differ at token {t} "
+                                 f"(top-2 gap {gap:.4f} of {scale:.3f})")
+        log(f"  streams part at token {t}, a near-tie (top-2 gap {gap:.4f} "
+            f"of max |logit| {scale:.3f}): C-2")
+    with torch.inference_mode():
+        whole, _ = api.prefill(params, cfg, torch.from_numpy(prompt[None])
+                               .cuda(), max_len=CORE_MAX_LEN)
+    whole = whole[0, -1].float()
+    chunked = _chunked_row(cfg, params, prompt, max_len=CORE_MAX_LEN)
+    laps.append(("whole and chunked logits", time.perf_counter()))
+    close(whole, chunked, CORE_LOGIT_REL * float(whole.abs().max()), 0.0,
+          "32k last-token logits, K1 whole vs chunked")
+    lock = {n: statistics.median(v) for n, v in step_ms.items()}
+    tick = {n: statistics.median(v) for n, v in tick_ms.items()}
+    log(f"  (c) {CORE_PROMPT}-token prompt, {CORE_NEW} greedy tokens: "
+        f"lockstep {wall_l:.3f} s (K1 {nl}), continuous {wall_c:.3f} s "
+        f"({s['prefill_ticks']} prefill ticks, median "
+        f"{statistics.median(pre) * 1e3:.2f} ms; B4b {n_b}); streams "
+        f"{'equal' if not diff else 'equal up to a tie'}")
+    log(f"  decode ms per step at {CORE_PROMPT} against {CORE_SHORT} tokens "
+        f"of context, in turns: lockstep graphed step (batch 1) "
+        f"{lock[CORE_PROMPT]:.3f} / {lock[CORE_SHORT]:.3f} (phase 8's, 4 "
+        f"requests: graphed {lock_ms['graphed']:.3f}, eager "
+        f"{lock_ms['eager']:.3f}); continuous graphed tick (1 of "
+        f"{CONT_SERVING['num_slots']} slots, a dispatch / {K}) "
+        f"{tick[CORE_PROMPT]:.3f} / {tick[CORE_SHORT]:.3f}  [{card}]")
+    log("  (c) seconds: " + ", ".join(
+        f"{name} {t - laps[i][1]:.1f}" for i, (name, t) in
+        enumerate(laps[1:])))
+    return launches
+
+
+@_timed
+def _core_quickstart(card: str) -> collections.Counter:
+    """(d): ``examples/quickstart.py`` in-process: its rel-L2 against exact
+    spherical Yat and its 30 train steps. Returns the launches."""
+    _build.reset_launches()
+    rel, losses = quickstart.main([])
+    counts = collections.Counter(
+        {n: c for n, c in _build.LAUNCHES.items() if c})
+    n = len(losses)
+    nl = configs.get_smoke_config("slayformer-124m").num_layers
+    want = {"slay_fused_fwd": 1 + nl * n, "slay_fused_bwd_q": nl * n,
+            "slay_fused_bwd_kv": nl * n}
+    if counts != want or not np.isfinite(rel) or losses[-1] >= losses[0]:
+        raise AssertionError(f"quickstart: rel-L2 {rel}, losses {losses[0]}"
+                             f" -> {losses[-1]}, launches {dict(counts)}, "
+                             f"want {want}")
+    log(f"  (d) quickstart: rel-L2 {rel:.4f}; loss {losses[0]:.4f} at step 0,"
+        f" {losses[-1]:.4f} at step {n - 1}; launches {dict(counts)}  "
+        f"[{card}]")
+    return counts
+
+
+def phase_core(card: str, lock_ms: dict) -> dict:
+    """Phase 26: the rest of the core. (a) every feature config through
+    the causal entry, (b) the long-context example at 32,768 tokens, (c)
+    slayformer-124m's 32,768-token prompt through both engines, (d) the
+    quickstart. ``lock_ms`` is phase 8's lockstep step, graphed and
+    eager. Returns the launches per part."""
+    t_phase = time.perf_counter()
+    out = {"kinds": _core_kinds(card)}
+    _free_card()
+    out["long_context"] = _core_long_context(card, lock_ms)
+    _free_card()
+    out["long_prompt"] = _core_long_prompt(card, lock_ms)
+    _free_card()
+    out["quickstart"] = _core_quickstart(card)
+    log(f"the core: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; it needs an "
@@ -4780,6 +5179,7 @@ def main() -> int:
     mixed = phase_mixed(card_line)
     ssm = phase_ssm(card_line)
     front, audio_fmap = phase_frontends(card_line)
+    core = phase_core(card_line, slay_step_ms)
     k2_bl = k2.pop("baselines")
     kernels = [
         dict(name="slay_fused_fwd", route="cuda",
@@ -4854,6 +5254,11 @@ def main() -> int:
                                        if arch == AUDIO else {},
                                        launches=d.get(name, 0))
                             for arch, d in front.items()}
+    # Phase 26's launches join every row's count, per part under ``core``.
+    for row in kernels:
+        name = row["name"]
+        row["launches"] += sum(c.get(name, 0) for c in core.values())
+        row["core"] = {part: c.get(name, 0) for part, c in core.items()}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi())
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -7,7 +7,9 @@ The spherical Yat-kernel admits the integral representation (paper Eq. 8):
 
 With t = C s this is a standard Gauss-Laguerre integral; the R-node rule
 uses s_r = t_r / C and w_r = alpha_r / C. numpy only (float64); a copy of
-``repro.core.quadrature`` so the port imports nothing of the JAX package.
+``repro.core.quadrature`` so the port imports nothing of the JAX package,
+with its two numpy helpers :func:`quadrature_kernel` and
+:func:`exact_spherical_yat`.
 """
 from __future__ import annotations
 
@@ -35,3 +37,18 @@ def yat_quadrature(num_nodes: int, eps: float) -> tuple[np.ndarray, np.ndarray]:
     c = 2.0 + eps
     t, a = laguerre_nodes(num_nodes)
     return t / c, a / c
+
+
+def quadrature_kernel(x: np.ndarray, num_nodes: int, eps: float) -> np.ndarray:
+    """Quadrature approximation of E_sph(x) = x^2/(C-2x) (no random
+    features), float64: Σ_r w_r x² e^{2 s_r x}. The convergence study of
+    paper Fig. 9 compares it with :func:`exact_spherical_yat`."""
+    s, w = yat_quadrature(num_nodes, eps)
+    x = np.asarray(x, dtype=np.float64)[..., None]
+    return np.sum(w * (x**2) * np.exp(2.0 * s * x), axis=-1)
+
+
+def exact_spherical_yat(x: np.ndarray, eps: float) -> np.ndarray:
+    """Closed-form E_sph(x) = x^2 / (2 + eps - 2x), float64."""
+    x = np.asarray(x, dtype=np.float64)
+    return x**2 / (2.0 + eps - 2.0 * x)

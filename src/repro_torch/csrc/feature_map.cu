@@ -58,7 +58,12 @@
 //     the tokens its warp walks (in per-warp shared memory where P + D or
 //     d is too large for registers); at the end the block adds its warps'
 //     sums in warp order and writes one dA/dΩ partial, which the wrapper
-//     sums: no atomics.
+//     sums: no atomics;
+//   - where the ring of dΨ rows (kBwdStages·kRW rows of m values a warp)
+//     would not fit in a block's shared memory (m = R·P·D of 3072 at
+//     Table 2's P = D = 32 needs 400 KB in fp32), the ring holds the u
+//     rows only and the dpa/dpw items read dΨ from device memory, the
+//     same values in the same order, so du, dA and dΩ do not change.
 #include <cstdint>
 
 #include "slay_common.cuh"
@@ -329,6 +334,7 @@ constexpr int kBwdStages = 2;   // token pairs per warp in shared memory:
                                 // the current one and the next in flight
 constexpr int kRegRows = 24;    // dA/dΩ rows (P + D) a lane keeps in
                                 // registers; more go to shared memory
+constexpr int kSmemLimit = 232448;   // dynamic shared memory of one block
 
 // S, the parts each dpa sum (D terms per node) is split into so that the
 // P·S dpa items and the D dpw items (P terms per node) fill one warp: the
@@ -346,9 +352,11 @@ __host__ __device__ inline int bwd_split(int P, int D) {
 // kRW staged rows (u, then dΨ, each in the input dtype and padded to 16
 // bytes), and per token it carries φ_p (P), φ_e (R·D), pa (P) and inv,
 // the dpa/dpw items and dproj (P + D); without register sums also its
-// dA/dΩ sums (P + D rows of ldw).
+// dA/dΩ sums (P + D rows of ldw). stage_psi: the ring holds dΨ rows too;
+// bwd_layout drops them (and the register sums) where they would not fit
+// in kSmemLimit.
 struct BwdLayout {
-  int kq, ldw, split, reg_acc;
+  int kq, ldw, split, reg_acc, stage_psi;
   int u_bytes, row_bytes;
   int aw, daw, warps, per_warp;
   int w_phi, w_item, w_dproj, w_acc;   // per-token scratch: kRW of each
@@ -356,16 +364,18 @@ struct BwdLayout {
   int total;
 };
 
-__host__ __device__ inline BwdLayout bwd_layout(int d, int P, int D, int R,
-                                                int es) {
+__host__ __device__ inline BwdLayout bwd_layout_at(int d, int P, int D,
+                                                   int R, int es,
+                                                   bool stage_psi) {
   BwdLayout l;
   const int npd = P + D;
   l.kq = d <= 32 ? 1 : d <= 64 ? 2 : 4;
   l.ldw = 32 * l.kq;
   l.split = bwd_split(P, D);
-  l.reg_acc = npd <= kRegRows && l.kq <= 2;
+  l.stage_psi = stage_psi;
+  l.reg_acc = npd <= kRegRows && l.kq <= 2 && stage_psi;
   l.u_bytes = round16(d * es);
-  l.row_bytes = l.u_bytes + round16(R * P * D * es);
+  l.row_bytes = l.u_bytes + (stage_psi ? round16(R * P * D * es) : 0);
   l.phi_ld = round16((2 * P + R * D + 1) * 4) / 4;
   l.item_ld = round16((P * l.split + D) * 4) / 4;
   l.dproj_ld = round16(npd * 4) / 4;
@@ -381,6 +391,12 @@ __host__ __device__ inline BwdLayout bwd_layout(int d, int P, int D, int R,
   l.per_warp = round16(w);
   l.total = o + kBwdWarps * l.per_warp;
   return l;
+}
+
+__host__ __device__ inline BwdLayout bwd_layout(int d, int P, int D, int R,
+                                                int es) {
+  const BwdLayout l = bwd_layout_at(d, P, D, R, es, true);
+  return l.total <= kSmemLimit ? l : bwd_layout_at(d, P, D, R, es, false);
 }
 
 // x[0..kQ) = p[0..kQ), one shared-memory load (p aligned to 4·kQ bytes).
@@ -463,10 +479,12 @@ __device__ __forceinline__ void reduce_projections(
 
 // B8: du of every token this block's warps walk, and the block's dA, dΩ
 // sums. kQ columns of û per lane (d <= 32·kQ); kRegAcc: the dA/dΩ sums in
-// registers (P + D <= kRegRows), else in the warp's shared memory. Global
-// warp w walks tokens w, w + W, w + 2W, ... (W warps in all), kRW of them
-// at once, and adds each token to its sums in that order.
-template <typename T, int kQ, bool kRegAcc>
+// registers (P + D <= kRegRows), else in the warp's shared memory;
+// kStagePsi: dΨ rows come through the warp's ring, else straight from
+// device memory. Global warp w walks tokens w, w + W, w + 2W, ... (W warps
+// in all), kRW of them at once, and adds each token to its sums in that
+// order.
+template <typename T, int kQ, bool kRegAcc, bool kStagePsi>
 __global__ void __launch_bounds__(kThreads, 2)
 feature_map_bwd_kernel(const T* __restrict__ u,
                        const float* __restrict__ anchors,
@@ -506,9 +524,10 @@ feature_map_bwd_kernel(const T* __restrict__ u,
   // `slot`: 16-byte cp.async where every row starts on 16 bytes, else
   // plain copies (complete at once).
   const int nw = gridDim.x * kBwdWarps;
-  const int ub = d * (int)sizeof(T), pb = m * (int)sizeof(T);
-  const bool vec = ((reinterpret_cast<uintptr_t>(u) |
-                     reinterpret_cast<uintptr_t>(dpsi) | ub | pb) % 16) == 0;
+  const int ub = d * (int)sizeof(T), pb = kStagePsi ? m * (int)sizeof(T) : 0;
+  const bool vec =
+      ((reinterpret_cast<uintptr_t>(u) | ub | pb |
+        (kStagePsi ? reinterpret_cast<uintptr_t>(dpsi) : 0)) % 16) == 0;
   auto stage = [&](int t0, int slot) {
 #pragma unroll
     for (int e = 0; e < kRW; ++e) {
@@ -527,7 +546,8 @@ feature_map_bwd_kernel(const T* __restrict__ u,
         T* su = reinterpret_cast<T*>(dst);
         T* sp = reinterpret_cast<T*>(dst + lay.u_bytes);
         for (int i = lane; i < d; i += 32) su[i] = u[(int64_t)t * d + i];
-        for (int i = lane; i < m; i += 32) sp[i] = dpsi[(int64_t)t * m + i];
+        if constexpr (kStagePsi)
+          for (int i = lane; i < m; i += 32) sp[i] = dpsi[(int64_t)t * m + i];
       }
     }
   };
@@ -556,8 +576,12 @@ feature_map_bwd_kernel(const T* __restrict__ u,
       valid[e] = t0 + e * nw < n;
       ur[e] = reinterpret_cast<const T*>(wreg +
                                          (slot * kRW + e) * lay.row_bytes);
-      dr[e] = reinterpret_cast<const T*>(
-          reinterpret_cast<const char*>(ur[e]) + lay.u_bytes);
+      // Unstaged, a token past n reads row t0's dΨ: its items are
+      // computed and then masked (dproj 0), as a staged slot's are.
+      dr[e] = kStagePsi ? reinterpret_cast<const T*>(
+                              reinterpret_cast<const char*>(ur[e]) +
+                              lay.u_bytes)
+                        : dpsi + (int64_t)(valid[e] ? t0 + e * nw : t0) * m;
     }
 
     // û on the lane's columns (zero for a token past n); inv = rsqrt(‖u‖²
@@ -745,14 +769,19 @@ feature_map_bwd_kernel(const T* __restrict__ u,
 }
 
 // B8's instantiation for these shapes.
-template <typename T, int kQ, bool kRegAcc>
+template <typename T, int kQ, bool kRegAcc, bool kStagePsi = true>
 const void* bwd_fn() {
-  return reinterpret_cast<const void*>(feature_map_bwd_kernel<T, kQ, kRegAcc>);
+  return reinterpret_cast<const void*>(
+      feature_map_bwd_kernel<T, kQ, kRegAcc, kStagePsi>);
 }
 
 template <typename T>
 const void* fm_bwd_kernel(int d, int P, int D, int R) {
   const BwdLayout l = bwd_layout(d, P, D, R, (int)sizeof(T));
+  if (!l.stage_psi)
+    return l.kq == 1   ? bwd_fn<T, 1, false, false>()
+           : l.kq == 2 ? bwd_fn<T, 2, false, false>()
+                       : bwd_fn<T, 4, false, false>();
   if (l.reg_acc) return l.kq == 1 ? bwd_fn<T, 1, true>() : bwd_fn<T, 2, true>();
   return l.kq == 1   ? bwd_fn<T, 1, false>()
          : l.kq == 2 ? bwd_fn<T, 2, false>()

@@ -30,11 +30,22 @@ class FeatureStatics(NamedTuple):
     num_prf: int        # D
 
 
+def check_kernelizable(cfg: SlayFeatureConfig) -> None:
+    """Raise unless the kernels compute ``cfg``'s Ψ: they take the anchor
+    polynomial with the tensor fusion only, as the TPU kernels do; the
+    ``ops`` wrappers send every other config through
+    ``core.features.slay_features`` and the scan."""
+    if not cfg.kernelizable:
+        raise ValueError(f"poly_kind={cfg.poly_kind!r}, fusion={cfg.fusion!r}:"
+                         f" the kernels compute anchor+tensor Ψ only")
+
+
 @functools.lru_cache(maxsize=64)
 def feature_statics(cfg: SlayFeatureConfig) -> FeatureStatics:
     """The statics of ``cfg``, computed once per config: the quadrature
-    behind them is host time that every kernel launch would pay again."""
-    cfg.check_supported()
+    behind them is host time that every kernel launch would pay again.
+    Only a kernelizable config (anchor + tensor) has them."""
+    check_kernelizable(cfg)
     s_np, w_np = quadrature.yat_quadrature(cfg.num_quad_nodes, cfg.eps)
     return FeatureStatics(
         s_nodes=tuple(float(x) for x in s_np),

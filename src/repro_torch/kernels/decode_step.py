@@ -36,6 +36,36 @@ def decode_linear_attention_plain(qf, kf, v, s, z, active=None, *,
     return y, s, z
 
 
+def decode_smem_bytes(g: int, m: int, dv: int) -> int:
+    """K2's dynamic shared memory per block, ``csrc/decode_step.cu::
+    decode_smem`` in Python: a kv row's m feature rows go to C <= 8 blocks
+    of ``rows`` each (``decode_slices``), and a block holds Ψq of its
+    slice for the G heads, Ψk, the row-group partial numerators of a tile
+    of min(G, 8) heads, the warp denominators and its (G, dv) partial
+    num and (G) den, in floats."""
+    c = min(-(-m // 16), 8)
+    rows = -(-m // c)
+    t = min(g, 8)
+    floats = (g * rows + rows + (128 // (dv // 4)) * t * dv + 4 * t
+              + g * dv + g)
+    return 4 * floats
+
+
+def max_feature_dim(g: int, dv: int) -> int:
+    """The largest m whose K2 blocks fit ``_build.SMEM_LIMIT`` at group g
+    and value width dv (230,120 at G = 1, dv = 64): every block holds its
+    slice of Ψq for the whole group, so m past it cannot decode. The
+    ``exact`` poly kind at d = 64 (m = 196,608) decodes at G = 1 only."""
+    lo, hi = 0, 1 << 22
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if decode_smem_bytes(g, mid, dv) <= _build.SMEM_LIMIT:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
 def _check(qf, kf, v, s, z, active):
     if qf.dim() != 2 or kf.dim() != 2 or v.dim() != 2:
         raise ValueError("qf, kf, v must be (rows, feat)")
@@ -55,6 +85,15 @@ def _check(qf, kf, v, s, z, active):
                         f"{qf.dtype}, {kf.dtype}")
     if v.dtype not in codes:
         raise TypeError(f"v must be float32 or bfloat16, got {v.dtype}")
+    if decode_smem_bytes(bh // bk, m, dv) > _build.SMEM_LIMIT:
+        # The plain version keeps the kernel's limit: both devices accept
+        # the same calls.
+        raise ValueError(
+            f"m={m} at G={bh // bk}, dv={dv} needs "
+            f"{decode_smem_bytes(bh // bk, m, dv)} B of shared memory per "
+            f"block of the decode kernel, more than {_build.SMEM_LIMIT}: "
+            f"it decodes m <= {max_feature_dim(bh // bk, dv)} at this G "
+            f"and dv")
     named = [("qf", qf), ("kf", kf), ("v", v), ("s", s), ("z", z)]
     if active is not None:
         if active.shape != (bk,):

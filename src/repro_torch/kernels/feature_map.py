@@ -27,8 +27,8 @@ import torch
 
 from repro_torch.core.features import SlayFeatureConfig
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import (feature_statics, features_bwd,
-                                        features_fwd)
+from repro_torch.kernels.common import (check_kernelizable, feature_statics,
+                                        features_bwd, features_fwd)
 
 
 def feature_map_plain(u, anchors, omegas, cfg: SlayFeatureConfig):
@@ -48,7 +48,7 @@ def feature_map_bwd_plain(u, anchors, omegas, dpsi, cfg: SlayFeatureConfig):
 
 
 def _check(u, anchors, omegas, cfg: SlayFeatureConfig):
-    cfg.check_supported()
+    check_kernelizable(cfg)
     if u.dim() != 2:
         raise ValueError(f"u must be (N, d), got {tuple(u.shape)}")
     d = u.shape[1]

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import features as core_features
 from repro_torch.core.features import SlayFeatureConfig
 from repro_torch.kernels import decode_step as _dk
 from repro_torch.kernels import feature_map as _fm
@@ -63,12 +64,18 @@ def slay_causal_attention(qf: torch.Tensor, kf: torch.Tensor,
 
 def slay_features(u: torch.Tensor, params: dict,
                   cfg: SlayFeatureConfig) -> torch.Tensor:
-    """Ψ(u) over the trailing dim through the feature-map kernel (its plain
-    twin on the CPU): u (..., d) -> (..., m) in u's dtype.
+    """Ψ(u) over the trailing dim: u (..., d) -> (..., m) in u's dtype.
 
-    The CUDA kernel takes any token count, so nothing is padded; the
-    result equals the JAX entry's pad-and-slice.
+    A kernelizable config (anchor + tensor) goes through the feature-map
+    kernel B7 (its plain twin on the CPU); the CUDA kernel takes any token
+    count, so nothing is padded, and the result equals the JAX entry's
+    pad-and-slice. Every other config takes
+    :func:`repro_torch.core.features.slay_features` (PyTorch ops, fp32,
+    cast to u's dtype), as the JAX entry takes its jnp reference: no
+    Pallas kernel computes those kinds.
     """
+    if not cfg.kernelizable:
+        return core_features.slay_features(u, params, cfg).to(u.dtype)
     *lead, d = u.shape
     psi = _fm.feature_map(u.reshape(-1, d).contiguous(), params["anchors"],
                           params["omegas"], cfg)
@@ -82,9 +89,34 @@ def slay_fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """End-to-end SLAY causal attention on **raw** q/k.
 
     q (..., L, H, d), k (..., L, Hkv, d), v (..., L, Hkv, dv)
-    -> (..., L, H, dv). Ψ is computed inside the fused kernel on the card
-    (its fp32 plain twin on the CPU); ragged L is zero-padded.
+    -> (..., L, H, dv); ragged L is zero-padded. Three routes, chosen
+    before any launch from the config and the shapes alone:
+
+    * anchor + tensor whose P·D the fused kernels hold
+      (``slay_fused.fused_fits``: K1's and K4's shared memory, which keeps
+      a quadrature node's whole (P·D, dv) fp32 carry and two tiles of Ψ at
+      width P·D, within ``_build.SMEM_LIMIT``): the fused kernel K1, Ψ
+      computed inside it (its fp32 plain twin on the CPU), K3 and K4 for
+      the gradient;
+    * anchor + tensor past that (e.g. Table 2's P = D = 32 at d = 32): the
+      two-dispatch kernels, which tile the feature axis in slices of 128
+      and so take any m: B7 then B5 forward, B6a/B6b then B8 backward;
+    * every other poly kind or fusion: Ψ from
+      :func:`repro_torch.core.features.slay_features` (PyTorch ops,
+      differentiable by autograd) cast to v's dtype, then the scan B5
+      (B6a/B6b for its gradient). The JAX package computes these kinds
+      with jnp features and ``la.causal_chunked``, or under
+      ``use_kernel=True, fuse_features=False`` with the Pallas scan; the
+      port always runs the hand-written scan, the same function.
     """
+    if not cfg.kernelizable or not _fused.fused_fits(
+            q.shape[-1], v.shape[-1], cfg.num_anchors, cfg.num_prf,
+            q.device.type):
+        qf = slay_features(q, params, cfg).to(v.dtype)
+        kf = slay_features(k, params, cfg).to(v.dtype)
+        return slay_causal_attention(qf, kf, v, chunk_size=chunk_size,
+                                     delta=delta)
+
     def run(qh, kh, vh):
         y, _den = _fused.fused_causal_attention(
             qh, kh, vh, params["anchors"], params["omegas"], cfg,

@@ -19,15 +19,16 @@ one to the other.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.core.features import SlayFeatureConfig
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import (causal_mask, check_residuals,
-                                        cotangents, empty_fp32,
-                                        feature_statics, features_bwd,
-                                        features_fwd)
+from repro_torch.kernels.common import (causal_mask, check_kernelizable,
+                                        check_residuals, cotangents,
+                                        empty_fp32, feature_statics,
+                                        features_bwd, features_fwd)
 
 
 def fused_causal_attention_plain(q, k, v, anchors, omegas,
@@ -62,7 +63,7 @@ def fused_causal_attention_plain(q, k, v, anchors, omegas,
 
 
 def _check(q, k, v, anchors, omegas, cfg: SlayFeatureConfig, chunk_size):
-    cfg.check_supported()
+    check_kernelizable(cfg)
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise ValueError("q, k, v must be (rows, L, feat)")
     bh, L, d = q.shape
@@ -90,6 +91,62 @@ def _check(q, k, v, anchors, omegas, cfg: SlayFeatureConfig, chunk_size):
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _pad16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def _floats(*sizes: int) -> int:
+    """Floats of a carve-up of these sizes, each rounded up to 16 bytes
+    (``csrc/scan_tile_mma.cuh::carve``)."""
+    return sum((n + 3) // 4 * 4 for n in sizes)
+
+
+def fused_smem_bytes(d: int, dv: int, P: int, D: int, es: int = 4) -> int:
+    """K1's dynamic shared memory per block, ``csrc/slay_fused.cu::
+    fused_layout`` in Python (the C entry ``slay_fused_smem_bytes`` reports
+    it at es = 4): one quadrature node's (P·D, dv) fp32 carry and z, two
+    16-token tiles of raw rows, projections, φ and Ψ at width P·D, V, the
+    scores, then the staging of the next tile. At d = dv = 64, P = 8,
+    D = 16 it is 83,584 B in bf16 and 89,728 in fp32; at Table 2's "large"
+    budget, d = dv = 32 with P = D = 32, 316,160 B."""
+    T, pd = 16, _pad16(P * D)
+    floats = _floats(pd * (dv + 4), pd, 2 * T * (d + 4), (P + D) * (d + 4),
+                     2 * T * (P + D), 2 * T * (pd + 4), T * (dv + 4),
+                     T * (T + 4), T * (T + 4))
+    return floats * 4 + T * (2 * _pad16(d * es) + _pad16(dv * es))
+
+
+def fused_bwd_smem_bytes(d: int, dv: int, P: int, D: int, es: int = 4) -> int:
+    """K4's dynamic shared memory per block (K3 takes no more),
+    ``csrc/slay_fused_bwd.cu::bwd_layout`` with kv in Python (the C entry
+    ``slay_fused_bwd_smem_bytes`` reports it at es = 4): K1's carry and
+    tiles plus pa, inv, G, h, dP, dV and the dA/dΩ scratch. At d = dv =
+    64, P = 8, D = 16 it is 104,832 B in bf16 and 115,072 in fp32."""
+    T, pd, npd = 16, P * D, P + D
+    o = (pd * (dv + 4) + pd + 2 * T * (d + 4) + npd * (d + 4) + 2 * T * npd
+         + 2 * T * P + 2 * T + 2 * T * (pd + 4) + 2 * T * (dv + 4) + T)
+    o += max(3 * T * (T + 4), T * npd) + npd * d + T * dv
+    o = (o + 3) // 4 * 4
+    return o * 4 + T * (2 * d + 3 * dv) * es + T * 4
+
+
+@functools.lru_cache(maxsize=64)
+def fused_fits(d: int, dv: int, P: int, D: int, device_type: str) -> bool:
+    """Whether K1 and K3/K4 hold a config at these head dims: their shared
+    memory (each node's whole (P·D, dv) fp32 carry and two tiles of Ψ at
+    width P·D) within ``_build.SMEM_LIMIT``. On the card the kernels' own
+    C entries say; on the CPU their copies above, so both devices take the
+    same route (``ops.slay_fused_attention``). Launches nothing."""
+    if device_type == "cuda":
+        fwd = _build.load("slay_fused").slay_fused_smem_bytes(d, dv, P, D)
+        bwd = _build.load("slay_fused_bwd").slay_fused_bwd_smem_bytes(
+            d, dv, P, D)
+    else:
+        fwd = fused_smem_bytes(d, dv, P, D)
+        bwd = fused_bwd_smem_bytes(d, dv, P, D)
+    return max(fwd, bwd) <= _build.SMEM_LIMIT
 
 
 def _kernel_args(lib, smem_fn, q, v, cfg: SlayFeatureConfig):

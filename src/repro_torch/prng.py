@@ -13,7 +13,10 @@ that serving uses, as jax 0.9.0 computes it with 64-bit mode off and
 * :func:`random_bits`, 32-bit words (``_threefry_random_bits_partitionable``:
   the hash of the 64-bit counter ``(0, i)``, its two words xor-ed);
 * :func:`uniform`, :func:`gumbel` (mode "low") and :func:`categorical`
-  (``jax/_src/random.py``: ``_uniform``, ``_gumbel``, ``categorical``).
+  (``jax/_src/random.py``: ``_uniform``, ``_gumbel``, ``categorical``);
+* :func:`randint` (int32) and :func:`rademacher` (``_randint``;
+  ``_rademacher`` over ``_bernoulli``'s mode "low"), which draw the
+  TensorSketch tables of ``core.features``.
 
 A key is a numpy ``uint32`` array ``(..., 2)`` on the host, or a torch
 ``int64`` tensor ``(..., 2)`` holding the two words on any device. The
@@ -212,3 +215,36 @@ def categorical(key, logits, axis: int = -1):
         return torch.argmax(g + logits, dim=axis)
     logits = np.asarray(logits, np.float32)
     return np.argmax(gumbel(key, logits.shape) + logits, axis=axis)
+
+
+def randint(key, shape, minval: int, maxval: int, *, device=None):
+    """``jax.random.randint(key, shape, minval, maxval)`` in int32, for
+    0 <= minval and maxval < 2**31: two words per value from the two keys
+    of ``split(key)``, ``(hi mod span)·(2**32 mod span) + lo mod span``
+    in uint32 arithmetic, mod span (span = maxval − minval, 1 if empty).
+    numpy ``int32``, or torch ``int64`` holding the values."""
+    shape = tuple(shape)
+    key = _to_device(key, device)
+    keys = split(key)
+    hi = random_bits(keys[..., 0, :], shape, device=device)
+    lo = random_bits(keys[..., 1, :], shape, device=device)
+    span = max(maxval - minval, 1)
+    mult = ((2 ** 16 % span) ** 2 & MASK) % span
+    off = ((((hi % span) * mult) & MASK) + lo % span) & MASK
+    out = minval + off % span
+    if isinstance(out, torch.Tensor):
+        return out
+    return out.astype(np.int32)
+
+
+def rademacher(key, shape, dtype: torch.dtype = torch.float32, *,
+               device=None):
+    """``jax.random.rademacher(key, shape, dtype)``: ±1 as 2·b − 1, b the
+    Bernoulli(0.5) draw ``uniform(key, shape) < 0.5`` (float32 uniforms).
+    numpy results are float32 only."""
+    u = uniform(key, shape, device=device)
+    if isinstance(u, torch.Tensor):
+        return 2 * (u < 0.5).to(dtype) - 1
+    if dtype != torch.float32:
+        raise TypeError(f"numpy rademacher takes float32 only, not {dtype}")
+    return np.float32(2) * (u < np.float32(0.5)).astype(np.float32) - 1

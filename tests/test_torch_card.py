@@ -1226,3 +1226,235 @@ def _flat(tree, prefix=""):
             yield from _flat(v, key)
         else:
             yield key, v
+
+
+# -- the core's routes: every feature config; K1's node-width limit ----------
+
+
+def _route_case(cfg, L=96, h=4, hkv=2, dv=32, seed=0):
+    """Projections and fp32 q, k, v, dy (model layout, batch 1) on the
+    card for ``cfg``."""
+    p = tfeat.init_feature_params(cfg, torch.Generator().manual_seed(seed),
+                                  device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    d = cfg.head_dim
+    q = torch.randn(1, L, h, d, generator=gen, device="cuda")
+    k = torch.randn(1, L, hkv, d, generator=gen, device="cuda")
+    v = torch.randn(1, L, hkv, dv, generator=gen, device="cuda")
+    dy = torch.randn(1, L, h, dv, generator=gen, device="cuda")
+    return p, q, k, v, dy
+
+
+def _plain_num_den(qf, kf, v):
+    """The causal sums of the model-layout features, quadratic and fp32:
+    num (1, L, H, dv) and den (1, L, H), the plain oracle of a scan."""
+    g = qf.shape[-2] // kf.shape[-2]
+    kr, vr = kf.repeat_interleave(g, -2), v.repeat_interleave(g, -2)
+    scores = torch.tril(torch.einsum("blhm,bshm->bhls", qf, kr))
+    return (torch.einsum("bhls,bshd->blhd", scores, vr),
+            scores.sum(-1).transpose(1, 2))
+
+
+def _grads(fn, p, q, k, v, dy):
+    leaves = [t.clone().requires_grad_(True)
+              for t in (q, k, v, p["anchors"], p["omegas"])]
+    params = dict(p, anchors=leaves[3], omegas=leaves[4])
+    y = fn(params, *leaves[:3])
+    (y.float() * dy).sum().backward()
+    return y.detach(), [t.grad for t in leaves]
+
+
+ROUTE_KINDS = [("exact", "tensor", 0), ("rm", "tensor", 0),
+               ("tensorsketch", "subsample", 96), ("nystrom", "tensor", 0),
+               ("laplace", "tensor", 0), ("anchor", "hadamard", 0),
+               ("anchor", "subsample", 96)]
+
+
+@needs_card
+@pytest.mark.parametrize("kind,fusion,sketch", ROUTE_KINDS,
+                         ids=[f"{k}-{f}" for k, f, _ in ROUTE_KINDS])
+def test_every_feature_config_runs_the_scan_on_card(kind, fusion, sketch):
+    # A config no kernel computes takes Ψ from core.features (PyTorch ops)
+    # and its contraction through B5, its gradient through B6a/B6b; no
+    # K1, B7. Signed kinds can drive den toward 0, so num = y·(den + δ)
+    # and den are held to the plain causal sums at 1e-4 of the largest
+    # |num| and |den|; the gradients (against autograd of the plain
+    # route: core features then linear_attention.causal_chunked) at 1e-3
+    # of each one's largest.
+    from repro_torch.core import linear_attention as tla
+    from repro_torch.kernels import ops as tops
+    cfg = tfeat.SlayFeatureConfig(head_dim=D_HEAD, poly_kind=kind,
+                                  fusion=fusion, sketch_dim=sketch)
+    p, q, k, v, dy = _route_case(cfg)
+    qf = tfeat.slay_features(q, p, cfg)
+    kf = tfeat.slay_features(k, p, cfg)
+    num, den = _plain_num_den(qf, kf, v)
+    qh = qf[0].permute(1, 0, 2).contiguous()
+    kh = kf[0].permute(1, 0, 2).contiguous()
+    vh = v[0].permute(1, 0, 2).contiguous()
+    yk, denk = tscan.launch_fwd(qh, kh, vh)
+    numk = yk * (denk[..., None] + 1e-6)
+    torch.testing.assert_close(
+        numk, num[0].permute(1, 0, 2), rtol=0.0,
+        atol=1e-4 * float(num.abs().max()))
+    torch.testing.assert_close(denk, den[0].T, rtol=0.0,
+                               atol=1e-4 * float(den.abs().max()))
+
+    def kernel(params, q, k, v):
+        return tops.slay_fused_attention(q, k, v, params, cfg, chunk_size=16)
+
+    def plain(params, q, k, v):
+        return tla.causal_chunked(tfeat.slay_features(q, params, cfg),
+                                  tfeat.slay_features(k, params, cfg), v,
+                                  chunk_size=16)
+
+    _build.reset_launches()
+    y, got = _grads(kernel, p, q, k, v, dy)
+    counts = {n: c for n, c in _build.LAUNCHES.items() if c}
+    assert counts == {"slay_scan_fwd": 1, "slay_scan_bwd_q": 1,
+                      "slay_scan_bwd_kv": 1}, counts
+    torch.testing.assert_close(y, yk.permute(1, 0, 2)[None], rtol=0.0,
+                               atol=0.0)
+    _, want = _grads(plain, p, q, k, v, dy)
+    for g, w in zip(got, want, strict=True):
+        if w is None:     # a projection the kind does not read
+            assert g is None
+            continue
+        torch.testing.assert_close(g, w, rtol=0.0,
+                                   atol=1e-3 * float(w.abs().max()))
+
+
+@needs_card
+@pytest.mark.parametrize("d", [32, 64])
+def test_anchor_past_the_fused_kernels_width_runs_two_dispatch_on_card(d):
+    # Table 2's "large" budget, P = D = 32 (m = 3072): K1 and K4 would
+    # need 316 KB and more of shared memory a block, so the route, decided
+    # before any launch, is B7 then B5, and B6a/B6b then B8 backward.
+    # Against autograd of the plain route (fp32): y 1e-4, gradients 1e-4
+    # of each one's largest.
+    from repro_torch.core import linear_attention as tla
+    from repro_torch.kernels import ops as tops
+    cfg = tfeat.SlayFeatureConfig(head_dim=d, num_anchors=32, num_prf=32)
+    assert not tfused.fused_fits(d, 32, 32, 32, "cuda")
+    assert tfused.fused_fits(D_HEAD, 32, 8, 16, "cuda")
+    p, q, k, v, dy = _route_case(cfg, L=80)
+
+    def kernel(params, q, k, v):
+        return tops.slay_fused_attention(q, k, v, params, cfg, chunk_size=16)
+
+    def plain(params, q, k, v):
+        return tla.causal_chunked(tfeat.slay_features(q, params, cfg),
+                                  tfeat.slay_features(k, params, cfg), v,
+                                  chunk_size=16)
+
+    _build.reset_launches()
+    y, got = _grads(kernel, p, q, k, v, dy)
+    counts = {n: c for n, c in _build.LAUNCHES.items() if c}
+    assert counts == {"feature_map_fwd": 2, "feature_map_bwd": 2,
+                      "slay_scan_fwd": 1, "slay_scan_bwd_q": 1,
+                      "slay_scan_bwd_kv": 1}, counts
+    yp, want = _grads(plain, p, q, k, v, dy)
+    torch.testing.assert_close(y, yp, rtol=1e-4, atol=1e-4)
+    for g, w in zip(got, want, strict=True):
+        torch.testing.assert_close(g, w, rtol=0.0,
+                                   atol=1e-4 * float(w.abs().max()))
+
+
+@needs_card
+def test_fused_smem_copies_match_the_kernels_entries_on_card():
+    # slay_fused.fused_fits decides the route on the CPU from Python
+    # copies of K1's and K4's layouts; they must equal the C entries.
+    fwd = _build.load("slay_fused").slay_fused_smem_bytes
+    bwd = _build.load("slay_fused_bwd").slay_fused_bwd_smem_bytes
+    for d, dv, P, D in [(64, 64, 8, 16), (16, 8, 8, 16), (128, 128, 8, 16),
+                        (32, 32, 32, 32), (64, 64, 16, 24), (15, 16, 3, 16),
+                        (64, 128, 16, 32)]:
+        assert tfused.fused_smem_bytes(d, dv, P, D) == fwd(d, dv, P, D)
+        assert tfused.fused_bwd_smem_bytes(d, dv, P, D) == bwd(d, dv, P, D)
+        assert tfused.fused_fits(d, dv, P, D, "cuda") == tfused.fused_fits(
+            d, dv, P, D, "cpu")
+
+
+@needs_card
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_feature_map_bwd_reads_dpsi_unstaged_at_p_d_32_on_card(dtype, d):
+    # At P = D = 32 (m = 3072) B8's ring of dΨ rows would need 300-584 KB
+    # a block, so its items read dΨ from device memory: the same sums as
+    # the plain version. Tolerances as test_feature_map_kernels_match_*.
+    cfg = tfeat.SlayFeatureConfig(head_dim=d, num_anchors=32, num_prf=32)
+    lib = _build.load("feature_map")
+    assert lib.slay_feature_map_smem_bytes(d, 32, 32, 3, 1, 0) <= \
+        _build.SMEM_LIMIT
+    p = tfeat.init_feature_params(cfg, torch.Generator().manual_seed(0),
+                                  device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    u = torch.randn(3001, d, generator=gen, device="cuda").to(dtype)
+    dpsi = torch.randn(3001, cfg.feature_dim, generator=gen,
+                       device="cuda").to(dtype)
+    a, w = p["anchors"], p["omegas"]
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(tfm.launch_fwd(u, a, w, cfg).float(),
+                               tfm.feature_map_plain(u, a, w, cfg).float(),
+                               rtol=tol, atol=1e-6)
+    got = tfm.feature_map_bwd(u, a, w, dpsi, cfg)
+    want = tfm.feature_map_bwd_plain(u, a, w, dpsi, cfg)
+    for g, wnt in zip(got, want, strict=True):
+        scale = float(wnt.float().abs().max())
+        torch.testing.assert_close(g.float(), wnt.float(), rtol=0.0,
+                                   atol=max(tol, 1e-4) * scale)
+
+
+@needs_card
+def test_decode_kernel_at_its_feature_limit_on_card():
+    # K2 at G = 1, dv = 64 takes m up to 230,120 (every block holds its
+    # slice of Ψq); one more raises ValueError before any launch.
+    m = tdecode.max_feature_dim(1, 64)
+    assert m == 230120
+    args = [torch.from_numpy(x).cuda() for x in _decode_inputs(2, 2, 2, m=m,
+                                                               dv=64)]
+    plain = [a.clone() for a in args]
+    yp, sp, zp = tdecode.decode_linear_attention_plain(*plain)
+    _build.reset_launches()
+    y, s, z = tdecode.decode_linear_attention(*args)
+    assert _build.LAUNCHES["slay_decode_step"] == 1
+    torch.testing.assert_close(y, yp, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(s, sp, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(z, zp, rtol=1e-6, atol=1e-6)
+    big = [torch.from_numpy(x).cuda() for x in _decode_inputs(2, 2, 2,
+                                                              m=m + 1, dv=64)]
+    with pytest.raises(ValueError, match="230120"):
+        tdecode.decode_linear_attention(*big)
+    assert _build.LAUNCHES["slay_decode_step"] == 1
+
+
+@needs_card
+@pytest.mark.parametrize("kind", ["anchor", "laplace"])
+def test_slay_prefill_then_decode_on_card_matches_cpu(kind):
+    # slay_prefill_state (B7 for anchor) then 4 slay_decode_steps (B7 and
+    # K2) on the card against the same calls on the CPU, fp32; the
+    # caller's state is left as it was.
+    from repro_torch.core import slay as tslay
+    cfg = tfeat.SlayFeatureConfig(head_dim=D_HEAD, poly_kind=kind)
+    p = tfeat.init_feature_params(cfg, torch.Generator().manual_seed(0),
+                                  device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    k, v = (torch.randn(2, 33, 2, D_HEAD, generator=gen) for _ in range(2))
+    steps = [(torch.randn(2, 4, D_HEAD, generator=gen),
+              torch.randn(2, 2, D_HEAD, generator=gen),
+              torch.randn(2, 2, D_HEAD, generator=gen)) for _ in range(4)]
+    pc = {n: t.cuda() for n, t in p.items()}
+    want = tslay.slay_prefill_state(p, k, v, cfg)
+    got = tslay.slay_prefill_state(pc, k.cuda(), v.cuda(), cfg)
+    _build.reset_launches()
+    for q1, k1, v1 in steps:
+        s0 = got.s.clone()
+        yw, want = tslay.slay_decode_step(p, q1, k1, v1, want, cfg)
+        yg, nxt = tslay.slay_decode_step(pc, q1.cuda(), k1.cuda(), v1.cuda(),
+                                         got, cfg)
+        assert torch.equal(got.s, s0)
+        got = nxt
+        torch.testing.assert_close(yg.cpu(), yw, rtol=1e-4, atol=1e-5)
+    assert _build.LAUNCHES["slay_decode_step"] == 4
+    torch.testing.assert_close(got.s.cpu(), want.s, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got.z.cpu(), want.z, rtol=1e-5, atol=1e-5)

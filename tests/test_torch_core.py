@@ -172,16 +172,7 @@ def test_init_feature_params_distribution(num_prf, antithetic):
     assert abs(float(half.var()) - 1.0) < 0.05
 
 
-def test_unported_feature_kinds_raise():
-    cfg = tfeat.SlayFeatureConfig(head_dim=16, poly_kind="exact")
-    with pytest.raises(NotImplementedError, match="Queue A"):
-        tfeat.slay_features(torch.zeros(2, 16), {}, cfg)
-    cfg = tfeat.SlayFeatureConfig(head_dim=16, fusion="hadamard")
-    with pytest.raises(NotImplementedError, match="Queue A"):
-        tfeat.init_feature_params(cfg, torch.Generator(), device="cpu")
-
-
-def test_slay_attention_matches_jax_and_rejects_unported_paths():
+def test_slay_attention_matches_jax_causal_noncausal_two_dispatch():
     from repro.core import slay as jslay
     from repro_torch.core import slay as tslay
     jcfg, tcfg = _cfgs()
