@@ -264,6 +264,20 @@ Phases, each of which raises (nonzero exit) on failure:
     up to each stream's first near-tie). Launches are checked per layer
     kind: whisper's decoder self-attention runs K1 (K3, K4) and K2, its
     encoder's and cross-attention's Ψ B7 (B8), twice a layer.
+26. the rest of the core (``phase_core``): every feature config, the
+    long-context example, a 32,768-token prompt, the quickstart.
+27. the sharded paths on a one-rank NCCL group (``phase_sharded``; the
+    card holds one device and NCCL puts one rank on a device, so the
+    multi-rank arithmetic is the CPU tests' with gloo): the 1x1
+    ``DeviceMesh`` on ``cuda``; slayformer-124m at full width through
+    ``Trainer(mesh=...)`` (DTensor parameters and moments, the batch
+    placed by ``batch_sharding``, K1, K3 and K4 through ``local_map``),
+    4 steps of phase 9's batches from phase 9's weights: 12 K1, K3 and K4
+    launches a step, losses within 1e-4 relative of phase 9's first 4, ms
+    per step beside phase 9's; one ``remat="save_collectives"`` step (24
+    K1); the continuous engine with ``mesh`` on the first 8 requests of
+    phase 12's trace, graphed, beside the unsharded engine: equal
+    streams, 12 x 8 B4b launches a dispatch, ms per dispatch of each.
 Phases 14-17 and mamba2's part of phase 24 check that no SLAY kernel
 launched, phases 19-20 that only K2 did; the kernel line's B4a launches
 are phase 8's, 19's, 22's, 23's, 24's and 25's, its B4b launches phase
@@ -1656,7 +1670,7 @@ def phase_train(card: str) -> tuple:
     # Checked last, so that the phase's other checks run in any case.
     if not losses[-1] < losses[0]:
         raise AssertionError(f"loss did not fall: {losses[0]} -> {losses[-1]}")
-    return launches, losses[0], step_s
+    return launches, losses, step_s
 
 
 TWO_STEPS = 4
@@ -5134,6 +5148,177 @@ def phase_core(card: str, lock_ms: dict) -> dict:
     return out
 
 
+# -- phase 27: the sharded paths on a one-rank NCCL group -------------------
+
+SHARD_STEPS = 4
+SHARD_LOSS_RTOL = 1e-4           # fp32 reductions in another order, bf16 model
+SHARD_REQUESTS = CONT_K1_REQUESTS
+ROWS_B1_B4 = ("slay_fused_fwd", "slay_fused_bwd_q", "slay_fused_bwd_kv",
+              "slay_decode_step", "slay_decode_step_masked")
+
+
+def _one_rank_group():
+    """A one-rank NCCL process group (rank 0 of 1 on a free loopback
+    port) and its 1x1 mesh on ``cuda``. NCCL or nothing: a failure to
+    start raises, no other backend is tried."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    return make_mesh((1, 1), ("data", "model"))
+
+
+def _sharded_train(cfg, mesh, card: str, train_losses, fused_step_s) -> dict:
+    """``Trainer(mesh=...)``: phase 9's weights, batches and optimizer for
+    SHARD_STEPS steps, then one ``save_collectives`` step. Its launches."""
+    from torch.distributed.tensor import DTensor
+    nl = cfg.num_layers
+    dcfg = pipeline.DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_LEN,
+                               global_batch=TRAIN_BATCH, seed=SEED)
+    ocfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=TRAIN_STEPS)
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    try:
+        tr = loop.Trainer(cfg, ocfg, loop.TrainConfig(
+            remat=False, ckpt_dir=ckpt, ckpt_every=1000), seed=SEED,
+            device="cuda", mesh=mesh)
+        if not all(isinstance(x, DTensor) for x in tree_leaves(
+                {"p": tr.params, "m": tr.opt_state.m})):
+            raise AssertionError("the sharded Trainer holds plain tensors")
+        per_step, inner = [], tr.step_fn
+
+        def counted_step(*args):
+            before = dict(_build.LAUNCHES)
+            out = inner(*args)
+            per_step.append(_launch_delta(before))
+            return out
+
+        tr.step_fn = counted_step
+        torch.cuda.synchronize()
+        before = dict(_build.LAUNCHES)
+        hist = tr.run(pipeline.batch_iterator(dcfg), SHARD_STEPS,
+                      log_every=1000)
+        torch.cuda.synchronize()
+        tr.step_fn = inner
+        one = {k: nl for k in TRAIN_KERNELS}
+        for i, got in enumerate(per_step):
+            _expect_launches(got, one, f"sharded train step {i}")
+        losses = [h["loss"] for h in hist]
+        want = train_losses[:SHARD_STEPS]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+        log(f"  sharded Trainer.run: {len(hist)} steps; launches a step "
+            f"{per_step[-1]}; loss per step "
+            f"{', '.join(f'{x:.4f}' for x in losses)} against phase 9's "
+            f"{', '.join(f'{x:.4f}' for x in want)}: largest relative "
+            f"difference {rel:.2e} (limit {SHARD_LOSS_RTOL:g})")
+        if len(losses) != SHARD_STEPS or not rel <= SHARD_LOSS_RTOL:
+            raise AssertionError(f"sharded losses {losses} vs {want}")
+        times = [h["step_time_s"] for h in hist]
+        step_s = statistics.median(times[1:])
+        log(f"  sharded step: median of steps 2-{SHARD_STEPS} "
+            f"{step_s * 1e3:.2f} ms against phase 9's {fused_step_s * 1e3:.2f}"
+            f" ms unsharded (first {times[0] * 1e3:.1f} ms)  [{card}]")
+        # One remat="save_collectives" step on the sharded state.
+        step = loop.sharded_train_step(
+            cfg, ocfg, loop.TrainConfig(remat="save_collectives"), mesh,
+            donate=False)
+        b0 = dict(_build.LAUNCHES)
+        _, _, _, m = step(tr.params, tr.opt_state, torch.zeros(()),
+                          pipeline.make_batch(dcfg, SHARD_STEPS))
+        torch.cuda.synchronize()
+        got = _launch_delta(b0)
+        _expect_launches(got, {"slay_fused_fwd": 2 * nl,
+                               "slay_fused_bwd_q": nl,
+                               "slay_fused_bwd_kv": nl},
+                         "save_collectives step")
+        log(f"  save_collectives step: loss {float(m['loss']):.4f}, "
+            f"launches {got}")
+        return _delta_b1_b4(before)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def _delta_b1_b4(before: dict) -> dict:
+    """Launches of rows B1-B4b since ``before``."""
+    return {k: _build.LAUNCHES[k] - before[k] for k in ROWS_B1_B4}
+
+
+def _sharded_serve(cfg, mesh, card: str) -> dict:
+    """The continuous engine with ``mesh`` beside the unsharded one on the
+    first SHARD_REQUESTS requests of phase 12's trace, in turns
+    (unsharded, sharded, sharded, unsharded; each engine new, so each
+    captures its graphs at its first dispatch). The first sharded run's
+    launches."""
+    nl, K = cfg.num_layers, CONT_SERVING["macro_ticks"]
+    params = api.init_params(cfg, SEED, device="cuda")
+    reqs = _cont_requests(cfg)[:SHARD_REQUESTS]
+    t_u, t_s = {}, {}
+
+    def sharded(timed):
+        eng = engine.ContinuousServingEngine(
+            cfg, params, serving=ServingConfig(**CONT_SERVING),
+            device="cuda", mesh=mesh)
+        return _timed_run(eng, reqs, timed)
+
+    ref, s_u, _, wall_u = _cont_run(cfg, params, reqs, timed=t_u)
+    before = dict(_build.LAUNCHES)
+    got, s, eng, wall = sharded(t_s)
+    launches = _delta_b1_b4(before)
+    _same_streams(ref, got, "sharded engine vs unsharded engine")
+    _same_streams(ref, sharded(t_s)[0], "sharded engine, second run")
+    _same_streams(ref, _cont_run(cfg, params, reqs, timed=t_u)[0],
+                  "unsharded engine, second run")
+    want = nl * K * s["decode_dispatches"]
+    if (launches.get("slay_decode_step_masked", 0) != want or not want
+            or s["decode_dispatches"] != s_u["decode_dispatches"]
+            or s["slot_shards"] != 1 or eng.slot_shard_fallbacks):
+        raise AssertionError(f"sharded engine: launches {launches}, want "
+                             f"{want} B4b; summary {s}")
+    graphs = eng.graph_cache_entries()
+    if graphs != {"macro_decode": 1, "chunk": 1}:
+        raise AssertionError(f"sharded engine graphs {graphs}")
+    du, ds = (statistics.median(t["_decode_macro"]) * 1e3 for t in (t_u, t_s))
+    log(f"  sharded continuous engine: {len(reqs)} requests, streams equal "
+        f"to the unsharded engine's; {s['decode_dispatches']} dispatches, "
+        f"B4b {launches.get('slay_decode_step_masked', 0)} = {nl} x {K} x "
+        f"{s['decode_dispatches']}; graphs {graphs}; ms per dispatch median "
+        f"over two runs each, in turns (unsharded, sharded, sharded, "
+        f"unsharded): {ds:.2f} sharded against {du:.2f} unsharded (first "
+        f"runs' wall {wall:.3f} s against {wall_u:.3f} s)  [{card}]")
+    return launches
+
+
+def phase_sharded(card: str, train_losses, fused_step_s: float) -> dict:
+    """Phase 27: the sharded train step and the slot-sharded engine on a
+    one-rank NCCL group and its 1x1 mesh. Returns the launches of the
+    sharded runs by kernel."""
+    import torch.distributed as dist
+    t_phase = time.perf_counter()
+    cfg = configs.get_config("slayformer-124m")
+    mesh = _one_rank_group()
+    log(f"sharded: {dist.get_backend()} group of {dist.get_world_size()} "
+        f"rank, mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} on "
+        f"{mesh.device_type}; {cfg.name} at full width")
+    try:
+        train = _sharded_train(cfg, mesh, card, train_losses, fused_step_s)
+        _free_card()
+        serve_l = _sharded_serve(cfg, mesh, card)
+    finally:
+        dist.destroy_process_group()
+    _free_card()
+    out = {k: train.get(k, 0) + serve_l.get(k, 0) for k in ROWS_B1_B4}
+    log(f"sharded: launches {out}; the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; it needs an "
@@ -5160,9 +5345,9 @@ def main() -> int:
     fmap = phase_fmap(feat, sp, TRAIN_BATCH * TRAIN_LEN * cfg.num_heads)
     scan = phase_scan(feat, sp, serve_shape)
     launches, fused_outs, lock_ms, slay_step_ms = phase_serve(card_line)
-    train, fused_loss0, fused_step_s = phase_train(card_line)
+    train, train_losses, fused_step_s = phase_train(card_line)
     phase_serve_two(card_line, fused_outs)
-    two = phase_train_two(card_line, fused_loss0, fused_step_s)
+    two = phase_train_two(card_line, train_losses[0], fused_step_s)
     cont, b4b, slay_pool = phase_serve_continuous(card_line, lock_ms)
     phase_serve_durable(card_line)
     phase_serve_exact(card_line, slay_step_ms)
@@ -5180,6 +5365,7 @@ def main() -> int:
     ssm = phase_ssm(card_line)
     front, audio_fmap = phase_frontends(card_line)
     core = phase_core(card_line, slay_step_ms)
+    sharded = phase_sharded(card_line, train_losses, fused_step_s)
     k2_bl = k2.pop("baselines")
     kernels = [
         dict(name="slay_fused_fwd", route="cuda",
@@ -5259,6 +5445,10 @@ def main() -> int:
         name = row["name"]
         row["launches"] += sum(c.get(name, 0) for c in core.values())
         row["core"] = {part: c.get(name, 0) for part, c in core.items()}
+    # Phase 27's sharded runs join rows B1-B4b, under ``sharded`` too.
+    for row in kernels[:5]:
+        row["launches"] += sharded[row["name"]]
+        row["sharded"] = sharded[row["name"]]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi())
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -8,6 +8,11 @@ The contract of ``repro.checkpoint.store``:
 * **Keep N**: after each save only the newest ``keep`` files remain.
 * **Resume-exact**: the data pipeline is step-indexed, so (params,
   optimizer state, step) is the whole job state.
+* **Mesh-agnostic**: a leaf is stored whole, with no sharding. A sharded
+  tree (DTensor leaves) is gathered on save, every rank taking part, and
+  rank 0 writes it; restore places each leaf in the placements the new
+  job asks for (``shardings=``, or a DTensor ``tree_like`` leaf's own),
+  so a run resumes on another mesh (elastic rescale) or on none.
 
 The file format is the port's own. The JAX package writes msgpack +
 zstd, neither of which the port may depend on; here each file is
@@ -21,22 +26,33 @@ import os
 import re
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.tree import tree_items, tree_map_with_path
 
 
 def save_checkpoint(ckpt_dir: str, step: int, tree, *, keep: int = 3) -> str:
-    os.makedirs(ckpt_dir, exist_ok=True)
-    arrays = {key: leaf.detach().to("cpu", copy=True)
-              for key, leaf in tree_items(tree)}
-    tmp = os.path.join(ckpt_dir, f"tmp.{step}")
+    """Write ``tree`` atomically. With DTensor leaves every rank must call
+    it: the leaves are gathered whole and rank 0 writes them, the others
+    return once the file is in place."""
+    items = tree_items(tree)
+    sharded = any(isinstance(leaf, DTensor) for _, leaf in items)
+    arrays = {key: (leaf.full_tensor() if isinstance(leaf, DTensor)
+                    else leaf).detach().to("cpu", copy=True)
+              for key, leaf in items}
     final = os.path.join(ckpt_dir, f"step_{step:08d}.ckpt")
-    with open(tmp, "wb") as f:
-        torch.save({"step": step, "arrays": arrays}, f)
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(tmp, final)           # atomic on POSIX
-    _gc(ckpt_dir, keep)
+    if not sharded or dist.get_rank() == 0:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        tmp = os.path.join(ckpt_dir, f"tmp.{step}")
+        with open(tmp, "wb") as f:
+            torch.save({"step": step, "arrays": arrays}, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, final)           # atomic on POSIX
+        _gc(ckpt_dir, keep)
+    if sharded:
+        dist.barrier()
     return final
 
 
@@ -54,26 +70,38 @@ def latest_step(ckpt_dir: str) -> int | None:
     return max(steps) if steps else None
 
 
-def restore_checkpoint(path: str, tree_like):
+def restore_checkpoint(path: str, tree_like, *, shardings=None, mesh=None):
     """Restore into the structure of ``tree_like``: every leaf comes back
     with its stored dtype, on the device of the matching leaf. Raises on a
-    shape mismatch."""
+    shape mismatch. ``shardings`` (a tree of DTensor placements over
+    ``mesh``, e.g. ``distributed.sharding.logical_to_sharding``'s) places
+    each leaf on the new mesh; without it a DTensor leaf of ``tree_like``
+    gives its own mesh and placements. Every rank reads the file and keeps
+    its own block, so placing needs no communication."""
     payload = torch.load(path, map_location="cpu", weights_only=True)
     arrays = payload["arrays"]
+    where = dict(tree_items(shardings)) if shardings is not None else {}
 
     def take(key, leaf):
         arr = arrays[key]
         if tuple(arr.shape) != tuple(leaf.shape):
             raise ValueError(f"shape mismatch for {key}: "
                              f"{tuple(arr.shape)} vs {tuple(leaf.shape)}")
+        if key in where:
+            return distribute_tensor(arr.to(mesh.device_type), mesh,
+                                     where[key], src_data_rank=None)
+        if isinstance(leaf, DTensor):
+            return distribute_tensor(arr.to(leaf.device), leaf.device_mesh,
+                                     leaf.placements, src_data_rank=None)
         return arr.to(leaf.device)
 
     return tree_map_with_path(take, tree_like), payload["step"]
 
 
-def restore_latest(ckpt_dir: str, tree_like):
+def restore_latest(ckpt_dir: str, tree_like, *, shardings=None, mesh=None):
     step = latest_step(ckpt_dir)
     if step is None:
         return None, None
     path = os.path.join(ckpt_dir, f"step_{step:08d}.ckpt")
-    return restore_checkpoint(path, tree_like)
+    return restore_checkpoint(path, tree_like, shardings=shardings,
+                              mesh=mesh)

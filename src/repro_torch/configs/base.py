@@ -167,10 +167,9 @@ class ServingConfig:
     writes an engine checkpoint beside the engine's journal every that
     many ticks. ``speculative`` decodes draft-verify rounds of
     ``spec_gamma`` draft tokens (an exact kind's verifier and its SLAY
-    twin as the draft; not with the prefix cache).
-
-    :meth:`check_supported` rejects the knobs of features the port does
-    not have yet; the engine calls it when it is built.
+    twin as the draft; not with the prefix cache). ``slot_shards`` > 1
+    demands that many slot-pool shards of the engine's mesh
+    (``distributed.sharding.pool_slot_axes``).
     """
 
     num_slots: int = 4
@@ -244,14 +243,3 @@ class ServingConfig:
                 "exclusive (a prefix-seeded verifier slot has no draft-side "
                 "snapshot to seed from)")
 
-    def check_supported(self) -> None:
-        """Raise ``NotImplementedError`` for a knob whose feature the port
-        has not yet, so none is ignored."""
-        later = [
-            (self.slot_shards > 1, f"slot_shards={self.slot_shards} (a "
-             f"sharded slot pool, ROADMAP Queue A item 13)"),
-        ]
-        for bad, what in later:
-            if bad:
-                raise NotImplementedError(
-                    f"ServingConfig {what} is not ported yet")

@@ -20,6 +20,8 @@ on the card unless given ``--device cpu``::
     python -m repro_torch.examples.serve --arch whisper-small --lockstep
     PYTHONPATH=src python -m repro_torch.examples.serve --device cpu \\
         --attn-kind softmax --page-size 16 --prefix-cache 64
+    torchrun --nproc-per-node 2 -m repro_torch.examples.serve \\
+        --slot-shards 2
 
 The smoke config is served by default, as by the JAX driver;
 ``--no-smoke`` serves the arch's full-width config. Paged slot memory
@@ -29,19 +31,28 @@ cache (``--prefix-cache`` MB) keep the streams byte-identical;
 (yat_spherical unless ``--attn-kind`` names another exact kind; not
 for the SSM families, whose carry cannot be rewound; the engine refuses
 it for internvl2 and whisper, as the reference's). mamba2 has no
-attention, so ``--attn-kind`` is refused for it. A sharded slot pool
-(``--slot-shards`` > 1) is not ported yet.
+attention, so ``--attn-kind`` is refused for it. ``--slot-shards N``
+shards the slot pool over N ranks (``make_serving_mesh(N)``, one
+process per device under ``torchrun``: NCCL on the card, gloo with
+``--device cpu``); rank 0 prints. In one process it raises the
+mesh-mismatch error of ``pool_slot_axes``, as the reference does.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
+import os
 import time
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from repro_torch import configs
 from repro_torch.configs.base import ServingConfig
 from repro_torch.core.slay import ATTN_KINDS
+from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.models import api
 from repro_torch.serving.engine import (AdmissionError,
                                         ContinuousServingEngine, Request,
@@ -120,13 +131,31 @@ def requests(cfg, args) -> list[Request]:
             for i in range(args.batch)]
 
 
+def _serving_mesh(args):
+    """Under ``torchrun`` with ``--slot-shards`` N > 1: the process group
+    (NCCL on the card, gloo on the CPU) and the (N, 1) serving mesh;
+    None in a plain process."""
+    if args.slot_shards <= 1 or "WORLD_SIZE" not in os.environ:
+        return None
+    if args.device != "cpu":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        args.device = "cuda"
+    if not dist.is_initialized():
+        dist.init_process_group("gloo" if args.device == "cpu" else "nccl")
+    return make_serving_mesh(args.slot_shards)
+
+
 def main(argv=None) -> list[np.ndarray]:
     """Serve; returns the token stream of every admitted request."""
     args = parse_args(argv)
-    if args.slot_shards > 1:
-        raise NotImplementedError(
-            f"--slot-shards {args.slot_shards}: a sharded slot pool is not "
-            f"ported yet (ROADMAP Queue A item 13)")
+    mesh = _serving_mesh(args)
+    quiet = mesh is not None and dist.get_rank() != 0
+    with contextlib.redirect_stdout(io.StringIO()) if quiet \
+            else contextlib.nullcontext():
+        return _serve(args, mesh)
+
+
+def _serve(args, mesh) -> list[np.ndarray]:
     cfg = build_config(args)
     params = api.init_params(cfg, 0, device=args.device)   # seed 0
     reqs = requests(cfg, args)
@@ -141,7 +170,7 @@ def main(argv=None) -> list[np.ndarray]:
         pc = (PrefixCache(args.prefix_cache * 1024 * 1024)
               if args.prefix_cache else None)
         engine = ContinuousServingEngine(
-            cfg, params, prefix_cache=pc, device=args.device,
+            cfg, params, prefix_cache=pc, device=args.device, mesh=mesh,
             serving=ServingConfig(num_slots=args.slots, max_len=256,
                                   prefill_chunk=8, temperature=0.8,
                                   slot_shards=args.slot_shards,

@@ -28,6 +28,7 @@ import subprocess
 from pathlib import Path
 
 import torch
+from torch.distributed.tensor import DTensor
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -167,6 +168,19 @@ def load(name: str) -> ctypes.CDLL:
             getattr(lib, fn).argtypes = argtypes
         _LIBS[name] = lib
     return _LIBS[name]
+
+
+def local_only(fn: str, *tensors) -> None:
+    """Raise ``TypeError`` if a DTensor reaches kernel ``fn``. A launch
+    passes raw device pointers, and a DTensor's would be its wrapper's
+    storage: a sharded caller unwraps through ``local_map`` first
+    (``kernels/ops.py``), so a missed unwrap fails here instead of
+    computing on the wrong memory."""
+    for t in tensors:
+        if isinstance(t, DTensor):
+            raise TypeError(
+                f"{fn}: got a DTensor; kernels take each rank's local "
+                f"tensors (call through repro_torch.kernels.ops)")
 
 
 def check(err: int, fn: str) -> None:

@@ -114,6 +114,7 @@ def _check(qf, kf, v, s, z, active):
 
 
 def _launch(qf, kf, v, s, z, active, delta):
+    _build.local_only("slay_decode_step", qf, kf, v, s, z, active)
     bh, m = qf.shape
     bk, dv = v.shape
     if dv not in (16, 32, 64, 128):

@@ -86,6 +86,7 @@ def _kernel_args(lib, u, cfg: SlayFeatureConfig, bwd: bool):
 
 def launch_fwd(u, anchors, omegas, cfg: SlayFeatureConfig):
     """B7 on CUDA tensors: -> Ψ(u) (N, m) in u's dtype."""
+    _build.local_only("slay_feature_map_fwd", u, anchors, omegas)
     lib = _build.load("feature_map")
     d, P, D, R, s_nodes, sqrt_w = _kernel_args(lib, u, cfg, False)
     n = u.shape[0]
@@ -117,6 +118,7 @@ def _bwd_blocks(lib, n: int, d: int, P: int, D: int, R: int, dtype: int,
 def launch_bwd(u, anchors, omegas, dpsi, cfg: SlayFeatureConfig):
     """B8 on CUDA tensors: -> (du (N, d) in u's dtype, dA (nb, P, d) and
     dΩ (nb, D, d) fp32 partials, one per block of its persistent grid)."""
+    _build.local_only("slay_feature_map_bwd", u, anchors, omegas, dpsi)
     lib = _build.load("feature_map")
     d, P, D, R, s_nodes, sqrt_w = _kernel_args(lib, u, cfg, True)
     n, dtype = u.shape[0], _build.DTYPE_CODES[u.dtype]

@@ -5,14 +5,24 @@ Model code calls these. They translate between the model's
 and zero-pad ragged lengths to chunk multiples (zero features add nothing
 to the running state, as in ``core.linear_attention``). Kernel or plain
 version is chosen by the tensors' device inside the kernel wrappers.
+
+Each entry also takes DTensors (a sharded model, ``distributed.sharding``):
+it runs on every rank's own block through ``local_map``, batch over the
+rules' ``act_batch`` axes and heads over ``act_heads``'s, the random
+projections replicated, so the kernels only ever see local tensors (their
+launch wrappers raise ``TypeError`` on a DTensor).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
+
 from repro_torch.core import features as core_features
 from repro_torch.core.features import SlayFeatureConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import decode_step as _dk
 from repro_torch.kernels import feature_map as _fm
 from repro_torch.kernels import slay_fused as _fused
@@ -46,6 +56,83 @@ def _headmajor_call(kernel_fn, q, k, v, *, chunk_size: int):
     return y[..., :L, :, :] if pad else y
 
 
+def _target(x: DTensor, logical: tuple) -> tuple:
+    """x's placements by the active rules (the reference's constraint on
+    the kernel's operands): batch over data, heads over model."""
+    mesh = x.device_mesh
+    rules = (shd._ACTIVATION_CTX[-1][1] if shd._ACTIVATION_CTX
+             else shd.DEFAULT_RULES)
+    spec = shd.partition_spec(mesh, rules, tuple(x.shape), logical)
+    return shd.placements(mesh, spec, x.dim())
+
+
+def _head_block(mesh, pl: tuple, dim: int, n: int) -> tuple[int, int]:
+    """(first index, count) of this rank's block of dim ``dim`` (size n)
+    under placements ``pl``, split in mesh-dim order as DTensor splits."""
+    off, size = 0, n
+    for j, p in enumerate(pl):
+        if isinstance(p, Shard) and p.dim == dim:
+            size //= mesh.size(j)
+            off += mesh.get_local_rank(j) * size
+    return off, size
+
+
+def _const(t):
+    """A replicated constant (the random projections) for ``local_map``."""
+    return tuple(Replicate() for _ in range(t.device_mesh.ndim)) \
+        if isinstance(t, DTensor) else None
+
+
+def _sharded_heads(run, q, k, v, *consts, kv_state: tuple = ()):
+    """``run(q, k, v, *consts, *kv_state)`` on each rank's block of the
+    DTensors q (B, ..., H, f), k and v (B, ..., Hkv, f): batch dim 0 over
+    the ``act_batch`` axes, the head dim (-2; -3 for ``kv_state``'s
+    (B, Hkv, m[, dv]) leaves) over ``act_heads``'s. Where ``kv_heads``
+    falls back to replicated while q's heads shard (Hkv does not divide
+    the model axis), each rank takes the kv heads its own q heads read,
+    ``h // (H / Hkv)`` as in the unsharded call, and their gradient is a
+    partial sum over the ranks that share them."""
+    mesh = q.device_mesh
+    nd, hd = q.dim(), q.dim() - 2
+    lead = ("act_batch",) + (None,) * (nd - 3)
+    if nd >= 4:                            # (B, ..., L, H, f): L is seq
+        lead = lead[:-1] + ("act_seq",)
+    ax = lead + ("act_heads", None)
+    qpl, kpl, vpl = (_target(x, ax) for x in (q, k, v))
+    spl = tuple(_target(x, ("act_batch", "act_heads",
+                            *(None,) * (x.dim() - 2))[:x.dim()])
+                for x in kv_state)
+    H, hkv = q.shape[hd], k.shape[hd]
+    g = H // hkv
+    off, hl = _head_block(mesh, qpl, hd, H)
+    split = tuple(isinstance(qp, Shard) and qp.dim == hd
+                  and not (isinstance(kp, Shard) and kp.dim == hd)
+                  for qp, kp in zip(qpl, kpl))
+    if any(split) and hl % g and g % hl:
+        raise ValueError(f"q heads {H} over kv heads {hkv}: a rank's block "
+                         f"of {hl} q heads straddles kv heads")
+    if any(split) and kv_state:
+        raise ValueError("a decode state's kv heads must shard with q's")
+    kgrad = tuple(Partial() if s else p for s, p in zip(split, kpl))
+    vgrad = tuple(Partial() if s else p for s, p in zip(split, vpl))
+
+    def local(ql, kl, vl, *rest):
+        if any(split):                     # this rank's kv heads
+            lo, n = off // g, max(hl // g, 1)
+            kl, vl = kl.narrow(hd, lo, n), vl.narrow(hd, lo, n)
+        return run(ql, kl, vl, *rest)
+
+    cpl = tuple(_const(c) for c in consts)
+    # local_map reads a tuple as one placement list per output.
+    out = list(qpl) if not kv_state else tuple(map(list, (qpl, *spl[:2])))
+    return local_map(
+        local, out_placements=out,
+        in_placements=(qpl, kpl, vpl, *cpl, *spl),
+        in_grad_placements=(qpl, kgrad, vgrad, *cpl, *spl),
+        device_mesh=mesh, redistribute_inputs=True)(q, k, v, *consts,
+                                                    *kv_state)
+
+
 def slay_causal_attention(qf: torch.Tensor, kf: torch.Tensor,
                           v: torch.Tensor, *, chunk_size: int = 256,
                           delta: float = 1e-6) -> torch.Tensor:
@@ -56,6 +143,10 @@ def slay_causal_attention(qf: torch.Tensor, kf: torch.Tensor,
     -> (..., L, H, dv). Ragged L is zero-padded (zero features add
     nothing to the running state).
     """
+    if isinstance(qf, DTensor):
+        return _sharded_heads(
+            lambda a, b, c: slay_causal_attention(
+                a, b, c, chunk_size=chunk_size, delta=delta), qf, kf, v)
     return _headmajor_call(
         lambda qh, kh, vh: _scan.causal_linear_attention(
             qh, kh, vh, chunk_size=chunk_size, delta=delta),
@@ -74,6 +165,16 @@ def slay_features(u: torch.Tensor, params: dict,
     cast to u's dtype), as the JAX entry takes its jnp reference: no
     Pallas kernel computes those kinds.
     """
+    if isinstance(u, DTensor):
+        names = sorted(params)
+        pl = tuple(u.placements)
+        if any(isinstance(p, Shard) and p.dim == u.dim() - 1 for p in pl):
+            raise ValueError("slay_features: the feature dim is sharded")
+        return local_map(
+            lambda ul, *cs: slay_features(ul, dict(zip(names, cs)), cfg),
+            out_placements=list(pl),
+            in_placements=(pl, *(_const(params[n]) for n in names)),
+            device_mesh=u.device_mesh)(u, *(params[n] for n in names))
     if not cfg.kernelizable:
         return core_features.slay_features(u, params, cfg).to(u.dtype)
     *lead, d = u.shape
@@ -109,6 +210,15 @@ def slay_fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
       ``use_kernel=True, fuse_features=False`` with the Pallas scan; the
       port always runs the hand-written scan, the same function.
     """
+    if isinstance(q, DTensor):
+        names = sorted(params)
+
+        def block(ql, kl, vl, *cs):
+            return slay_fused_attention(ql, kl, vl, dict(zip(names, cs)),
+                                        cfg, chunk_size=chunk_size,
+                                        delta=delta)
+
+        return _sharded_heads(block, q, k, v, *(params[n] for n in names))
     if not cfg.kernelizable or not _fused.fused_fits(
             q.shape[-1], v.shape[-1], cfg.num_anchors, cfg.num_prf,
             q.device.type):
@@ -137,6 +247,22 @@ def decode_linear_step(qf: torch.Tensor, kf: torch.Tensor, v: torch.Tensor,
     kernel launch over B·Hkv kv rows; s and z must be contiguous and are
     updated in place. ``active`` (B,) masks continuous-batching pool rows.
     """
+    if isinstance(qf, DTensor):
+        # The active mask and the states shard with the batch; the states
+        # are each rank's own tensors, updated in place.
+        def block(ql, kl, vl, sl, zl, *al):
+            y, _, _ = decode_linear_step(ql, kl, vl, sl, zl,
+                                         al[0] if al else None, delta=delta)
+            return y, sl, zl
+
+        if active is not None and not isinstance(active, DTensor):
+            # A plain mask is the same on every rank (the engine's control
+            # vector): a replicated value.
+            active = DTensor.from_local(
+                active, qf.device_mesh,
+                [Replicate()] * qf.device_mesh.ndim, run_check=False)
+        state = (s, z) if active is None else (s, z, active)
+        return _sharded_heads(block, qf, kf, v, kv_state=state)[:3]
     B, H, m = qf.shape
     hkv, dv = kf.shape[-2], v.shape[-1]
     g = H // hkv

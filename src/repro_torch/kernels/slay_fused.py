@@ -173,6 +173,7 @@ def _launch(q, k, v, anchors, omegas, cfg: SlayFeatureConfig, delta):
     BH x R grid, which writes each quadrature node's fp32 share of num and
     den into scratch allocated here, then the epilogue kernel, which sums
     the shares and divides: one launch counted."""
+    _build.local_only("slay_fused_fwd", q, k, v, anchors, omegas)
     bh, L, d = q.shape
     bk, _, dv = v.shape
     P, D, R = cfg.num_anchors, cfg.num_prf, cfg.num_quad_nodes
@@ -323,6 +324,7 @@ def _launch_bwd(fn, outs, q, k, v, anchors, omegas, y, den, dy,
                 cfg: SlayFeatureConfig, delta):
     """Launch K3 or K4 into ``outs``, fp32 buffers with a leading axis of
     one share per quadrature node; returns them."""
+    _build.local_only(fn, q, k, v, anchors, omegas, y, den, dy)
     bh, L, d = q.shape
     bk, _, dv = v.shape
     _check_bwd_inputs(cfg, q=q, k=k, v=v, y=y, dy=dy)

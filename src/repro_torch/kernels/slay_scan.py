@@ -183,6 +183,7 @@ def launch_fwd(qf, kf, v, delta: float = 1e-6):
     BH x C grid, which writes each feature slice's fp32 share of num and
     den into scratch allocated here, then the epilogue kernel, which sums
     the shares and divides: one launch counted."""
+    _build.local_only("slay_scan_fwd", qf, kf, v)
     bh, L, m = qf.shape
     dv = v.shape[-1]
     slices = _build.load("slay_scan").slay_scan_slices(m)
@@ -197,6 +198,7 @@ def launch_fwd(qf, kf, v, delta: float = 1e-6):
 
 
 def _res_ptrs(qf, kf, v, y, den, dy):
+    _build.local_only("slay_scan_bwd", qf, kf, v, y, den, dy)
     return (qf.data_ptr(), kf.data_ptr(), v.data_ptr(), dy.data_ptr(),
             y.data_ptr(), den.data_ptr())
 

@@ -7,6 +7,7 @@ SSD layers) and ``hybrid`` (hymba, attention beside SSD heads), all in
 as in the reference.
 
     params    = api.init_params(cfg, seed, device="cuda")
+    axes      = api.param_axes(cfg)          # logical sharding axes tree
     logits, _ = api.forward(params, cfg, tokens)
     loss, mx  = api.loss_fn(params, cfg, batch)     # batch: tokens, labels
     logits, c = api.prefill(params, cfg, tokens)
@@ -51,6 +52,18 @@ def layer_kinds(cfg: ArchConfig):
 
 def init_params(cfg: ArchConfig, seed: int = 0, *, device="cuda") -> dict:
     return _mod(cfg).init_params(cfg, seed, device=device)
+
+
+def abstract_params(cfg: ArchConfig) -> dict:
+    """The parameter tree on the ``meta`` device: shapes and dtypes at any
+    width, nothing allocated."""
+    return init_params(cfg, device="meta")
+
+
+def param_axes(cfg: ArchConfig) -> dict:
+    """The logical sharding axes of every parameter leaf (a tree of
+    tuples), the reference's ``param_axes``."""
+    return _mod(cfg).param_axes(cfg)
 
 
 def forward(params, cfg: ArchConfig, tokens, *, patch_embeds=None,

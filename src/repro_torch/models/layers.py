@@ -7,6 +7,10 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
+
+from repro_torch.distributed.sharding import constrain
 
 
 def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6):
@@ -31,10 +35,13 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0):
 
 def mlp(params: dict, x: torch.Tensor, gated: bool = True) -> torch.Tensor:
     """Gated: silu(x@gate) * (x@up) @ down. Non-gated (slayformer):
-    silu(x@up) @ down — SiLU, not GELU, as the JAX package computes it."""
-    up = x @ params["up"]
+    silu(x@up) @ down — SiLU, not GELU, as the JAX package computes it.
+    The hidden activations are constrained to ``act_mlp`` (TP)."""
+    hidden = (("act_batch", "act_seq", "act_mlp") if x.dim() == 3
+              else ("act_batch", "act_mlp"))
+    up = constrain(x @ params["up"], hidden)
     if gated:
-        up = F.silu(x @ params["gate"]) * up
+        up = F.silu(constrain(x @ params["gate"], hidden)) * up
     else:
         up = F.silu(up)
     return up @ params["down"]
@@ -96,16 +103,77 @@ def moe(params: dict, x: torch.Tensor, num_experts: int, top_k: int = 2,
     dispatch = torch.einsum("gske,gskc->gsec", keep, posc)    # (G,S,E,C)
     combine = torch.einsum("gsec,gsk,gske->gsec", dispatch, gate_vals,
                            onehot)
-    xe = torch.einsum("gsec,gsd->gecd", dispatch.to(x.dtype), xf)
+    exp = ("act_batch", "experts", None, None)       # EP over experts
+    xe = constrain(torch.einsum("gsec,gsd->gecd", dispatch.to(x.dtype), xf),
+                   exp)
     h = F.silu(torch.einsum("gecd,edf->gecf", xe, params["gate"]))
     h = h * torch.einsum("gecd,edf->gecf", xe, params["up"])
-    ye = torch.einsum("gecf,efd->gecd", h, params["down"])
+    ye = constrain(torch.einsum("gecf,efd->gecd", h, params["down"]), exp)
     y = torch.einsum("gsec,gecd->gsd", combine.to(x.dtype), ye)
     return y.reshape(*lead, s, d), aux
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    if isinstance(table, DTensor):
+        return _sharded_embed(table, tokens)
     return table[tokens.long()]
+
+
+def _sharded_embed(table, tokens):
+    """A sharded table's rows of each rank's own tokens: the table
+    gathered whole (as FSDP gathers a weight before its use), the lookup
+    on local tensors through ``local_map``, its gradient a partial sum
+    over the ranks whose tokens differ. DTensor's own index and embedding
+    rules are not used: their sharding propagation fails on some meshes
+    and versions of PyTorch."""
+    mesh = table.device_mesh
+    rep = (Replicate(),) * mesh.ndim
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, rep, run_check=False)
+    tpl = tuple(tokens.placements)
+    if any(isinstance(p, Shard) and p.dim != 0 for p in tpl):
+        raise ValueError(f"tokens sharded off their batch dim: {tpl}")
+    vocab = [isinstance(p, Shard) and p.dim == 0 for p in table.placements]
+    if (not torch.is_grad_enabled() and any(vocab)
+            and all(v or isinstance(p, Replicate)
+                    for v, p in zip(vocab, table.placements))
+            and not any(v and isinstance(p, Shard)
+                        for v, p in zip(vocab, tpl))):
+        return _masked_embed(table, tokens, vocab)
+    grad = tuple(Partial() if isinstance(p, Shard) else Replicate()
+                 for p in tpl)
+    return local_map(
+        lambda t, ids: t[ids.long()], out_placements=list(tpl),
+        in_placements=(rep, tpl), in_grad_placements=(grad, tpl),
+        device_mesh=mesh)(table.redistribute(mesh, rep), tokens)
+
+
+def _masked_embed(table, tokens, vocab: list):
+    """Serving's lookup in a vocab-sharded table (no gradient): each rank
+    takes the rows of its own vocab block, zeros elsewhere, and the
+    result is their partial sum (one all-reduce of the rows when it is
+    read), not the whole table gathered."""
+    mesh = table.device_mesh
+    lo = 0
+    size = table.shape[0]
+    for j, v in enumerate(vocab):
+        if v:
+            size //= mesh.size(j)
+            lo += mesh.get_local_rank(j) * size
+
+    def rows(t, ids):
+        ids = ids.long() - lo
+        mine = (ids >= 0) & (ids < t.shape[0])
+        out = t[ids.clamp(0, t.shape[0] - 1)]
+        return torch.where(mine[..., None], out, torch.zeros((), dtype=t.dtype,
+                                                             device=t.device))
+
+    out = tuple(Partial() if v else p
+                for v, p in zip(vocab, tokens.placements))
+    return local_map(rows, out_placements=list(out),
+                     in_placements=(tuple(table.placements),
+                                    tuple(tokens.placements)),
+                     device_mesh=mesh)(table, tokens)
 
 
 def unembed(table: torch.Tensor, x: torch.Tensor,

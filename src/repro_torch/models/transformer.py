@@ -57,13 +57,17 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.distributed.tensor import DTensor, Shard
+from torch.distributed.tensor.experimental import local_map
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.baselines import favor_init
 from repro_torch.core.features import init_feature_params
 from repro_torch.core.slay import feature_dim
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm
 from repro_torch.models.layers import embed, mlp, moe, rmsnorm, rope, unembed
@@ -120,13 +124,68 @@ def _attn_mlp_shapes(cfg: ArchConfig, d, nl, dh, H, Hkv, ff) -> dict:
     return shapes
 
 
+# Each leaf's logical axes (``repro_torch.distributed.sharding``), as the
+# reference's ParamSpecs name them; a stacked leaf adds "layers" ahead.
+_LEAF_AXES = {
+    "embed": ("vocab", "embed"), "unembed": ("vocab", "embed"),
+    "final_norm": ("embed",), "enc_norm": ("embed",),
+    "enc_pos": (None, "embed"), "pre": ("embed",), "pre_attn": ("embed",),
+    "pre_mlp": ("embed",), "pre_cross": ("embed",),
+    "attn.wq": ("embed", "heads", None), "attn.wk": ("embed", "kv_heads", None),
+    "attn.wv": ("embed", "kv_heads", None), "attn.wo": ("heads", None, "embed"),
+    "attn.q_norm": (None,), "attn.k_norm": (None,),
+    "mlp.up": ("embed", "mlp"), "mlp.gate": ("embed", "mlp"),
+    "mlp.down": ("mlp", "embed"), "moe.router": ("embed", None),
+    "moe.gate": ("experts", "embed", "mlp"),
+    "moe.up": ("experts", "embed", "mlp"),
+    "moe.down": ("experts", "mlp", "embed"),
+    "ssd.in_proj": ("embed", "mlp"), "ssd.conv_w": (None, "mlp"),
+    "ssd.conv_b": ("mlp",), "ssd.a_log": (None,), "ssd.dt_bias": (None,),
+    "ssd.d_skip": (None,), "ssd.norm": ("mlp",),
+    "ssd.out_proj": ("mlp", "embed"),
+}
+_STACKS = ("layers", "enc_layers", "dec_layers")
+
+
+def axes_tree(cfg: ArchConfig, shapes: dict) -> dict:
+    """The logical-axes tree of the parameters ``shapes`` describes, with
+    the random projections' (replicated) for a SLAY or favor config."""
+    tree: dict = {}
+    for name in shapes:
+        head, _, rest = name.partition(".")
+        if head in _STACKS:
+            ax = ("layers", *_LEAF_AXES[rest.replace("cross.", "attn.")])
+        else:
+            ax = _LEAF_AXES[name]
+        node = tree
+        *path, leaf = name.split(".")
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = ax
+    if cfg.attn_kind == "slay":
+        tree["slay"] = {"anchors": (None, None), "omegas": (None, None)}
+    elif cfg.attn_kind == "favor":
+        tree["slay"] = {"proj": (None, None)}
+    return tree
+
+
+def param_axes(cfg: ArchConfig) -> dict:
+    """The logical-axes tree of :func:`init_params`' parameters, the
+    reference's ``param_axes``."""
+    cfg.check_supported()
+    return axes_tree(cfg, _param_shapes(cfg))
+
+
 def realize(shapes: dict, gen: torch.Generator, dev: torch.device,
             dtype: torch.dtype) -> dict:
     """The nested parameter dict of ``shapes`` (dotted name -> (shape,
-    init, scale)), drawn in that order from ``gen`` on the CPU."""
+    init, scale)), drawn in that order from ``gen`` on the CPU; on the
+    ``meta`` device, shapes and dtypes only (nothing drawn)."""
     params: dict = {}
     for name, (shape, init, scale) in shapes.items():
-        if init == "zeros":
+        if dev.type == "meta":
+            x = torch.empty(shape, device=dev, dtype=dtype)
+        elif init == "zeros":
             x = torch.zeros(shape)
         elif init == "ones":
             x = torch.ones(shape)
@@ -182,15 +241,59 @@ def _layer(params: dict, i: int) -> dict:
     return take(params["layers"])
 
 
+# Activation axes (``distributed.sharding.constrain``): per-head q/k/v and
+# attention output, and the residual stream. A decode row (B, ...) has
+# no sequence dim.
+_AHEAD = ("act_batch", "act_seq", "act_heads", None)
+_ARES = ("act_batch", "act_seq", "act_embed")
+
+
+def act(x, axes: tuple):
+    """``constrain`` by ``axes``, dropping the sequence entry for a row
+    without a sequence dim; ``x`` itself on the unsharded path."""
+    if x.dim() == len(axes) - 1:
+        axes = axes[:1] + axes[2:]
+    return constrain(x, axes)
+
+
+# The collectives that remat="save_collectives" keeps: a layer's
+# attention-out and MLP-down outputs after their tensor-parallel
+# all-reduce (``act(..., _ARES)`` in :func:`_finish_layer`).
+_COLLECTIVES = (torch.ops._c10d_functional.all_reduce.default,
+                torch.ops._c10d_functional.wait_tensor.default)
+
+
+def _save_collectives(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _COLLECTIVES
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_call(remat, fn, *args):
+    """``fn(*args)``, recomputed in the backward pass under ``remat``:
+    True recomputes everything (``torch.utils.checkpoint``);
+    ``"save_collectives"`` keeps the outputs of the forward's
+    all-reduces (the reference's ``attn_out`` and ``mlp_out``), so the
+    recomputation runs no collective. Without a mesh there is no
+    collective, and it is ``remat=True``."""
+    if not remat:
+        return fn(*args)
+    if remat == "save_collectives":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=functools.partial(
+                              create_selective_checkpoint_contexts,
+                              _save_collectives))
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
 def _qkv(cfg: ArchConfig, lp: dict, xa, positions):
     """q, k, v of one layer from its normalised input ``xa`` (``rmsnorm``
     by ``pre_attn``, which a hybrid layer's SSD block reads too): every
     path (forward, prefill, chunks, decode, verify) projects through
     here. qk-norm (qwen3) normalises q and k over the head dim before
     RoPE."""
-    q = torch.einsum("...d,dhk->...hk", xa, lp["attn"]["wq"])
-    k = torch.einsum("...d,dhk->...hk", xa, lp["attn"]["wk"])
-    v = torch.einsum("...d,dhk->...hk", xa, lp["attn"]["wv"])
+    q = act(torch.einsum("...d,dhk->...hk", xa, lp["attn"]["wq"]), _AHEAD)
+    k = act(torch.einsum("...d,dhk->...hk", xa, lp["attn"]["wk"]), _AHEAD)
+    v = act(torch.einsum("...d,dhk->...hk", xa, lp["attn"]["wv"]), _AHEAD)
     if cfg.qk_norm:
         q = rmsnorm(lp["attn"]["q_norm"], q)
         k = rmsnorm(lp["attn"]["k_norm"], k)
@@ -229,16 +332,17 @@ def _finish_layer(cfg: ArchConfig, lp: dict, x, y, m=None):
     output with its SSD block's ``m``, ``0.5 (a + m)``, before the
     residual. A decode row (B, d) routes as a sequence of one token per
     slot, as the reference does."""
-    a = torch.einsum("...hk,hkd->...d", y, lp["attn"]["wo"])
+    y = act(y, _AHEAD)
+    a = act(torch.einsum("...hk,hkd->...d", y, lp["attn"]["wo"]), _ARES)
     if m is not None:
         a = 0.5 * (a + m)
     x = x + a
     xm = rmsnorm(lp["pre_mlp"], x)
     if not cfg.moe_experts:
-        return x + mlp(lp["mlp"], xm, cfg.gated_mlp), None
+        return x + act(mlp(lp["mlp"], xm, cfg.gated_mlp), _ARES), None
     seq = xm if xm.dim() == 3 else xm[:, None, :]
     y2, aux = moe(lp["moe"], seq, cfg.moe_experts, cfg.moe_top_k)
-    return x + y2.reshape(x.shape), aux
+    return x + act(y2.reshape(x.shape), _ARES), aux
 
 
 def _logits(params: dict, cfg: ArchConfig, x):
@@ -251,6 +355,8 @@ def _layer_fwd(cfg: ArchConfig, slay_params: dict, positions, spec,
                lp: dict, x):
     """One layer over the whole sequence: (x, its MoE aux, 0 if dense)."""
     zero = torch.zeros((), device=x.device)
+    if spec is not None:
+        x = act(x, _ARES)
     xn = rmsnorm(lp["pre" if spec is None else "pre_attn"], x)
     m = None
     if "ssd" in lp:
@@ -287,29 +393,27 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
     ``remat=True`` recomputes each layer in the backward pass
     (``torch.utils.checkpoint``) instead of keeping its activations, so
     the attention forward (and an SSD block's scan) runs twice per
-    layer.
+    layer; ``remat="save_collectives"`` keeps each layer's
+    tensor-parallel all-reduce outputs (:func:`remat_call`).
+
+    DTensor parameters and tokens (``distributed.sharding.shard_params``)
+    under an ``activation_sharding`` context run the sharded forward:
+    the activations are constrained at the reference's sites, the
+    attention kernels run on each rank's block (``kernels.ops``).
     """
     cfg.check_supported()
-    if remat == "save_collectives":
-        raise NotImplementedError(
-            "remat='save_collectives' differs from remat=True only across "
-            "tensor-parallel collectives, which come with sharding (ROADMAP "
-            "Queue A item 13)")
     dev = params["embed"].device
-    x = _embed_rows(params, cfg, tokens, patch_embeds)
+    x = act(_embed_rows(params, cfg, tokens, patch_embeds), _ARES)
     L = x.shape[1]
     positions = torch.arange(L, dtype=torch.int32, device=dev)[None, :]
     slay_params = _slay_params(params, detach=True)
     layer = functools.partial(_layer_fwd, cfg, slay_params, positions)
     aux = torch.zeros((), device=dev)
     for i, spec in enumerate(_layer_specs(cfg)):
-        lp = _layer(params, i)
-        if remat:
-            x, a = checkpoint(layer, spec, lp, x, use_reentrant=False)
-        else:
-            x, a = layer(spec, lp, x)
+        x, a = remat_call(remat, layer, spec, _layer(params, i), x)
         aux = aux + a
-    return _logits(params, cfg, x), aux
+    return act(_logits(params, cfg, x), ("act_batch", "act_seq",
+                                         "act_vocab")), aux
 
 
 def loss_fn(params: dict, cfg: ArchConfig, batch: dict, *,
@@ -326,10 +430,29 @@ def loss_fn(params: dict, cfg: ArchConfig, batch: dict, *,
         logits = logits[:, logits.shape[1] - labels.shape[1]:]
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
-    nll = torch.mean(logz - gold)
+    nll = torch.mean(logz - gold_logits(logits, labels))
     total = nll + 0.01 * aux
     return total, {"nll": nll, "moe_aux": aux}
+
+
+def gold_logits(logits, labels):
+    """Each token's logit of its label. Under sharding the vocab dim is
+    gathered first and the gather runs on each rank's own rows
+    (``local_map``): DTensor's gather rules (a masked partial along a
+    sharded dim, its scatter gradient) fail on some meshes and versions
+    of PyTorch."""
+    def pick(lg, lb):
+        return torch.gather(lg, -1, lb[..., None])[..., 0]
+
+    if not isinstance(logits, DTensor):
+        return pick(logits, labels)
+    logits = constrain(logits, ("act_batch", "act_seq", None))
+    pl = tuple(logits.placements)
+    if any(isinstance(p, Shard) and p.dim == 2 for p in pl):
+        raise ValueError(f"logits sharded over the vocab: {pl}")
+    return local_map(pick, out_placements=list(pl), in_placements=(pl, pl),
+                     device_mesh=logits.device_mesh,
+                     redistribute_inputs=True)(logits, labels)
 
 
 class DecodeCache(NamedTuple):
@@ -547,6 +670,8 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
     caches, states = [], []
     for i, spec in enumerate(_layer_specs(cfg)):
         lp = _layer(params, i)
+        if spec is not None:
+            x = act(x, _ARES)
         xn = rmsnorm(lp["pre" if spec is None else "pre_attn"], x)
         m = None
         if st0 is not None:
@@ -604,7 +729,8 @@ def decode_step(params: dict, cfg: ArchConfig, cache: DecodeCache,
     """
     cfg.check_supported()
     dev = params["embed"].device
-    x = embed(params["embed"], tokens.to(dev)[:, 0]).to(cfg.activation_dtype)
+    x = constrain(embed(params["embed"], tokens.to(dev)[:, 0]),
+                  ("act_batch", "act_embed")).to(cfg.activation_dtype)
     pos = cache.pos
     slay = _slay_params(params)
     ac = cache.attn

@@ -37,7 +37,6 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import kernels as exact
@@ -89,6 +88,13 @@ def init_params(cfg: ArchConfig, seed: int = 0, *,
     return params
 
 
+def param_axes(cfg: ArchConfig) -> dict:
+    """The logical-axes tree of :func:`init_params`' parameters, the
+    reference's ``param_axes``."""
+    cfg.check_supported()
+    return tr.axes_tree(cfg, _param_shapes(cfg))
+
+
 def _layer(stack: dict, i: int) -> dict:
     def take(node):
         return {k: take(v) if isinstance(v, dict) else v[i]
@@ -97,7 +103,7 @@ def _layer(stack: dict, i: int) -> dict:
 
 
 def _proj(w, x):
-    return torch.einsum("...d,dhk->...hk", x, w)
+    return tr.act(torch.einsum("...d,dhk->...hk", x, w), tr._AHEAD)
 
 
 def _qkv(cfg: ArchConfig, p: dict, x, positions=None):
@@ -111,7 +117,12 @@ def _qkv(cfg: ArchConfig, p: dict, x, positions=None):
 
 
 def _out(p: dict, y):
-    return torch.einsum("...hk,hkd->...d", y, p["wo"])
+    return tr.act(torch.einsum("...hk,hkd->...d", y, p["wo"]), tr._ARES)
+
+
+def _mlp(cfg: ArchConfig, lp: dict, x):
+    return tr.act(mlp(lp["mlp"], rmsnorm(lp["pre_mlp"], x), cfg.gated_mlp),
+                  tr._ARES)
 
 
 def encode(params: dict, cfg: ArchConfig, frame_embeds: torch.Tensor):
@@ -126,10 +137,11 @@ def encode(params: dict, cfg: ArchConfig, frame_embeds: torch.Tensor):
     slay = tr._slay_params(params, detach=True)
     for i in range(cfg.enc_layers):
         lp = _layer(params["enc_layers"], i)
+        x = tr.act(x, tr._ARES)
         q, k, v = _qkv(cfg, lp["attn"], rmsnorm(lp["pre_attn"], x))
         y = attn.full_attention(spec, slay, q, k, v, causal=False)
         x = x + _out(lp["attn"], y)
-        x = x + mlp(lp["mlp"], rmsnorm(lp["pre_mlp"], x), cfg.gated_mlp)
+        x = x + _mlp(cfg, lp, x)
     return rmsnorm(params["enc_norm"], x)
 
 
@@ -138,6 +150,7 @@ def _dec_layer(cfg: ArchConfig, spec, slay, positions, enc, lp: dict, x,
     """One decoder layer over a sequence: (x, the layer's self-attention
     cache of the prompt, its cross state (s, z) or (k, v)); the two last
     are None without ``cache`` (training)."""
+    x = tr.act(x, tr._ARES)
     q, k, v = _qkv(cfg, lp["attn"], rmsnorm(lp["pre_attn"], x), positions)
     y = attn.full_attention(spec, slay, q, k, v, causal=True)
     x = x + _out(lp["attn"], y)
@@ -145,7 +158,7 @@ def _dec_layer(cfg: ArchConfig, spec, slay, positions, enc, lp: dict, x,
     kc, vc = _proj(lp["cross"]["wk"], enc), _proj(lp["cross"]["wv"], enc)
     yc = attn.cross_attention(spec, slay, qc, kc, vc)
     x = x + _out(lp["cross"], yc)
-    x = x + mlp(lp["mlp"], rmsnorm(lp["pre_mlp"], x), cfg.gated_mlp)
+    x = x + _mlp(cfg, lp, x)
     if cache is None:
         return x, None, None
     nc = attn.prefill_cache(spec, slay, k, v, cache)
@@ -169,13 +182,9 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     spec = cfg.attention_spec()
     slay = tr._slay_params(params, detach=True)
     for i in range(cfg.num_layers):
-        lp = _layer(params["dec_layers"], i)
-        if remat:
-            x = checkpoint(lambda lp, x, enc: _dec_layer(
-                cfg, spec, slay, positions, enc, lp, x)[0], lp, x, enc,
-                use_reentrant=False)
-        else:
-            x = _dec_layer(cfg, spec, slay, positions, enc, lp, x)[0]
+        x = tr.remat_call(remat, lambda lp, x, enc: _dec_layer(
+            cfg, spec, slay, positions, enc, lp, x)[0],
+            _layer(params["dec_layers"], i), x, enc)
     x = rmsnorm(params["final_norm"], x)
     return (unembed(params["embed"], x),
             torch.zeros((), dtype=torch.float32, device=dev))
@@ -190,8 +199,7 @@ def loss_fn(params: dict, cfg: ArchConfig, batch: dict, *,
     labels = batch["labels"].to(logits.device).long()
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
-    nll = torch.mean(logz - gold)
+    nll = torch.mean(logz - tr.gold_logits(logits, labels))
     return nll, {"nll": nll, "moe_aux": aux}
 
 
@@ -398,7 +406,7 @@ def decode_step(params: dict, cfg: ArchConfig, cache: WhisperCache,
             probs = torch.softmax(logits.float(), -1).to(x.dtype)
             yc = torch.einsum("bhs,bshd->bhd", probs, vc)
         x = x + _out(lp["cross"], yc)
-        x = x + mlp(lp["mlp"], rmsnorm(lp["pre_mlp"], x), cfg.gated_mlp)
+        x = x + _mlp(cfg, lp, x)
     pos.add_(1 if active is None else active.to(torch.int32))
     x = rmsnorm(params["final_norm"], x)
     return unembed(params["embed"], x)[:, None, :], cache

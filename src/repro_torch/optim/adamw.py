@@ -8,6 +8,11 @@ donates them (``repro/train/loop.py:142``). Moments
 are fp32 by default or bf16 (``moment_dtype``); the update runs in fp32 in
 the same order of operations as the JAX package, and the new parameters
 are cast back to each parameter's dtype.
+
+DTensor parameters (a sharded step, ``train.loop.sharded_train_step``)
+get moments with their placements; the global norm is the whole tree's,
+and each leaf's update runs on every rank's own shard (the arithmetic is
+elementwise, so the shards' updates are the whole update).
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -52,7 +58,7 @@ def adamw_init(params: dict, cfg: AdamWConfig) -> AdamWState:
     dev = tree_leaves(params)[0].device
 
     def zeros(p):
-        return torch.zeros(p.shape, dtype=dt, device=p.device)
+        return torch.zeros_like(p, dtype=dt)
 
     return AdamWState(torch.zeros((), dtype=torch.int32, device=dev),
                       tree_map(zeros, params), tree_map(zeros, params))
@@ -69,8 +75,10 @@ def schedule(step: torch.Tensor, cfg: AdamWConfig) -> torch.Tensor:
 
 
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree_leaves(tree)))
+    """The tree's L2 norm, fp32 (a plain tensor, gathered if sharded)."""
+    n = torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                       for x in tree_leaves(tree)))
+    return n.full_tensor() if isinstance(n, DTensor) else n
 
 
 def adamw_update(grads: dict, state: AdamWState, params: dict,
@@ -107,8 +115,21 @@ def adamw_update(grads: dict, state: AdamWState, params: dict,
                 dst.copy_(src)
         return p, m, v
 
-    out = tree_map(upd_in_place if donate else upd, params, grads, state.m,
-                   state.v)
+    fn = upd_in_place if donate else upd
+
+    def leaf(p, g, m, v):
+        if not isinstance(p, DTensor):
+            return fn(p, g, m, v)
+        if tuple(g.placements) != tuple(p.placements):
+            g = g.redistribute(p.device_mesh, p.placements)
+        out = fn(p.to_local(), g.to_local(), m.to_local(), v.to_local())
+        if donate:
+            return p, m, v
+        return tuple(DTensor.from_local(o, p.device_mesh, p.placements,
+                                        run_check=False, shape=p.shape,
+                                        stride=p.stride()) for o in out)
+
+    out = tree_map(leaf, params, grads, state.m, state.v)
     new_params = tree_map(lambda t: t[0], out)
     new_m = tree_map(lambda t: t[1], out)
     new_v = tree_map(lambda t: t[2], out)

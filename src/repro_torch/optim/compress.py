@@ -8,7 +8,9 @@ the next step (Karimireddy et al., 2019), so the bias vanishes over steps:
     grads_q, cstate = compress.compress_decompress(grads, cstate)
 
 ``torch.round`` and ``jnp.round`` both round half to even, so the result
-is bit-identical to the JAX package's on the same fp32 inputs.
+is bit-identical to the JAX package's on the same fp32 inputs. On
+DTensor gradients (a sharded step) the residuals carry the gradients'
+placements and the scale is the whole tensor's maximum.
 """
 from __future__ import annotations
 
@@ -19,8 +21,8 @@ from repro_torch.tree import tree_map
 
 def init(grads: dict) -> dict:
     """Error-feedback residual buffers (fp32, zero)."""
-    return tree_map(lambda g: torch.zeros(g.shape, dtype=torch.float32,
-                                          device=g.device), grads)
+    return tree_map(lambda g: torch.zeros_like(g, dtype=torch.float32),
+                    grads)
 
 
 def _quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -288,11 +288,12 @@ def snapshot_engine(eng) -> dict:
         "seed": int(eng.serving.seed),
         "speculative": bool(eng._spec),
         "spec_gamma": int(eng.serving.spec_gamma) if eng._spec else 0,
-        "pool": [to_numpy(x) for x in tree_leaves(eng.pool)],
+        # The whole pool: a sharded engine gathers every rank's block.
+        "pool": eng._whole_leaves(eng.pool, eng.cfg),
         # The draft pool is live decode state too: a resident slot resumed
         # without it would draft from zeros (other proposals, so other
         # sampled streams and a lower acceptance rate).
-        "draft_pool": ([to_numpy(x) for x in tree_leaves(eng.draft_pool)]
+        "draft_pool": (eng._whole_leaves(eng.draft_pool, eng.draft_cfg)
                        if eng._spec else None),
         "mirrors": {
             "last_tok": eng._last_tok.copy(),

@@ -80,23 +80,41 @@ the two admitted, evicted and checkpointed in lockstep; a dispatch runs
 K rounds of ``spec_gamma`` draft tokens each, every draft step and
 resync step the masked decode kernel once per layer.
 
-Not in the port yet, refused by ``ServingConfig.check_supported`` when
-the engine is built: a sharded slot pool (ROADMAP Queue A item 13).
+With ``mesh`` (a ``DeviceMesh`` of :mod:`repro_torch.launch.mesh`, one
+process per rank, NCCL on the card or gloo on the CPU) the continuous
+engine shards its slot pool over the rules' ``slots`` axes (DESIGN.md
+§8): rank k holds the pool block [k·S/N, (k+1)·S/N) of every slot-dim
+leaf, its ``pos`` and its page block, and the control vectors of those
+slots. Every rank runs the same scheduler on the same requests (the
+same decisions), prefills each admission itself (the parameters are
+replicated over the slot axes, ``serving_param_rules``) and writes the
+slot only where it owns it. A dispatch runs the decode kernel on the
+rank's own block and issues no collective on the slot axes; after it
+the ranks exchange the (K, S) token, emitted and fault buffers with one
+``all_gather`` over the slot group (the port's counterpart of the
+reference's ``device_get`` of a slot-sharded array), which keeps every
+rank's scheduler identical.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import os
 import time
+import types
 from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed._functional_collectives import all_reduce
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch import prng
 from repro_torch.configs.base import ArchConfig, ServingConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import api
 from repro_torch.serving import checkpoint as checkpoint_lib
 from repro_torch.serving import faults as faults_lib
@@ -106,7 +124,7 @@ from repro_torch.serving import pages as pages_lib
 from repro_torch.serving import prefix_cache as prefix_lib
 from repro_torch.serving import sampling
 from repro_torch.serving import speculative
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_map_with_path
 
 
 class AdmissionError(RuntimeError):
@@ -214,9 +232,77 @@ def _copy_into(dst, src) -> None:
     """Copy every leaf of ``src`` into the same leaf of ``dst``: a static
     buffer that a captured graph reads keeps its storage. A leaf that is
     already ``dst``'s (a ring written in place) is left as it is."""
-    for d, s in zip(tree_leaves(dst), tree_leaves(src)):
+    for d, s in zip(tree_leaves(_local(dst)), tree_leaves(_local(src))):
         if d is not s:
             d.copy_(s)
+
+
+def _local(tree):
+    """Each rank's own tensors of a tree (a DTensor's local shard): the
+    slot ops and static-buffer copies of a tensor-parallel engine write
+    through them into the DTensors' storage."""
+    return tree_map(lambda t: t.to_local() if isinstance(t, DTensor)
+                    else t, tree)
+
+
+def _serving_tp(cfg: ArchConfig, mesh, rules: shd.ShardingRules,
+                slot_axes=()):
+    """The tensor-parallel sub-mesh of serving: the one mesh axis (not a
+    slot axis) over which ``serving_param_rules`` shard a parameter, or
+    None when every rank holds the parameters whole."""
+    if mesh is None:
+        return None
+    pls = shd.logical_to_sharding(mesh, shd.serving_param_rules(rules),
+                                  api.abstract_params(cfg),
+                                  api.param_axes(cfg))
+    ms = shd.mesh_shape(mesh)
+    names = list(ms)
+    axes = {names[j] for pl in tree_leaves(pls) for j, p in enumerate(pl)
+            if isinstance(p, shd.Shard) and ms[names[j]] > 1}
+    axes -= set(slot_axes)
+    if not axes:
+        return None
+    spec = cfg.attention_spec() if cfg.family != "ssm" else None
+    if (len(axes) > 1 or cfg.family != "decoder" or cfg.frontend
+            or cfg.mixed_layers or not spec.is_linear
+            or cfg.num_kv_heads % ms[next(iter(axes))]):
+        raise NotImplementedError(
+            f"tensor-parallel serving over {sorted(axes)}: the port serves "
+            f"a decoder of a linear kind whose kv heads the axis divides")
+    return mesh[next(iter(axes))]
+
+
+def _tp_context(tp_mesh, rules):
+    """The context of a tensor-parallel engine's model calls (none
+    without ``tp_mesh``): its activation sharding, out of inference mode
+    (whose tensors DTensor's views cannot version), no autograd."""
+    stack = contextlib.ExitStack()
+    if tp_mesh is not None:
+        stack.enter_context(torch.inference_mode(False))
+        stack.enter_context(torch.no_grad())
+        stack.enter_context(shd.activation_sharding(tp_mesh, rules))
+    return stack
+
+
+def _tp_params(cfg: ArchConfig, params: dict, tp_mesh, rules):
+    """The parameters as DTensors of ``tp_mesh`` in ``serving_param_rules``
+    placements (every rank holds them whole and keeps its block)."""
+    pls = shd.logical_to_sharding(tp_mesh, shd.serving_param_rules(rules),
+                                  params, api.param_axes(cfg))
+    return tree_map(lambda x, pl: distribute_tensor(
+        x, tp_mesh, pl, src_data_rank=None), params, pls)
+
+
+def _tp_cache(cache, tp_mesh):
+    """A decode cache as DTensors of ``tp_mesh``: (S, z) over their kv
+    heads (dim 2 of the stacked leaves), positions replicated; each rank
+    keeps its heads' block of its own slots."""
+    def one(path, t):
+        pl = shd.Shard(2) if path.split("/")[-1] in ("s", "z") \
+            else shd.Replicate()
+        return distribute_tensor(t.clone(), tp_mesh, [pl],
+                                 src_data_rank=None)
+    return tree_map_with_path(one, cache)
 
 
 @dataclasses.dataclass
@@ -239,18 +325,32 @@ class ServingEngine:
 
     On the card the decode step (model and sampler) is one CUDA graph per
     batch size and temperature; ``_graphs=False`` runs it eagerly there
-    too (for holding the graph against eager runs)."""
+    too (for holding the graph against eager runs).
+
+    With ``mesh`` (the reference's ``make_serving_fns(mesh=)``) the
+    parameters take ``serving_param_rules`` placements: replicated over
+    the slot axes, so every rank runs the whole batch; where a model axis
+    shards them (tensor parallelism) they and the cache are DTensors of
+    that axis and the step runs eagerly under ``activation_sharding``."""
 
     def __init__(self, cfg: ArchConfig, params: dict, *,
                  device: str | torch.device = "cuda", max_len: int = 4096,
+                 mesh=None, rules: shd.ShardingRules = shd.DEFAULT_RULES,
                  _graphs: bool = True):
         cfg.check_supported()
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = _to_device(params, self.device)
+        self.rules = rules
+        self._tp = _serving_tp(cfg, mesh, rules)
+        if self._tp is not None:
+            self.params = _tp_params(cfg, self.params, self._tp, rules)
         self.max_len = max_len
-        self._graphs = _graphs
+        self._graphs = _graphs and self._tp is None
         self._steps: dict[tuple[int, float], _Lockstep] = {}
+
+    def _tp_ctx(self):
+        return _tp_context(self._tp, self.rules)
 
     def graph_cache_entries(self) -> dict:
         """Captured CUDA graphs by program, as the JAX engine's
@@ -266,11 +366,17 @@ class ServingEngine:
         if st is None:
             dev = self.device
             cache = api.init_cache(self.cfg, batch, self.max_len, device=dev)
+            if self._tp is not None:
+                with torch.inference_mode(False):
+                    cache = _tp_cache(cache, self._tp)
             tok = torch.zeros(batch, 1, dtype=torch.int32, device=dev)
             key = torch.zeros(2, dtype=torch.int64, device=dev)
 
             def step():
-                logits, _ = api.decode_step(self.params, self.cfg, cache, tok)
+                with self._tp_ctx():
+                    logits, _ = api.decode_step(self.params, self.cfg,
+                                                cache, tok)
+                    logits = shd.full_tensor(logits)
                 return tok.copy_(self._sample(logits, temperature, key))
 
             st = _Lockstep(cache, tok, key,
@@ -303,9 +409,11 @@ class ServingEngine:
         for i, r in enumerate(requests):
             prompts[i, lp - len(r.prompt):] = r.prompt
         tokens = torch.from_numpy(prompts).to(self.device)
-        logits, cache = api.prefill(self.params, self.cfg, tokens,
-                                    max_len=self.max_len,
-                                    **_frontend_kw(self.cfg, B, self.device))
+        with self._tp_ctx():
+            logits, cache = api.prefill(
+                self.params, self.cfg, tokens, max_len=self.max_len,
+                **_frontend_kw(self.cfg, B, self.device))
+            logits = shd.full_tensor(logits)
         key = prng.PRNGKey(seed)
         max_new = max(r.max_new_tokens for r in requests)
         out = np.zeros((B, max_new), np.int32)
@@ -346,9 +454,20 @@ class ServingEngine:
 # ---------------------------------------------------------------------------
 
 
+def _slots_finite(cfg: ArchConfig, cache, tp_mesh=None) -> torch.Tensor:
+    """(S,) bool: ``api.slot_state_finite`` of the pool; a
+    tensor-parallel pool probes each rank's heads and takes the minimum
+    over the model group (the one reduction the probe needs)."""
+    if tp_mesh is None:
+        return api.slot_state_finite(cfg, cache)
+    ok = api.slot_state_finite(cfg, _local(cache)).to(torch.int32)
+    return all_reduce(ok, "min", tp_mesh.get_group()).bool()
+
+
 def _macro_decode(params, cache, last_tok, active, rids, gen, eos_ids,
                   max_new, *, cfg: ArchConfig, num_ticks: int,
-                  temperature: float, seed: int, fault_guard: bool = True):
+                  temperature: float, seed: int, fault_guard: bool = True,
+                  tp_mesh=None):
     """K decode ticks over the slot pool, all on the device, the pool
     updated in place.
 
@@ -368,17 +487,18 @@ def _macro_decode(params, cache, last_tok, active, rids, gen, eos_ids,
     (int32; ``active`` bool); ``gen`` counts tokens already emitted per
     slot, which is the sampling index of the next token, so the stream is
     the same for every K. Returns one (3, K, S) int32 tensor: tokens,
-    emitted flags and fault flags.
+    emitted flags and fault flags. A tensor-parallel pool (``tp_mesh``)
+    gathers each tick's logits row whole before sampling.
     """
     toks, ems, flts = [], [], []
     for _ in range(num_ticks):
         logits, cache = api.decode_step(params, cfg, cache,
                                         last_tok[:, None], active)
-        row = logits[:, -1, :]
+        row = shd.full_tensor(logits[:, -1, :])
         tok = sampling.sample_tokens(row, rids, gen,
                                      temperature=temperature, seed=seed)
         if fault_guard:
-            ok = (api.slot_state_finite(cfg, cache)
+            ok = (_slots_finite(cfg, cache, tp_mesh)
                   & torch.isfinite(row.float()).all(-1))
             faulted = active & ~ok
         else:
@@ -460,6 +580,7 @@ class ServingMetrics:
 
     num_slots: int = 0
     macro_ticks: int = 1
+    slot_shards: int = 1
     ticks: int = 0
     decode_ticks: int = 0
     prefill_ticks: int = 0
@@ -470,6 +591,7 @@ class ServingMetrics:
     queue_depth_max: int = 0
     occupancy_sum: int = 0
     decode_dispatches: int = 0
+    slot_gathers: int = 0
     host_syncs: int = 0
     prefill_token_syncs: int = 0
     requests_terminated: int = 0
@@ -529,7 +651,7 @@ class ServingMetrics:
             "tokens_generated": self.tokens_generated,
             "prompt_tokens": self.prompt_tokens,
             "macro_ticks": self.macro_ticks,
-            "slot_shards": 1,
+            "slot_shards": self.slot_shards,
             "decode_dispatches": self.decode_dispatches,
             "host_syncs": self.host_syncs,
             "prefill_token_syncs": self.prefill_token_syncs,
@@ -610,21 +732,32 @@ class _Prefill:
 class Scheduler:
     """Owns the slot pool and the admission queue.
 
-    FIFO admission into the lowest free slot (the reference's shard-aware
-    choice with one shard). At most one prefill is in flight (chunked, so
-    a long prompt yields to decode ticks between chunks); decode and
-    prefill interleave per ``decode_ticks_per_prefill`` when both have
-    work. Token streams never depend on the slot chosen: sampling is
+    FIFO admission order; the *slot* a request lands in is the free slot
+    whose shard serves the fewest live requests (ties to the lowest slot,
+    which with one shard is the lowest free slot). Ownership is static
+    and contiguous: with S slots over N shards, shard k owns slots
+    [k*S/N, (k+1)*S/N) for the engine's life, the block rank k of a
+    slot-sharded pool holds, so admission and eviction never move state
+    across shards. At most one prefill is in flight (chunked, so a long
+    prompt yields to decode ticks between chunks); decode and prefill
+    interleave per ``decode_ticks_per_prefill`` when both have work.
+    Token streams never depend on the slot or shard chosen: sampling is
     keyed on (seed, rid, token index) only.
     """
 
-    def __init__(self, serving: ServingConfig):
+    def __init__(self, serving: ServingConfig, slot_shards: int = 1):
         self.serving = serving
+        self.slot_shards = max(slot_shards, 1)
+        self.slots_per_shard = serving.num_slots // self.slot_shards
         self.free: list[int] = list(range(serving.num_slots))
         self.active: dict[int, _Slot] = {}
         self.waiting: collections.deque = collections.deque()  # (rid, req)
         self.ready: collections.deque = collections.deque()
         self._decode_since_prefill = serving.decode_ticks_per_prefill
+
+    def shard_of(self, slot: int) -> int:
+        """Static owner shard of ``slot`` (its contiguous block)."""
+        return slot // self.slots_per_shard
 
     def submit(self, rid: int, req: Request) -> list[tuple[int, Request]]:
         """Enqueue a request; returns the (rid, req) pairs shed to make
@@ -681,7 +814,8 @@ class Scheduler:
             self.ready.append(self.waiting.popleft())
 
     def next_admission(self, slot_ok=None):
-        """Pop the request to admit next and reserve a slot, or None.
+        """Pop the request to admit next and reserve a slot in the
+        least-loaded shard, or None.
 
         ``slot_ok(slot, req)`` filters the free slots (a paged pool admits
         only where the slot's shard has the request's pages); when none
@@ -695,7 +829,10 @@ class Scheduler:
         if not cands:
             return None
         self.ready.popleft()
-        slot = min(cands)
+        load = [0] * self.slot_shards
+        for slot in self.active:
+            load[self.shard_of(slot)] += 1
+        slot = min(cands, key=lambda s: (load[self.shard_of(s)], s))
         self.free.remove(slot)
         return rid, req, slot
 
@@ -728,6 +865,10 @@ class Scheduler:
 
     def note_prefill(self):
         self._decode_since_prefill = 0
+
+
+# The slot-axis resolution of an engine without a mesh: one shard.
+_ONE_DEVICE = types.SimpleNamespace(shape={"data": 1, "model": 1})
 
 
 class ContinuousServingEngine:
@@ -769,18 +910,29 @@ class ContinuousServingEngine:
                  clock: Callable[[], float] = time.perf_counter,
                  fault_injector=None, prefix_cache=None,
                  journal: journal_lib.Journal | None = None,
+                 mesh=None, rules: shd.ShardingRules = shd.DEFAULT_RULES,
                  _graphs: bool = True):
         cfg.check_supported()
-        serving.check_supported()
         self.device = resolve_device(device)
         self.cfg, self.serving = cfg, serving
-        self.params = _to_device(params, self.device)
         self._clock = clock
         # Chaos harness hook (serving.faults.FaultInjector), tests and
         # benchmarks only.
         self._injector = fault_injector
-        self.sched = Scheduler(serving)
         S, L = serving.num_slots, serving.max_len
+        self._shard_slots(mesh, rules)
+        self._tp = _serving_tp(cfg, mesh, rules, self._slot_axes)
+        if self._tp is not None and (
+                serving.page_size or serving.prefix_cache_bytes
+                or prefix_cache is not None or journal is not None
+                or serving.speculative):
+            raise NotImplementedError(
+                "a tensor-parallel engine serves without paging, a prefix "
+                "cache, a journal or speculative decoding")
+        self.params = _to_device(params, self.device)
+        if self._tp is not None:
+            self.params = _tp_params(cfg, self.params, self._tp, rules)
+        self.sched = Scheduler(serving, self.slot_shards)
         # Paged slot memory: only the exact kinds' rings page; SLAY's (S, z)
         # and an SSD carry are O(1) per slot, so page_size is a no-op for
         # them.
@@ -788,7 +940,8 @@ class ContinuousServingEngine:
         if serving.page_size and api.supports_paging(cfg):
             lp = L // serving.page_size      # the config checks divisibility
             self.page_pool = pages_lib.PagePool(
-                S, serving.num_pages or S * lp, serving.page_size, lp)
+                S, serving.num_pages or S * lp, serving.page_size, lp,
+                shards=self.slot_shards)
         pp = self.page_pool
         # Content-addressed prefix cache; its entries live on this
         # engine's device. _pfx_refs pins the entry each live request was
@@ -809,6 +962,7 @@ class ContinuousServingEngine:
         self._pfx_refs: dict[int, prefix_lib.PrefixEntry] = {}
         self.metrics = ServingMetrics(
             num_slots=S, macro_ticks=serving.macro_ticks,
+            slot_shards=self.slot_shards,
             num_pages=pp.num_pages if pp else 0, clock=clock)
         # Speculative decoding: two pools over one parameter dict, the
         # verifier's (self.pool, paged or not) and the SLAY draft's
@@ -855,28 +1009,40 @@ class ContinuousServingEngine:
         # the stacked control vectors of a dispatch, and one batch-1
         # prefill cache with one chunk of tokens (one prefill is in flight
         # at a time). A paged pool's page tables are among the pool's
-        # tensors, updated in place by the slot ops.
+        # tensors, updated in place by the slot ops. A sharded pool is
+        # this rank's block of S/N slots (and of the pages).
+        Sl, n = self._slots_local, self.slot_shards
         with torch.inference_mode():
             self.pool = api.init_cache(
-                cfg, S, L, device=self.device,
+                cfg, Sl, L, device=self.device,
                 page_size=pp.page_size if pp else 0,
-                num_pages=pp.num_pages if pp else 0)
-            self._ctl = torch.zeros(6, S, dtype=torch.int32,
+                num_pages=pp.num_pages // n if pp else 0)
+            self._ctl = torch.zeros(6, Sl, dtype=torch.int32,
                                     device=self.device)
             self._pf_cache = api.init_cache(cfg, 1, serving.max_len,
                                             device=self.device)
             self._pf_tokens = torch.zeros(1, serving.prefill_chunk,
                                           dtype=torch.int32,
                                           device=self.device)
+
             # Speculative: the draft pool, its round-start scratch twin
             # and its batch-1 prefill cache.
             self.draft_pool = self._draft_scratch = self._pf_draft = None
             if self._spec:
                 self.draft_pool, self._draft_scratch = (
-                    api.init_cache(self.draft_cfg, S, L, device=self.device)
+                    api.init_cache(self.draft_cfg, Sl, L, device=self.device)
                     for _ in range(2))
                 self._pf_draft = api.init_cache(self.draft_cfg, 1, L,
                                                 device=self.device)
+        # A tensor-parallel engine keeps each rank's heads of its slots in
+        # DTensors (made outside inference mode, whose tensors DTensor's
+        # views cannot version), and its dispatch (model-group
+        # collectives) runs eagerly; every other captures local tensors.
+        if self._tp is not None:
+            with torch.inference_mode(False):
+                self.pool = _tp_cache(self.pool, self._tp)
+                self._pf_cache = _tp_cache(self._pf_cache, self._tp)
+        _graphs = _graphs and self._tp is None
         self._decode = graphs.Program(self._decode_program, self.device,
                                       graphed=_graphs)
         self._spec_decode = (graphs.Program(self._spec_program, self.device,
@@ -909,6 +1075,136 @@ class ContinuousServingEngine:
                 "speculative": self._spec,
                 "spec_gamma": serving.spec_gamma if self._spec else 0})
             journal.flush()
+
+    # -- slot sharding (DESIGN.md §8) ---------------------------------------
+
+    def _shard_slots(self, mesh, rules: shd.ShardingRules) -> None:
+        """Resolve the pool's slot axes once (``pool_slot_axes``; its
+        divisibility fallback replicates and is logged in
+        ``slot_shard_fallbacks``) and this rank's block [lo, lo + S/N)."""
+        S = self.serving.num_slots
+        self.mesh, self.rules = mesh, rules
+        self.slot_shard_fallbacks: list = []
+        saxes, n = shd.pool_slot_axes(
+            mesh if mesh is not None else _ONE_DEVICE, rules, S,
+            self.serving.slot_shards, self.slot_shard_fallbacks)
+        if len(saxes) > 1:
+            raise NotImplementedError(
+                f"slot axes {saxes}: the port shards the pool over one "
+                f"mesh axis")
+        self.slot_shards, self._shard, self._slot_group = n, 0, None
+        if n > 1:
+            self._slot_group = mesh.get_group(saxes[0])
+            self._shard = mesh.get_local_rank(saxes[0])
+        self._slots_local = S // n
+        self._lo = self._shard * self._slots_local
+        self._slot_axes = saxes
+
+    def _tp_ctx(self):
+        return _tp_context(self._tp, self.rules)
+
+    def _slot_index(self, slot: int) -> int | None:
+        """``slot``'s index in this rank's pool block, or None when
+        another rank owns it."""
+        i = slot - self._lo
+        return i if 0 <= i < self._slots_local else None
+
+    def _page_vectors(self):
+        """This rank's block of the page tables (local page and slot ids),
+        for the slot ops."""
+        if self.page_pool is None:
+            return None
+        return self.page_pool.device_vectors(self._shard)
+
+    def _gather_slots(self, buf: torch.Tensor) -> torch.Tensor:
+        """The whole pool's (..., S) buffer from every rank's (..., S/N)
+        block: one ``all_gather`` over the slot group (none on one
+        shard)."""
+        if self._slot_group is None:
+            return buf
+        parts = [torch.empty_like(buf) for _ in range(self.slot_shards)]
+        dist.all_gather(parts, buf.contiguous(), group=self._slot_group)
+        self.metrics.slot_gathers += 1
+        return torch.cat(parts, dim=-1)
+
+    def _whole_pool(self, cfg: ArchConfig):
+        """The whole pool of ``cfg`` (the verifier's, paged or not, or
+        the draft's) on the ``meta`` device."""
+        sv, pp = self.serving, self.page_pool
+        paged = pp is not None and cfg is self.cfg
+        return api.abstract_cache(
+            cfg, sv.num_slots, sv.max_len,
+            page_size=pp.page_size if paged else 0,
+            num_pages=pp.num_pages if paged else 0)
+
+    def _slot_dims(self, cfg: ArchConfig) -> list:
+        """Per leaf of a pool of ``cfg``, the dim its slot (or page) axis
+        shards, from ``serving_cache_sharding``'s placements of the whole
+        pool; None for a leaf every rank holds whole."""
+        sv, pp = self.serving, self.page_pool
+        pls = shd.serving_cache_sharding(
+            self.mesh, self.rules, self._whole_pool(cfg),
+            num_slots=sv.num_slots,
+            num_pages=pp.num_pages if pp else None,
+            slot_shards=sv.slot_shards)
+        j = list(shd.mesh_shape(self.mesh)).index(self._slot_axes[0])
+        return [pl[j].dim if isinstance(pl[j], shd.Shard) else None
+                for pl in tree_leaves(pls)]
+
+    def _whole_leaves(self, pool, cfg: ArchConfig) -> list:
+        """The numpy leaves of the whole pool, every rank's block gathered
+        (each rank must call it); a page table's ids made global."""
+        leaves = tree_leaves(pool)
+        if self._slot_group is None:
+            return [checkpoint_lib.to_numpy(x) for x in leaves]
+        pages = ([] if getattr(pool, "pages", None) is None
+                 else list(pool.pages))
+        out = []
+        for x, dim in zip(leaves, self._slot_dims(cfg)):
+            if dim is None:
+                out.append(checkpoint_lib.to_numpy(x))
+                continue
+            w = x.view(torch.int16) if x.dtype == torch.bfloat16 else x
+            parts = [torch.empty_like(w) for _ in range(self.slot_shards)]
+            dist.all_gather(parts, w.contiguous(), group=self._slot_group)
+            for k, part in enumerate(parts):
+                off = self._page_offset(x, pages, k)
+                if off:
+                    part.copy_(torch.where(part >= 0, part + off, part))
+            whole = torch.cat(parts, dim)
+            out.append(checkpoint_lib.to_numpy(
+                whole.view(torch.bfloat16) if w is not x else whole))
+        return out
+
+    def _page_offset(self, leaf, pages: list, k: int) -> int:
+        """What turns shard k's ids in page-table leaf ``leaf`` into
+        global ones (its first page for the table, its first slot for the
+        owners); 0 for any other leaf."""
+        if not pages or self.page_pool is None:
+            return 0
+        if leaf is pages[0]:
+            return k * (self.page_pool.num_pages // self.slot_shards)
+        if leaf is pages[1]:
+            return k * self._slots_local
+        return 0
+
+    def _load_block(self, pool, saved: list, cfg: ArchConfig) -> None:
+        """Copy this rank's block of the whole-pool numpy leaves ``saved``
+        into ``pool``'s tensors; a page table's ids made the block's."""
+        leaves = tree_leaves(pool)
+        dims = ([None] * len(leaves) if self._slot_group is None
+                else self._slot_dims(cfg))
+        pages = ([] if getattr(pool, "pages", None) is None
+                 else list(pool.pages))
+        for dst, src, dim in zip(leaves, saved, dims):
+            t = torch.from_numpy(np.array(src))
+            if dim is not None:
+                n = dst.shape[dim]
+                t = t.narrow(dim, self._shard * n, n)
+                off = self._page_offset(dst, pages, self._shard)
+                if off:
+                    t = torch.where(t >= 0, t - off, t)
+            dst.copy_(t)
 
     # -- submission ---------------------------------------------------------
 
@@ -1100,7 +1396,9 @@ class ContinuousServingEngine:
                 clock: Callable[[], float] = time.perf_counter,
                 on_token: Callable[[int, int], None] | None = None,
                 on_finish: Callable[[int, str], None] | None = None,
-                redeliver: bool = False) -> "ContinuousServingEngine":
+                redeliver: bool = False, mesh=None,
+                rules: shd.ShardingRules = shd.DEFAULT_RULES
+                ) -> "ContinuousServingEngine":
         """Rebuild an engine from a durability directory (journal and
         checkpoints) after a crash, with byte-identical streams.
 
@@ -1122,7 +1420,12 @@ class ContinuousServingEngine:
         ``redeliver=True`` also fires them for the journaled tokens (and
         the journaled terminations) at restore time, for a consumer that
         lost its own state with the process. The directory may have been
-        written by the JAX package's engine: the formats are one."""
+        written by the JAX package's engine: the formats are one.
+
+        A slot-sharded engine (``mesh``) restores on every rank from that
+        rank's own directory: each holds the same journal and the whole
+        pool in its checkpoints (gathered at save), and takes its block.
+        """
         t0 = clock()
         jpath = os.path.join(path, journal_lib.JOURNAL_NAME)
         jst = journal_lib.replay(jpath)
@@ -1157,7 +1460,7 @@ class ContinuousServingEngine:
         jr = journal_lib.Journal(jpath, truncate_to=jst.valid_bytes)
         eng = cls(cfg, params, serving=serving, device=device, clock=clock,
                   fault_injector=fault_injector, prefix_cache=prefix_cache,
-                  journal=jr)
+                  journal=jr, mesh=mesh, rules=rules)
         eng._apply_restore(jst, ck, on_token=on_token, on_finish=on_finish,
                            redeliver=redeliver)
         eng.recovery["wall_s"] = clock() - t0
@@ -1192,18 +1495,18 @@ class ContinuousServingEngine:
             and bool(ck.get("speculative", False)) == self._spec
             and int(ck.get("spec_gamma", 0))
             == (self.serving.spec_gamma if self._spec else 0)
-            and self._fits(self.pool, ck.get("pool"))
+            and self._fits(self._whole_pool(self.cfg), ck.get("pool"))
             and (not self._spec
-                 or self._fits(self.draft_pool, ck.get("draft_pool"))))
+                 or self._fits(self._whole_pool(self.draft_cfg),
+                               ck.get("draft_pool"))))
         resident: dict[int, int] = {}       # rid -> slot
         if usable:
-            # Into the pool's own tensors, which the decode programs bind.
-            for dst, src in zip(tree_leaves(self.pool), ck["pool"]):
-                dst.copy_(torch.from_numpy(np.array(src)))
+            # Into the pool's own tensors, which the decode programs bind
+            # (this rank's block of a sharded pool).
+            self._load_block(self.pool, ck["pool"], self.cfg)
             if self._spec:
-                for dst, src in zip(tree_leaves(self.draft_pool),
-                                    ck["draft_pool"]):
-                    dst.copy_(torch.from_numpy(np.array(src)))
+                self._load_block(self.draft_pool, ck["draft_pool"],
+                                 self.draft_cfg)
             mir = ck["mirrors"]
             self._last_tok = np.asarray(mir["last_tok"], np.int32).copy()
             self._active = np.asarray(mir["active"], bool).copy()
@@ -1360,7 +1663,8 @@ class ContinuousServingEngine:
             assert graphs_now["macro_decode"] == 0, (
                 f"a speculative engine dispatched the plain macro step: "
                 f"{graphs_now}")
-            slots = sorted(live)
+            slots = sorted(i for i in map(self._slot_index, live)
+                           if i is not None)
             vpos = self.pool.pos.cpu().numpy()[slots]
             dpos = self.draft_pool.pos.cpu().numpy()[slots]
             assert (vpos == dpos).all(), (
@@ -1414,11 +1718,12 @@ class ContinuousServingEngine:
         """One decode dispatch over the static buffers: the pool and the
         control vectors in ``_ctl``; the (3, K, S) token buffer."""
         c, sv = self._ctl, self.serving
-        return _macro_decode(
-            self.params, self.pool, c[0], c[1].bool(), c[2], c[3], c[4],
-            c[5], cfg=self.cfg, num_ticks=sv.macro_ticks,
-            temperature=sv.temperature, seed=sv.seed,
-            fault_guard=sv.fault_guard)
+        with self._tp_ctx():
+            return _macro_decode(
+                self.params, self.pool, c[0], c[1].bool(), c[2], c[3], c[4],
+                c[5], cfg=self.cfg, num_ticks=sv.macro_ticks,
+                temperature=sv.temperature, seed=sv.seed,
+                fault_guard=sv.fault_guard, tp_mesh=self._tp)
 
     def _spec_program(self) -> torch.Tensor:
         """One speculative dispatch over the static buffers: both pools,
@@ -1438,8 +1743,10 @@ class ContinuousServingEngine:
         (and into the draft's, in speculative mode, so both regimes enter
         decoding in agreement); the verifier's last-token logits
         (1, 1, V)."""
-        logits, new = api.prefill_chunk(self.cfg, self.params,
-                                        self._pf_cache, tokens)
+        with self._tp_ctx():
+            logits, new = api.prefill_chunk(self.cfg, self.params,
+                                            self._pf_cache, tokens)
+            logits = shd.full_tensor(logits)
         _copy_into(self._pf_cache, new)
         if self._spec:
             _, new = api.prefill_chunk(self.draft_cfg, self.params,
@@ -1490,8 +1797,10 @@ class ContinuousServingEngine:
                                         device=dev)
         else:
             tokens = torch.from_numpy(prompt[None, :]).to(dev)
-        logits, pf.cache = api.prefill(self.params, cfg, tokens, max_len=L,
-                                       **kw)
+        with self._tp_ctx():
+            logits, pf.cache = api.prefill(self.params, cfg, tokens,
+                                           max_len=L, **kw)
+            logits = shd.full_tensor(logits)
         if self._spec:
             _, pf.draft = api.prefill(self.params, self.draft_cfg, tokens,
                                       max_len=L, **kw)
@@ -1510,8 +1819,8 @@ class ContinuousServingEngine:
             if admission is None:
                 return
             rid, req, slot = admission
-            for t in tree_leaves({"v": self._pf_cache,
-                                  "d": self._pf_draft}):
+            for t in tree_leaves(_local({"v": self._pf_cache,
+                                         "d": self._pf_draft})):
                 t.zero_()
             pf = _Prefill(rid, req, slot, self._pf_cache,
                           draft=self._pf_draft)
@@ -1567,12 +1876,12 @@ class ContinuousServingEngine:
             # this prompt is admitted with no prefill.
             self.prefix_cache.insert(prompt, pf.cache,
                                      logits=logits[:, -1:, :])
-        api.write_slot(self.cfg, self.pool, pf.cache, pf.slot,
-                       self.page_pool.device_vectors()
-                       if self.page_pool is not None else None)
-        if self._spec:
-            api.write_slot(self.draft_cfg, self.draft_pool, pf.draft,
-                           pf.slot)
+        i = self._slot_index(pf.slot)
+        if i is not None:            # the owning rank installs the slot
+            api.write_slot(self.cfg, _local(self.pool), _local(pf.cache), i,
+                           self._page_vectors())
+            if self._spec:
+                api.write_slot(self.draft_cfg, self.draft_pool, pf.draft, i)
         self._prefill = None
         self.metrics.prompt_tokens += (
             len(prompt) - self.metrics.per_request[pf.rid].prefix_tokens)
@@ -1591,15 +1900,16 @@ class ContinuousServingEngine:
 
     def _load_ctl(self):
         """Copy the host mirrors into the static control buffer."""
-        self._ctl.copy_(torch.from_numpy(np.stack([
+        lo = self._lo
+        self._ctl.copy_(torch.from_numpy(np.ascontiguousarray(np.stack([
             self._last_tok, self._active.astype(np.int32), self._rids,
-            self._gen, self._eos, self._maxn])))
+            self._gen, self._eos, self._maxn])[:, lo:lo + self._slots_local])))
 
     def _decode_macro(self):
         """One decode dispatch = K device ticks for the whole pool, then
         its replay on the host (:meth:`_replay`)."""
         self._load_ctl()
-        buf = self._decode()
+        buf = self._gather_slots(self._decode())
         self.metrics.decode_dispatches += 1
         buf = buf.cpu().numpy()[:, :, None]   # ONE host sync per K ticks
         self.metrics.host_syncs += 1
@@ -1612,7 +1922,7 @@ class ContinuousServingEngine:
         gamma + 1 tokens per slot."""
         G = self.serving.spec_gamma
         self._load_ctl()
-        buf = self._spec_decode()
+        buf = self._gather_slots(self._spec_decode())
         self.metrics.decode_dispatches += 1
         buf = buf.cpu().numpy()          # ONE host sync per K rounds
         self.metrics.host_syncs += 1
@@ -1714,15 +2024,15 @@ class ContinuousServingEngine:
         pool returns the slot's pages to the free list; the reset zeroes
         them under the old tables, then installs the new ones. A
         speculative engine resets the slot's draft state too."""
-        if self._spec:
-            api.reset_slot(self.draft_cfg, self.draft_pool, slot)
-        if self.page_pool is None:
-            api.reset_slot(self.cfg, self.pool, slot)
-            return
-        self.page_pool.free_slot(slot)
-        self._note_pages()
-        api.reset_slot(self.cfg, self.pool, slot,
-                       self.page_pool.device_vectors())
+        i = self._slot_index(slot)
+        if self._spec and i is not None:
+            api.reset_slot(self.draft_cfg, self.draft_pool, i)
+        if self.page_pool is not None:
+            self.page_pool.free_slot(slot)
+            self._note_pages()
+        if i is not None:            # the owning rank zeroes the slot
+            api.reset_slot(self.cfg, _local(self.pool), i,
+                           self._page_vectors())
 
     def _finish(self, slot: int, reason: str):
         """Evict a slot-resident request into terminal state ``reason``."""
@@ -1899,5 +2209,6 @@ class ContinuousServingEngine:
         for rid in inj.cancel_rids(self.tick, live_rids):
             self.cancel(rid)
         for slot in inj.corrupt_slots(self.tick, list(self.sched.active)):
-            if slot in self.sched.active:
-                api.corrupt_slot(self.cfg, self.pool, slot)
+            if slot in self.sched.active and self._slot_index(slot) is not None:
+                api.corrupt_slot(self.cfg, _local(self.pool),
+                                 self._slot_index(slot))

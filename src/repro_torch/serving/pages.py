@@ -24,10 +24,13 @@ unpaged streams are the same by construction.
 Every device op here but :func:`gather_ring` writes into the leaf it is
 given, never a new tensor, and the engine updates a ``PageState``'s
 tensors with ``copy_``: the pool stays one set of tensors for the
-engine's life, which the serving CUDA graphs bind. The port's pool has
-one shard, so a page id is global (the JAX package's shard-local
-indexing gives the same rows); the host allocator keeps the reference's
-shard blocks.
+engine's life, which the serving CUDA graphs bind. Sharded (DESIGN.md
+§8), the pool of rank k holds its slot block and its block of P/N
+pages, and its page tables are that block's, in its own ids
+(:meth:`PagePool.device_vectors` with ``shard``): the host allocator
+gives a slot only pages of its own shard's block, so a slot reads and
+writes only its own shard's pages, and every device op here runs
+unchanged on the rank's block. With one shard a page id is global.
 
 SLAY's (S, z) is O(1) in context and is never paged (the paper's point).
 """
@@ -280,12 +283,23 @@ class PagePool:
         self.free[shard].sort()
         return n
 
-    def device_vectors(self) -> PageState:
+    def device_vectors(self, shard: int | None = None) -> PageState:
         """The mirrors as a PageState of CPU tensors (copies), for
-        :func:`install`."""
-        return PageState(torch.from_numpy(self.table.copy()),
-                         torch.from_numpy(self.owner_slot.copy()),
-                         torch.from_numpy(self.owner_lp.copy()))
+        :func:`install`; with ``shard``, that shard's block only, in its
+        own ids (its slots' table rows holding page ids counted from its
+        first page, its pages' owners counted from its first slot): the
+        tables of a rank's block of a sharded pool."""
+        if shard is None:
+            return PageState(torch.from_numpy(self.table.copy()),
+                             torch.from_numpy(self.owner_slot.copy()),
+                             torch.from_numpy(self.owner_lp.copy()))
+        s0, p0 = shard * self._sd, shard * self._pn
+        table = self.table[s0:s0 + self._sd]
+        owner = self.owner_slot[p0:p0 + self._pn]
+        return PageState(
+            torch.from_numpy(np.where(table >= 0, table - p0, -1)),
+            torch.from_numpy(np.where(owner >= 0, owner - s0, -1)),
+            torch.from_numpy(self.owner_lp[p0:p0 + self._pn].copy()))
 
     # -- durability (DESIGN.md §12) --------------------------------------
 

@@ -27,7 +27,10 @@ Entries are tensors on the engine's device. The decode kernel updates
 the slot pool in place, so a snapshot never shares storage with the pool
 or with a prefill cache that a later operation writes: ``insert`` clones.
 The cache is a host-side object and can be shared across engines (a
-warm-up engine populates, a measured one hits).
+warm-up engine populates, a measured one hits). Under a slot-sharded
+pool every rank prefills each admission itself, so every rank holds the
+same snapshots and seeds its own slots from them: no slot state crosses
+ranks to save or restore an entry.
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Training step + fault-tolerant loop, as ``repro.train.loop`` on one device.
+"""Training step + fault-tolerant loop, as ``repro.train.loop``.
 
 The step: microbatched gradient accumulation in fp32, optional per-layer
 recomputation (``remat``), optional error-feedback int8 gradient
@@ -17,8 +17,16 @@ reference's step.
 The loop: resume from the latest checkpoint on start, an atomic
 checkpoint every ``ckpt_every`` steps and at the end, and a step-time
 watchdog that halves the checkpoint cadence when a step takes longer than
-``watchdog_factor`` times the median. There is no mesh: sharding and a
-jitted, sharded step wait for ROADMAP Queue A item 13.
+``watchdog_factor`` times the median.
+
+Sharded (``Trainer(mesh=...)``, :func:`sharded_train_step`, the
+reference's ``jit_train_step``): one process per rank over the caller's
+process group; parameters, moments and error-feedback residuals are
+DTensors in the rules' placements (``distributed.sharding``), each
+microbatch is placed by ``batch_sharding``, and the step runs under
+``activation_sharding``, so the model's activation constraints and the
+kernels' ``local_map`` apply. Without a mesh the step is the
+single-device one.
 """
 from __future__ import annotations
 
@@ -30,8 +38,11 @@ import time
 
 import torch
 
+from torch.distributed.tensor import DTensor, distribute_tensor
+
 from repro_torch.checkpoint import restore_latest, save_checkpoint
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import api
 from repro_torch.optim import compress as gcomp
 from repro_torch.optim.adamw import (AdamWConfig, AdamWState, adamw_init,
@@ -53,9 +64,9 @@ def resolve_attention_path(cfg: ArchConfig,
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     microbatches: int = 1            # grad-accumulation steps
-    # True recomputes each layer whole in the backward. The JAX package's
-    # remat_policy="save_collectives" needs tensor parallelism: passed here
-    # as remat="save_collectives", ``forward`` refuses it.
+    # True recomputes each layer whole in the backward; "save_collectives"
+    # keeps each layer's tensor-parallel all-reduce outputs (the same as
+    # True without a mesh).
     remat: bool | str = True
     # None = respect cfg.fuse_attention_features; True/False force the
     # fused kernels or the two-dispatch feature-map -> scan path.
@@ -76,36 +87,46 @@ def value_and_grad(params: dict, cfg: ArchConfig, batch: dict, *,
     loss, metrics = api.loss_fn(leaves, cfg, batch, remat=remat)
     items = tree_items(leaves)
     grads = torch.autograd.grad(loss, [t for _, t in items], allow_unused=True)
-    by_path = {k: torch.zeros_like(t) if g is None else g
+    by_path = {k: torch.zeros_like(t) if g is None else _like(t, g)
                for (k, t), g in zip(items, grads)}
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             tree_map_with_path(lambda k, _t: by_path[k], leaves))
 
 
+def _like(p, g):
+    """A sharded parameter's gradient in the parameter's placements."""
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
-                    train_cfg: TrainConfig, *, donate: bool = False):
+                    train_cfg: TrainConfig, *, donate: bool = False,
+                    place=None):
     """Returns train_step(params, opt_state, ef_state, batch)
     -> (params, opt_state, ef_state, metrics), with new tensors for the
     parameters and optimizer state, or with ``donate=True`` the given
     ones updated in place (``adamw_update(donate=True)``), as the JAX
     package's jitted step donates them: the step then holds one copy of
     the weights and moments, which a few billion parameters need on one
-    card."""
+    card. ``place`` maps each (micro)batch before the loss reads it (the
+    sharded step distributes it)."""
     cfg = resolve_attention_path(cfg, train_cfg)
     remat = train_cfg.remat
+    place = place or (lambda b: b)
 
     def compute_grads(params, batch):
         if train_cfg.microbatches <= 1:
-            return value_and_grad(params, cfg, batch, remat=remat)
+            return value_and_grad(params, cfg, place(batch), remat=remat)
         n = train_cfg.microbatches
         micro = {k: x.reshape(n, x.shape[0] // n, *x.shape[1:])
                  for k, x in batch.items()}
         dev = params["embed"].device
         loss = torch.zeros((), device=dev)
-        grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                               device=p.device), params)
+        grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                         params)
         for i in range(n):
-            mb = {k: x[i] for k, x in micro.items()}
+            mb = place({k: x[i] for k, x in micro.items()})
             loss_i, _, grads_i = value_and_grad(params, cfg, mb, remat=remat)
             grads = tree_map(lambda a, g: a + g.float() / n, grads, grads_i)
             loss = loss + loss_i / n
@@ -123,16 +144,64 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
     return train_step
 
 
+def sharded_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
+                       train_cfg: TrainConfig, mesh,
+                       rules: shd.ShardingRules = shd.DEFAULT_RULES, *,
+                       donate: bool = True):
+    """The step over ``mesh`` (the reference's ``jit_train_step``): takes
+    parameters, moments and residuals as DTensors in the rules'
+    placements (:func:`repro_torch.distributed.sharding.shard_params`)
+    and the same whole batch on every rank, which each microbatch
+    distributes by ``batch_sharding`` (no communication: each rank keeps
+    its block). The step runs under ``activation_sharding(mesh, rules)``
+    and donates the parameters and moments, as the reference's jit
+    donates them. Its metrics come back whole (plain scalars)."""
+    def place(batch):
+        def one(x):
+            if isinstance(x, DTensor):
+                return x
+            pl = shd.batch_sharding(mesh, rules, extra_rank=x.dim() - 1,
+                                    batch_size=x.shape[0])
+            return distribute_tensor(x.to(mesh.device_type), mesh, pl,
+                                     src_data_rank=None)
+        return {k: one(x) for k, x in batch.items()}
+
+    base = make_train_step(cfg, opt_cfg, train_cfg, donate=donate,
+                           place=place)
+
+    def step(params, opt_state, ef_state, batch):
+        with shd.activation_sharding(mesh, rules):
+            params, opt_state, ef_state, metrics = base(
+                params, opt_state, ef_state, batch)
+        return params, opt_state, ef_state, {
+            k: shd.full_tensor(v) for k, v in metrics.items()}
+
+    return step
+
+
 class Trainer:
-    """Fault-tolerant loop around the step, on one device. The step
-    donates the parameters and moments (``make_train_step(donate=True)``),
-    as the JAX package's Trainer jits it with ``donate_argnums``."""
+    """Fault-tolerant loop around the step. The step donates the
+    parameters and moments (``make_train_step(donate=True)``), as the JAX
+    package's Trainer jits it with ``donate_argnums``. With ``mesh`` (a
+    ``DeviceMesh`` of :mod:`repro_torch.launch.mesh`, one process per
+    rank) the parameters are sharded by ``rules`` from rank 0's draw and
+    the step is :func:`sharded_train_step`; checkpoints stay whole
+    tensors, so a run resumes on another mesh."""
 
     def __init__(self, cfg: ArchConfig, opt_cfg: AdamWConfig,
-                 train_cfg: TrainConfig, *, seed: int = 0, device="cuda"):
+                 train_cfg: TrainConfig, *, seed: int = 0, device="cuda",
+                 mesh=None, rules: shd.ShardingRules = shd.DEFAULT_RULES):
         self.cfg, self.opt_cfg, self.train_cfg = cfg, opt_cfg, train_cfg
-        self.step_fn = make_train_step(cfg, opt_cfg, train_cfg, donate=True)
+        self.mesh, self.rules = mesh, rules
         self.params = api.init_params(cfg, seed, device=device)
+        if mesh is None:
+            self.step_fn = make_train_step(cfg, opt_cfg, train_cfg,
+                                           donate=True)
+        else:
+            self.step_fn = sharded_train_step(cfg, opt_cfg, train_cfg, mesh,
+                                              rules)
+            self.params = shd.shard_params(mesh, rules, self.params,
+                                           api.param_axes(cfg))
         self.opt_state = adamw_init(self.params, opt_cfg)
         self.ef_state = (gcomp.init(self.params) if train_cfg.compress_grads
                          else torch.zeros(()))

@@ -148,18 +148,19 @@ def test_drivers_take_the_arch(name, tmp_path, capsys):
 
 def test_unported_fields_are_refused():
     # Every config of the JAX package is registered (internvl2's vision
-    # prefix and whisper's encoder-decoder since A12b closed); what stays
-    # unported is refused with its label: remat="save_collectives"
-    # (ROADMAP Queue A item 13, with sharding), and a family or frontend
-    # the JAX package does not have.
+    # prefix and whisper's encoder-decoder since A12b closed), and
+    # remat="save_collectives" with sharding: without a mesh it is
+    # remat=True. A family or frontend the JAX package does not have is
+    # refused.
     from repro.configs import ALL_ARCHS as JAX_ARCHS
     assert set(configs.ALL_ARCHS) == set(JAX_ARCHS)
     base = configs.get_smoke_config("phi4-mini-3.8b", dtype="float32")
     params = api.init_params(base, device="cpu")
     toks = torch.zeros(1, 4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="Queue A item 13"):
-        api.loss_fn(params, base, {"tokens": toks, "labels": toks},
-                    remat="save_collectives")
+    batch = {"tokens": toks, "labels": toks}
+    assert float(api.loss_fn(params, base, batch,
+                             remat="save_collectives")[0]) == float(
+        api.loss_fn(params, base, batch, remat=True)[0])
     for kw in (dict(family="retnet"), dict(frontend="video")):
         with pytest.raises(NotImplementedError, match="the port has"):
             api.init_params(dataclasses.replace(base, **kw), device="cpu")

@@ -1458,3 +1458,109 @@ def test_slay_prefill_then_decode_on_card_matches_cpu(kind):
     assert _build.LAUNCHES["slay_decode_step"] == 4
     torch.testing.assert_close(got.s.cpu(), want.s, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(got.z.cpu(), want.z, rtol=1e-5, atol=1e-5)
+
+
+# -- the sharded paths on NCCL (one rank; two ranks with two cards) ---------
+
+
+@pytest.fixture(scope="module")
+def one_rank_mesh():
+    """A one-rank NCCL group on a free loopback port and its 1x1 mesh."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        yield make_mesh((1, 1), ("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+@needs_card
+def test_sharded_train_step_on_one_rank_nccl_runs_the_kernels(one_rank_mesh):
+    # Two sharded steps (DTensor parameters, K1/K3/K4 through local_map)
+    # against the unsharded step from the same weights: losses to 1e-4
+    # relative (bf16 model), one launch of each kernel a layer a step.
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.data import pipeline
+    from repro_torch.distributed import sharding as shd
+    cfg = get_smoke_config("slayformer-124m")
+    ocfg = tadamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    tcfg = tloop.TrainConfig(remat=False)
+    dcfg = pipeline.DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                               global_batch=4)
+    params = tapi.init_params(cfg, 0, device="cuda")
+    sp = shd.shard_params(one_rank_mesh, shd.DEFAULT_RULES,
+                          {k: v for k, v in params.items()},
+                          tapi.param_axes(cfg))
+    assert all(isinstance(x, DTensor) for x in tree_leaves(sp))
+    step = tloop.sharded_train_step(cfg, ocfg, tcfg, one_rank_mesh)
+    ref = tloop.make_train_step(cfg, ocfg, tcfg)
+    st = (sp, tadamw.adamw_init(sp, ocfg), torch.zeros(()))
+    rt = (params, tadamw.adamw_init(params, ocfg), torch.zeros(()))
+    nl = cfg.num_layers
+    for i in range(2):
+        batch = pipeline.make_batch(dcfg, i)
+        before = dict(_build.LAUNCHES)
+        *st, m = step(*st, batch)
+        got = {k: _build.LAUNCHES[k] - before[k] for k in (
+            "slay_fused_fwd", "slay_fused_bwd_q", "slay_fused_bwd_kv")}
+        assert got == dict.fromkeys(got, nl), got
+        *rt, mr = ref(*rt, batch)
+        np.testing.assert_allclose(float(m["loss"]), float(mr["loss"]),
+                                   rtol=1e-4)
+
+
+@needs_card
+def test_sharded_engine_on_one_rank_nccl_replays_like_unsharded(
+        one_rank_mesh):
+    # The engine with the 1x1 mesh captures its dispatch over local
+    # tensors only: its streams and its pool after the run are the
+    # unsharded engine's, bit for bit, with the same B4b launches.
+    from torch.distributed.tensor import DTensor
+    cfg = get_smoke_config("slayformer-124m", dtype="float32")
+    params = tapi.init_params(cfg, 0, device="cuda")
+    params["embed"] = params["embed"] / 8
+    rng = np.random.default_rng(0)
+    reqs = [tengine.Request(rng.integers(3, cfg.vocab_size, int(n)).astype(
+        np.int32), max_new_tokens=12, arrival_time=2.0 * i)
+        for i, n in enumerate(rng.integers(4, 20, 6))]
+    runs = []
+    for mesh in (one_rank_mesh, None):
+        eng = tengine.ContinuousServingEngine(
+            cfg, params, serving=ServingConfig(num_slots=4, max_len=64,
+                                               prefill_chunk=8),
+            device="cuda", mesh=mesh)
+        before = _build.LAUNCHES["slay_decode_step_masked"]
+        outs, s = eng.run([dataclasses.replace(r) for r in reqs])
+        runs.append((outs, s, eng,
+                     _build.LAUNCHES["slay_decode_step_masked"] - before))
+    (a, sa, ea, la), (b, sb, eb, lb) = runs
+    assert {r: o.tolist() for r, o in a.items()} == {
+        r: o.tolist() for r, o in b.items()}
+    assert la == lb == cfg.num_layers * 8 * sa["decode_dispatches"] > 0
+    assert ea.graph_cache_entries() == {"macro_decode": 1, "chunk": 1}
+    assert sa["slot_shards"] == 1
+    assert not any(isinstance(x, DTensor) for x in tree_leaves(ea.pool))
+    for x, y in zip(tree_leaves(ea.pool), tree_leaves(eb.pool)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.skipif("torch.cuda.device_count() < 2",
+                    reason="two NCCL ranks need two cards (NCCL puts one "
+                    "rank on a device); the one-card machine skips it")
+def test_two_rank_nccl_slot_sharded_parity(tmp_path):
+    import torch_dist_ranks as ranks
+    out = ranks.spawn("serving_nccl", 2, tmp_path, timeout=300)
+    for case in out.values():
+        assert case["same"] and case["shards"] == 2, out
+        assert case["graphs"] == {"macro_decode": 1, "chunk": 1}, out

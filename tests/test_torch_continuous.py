@@ -294,9 +294,10 @@ def test_unported_knobs_raise_when_the_engine_is_built(models):
     # whole-prompt prefill (prefill_chunk=0) are ported
     # (tests/test_torch_prefix_cache.py, tests/test_torch_restore.py,
     # tests/test_torch_pages.py, tests/test_torch_spec_engine.py,
-    # tests/test_torch_frontend_serving.py); a sharded slot pool is not,
-    # and its refusal cites its open item.
-    with pytest.raises(NotImplementedError, match="Queue A item 13"):
+    # tests/test_torch_frontend_serving.py), and so is a sharded slot pool
+    # (tests/test_torch_serving_sharded.py), which needs a mesh of that
+    # many slot shards: without one it is pool_slot_axes's mismatch error.
+    with pytest.raises(ValueError, match="slot_shards=2 but mesh"):
         tengine.ContinuousServingEngine(
             tcfg, tp, serving=ServingConfig(**{**BASE, "slot_shards": 2}),
             device="cpu")

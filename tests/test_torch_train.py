@@ -114,8 +114,10 @@ def test_loss_fn_api_and_remat_options(models):
     b = _torch_batch(_batch(1))
     loss, mx = api.loss_fn(tp, tcfg, b)
     assert loss.shape == () and set(mx) == {"nll", "moe_aux"}
-    with pytest.raises(NotImplementedError, match="Queue A item 13"):
-        api.loss_fn(tp, tcfg, b, remat="save_collectives")
+    # Without a mesh there is no collective to keep: save_collectives is
+    # remat=True (tests/test_torch_distributed.py holds it sharded).
+    assert float(api.loss_fn(tp, tcfg, b, remat="save_collectives")[0]) \
+        == float(api.loss_fn(tp, tcfg, b, remat=True)[0])
     ocfg = tadamw.AdamWConfig()
     # The two-dispatch path's step sees the same loss as the fused forward.
     two = tloop.make_train_step(
@@ -124,8 +126,8 @@ def test_loss_fn_api_and_remat_options(models):
     np.testing.assert_allclose(float(m2["loss"]), float(loss), rtol=1e-5)
     step = tloop.make_train_step(tcfg, ocfg,
                                  tloop.TrainConfig(remat="save_collectives"))
-    with pytest.raises(NotImplementedError, match="Queue A item 13"):
-        step(tp, tadamw.adamw_init(tp, ocfg), torch.zeros(()), b)
+    *_, ms = step(tp, tadamw.adamw_init(tp, ocfg), torch.zeros(()), b)
+    np.testing.assert_allclose(float(ms["loss"]), float(loss), rtol=1e-5)
 
 
 @pytest.mark.parametrize("microbatches", [1, 2])
