@@ -278,12 +278,28 @@ Phases, each of which raises (nonzero exit) on failure:
     K1); the continuous engine with ``mesh`` on the first 8 requests of
     phase 12's trace, graphed, beside the unsharded engine: equal
     streams, 12 x 8 B4b launches a dispatch, ms per dispatch of each.
+28. ROADMAP C-15's configs on the routes ``ops.attention_route`` picks
+    before any launch (``phase_c15``): slayformer-124m at 2 layers with
+    R = 12 (Ψ in PyTorch ops, then B5, B6a, B6b), P = 4, D = 6 (the
+    two-dispatch kernels under a gradient, K1 without) and head dim 128
+    at P = D = 32 (Ψ in PyTorch ops: B8 would need 362,752 B), beside the
+    fused default: 4 bf16 AdamW steps of 4 x 1024 tokens each, every
+    step's launches the route's, step times against the default's; each
+    C-15 config's fp32 loss of 1 x 512 tokens on the card within 1e-5
+    relative of the CPU plain path's from the same weights; then
+    full-depth R = 12
+    (m = 1536) served by ``generate`` in fp32, its prefill through B5 and
+    every decode step through K2, greedy streams equal to the CPU's on a
+    trace with no near-tie.
+The bounds every phase prints come from ``repro_torch.launch.roofline``.
 Phases 14-17 and mamba2's part of phase 24 check that no SLAY kernel
 launched, phases 19-20 that only K2 did; the kernel line's B4a launches
 are phase 8's, 19's, 22's, 23's, 24's and 25's, its B4b launches phase
 12's, 18's, 19's, 20's, 22's, 23's, 24's and 25's, its K1 launches phase
 8's, 22's, 23's, 24's and 25's, its K3 and K4 launches phase 9's, 22's,
-23's, 24's and 25's, its B7 and B8 launches phase 11's and 25's (each
+23's, 24's and 25's, its B7 and B8 launches phase 11's and 25's, and
+every row phase 26's, 27's (B1-B4b) and 28's, under ``core``,
+``sharded`` and ``c15`` too (each
 row has the dense decoders' launches, G and head-dim-128 numbers per
 config under ``dense_decoders``, phase 23's configs' under
 ``mixed_and_moe``, phase 24's, with hymba's kernels at head dim 64,
@@ -330,6 +346,10 @@ from repro_torch.examples import (long_context, quickstart, serve,  # noqa: E402
                                   train_slayformer)
 from repro_torch.kernels import (_build, decode_step, feature_map, ops,  # noqa: E402
                                  slay_fused, slay_scan)
+from repro_torch.launch.roofline import (  # noqa: E402
+    HBM_BYTES_PER_S, HBM_PER_CARD, bwd_bounds, bwd_tc_bounds,
+    feature_map_bounds, k1_bound, k1_tc_bound, k2_bound, scan_bounds,
+    scan_tc_bounds)
 from repro_torch.data import pipeline  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig, adamw_init  # noqa: E402
@@ -340,9 +360,6 @@ from repro_torch.tree import (tree_items, tree_leaves, tree_map,  # noqa: E402
                               tree_map_with_path)
 
 SEED = 0
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
-FP32_FLOP_PER_S = 67e12          # H100 SXM, fp32 outside the tensor cores
-TF32_FLOP_PER_S = 495e12         # H100 SXM, dense TF32 tensor cores
 
 
 def log(msg: str) -> None:
@@ -427,133 +444,6 @@ def close(got, want, atol: float, rtol: float, what: str) -> float:
     return max_abs
 
 
-# -- bounds: least time the card could take for the same work ------------
-
-
-# The bounds count the fewest operations the function needs. The causal sum
-# is folded into the carried state one token at a time, each token added
-# before its own row reads the state, so no intra-tile (tril) term remains:
-# what is left per token is the Ψ map, its VJP where it is differentiated,
-# and the state terms at 2·m·dv each. The kernels walk 16-token tiles and do
-# more work than this.
-
-
-def k1_bound(bh, bk, L, d, dv, P, D, R, es):
-    """(bound_ms, bound_by, n_ops, bytes) of the fused forward. Operations
-    count the Ψ map once per q row and once per kv row, the state read-out
-    (2·m·dv + 2m per q row, then y/den) and update (2·m·dv + m per kv row),
-    all on the fp32 pipes."""
-    m = R * P * D
-    psi, _ = _psi_ops(d, P, D, R)
-    per_q = psi + 2 * m * dv + 2 * m + dv
-    per_kv = psi + 2 * m * dv + m
-    n_ops = bh * L * per_q + bk * L * per_kv
-    nbytes = (bh * L * (d + dv) * es + bk * L * (d + dv) * es + bh * L * 4
-              + (P + D) * d * 4)
-    return _bound(n_ops, nbytes)
-
-
-def k2_bound(bh, bk, bk_active, m, dv, qes, ves):
-    """(bound_ms, bound_by, n_ops, bytes) of one decode step over the
-    bk_active of bk kv rows that are active: their state read and
-    write-back, features and v, the G = bh / bk q rows of each, and y
-    written for all bh q rows (zero on drained ones)."""
-    rows_q = bk_active * (bh // bk)
-    nbytes = (2 * bk_active * (m * dv + m) * 4 + (rows_q + bk_active) * m * qes
-              + bk_active * dv * ves + bh * dv * ves)
-    n_ops = bk_active * (2 * m * dv + m) + rows_q * (2 * m * dv + 2 * m + dv)
-    return _bound(n_ops, nbytes)
-
-
-def _psi_ops(d, P, D, R):
-    """fp32 operations of Ψ for one row (normalize, projections, φ_p, φ_e,
-    Kronecker), and of its VJP (dpa, dpw, dû, dA/dΩ sums, du)."""
-    m = R * P * D
-    fwd = 3 * d + 2 * d * (P + D) + 2 * P + 4 * R * D + 2 * m
-    bwd = 6 * m + 3 * R * D + 3 * P + 4 * (P + D) * d + 4 * d
-    return fwd, bwd
-
-
-def bwd_bounds(bh, bk, L, d, dv, P, D, R, es):
-    """{kernel: (bound_ms, bound_by, n_ops, bytes)} of K3 and K4. Each
-    counts Ψ once per q row and once per kv row and its VJP once per row
-    it differentiates; the cotangents G, h (3·dv); the state terms (K3:
-    dΨq = G Sᵀ + h zᵀ and the (S, z) update; K4, per q-head row:
-    dΨk = V dSᵀ + dz, dV = Ψk dS and the (dS, dz) update), each token in
-    the state before its own row reads it. Bytes: q, k, v, dy, y, den read
-    once, the kernel's outputs written once."""
-    m = R * P * D
-    psi, psi_b = _psi_ops(d, P, D, R)
-    k3_q = psi + psi_b + 3 * dv + 2 * m * dv + 2 * m
-    k3_kv = psi + 2 * m * dv + m
-    k4_q = psi + psi_b + 3 * dv + 3 * (2 * m * dv) + 3 * m
-    k4_kv = psi
-    read = (bh * L * (d + 2 * dv) * es + bk * L * (d + dv) * es + bh * L * 4
-            + (P + D) * d * 4)
-    partials = bh * (P + D) * d * 4
-    return {
-        "slay_fused_bwd_q": _bound(bh * L * k3_q + bk * L * k3_kv,
-                                   read + bh * L * d * es + partials),
-        "slay_fused_bwd_kv": _bound(bh * L * k4_q + bk * L * k4_kv,
-                                    read + bh * L * (d + dv) * es + partials),
-    }
-
-
-def _tc_bound(bound, state):
-    """``bound`` (from ``_bound``: every operation on the fp32 pipes) with
-    ``state`` of its operations, the state products, on the tensor cores
-    in 3xTF32, three TF32 products each (495/3 TFLOP/s), as the kernels
-    run them; the rest stays on the fp32 pipes."""
-    _, _, n_ops, nbytes = bound
-    t_ops = (state / (TF32_FLOP_PER_S / 3)
-             + (n_ops - state) / FP32_FLOP_PER_S) * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    if t_ops >= t_bytes:
-        return t_ops, "operations", n_ops, nbytes
-    return t_bytes, "bytes", n_ops, nbytes
-
-
-def bwd_tc_bounds(bh, bk, L, d, dv, P, D, R, es):
-    """{kernel: (bound_ms, bound_by, n_ops, bytes)} of K3 and K4 with the
-    work of ``bwd_bounds`` at the rates of the units that the kernels run
-    it on (``_tc_bound``): the state products (2·m·dv operations per term
-    and token, the whole of the G Sᵀ, Ψk dS, V dSᵀ and carry-update work,
-    which the kernels split into tile products and state products) on the
-    tensor cores. These are the kernels' rows' bounds; ``bwd_bounds``
-    (everything on the fp32 pipes) stays the figure that compares with
-    earlier designs."""
-    st = 2 * R * P * D * dv
-    state = {"slay_fused_bwd_q": (bh + bk) * L * st,
-             "slay_fused_bwd_kv": bh * L * 3 * st}
-    return {name: _tc_bound(b, state[name]) for name, b in
-            bwd_bounds(bh, bk, L, d, dv, P, D, R, es).items()}
-
-
-def k1_tc_bound(bh, bk, L, d, dv, P, D, R, es):
-    """K1's bound with the read-out Ψq S (per q row) and the update Ψkᵀ V
-    (per kv row), 2·m·dv operations each, on the tensor cores
-    (``_tc_bound``), as K1 runs them; ``k1_bound`` stays the all-fp32
-    figure."""
-    return _tc_bound(k1_bound(bh, bk, L, d, dv, P, D, R, es),
-                     (bh + bk) * L * 2 * R * P * D * dv)
-
-
-def scan_tc_bounds(bh, bk, L, m, dv, es):
-    """{kernel: (bound_ms, bound_by, n_ops, bytes)} of B5, B6a and B6b with
-    their state products on the tensor cores (``_tc_bound``), as the
-    kernels run them: B5's read-out Ψq S and B6a's G Sᵀ (per q row) and
-    their update Ψkᵀ V (per kv row), 2·m·dv operations each, as
-    ``k1_tc_bound`` counts K1's; B6b's three state terms per q-head row
-    (Ψk dS, V dSᵀ and the (dS, dz) update). ``scan_bounds`` stays the
-    all-fp32 figure."""
-    st = 2 * m * dv
-    state = {"slay_scan_fwd": (bh + bk) * L * st,
-             "slay_scan_bwd_q": (bh + bk) * L * st,
-             "slay_scan_bwd_kv": bh * L * 3 * st}
-    return {name: _tc_bound(b, state[name]) for name, b in
-            scan_bounds(bh, bk, L, m, dv, es).items()}
-
-
 def ptxas_report(name: str) -> dict:
     """{entry function: (registers, spill store bytes, spill load bytes)}
     from the ``-Xptxas -v`` log that the build of kernel library ``name``
@@ -572,54 +462,6 @@ def ptxas_report(name: str) -> dict:
             out[entry] = (int(m.group(1)), *spills)
             entry = None
     return out
-
-
-def feature_map_bounds(n, d, P, D, R, es):
-    """{kernel: (bound_ms, bound_by, n_ops, bytes)} of B7 and B8 over n
-    tokens. B7: the Ψ map per token; u and the projections read, Ψ
-    written. B8: the Ψ map and its VJP per token; u, dΨ and the projections
-    read, du and one dA/dΩ written. The per-block dA/dΩ partials that B8's
-    grid writes and the wrapper sums are overhead of its tiling, not part
-    of the function, so they are not counted."""
-    m = R * P * D
-    psi, psi_b = _psi_ops(d, P, D, R)
-    proj = (P + D) * d * 4
-    return {
-        "feature_map_fwd": _bound(n * psi, n * (d + m) * es + proj),
-        "feature_map_bwd": _bound(n * (psi + psi_b),
-                                  n * (2 * d + m) * es + 2 * proj),
-    }
-
-
-def scan_bounds(bh, bk, L, m, dv, es):
-    """{kernel: (bound_ms, bound_by, n_ops, bytes)} of B5, B6a and B6b:
-    the state terms of ``k1_bound`` and ``bwd_bounds`` without the Ψ map
-    and its VJP. Bytes: each kernel's inputs read once (B6a reads no Ψq),
-    its outputs written once."""
-    st = 2 * m * dv
-    den = bh * L * 4
-    return {
-        "slay_scan_fwd": _bound(
-            bh * L * (st + 2 * m + dv) + bk * L * (st + m),
-            (bh + bk) * L * m * es + bk * L * dv * es + bh * L * dv * es
-            + den),
-        "slay_scan_bwd_q": _bound(
-            bh * L * (3 * dv + st + 2 * m) + bk * L * (st + m),
-            bk * L * (m + dv) * es + 2 * bh * L * dv * es + den
-            + bh * L * m * es),
-        "slay_scan_bwd_kv": _bound(
-            bh * L * (3 * dv + 3 * st + 3 * m),
-            bh * L * (m + 2 * dv) * es + bk * L * (m + dv) * es + den
-            + bh * L * (m + dv) * es),
-    }
-
-
-def _bound(n_ops, nbytes):
-    t_ops = n_ops / FP32_FLOP_PER_S * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    if t_ops >= t_bytes:
-        return t_ops, "operations", n_ops, nbytes
-    return t_bytes, "bytes", n_ops, nbytes
 
 
 def profile(what: str, fn, untraced_ms: float) -> None:
@@ -662,6 +504,10 @@ def phase_env() -> str:
                             text=True, timeout=60, check=True).stdout
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"nvcc: {nvcc_v.strip().splitlines()[-1]}")
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"device memory: {total} B reported by the card "
+        f"({total / 2**30:.2f} GiB), {HBM_PER_CARD:.0f} B on the data sheet "
+        f"(repro_torch.launch.roofline)  [{line}]")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
@@ -4813,13 +4659,14 @@ def _core_inputs(cfg, L, h, dv):
     return p, q, k, v, dy
 
 
-def _core_route(cfg, dv, fused_fits) -> dict:
-    """The launches one call of ``ops.slay_fused_attention`` must make."""
-    if not cfg.kernelizable:
-        return {"slay_scan_fwd": 1}
-    if fused_fits:
+def _core_route(route: str) -> dict:
+    """The launches one call of ``ops.slay_fused_attention`` must make on
+    ``route`` (``ops.attention_route``)."""
+    if route == ops.FUSED:
         return {"slay_fused_fwd": 1}
-    return {"feature_map_fwd": 2, "slay_scan_fwd": 1}
+    if route == ops.TWO_DISPATCH:
+        return {"feature_map_fwd": 2, "slay_scan_fwd": 1}
+    return {"slay_scan_fwd": 1}
 
 
 def _plain_route(p, q, k, v, cfg, chunk):
@@ -4832,12 +4679,12 @@ def _plain_route(p, q, k, v, cfg, chunk):
                                                    chunk_size=chunk)
 
 
-def _kernel_route(p, q, k, v, cfg, chunk, fused_fits):
+def _kernel_route(p, q, k, v, cfg, chunk, route: str):
     """The kernels ``ops.slay_fused_attention`` routes to, head-major;
     -> (y, den): K1, or Ψ (B7 or PyTorch ops) then B5."""
     def hm(x):
         return x[0].transpose(0, 1).contiguous()
-    if cfg.kernelizable and fused_fits:
+    if route == ops.FUSED:
         return slay_fused.fused_causal_attention(
             hm(q), hm(k), hm(v), p["anchors"], p["omegas"], cfg,
             chunk_size=chunk)
@@ -4850,8 +4697,7 @@ def _core_case(kind, fusion, L, h, chunk, dv=64, **extra) -> tuple:
     launches counted) against the plain route: num and den compared
     apart; -> (launches, kernel ms, plain ms)."""
     cfg = _core_config(kind, fusion, **extra)
-    fits = slay_fused.fused_fits(cfg.head_dim, dv, cfg.num_anchors,
-                                 cfg.num_prf, "cuda")
+    route = ops.attention_route(cfg, cfg.head_dim, dv, False, "cuda")
     p, q, k, v, _ = _core_inputs(cfg, L, h, dv)
     what = f"{kind}+{fusion} m={cfg.feature_dim} ({h} heads x {L})"
     with torch.inference_mode():
@@ -4859,10 +4705,10 @@ def _core_case(kind, fusion, L, h, chunk, dv=64, **extra) -> tuple:
         y = ops.slay_fused_attention(q, k, v, p, cfg, chunk_size=chunk)
         torch.cuda.synchronize()
         got = {n: c for n, c in _build.LAUNCHES.items() if c}
-        want = _core_route(cfg, dv, fits)
+        want = _core_route(route)
         if got != want:
             raise AssertionError(f"{what}: launches {got}, want {want}")
-        yk, dk = _kernel_route(p, q, k, v, cfg, chunk, fits)
+        yk, dk = _kernel_route(p, q, k, v, cfg, chunk, route)
         if not torch.equal(y[0].transpose(0, 1), yk):
             raise AssertionError(f"{what}: the routed call's y is not the "
                                  f"kernel's")
@@ -5319,6 +5165,190 @@ def phase_sharded(card: str, train_losses, fused_step_s: float) -> dict:
     return out
 
 
+# -- phase 28: ROADMAP C-15's configs, each on its route ----------------------
+
+# slayformer-124m with each of C-15's feature configs, beside its own
+# (the fused default): the quadrature nodes past the kernels' 8, P·D not a
+# multiple of 16 (K3 and K4 refuse it, B8 takes it) and head dim 128 at
+# P = D = 32 (B8 needs 362,752 B a block). ops.attention_route picks
+# each one's route before any launch.
+C15_CONFIGS = {
+    "fused default": {},
+    "R = 12": dict(slay_quad_nodes=12),
+    "P = 4, D = 6": dict(slay_anchors=4, slay_prf=6),
+    "head dim 128, P = D = 32": dict(head_dim=128, slay_anchors=32,
+                                     slay_prf=32),
+}
+C15_LAYERS = 2
+C15_BATCH = 4                  # the timed bf16 steps: 4 x TRAIN_LEN tokens
+C15_TIMED = 3                  # timed steps after one untimed
+# Each C-15 config's fp32 loss on the card at 1 x C15_CHECK_LEN tokens
+# against the CPU plain path's from the same weights: fp32 in another
+# summation order (phase 9 holds the fused default's).
+C15_LOSS_RTOL = 1e-5
+C15_CHECK_LEN = 512
+C15_PROMPTS = (200, 131)       # the lockstep generate at R = 12, fp32
+C15_NEW = 16
+# Launches per SLAY layer of one training step on each route.
+ROUTE_TRAIN = {
+    ops.FUSED: {"slay_fused_fwd": 1, "slay_fused_bwd_q": 1,
+                "slay_fused_bwd_kv": 1},
+    ops.TWO_DISPATCH: {"feature_map_fwd": 2, "feature_map_bwd": 2,
+                       "slay_scan_fwd": 1, "slay_scan_bwd_q": 1,
+                       "slay_scan_bwd_kv": 1},
+    ops.TORCH_PSI: {"slay_scan_fwd": 1, "slay_scan_bwd_q": 1,
+                    "slay_scan_bwd_kv": 1},
+}
+
+
+def _all_delta(before: dict) -> dict:
+    """Every kernel's launches since ``before``, the nonzero ones."""
+    return {k: n - before[k] for k, n in _build.LAUNCHES.items()
+            if n != before[k]}
+
+
+@_timed
+def _c15_train(name: str, over: dict, card: str) -> tuple[dict, float]:
+    """One config at C15_LAYERS layers: C15_TIMED bf16 AdamW steps of
+    C15_BATCH x TRAIN_LEN tokens (phase 9's TrainConfig, no remat, the
+    fused default; each step's launches the route's after one untimed
+    step), then, for a C-15 config, the fp32 loss and gradients of
+    1 x C15_CHECK_LEN tokens on the card against the CPU plain path's
+    from the same weights. Returns (launches, median ms per bf16 step)."""
+    cfg = dataclasses.replace(configs.get_config("slayformer-124m", **over),
+                              num_layers=C15_LAYERS)
+    f = cfg.slay_config()
+    route = ops.attention_route(f, f.head_dim, cfg.resolved_head_dim, True,
+                                "cuda")
+    per_step = {k: n * C15_LAYERS for k, n in ROUTE_TRAIN[route].items()}
+    ocfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=TRAIN_STEPS)
+    step = loop.make_train_step(cfg, ocfg, loop.TrainConfig(remat=False))
+    params = api.init_params(cfg, SEED, device="cuda")
+    opt = adamw_init(params, ocfg)
+    dcfg = pipeline.DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_LEN,
+                               global_batch=C15_BATCH, seed=SEED)
+    before = dict(_build.LAUNCHES)
+    times, losses = [], []
+    for i in range(C15_TIMED + 1):
+        batch = pipeline.make_batch(dcfg, i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b0 = dict(_build.LAUNCHES)
+        params, opt, _, m = step(params, opt, torch.zeros(()), batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        _expect_launches(_all_delta(b0), per_step, f"{name}: step {i}")
+        losses.append(float(m["loss"]))
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{name}: losses {losses}")
+    step_ms = statistics.median(times[1:]) * 1e3
+    del params, opt, step
+    _free_card()
+    log(f"  {name} (d = {f.head_dim}, P = {f.num_anchors}, D = "
+        f"{f.num_prf}, R = {f.num_quad_nodes}, m = {f.feature_dim}): route "
+        f"{route}; launches a step {per_step}; bf16 {C15_BATCH} x "
+        f"{TRAIN_LEN} losses {', '.join(f'{x:.4f}' for x in losses)}, "
+        f"median of steps 2-{C15_TIMED + 1} {step_ms:.2f} ms  [{card}]")
+    if not over:
+        return _all_delta(before), step_ms
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    b1 = pipeline.make_batch(pipeline.DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=C15_CHECK_LEN, global_batch=1,
+        seed=SEED), 0)
+    p_cpu = api.init_params(cfg32, SEED, device="cpu")
+    b32 = dict(_build.LAUNCHES)
+    loss_g, _, g_gpu = loop.value_and_grad(
+        tree_map(lambda t: t.cuda(), p_cpu), cfg32, b1)
+    torch.cuda.synchronize()
+    _expect_launches(_all_delta(b32), per_step, f"{name}: fp32 step")
+    loss_c, _, g_cpu = loop.value_and_grad(p_cpu, cfg32, b1)
+    rel = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+    grad_rel = max(float((g.cpu() - c).abs().max())
+                   / (float(c.abs().max()) or 1.0)
+                   for (_, g), (_, c) in zip(tree_items(g_gpu),
+                                             tree_items(g_cpu)))
+    log(f"    fp32 1 x {C15_CHECK_LEN}: card loss {float(loss_g):.6f}, CPU plain "
+        f"{float(loss_c):.6f}, relative difference {rel:.2e} (limit "
+        f"{C15_LOSS_RTOL:g}); largest gradient difference {grad_rel:.2e} "
+        f"of its largest (a reading)")
+    if not rel <= C15_LOSS_RTOL:
+        raise AssertionError(f"{name}: card loss {float(loss_g)} against "
+                             f"the CPU's {float(loss_c)}")
+    del g_gpu, g_cpu
+    _free_card()
+    return _all_delta(before), step_ms
+
+
+@_timed
+def _c15_serve(card: str) -> dict:
+    """``ServingEngine.generate`` at R = 12 (full depth, fp32): the
+    prefill on the PyTorch-Ψ route (B5 once a layer), every decode step
+    through K2 at m = 1536; greedy streams equal to the CPU plain path's
+    on a trace whose top-2 gaps are no near-ties (C-2). Its launches."""
+    over = C15_CONFIGS["R = 12"]
+    cfg = configs.get_config("slayformer-124m", dtype="float32", **over)
+    nl, f = cfg.num_layers, cfg.slay_config()
+    params = api.init_params(cfg, SEED, device="cuda")
+    rng = np.random.default_rng(SEED + 28)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in C15_PROMPTS]
+    reqs = [engine.Request(p, max_new_tokens=C15_NEW) for p in prompts]
+    eng = engine.ServingEngine(cfg, params, device="cuda", max_len=512)
+    eng.generate([engine.Request(prompts[0][:32], max_new_tokens=2)])  # warm
+    torch.cuda.synchronize()
+    before = dict(_build.LAUNCHES)
+    t0 = time.perf_counter()
+    outs = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _all_delta(before)
+    _expect_launches(launches, {"slay_scan_fwd": nl,
+                                "slay_decode_step": nl * (C15_NEW - 1)},
+                     "R = 12 generate")
+    worst = min(g / s for p, o in zip(prompts, outs)
+                for g, s in _greedy_gaps(params, cfg, p, o))
+    if worst < GAP_FRAC:
+        raise AssertionError(f"R = 12 generate: a top-2 gap of {worst:.2e} "
+                             f"of the largest logit, a near-tie (C-2)")
+    cpu = engine.ServingEngine(cfg, api.init_params(cfg, SEED, device="cpu"),
+                               device="cpu", max_len=512).generate(reqs)
+    _same_outputs(outs, cpu, "R = 12 generate, card vs CPU plain path")
+    log(f"  R = 12 (m = {f.feature_dim}) generate: {len(reqs)} prompts of "
+        f"{C15_PROMPTS} tokens, {C15_NEW} greedy tokens each in {wall:.3f} s;"
+        f" prefill route "
+        f"{ops.attention_route(f, f.head_dim, f.head_dim, False, 'cuda')}"
+        f"; launches {launches}; streams equal to the CPU's, smallest top-2 "
+        f"gap {worst:.2e} of the largest logit  [{card}]")
+    del eng
+    _free_card()
+    return launches
+
+
+def phase_c15(card: str) -> dict:
+    """Phase 28: C-15's configs, routed before any launch: one training
+    config each on its route (bf16 step times beside the fused default's,
+    fp32 loss against the CPU), then R = 12 served through K2. Returns
+    the phase's launches by kernel."""
+    t_phase = time.perf_counter()
+    log(f"C-15 routes: slayformer-124m at {C15_LAYERS} layers, "
+        f"{C15_TIMED + 1} bf16 steps of {C15_BATCH} x {TRAIN_LEN} tokens "
+        f"each config, fp32 loss against the CPU at 1 x {C15_CHECK_LEN}")
+    launches: collections.Counter = collections.Counter()
+    ms = {}
+    for name, over in C15_CONFIGS.items():
+        got, ms[name] = _c15_train(name, over, card)
+        launches.update(got)
+    base = ms["fused default"]
+    log("  step time against the fused default's "
+        + ", ".join(f"{n} {t / base:.2f}x" for n, t in ms.items()
+                    if n != "fused default")
+        + f"  [{card}]")
+    launches.update(_c15_serve(card))
+    log(f"C-15: launches {dict(launches)}; the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return dict(launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; it needs an "
@@ -5366,6 +5396,7 @@ def main() -> int:
     front, audio_fmap = phase_frontends(card_line)
     core = phase_core(card_line, slay_step_ms)
     sharded = phase_sharded(card_line, train_losses, fused_step_s)
+    c15 = phase_c15(card_line)
     k2_bl = k2.pop("baselines")
     kernels = [
         dict(name="slay_fused_fwd", route="cuda",
@@ -5449,6 +5480,10 @@ def main() -> int:
     for row in kernels[:5]:
         row["launches"] += sharded[row["name"]]
         row["sharded"] = sharded[row["name"]]
+    # Phase 28's C-15 routes join every row's count, under ``c15`` too.
+    for row in kernels:
+        row["launches"] += c15.get(row["name"], 0)
+        row["c15"] = c15.get(row["name"], 0)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi())
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -11,29 +11,36 @@ attention).
     cfg = configs.get_config("slayformer-124m")          # full width
     cfg = configs.get_smoke_config("slayformer-124m")    # CPU smoke size
     cfg = configs.get_config("slayformer-124m", attn_kind="favor")
+
+The reference's shape cells (``SHAPE_CELLS``, ``get_cell``) and
+``input_specs``, the model inputs of a cell as ``meta`` tensors.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import (SHAPE_CELLS, ArchConfig, ShapeCell,
+                                      get_cell, input_specs)
 
+# In the reference's order, so that ALL_ARCHS and ASSIGNED_ARCHS equal its.
 _MODULES = {
-    "slayformer-124m": "slayformer_124m",
     "phi4-mini-3.8b": "phi4_mini",
-    "granite-20b": "granite_20b",
     "qwen3-32b": "qwen3_32b",
+    "granite-20b": "granite_20b",
     "gemma2-27b": "gemma2_27b",
+    "hymba-1.5b": "hymba_1_5b",
+    "whisper-small": "whisper_small",
+    "internvl2-76b": "internvl2_76b",
+    "mamba2-780m": "mamba2_780m",
     "phi3.5-moe-42b-a6.6b": "phi35_moe",
     "grok-1-314b": "grok1_314b",
-    "mamba2-780m": "mamba2_780m",
-    "hymba-1.5b": "hymba_1_5b",
-    "internvl2-76b": "internvl2_76b",
-    "whisper-small": "whisper_small",
+    "slayformer-124m": "slayformer_124m",
 }
-# The ported configs (the command-line drivers' --arch choices).
+# The ported configs (the command-line drivers' --arch choices), and the
+# ten of them beside the paper's own model.
 ALL_ARCHS = tuple(_MODULES)
+ASSIGNED_ARCHS = tuple(k for k in _MODULES if k != "slayformer-124m")
 
 
 def _module(name: str):
@@ -53,4 +60,7 @@ def get_smoke_config(name: str, **overrides) -> ArchConfig:
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
 
 
-__all__ = ["ALL_ARCHS", "ArchConfig", "get_config", "get_smoke_config"]
+__all__ = [
+    "ArchConfig", "ShapeCell", "SHAPE_CELLS", "ASSIGNED_ARCHS", "ALL_ARCHS",
+    "get_cell", "get_config", "get_smoke_config", "input_specs",
+]

@@ -107,6 +107,47 @@ class ArchConfig:
                              logit_softcap=self.attn_logit_softcap,
                              chunk_size=self.chunk_size)
 
+    @property
+    def param_count_dense(self) -> int:
+        """Approximate parameter count N (for MODEL_FLOPS = 6 N D), the
+        reference's arithmetic: embeddings, then per layer the attention
+        projections and the MLP (every expert and the router for MoE),
+        the SSD block's projections for ssm and hybrid, and whisper's
+        encoder layers and cross-attention."""
+        d, L = self.d_model, self.num_layers
+        dh = self.resolved_head_dim
+        n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        ssd = 0
+        if self.family in ("ssm", "hybrid"):
+            di = self.ssm_expand * d
+            ssd = d * (2 * di + 2 * self.ssm_ngroups * self.ssm_state
+                       + di // self.ssm_head_dim) + di * d
+        if self.family == "ssm":
+            return n + L * ssd
+        attn = d * dh * (self.num_heads + 2 * self.num_kv_heads) \
+            + self.num_heads * dh * d
+        mlp = d * self.d_ff * (3 if self.gated_mlp else 2)
+        if self.moe_experts:
+            mlp = mlp * self.moe_experts + d * self.moe_experts
+        total = n + L * (attn + mlp + ssd)
+        if self.family == "encdec":
+            total += self.enc_layers * (attn + mlp) + L * attn
+        return total
+
+    @property
+    def active_param_count(self) -> int:
+        """Active parameters per token: the dense count, or for MoE the
+        top-k experts (gated, as the reference counts them) and the
+        router, the embedding counted once whether tied or not."""
+        if not self.moe_experts:
+            return self.param_count_dense
+        d, L = self.d_model, self.num_layers
+        dh = self.resolved_head_dim
+        attn = d * dh * (self.num_heads + 2 * self.num_kv_heads) \
+            + self.num_heads * dh * d
+        mlp_active = d * self.d_ff * 3 * self.moe_top_k + d * self.moe_experts
+        return self.vocab_size * d + L * (attn + mlp_active)
+
     def check_supported(self) -> None:
         if self.family not in ("decoder", "ssm", "hybrid", "encdec"):
             raise NotImplementedError(
@@ -243,3 +284,61 @@ class ServingConfig:
                 "exclusive (a prefix-seeded verifier slot has no draft-side "
                 "snapshot to seed from)")
 
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    """One workload shape: ``seq_len`` tokens for each of
+    ``global_batch`` sequences, in ``mode`` train, prefill or decode."""
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str
+
+
+SHAPE_CELLS = (
+    ShapeCell("train_4k", 4_096, 256, "train"),
+    ShapeCell("prefill_32k", 32_768, 32, "prefill"),
+    ShapeCell("decode_32k", 32_768, 128, "decode"),
+    ShapeCell("long_500k", 524_288, 1, "decode"),
+)
+
+# The dtype of tokens and labels that the port's forward and loss take
+# (``data.pipeline``'s batches).
+TOKEN_DTYPE = torch.int32
+
+
+def get_cell(name: str) -> ShapeCell:
+    for c in SHAPE_CELLS:
+        if c.name == name:
+            return c
+    raise KeyError(name)
+
+
+def input_specs(cfg: ArchConfig, cell: ShapeCell) -> dict:
+    """Stand-ins for every model input of this cell: tensors on the
+    ``meta`` device (shapes and dtypes, nothing allocated), as
+    ``models.api.abstract_params`` gives the parameters. Tokens and labels
+    in :data:`TOKEN_DTYPE`; a vision config's patch embeddings (which take
+    ``num_patches`` of the cell's tokens) and an audio config's frame
+    embeddings in ``cfg.activation_dtype``. A decode cell is one new token
+    a sequence: its cache, sized for ``seq_len``, is a separate argument
+    (``models.api.init_cache``)."""
+    B, L = cell.global_batch, cell.seq_len
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    if cell.mode == "decode":
+        return {"tokens": meta((B, 1), TOKEN_DTYPE)}
+    specs, lt = {}, L
+    if cfg.frontend == "vision":
+        specs["patch_embeds"] = meta((B, cfg.num_patches, cfg.d_model),
+                                     cfg.activation_dtype)
+        lt = L - cfg.num_patches
+    if cfg.frontend == "audio":
+        specs["frame_embeds"] = meta((B, cfg.enc_seq, cfg.d_model),
+                                     cfg.activation_dtype)
+    specs["tokens"] = meta((B, lt), TOKEN_DTYPE)
+    if cell.mode == "train":
+        specs["labels"] = meta((B, lt), TOKEN_DTYPE)
+    return specs

@@ -41,16 +41,17 @@ def slay_attention(params: dict, q, k, v, cfg: SlayFeatureConfig, *,
                    delta: float = 1e-6, fuse_features: bool = True):
     """Full-sequence causal SLAY attention (training / prefill).
 
-    With ``fuse_features`` (default) an anchor + tensor config runs the
-    fused kernel, Ψ(Q)/Ψ(K) computed inside it and never written to
-    device memory, where its shared memory holds the config's P·D, else
-    the two-dispatch kernels; any other feature config takes its Ψ from
-    PyTorch ops and the scan kernel (``ops.slay_fused_attention``).
-    ``fuse_features=False``
-    keeps the two-dispatch path for A/B comparison: the feature-map kernel
-    writes Ψ(Q), Ψ(K) in the activation dtype, then the scan kernel reads
-    them. Both are differentiable. Non-causal attention (``causal=False``)
-    maps Ψ through the feature-map kernel and contracts it in PyTorch
+    With ``fuse_features`` (default) ``ops.slay_fused_attention`` runs
+    the route ``ops.attention_route`` picks before any launch: the fused
+    kernel, Ψ(Q)/Ψ(K) computed inside it and never written to device
+    memory; else the two-dispatch kernels; else Ψ from PyTorch ops and
+    the scan kernel (every config but anchor + tensor, and anchor configs
+    the kernels' limits refuse). ``fuse_features=False`` keeps the
+    two-dispatch path for A/B comparison: Ψ(Q), Ψ(K) written in the
+    activation dtype (``ops.slay_features``: the feature-map kernel where
+    it takes the config), then the scan kernel reads them. Both are
+    differentiable. Non-causal attention (``causal=False``) maps Ψ the
+    same way and contracts it in PyTorch
     (:func:`linear_attention.noncausal`), as the JAX package does in jnp.
     """
     if not causal:
@@ -79,8 +80,9 @@ def slay_init(cfg: SlayConfig, generator: torch.Generator, *,
 def slay_prefill_state(params: dict, k, v, cfg: SlayConfig) -> la.LinearState:
     """Absorb a whole prompt into the decode state: k (..., L, Hkv, d),
     v (..., L, Hkv, dv) -> (S (..., Hkv, m, dv), z (..., Hkv, m)) fp32.
-    Ψ(k) goes through ``ops.slay_features`` (B7 on the card for anchor +
-    tensor); the Ψᵀv sum is a plain product, as in the reference."""
+    Ψ(k) goes through ``ops.slay_features`` (B7 on the card where
+    ``ops.attention_route`` sends the config); the Ψᵀv sum is a plain
+    product, as in the reference."""
     return la.prefill_state(ops.slay_features(k, params, cfg), v)
 
 

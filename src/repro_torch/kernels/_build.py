@@ -74,6 +74,11 @@ SIGNATURES = {
 }
 
 SMEM_LIMIT = 232448   # dynamic shared memory one Hopper block may use
+# Python copies of the kernels' other limits (csrc/slay_common.cuh): the
+# quadrature nodes R every SLAY kernel takes (kMaxNodes), and the head dim
+# the backward kernels K3, K4 and B8 take (32 lanes x kMaxDPerLane).
+MAX_NODES = 8
+MAX_BWD_HEAD_DIM = 128
 
 # dtype codes of the C interface: 0 float32, 1 bfloat16.
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

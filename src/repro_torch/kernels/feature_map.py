@@ -67,13 +67,96 @@ def _check(u, anchors, omegas, cfg: SlayFeatureConfig):
             raise ValueError(f"{name} must be contiguous")
 
 
+def _round16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+_FWD_TILE = 32       # kFwdTile: B7's tokens per tile
+_BWD_WARPS = 8       # kBwdWarps: B8's warps per block
+_BWD_REG_ROWS = 24   # kRegRows: dA/dΩ rows a B8 lane keeps in registers
+
+
+def _fwd_smem(d: int, P: int, D: int, R: int, es: int) -> int:
+    """``csrc/feature_map.cu::fwd_layout``'s total: two tiles of raw u
+    rows, û, the projections, φ and the chunk table."""
+    ldu = (d + 3) // 4 * 4
+    if (ldu // 4) % 2 == 0:
+        ldu += 4
+    ldphi = ((P + 3) // 4 * 4 + R * D + 3) // 4 * 4
+    chunks = R * P * D * es // 16
+    return (2 * _round16(_FWD_TILE * d * es) + _FWD_TILE * ldu * 4
+            + (P + D) * ldu * 4 + _FWD_TILE * ldphi * 4 + chunks * 16)
+
+
+def _bwd_smem(d: int, P: int, D: int, R: int, es: int,
+              stage_psi: bool) -> int:
+    """``csrc/feature_map.cu::bwd_layout_at``'s total: the projections and
+    the block's dA/dΩ sums, then each warp's ring of staged rows (u, and
+    dΨ where ``stage_psi``) and per-token scratch."""
+    npd = P + D
+    kq = 1 if d <= 32 else 2 if d <= 64 else 4
+    ldw = 32 * kq
+    split = max([s for s in range(2, D + 1)
+                 if D % s == 0 and P * s + D <= 32], default=1)
+    reg_acc = npd <= _BWD_REG_ROWS and kq <= 2 and stage_psi
+    row = _round16(d * es) + (_round16(R * P * D * es) if stage_psi else 0)
+    w = (2 * 2 * row + 2 * _round16((2 * P + R * D + 1) * 4)
+         + 2 * _round16((P * split + D) * 4) + 2 * _round16(npd * 4)
+         + (0 if reg_acc else npd * ldw * 4))
+    return (_round16(npd * ldw * 4) + _round16(npd * d * 4)
+            + _BWD_WARPS * _round16(w))
+
+
+def fmap_smem_bytes(d: int, P: int, D: int, R: int, bwd: bool,
+                    es: int = 4) -> int:
+    """B7's (``bwd`` false) or B8's dynamic shared memory per block,
+    ``csrc/feature_map.cu::fm_smem`` in Python (the C entry
+    ``slay_feature_map_smem_bytes`` reports it, at es = 4 for fp32 u and
+    2 for bf16). B8 stages dΨ rows beside u's where they fit in
+    ``_build.SMEM_LIMIT`` and reads dΨ from device memory otherwise. At
+    d = 64, P = 8, D = 16, R = 3 in fp32, B7 needs 40,320 B and B8
+    77,568; at d = 128, P = D = 32, R = 3, B8 needs 362,752 B even with
+    dΨ unstaged, past the limit."""
+    if not bwd:
+        return _fwd_smem(d, P, D, R, es)
+    staged = _bwd_smem(d, P, D, R, es, True)
+    return (staged if staged <= _build.SMEM_LIMIT
+            else _bwd_smem(d, P, D, R, es, False))
+
+
+@functools.lru_cache(maxsize=256)
+def fmap_fits(d: int, P: int, D: int, R: int, grad: bool,
+              device_type: str) -> bool:
+    """Whether B7, and B8 when ``grad``, take a config: R within
+    ``_build.MAX_NODES``, B7's shared memory (and B8's, whose head dim is
+    at most ``_build.MAX_BWD_HEAD_DIM``) within ``_build.SMEM_LIMIT`` in
+    fp32, the larger, so one route serves both dtypes. On the card the
+    kernels' own C entry says; on the CPU its copy above, so both devices
+    take the same route (``ops.attention_route``). Launches nothing."""
+    if R > _build.MAX_NODES or (grad and d > _build.MAX_BWD_HEAD_DIM):
+        return False
+    if device_type == "cuda":
+        smem = _build.load("feature_map").slay_feature_map_smem_bytes
+    else:
+        def smem(d, P, D, R, bwd, _dtype):
+            return fmap_smem_bytes(d, P, D, R, bool(bwd))
+    return all(smem(d, P, D, R, int(bwd), 0) <= _build.SMEM_LIMIT
+               for bwd in ((False, True) if grad else (False,)))
+
+
 def _kernel_args(lib, u, cfg: SlayFeatureConfig, bwd: bool):
+    """Guards of B7 and B8, which a routed call never reaches
+    (``ops.attention_route`` sends a config past them to Ψ in PyTorch ops):
+    they stop a wrong route from launching. Returns the shapes and the
+    quadrature constants as C double arrays."""
     d = u.shape[1]
     P, D, R = cfg.num_anchors, cfg.num_prf, cfg.num_quad_nodes
-    if R > 8:
-        raise ValueError(f"kernel takes at most 8 quadrature nodes, got {R}")
-    if bwd and d > 128:
-        raise ValueError(f"backward kernel takes head dim <= 128, got {d}")
+    if R > _build.MAX_NODES:
+        raise ValueError(f"kernel takes at most {_build.MAX_NODES} "
+                         f"quadrature nodes, got {R}")
+    if bwd and d > _build.MAX_BWD_HEAD_DIM:
+        raise ValueError(f"backward kernel takes head dim <= "
+                         f"{_build.MAX_BWD_HEAD_DIM}, got {d}")
     smem = lib.slay_feature_map_smem_bytes(d, P, D, R, int(bwd),
                                            _build.DTYPE_CODES[u.dtype])
     if smem > _build.SMEM_LIMIT:

@@ -153,17 +153,76 @@ def slay_causal_attention(qf: torch.Tensor, kf: torch.Tensor,
         qf, kf, v, chunk_size=chunk_size)
 
 
+# The three routes of a SLAY feature config (:func:`attention_route`).
+FUSED = "fused"                # K1; K3, K4 for the gradient
+TWO_DISPATCH = "two_dispatch"  # B7 then B5; B6a, B6b then B8
+TORCH_PSI = "torch_psi"        # Ψ in PyTorch ops, then B5; B6a, B6b
+
+
+def attention_route(cfg: SlayFeatureConfig, d: int, dv: int | None,
+                    grad: bool, device_type: str) -> str:
+    """The route of a SLAY feature config, decided before any launch from
+    the config, the head dims and whether a gradient will be taken:
+
+    * :data:`FUSED` (``dv`` given): anchor + tensor that K1 takes, and
+      K3/K4 when ``grad`` (``slay_fused.fused_fits``: R, shared memory,
+      the backward's head dim and P·D);
+    * :data:`TWO_DISPATCH`: anchor + tensor that B7 takes, and B8 when
+      ``grad`` (``feature_map.fmap_fits``: R, shared memory, B8's head
+      dim), Ψ written to device memory for the scan;
+    * :data:`TORCH_PSI`: every other config. Ψ comes from
+      :func:`repro_torch.core.features.slay_features` (PyTorch ops in
+      fp32, differentiated by autograd), cast to the activation dtype,
+      and the scan B5 (B6a, B6b) takes any m.
+
+    ``dv`` None asks for Ψ alone (:func:`slay_features`): B7 or PyTorch
+    ops. Each limit is read from the kernels' C entries on the card and
+    from their Python copies on the CPU, which equal them
+    (``tests/test_torch_card.py``), so both devices route alike and no
+    routed call reaches a launch wrapper's guard. Launches nothing."""
+    if not cfg.kernelizable:
+        return TORCH_PSI
+    P, D, R = cfg.num_anchors, cfg.num_prf, cfg.num_quad_nodes
+    if dv is not None and _fused.fused_fits(d, dv, P, D, R, grad,
+                                            device_type):
+        return FUSED
+    if _fm.fmap_fits(d, P, D, R, grad, device_type):
+        return TWO_DISPATCH
+    return TORCH_PSI
+
+
+def _grad_taken(*tensors) -> bool:
+    """Whether autograd will differentiate a call on these tensors (None
+    entries ignored): grad mode is on and one of them requires grad."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _psi(u: torch.Tensor, params: dict, cfg: SlayFeatureConfig,
+         route: str, dtype: torch.dtype) -> torch.Tensor:
+    """Ψ(u) (..., m) in ``dtype`` by ``route``: B7 (its plain twin on the
+    CPU) in u's dtype, or PyTorch ops in fp32, rounded once."""
+    if route == TORCH_PSI:
+        return core_features.slay_features(u, params, cfg).to(dtype)
+    *lead, d = u.shape
+    psi = _fm.feature_map(u.reshape(-1, d).contiguous(), params["anchors"],
+                          params["omegas"], cfg)
+    return psi.reshape(*lead, cfg.feature_dim).to(dtype)
+
+
 def slay_features(u: torch.Tensor, params: dict,
                   cfg: SlayFeatureConfig) -> torch.Tensor:
     """Ψ(u) over the trailing dim: u (..., d) -> (..., m) in u's dtype.
 
-    A kernelizable config (anchor + tensor) goes through the feature-map
-    kernel B7 (its plain twin on the CPU); the CUDA kernel takes any token
-    count, so nothing is padded, and the result equals the JAX entry's
-    pad-and-slice. Every other config takes
+    :func:`attention_route` with ``dv`` None picks the route, a gradient
+    counted as taken when grad mode is on and u, the anchors or the
+    omegas require grad: B7 (its plain twin on the CPU, B8 for the
+    gradient), which takes any token count, so nothing is padded and the
+    result equals the JAX entry's pad-and-slice; or
     :func:`repro_torch.core.features.slay_features` (PyTorch ops, fp32,
-    cast to u's dtype), as the JAX entry takes its jnp reference: no
-    Pallas kernel computes those kinds.
+    cast to u's dtype), as the JAX entry takes its jnp reference.
+    ``core.slay.slay_decode_step`` takes its Ψ of q and k before K2 from
+    here too.
     """
     if isinstance(u, DTensor):
         names = sorted(params)
@@ -175,12 +234,9 @@ def slay_features(u: torch.Tensor, params: dict,
             out_placements=list(pl),
             in_placements=(pl, *(_const(params[n]) for n in names)),
             device_mesh=u.device_mesh)(u, *(params[n] for n in names))
-    if not cfg.kernelizable:
-        return core_features.slay_features(u, params, cfg).to(u.dtype)
-    *lead, d = u.shape
-    psi = _fm.feature_map(u.reshape(-1, d).contiguous(), params["anchors"],
-                          params["omegas"], cfg)
-    return psi.reshape(*lead, cfg.feature_dim)
+    grad = _grad_taken(u, params.get("anchors"), params.get("omegas"))
+    route = attention_route(cfg, u.shape[-1], None, grad, u.device.type)
+    return _psi(u, params, cfg, route, u.dtype)
 
 
 def slay_fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -190,25 +246,24 @@ def slay_fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """End-to-end SLAY causal attention on **raw** q/k.
 
     q (..., L, H, d), k (..., L, Hkv, d), v (..., L, Hkv, dv)
-    -> (..., L, H, dv); ragged L is zero-padded. Three routes, chosen
-    before any launch from the config and the shapes alone:
+    -> (..., L, H, dv); ragged L is zero-padded. :func:`attention_route`
+    picks one of three routes before any launch, a gradient counted as
+    taken when grad mode is on and q, k, v, the anchors or the omegas
+    require grad; the backward runs the route its forward took:
 
-    * anchor + tensor whose P·D the fused kernels hold
-      (``slay_fused.fused_fits``: K1's and K4's shared memory, which keeps
-      a quadrature node's whole (P·D, dv) fp32 carry and two tiles of Ψ at
-      width P·D, within ``_build.SMEM_LIMIT``): the fused kernel K1, Ψ
-      computed inside it (its fp32 plain twin on the CPU), K3 and K4 for
-      the gradient;
-    * anchor + tensor past that (e.g. Table 2's P = D = 32 at d = 32): the
-      two-dispatch kernels, which tile the feature axis in slices of 128
-      and so take any m: B7 then B5 forward, B6a/B6b then B8 backward;
-    * every other poly kind or fusion: Ψ from
-      :func:`repro_torch.core.features.slay_features` (PyTorch ops,
-      differentiable by autograd) cast to v's dtype, then the scan B5
-      (B6a/B6b for its gradient). The JAX package computes these kinds
-      with jnp features and ``la.causal_chunked``, or under
-      ``use_kernel=True, fuse_features=False`` with the Pallas scan; the
-      port always runs the hand-written scan, the same function.
+    * fused: K1, Ψ computed inside it (its fp32 plain twin on the CPU),
+      K3 and K4 for the gradient;
+    * two-dispatch: B7 then B5 forward, B6a/B6b then B8 backward; the scan
+      tiles the feature axis in slices of 128 and so takes any m (Table
+      2's P = D = 32 at d = 32);
+    * PyTorch Ψ (every other poly kind or fusion, and anchor + tensor
+      configs the feature-map kernels refuse: R > 8, or B8 at d = 128
+      with P = D = 32): Ψ from
+      :func:`repro_torch.core.features.slay_features` cast to v's dtype,
+      differentiated by autograd, then B5 (B6a/B6b for its gradient). The
+      JAX package computes these with jnp features and
+      ``la.causal_chunked`` (or its Pallas scan); the port always runs the
+      hand-written scan, the same function.
     """
     if isinstance(q, DTensor):
         names = sorted(params)
@@ -219,11 +274,12 @@ def slay_fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                         delta=delta)
 
         return _sharded_heads(block, q, k, v, *(params[n] for n in names))
-    if not cfg.kernelizable or not _fused.fused_fits(
-            q.shape[-1], v.shape[-1], cfg.num_anchors, cfg.num_prf,
-            q.device.type):
-        qf = slay_features(q, params, cfg).to(v.dtype)
-        kf = slay_features(k, params, cfg).to(v.dtype)
+    grad = _grad_taken(q, k, v, params.get("anchors"), params.get("omegas"))
+    route = attention_route(cfg, q.shape[-1], v.shape[-1], grad,
+                            q.device.type)
+    if route != FUSED:
+        qf = _psi(q, params, cfg, route, v.dtype)
+        kf = _psi(k, params, cfg, route, v.dtype)
         return slay_causal_attention(qf, kf, v, chunk_size=chunk_size,
                                      delta=delta)
 

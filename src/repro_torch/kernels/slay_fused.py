@@ -118,46 +118,64 @@ def fused_smem_bytes(d: int, dv: int, P: int, D: int, es: int = 4) -> int:
     return floats * 4 + T * (2 * _pad16(d * es) + _pad16(dv * es))
 
 
-def fused_bwd_smem_bytes(d: int, dv: int, P: int, D: int, es: int = 4) -> int:
-    """K4's dynamic shared memory per block (K3 takes no more),
-    ``csrc/slay_fused_bwd.cu::bwd_layout`` with kv in Python (the C entry
-    ``slay_fused_bwd_smem_bytes`` reports it at es = 4): K1's carry and
-    tiles plus pa, inv, G, h, dP, dV and the dA/dΩ scratch. At d = dv =
-    64, P = 8, D = 16 it is 104,832 B in bf16 and 115,072 in fp32."""
+def fused_bwd_smem_bytes(d: int, dv: int, P: int, D: int, es: int = 4,
+                         kv: bool = True) -> int:
+    """K4's (``kv``) or K3's dynamic shared memory per block,
+    ``csrc/slay_fused_bwd.cu::bwd_layout`` in Python (the C entry
+    ``slay_fused_bwd_smem_bytes`` reports K4's at es = 4; K3 takes no
+    more): K1's carry and tiles plus pa, inv, G, h, the dA/dΩ scratch and
+    K4's scores, dP and dV. At d = dv = 64, P = 8, D = 16, K4 needs
+    104,832 B in bf16 and 115,072 in fp32, K3 98,432 in bf16."""
     T, pd, npd = 16, P * D, P + D
     o = (pd * (dv + 4) + pd + 2 * T * (d + 4) + npd * (d + 4) + 2 * T * npd
          + 2 * T * P + 2 * T + 2 * T * (pd + 4) + 2 * T * (dv + 4) + T)
-    o += max(3 * T * (T + 4), T * npd) + npd * d + T * dv
+    o += (max(3 * T * (T + 4) if kv else 0, T * npd) + npd * d
+          + (T * dv if kv else 0))
     o = (o + 3) // 4 * 4
     return o * 4 + T * (2 * d + 3 * dv) * es + T * 4
 
 
-@functools.lru_cache(maxsize=64)
-def fused_fits(d: int, dv: int, P: int, D: int, device_type: str) -> bool:
-    """Whether K1 and K3/K4 hold a config at these head dims: their shared
-    memory (each node's whole (P·D, dv) fp32 carry and two tiles of Ψ at
-    width P·D) within ``_build.SMEM_LIMIT``. On the card the kernels' own
-    C entries say; on the CPU their copies above, so both devices take the
-    same route (``ops.slay_fused_attention``). Launches nothing."""
+def bwd_shapes_ok(d: int, P: int, D: int) -> bool:
+    """The shapes K3 and K4 take beyond K1's (``csrc/slay_fused_bwd.cu::
+    bwd_shapes_ok``): a head dim of at most ``_build.MAX_BWD_HEAD_DIM``
+    and a multiple of 8, and P·D a multiple of 16."""
+    return (8 <= d <= _build.MAX_BWD_HEAD_DIM and d % 8 == 0
+            and (P * D) % 16 == 0)
+
+
+@functools.lru_cache(maxsize=256)
+def fused_fits(d: int, dv: int, P: int, D: int, R: int, grad: bool,
+               device_type: str) -> bool:
+    """Whether K1, and K3/K4 when ``grad``, take a config at these head
+    dims: R within ``_build.MAX_NODES``; K1's shared memory (each node's
+    whole (P·D, dv) fp32 carry and two tiles of Ψ at width P·D) within
+    ``_build.SMEM_LIMIT``; with a gradient also :func:`bwd_shapes_ok` and
+    K4's shared memory (K3 takes no more). On the card the kernels' own C
+    entries say; on the CPU their copies above, so both devices take the
+    same route (``ops.attention_route``). Launches nothing."""
+    if R > _build.MAX_NODES or (grad and not bwd_shapes_ok(d, P, D)):
+        return False
     if device_type == "cuda":
-        fwd = _build.load("slay_fused").slay_fused_smem_bytes(d, dv, P, D)
-        bwd = _build.load("slay_fused_bwd").slay_fused_bwd_smem_bytes(
-            d, dv, P, D)
+        fwd = _build.load("slay_fused").slay_fused_smem_bytes
+        bwd = _build.load("slay_fused_bwd").slay_fused_bwd_smem_bytes
     else:
-        fwd = fused_smem_bytes(d, dv, P, D)
-        bwd = fused_bwd_smem_bytes(d, dv, P, D)
-    return max(fwd, bwd) <= _build.SMEM_LIMIT
+        fwd, bwd = fused_smem_bytes, fused_bwd_smem_bytes
+    return (fwd(d, dv, P, D) <= _build.SMEM_LIMIT
+            and (not grad or bwd(d, dv, P, D) <= _build.SMEM_LIMIT))
 
 
 def _kernel_args(lib, smem_fn, q, v, cfg: SlayFeatureConfig):
     """Shape checks shared by K1, K3 and K4; returns the quadrature
-    constants as C double arrays."""
+    constants as C double arrays. A routed call never fails them
+    (``ops.attention_route`` sends a config past them elsewhere): they
+    stop a wrong route from launching."""
     d, dv = q.shape[-1], v.shape[-1]
     if dv not in (16, 32, 64, 128):
         raise ValueError(f"kernel takes dv in (16, 32, 64, 128), got {dv}")
     P, D, R = cfg.num_anchors, cfg.num_prf, cfg.num_quad_nodes
-    if R > 8:
-        raise ValueError(f"kernel takes at most 8 quadrature nodes, got {R}")
+    if R > _build.MAX_NODES:
+        raise ValueError(f"kernel takes at most {_build.MAX_NODES} "
+                         f"quadrature nodes, got {R}")
     smem = getattr(lib, smem_fn)(d, dv, P, D)
     if smem > _build.SMEM_LIMIT:
         raise ValueError(f"shapes need {smem} B of shared memory per block, "
@@ -302,9 +320,13 @@ def fused_causal_attention_bwd_plain(q, k, v, anchors, omegas, y, den, dy,
 
 
 def _check_bwd_shapes(d, cfg: SlayFeatureConfig):
-    if d > 128 or d % 8:
-        raise ValueError(f"backward kernels take a head dim <= 128 and a "
-                         f"multiple of 8, got {d}")
+    """K3's and K4's shape limits (:func:`bwd_shapes_ok`). A routed call
+    never fails them: ``ops.attention_route`` sends a config that a
+    gradient would take past them elsewhere before the forward runs."""
+    if d > _build.MAX_BWD_HEAD_DIM or d % 8:
+        raise ValueError(f"backward kernels take a head dim <= "
+                         f"{_build.MAX_BWD_HEAD_DIM} and a multiple of 8, "
+                         f"got {d}")
     if (cfg.num_anchors * cfg.num_prf) % 16:
         raise ValueError(f"backward kernels take P·D a multiple of 16, got "
                          f"{cfg.num_anchors * cfg.num_prf}")

@@ -27,6 +27,37 @@ from repro_torch.kernels.common import (causal_mask, check_residuals,
                                         cotangents, empty_fp32)
 
 _KINDS = {"slay_scan_fwd": 0, "slay_scan_bwd_q": 1, "slay_scan_bwd_kv": 2}
+_SLICE = 128   # kScanSlice: feature columns per block
+_TILE = 16     # kMmaTile: tokens per tile
+
+
+def _carve(*sizes: int) -> int:
+    """Floats of a carve-up of these sizes, each rounded up to 16 bytes
+    (``csrc/scan_tile_mma.cuh::carve``)."""
+    return sum((n + 3) // 4 * 4 for n in sizes)
+
+
+def scan_smem_bytes(m: int, dv: int, kind: int, es: int = 4) -> int:
+    """The dynamic shared memory per block of B5 (``kind`` 0), B6a (1) or
+    B6b (2), ``csrc/slay_scan.cu::scan_layout`` in Python (the C entry
+    ``slay_scan_smem_bytes`` reports it at es = 4, the larger staging):
+    a slice's fp32 carry, the Ψ, V and cotangent tiles, then the staging
+    of the next tile's rows. Each block holds one slice of at most 128
+    feature columns, so it does not grow with m past 128: at dv = 64,
+    B5, B6a and B6b need 69,376, 71,296 and 83,328 B in bf16 (79,616,
+    81,536 and 97,664 in fp32) at m = 384 and at m = 3072 alike."""
+    T, fwd, bwd_q, kv = _TILE, kind == 0, kind == 1, kind == 2
+    pw = (min(m, _SLICE) + 15) // 16 * 16
+    ldp, ldc, ldsc = pw + 4, dv + 4, T + 4
+    ldsv = (dv * es + 15) // 16 * 16
+    floats = _carve(pw * ldc, pw, T * ldp, T * ldp, T * ldc,
+                    0 if fwd else T * ldc, 0 if fwd else T,
+                    0 if bwd_q else T * ldsc, 0 if bwd_q else T * ldsc,
+                    T * ldsc if kv else 0, T * dv if kv else 0)
+    stage = (0 if bwd_q else T * pw * es) + T * pw * es + T * ldsv
+    if not fwd:
+        stage += 2 * T * ldsv + T * 4
+    return floats * 4 + stage
 
 
 def causal_linear_attention_plain(qf, kf, v, *, chunk_size: int = 256,

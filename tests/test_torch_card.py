@@ -1335,8 +1335,9 @@ def test_anchor_past_the_fused_kernels_width_runs_two_dispatch_on_card(d):
     from repro_torch.core import linear_attention as tla
     from repro_torch.kernels import ops as tops
     cfg = tfeat.SlayFeatureConfig(head_dim=d, num_anchors=32, num_prf=32)
-    assert not tfused.fused_fits(d, 32, 32, 32, "cuda")
-    assert tfused.fused_fits(D_HEAD, 32, 8, 16, "cuda")
+    for grad in (False, True):
+        assert not tfused.fused_fits(d, 32, 32, 32, 3, grad, "cuda")
+        assert tfused.fused_fits(D_HEAD, 32, 8, 16, 3, grad, "cuda")
     p, q, k, v, dy = _route_case(cfg, L=80)
 
     def kernel(params, q, k, v):
@@ -1371,8 +1372,181 @@ def test_fused_smem_copies_match_the_kernels_entries_on_card():
                         (64, 128, 16, 32)]:
         assert tfused.fused_smem_bytes(d, dv, P, D) == fwd(d, dv, P, D)
         assert tfused.fused_bwd_smem_bytes(d, dv, P, D) == bwd(d, dv, P, D)
-        assert tfused.fused_fits(d, dv, P, D, "cuda") == tfused.fused_fits(
-            d, dv, P, D, "cpu")
+        for grad in (False, True):
+            assert tfused.fused_fits(d, dv, P, D, 3, grad, "cuda") == \
+                tfused.fused_fits(d, dv, P, D, 3, grad, "cpu")
+
+
+def _c_smem_bytes(probe) -> int:
+    """The bytes a probe of ``analysis.smem`` needs by the kernels' own C
+    entries: the ``*_smem_bytes`` entries (fp32; B7 and B8 at either
+    dtype) and the occupancy entries, which report the dynamic shared
+    memory they set at the probe's dtype."""
+    a = dict(probe.args)
+    code = 1 if probe.dtype == "bf16" else 0
+    k = probe.kernel
+
+    def occ(lib, fn, *args, **kw):
+        return _build.residency(lib, fn, *args, grid=(1, 1),
+                                **kw)["smem_bytes"]
+
+    if k == "K1":
+        return occ("slay_fused", "slay_fused_fwd_occupancy", a["d"], a["dv"],
+                   a["P"], a["D"], code)
+    if k in ("K3", "K4"):
+        return occ("slay_fused_bwd", "slay_fused_bwd_occupancy",
+                   int(k == "K4"), a["d"], a["dv"], a["P"], a["D"], code)
+    if k == "K2":
+        return occ("decode_step", "slay_decode_step_occupancy", a["g"],
+                   a["m"], a["dv"], 0, 1, clustered=True)
+    if k in ("B5", "B6a", "B6b"):
+        return occ("slay_scan", "slay_scan_occupancy",
+                   ("B5", "B6a", "B6b").index(k), a["m"], a["dv"], code)
+    return _build.load("feature_map").slay_feature_map_smem_bytes(
+        a["d"], a["P"], a["D"], a["R"], int(k == "B8"), code)
+
+
+@needs_card
+def test_smem_copies_and_routes_match_the_c_entries_over_the_audit_on_card():
+    # Every probe of the shared-memory audit (every kernel at every shape
+    # the 11 configs, C-15's and C-14's send it, bf16 and fp32): the
+    # Python layout copies equal the kernels' C entries, fp32 also by the
+    # *_smem_bytes entries; fused_fits, fmap_fits and the route agree
+    # between "cpu" and "cuda" at every shape, with and without a
+    # gradient.
+    from repro_torch.analysis import smem
+    from repro_torch.kernels import ops as tops
+    probes = smem.probe_all()
+    for name, p in probes.items():
+        assert p.nbytes == _c_smem_bytes(p), name
+    lib_fwd = _build.load("slay_fused").slay_fused_smem_bytes
+    lib_bwd = _build.load("slay_fused_bwd").slay_fused_bwd_smem_bytes
+    lib_scan = _build.load("slay_scan").slay_scan_smem_bytes
+    for p in probes.values():
+        a = dict(p.args)
+        if p.dtype != "fp32":
+            continue
+        if p.kernel == "K1":
+            assert p.nbytes == lib_fwd(a["d"], a["dv"], a["P"], a["D"])
+        if p.kernel == "K4":
+            assert p.nbytes == lib_bwd(a["d"], a["dv"], a["P"], a["D"])
+        if p.kernel in ("B5", "B6a", "B6b"):
+            kind = ("B5", "B6a", "B6b").index(p.kernel)
+            assert p.nbytes == lib_scan(a["m"], a["dv"], kind)
+    for source, f, dv, _g in smem.shapes():
+        d, P, D, R = f.head_dim, f.num_anchors, f.num_prf, f.num_quad_nodes
+        for grad in (False, True):
+            assert tfused.fused_fits(d, dv, P, D, R, grad, "cuda") == \
+                tfused.fused_fits(d, dv, P, D, R, grad, "cpu"), source
+            assert tfm.fmap_fits(d, P, D, R, grad, "cuda") == \
+                tfm.fmap_fits(d, P, D, R, grad, "cpu"), source
+            for w in (dv, None):
+                assert tops.attention_route(f, d, w, grad, "cuda") == \
+                    tops.attention_route(f, d, w, grad, "cpu"), source
+
+
+# ROADMAP C-15's configs: (feature config, route without a gradient, with
+# one), as tests/test_torch_routes.py tables them on the CPU.
+C15_CARD = {
+    "r12": (dict(head_dim=64, num_quad_nodes=12), "torch_psi", "torch_psi"),
+    "pd24": (dict(head_dim=64, num_anchors=4, num_prf=6), "fused",
+             "two_dispatch"),
+    "d128_pd32": (dict(head_dim=128, num_anchors=32, num_prf=32),
+                  "two_dispatch", "torch_psi"),
+}
+# The kernels one call of ops.slay_fused_attention launches on a route:
+# (forward, backward), by LAUNCHES key and by device kernel name.
+ROUTE_LAUNCHES = {
+    "fused": ({"slay_fused_fwd": 1},
+              {"slay_fused_bwd_q": 1, "slay_fused_bwd_kv": 1}),
+    "two_dispatch": ({"feature_map_fwd": 2, "slay_scan_fwd": 1},
+                     {"slay_scan_bwd_q": 1, "slay_scan_bwd_kv": 1,
+                      "feature_map_bwd": 2}),
+    "torch_psi": ({"slay_scan_fwd": 1},
+                  {"slay_scan_bwd_q": 1, "slay_scan_bwd_kv": 1}),
+}
+KERNEL_NAMES = {"slay_fused_fwd": "fused_fwd_kernel",
+                "slay_fused_bwd_q": "fused_bwd_q_kernel",
+                "slay_fused_bwd_kv": "fused_bwd_kv_kernel",
+                "feature_map_fwd": "feature_map_fwd_kernel",
+                "feature_map_bwd": "feature_map_bwd_kernel",
+                "slay_scan_fwd": "scan_fwd_kernel",
+                "slay_scan_bwd_q": "scan_bwd_q_kernel",
+                "slay_scan_bwd_kv": "scan_bwd_kv_kernel"}
+
+
+def _profiled_slay_kernels(fn) -> dict:
+    """{device kernel name: launches} of the SLAY kernels ``fn()`` runs,
+    by the profiler (CUPTI); a window that recorded no device kernel at
+    all is taken again, at most twice."""
+    import re
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
+    out = collections.Counter()
+    for e in events:
+        m = re.search(r"slay::(\w+_kernel)\b", e.key)
+        if m and m.group(1) in KERNEL_NAMES.values():
+            out[m.group(1)] += e.count
+    return dict(out)
+
+
+@needs_card
+@pytest.mark.parametrize("name", sorted(C15_CARD))
+def test_c15_configs_run_their_routes_forward_and_backward_on_card(name):
+    # R = 12, P·D = 24 and head dim 128 at P = D = 32 through
+    # ops.slay_fused_attention at slayformer's 12 heads, L = 1024, bf16,
+    # against the CPU plain path on the same inputs: no ValueError; y
+    # within 2e-2 (one bf16 rounding, the two-dispatch route's tolerance),
+    # the gradients of q, k, v, the anchors and the omegas within 1e-2 of
+    # each one's largest. The launch counters and the profiler's device
+    # kernels show the route the CPU tables.
+    from repro_torch.kernels import ops as tops
+    kw, fwd_route, grad_route = C15_CARD[name]
+    cfg = tfeat.SlayFeatureConfig(**kw)
+    d = cfg.head_dim
+    for grad, want in ((False, fwd_route), (True, grad_route)):
+        assert tops.attention_route(cfg, d, d, grad, "cuda") == want
+    p, q, k, v, dy = _route_case(cfg, L=1024, h=12, hkv=12, dv=d)
+    q, k, v = (t.bfloat16() for t in (q, k, v))
+    cpu = {n: t.cpu() for n, t in p.items()}
+
+    def run(params, q, k, v):
+        return tops.slay_fused_attention(q, k, v, params, cfg)
+
+    with torch.no_grad():
+        _build.reset_launches()
+        y = run(p, q, k, v)
+        torch.cuda.synchronize()
+        counts = {n: c for n, c in _build.LAUNCHES.items() if c}
+        assert counts == ROUTE_LAUNCHES[fwd_route][0], counts
+        seen = _profiled_slay_kernels(lambda: run(p, q, k, v))
+        assert seen == {KERNEL_NAMES[n]: c for n, c in counts.items()}, seen
+        yc = run(cpu, q.cpu(), k.cpu(), v.cpu())
+    torch.testing.assert_close(y.cpu().float(), yc.float(), rtol=2e-2,
+                               atol=2e-2)
+    _build.reset_launches()
+    y, got = _grads(run, p, q, k, v, dy)
+    torch.cuda.synchronize()
+    counts = {n: c for n, c in _build.LAUNCHES.items() if c}
+    want = collections.Counter(ROUTE_LAUNCHES[grad_route][0])
+    want.update(ROUTE_LAUNCHES[grad_route][1])
+    assert counts == dict(want), counts
+    seen = _profiled_slay_kernels(lambda: _grads(run, p, q, k, v, dy))
+    assert seen == {KERNEL_NAMES[n]: c for n, c in counts.items()}, seen
+    yc, wants = _grads(run, cpu, q.cpu(), k.cpu(), v.cpu(), dy.cpu())
+    torch.testing.assert_close(y.cpu().float(), yc.float(), rtol=2e-2,
+                               atol=2e-2)
+    for g, w in zip(got, wants, strict=True):
+        torch.testing.assert_close(g.cpu().float(), w.float(), rtol=0.0,
+                                   atol=1e-2 * float(w.float().abs().max()))
 
 
 @needs_card

@@ -271,9 +271,10 @@ def test_fused_route_predicate():
     assert tfused.fused_smem_bytes(32, 32, 32, 32) == 316160
     assert tfused.fused_bwd_smem_bytes(64, 64, 8, 16, es=2) == 104832
     assert tfused.fused_bwd_smem_bytes(64, 64, 8, 16) == 115072
-    assert tfused.fused_fits(64, 64, 8, 16, "cpu")
-    assert not tfused.fused_fits(32, 32, 32, 32, "cpu")
-    assert not tfused.fused_fits(64, 64, 32, 32, "cpu")
+    for grad in (False, True):
+        assert tfused.fused_fits(64, 64, 8, 16, 3, grad, "cpu")
+        assert not tfused.fused_fits(32, 32, 32, 32, 3, grad, "cpu")
+        assert not tfused.fused_fits(64, 64, 32, 32, 3, grad, "cpu")
 
 
 def test_anchor_past_the_fused_width_takes_two_dispatch_and_matches_jax(
