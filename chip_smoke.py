@@ -291,6 +291,19 @@ Phases, each of which raises (nonzero exit) on failure:
     (m = 1536) served by ``generate`` in fp32, its prefill through B5 and
     every decode step through K2, greedy streams equal to the CPU's on a
     trace with no near-tie.
+29. the dry run (``phase_dryrun``): ``repro_torch.launch.dryrun`` of
+    slayformer-124m at full depth on a one-rank ``fake`` world (meta
+    tensors, in a child process: ``chip_smoke.py --dryrun-child PATH``)
+    for one train step of phase 9's 8 x 1024 tokens (2 microbatches,
+    remat), one prefill of phase 8's 4 x 512 and one decode step; the
+    same three steps on the card (each after a warm-up call): launches
+    per kernel and argument bytes equal to the dry run's, peak memory
+    (``max_memory_allocated`` over the step) and the roofline's terms
+    printed beside the measured step (the median of 10 calls timed by
+    CUDA events, every reading, and a profiler window's device busy
+    time and idle share); the continuous engine's trace contracts
+    (``contract_traces``: one eager decode dispatch and a prefill tick)
+    on the card with no finding.
 The bounds every phase prints come from ``repro_torch.launch.roofline``.
 Phases 14-17 and mamba2's part of phase 24 check that no SLAY kernel
 launched, phases 19-20 that only K2 did; the kernel line's B4a launches
@@ -298,8 +311,8 @@ are phase 8's, 19's, 22's, 23's, 24's and 25's, its B4b launches phase
 12's, 18's, 19's, 20's, 22's, 23's, 24's and 25's, its K1 launches phase
 8's, 22's, 23's, 24's and 25's, its K3 and K4 launches phase 9's, 22's,
 23's, 24's and 25's, its B7 and B8 launches phase 11's and 25's, and
-every row phase 26's, 27's (B1-B4b) and 28's, under ``core``,
-``sharded`` and ``c15`` too (each
+every row phase 26's, 27's (B1-B4b), 28's and 29's (B1-B4b), under
+``core``, ``sharded``, ``c15`` and ``dryrun`` too (each
 row has the dense decoders' launches, G and head-dim-128 numbers per
 config under ``dense_decoders``, phase 23's configs' under
 ``mixed_and_moe``, phase 24's, with hymba's kernels at head dim 64,
@@ -329,6 +342,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -5349,6 +5363,217 @@ def phase_c15(card: str) -> dict:
     return dict(launches)
 
 
+# Phase 29: the dry run of slayformer-124m at full depth, at the shapes
+# phases 8 and 9 run, against the same steps on the card.
+DRY_CELLS = (
+    configs.ShapeCell("chip_train", TRAIN_LEN, TRAIN_BATCH, "train"),
+    configs.ShapeCell("chip_prefill", max(PROMPT_LENS), len(PROMPT_LENS),
+                      "prefill"),
+    configs.ShapeCell("chip_decode", max(PROMPT_LENS), len(PROMPT_LENS),
+                      "decode"))
+DRY_PEAK_GAP = 0.10            # a peak gap past this is explained in PERF.md
+DRY_TIMED = 10                 # timed calls of each real step (median)
+DRY_CONTRACT = ServingConfig(num_slots=8, max_len=1024, prefill_chunk=128,
+                             macro_ticks=8)
+
+
+def _dry_train_cfg(cfg) -> loop.TrainConfig:
+    """The dry run's step on a one-rank world: the reference's
+    microbatches for the cell (2 at 8 x 1024 tokens), remat on."""
+    from repro_torch.launch import dryrun
+    one = types.SimpleNamespace(shape={"data": 1, "model": 1})
+    return loop.TrainConfig(
+        microbatches=dryrun.default_microbatches(cfg, DRY_CELLS[0], one),
+        remat=True)
+
+
+def _dryrun_child(path: str) -> int:
+    """``chip_smoke.py --dryrun-child PATH``: phase 29's dry run in a
+    process of its own (its fake one-rank world never meets phase 27's
+    NCCL group); writes the three records to PATH. Needs no card."""
+    from repro_torch.launch import dryrun
+    cfg = configs.get_config("slayformer-124m")
+    recs = [dryrun.run_cell(cfg.name, cell, mesh_shape=(1, 1), world_size=1,
+                            train_cfg=_dry_train_cfg(cfg), verbose=False)
+            for cell in DRY_CELLS]
+    with open(path, "w") as f:
+        json.dump(recs, f)
+    for r in recs:
+        if r["status"] != "ok":
+            print(f"{r['shape']}: {r['status']}: {r.get('error')}\n"
+                  f"{r.get('traceback')}", file=sys.stderr)
+    return 0 if all(r["status"] == "ok" for r in recs) else 1
+
+
+def _dry_measured(what: str, fn) -> tuple:
+    """(fn's launches and the bytes it allocated at most beyond what was
+    live, in one call; then the ms of each of DRY_TIMED calls, timed by
+    CUDA events around each) on the card, and a profiler window over one
+    more call beside their median (``profile``: device busy time and
+    idle share)."""
+    torch.cuda.synchronize()
+    before = dict(_build.LAUNCHES)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    launches = _all_delta(before)
+    temp = torch.cuda.max_memory_allocated() - base
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True))
+              for _ in range(DRY_TIMED)]
+    for start, end in events:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    ms = [start.elapsed_time(end) for start, end in events]
+    profile(what, fn, statistics.median(ms))
+    return launches, temp, ms
+
+
+def _nbytes(*trees) -> int:
+    return sum(t.nbytes for tree in trees for t in tree_leaves(tree))
+
+
+def _dry_real(cfg) -> dict:
+    """The dry run's three steps for real on the card, from seed-0
+    weights: {cell: (launches, argument bytes, temp bytes, [ms of each
+    timed call])}. Each runs once untimed first (its warm-up), then as
+    ``_dry_measured`` says."""
+    params = api.init_params(cfg, SEED, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {}
+
+    def toks(b, L):
+        return torch.randint(0, cfg.vocab_size, (b, L), generator=gen,
+                             device="cuda", dtype=torch.int32)
+
+    train, prefill, decode = DRY_CELLS
+    ocfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=2)
+    opt = adamw_init(params, ocfg)
+    ef = torch.zeros((), device="cuda")
+    batch = {"tokens": toks(train.global_batch, train.seq_len),
+             "labels": toks(train.global_batch, train.seq_len)}
+    step = loop.make_train_step(cfg, ocfg, _dry_train_cfg(cfg), donate=True)
+    step(params, opt, ef, batch)
+    got = _dry_measured(train.name, lambda: step(params, opt, ef, batch))
+    out[train.name] = (got[0], _nbytes(params, opt, ef, batch), *got[1:])
+    tokens = toks(prefill.global_batch, prefill.seq_len)
+    with torch.no_grad():
+        api.prefill(params, cfg, tokens)
+        got = _dry_measured(prefill.name,
+                            lambda: api.prefill(params, cfg, tokens))
+    out[prefill.name] = (got[0], _nbytes(params, tokens), *got[1:])
+    cache = api.init_cache(cfg, decode.global_batch, decode.seq_len,
+                           device="cuda")
+    tokens = toks(decode.global_batch, 1)
+    with torch.no_grad():
+        api.decode_step(params, cfg, cache, tokens)
+        got = _dry_measured(decode.name, lambda: api.decode_step(
+            params, cfg, cache, tokens))
+    out[decode.name] = (got[0], _nbytes(params, cache, tokens), *got[1:])
+    return out
+
+
+def _dry_contracts(cfg, card: str) -> dict:
+    """The trace contracts on one eager decode dispatch (and a prefill
+    tick) of the continuous engine on the card: no collective, no host
+    op, the pool written in place. Returns the launches."""
+    from repro_torch.analysis import trace
+    params = api.init_params(cfg, SEED, device="cuda")
+    eng = engine.ContinuousServingEngine(cfg, params, serving=DRY_CONTRACT,
+                                         device="cuda", _graphs=False)
+    before = dict(_build.LAUNCHES)
+    findings = []
+    for name, (tr, donated) in eng.contract_traces().items():
+        found = (trace.check_no_collectives(tr, name)
+                 + trace.check_no_host_ops(tr, name)
+                 + trace.check_donation(tr, donated, name))
+        findings += found
+        log(f"  contracts {name}: {len(tr.ops)} ops, {len(donated)} donated "
+            f"leaves, {len(found)} findings  [{card}]")
+    if findings:
+        raise RuntimeError("trace contracts broken on the card:\n"
+                           + "\n".join(f.render() for f in findings))
+    return _all_delta(before)
+
+
+def phase_dryrun(card: str) -> dict:
+    """Phase 29: slayformer-124m's dry run (a one-rank fake world, meta
+    tensors, in a child process, beside the engine's trace contracts on
+    the card) against the same three steps on the card, run once the
+    child is done: launches and argument bytes equal, peak memory and the
+    roofline printed beside the measured (the median of DRY_TIMED calls,
+    and a profiler window's idle share). Returns the phase's launches."""
+    t_phase = time.perf_counter()
+    cfg = configs.get_config("slayformer-124m")
+    log(f"dry run: {cfg.name} at {cfg.num_layers} layers, one train step "
+        f"of {TRAIN_BATCH} x {TRAIN_LEN} tokens, one prefill of "
+        f"{len(PROMPT_LENS)} x {max(PROMPT_LENS)}, one decode step, on "
+        f"meta against the card")
+    before = dict(_build.LAUNCHES)
+    tmp = tempfile.mkdtemp()
+    path = os.path.join(tmp, "dryrun.json")
+    child = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dryrun-child", path],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        contract_launches = _dry_contracts(cfg, card)
+        child_log, _ = child.communicate(timeout=600)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    try:
+        if child.returncode:
+            raise RuntimeError(f"the dry run failed (exit "
+                               f"{child.returncode}):\n{child_log[-4000:]}")
+        with open(path) as f:
+            recs = json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    real = _dry_real(cfg)
+    for rec in recs:
+        got, argument, temp, ms = real[rec["shape"]]
+        want = {k: v["launches"] for k, v in rec["kernels"].items()}
+        bpd, roof = rec["bytes_per_device"], rec["roofline"]
+        log(f"  {rec['shape']}: launches dry {want} card {got}; argument "
+            f"dry {bpd['argument']} card {argument} B; routes "
+            f"{rec['routes']}, trace {rec['trace_s']} s  [{card}]")
+        if want != got:
+            raise RuntimeError(f"{rec['shape']}: the dry run's launches "
+                               f"{want} are not the card's {got}")
+        if bpd["argument"] != argument:
+            raise RuntimeError(f"{rec['shape']}: argument bytes "
+                               f"{bpd['argument']} on meta, {argument} on "
+                               f"the card")
+        peak = argument + temp
+        gap = bpd["peak"] / peak - 1
+        log(f"  {rec['shape']}: peak dry {bpd['peak']} B (temp "
+            f"{bpd['temp']}) card {peak} B (max_memory_allocated over the "
+            f"step, temp {temp}), ratio {bpd['peak'] / peak:.4f}"
+            + (" (gap past 10%, PERF.md)" if abs(gap) > DRY_PEAK_GAP
+               else "") + f"  [{card}]")
+        log(f"  {rec['shape']}: roofline t_compute {roof['t_compute_s']:.6g}"
+            f" s, t_memory {roof['t_memory_s']:.6g} s, dominant "
+            f"{roof['dominant']}, roofline_fraction "
+            f"{roof['roofline_fraction']:.4g}; measured step median "
+            f"{statistics.median(ms):.3f} ms of {len(ms)} calls (CUDA "
+            f"events; min {min(ms):.3f}, max {max(ms):.3f}; each "
+            f"{[round(x, 3) for x in ms]}) (bound "
+            f"{max(roof['t_compute_s'], roof['t_memory_s']) * 1e3:.3f} ms)"
+            f"  [{card}]")
+    _free_card()
+    launches = _all_delta(before)
+    log(f"dry run: launches {launches} (the contract traces' "
+        f"{contract_launches}; each card step {DRY_TIMED + 3} times: a "
+        f"warm-up, the counted call, {DRY_TIMED} timed calls and one under "
+        f"the profiler); the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; it needs an "
@@ -5397,6 +5622,7 @@ def main() -> int:
     core = phase_core(card_line, slay_step_ms)
     sharded = phase_sharded(card_line, train_losses, fused_step_s)
     c15 = phase_c15(card_line)
+    dry = phase_dryrun(card_line)
     k2_bl = k2.pop("baselines")
     kernels = [
         dict(name="slay_fused_fwd", route="cuda",
@@ -5484,6 +5710,10 @@ def main() -> int:
     for row in kernels:
         row["launches"] += c15.get(row["name"], 0)
         row["c15"] = c15.get(row["name"], 0)
+    # Phase 29's steps on the card join rows B1-B4b, under ``dryrun`` too.
+    for row in kernels:
+        row["launches"] += dry.get(row["name"], 0)
+        row["dryrun"] = dry.get(row["name"], 0)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi())
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -5494,4 +5724,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dryrun-child"]:
+        sys.exit(_dryrun_child(sys.argv[2]))
     sys.exit(main())

@@ -36,9 +36,10 @@ import dataclasses
 import math
 
 import torch
-from torch.distributed.tensor import (DTensor, Replicate, Shard,
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                       distribute_tensor)
-from torch.distributed.tensor.experimental import implicit_replication
+from torch.distributed.tensor.experimental import (implicit_replication,
+                                                   local_map)
 
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -146,6 +147,71 @@ def constrain(x, logical_axes: tuple):
     if tuple(x.placements) == want:
         return x
     return x.redistribute(x.device_mesh, want)
+
+
+def _einsum_placements(eq: str, x, w) -> tuple:
+    """Per mesh dim of a ``local_einsum``: (w's placement to compute with,
+    the output's, x's gradient's, w's gradient's)."""
+    lhs, out = eq.replace(" ", "").split("->")
+    xs, ws = lhs.split(",")
+    xl = xs.replace("...", "")
+    lead = x.dim() - len(xl)
+    ol = out.replace("...", "")
+    plans = []
+    for px, pw in zip(x.placements, w.placements):
+        xc = (None if not isinstance(px, Shard)
+              else "lead" if px.dim < lead else xl[px.dim - lead])
+        wc = ws[pw.dim] if isinstance(pw, Shard) else None
+        if xc == "lead" or (xc is not None and xc in ol):
+            # x's rows (the batch) split here: the weight whole.
+            at = px.dim if xc == "lead" else lead + ol.index(xc)
+            plans.append((Replicate(), Shard(at), px, Partial()))
+        elif xc is not None:
+            # A contracted letter split on both sides: a partial sum.
+            ww = Shard(ws.index(xc))
+            plans.append((ww, Partial(), px, ww))
+        elif wc is not None and wc in ol:
+            # The weight's output columns (heads) split here.
+            plans.append((pw, Shard(lead + ol.index(wc)), Partial(), pw))
+        else:
+            # The weight's contracted rows gathered (FSDP), or both whole.
+            plans.append((Replicate(),) * 4)
+    return tuple(zip(*plans))
+
+
+def local_einsum(eq: str, x, w, *, force: bool = False):
+    """``torch.einsum(eq, x, w)`` of an activation ``x`` and a weight
+    ``w``, ``eq`` of the form ``"...xs,ws->...out"``.
+
+    On DTensors where both are whole over some mesh axis of more than one
+    rank (a weight whose heads fell back to replicated), or with
+    ``force``, it runs on each rank's block through ``local_map``, with
+    placements decided here: there DTensor's strategy search is free to
+    split the flattened (heads x head dim) output over that axis, which
+    the heads do not divide, and then fails to unflatten it. Per mesh
+    dim: where x's batch is split the weight is gathered whole; where the
+    weight's output columns are split the output is; a contracted dim
+    split on both sides gives a partial sum; a weight split only on its
+    contracted rows (FSDP) is gathered. A partial-sum x is summed first.
+    Every other call is ``torch.einsum`` (DTensor's own rules)."""
+    if not isinstance(w, DTensor) or not isinstance(x, DTensor):
+        return torch.einsum(eq, x, w)
+    if any(isinstance(p, Partial) for p in x.placements):
+        x = x.redistribute(placements=[
+            Replicate() if isinstance(p, Partial) else p
+            for p in x.placements])
+    free = any(n > 1 and isinstance(px, Replicate)
+               and isinstance(pw, Replicate)
+               for n, px, pw in zip(x.device_mesh.shape, x.placements,
+                                    w.placements))
+    if not (free or force):
+        return torch.einsum(eq, x, w)
+    w_in, out, x_grad, w_grad = _einsum_placements(eq, x, w)
+    return local_map(
+        lambda xl, wl: torch.einsum(eq, xl, wl), out_placements=list(out),
+        in_placements=(tuple(x.placements), w_in),
+        in_grad_placements=(x_grad, w_grad), device_mesh=x.device_mesh,
+        redistribute_inputs=True)(x, w)
 
 
 def _mesh_axes_present(shape: dict, axes) -> tuple[str, ...]:
@@ -427,6 +493,19 @@ def cache_sharding(mesh, rules: ShardingRules, abstract):
         return placements(mesh, tuple(spec), len(shape))
 
     return tree_map(one, abstract)
+
+
+def place_cache(cache):
+    """A freshly made decode cache (zeros) as DTensors in
+    :func:`cache_sharding`'s placements under the active
+    :class:`activation_sharding` context: each rank keeps its own block
+    and nothing is sent. Unchanged outside a context."""
+    if not _ACTIVATION_CTX:
+        return cache
+    mesh, rules = _ACTIVATION_CTX[-1]
+    return tree_map(
+        lambda x, pl: distribute_tensor(x, mesh, pl, src_data_rank=None),
+        cache, cache_sharding(mesh, rules, cache))
 
 
 def full_tensor(x: torch.Tensor) -> torch.Tensor:

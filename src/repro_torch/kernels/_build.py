@@ -17,6 +17,15 @@ launch, nowhere else), so a run can show that it went through the kernels.
 A captured CUDA graph launches its kernels without calling the wrappers:
 ``serving.graphs`` takes back what the wrappers counted while capturing
 and adds it on every replay.
+
+Every launch wrapper also takes ``meta`` tensors (a dry run,
+``launch.dryrun``): it allocates what the CUDA launch allocates, with the
+same shapes and dtypes, launches nothing, and :func:`record_meta` counts
+the launch in :data:`LAUNCHES` under the CUDA launch's key and passes its
+name and shape to :data:`meta_hook` (set by ``launch.cost.CostCounter``,
+which reads the kernel's work from ``launch.roofline``). The guards read
+the Python copies of the kernels' limits, which equal the C entries
+(``tests/test_torch_card.py``).
 """
 from __future__ import annotations
 
@@ -89,11 +98,28 @@ LAUNCHES: dict[str, int] = {
     "feature_map_fwd": 0, "feature_map_bwd": 0,
     "slay_scan_fwd": 0, "slay_scan_bwd_q": 0, "slay_scan_bwd_kv": 0}
 _LIBS: dict[str, ctypes.CDLL] = {}
+# Told (name, shape) of every meta launch, or None: ``shape`` is the
+# launch's sizes, (bh, bk, L, d, dv, P, D, R, es) for K1, K3 and K4,
+# (bh, bk, m, dv, q_es, v_es) for K2, (bh, bk, L, m, dv, es) for B5-B6b,
+# (n, d, P, D, R, es) for B7 and B8.
+meta_hook = None
+# The devices whose tensors go to the launch wrappers: the card's, and
+# meta (a dry run). CPU tensors take the plain versions.
+KERNEL_DEVICES = ("cuda", "meta")
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def record_meta(name: str, *shape: int) -> None:
+    """A meta branch's launch of kernel ``name``: one count in
+    :data:`LAUNCHES` (under the key its CUDA launch counts), and ``name``
+    and ``shape`` to :data:`meta_hook`."""
+    LAUNCHES[name] += 1
+    if meta_hook is not None:
+        meta_hook(name, shape)
 
 
 def nvcc() -> str:

@@ -14,10 +14,13 @@ tensors that were passed in, as the TPU kernel aliases them through
 their state bit-identical.
 
 :func:`decode_linear_attention` chooses by the tensors' device: CUDA
-tensors launch the kernel (or raise), CPU tensors run
-:func:`decode_linear_attention_plain`. Forward only: the closed-form
-backward (``_decode_bwd`` in the JAX package) is on no training path and
-waits in ROADMAP Queue B under B4.
+tensors launch the kernel (or raise); ``meta`` tensors take the same
+launch wrapper, which allocates y, leaves (S, z) as they are (updated in
+place on the card), launches nothing and records the launch
+(``_build.record_meta``); CPU tensors run
+:func:`decode_linear_attention_plain`. Any other device raises. Forward
+only: the closed-form backward (``_decode_bwd`` in the JAX package) is
+on no training path and waits in ROADMAP Queue B under B4.
 """
 from __future__ import annotations
 
@@ -114,13 +117,21 @@ def _check(qf, kf, v, s, z, active):
 
 
 def _launch(qf, kf, v, s, z, active, delta):
+    """K2 on CUDA tensors. On ``meta`` tensors it allocates y and records
+    the launch with ``k2_bound``'s work, every kv row counted active (the
+    mask's values are not known there)."""
     _build.local_only("slay_decode_step", qf, kf, v, s, z, active)
     bh, m = qf.shape
     bk, dv = v.shape
     if dv not in (16, 32, 64, 128):
         raise ValueError(f"kernel takes dv in (16, 32, 64, 128), got {dv}")
-    lib = _build.load("decode_step")
+    key = "slay_decode_step" if active is None else "slay_decode_step_masked"
     y = torch.empty(bh, dv, dtype=v.dtype, device=qf.device)
+    if qf.device.type == "meta":
+        _build.record_meta(key, bh, bk, m, dv, qf.element_size(),
+                           v.element_size())
+        return y, s, z
+    lib = _build.load("decode_step")
     with torch.cuda.device(qf.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.slay_decode_step(
@@ -131,8 +142,7 @@ def _launch(qf, kf, v, s, z, active, delta):
             _build.DTYPE_CODES[v.dtype], delta, stream)
     _build.check(err, "slay_decode_step")
     # B4a and B4b count apart: the masked variant is the pool's.
-    _build.LAUNCHES["slay_decode_step" if active is None
-                    else "slay_decode_step_masked"] += 1
+    _build.LAUNCHES[key] += 1
     return y, s, z
 
 
@@ -158,9 +168,11 @@ def decode_linear_attention(qf: torch.Tensor, kf: torch.Tensor,
     fp32 -> (y (BH, dv) in v's dtype, s', z'), s and z updated in place.
     BH must be a multiple of BK (GQA). ``active`` (BK,) int32 masks
     continuous-batching pool rows: inactive rows get y = 0 and keep their
-    state bit-identical."""
+    state bit-identical. CUDA and ``meta`` tensors take the kernel's
+    launch wrapper (on ``meta`` its meta branch), CPU tensors the plain
+    version; any other device raises."""
     _check(qf, kf, v, s, z, active)
-    if qf.device.type == "cuda":
+    if qf.device.type in _build.KERNEL_DEVICES:
         return _launch(qf, kf, v, s, z, active, delta)
     if qf.device.type != "cpu":
         raise ValueError(f"unsupported device {qf.device}")

@@ -13,8 +13,11 @@ feature map.
 :class:`FeatureMap` is the counterpart of the ``_fmap`` custom VJP: it
 saves (u, anchors, omegas) and its backward runs B8, which emits du and
 per-block dA, dΩ partials that the wrapper sums when they are asked
-for. CUDA tensors launch the kernels (or raise), CPU tensors run the
-plain versions; there is no fallback from one to the other. The CUDA
+for. CUDA tensors launch the kernels (or raise); ``meta`` tensors take
+the same launch wrappers, which allocate the launch's outputs, launch
+nothing and record the launch (``_build.record_meta``); CPU tensors run
+the plain versions. Any other device raises; there is no fallback from
+one to the other. The CUDA
 kernels take any number of tokens N (a guarded last tile), so, unlike
 the TPU's, they need no padding.
 """
@@ -74,6 +77,7 @@ def _round16(n: int) -> int:
 _FWD_TILE = 32       # kFwdTile: B7's tokens per tile
 _BWD_WARPS = 8       # kBwdWarps: B8's warps per block
 _BWD_REG_ROWS = 24   # kRegRows: dA/dΩ rows a B8 lane keeps in registers
+_META_SMS = 132      # the H100 SXM5's SMs: B8's grid on meta tensors
 
 
 def _fwd_smem(d: int, P: int, D: int, R: int, es: int) -> int:
@@ -147,8 +151,9 @@ def fmap_fits(d: int, P: int, D: int, R: int, grad: bool,
 def _kernel_args(lib, u, cfg: SlayFeatureConfig, bwd: bool):
     """Guards of B7 and B8, which a routed call never reaches
     (``ops.attention_route`` sends a config past them to Ψ in PyTorch ops):
-    they stop a wrong route from launching. Returns the shapes and the
-    quadrature constants as C double arrays."""
+    they stop a wrong route from launching. ``lib`` None (``meta``
+    tensors) reads the shared memory from the Python copy. Returns the
+    shapes and the quadrature constants as C double arrays."""
     d = u.shape[1]
     P, D, R = cfg.num_anchors, cfg.num_prf, cfg.num_quad_nodes
     if R > _build.MAX_NODES:
@@ -157,8 +162,11 @@ def _kernel_args(lib, u, cfg: SlayFeatureConfig, bwd: bool):
     if bwd and d > _build.MAX_BWD_HEAD_DIM:
         raise ValueError(f"backward kernel takes head dim <= "
                          f"{_build.MAX_BWD_HEAD_DIM}, got {d}")
-    smem = lib.slay_feature_map_smem_bytes(d, P, D, R, int(bwd),
-                                           _build.DTYPE_CODES[u.dtype])
+    if lib is None:
+        smem = fmap_smem_bytes(d, P, D, R, bwd, u.element_size())
+    else:
+        smem = lib.slay_feature_map_smem_bytes(d, P, D, R, int(bwd),
+                                               _build.DTYPE_CODES[u.dtype])
     if smem > _build.SMEM_LIMIT:
         raise ValueError(f"shapes need {smem} B of shared memory per block, "
                          f"more than {_build.SMEM_LIMIT}")
@@ -167,13 +175,24 @@ def _kernel_args(lib, u, cfg: SlayFeatureConfig, bwd: bool):
             (ctypes.c_double * R)(*st.sqrt_w))
 
 
+def _lib(u):
+    """The feature-map library, or None for ``meta`` tensors."""
+    return None if u.device.type == "meta" else _build.load("feature_map")
+
+
 def launch_fwd(u, anchors, omegas, cfg: SlayFeatureConfig):
-    """B7 on CUDA tensors: -> Ψ(u) (N, m) in u's dtype."""
+    """B7 on CUDA tensors: -> Ψ(u) (N, m) in u's dtype. On ``meta``
+    tensors it allocates Ψ and records the launch with
+    ``feature_map_bounds``' work."""
     _build.local_only("slay_feature_map_fwd", u, anchors, omegas)
-    lib = _build.load("feature_map")
+    lib = _lib(u)
     d, P, D, R, s_nodes, sqrt_w = _kernel_args(lib, u, cfg, False)
     n = u.shape[0]
     psi = torch.empty(n, cfg.feature_dim, dtype=u.dtype, device=u.device)
+    if lib is None:
+        _build.record_meta("feature_map_fwd", n, d, P, D, R,
+                           u.element_size())
+        return psi
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.slay_feature_map_fwd(
@@ -200,15 +219,25 @@ def _bwd_blocks(lib, n: int, d: int, P: int, D: int, R: int, dtype: int,
 
 def launch_bwd(u, anchors, omegas, dpsi, cfg: SlayFeatureConfig):
     """B8 on CUDA tensors: -> (du (N, d) in u's dtype, dA (nb, P, d) and
-    dΩ (nb, D, d) fp32 partials, one per block of its persistent grid)."""
+    dΩ (nb, D, d) fp32 partials, one per block of its persistent grid).
+    On ``meta`` tensors it allocates the same, its grid taken at one block
+    per SM of the H100 (the card's occupancy query is not asked), and
+    records the launch with ``feature_map_bounds``' work."""
     _build.local_only("slay_feature_map_bwd", u, anchors, omegas, dpsi)
-    lib = _build.load("feature_map")
+    lib = _lib(u)
     d, P, D, R, s_nodes, sqrt_w = _kernel_args(lib, u, cfg, True)
     n, dtype = u.shape[0], _build.DTYPE_CODES[u.dtype]
-    nb = _bwd_blocks(lib, n, d, P, D, R, dtype, u.device.index)
+    if lib is None:
+        nb = max(min(-(-n // _BWD_WARPS), _META_SMS), 1)
+    else:
+        nb = _bwd_blocks(lib, n, d, P, D, R, dtype, u.device.index)
     du = torch.empty_like(u)
     da = torch.empty(nb, P, d, dtype=torch.float32, device=u.device)
     dw = torch.empty(nb, D, d, dtype=torch.float32, device=u.device)
+    if lib is None:
+        _build.record_meta("feature_map_bwd", n, d, P, D, R,
+                           u.element_size())
+        return du, da, dw
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.slay_feature_map_bwd(
@@ -252,12 +281,13 @@ def feature_map_bwd(u, anchors, omegas, dpsi, cfg: SlayFeatureConfig, *,
     """VJP of the feature map: -> (du in u's dtype, dA, dΩ in the
     projections' dtype), or (du, None, None) when ``proj_grads`` is false.
     CUDA tensors run B8 and sum its partials, CPU tensors the plain
-    version."""
+    version; ``meta`` tensors take B8's meta branch, any other device
+    raises."""
     _check(u, anchors, omegas, cfg)
     if dpsi.shape != (u.shape[0], cfg.feature_dim) or dpsi.dtype != u.dtype:
         raise ValueError(f"dpsi {tuple(dpsi.shape)} {dpsi.dtype} does not "
                          f"match Ψ of u {tuple(u.shape)} {u.dtype}")
-    if u.device.type == "cuda":
+    if u.device.type in _build.KERNEL_DEVICES:
         du, da, dw = launch_bwd(u, anchors, omegas, dpsi.contiguous(), cfg)
         if not proj_grads:
             return du, None, None
@@ -271,14 +301,15 @@ def feature_map_bwd(u, anchors, omegas, dpsi, cfg: SlayFeatureConfig, *,
 
 class FeatureMap(torch.autograd.Function):
     """The ``_fmap`` custom VJP of the JAX package: the forward runs B7
-    (the plain version on the CPU) and saves (u, anchors, omegas); the
-    backward runs B8 (the plain version on the CPU)."""
+    (its meta branch on ``meta`` tensors, the plain version on the CPU)
+    and saves (u, anchors, omegas); the backward runs B8 (the plain
+    version on the CPU)."""
 
     @staticmethod
     def forward(ctx, u, anchors, omegas, cfg):
         ctx.save_for_backward(u, anchors, omegas)
         ctx.cfg = cfg
-        if u.device.type == "cuda":
+        if u.device.type in _build.KERNEL_DEVICES:
             return launch_fwd(u, anchors, omegas, cfg)
         if u.device.type != "cpu":
             raise ValueError(f"unsupported device {u.device}")

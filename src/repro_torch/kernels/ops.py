@@ -4,7 +4,10 @@ Model code calls these. They translate between the model's
 (..., L, H, feat) layout and the kernels' head-major (BH, L, feat) layout
 and zero-pad ragged lengths to chunk multiples (zero features add nothing
 to the running state, as in ``core.linear_attention``). Kernel or plain
-version is chosen by the tensors' device inside the kernel wrappers.
+version is chosen by the tensors' device inside the kernel wrappers: the
+kernels on CUDA tensors, their meta branches on ``meta`` tensors (a dry
+run: outputs allocated, the launch recorded, nothing computed), the plain
+versions on CPU tensors; any other device raises.
 
 Each entry also takes DTensors (a sharded model, ``distributed.sharding``):
 it runs on every rank's own block through ``local_map``, batch over the
@@ -91,7 +94,11 @@ def _sharded_heads(run, q, k, v, *consts, kv_state: tuple = ()):
     falls back to replicated while q's heads shard (Hkv does not divide
     the model axis), each rank takes the kv heads its own q heads read,
     ``h // (H / Hkv)`` as in the unsharded call, and their gradient is a
-    partial sum over the ranks that share them."""
+    partial sum over the ranks that share them; with a decode state,
+    which is then replicated too and updated in place, each rank takes
+    every q head instead (q's heads gathered) and updates all its kv
+    heads, so the replicas stay equal, and the output's heads come back
+    whole."""
     mesh = q.device_mesh
     nd, hd = q.dim(), q.dim() - 2
     lead = ("act_batch",) + (None,) * (nd - 3)
@@ -104,15 +111,16 @@ def _sharded_heads(run, q, k, v, *consts, kv_state: tuple = ()):
                 for x in kv_state)
     H, hkv = q.shape[hd], k.shape[hd]
     g = H // hkv
-    off, hl = _head_block(mesh, qpl, hd, H)
     split = tuple(isinstance(qp, Shard) and qp.dim == hd
                   and not (isinstance(kp, Shard) and kp.dim == hd)
                   for qp, kp in zip(qpl, kpl))
+    if kv_state:
+        qpl = tuple(Replicate() if s else p for s, p in zip(split, qpl))
+        split = (False,) * len(split)
+    off, hl = _head_block(mesh, qpl, hd, H)
     if any(split) and hl % g and g % hl:
         raise ValueError(f"q heads {H} over kv heads {hkv}: a rank's block "
                          f"of {hl} q heads straddles kv heads")
-    if any(split) and kv_state:
-        raise ValueError("a decode state's kv heads must shard with q's")
     kgrad = tuple(Partial() if s else p for s, p in zip(split, kpl))
     vgrad = tuple(Partial() if s else p for s, p in zip(split, vpl))
 

@@ -12,9 +12,11 @@ memory; see the CUDA sources for the designs and what bounds them.
 :class:`FusedAttention`, the counterpart of the ``_fused`` custom VJP: its
 forward saves (q, k, v, anchors, omegas, y, den) and its backward runs
 K3 then K4. Every wrapper chooses by the tensors' device: CUDA tensors
-launch the kernels (or raise), CPU tensors run the plain versions, which
-repeat the kernels' fp32 arithmetic in PyTorch. There is no fallback from
-one to the other.
+launch the kernels (or raise); ``meta`` tensors take the same launch
+wrappers, which allocate the launch's outputs, launch nothing and record
+the launch (``_build.record_meta``); CPU tensors run the plain versions,
+which repeat the kernels' fp32 arithmetic in PyTorch. Any other device
+raises. There is no fallback from one to the other.
 """
 from __future__ import annotations
 
@@ -164,11 +166,12 @@ def fused_fits(d: int, dv: int, P: int, D: int, R: int, grad: bool,
             and (not grad or bwd(d, dv, P, D) <= _build.SMEM_LIMIT))
 
 
-def _kernel_args(lib, smem_fn, q, v, cfg: SlayFeatureConfig):
-    """Shape checks shared by K1, K3 and K4; returns the quadrature
-    constants as C double arrays. A routed call never fails them
-    (``ops.attention_route`` sends a config past them elsewhere): they
-    stop a wrong route from launching."""
+def _kernel_args(smem_bytes, q, v, cfg: SlayFeatureConfig):
+    """Shape checks shared by K1, K3 and K4, ``smem_bytes(d, dv, P, D)``
+    the kernel's shared memory (its C entry, or on ``meta`` its Python
+    copy); returns the quadrature constants as C double arrays. A routed
+    call never fails them (``ops.attention_route`` sends a config past
+    them elsewhere): they stop a wrong route from launching."""
     d, dv = q.shape[-1], v.shape[-1]
     if dv not in (16, 32, 64, 128):
         raise ValueError(f"kernel takes dv in (16, 32, 64, 128), got {dv}")
@@ -176,7 +179,7 @@ def _kernel_args(lib, smem_fn, q, v, cfg: SlayFeatureConfig):
     if R > _build.MAX_NODES:
         raise ValueError(f"kernel takes at most {_build.MAX_NODES} "
                          f"quadrature nodes, got {R}")
-    smem = getattr(lib, smem_fn)(d, dv, P, D)
+    smem = smem_bytes(d, dv, P, D)
     if smem > _build.SMEM_LIMIT:
         raise ValueError(f"shapes need {smem} B of shared memory per block, "
                          f"more than {_build.SMEM_LIMIT}")
@@ -190,17 +193,24 @@ def _launch(q, k, v, anchors, omegas, cfg: SlayFeatureConfig, delta):
     :func:`fused_causal_attention_plain`. The C entry launches K1 on a
     BH x R grid, which writes each quadrature node's fp32 share of num and
     den into scratch allocated here, then the epilogue kernel, which sums
-    the shares and divides: one launch counted."""
+    the shares and divides: one launch counted. On ``meta`` tensors it
+    allocates the same and records the launch with ``k1_bound``'s work."""
     _build.local_only("slay_fused_fwd", q, k, v, anchors, omegas)
     bh, L, d = q.shape
     bk, _, dv = v.shape
     P, D, R = cfg.num_anchors, cfg.num_prf, cfg.num_quad_nodes
-    lib = _build.load("slay_fused")
-    s_nodes, sqrt_w = _kernel_args(lib, "slay_fused_smem_bytes", q, v, cfg)
+    meta = q.device.type == "meta"
+    lib = None if meta else _build.load("slay_fused")
+    s_nodes, sqrt_w = _kernel_args(
+        fused_smem_bytes if meta else lib.slay_fused_smem_bytes, q, v, cfg)
     y = torch.empty(bh, L, dv, dtype=v.dtype, device=q.device)
     den = empty_fp32(bh, L, like=q)
     num_part = empty_fp32(R, bh, L, dv, like=q)
     den_part = empty_fp32(R, bh, L, like=q)
+    if meta:
+        _build.record_meta("slay_fused_fwd", bh, bk, L, d, dv, P, D, R,
+                           q.element_size())
+        return y, den
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.slay_fused_fwd(
@@ -345,14 +355,22 @@ def _check_bwd_inputs(cfg: SlayFeatureConfig, **tensors):
 def _launch_bwd(fn, outs, q, k, v, anchors, omegas, y, den, dy,
                 cfg: SlayFeatureConfig, delta):
     """Launch K3 or K4 into ``outs``, fp32 buffers with a leading axis of
-    one share per quadrature node; returns them."""
+    one share per quadrature node; returns them. On ``meta`` tensors it
+    records the launch with ``bwd_bounds``' work instead."""
     _build.local_only(fn, q, k, v, anchors, omegas, y, den, dy)
     bh, L, d = q.shape
     bk, _, dv = v.shape
     _check_bwd_inputs(cfg, q=q, k=k, v=v, y=y, dy=dy)
-    lib = _build.load("slay_fused_bwd")
-    s_nodes, sqrt_w = _kernel_args(lib, "slay_fused_bwd_smem_bytes", q, v,
-                                   cfg)
+    meta = q.device.type == "meta"
+    lib = None if meta else _build.load("slay_fused_bwd")
+    s_nodes, sqrt_w = _kernel_args(
+        fused_bwd_smem_bytes if meta else lib.slay_fused_bwd_smem_bytes, q,
+        v, cfg)
+    if meta:
+        _build.record_meta(fn, bh, bk, L, d, dv, cfg.num_anchors,
+                           cfg.num_prf, cfg.num_quad_nodes,
+                           q.element_size())
+        return outs
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, fn)(
@@ -417,11 +435,12 @@ def fused_causal_attention_bwd(q, k, v, anchors, omegas, y, den, dy,
                                cfg: SlayFeatureConfig, *,
                                chunk_size: int = 256, delta: float = 1e-6):
     """Backward of :func:`fused_causal_attention` from its residuals:
-    -> (dq, dk, dv, dA, dΩ). CUDA tensors run K3 then K4, CPU tensors the
-    plain version."""
+    -> (dq, dk, dv, dA, dΩ). CUDA tensors run K3 then K4 (``meta`` tensors
+    their meta branches), CPU tensors the plain version; any other device
+    raises."""
     _check(q, k, v, anchors, omegas, cfg, chunk_size)
     check_residuals(q, v, y, den, dy)
-    if q.device.type == "cuda":
+    if q.device.type in _build.KERNEL_DEVICES:
         args = (q, k, v, anchors, omegas, y, den, dy, cfg, delta)
         return _reduce(k, v, anchors, omegas, *launch_bwd_q(*args),
                        *launch_bwd_kv(*args))
@@ -436,7 +455,9 @@ def fused_causal_attention_bwd(q, k, v, anchors, omegas, y, den, dy,
 
 
 def _forward(q, k, v, anchors, omegas, cfg, chunk_size, delta):
-    if q.device.type == "cuda":
+    """K1 on CUDA tensors (its meta branch on ``meta`` ones), the plain
+    forward on CPU tensors; any other device raises."""
+    if q.device.type in _build.KERNEL_DEVICES:
         return _launch(q, k, v, anchors, omegas, cfg, delta)
     if q.device.type != "cpu":
         raise ValueError(f"unsupported device {q.device}")
@@ -483,8 +504,8 @@ def fused_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     versions.
     """
     _check(q, k, v, anchors, omegas, cfg, chunk_size)
-    if q.device.type == "cuda" and torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k, v, anchors, omegas)):
+    if (q.device.type in _build.KERNEL_DEVICES and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (q, k, v, anchors, omegas))):
         # Refuse before the forward runs what the backward would refuse.
         _check_bwd_inputs(cfg, q=q, k=k, v=v)
     return FusedAttention.apply(q, k, v, anchors, omegas, cfg, chunk_size,

@@ -14,9 +14,11 @@ forward runs B5 (whose num and den shares, one per feature slice, its
 epilogue kernel sums) and saves (qf, kf, v, y, den); its backward runs
 B6a, then B6b (whose dv shares the wrapper sums), then sums B6b's
 per-q-head partials over each GQA group. CUDA tensors launch the
-kernels (or raise), CPU tensors run the plain versions, which repeat the
-kernels' fp32 arithmetic chunk by chunk; there is no fallback from one to
-the other.
+kernels (or raise); ``meta`` tensors take the same launch wrappers, which
+allocate the launch's outputs, launch nothing and record the launch
+(``_build.record_meta``); CPU tensors run the plain versions, which
+repeat the kernels' fp32 arithmetic chunk by chunk. Any other device
+raises; there is no fallback from one to the other.
 """
 from __future__ import annotations
 
@@ -188,18 +190,33 @@ def _check(qf, kf, v, chunk_size):
             raise ValueError(f"{name} must be contiguous")
 
 
+def _slices(m: int, meta: bool) -> int:
+    """The kernels' feature slices C for m columns: the C entry's count,
+    or on ``meta`` its Python copy."""
+    if meta:
+        return -(-m // _SLICE)
+    return _build.load("slay_scan").slay_scan_slices(m)
+
+
 def _launch(fn, ptrs, qf, v, delta):
     """Launch kernel ``fn`` with its pointer arguments after the host-side
-    checks of its shapes and shared memory."""
+    checks of its shapes and shared memory. On ``meta`` tensors it
+    records the launch with ``scan_bounds``' work instead."""
     bh, L, m = qf.shape
     bk, _, dv = v.shape
     if dv not in (16, 32, 64, 128):
         raise ValueError(f"kernel takes dv in (16, 32, 64, 128), got {dv}")
-    lib = _build.load("slay_scan")
-    smem = lib.slay_scan_smem_bytes(m, dv, _KINDS[fn])
+    if qf.device.type == "meta":
+        smem = scan_smem_bytes(m, dv, _KINDS[fn])
+    else:
+        lib = _build.load("slay_scan")
+        smem = lib.slay_scan_smem_bytes(m, dv, _KINDS[fn])
     if smem > _build.SMEM_LIMIT:
         raise ValueError(f"shapes need {smem} B of shared memory per block, "
                          f"more than {_build.SMEM_LIMIT}")
+    if qf.device.type == "meta":
+        _build.record_meta(fn, bh, bk, L, m, dv, qf.element_size())
+        return
     with torch.cuda.device(qf.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, fn)(*ptrs, bh, bk, L, m, dv, delta,
@@ -217,7 +234,7 @@ def launch_fwd(qf, kf, v, delta: float = 1e-6):
     _build.local_only("slay_scan_fwd", qf, kf, v)
     bh, L, m = qf.shape
     dv = v.shape[-1]
-    slices = _build.load("slay_scan").slay_scan_slices(m)
+    slices = _slices(m, qf.device.type == "meta")
     y = torch.empty(bh, L, dv, dtype=v.dtype, device=qf.device)
     den = empty_fp32(bh, L, like=qf)
     num_part = empty_fp32(slices, bh, L, dv, like=qf)
@@ -249,7 +266,7 @@ def launch_bwd_kv(qf, kf, v, y, den, dy, delta: float = 1e-6):
     sum over that axis (``torch.sum``, no atomics) is rounded once to v's
     dtype."""
     bh, L, m = qf.shape
-    slices = _build.load("slay_scan").slay_scan_slices(m)
+    slices = _slices(m, qf.device.type == "meta")
     dk = torch.empty(bh, L, m, dtype=kf.dtype, device=qf.device)
     dv = empty_fp32(slices, bh, L, v.shape[-1], like=qf)
     _launch("slay_scan_bwd_kv",
@@ -274,11 +291,12 @@ def residency(fn: str, bh: int, m: int, dv: int,
 def causal_linear_attention_bwd(qf, kf, v, y, den, dy, *,
                                 chunk_size: int = 256, delta: float = 1e-6):
     """Backward of :func:`causal_linear_attention` from its residuals:
-    -> (dq, dk, dv). CUDA tensors run B6a then B6b and the GQA sum, CPU
-    tensors the plain version."""
+    -> (dq, dk, dv). CUDA tensors run B6a then B6b and the GQA sum
+    (``meta`` tensors their meta branches), CPU tensors the plain version;
+    any other device raises."""
     _check(qf, kf, v, chunk_size)
     check_residuals(qf, v, y, den, dy)
-    if qf.device.type == "cuda":
+    if qf.device.type in _build.KERNEL_DEVICES:
         args = (qf, kf, v, y, den, dy, delta)
         return _reduce(kf, v, launch_bwd_q(*args), *launch_bwd_kv(*args))
     if qf.device.type != "cpu":
@@ -290,12 +308,13 @@ def causal_linear_attention_bwd(qf, kf, v, y, den, dy, *,
 
 class ScanAttention(torch.autograd.Function):
     """The ``_scan`` custom VJP of the JAX package: the forward runs B5
-    (the plain forward on the CPU) and saves (qf, kf, v, y, den); the
-    backward runs B6a and B6b (the plain backward on the CPU)."""
+    (its meta branch on ``meta`` tensors, the plain forward on the CPU)
+    and saves (qf, kf, v, y, den); the backward runs B6a and B6b (the
+    plain backward on the CPU)."""
 
     @staticmethod
     def forward(ctx, qf, kf, v, chunk_size, delta):
-        if qf.device.type == "cuda":
+        if qf.device.type in _build.KERNEL_DEVICES:
             y, den = launch_fwd(qf, kf, v, delta)
         elif qf.device.type == "cpu":
             y, den = causal_linear_attention_plain(

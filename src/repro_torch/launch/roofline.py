@@ -14,10 +14,12 @@ its caller supplies:
 decode) with N the active parameters; ``roofline_fraction`` is the
 useful-FLOP time over the largest of the three terms.
 
-The reference's ``from_compiled`` and ``extract_cost`` read XLA's compiled
-HLO and have no counterpart here. Counting a step's FLOPs and bytes on
-the ``meta`` device under ``torch.utils.flop_counter`` to feed ``Roofline``
-is ROADMAP Queue A's A15b.
+The per-device counts come from ``launch.cost``: a step traced under its
+``CostCounter`` (on the ``meta`` device over a fake world in
+``launch.dryrun``) gives a ``CostTotals``, and :func:`from_counts` builds
+the ``Roofline`` from it, the counterpart of the reference's
+``from_compiled``, which parses XLA's per-device HLO;
+:func:`extract_cost` is the counterpart of its ``extract_cost``.
 
 The kernel bounds (``k1_bound`` ... ``scan_bounds``) count the fewest
 operations and bytes each kernel's function needs at given shapes; each
@@ -99,6 +101,22 @@ class Roofline:
             "useful_flop_ratio": self.useful_flop_ratio,
             "roofline_fraction": self.roofline_fraction,
         }
+
+
+def from_counts(totals, chips: int, model_flops: float) -> Roofline:
+    """The roofline terms of a per-device ``launch.cost.CostTotals``."""
+    return Roofline(
+        flops=totals.flops, hbm_bytes=totals.hbm_bytes,
+        coll_bytes=totals.coll_wire_bytes, chips=chips,
+        model_flops=model_flops, coll_by_kind=dict(totals.coll_by_kind))
+
+
+def extract_cost(totals) -> tuple[float, float]:
+    """(flops, HBM bytes) of a ``launch.cost.CostTotals``. The reference's
+    reads XLA's ``cost_analysis()``, which counts a loop body once; the
+    counter counts every op it sees, so here it agrees with
+    :func:`from_counts`."""
+    return float(totals.flops), float(totals.hbm_bytes)
 
 
 def model_flops_for(cfg, cell) -> float:

@@ -23,6 +23,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.core import baselines as bl
 from repro_torch.core import kernels as exact
@@ -85,7 +87,11 @@ def full_attention(spec: AttentionSpec, params: dict | None, q, k, v, *,
     reweighted by position) and the chunked scan in PyTorch ops. The exact
     kinds broadcast kv over the GQA group and run in PyTorch ops; a
     windowed softmax takes the banded route when the window divides a
-    longer sequence, else the masked one."""
+    longer sequence, else the masked one. Sharded (DTensors), an exact
+    kind runs on each rank's block of batch and heads, as the kernels
+    do (``kernels.ops``): its einsums over DTensors would flatten a
+    split batch and heads into strided splits that DTensor walks one
+    element at a time."""
     _check_kind(spec)
     if spec.kind == "slay":
         return slay_mod.slay_attention(
@@ -95,6 +101,10 @@ def full_attention(spec: AttentionSpec, params: dict | None, q, k, v, *,
         return bl.linear_baseline_attention(spec.kind, params, q, k, v,
                                             causal=causal,
                                             chunk_size=spec.chunk_size)
+    if isinstance(q, DTensor):
+        return ops._sharded_heads(
+            lambda a, b, c: full_attention(spec, params, a, b, c,
+                                           causal=causal), q, k, v)
     if k.shape[-2] != q.shape[-2]:
         g = q.shape[-2] // k.shape[-2]
         k = torch.repeat_interleave(k, g, dim=-2)
@@ -137,7 +147,7 @@ def prefill_cache(spec: AttentionSpec, params: dict | None, k, v,
         kf = _features(spec, params, k)
         if valid is not None:
             kf = torch.where(valid[..., None, None], kf, 0.0)
-        st = la.prefill_state(kf, v)
+        st = prefill_state(kf, v)
         return AttnCache(None, None, pos, st.s, st.z)
     if valid is not None:
         k = torch.where(valid[..., None, None], k, 0)
@@ -145,9 +155,74 @@ def prefill_cache(spec: AttentionSpec, params: dict | None, k, v,
     size = cache.k.shape[-3]
     take = min(L, size)
     idx = (torch.arange(take, device=k.device) + (L - take)) % size
-    cache.k[..., idx, :, :] = k[..., L - take:, :, :].to(cache.k.dtype)
-    cache.v[..., idx, :, :] = v[..., L - take:, :, :].to(cache.v.dtype)
+    _ring_write(cache.k, idx, k[..., L - take:, :, :], per_row=False)
+    _ring_write(cache.v, idx, v[..., L - take:, :, :], per_row=False)
     return AttnCache(cache.k, cache.v, pos, None, None)
+
+
+def prefill_state(kf, v) -> la.LinearState:
+    """``core.linear_attention.prefill_state`` of kf (..., L, Hkv, m) and
+    v (..., L, Hkv, dv): the (S, z) sums over the prompt. Sharded (a
+    DTensor kf), on each rank's block through ``local_map``: the sums are
+    per sequence and head, so a block's are whole, or a partial sum where
+    its sequence is split. DTensor's einsum would flatten a split batch
+    and heads, which some versions refuse."""
+    if not isinstance(kf, DTensor):
+        return la.prefill_state(kf, v)
+    lead = kf.dim() - 3                 # dims before (L, Hkv, m)
+
+    def out(p):
+        if not isinstance(p, Shard):
+            return p
+        if p.dim == lead:               # the sequence: a partial sum
+            return Partial()
+        return Shard(p.dim - 1 if p.dim > lead else p.dim)
+
+    pl = tuple(kf.placements)
+    o = [out(p) for p in pl]
+    s, z = local_map(lambda a, b: tuple(la.prefill_state(a, b)),
+                     out_placements=(o, o), in_placements=(pl, pl),
+                     device_mesh=kf.device_mesh,
+                     redistribute_inputs=True)(kf, v)
+    return la.LinearState(s, z)
+
+
+def _ring_write(buf, idx, rows, *, per_row: bool, active=None):
+    """Write ring rows in place: ``buf[..., idx, :, :] = rows`` (a
+    prompt's rows at ring rows ``idx`` of every sequence), or with
+    ``per_row`` ``buf[b, idx[b]] = rows[b]`` (a decode token at each
+    sequence's own ring row; where ``active`` is false the row keeps what
+    it held). On a DTensor ring the write runs on each rank's block
+    through ``local_map``, rows and indices taken to the ring's split
+    (batch and heads), since DTensor has no in-place indexed write for a
+    batch-split ring; a ring split over its rows is refused."""
+    def write(lb, li, lr, *la):
+        lr = lr.to(lb.dtype)
+        if not per_row:
+            lb[..., li, :, :] = lr
+            return
+        b = torch.arange(lb.shape[0], device=lb.device)
+        if la:
+            lr = torch.where(la[0].bool()[:, None, None], lr, lb[b, li])
+        lb[b, li] = lr
+
+    extra = () if active is None else (active,)
+    if not isinstance(buf, DTensor):
+        write(buf, idx, rows, *extra)
+        return
+    pl = tuple(buf.placements)
+    if any(isinstance(p, Shard) and p.dim == buf.dim() - 3 for p in pl):
+        raise ValueError("a ring split over its rows cannot be written "
+                         "in place on each rank's block")
+    # A decode row (B, Hkv, dh) lacks the ring's row dim.
+    rpl = tuple(Shard(p.dim - 1) if per_row and isinstance(p, Shard)
+                and p.dim > 0 else p for p in pl)
+    ipl = tuple(Shard(0) if per_row and isinstance(p, Shard) and p.dim == 0
+                else Replicate() for p in pl)
+    local_map(write, out_placements=None,
+              in_placements=(pl, ipl, rpl, *(ipl for _ in extra)),
+              device_mesh=buf.device_mesh, redistribute_inputs=True)(
+                  buf, idx, rows, *extra)
 
 
 def _yat_scores(kind: str, qg, kb):
@@ -290,15 +365,9 @@ def decode_step(spec: AttentionSpec, params: dict | None, q, k, v,
     B = q.shape[0]
     dev = q.device
     size = cache.k.shape[-3]
-    b = torch.arange(B, device=dev)
     ring = (cache.pos % size).long()
-    kw, vw = k.to(cache.k.dtype), v.to(cache.v.dtype)
-    if active is not None:
-        act = active.bool()[:, None, None]
-        kw = torch.where(act, kw, cache.k[b, ring])
-        vw = torch.where(act, vw, cache.v[b, ring])
-    cache.k[b, ring] = kw
-    cache.v[b, ring] = vw
+    _ring_write(cache.k, ring, k, per_row=True, active=active)
+    _ring_write(cache.v, ring, v, per_row=True, active=active)
     n_seen = cache.pos + step
     valid = (torch.arange(size, device=dev)[None, :]
              < torch.clamp(n_seen, max=size)[:, None])   # (B, S)
@@ -317,7 +386,21 @@ def decode_step(spec: AttentionSpec, params: dict | None, q, k, v,
 def _features(spec: AttentionSpec, params: dict | None, u):
     """A linear kind's features on the cache paths: SLAY's Ψ in fp32
     (``core.features``), or a baseline's (cosformer without its position
-    weights, as in the JAX package; ROADMAP C-8)."""
+    weights, as in the JAX package; ROADMAP C-8). Sharded (a DTensor u),
+    on each rank's rows through ``local_map``: the features act on the
+    last dim alone, which is never split."""
+    if isinstance(u, DTensor):
+        names = sorted(params or {})
+        pl = tuple(u.placements)
+
+        def local(ul, *cs):
+            return _features(spec, dict(zip(names, cs)) if names else params,
+                             ul)
+
+        return local_map(
+            local, out_placements=list(pl),
+            in_placements=(pl, *(ops._const(params[n]) for n in names)),
+            device_mesh=u.device_mesh)(u, *(params[n] for n in names))
     if spec.kind == "slay":
         return slay_features(u, params, spec.slay)
     return bl.decode_features(spec.kind, params, u)

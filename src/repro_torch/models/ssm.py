@@ -35,7 +35,9 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
+from repro_torch.distributed.sharding import local_einsum
 from repro_torch.models.layers import rmsnorm
 
 
@@ -74,8 +76,15 @@ def ssd_shapes(d_model: int, d_state: int, expand: int = 2,
 def _split_proj(params, x, d_model, d_state, expand, head_dim, ngroups):
     d_inner, nheads, _ = dims(d_model, d_state, expand, head_dim, ngroups)
     gs = ngroups * d_state
-    z, xs, b, c, dt = torch.split(x @ params["in_proj"],
-                                  [d_inner, d_inner, gs, gs, nheads], dim=-1)
+    # Sharded, through ``local_einsum``: where in_proj's columns fell back
+    # to whole over model while its rows split over data, DTensor's own
+    # matmul splits x's features to meet the rows and returns a partial
+    # sum over data, which would reach the conv tail in the cache.
+    w = params["in_proj"]
+    proj = (local_einsum("...d,dn->...n", x, w) if isinstance(x, DTensor)
+            else x @ w)
+    z, xs, b, c, dt = torch.split(proj, [d_inner, d_inner, gs, gs, nheads],
+                                  dim=-1)
     return z, xs, b, c, dt, d_inner, nheads
 
 
@@ -153,8 +162,25 @@ def ssd_prefill_chunk(params: dict, x, state: SsmState, *, d_state: int,
     y, h = _ssd_chunked(xh, bh, ch, dt, a, chunk_size, init_h=state.h)
     y = y + params["d_skip"].float()[:, None] * xh.float()
     y = y.reshape(B, L, d_inner).to(x.dtype) * F.silu(z)
-    y = rmsnorm(params["norm"], y)          # the gated norm, fp32 inside
-    return y @ params["out_proj"], SsmState(h, tail.float())
+    return _gated_out(params, y, nheads), SsmState(h, tail.float())
+
+
+def _gated_out(params: dict, y, nheads: int):
+    """The gated norm (fp32 inside) and the out-projection of the heads'
+    rows y (..., d_inner). Sharded (DTensors) over a mesh axis that the
+    ``nheads`` heads do not divide (hymba's 50 over 16 ranks), the norm's
+    scale is taken whole and the projection runs through
+    ``local_einsum``, so y and its gradient stay whole over that axis:
+    the reshape of y to (nh, hd) heads cannot take such a split."""
+    norm = params["norm"]
+    if not isinstance(y, DTensor) or all(
+            nheads % n == 0 for n in y.device_mesh.shape):
+        return rmsnorm(norm, y) @ params["out_proj"]
+    if isinstance(norm, DTensor):
+        norm = norm.redistribute(
+            placements=[Replicate()] * norm.device_mesh.ndim)
+    return local_einsum("...i,id->...d", rmsnorm(norm, y),
+                        params["out_proj"], force=True)
 
 
 def _ssd_chunked(xh, bh, ch, dt, a, chunk: int, *, init_h=None):
@@ -232,5 +258,4 @@ def ssd_decode_step(params: dict, x, state: SsmState, *, d_state: int,
     y = torch.einsum("bhds,bhs->bhd", h, chd)
     y = y + params["d_skip"].float()[:, None] * xh
     y = y.reshape(B, d_inner).to(x.dtype) * F.silu(z)
-    y = rmsnorm(params["norm"], y)
-    return y @ params["out_proj"], SsmState(h, hist[..., 1:, :])
+    return _gated_out(params, y, nheads), SsmState(h, hist[..., 1:, :])

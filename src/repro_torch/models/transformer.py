@@ -67,7 +67,8 @@ from repro_torch.core.baselines import favor_init
 from repro_torch.core.features import init_feature_params
 from repro_torch.core.slay import feature_dim
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import constrain, local_einsum
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm
 from repro_torch.models.layers import embed, mlp, moe, rmsnorm, rope, unembed
@@ -291,9 +292,9 @@ def _qkv(cfg: ArchConfig, lp: dict, xa, positions):
     path (forward, prefill, chunks, decode, verify) projects through
     here. qk-norm (qwen3) normalises q and k over the head dim before
     RoPE."""
-    q = act(torch.einsum("...d,dhk->...hk", xa, lp["attn"]["wq"]), _AHEAD)
-    k = act(torch.einsum("...d,dhk->...hk", xa, lp["attn"]["wk"]), _AHEAD)
-    v = act(torch.einsum("...d,dhk->...hk", xa, lp["attn"]["wv"]), _AHEAD)
+    a = lp["attn"]
+    q, k, v = (act(local_einsum("...d,dhk->...hk", xa, a[w]), _AHEAD)
+               for w in ("wq", "wk", "wv"))
     if cfg.qk_norm:
         q = rmsnorm(lp["attn"]["q_norm"], q)
         k = rmsnorm(lp["attn"]["k_norm"], k)
@@ -333,7 +334,7 @@ def _finish_layer(cfg: ArchConfig, lp: dict, x, y, m=None):
     residual. A decode row (B, d) routes as a sequence of one token per
     slot, as the reference does."""
     y = act(y, _AHEAD)
-    a = act(torch.einsum("...hk,hkd->...d", y, lp["attn"]["wo"]), _ARES)
+    a = act(local_einsum("...hk,hkd->...d", y, lp["attn"]["wo"]), _ARES)
     if m is not None:
         a = 0.5 * (a + m)
     x = x + a
@@ -663,6 +664,8 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
     slay = _slay_params(params)
     ring = None if not _needs_rings(cfg) else init_cache(
         cfg, B, max_len if max_len else L + 64, device=dev).attn
+    if ring is not None and isinstance(x, DTensor):
+        ring = shd.place_cache(ring)     # the rings of a sharded prefill
     st0 = None
     if cfg.family in ("ssm", "hybrid"):
         st0 = ssm.ssd_init_state((B,), cfg.d_model, device=dev,

@@ -40,10 +40,10 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import kernels as exact
-from repro_torch.core import linear_attention as la
 from repro_torch.core.features import init_feature_params
 from repro_torch.core.slay import feature_dim
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import local_einsum
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tr
 from repro_torch.models.layers import embed, mlp, rmsnorm, rope, unembed
@@ -103,7 +103,7 @@ def _layer(stack: dict, i: int) -> dict:
 
 
 def _proj(w, x):
-    return tr.act(torch.einsum("...d,dhk->...hk", x, w), tr._AHEAD)
+    return tr.act(local_einsum("...d,dhk->...hk", x, w), tr._AHEAD)
 
 
 def _qkv(cfg: ArchConfig, p: dict, x, positions=None):
@@ -117,7 +117,7 @@ def _qkv(cfg: ArchConfig, p: dict, x, positions=None):
 
 
 def _out(p: dict, y):
-    return tr.act(torch.einsum("...hk,hkd->...d", y, p["wo"]), tr._ARES)
+    return tr.act(local_einsum("...hk,hkd->...d", y, p["wo"]), tr._ARES)
 
 
 def _mlp(cfg: ArchConfig, lp: dict, x):
@@ -163,7 +163,7 @@ def _dec_layer(cfg: ArchConfig, spec, slay, positions, enc, lp: dict, x,
         return x, None, None
     nc = attn.prefill_cache(spec, slay, k, v, cache)
     if spec.is_linear:
-        st = la.prefill_state(attn._features(spec, slay, kc), vc)
+        st = attn.prefill_state(attn._features(spec, slay, kc), vc)
         return x, nc, (st.s, st.z)
     return x, nc, (kc.float(), vc.float())
 

@@ -124,7 +124,8 @@ from repro_torch.serving import pages as pages_lib
 from repro_torch.serving import prefix_cache as prefix_lib
 from repro_torch.serving import sampling
 from repro_torch.serving import speculative
-from repro_torch.tree import tree_leaves, tree_map, tree_map_with_path
+from repro_torch.tree import (tree_items, tree_leaves, tree_map,
+                              tree_map_with_path)
 
 
 class AdmissionError(RuntimeError):
@@ -1364,6 +1365,41 @@ class ContinuousServingEngine:
                "chunk": int(self._chunk.captured)}
         if self._spec:
             out["spec_macro"] = int(self._spec_decode.captured)
+        return out
+
+    def contract_traces(self) -> dict:
+        """{name: (trace, donated leaf names)} of one eager call of each of
+        the engine's programs (``analysis.trace.record``), the counterpart
+        of the JAX engine's ``contract_lowerings``, for the contracts of
+        ``analysis.trace`` (no collective, no host op, the pool written
+        in place): ``macro_decode`` (the K-tick decode dispatch; every
+        pool tensor donated), ``spec_macro`` in speculative mode (both
+        pools and the draft's scratch twin donated) and ``prefill_chunk``
+        (a prefill tick, which writes the static prefill cache by a copy
+        and donates nothing, as the reference's prefill chunk donates
+        nothing). Each program runs once on the engine's static buffers
+        as they are: on an idle engine no slot is active and the
+        dispatches leave the pool's state as it was; the engine is for
+        analysis after this call."""
+        from repro_torch.analysis import trace as trace_lib
+
+        def leaves(**trees):
+            def get():
+                return {f"{name}/{path}": t for name, tree in trees.items()
+                        for path, t in tree_items(_local(tree))}
+            return get
+
+        progs = {"macro_decode": (self._decode.fn, leaves(pool=self.pool))}
+        if self._spec:
+            progs["spec_macro"] = (self._spec_decode.fn, leaves(
+                pool=self.pool, draft_pool=self.draft_pool,
+                draft_scratch=self._draft_scratch))
+        progs["prefill_chunk"] = (self._chunk.fn, None)
+        out = {}
+        with torch.inference_mode():
+            for name, (fn, get) in progs.items():
+                tr = trace_lib.record(fn, leaves=get)
+                out[name] = (tr, tuple(tr.before))
         return out
 
     # -- durability: checkpoint / restore ------------------------------------

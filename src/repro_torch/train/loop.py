@@ -100,6 +100,20 @@ def _like(p, g):
     return g
 
 
+def apply_grads(grads, params, opt_state: AdamWState, ef_state,
+                opt_cfg: AdamWConfig, train_cfg: TrainConfig, *,
+                donate: bool = False):
+    """The step after its gradients: the error-feedback compression when
+    ``train_cfg`` asks for it, then AdamW. -> (params, opt_state,
+    ef_state, the optimizer's metrics). ``launch.dryrun`` counts it apart
+    from the microbatches' forward and backward."""
+    if train_cfg.compress_grads:
+        grads, ef_state = gcomp.compress_decompress(grads, ef_state)
+    params, opt_state, opt_metrics = adamw_update(
+        grads, opt_state, params, opt_cfg, donate=donate)
+    return params, opt_state, ef_state, opt_metrics
+
+
 def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
                     train_cfg: TrainConfig, *, donate: bool = False,
                     place=None):
@@ -134,10 +148,9 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
 
     def train_step(params, opt_state: AdamWState, ef_state, batch):
         loss, metrics, grads = compute_grads(params, batch)
-        if train_cfg.compress_grads:
-            grads, ef_state = gcomp.compress_decompress(grads, ef_state)
-        params, opt_state, opt_metrics = adamw_update(
-            grads, opt_state, params, opt_cfg, donate=donate)
+        params, opt_state, ef_state, opt_metrics = apply_grads(
+            grads, params, opt_state, ef_state, opt_cfg, train_cfg,
+            donate=donate)
         metrics = {**metrics, **opt_metrics, "loss": loss}
         return params, opt_state, ef_state, metrics
 

@@ -1738,3 +1738,38 @@ def test_two_rank_nccl_slot_sharded_parity(tmp_path):
     for case in out.values():
         assert case["same"] and case["shards"] == 2, out
         assert case["graphs"] == {"macro_decode": 1, "chunk": 1}, out
+
+
+@needs_card
+@pytest.mark.parametrize("fuse", [True, False])
+def test_meta_steps_launch_what_the_card_steps_launch(fuse):
+    """The dry run's meta branches record, kernel by kernel, the launches
+    the same steps make on the card: a remat train step (K1 twice per
+    layer, K3, K4; or B7, B8, B5, B6a, B6b on the two-dispatch path), a
+    prefill and a decode step of the smoke config."""
+    cfg = dataclasses.replace(get_smoke_config("slayformer-124m"),
+                              fuse_attention_features=fuse)
+
+    def launches(device):
+        params = tapi.init_params(cfg, 0, device=device)
+        toks = torch.zeros(2, 32, dtype=torch.int32, device=device)
+        steps = (
+            lambda: tloop.value_and_grad(params, cfg, {"tokens": toks,
+                                                       "labels": toks},
+                                         remat=True),
+            lambda: tapi.prefill(params, cfg, toks),
+            lambda: tapi.decode_step(params, cfg,
+                                     tapi.init_cache(cfg, 2, 64,
+                                                     device=device),
+                                     toks[:, :1]))
+        out = []
+        for i, step in enumerate(steps):
+            _build.reset_launches()
+            with torch.set_grad_enabled(i == 0):
+                step()
+            out.append({k: n for k, n in _build.LAUNCHES.items() if n})
+        return out
+
+    card = launches("cuda")
+    assert launches("meta") == card
+    assert all(card)

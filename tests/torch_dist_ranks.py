@@ -1,8 +1,9 @@
 """Rank programs of the port's multi-process CPU tests (gloo ranks).
 
 The tests (``tests/test_torch_distributed.py``,
-``tests/test_torch_serving_sharded.py``) call :func:`spawn`, which starts
-one fresh interpreter per rank running this file::
+``tests/test_torch_serving_sharded.py``, ``tests/test_torch_fallback.py``)
+call :func:`spawn`, which starts one fresh interpreter per rank running
+this file::
 
     python tests/torch_dist_ranks.py CHECK RANK WORLD DIR
 
@@ -282,6 +283,145 @@ def check_forward(rank: int, world: int, d: Path) -> dict:
             "rel": float((got - want).abs().max())
             / float(want.abs().max()),
             "fallbacks": sorted({f"{a}:{n}:{m}" for a, n, m in log})}
+    return out
+
+
+def fallback_configs() -> dict:
+    """Smoke configs, fp32, whose heads do not all divide a model axis of
+    2: granite's one kv head (kv heads replicated while q heads shard),
+    three q and kv heads (both replicated), three SSD heads in hymba's
+    layers (``ssm._gated_out``'s whole-y projection); and, as a control
+    with no fallback, slayformer under softmax. The softmax cases train
+    only: granite's ring, whose one kv head does not divide the model
+    axis, is split over its rows by ``cache_sharding``, which
+    ``_ring_write`` refuses; the control is there for its gradients."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    return {
+        "granite_kv1": get_smoke_config("granite-20b", dtype="float32"),
+        "granite_kv1_softmax": get_smoke_config(
+            "granite-20b", dtype="float32", attn_kind="softmax"),
+        "heads3": dataclasses.replace(
+            get_smoke_config("slayformer-124m", dtype="float32"),
+            num_heads=3, num_kv_heads=3, head_dim=16),
+        "hymba_ssd3": dataclasses.replace(
+            get_smoke_config("hymba-1.5b", dtype="float32"),
+            ssm_expand=3, ssm_head_dim=64),
+        "control_softmax": get_smoke_config(
+            "slayformer-124m", dtype="float32", attn_kind="softmax"),
+    }
+
+
+def _leaf_rel(a: dict, b: dict) -> dict:
+    """{leaf: largest |a - b| over that leaf's largest |b|}."""
+    from repro_torch.tree import tree_items
+    want = dict(tree_items(b))
+    out = {}
+    for k, x in tree_items(a):
+        x, y = _full(x).float(), _full(want[k]).float()
+        out[k] = float((x - y).abs().max()) / max(float(y.abs().max()),
+                                                  1e-30)
+    return out
+
+
+def check_fallback(rank: int, world: int, d: Path) -> dict:
+    """Sharded gradients and decode where heads fall back to replicated,
+    on (data 2, model 2), against the unsharded port: the loss and every
+    gradient of ``api.loss_fn`` (with remat), two steps of
+    ``sharded_train_step`` (microbatches 2, remat), and a prefill then
+    three decode steps with the cache in ``cache_sharding``'s placements
+    (granite: the (S, z) state replicated while q heads shard)."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train import loop
+    from repro_torch.tree import tree_items, tree_map
+
+    mesh = make_mesh((2, 2), ("data", "model"))
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    tcfg = loop.TrainConfig(microbatches=2, remat=True)
+    pl = shd.batch_sharding(mesh)
+    out: dict = {}
+    for name, cfg in fallback_configs().items():
+        params = api.init_params(cfg, 0, device="cpu")
+        axes = api.param_axes(cfg)
+        log: list = []
+        shd.logical_to_sharding(mesh, shd.DEFAULT_RULES, params, axes, log)
+        gen = torch.Generator().manual_seed(2)
+        toks = torch.randint(0, cfg.vocab_size, (2, 4, 17), generator=gen)
+        batches = [{"tokens": t[:, :-1], "labels": t[:, 1:]} for t in toks]
+        rec: dict = {"fallbacks": sorted({f"{a}:{n}:{m}"
+                                          for a, n, m in log})}
+        # The loss and every gradient, remat=True.
+        b = batches[0]
+        ref = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        lo, _ = api.loss_fn(ref, cfg, b, remat=True)
+        items = tree_items(ref)
+        want = torch.autograd.grad(lo, [t for _, t in items],
+                                   allow_unused=True)
+        sp = shd.shard_params(mesh, shd.DEFAULT_RULES,
+                              tree_map(torch.clone, params), axes)
+        leaves = tree_map(lambda p: p.detach().requires_grad_(True), sp)
+        db = {k: distribute_tensor(x, mesh, pl, src_data_rank=None)
+              for k, x in b.items()}
+        with shd.activation_sharding(mesh):
+            slo, _ = api.loss_fn(leaves, cfg, db, remat=True)
+            got = torch.autograd.grad(
+                slo, [t for _, t in tree_items(leaves)], allow_unused=True)
+        rec["loss"] = [float(_full(slo)), float(lo.detach())]
+        zero = torch.zeros(())
+        rec["grad_rel"] = _leaf_rel(
+            {k: zero if g is None else g
+             for (k, _), g in zip(items, got)},
+            {k: zero if g is None else g
+             for (k, _), g in zip(items, want)})
+        # Two steps of the sharded train step.
+        step = loop.sharded_train_step(cfg, ocfg, tcfg, mesh)
+        rstep = loop.make_train_step(cfg, ocfg, tcfg)
+        sp = shd.shard_params(mesh, shd.DEFAULT_RULES,
+                              tree_map(torch.clone, params), axes)
+        ref = tree_map(torch.clone, params)
+        so, ro = adamw_init(sp, ocfg), adamw_init(ref, ocfg)
+        ef, ref_ef = torch.zeros(()), torch.zeros(())
+        losses = []
+        for bb in batches[:2]:
+            sp, so, ef, m = step(sp, so, ef, bb)
+            ref, ro, ref_ef, rm = rstep(ref, ro, ref_ef, bb)
+            losses.append([float(m["loss"]), float(rm["loss"])])
+        rec["step_losses"] = losses
+        rec["step_param_rel"] = max(_max_rel(sp, ref).values())
+        out[name] = rec
+        if cfg.attn_kind == "softmax":
+            continue
+        # A prefill, then three decode steps.
+        prompt = toks[0, :, :12]
+        with torch.no_grad():
+            rl, rc = api.prefill(params, cfg, prompt, max_len=32)
+            sp = shd.shard_params(mesh, shd.DEFAULT_RULES, params, axes)
+            with shd.activation_sharding(mesh):
+                sl, sc = api.prefill(sp, cfg, distribute_tensor(
+                    prompt, mesh, pl, src_data_rank=None), max_len=32)
+            steps = [float((_full(sl) - rl).abs().max())
+                     / float(rl.abs().max())]
+            tok = rl[:, -1].argmax(-1, keepdim=True)
+            for _ in range(3):
+                rl, rc = api.decode_step(params, cfg, rc, tok)
+                with shd.activation_sharding(mesh):
+                    sl, sc = api.decode_step(sp, cfg, sc, distribute_tensor(
+                        tok, mesh, pl, src_data_rank=None))
+                steps.append(float((_full(sl) - rl).abs().max())
+                             / float(rl.abs().max()))
+                tok = rl.reshape(rl.shape[0], -1).argmax(-1, keepdim=True)
+        rec["decode_rel"] = steps
+        rec["cache_rel"] = max(_leaf_rel(sc, rc).values())
+        rec["state_placements"] = {
+            k: str(tuple(x.placements)) for k, x in tree_items(sc)
+            if x.dim() >= 4}
     return out
 
 
@@ -581,6 +721,7 @@ def check_serving_nccl(rank: int, world: int, d: Path) -> dict:
 
 
 CHECKS = {"train": check_train, "forward": check_forward,
+          "fallback": check_fallback,
           "serving": check_serving, "serving_nccl": check_serving_nccl}
 
 
